@@ -1,0 +1,99 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``genomics_lm_torch/csrc/<name>.cu`` exposes a plain C interface and
+is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
+that ``ctypes`` loads — no PyTorch headers, so a build takes seconds, not
+the minutes of ``torch.utils.cpp_extension``. A library is built at first
+use and again whenever its source (or the flags) change: the file name
+carries a hash of both. Builds land in ``genomics_lm_torch/kernels/_build``
+(git-ignored); the ``nvcc -Xptxas -v`` report (registers, shared memory,
+spills) is kept beside each library as ``<lib>.log``.
+
+Nothing is built or loaded at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_BUILD_TIMEOUT_S = 600
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit default."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives for its current source."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names) -> dict[str, Path]:
+    """Build every named kernel library that is missing, all nvcc runs at once.
+
+    Returns {name: library path}. Raises with nvcc's output if a build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in names}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=_BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            failures.append(f"{name}: nvcc timed out\n{log}")
+            continue
+        lib = todo[name]
+        lib.with_name(f"{lib.name}.log").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return paths
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    return ctypes.CDLL(str(build([name])[name]))
+
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library_path", "load", "nvcc_path"]
