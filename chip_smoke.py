@@ -10,21 +10,37 @@ phases, each printing its findings on its own line; any failure raises and
 exits non-zero:
 
 1. device  — the card's name and power limit (``nvidia-smi``), CUDA version.
-2. build   — compiles every kernel of the serving path from ``csrc/`` with
-   nvcc for sm_90a (one nvcc per source, all started together).
-3. kernel  — each kernel against its plain PyTorch version on the card at
-   the serving shapes (bf16 and int8 caches, MHA and GQA, off-grid and
-   unvectorizable shapes), then the kernel's time beside its bound, the
-   plain version's time and one library call's time.
-4. serve   — the main path: ``ServingEngine`` at the full width of the
-   10L8H d384 CodonGPT (block 512, bf16, fused QKV, random weights from a
-   seed) drains 128 requests; every kernel's launch count is reset just
-   before and read just after, and must match the decode steps. One more
-   drain runs the int8 KV cache.
+2. build   — compiles every kernel of the serving and training paths from
+   ``csrc/`` with nvcc for sm_90a (one nvcc per source, all started
+   together).
+3. kernel  — the decode-attention kernel against its plain PyTorch version
+   on the card at the serving shapes (bf16 and int8 caches, MHA and GQA,
+   off-grid and unvectorizable shapes), then its time beside its bound,
+   the plain version's time and one library call's time.
+4. serve   — the serving main path: ``ServingEngine`` at the full width of
+   the 10L8H d384 CodonGPT (block 512, bf16, fused QKV, random weights
+   from a seed) drains 128 requests; the decode kernel's launch count is
+   reset just before and read just after, and must match the decode
+   steps. One more drain runs the int8 KV cache.
 5. parity  — a 2-layer float32 model gives identical greedy tokens on the
    card (kernel) and on the CPU (plain path).
 6. http    — ``InferenceServer`` answers /generate (plain and streamed)
    and /stats on an ephemeral localhost port.
+7. flash   — the flash-attention forward, dQ and dK/dV kernels against
+   their plain versions (O, LSE, and the gradients of a fixed cotangent)
+   at the training shape with and without dropout, GQA, a window, suffix
+   queries, an off-grid length, and float32 with and without the causal
+   mask; then each kernel's time beside its bound, its plain version's
+   time and one library call's.
+8. train   — the training main path (``training/profile_step.py``): the
+   same CodonGPT with dropout 0.1 and label smoothing, AdamW in two LR
+   groups, 3 warm-up and 10 measured groups of 16 x 8 x 512 tokens; every
+   loss finite, every group applied, and each flash kernel's launch count,
+   reset just before the measured groups and read just after, equal to
+   16 microbatches x 10 layers x 10 groups.
+9. train parity — a 2-layer float32 model takes one group step on the
+   card (kernels) and on the CPU (plain versions) from the same weights
+   and batch; loss, gradients and updated parameters agree.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -50,11 +66,16 @@ from genomics_lm_torch.kernels.build import CSRC, build
 from genomics_lm_torch.models.codon_gpt import CodonGPT
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops import decode_attention as da
+from genomics_lm_torch.ops import flash_attention as fa
+from genomics_lm_torch.ops.masks import structure_mask
 from genomics_lm_torch.serving.engine import ServingEngine
 from genomics_lm_torch.serving.profile_drain import ENGINE, MAIN, REQUESTS, build_requests
 from genomics_lm_torch.serving.server import InferenceServer
+from genomics_lm_torch.training import profile_step as train_main
+from genomics_lm_torch.training.optim import build_optimizer
+from genomics_lm_torch.training.train_step import LossConfig, make_train_step
 
-KERNEL_SOURCES = ["decode_attention"]
+KERNEL_SOURCES = ["decode_attention", "flash_attention"]
 
 # Published peaks of the cards this runs on (NVIDIA data sheets, dense):
 # device-memory bytes/s and bf16 tensor-core operations/s.
@@ -71,6 +92,30 @@ KERNEL_ATOL_REASON = (
     "scales) and accumulate in f32, so only the order of the sums differs "
     "(~1e-6 on outputs of order 1); an indexing or masking fault moves an "
     "output by order 1")
+
+# Flash kernels: error over max(1, max |plain|) of each output.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+FLASH_TOL_REASON = (
+    "kernel and plain version read the same rounded operands and the same Philox "
+    "keep bits and accumulate in float32, so only the order of the sums differs "
+    "(~1e-6 relative); bf16 outputs may then round to neighbouring bf16 values, "
+    "which are up to 2^-7 apart relative to the entry; a fault of indexing, "
+    "masking or keep bits moves entries by much more (the float32 case, at "
+    "1e-4, sees a single flipped keep bit)")
+# Card-vs-CPU step: both sides run float32 (TF32 off) and differ only in the
+# order of their sums, so loss and gradients are held tightly. Adam's first
+# step moves an element by lr * g / (|g| + eps) with lr = 3e-4 whatever the
+# gradient's size. Where |g| is far above eps the step is lr * sign(g) on both
+# sides, so those parameters are held to param_atol. Where the gradient is
+# near rounding level (the key bias, whose gradient is zero in exact
+# arithmetic since softmax ignores a score shift shared by all keys, and the
+# smallest entries of other leaves) the step follows the rounding noise and
+# may take any value up to lr; parameters whose CPU gradient is below
+# noise_grad_share of the model's largest are held to half a step, which a
+# missing, doubled or sign-flipped update still exceeds. The log names the
+# leaf that sets each error.
+TRAIN_PARITY_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4, param_atol=3e-5,
+                        noise_grad_share=1e-3, noise_param_atol=1.5e-4)
 
 
 def log(phase: str, **fields) -> None:
@@ -378,6 +423,232 @@ def phase_http(model, cfg) -> None:
         server.stop()
 
 
+# --- phase 7: the flash kernels against their plain versions ---------------------
+
+
+def flash_case(gen, B, Hq, Hkv, T, S, D, dtype, window, rate, causal=True):
+    """Random q, k, v, <SEP>-segment ids (every 97th token), seed, config."""
+    dev = "cuda"
+    q = torch.randn((B, Hq, T, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
+    seps = (torch.arange(S, device=dev) % 97 == 0).to(torch.int32)
+    seg = torch.cumsum(seps[None, :].expand(B, S), dim=-1, dtype=torch.int32).contiguous()
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    return q, k, v, seg, seed, fa.FlashCfg(causal, window, rate)
+
+
+def flash_bounds(q, k, seg, cfg, peak_bw, peak_ops):
+    """Least time of each kernel at these inputs: each input read once and
+    each output written once over the memory rate, or the operations (a
+    multiply and an add each) of the attended (query, key) pairs over the
+    bf16 peak, whichever is larger. Per pair: q.k and p.v (4 D operations)
+    forward; q.k, dO.v and dS.k (6 D) for dQ; q.k, dO.v, P^T.dO and dS^T.q
+    (8 D) for dK/dV."""
+    B, Hq, T, D = q.shape
+    S = k.shape[2]
+    pairs = int(structure_mask(T, S, causal=cfg.causal, window=cfg.window, segment_ids=seg,
+                               device=q.device).sum()) * Hq
+    e = q.element_size()
+    qbytes, kvbytes = q.numel() * e, k.numel() * e
+    rows, ids = B * Hq * T * 4, B * S * 4
+    work = {  # name: (bytes, operations)
+        "fwd": (2 * qbytes + 2 * kvbytes + rows + ids, 4 * D * pairs),
+        "dq": (3 * qbytes + 2 * kvbytes + 2 * rows + ids, 6 * D * pairs),
+        "dkv": (2 * qbytes + 4 * kvbytes + 2 * rows + ids, 8 * D * pairs),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / peak_bw * 1e3, ops / peak_ops * 1e3
+        out[name] = dict(bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         bytes=nbytes, operations=ops)
+    return out, pairs
+
+
+def phase_flash(peak_bw, peak_ops) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    width = train_main.MAIN_TRAIN
+    B, H, T, D = train_main.B, width["n_head"], train_main.T, width["n_embd"] // width["n_head"]
+    cases = [
+        # name, B, Hq, Hkv, T, S, D, dtype, window, dropout, timed
+        ("main_bf16", B, H, H, T, T, D, bf16, None, 0.0, False),
+        ("main_bf16_dropout", B, H, H, T, T, D, bf16, None, 0.1, True),
+        ("gqa_bf16", B, H, 2, T, T, D, bf16, None, 0.1, False),
+        ("window64_bf16", B, H, H, T, T, D, bf16, 64, 0.1, False),
+        ("suffix_bf16", B, H, H, 128, T, D, bf16, None, 0.1, False),
+        ("offgrid_bf16", B, H, H, 130, 130, D, bf16, None, 0.1, False),
+        ("f32_gqa_window_d20", 2, 4, 2, 200, 333, 20, f32, 50, 0.1, False),
+        ("f32_noncausal_d64", 2, 4, 4, 150, 150, 64, f32, None, 0.1, False),
+    ]
+    timed = {}
+    for name, b, hq, hkv, t, s_len, d, dtype, window, rate, is_timed in cases:
+        causal = "noncausal" not in name
+        q, k, v, seg, seed, cfg = flash_case(gen, b, hq, hkv, t, s_len, d, dtype, window, rate,
+                                             causal)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = fa.flash_attention(qg, kg, vg, segment_ids=seg, attention_window=window,
+                                 dropout_rate=rate, seed=seed, causal=causal)
+        cot = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        grads = torch.autograd.grad(out, (qg, kg, vg), cot)
+        _, lse = fa.flash_fwd(q, k, v, seg, seed, cfg)
+        want_out, want_lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)
+        delta = (cot.float() * out.detach().float()).sum(dim=-1)
+        want = [fa.flash_bwd_dq_reference(q, k, v, seg, seed, cot, want_lse, delta, cfg),
+                *fa.flash_bwd_dkv_reference(q, k, v, seg, seed, cot, want_lse, delta, cfg)]
+        torch.cuda.synchronize()
+        errs, abs_errs = {}, {}
+        for key, got, ref in zip(("out", "lse", "dq", "dk", "dv"),
+                                 (out.detach(), lse, *grads), (want_out, want_lse, *want)):
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash {name}: non-finite {key}")
+            abs_errs[key] = float((got.float() - ref.float()).abs().max())
+            errs[key] = abs_errs[key] / max(1.0, float(ref.float().abs().max()))
+        tol = FLASH_TOL[dtype]
+        log("flash", case=name, shape=dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s_len, D=d),
+            dtype=str(dtype).removeprefix("torch."), causal=causal, window=window,
+            dropout=rate,
+            rel_err=errs, max_abs_err=abs_errs, tol=tol, tol_reason=FLASH_TOL_REASON)
+        if max(errs.values()) > tol:
+            raise AssertionError(f"flash {name}: kernel disagrees with its plain version "
+                                 f"({errs} > {tol})")
+        if not is_timed:
+            continue
+        bounds, pairs = flash_bounds(q, k, seg, cfg, peak_bw, peak_ops)
+        dout = cot.contiguous()
+        kernel = {
+            "fwd": lambda: fa.flash_fwd(q, k, v, seg, seed, cfg),
+            "dq": lambda: fa.flash_bwd_dq(q, k, v, seg, seed, dout, lse, delta, cfg),
+            "dkv": lambda: fa.flash_bwd_dkv(q, k, v, seg, seed, dout, lse, delta, cfg),
+        }
+        plain = {
+            "fwd": lambda: fa.flash_forward_reference(q, k, v, seg, seed, cfg),
+            "dq": lambda: fa.flash_bwd_dq_reference(q, k, v, seg, seed, dout, lse, delta, cfg),
+            "dkv": lambda: fa.flash_bwd_dkv_reference(q, k, v, seg, seed, dout, lse, delta,
+                                                      cfg),
+        }
+        # the yardstick: SDPA with the dense boolean mask and the same dropout
+        # rate (its own random stream); its backward computes dQ, dK and dV at
+        # once, so that one time stands beside both backward kernels
+        dense = structure_mask(t, s_len, causal=causal, window=window, segment_ids=seg,
+                               device=q.device)
+        ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=dense, dropout_p=rate)
+
+        lib_out = sdpa()
+        library = {"fwd": median_ms(sdpa, runs=15),
+                   "bwd": median_ms(lambda: torch.autograd.grad(
+                       lib_out, (ql, kl, vl), dout, retain_graph=True), runs=15)}
+        err_of = {"fwd": max(abs_errs["out"], abs_errs["lse"]), "dq": abs_errs["dq"],
+                  "dkv": max(abs_errs["dk"], abs_errs["dv"])}
+        for key in ("fwd", "dq", "dkv"):
+            ms = median_ms(kernel[key], runs=15)
+            timed[key] = dict(ms=ms, plain_ms=median_ms(plain[key], runs=5),
+                              bound_ms=bounds[key]["bound_ms"],
+                              bound_by=bounds[key]["bound_by"],
+                              library_ms=library["fwd" if key == "fwd" else "bwd"],
+                              max_abs_err=err_of[key])
+            log("flash_time", kernel=key, case=name, attended_pairs=pairs,
+                bytes=bounds[key]["bytes"], operations=bounds[key]["operations"],
+                **timed[key], roofline_share=bounds[key]["bound_ms"] / ms)
+    return timed
+
+
+# --- phase 8: the training main path ----------------------------------------------
+
+FLASH_WRAPPERS = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+
+
+def phase_train(card: str) -> dict:
+    cfg, model, bundle, step = train_main.build_main("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(train_main.SEED)
+    batches = [train_main.make_batch(s, "cuda") for s in range(train_main.BATCHES)]
+    nonpad = int((batches[0]["y"] != 0).sum())
+    warmup, measured = 3, 10
+    train_main.run_groups(model, bundle, step, batches, gen, warmup)
+    torch.cuda.reset_peak_memory_stats()
+    for w in FLASH_WRAPPERS:
+        w.launches = 0  # the count of the main path's measured run only
+    seconds, metrics = train_main.run_groups(model, bundle, step, batches, gen, measured)
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    G = train_main.G
+    losses = [float(m["total_loss_sum"]) / max(1, int(m["committed_microbatches"]))
+              for m in metrics]
+    applied = [bool(m["applied"]) for m in metrics]
+    log("train", model="10L8H d384 bf16 fused_qkv dropout 0.1 flash", groups=measured,
+        group_shape=[G, train_main.B, train_main.T], nonpad_tokens_per_group=nonpad,
+        seconds=seconds, ms_per_group=seconds * 1e3 / measured,
+        nonpad_tokens_per_s=nonpad * measured / seconds, losses=losses, applied=applied,
+        kernel_launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        card=card)
+    want = G * cfg.n_layer * measured
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"flash launches {launches} != G x n_layer x groups = {want}")
+    if not all(applied) or not all(np.isfinite(losses)):
+        raise AssertionError(f"a group failed: losses {losses}, applied {applied}")
+    return launches
+
+
+# --- phase 9: one group step on the card against the CPU -------------------------
+
+
+def phase_train_parity() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CodonGPTConfig(**dict(train_main.MAIN_TRAIN, n_layer=2, dropout=0.0,
+                                compute_dtype="float32"))
+    torch.manual_seed(3)
+    cpu_model = CodonGPT(cfg)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    step = make_train_step(cfg, LossConfig())
+    run_cfg = dict(train_main.RUN_CFG, warmup_steps=0)  # the full lr, 3e-4
+    batch = train_main.make_batch(7, "cpu", groups=2, batch=4)
+    before = [w.launches for w in FLASH_WRAPPERS]
+    results = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        bundle = build_optimizer(run_cfg, model, total_steps=train_main.TOTAL_STEPS)
+        m = step(model, bundle, {k: t.to(dev) for k, t in batch.items()}, None, 1.0)
+        results[dev] = (float(m["total_loss_sum"]), bool(m["applied"]),
+                        {n: (p.detach().cpu(), p.grad.cpu()) for n, p in
+                         model.named_parameters()})
+    launched = [w.launches - b for w, b in zip(FLASH_WRAPPERS, before)]
+    (loss_g, ok_g, gpu), (loss_c, ok_c, cpu) = results["cuda"], results["cpu"]
+    tol = TRAIN_PARITY_TOL
+    gmax = max(float(g.abs().max()) for _, g in cpu.values())
+    grad_err = max(float((gpu[n][1] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * gmax)
+                   for n, (_, g) in cpu.items())
+    # (error, leaf, elements) of the parameters with a real gradient and of
+    # those whose gradient is rounding noise
+    worst = {"signal": (0.0, None, 0), "noise": (0.0, None, 0)}
+    for n, (p, g) in cpu.items():
+        noise = g.abs() < tol["noise_grad_share"] * gmax
+        diff = (gpu[n][0] - p).abs()
+        for key, sel in (("signal", ~noise), ("noise", noise)):
+            count = int(sel.sum())
+            err = float(diff[sel].max()) if count else 0.0
+            best = worst[key]
+            worst[key] = (max(err, best[0]), n if err > best[0] else best[1], best[2] + count)
+    param_err, noise_err = worst["signal"][0], worst["noise"][0]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    log("train_parity", model="2L8H d384 f32", group_shape=[2, 4, train_main.T],
+        loss_card=loss_g, loss_cpu=loss_c, loss_rel_err=loss_err, grad_rel_err=grad_err,
+        param_abs_err=param_err, param_abs_err_leaf=worst["signal"][1],
+        noise_param_abs_err=noise_err, noise_param_abs_err_leaf=worst["noise"][1],
+        noise_elements=worst["noise"][2], signal_elements=worst["signal"][2],
+        kernel_launches=launched, tol=tol)
+    if not (ok_g and ok_c) or min(launched) == 0:
+        raise AssertionError("the parity step was not applied or launched no kernel")
+    if (loss_err > tol["loss_rtol"] or grad_err > tol["grad_rtol"]
+            or param_err > tol["param_atol"] or noise_err > tol["noise_param_atol"]):
+        raise AssertionError("the card's step disagrees with the CPU's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -399,6 +670,9 @@ def main() -> int:
     served = phase_serve(card_line)
     phase_parity()
     phase_http(served["model"], served["cfg"])
+    flash_timed = phase_flash(peak_bw, peak_ops)
+    trained = phase_train(card_line)
+    phase_train_parity()
 
     main_bf16, main_int8 = timed["main_bf16"], timed["main_int8"]
     kernels = [{
@@ -410,6 +684,16 @@ def main() -> int:
         **main_bf16,
         "int8": dict(main_int8, launches=served["launches_int8"]),
     }]
+    for key, wrapper, line in (("fwd", fa.flash_fwd, 206), ("dq", fa.flash_bwd_dq, 365),
+                               ("dkv", fa.flash_bwd_dkv, 390)):
+        kernels.append({
+            "name": wrapper.__name__,
+            "route": "cuda",
+            "source": "genomics_lm_torch/csrc/flash_attention.cu",
+            "replaces": f"genomics_lm_tpu/ops/flash_attention.py:{line}",
+            "launches": trained[wrapper.__name__],
+            **flash_timed[key],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -14,15 +14,20 @@ Hopper (``sm_90a``) under ``csrc/``, built at first use by
 only for tensors on the CPU; for a CUDA tensor it launches the kernel or
 raises.
 
-Layer map (ported so far — the continuous-batching serving path):
+Layer map (ported so far — the continuous-batching serving path and one
+training step):
 
 - ``tokenizers`` — codon vocabulary ids, ``to_ids`` / ``decode_ids``
-- ``models``     — ``CodonGPTConfig`` and the ``CodonGPT`` inference forward
-- ``ops``        — plain attention, masks, int8 KV quantization, and the
-  decode-attention kernel wrapper (``csrc/decode_attention.cu``)
+- ``models``     — ``CodonGPTConfig`` and the ``CodonGPT`` forward (loss
+  and dropout included)
+- ``ops``        — attention, masks, int8 KV quantization, the
+  cross-entropy loss, and the wrappers of the decode-attention kernel
+  (``csrc/decode_attention.cu``) and the flash-attention kernels
+  (``csrc/flash_attention.cu``)
 - ``generation`` — KV-cached prefill / decode / ``generate_tokens``
 - ``serving``    — ``ServingEngine`` (continuous batching) and the HTTP
   ``InferenceServer``
+- ``training``   — AdamW in two LR groups and the accumulation-group step
 - ``utils``      — device selection and the JAX-weights loader
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -373,6 +373,7 @@ class CachedDecoder:
         return out
 
 
+@torch.no_grad()
 def next_token_logits(model: CodonGPT, cfg: CodonGPTConfig, ids,
                       return_aux: bool = False):
     """Uncached reference path: full forward over the clipped context."""

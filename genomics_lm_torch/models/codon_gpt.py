@@ -1,4 +1,4 @@
-"""CodonGPT inference forward (twin of ``genomics_lm_tpu/models/codon_gpt.py``).
+"""CodonGPT forward (twin of ``genomics_lm_tpu/models/codon_gpt.py``).
 
 The JAX model is a set of pure functions over a parameter pytree with the
 per-layer weights stacked on a leading L axis. Here the weights live in an
@@ -15,9 +15,14 @@ the attention softmax run in float32.
 
 Covered: learned positions or RoPE, GELU or SwiGLU MLP, MHA or GQA, fused
 or separate QKV, tied or untied LM head, the termination and multi-offset
-auxiliary heads, and shape guidance. Not ported: the loss and dropout
-(training slice), the MoE MLP, LoRA and weight-only int8 linears —
-building or loading such a model raises ``NotImplementedError``.
+auxiliary heads, shape guidance, and training: the cross-entropy loss and
+dropout. Embedding and MLP-output dropout are plain draws from the
+caller's ``torch.Generator``; attention dropout runs inside the attention
+op (the flash kernels on the card) from a seed drawn from the same
+generator. Attention follows ``cfg.attention_impl``. Not ported: the MoE
+MLP, LoRA and weight-only int8 linears (building or loading such a model
+raises ``NotImplementedError``); remat (``use_checkpoint``) is refused by
+``training/train_step.py``, since it changes only the training memory.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch import nn
 
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops.attention import attention
+from genomics_lm_torch.ops.losses import cross_entropy
 from genomics_lm_torch.ops.masks import segment_ids_from_tokens
 
 
@@ -105,11 +111,13 @@ class CodonGPT(nn.Module):
                     nn.init.eye_(lin.weight)
                     nn.init.zeros_(lin.bias)
 
-    def forward(self, idx: torch.Tensor, *, return_aux: bool = False,
+    def forward(self, idx: torch.Tensor, targets: torch.Tensor | None = None, *,
+                train: bool = False, generator: torch.Generator | None = None,
+                return_aux: bool = False,
                 shape_embeddings: torch.Tensor | None = None,
                 attention_window: int | None = None):
-        return forward(self, self.cfg, idx, return_aux=return_aux,
-                       shape_embeddings=shape_embeddings,
+        return forward(self, self.cfg, idx, targets, train=train, generator=generator,
+                       return_aux=return_aux, shape_embeddings=shape_embeddings,
                        attention_window=attention_window)
 
 
@@ -171,10 +179,23 @@ def _qkv(block: Block, x: torch.Tensor, cfg: CodonGPTConfig):
     return q, k, v
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with a keep mask drawn from ``generator`` (JAX:
+    ``bernoulli(1 - rate)``, kept values scaled by 1/(1 - rate))."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _dropout_on(cfg: CodonGPTConfig, train: bool, generator) -> bool:
+    return train and generator is not None and cfg.dropout > 0.0
+
+
 def block_epilogue(block: Block, cfg: CodonGPTConfig, x: torch.Tensor,
-                   y_attn: torch.Tensor) -> torch.Tensor:
+                   y_attn: torch.Tensor, *, train: bool = False,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
     """Post-attention half of a block, shared by every path: the output
-    projection's residual add, LN2, and the (SwiGLU | GELU) MLP residual."""
+    projection's residual add, LN2, and the (SwiGLU | GELU) MLP residual,
+    whose output takes dropout in training."""
     x = x + _linear(block.attn.proj, y_attn)
     h = _layer_norm(block.ln2, x)
     mlp = block.mlp
@@ -182,17 +203,22 @@ def block_epilogue(block: Block, cfg: CodonGPTConfig, x: torch.Tensor,
         m = _linear(mlp.w_down, F.silu(_linear(mlp.w_gate, h)) * _linear(mlp.w_up, h))
     else:
         m = _linear(mlp[2], F.gelu(_linear(mlp[0], h)))
+    if _dropout_on(cfg, train, generator):
+        m = _dropout(m, cfg.dropout, generator)
     return x + m
 
 
 def _embed(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor,
-           shape_embeddings: torch.Tensor | None = None) -> torch.Tensor:
+           shape_embeddings: torch.Tensor | None = None, *, train: bool = False,
+           generator: torch.Generator | None = None) -> torch.Tensor:
     x = F.embedding(idx, model.tok_emb.weight).to(cfg.dtype)
     if not cfg.use_rope:
         T = idx.shape[1]
         x = x + model.pos_emb.weight[:T].to(cfg.dtype)[None, :, :]
     if shape_embeddings is not None and cfg.use_shape_guidance:
         x = x + _linear(model.shape_proj, shape_embeddings.to(cfg.dtype))
+    if _dropout_on(cfg, train, generator):
+        x = _dropout(x, cfg.dropout, generator)
     return x
 
 
@@ -207,28 +233,35 @@ def _offset_logits(model: CodonGPT, cfg: CodonGPTConfig, x: torch.Tensor, offset
     return _lm_logits(model, cfg, _linear(mlp[2], F.gelu(_linear(mlp[0], x))))
 
 
-@torch.no_grad()
 def forward(
     model: CodonGPT,
     cfg: CodonGPTConfig,
     idx: torch.Tensor,
     targets: torch.Tensor | None = None,
     *,
+    train: bool = False,
+    generator: torch.Generator | None = None,
     return_aux: bool = False,
     shape_embeddings: torch.Tensor | None = None,
     attention_window: int | None = None,
 ):
-    """Inference forward. Returns ``(logits, None)`` or, with ``return_aux``,
-    ``(logits, None, aux)`` — aux carries ``termination_logits`` and
+    """Full forward pass. Returns ``(logits, loss)`` or, with ``return_aux``,
+    ``(logits, loss, aux)``; aux carries ``termination_logits`` and
     ``offset_logits`` ({offset: logits}) when those heads exist, as the JAX
-    ``forward`` does. The loss slot stays None: the loss is not ported yet.
+    ``forward`` does. ``loss`` is the torch-semantics cross-entropy against
+    ``targets`` (pad id 0 ignored, ``cfg.label_smoothing`` and
+    ``cfg.loss_weights``), or None without targets.
+
+    Dropout acts only with ``train`` and a ``generator`` on idx's device,
+    as the JAX forward drops only with ``train`` and a key. Runs under
+    autograd: the serving and generation entry points call it under
+    ``torch.no_grad``.
     """
-    if targets is not None:
-        raise NotImplementedError("the training loss is not ported yet")
     segment_ids = (
         segment_ids_from_tokens(idx, cfg.sep_id) if cfg.sep_id is not None else None
     )
-    x = _embed(model, cfg, idx, shape_embeddings)
+    drop = _dropout_on(cfg, train, generator)
+    x = _embed(model, cfg, idx, shape_embeddings, train=drop, generator=generator)
     rope = (
         rope_cos_sin(idx.shape[1], cfg.head_dim, cfg.rope_base, cfg.dtype, idx.device)
         if cfg.use_rope else None
@@ -239,21 +272,33 @@ def forward(
         q, k, v = _qkv(block, h, cfg)
         if rope is not None:
             q, k = apply_rope(q, k, *rope)
+        seed = (torch.randint(0, 2**31 - 1, (1,), generator=generator, device=idx.device,
+                              dtype=torch.int32) if drop else None)
         y = attention(q, k, v, segment_ids=segment_ids,
-                      attention_window=attention_window)
-        x = block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(B, T, C))
+                      attention_window=attention_window,
+                      dropout_rate=cfg.dropout if drop else 0.0, seed=seed,
+                      impl=cfg.attention_impl)
+        x = block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(B, T, C),
+                           train=drop, generator=generator)
     x = _layer_norm(model.ln_f, x)
     logits = _lm_logits(model, cfg, x)
 
+    loss = None
+    if targets is not None:
+        weight = (None if cfg.uniform_loss_weights
+                  else torch.tensor(cfg.loss_weights, dtype=torch.float32,
+                                    device=logits.device))
+        loss = cross_entropy(logits, targets, ignore_index=0,
+                             label_smoothing=cfg.label_smoothing, weight=weight)
     if not return_aux:
-        return logits, None
+        return logits, loss
     aux: dict = {}
     if cfg.termination_aux:
         aux["termination_logits"] = _linear(model.termination_head, x)
     if cfg.multi_offset_targets:
         aux["offset_logits"] = {
             o: _offset_logits(model, cfg, x, o) for o in cfg.multi_offset_targets}
-    return logits, None, aux
+    return logits, loss, aux
 
 
 __all__ = [

@@ -48,7 +48,7 @@ class CodonGPTConfig:
     moe_aux_weight: float = 0.01
     use_checkpoint: bool = False
     pad_vocab_lanes: bool = False  # TPU layout lever: no effect here
-    attention_impl: str = "xla"  # "xla" | "flash" (flash = the CUDA decode kernel)
+    attention_impl: str = "xla"  # "xla" (einsum) | "flash" (the CUDA flash and decode kernels)
     compute_dtype: str = "float32"  # "bfloat16" for serving
     fused_qkv: bool = False  # one (C, C+2*Ckv) linear instead of three
     scan_unroll: int = 1  # TPU layout lever: no effect here

@@ -1,2 +1,3 @@
-"""Compute ops: plain PyTorch attention, masks, KV quantization, and the
-wrappers of the hand-written CUDA kernels (``csrc/``)."""
+"""Compute ops: plain PyTorch attention, masks, KV quantization, the
+cross-entropy loss, and the wrappers of the hand-written CUDA kernels
+(``csrc/``)."""

@@ -1,10 +1,17 @@
-"""Plain attention: the einsum path of ``genomics_lm_tpu/ops/attention.py``.
+"""Attention: the einsum path and the flash dispatch of
+``genomics_lm_tpu/ops/attention.py``.
 
-Prompt prefill runs this path, as the JAX package does
+Prompt prefill runs the einsum path, as the JAX package does
 (``generation/decode.py:123-131``): at admission shapes the materialized
 scores are small, and the JAX code computes them outside any Pallas
-kernel. The flash branch (``ops/flash_attention.py``, the training
-kernels) is not ported yet.
+kernel. ``impl="flash"`` goes to ``ops/flash_attention.py`` (the CUDA
+flash kernels on the card, their plain versions on the CPU). The kernels
+mask their own ragged edges, so the JAX fallback of off-grid lengths to
+the einsum path (``attention.py:100-106``) has no counterpart here.
+
+Dropout on the einsum path draws its keep mask from the flash kernels'
+Philox stream (``flash_attention.philox_keep``), so the two paths drop the
+same probabilities for the same seed.
 
 GQA is computed with grouped einsums — query heads are viewed as
 (kv_head, group), so keys/values are never repeated per query head.
@@ -15,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-NEG_INF = -1e30
+from genomics_lm_torch.ops.flash_attention import flash_attention, philox_keep
+from genomics_lm_torch.ops.masks import NEG_INF, structure_mask
 
 
 def sdpa(
@@ -24,12 +32,16 @@ def sdpa(
     v: torch.Tensor,
     *,
     mask: torch.Tensor | None = None,
+    dropout_rate: float = 0.0,
+    seed: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention via einsum.
 
     q: (B, Hq, T, D); k, v: (B, Hkv, S, D) with Hq a multiple of Hkv.
     ``mask`` is boolean, broadcastable to (B, Hq, T, S), True = attend.
     When mask is None a causal mask aligned to the last query is applied.
+    Dropout acts on the probabilities when ``seed`` (a one-element int32
+    tensor) is given and the rate is > 0.
     """
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -51,6 +63,9 @@ def sdpa(
     scores = scores.masked_fill(~mask, NEG_INF)
 
     probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0 and seed is not None:
+        keep = philox_keep(seed, B, Hq, T, S, dropout_rate).view(B, Hkv, G, T, S)
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     out = torch.einsum(
         "bhgts,bhsd->bhgtd", probs.to(v.dtype).float(), v.float()
     ).to(q.dtype)
@@ -65,26 +80,34 @@ def attention(
     mask: torch.Tensor | None = None,
     segment_ids: torch.Tensor | None = None,
     attention_window: int | None = None,
+    dropout_rate: float = 0.0,
+    seed: torch.Tensor | None = None,
+    impl: str = "xla",
 ) -> torch.Tensor:
-    """Causal attention with the structured mask inputs lowered to a dense mask.
+    """Dispatch between the einsum path (``impl="xla"``) and flash attention.
 
-    Bottom-right aligned: with T < S the queries are the suffix of the key
-    sequence (matches the JAX ``attention`` and ``sdpa_xla``).
+    ``segment_ids``/``attention_window`` are the structured mask inputs the
+    flash kernels consume without materializing (B, T, S); the einsum path
+    lowers them to a dense mask here. Bottom-right aligned: with T < S the
+    queries are the suffix of the key sequence (matches the JAX
+    ``attention`` and ``sdpa_xla``).
     """
+    if impl == "flash":
+        if mask is not None:
+            raise ValueError(
+                "impl='flash' consumes structured masks (segment_ids / "
+                "attention_window), not a dense mask; pass impl='xla' "
+                "or express the mask structurally")
+        return flash_attention(q, k, v, segment_ids=segment_ids,
+                               attention_window=attention_window,
+                               dropout_rate=dropout_rate, seed=seed)
+    if impl != "xla":
+        raise ValueError(f"Unknown attention impl: {impl!r}")
     if segment_ids is not None or attention_window is not None:
-        T, S = q.shape[2], k.shape[2]
-        q_pos = torch.arange(T, device=q.device) + (S - T)
-        k_pos = torch.arange(S, device=q.device)
-        distance = q_pos[:, None] - k_pos[None, :]
-        causal = distance >= 0
-        if attention_window is not None:
-            causal = causal & (distance < int(attention_window))
-        dense = causal[None, None, :, :]
-        if segment_ids is not None:
-            seg_eq = segment_ids[:, S - T:, None] == segment_ids[:, None, :]
-            dense = dense & seg_eq[:, None, :, :]
+        dense = structure_mask(q.shape[2], k.shape[2], window=attention_window,
+                               segment_ids=segment_ids, device=q.device)
         mask = dense if mask is None else (mask & dense)
-    return sdpa(q, k, v, mask=mask)
+    return sdpa(q, k, v, mask=mask, dropout_rate=dropout_rate, seed=seed)
 
 
 __all__ = ["NEG_INF", "attention", "sdpa"]

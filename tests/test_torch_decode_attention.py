@@ -4,8 +4,8 @@ On the CPU the port's ``decode_attention`` runs its plain version; the
 JAX kernel runs in Pallas interpret mode (as ``tests/test_decode_attention.py``
 runs it) and beside it the JAX einsum reference ``decode_attention_xla``.
 The same numpy inputs go to all three; float32, tolerance 1e-5 (both sides
-accumulate in f32, in different orders). A test of the CUDA kernel itself
-needs the card and skips here.
+accumulate in f32, in different orders). The test of the CUDA kernel
+itself needs the card: it is in ``tests/test_torch_cuda.py``.
 """
 
 from __future__ import annotations
@@ -129,25 +129,6 @@ def test_wrapper_raises_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="not meta"):
         decode_attention(*args, 0, kv_heads=2)
     assert decode_attention.launches == before
-
-
-def test_cuda_kernel_matches_plain_version():
-    """The kernel on the card against its plain version (f32, bf16, int8)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    rng = np.random.default_rng(7)
-    for quant, dtype, tol in ((False, torch.float32, 1e-5),
-                              (False, torch.bfloat16, 1e-3),
-                              (True, torch.bfloat16, 1e-3)):
-        q, k, v, mask, ks, vs = to_torch(*make_inputs(rng, 8, 2, 4, quant))
-        q = q.to(dtype)
-        if not quant:
-            k, v = k.to(dtype), v.to(dtype)
-        dev = [None if t is None else t.cuda() for t in (q, k, v, mask, ks, vs)]
-        got = decode_attention(*dev[:4], 1, *dev[4:], kv_heads=2)
-        want = decode_attention_reference(*dev[:4], 1, *dev[4:], kv_heads=2)
-        torch.cuda.synchronize()
-        assert float((got - want).abs().max()) <= tol
 
 
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):

@@ -1,9 +1,10 @@
-"""PyTorch port of CodonGPT: inference forward against the JAX model.
+"""PyTorch port of CodonGPT: the forward against the JAX model.
 
 The same numpy weights (``jax.tree.map(np.asarray, params)``) and the
 same token ids go through ``genomics_lm_tpu.models.codon_gpt.forward`` and
 the port's ``forward`` on the CPU. Logits and the auxiliary heads must
-agree to 1e-4 (float32; the two frameworks sum in different orders).
+agree to 1e-4 and the loss to 1e-5 (float32; the two frameworks sum in
+different orders).
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ def test_forward_matches_jax(variant):
     params, jcfg, model, tcfg = make_pair(**VARIANTS[variant])
     idx = make_ids(np.random.default_rng(1), 3, 40)
     want_logits, _, want_aux = jax_gpt.forward(params, jcfg, idx, return_aux=True)
-    logits, loss, aux = forward(model, tcfg, torch.from_numpy(idx), return_aux=True)
+    with torch.no_grad():  # the inference forward, as serving runs it
+        logits, loss, aux = forward(model, tcfg, torch.from_numpy(idx), return_aux=True)
     assert loss is None
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), atol=ATOL)
     assert set(aux) == set(want_aux)
@@ -73,9 +75,10 @@ def test_module_call_and_bf16_forward_track_f32():
     stays within bf16 rounding of the f32 logits."""
     params, jcfg, model, tcfg = make_pair(seed=2)
     idx = torch.from_numpy(make_ids(np.random.default_rng(2), 2, 24))
-    f32, _ = model(idx)
-    np.testing.assert_array_equal(f32.numpy(), forward(model, tcfg, idx)[0].numpy())
-    bf16, _ = forward(model, tcfg.replace(compute_dtype="bfloat16"), idx)
+    with torch.no_grad():
+        f32, _ = model(idx)
+        np.testing.assert_array_equal(f32.numpy(), forward(model, tcfg, idx)[0].numpy())
+        bf16, _ = forward(model, tcfg.replace(compute_dtype="bfloat16"), idx)
     assert bf16.dtype == torch.bfloat16
     np.testing.assert_allclose(bf16.float().numpy(), f32.numpy(), atol=0.25)
 
@@ -134,6 +137,49 @@ def test_unported_variants_raise():
 
     with pytest.raises(NotImplementedError):
         state_dict_from_jax(jax.tree.map(np.asarray, quantize_params(params)), tcfg)
-    with pytest.raises(NotImplementedError):
-        forward(CodonGPT(tcfg), tcfg, torch.zeros((1, 4), dtype=torch.long),
-                torch.zeros((1, 4), dtype=torch.long))
+
+
+LOSS_CASES = {
+    "plain": {},
+    "smoothing": {"label_smoothing": 0.05},
+    "smoothing_weights": {"label_smoothing": 0.1,
+                          "loss_weights": tuple(0.5 + (i % 3) * 0.5 for i in range(68))},
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOSS_CASES))
+def test_forward_loss_matches_jax(case):
+    """``forward(..., targets)`` gives JAX's loss, pads (id 0) ignored."""
+    params, jcfg, model, tcfg = make_pair(**LOSS_CASES[case])
+    rng = np.random.default_rng(3)
+    idx = make_ids(rng, 3, 40)
+    targets = np.roll(idx, -1, axis=1)
+    targets[:, -1] = 2
+    targets[1, -6:] = 0
+    _, want = jax_gpt.forward(params, jcfg, idx, targets)
+    logits, loss = forward(model, tcfg, torch.from_numpy(idx), torch.from_numpy(targets))
+    assert loss.dtype == torch.float32 and loss.dim() == 0
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+
+
+def test_flash_impl_matches_xla_and_drops_like_it():
+    """``attention_impl="flash"`` runs the flash op (its plain version on the
+    CPU): the same logits as the einsum path, and in training the same
+    dropout, since both paths draw from one Philox stream and one generator."""
+    _, _, model, tcfg = make_pair(dropout=0.2)
+    idx = torch.from_numpy(make_ids(np.random.default_rng(4), 2, 48))
+    flash_cfg = tcfg.replace(attention_impl="flash")
+    xla, _ = forward(model, tcfg, idx)
+    flash, _ = forward(model, flash_cfg, idx)
+    np.testing.assert_allclose(flash.detach().numpy(), xla.detach().numpy(), atol=ATOL)
+
+    def train_logits(cfg, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return forward(model, cfg, idx, train=True, generator=gen)[0].detach().numpy()
+
+    np.testing.assert_allclose(train_logits(flash_cfg, 5), train_logits(tcfg, 5), atol=ATOL)
+    assert not np.allclose(train_logits(flash_cfg, 5), flash.detach().numpy(), atol=1e-2)
+    # without a generator, train=True drops nothing, as JAX without a key
+    np.testing.assert_array_equal(
+        forward(model, flash_cfg, idx, train=True)[0].detach().numpy(),
+        flash.detach().numpy())
