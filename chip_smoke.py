@@ -41,6 +41,25 @@ exits non-zero:
 9. train parity — a 2-layer float32 model takes one group step on the
    card (kernels) and on the CPU (plain versions) from the same weights
    and batch; loss, gradients and updated parameters agree.
+10. chunk  — the verify-chunk kernel against its plain version at the
+   speculative shape (T 5 queries per slot over a 384-position cache, bf16
+   and int8), GQA, T 1 and T 8, an off-grid cache, D 20, and a mask with a
+   segment gap under the intra-chunk staircase; then its time beside its
+   bound, the plain version's time and one library call's.
+11. streamed — the split-S decode kernel against its plain version at the
+   decode kernel's nine shapes, with a wholly masked first split, and with
+   splits of 16 and 32 positions; its times at batch 64 and 256 (bf16 and
+   int8); then ``serving/benchmark_decode_kernel.py``'s chain (plain,
+   blocked, streamed) once, counting the streamed launches.
+12. spec serve — the speculative main path: the same engine and 128
+   requests with ``speculative_k=4`` and a draft table fitted to the
+   model's own samples, bf16 and int8; every budget served, the chunk
+   kernel launched n_layer times per verify round and the decode kernel
+   never; then the plain engine on the same requests, for the record.
+13. spec parity — on the 2-layer float32 model, greedy speculative serving
+   gives the same tokens on the card (chunk kernel) and on the CPU (plain
+   version), equal to the plain engine's; and masked greedy speculative
+   generation equals ``generate_masked_tokens``.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -54,7 +73,6 @@ import copy
 import http.client
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -62,29 +80,36 @@ import time
 import numpy as np
 import torch
 
+from genomics_lm_torch.generation.decode import generate_masked_tokens
 from genomics_lm_torch.kernels.build import CSRC, build
 from genomics_lm_torch.models.codon_gpt import CodonGPT
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops import decode_attention as da
 from genomics_lm_torch.ops import flash_attention as fa
 from genomics_lm_torch.ops.masks import structure_mask
+from genomics_lm_torch.serving import benchmark_decode_kernel as bench_decode
 from genomics_lm_torch.serving.engine import ServingEngine
-from genomics_lm_torch.serving.profile_drain import ENGINE, MAIN, REQUESTS, build_requests
+from genomics_lm_torch.serving.profile_drain import (
+    ENGINE,
+    MAIN,
+    REQUESTS,
+    SPECULATIVE_K,
+    build_requests,
+    fit_draft_table,
+)
 from genomics_lm_torch.serving.server import InferenceServer
+from genomics_lm_torch.serving.speculative import (
+    fit_bigram_table,
+    generate_tokens_speculative,
+    restrict_table,
+)
 from genomics_lm_torch.training import profile_step as train_main
 from genomics_lm_torch.training.optim import build_optimizer
 from genomics_lm_torch.training.train_step import LossConfig, make_train_step
+from genomics_lm_torch.utils.timing import card_peaks, decode_bound_ms, median_ms
 
-KERNEL_SOURCES = ["decode_attention", "flash_attention"]
-
-# Published peaks of the cards this runs on (NVIDIA data sheets, dense):
-# device-memory bytes/s and bf16 tensor-core operations/s.
-PEAKS = {
-    "H100 PCIE": (2.0e12, 756e12),
-    "H100 NVL": (3.9e12, 835e12),
-    "H100": (3.35e12, 989e12),
-    "H200": (4.8e12, 989e12),
-}
+KERNEL_SOURCES = ["decode_attention", "flash_attention", "decode_attention_chunk",
+                  "decode_attention_streamed"]
 
 KERNEL_ATOL = 1e-3
 KERNEL_ATOL_REASON = (
@@ -120,46 +145,6 @@ TRAIN_PARITY_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4, param_atol=3e-5,
 
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields), flush=True)
-
-
-def card_peaks(name: str) -> tuple[float, float]:
-    upper = name.upper()
-    for key, peaks in PEAKS.items():  # most specific names first
-        if key in upper:
-            return peaks
-    raise RuntimeError(f"no published peaks recorded for {name!r}")
-
-
-def median_ms(fn, runs: int = 25, warmup: int = 3, queued: bool = True) -> float:
-    """Median over ``runs`` CUDA-event-timed calls of ``fn`` (after warm-up).
-
-    ``queued``: each run is enqueued behind a spin of the device, so its
-    launches run back to back and the time is the device's alone (the run
-    is repeated with a longer spin if the device reached it before the host
-    had enqueued all of it). Without it the time is paced by the host's
-    per-call overhead, as eager serving sees it.
-    """
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    spin = 40_000_000  # cycles, about 20 ms
-    times = []
-    while len(times) < runs:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if queued:
-            torch.cuda._sleep(spin)
-        start.record()
-        fn()
-        end.record()
-        if queued and start.query():  # the device caught up with the host
-            if spin > 1 << 34:
-                raise RuntimeError("the device keeps catching up: fn synchronizes")
-            spin *= 2
-            torch.cuda.synchronize()
-            continue
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 # --- phase 2: build ------------------------------------------------------------
@@ -204,18 +189,6 @@ def make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype):
     valid[0, S // 2] = True     # ... with the self slot still attendable
     mask = torch.zeros((B, S), device=dev).masked_fill_(~valid, da.NEG_INF)
     return q, k, v, mask, ks, vs
-
-
-def bound_ms(B, S, Hkv, G, D, esize, q_esize, quant, peak_bw, peak_ops):
-    """Least time for one launch: bytes each read or written once over the
-    memory rate, or the operations over the bf16 peak, whichever is larger."""
-    P = Hkv * D
-    Hq = Hkv * G
-    nbytes = (2 * B * S * P * esize + B * Hq * D * q_esize + B * S * 4
-              + B * Hq * D * 4 + (2 * B * Hkv * S * 4 if quant else 0))
-    ops = 4 * B * Hq * S * D  # q·k and p·v, a multiply and an add each
-    t_bytes, t_ops = nbytes / peak_bw * 1e3, ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
 def phase_kernel(peak_bw, peak_ops) -> dict:
@@ -280,7 +253,7 @@ def phase_kernel(peak_bw, peak_ops) -> dict:
                         q4, kl, vl, attn_mask=am, enable_gqa=True)
 
             library_ms = median_ms(sweep_library) / L
-        b_ms, b_by, nbytes = bound_ms(B, S, Hkv, G, D, k.element_size(),
+        b_ms, b_by, nbytes = decode_bound_ms(B, S, Hkv, G, D, k.element_size(),
                                       q.element_size(), quant, peak_bw, peak_ops)
         timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                            library_ms=library_ms, max_abs_err=err)
@@ -294,9 +267,10 @@ def phase_kernel(peak_bw, peak_ops) -> dict:
 # --- phase 4: the main serving path ---------------------------------------------
 
 
-def drain(model, cfg, reqs, kv_quant, seed=0):
+def drain(model, cfg, reqs, kv_quant, seed=0, **engine_kw):
     """Serve ``reqs`` to completion; returns (results, seconds, engine)."""
-    eng = ServingEngine(model, cfg, **ENGINE, kv_quant=kv_quant, seed=seed, device="cuda")
+    eng = ServingEngine(model, cfg, **ENGINE, kv_quant=kv_quant, seed=seed, device="cuda",
+                        **engine_kw)
     rids = [eng.submit(p, b, temperature=t) for p, b, t in reqs]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -649,6 +623,286 @@ def phase_train_parity() -> None:
         raise AssertionError("the card's step disagrees with the CPU's")
 
 
+# --- phase 10: the verify-chunk kernel against its plain version -----------------
+
+
+def chunk_case(gen, L, B, S, Hkv, G, T, D, cache_dtype, q_dtype, gap=False):
+    """Random packed caches, a (B, Hq, T, D) chunk query and the verify's
+    (B, T, S) mask: row t attends positions below length + t + 1 (the
+    intra-chunk staircase); ``gap`` blocks a segment below every length."""
+    dev = "cuda"
+    _, k, v, _, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype)
+    q = torch.randn((B, Hkv * G, T, D), generator=gen, device=dev).to(q_dtype)
+    lengths = torch.randint(1, S - T + 1, (B,), generator=gen, device=dev)
+    pos = torch.arange(S, device=dev)
+    valid = pos[None, None, :] < (lengths[:, None] + torch.arange(T, device=dev) + 1)[:, :, None]
+    if gap:
+        # positions [length/4, length/2) belong to an earlier segment
+        lo, hi = lengths // 4, lengths // 2
+        valid &= ~((pos[None, :] >= lo[:, None]) & (pos[None, :] < hi[:, None]))[:, None, :]
+    mask = torch.zeros((B, T, S), device=dev).masked_fill_(~valid, da.NEG_INF)
+    return q, k, v, mask, ks, vs
+
+
+def phase_chunk(peak_bw, peak_ops) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    S_spec = 384  # ENGINE's cache with K+1 = 5 positions of headroom, rounded to 128
+    cases = [
+        # name, L, B, S, Hkv, G, T, D, cache dtype, q dtype, gap, timed
+        ("main_bf16", 10, 64, S_spec, 8, 1, 5, 48, bf16, bf16, False, True),
+        ("main_int8", 10, 64, S_spec, 8, 1, 5, 48, i8, bf16, False, True),
+        ("gqa4_bf16", 4, 64, S_spec, 2, 4, 5, 48, bf16, bf16, False, False),
+        ("t1_bf16", 2, 64, S_spec, 8, 1, 1, 48, bf16, bf16, False, False),
+        ("t8_bf16", 2, 64, S_spec, 8, 1, 8, 48, bf16, bf16, False, False),
+        ("t8_gqa4_int8", 2, 16, S_spec, 2, 4, 8, 48, i8, bf16, False, False),
+        ("offgrid_s130_b5", 2, 5, 130, 8, 1, 5, 48, bf16, bf16, False, False),
+        ("d20_f32", 2, 5, 130, 2, 2, 5, 20, f32, f32, False, False),
+        ("scalar_loads_d20_bf16", 2, 3, 77, 2, 2, 5, 20, bf16, bf16, False, False),
+        ("segment_gap_staircase", 2, 8, 256, 8, 1, 5, 48, bf16, bf16, True, False),
+    ]
+    timed = {}
+    for name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, is_timed in cases:
+        q, k, v, mask, ks, vs = chunk_case(gen, L, B, S, Hkv, G, T, D, cdt, qdt, gap)
+        err = 0.0
+        for layer in range(L):
+            got = da.decode_attention_chunk(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+            want = da.decode_attention_chunk_reference(q, k, v, mask, layer, ks, vs,
+                                                       kv_heads=Hkv)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"chunk {name}: non-finite kernel output")
+            err = max(err, float((got - want).abs().max()))
+        log("chunk", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, T=T, D=D),
+            cache=str(cdt).removeprefix("torch."), segment_gap=gap, max_abs_err=err,
+            tol=KERNEL_ATOL, tol_reason=KERNEL_ATOL_REASON)
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"chunk {name}: kernel disagrees with its plain version "
+                                 f"({err} > {KERNEL_ATOL})")
+        if not is_timed:
+            continue
+        quant = ks is not None
+
+        def sweep(fn):
+            return lambda: [fn(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+                            for layer in range(L)]
+
+        kernel_ms = median_ms(sweep(da.decode_attention_chunk)) / L
+        plain_ms = median_ms(sweep(da.decode_attention_chunk_reference), runs=9) / L
+        library_ms = None
+        if not quant:
+            am = mask[:, None].to(q.dtype)  # (B, 1, T, S)
+
+            def sweep_library():
+                for layer in range(L):
+                    kl = k[layer].view(B, S, Hkv, D).transpose(1, 2)
+                    vl = v[layer].view(B, S, Hkv, D).transpose(1, 2)
+                    torch.nn.functional.scaled_dot_product_attention(
+                        q, kl, vl, attn_mask=am, enable_gqa=True)
+
+            library_ms = median_ms(sweep_library) / L
+        b_ms, b_by, nbytes = decode_bound_ms(B, S, Hkv, G, D, k.element_size(),
+                                             q.element_size(), quant, peak_bw, peak_ops, T=T)
+        timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=library_ms, max_abs_err=err)
+        log("chunk_time", case=name, bytes=nbytes, **timed[name],
+            achieved_gb_per_s=nbytes / (kernel_ms * 1e-3) / 1e9,
+            roofline_share=b_ms / kernel_ms)
+    return timed
+
+
+# --- phase 11: the streamed kernel against its plain version ---------------------
+
+
+def phase_streamed(peak_bw, peak_ops) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [
+        # name, L, B, S, Hkv, G, D, cache dtype, q dtype, block_s, first split masked
+        ("main_bf16", 10, 64, 256, 8, 1, 48, bf16, bf16, None, False),
+        ("main_int8", 10, 64, 256, 8, 1, 48, i8, bf16, None, False),
+        ("gqa4_bf16", 4, 64, 256, 2, 4, 48, bf16, bf16, None, False),
+        ("gqa4_int8", 4, 64, 256, 2, 4, 48, i8, bf16, None, False),
+        ("g8_d64_bf16", 2, 16, 512, 1, 8, 64, bf16, bf16, None, False),
+        ("offgrid_f32_d16", 2, 5, 130, 4, 2, 16, f32, f32, None, False),
+        ("offgrid_bf16", 2, 5, 130, 8, 1, 48, bf16, bf16, None, False),
+        ("scalar_loads_d20", 2, 3, 77, 2, 2, 20, bf16, bf16, None, False),
+        ("int8_f32_query", 2, 5, 130, 2, 2, 48, i8, f32, None, False),
+        ("first_split_masked", 2, 64, 256, 8, 1, 48, bf16, bf16, 64, True),
+        ("block_s16_int8", 2, 16, 256, 8, 1, 48, i8, bf16, 16, False),
+        ("block_s32_bf16", 2, 16, 256, 8, 1, 48, bf16, bf16, 32, False),
+    ]
+    for name, L, B, S, Hkv, G, D, cdt, qdt, block_s, first_masked in cases:
+        q, k, v, mask, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cdt, qdt)
+        if first_masked:
+            mask[:, :block_s] = da.NEG_INF  # every row's whole first split
+            mask[:, S - 1] = 0.0
+        err = 0.0
+        for layer in range(L):
+            got = da.decode_attention_streamed(q, k, v, mask, layer, ks, vs, kv_heads=Hkv,
+                                               block_s=block_s)
+            want = da.decode_attention_streamed_reference(q, k, v, mask, layer, ks, vs,
+                                                          kv_heads=Hkv, block_s=block_s)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"streamed {name}: non-finite kernel output")
+            err = max(err, float((got - want).abs().max()))
+        log("streamed", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, D=D),
+            cache=str(cdt).removeprefix("torch."),
+            block_s=block_s or da.stream_block_s(B, Hkv, S, sms), max_abs_err=err,
+            tol=KERNEL_ATOL, tol_reason=KERNEL_ATOL_REASON)
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"streamed {name}: kernel disagrees with its plain version "
+                                 f"({err} > {KERNEL_ATOL})")
+
+    timed = {}
+    for name, B, cdt in (("b64_bf16", 64, bf16), ("b64_int8", 64, i8),
+                         ("b256_bf16", 256, bf16), ("b256_int8", 256, i8)):
+        L, S, Hkv, G, D = 10, 256, 8, 1, 48
+        q, k, v, mask, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cdt, bf16)
+        quant = ks is not None
+
+        def sweep(fn):
+            return lambda: [fn(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+                            for layer in range(L)]
+
+        err = max(float((da.decode_attention_streamed(q, k, v, mask, layer, ks, vs,
+                                                      kv_heads=Hkv)
+                         - da.decode_attention_streamed_reference(
+                             q, k, v, mask, layer, ks, vs, kv_heads=Hkv)).abs().max())
+                  for layer in range(L))
+        kernel_ms = median_ms(sweep(da.decode_attention_streamed)) / L
+        blocked_ms = median_ms(sweep(da.decode_attention)) / L
+        plain_ms = median_ms(sweep(da.decode_attention_streamed_reference), runs=9) / L
+        library_ms = None
+        if not quant:
+            q4, am = q[:, :, None, :], mask[:, None, None, :].to(q.dtype)
+
+            def sweep_library():
+                for layer in range(L):
+                    kl = k[layer].view(B, S, Hkv, D).transpose(1, 2)
+                    vl = v[layer].view(B, S, Hkv, D).transpose(1, 2)
+                    torch.nn.functional.scaled_dot_product_attention(
+                        q4, kl, vl, attn_mask=am, enable_gqa=True)
+
+            library_ms = median_ms(sweep_library) / L
+        b_ms, b_by, nbytes = decode_bound_ms(B, S, Hkv, G, D, k.element_size(),
+                                             q.element_size(), quant, peak_bw, peak_ops)
+        timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=library_ms, max_abs_err=err)
+        log("streamed_time", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, D=D),
+            block_s=da.stream_block_s(B, Hkv, S, sms), bytes=nbytes, **timed[name],
+            blocked_ms=blocked_ms, roofline_share=b_ms / kernel_ms)
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"streamed {name}: kernel disagrees ({err})")
+
+    # the streamed kernel's path: the decode-attention chain benchmark
+    da.decode_attention_streamed.launches = 0
+    report = bench_decode.run(bench_decode.parse_args([]))
+    launches = da.decode_attention_streamed.launches
+    log("bench_decode_kernel", **report, streamed_launches=launches)
+    if launches == 0:
+        raise AssertionError("the decode-kernel benchmark launched no streamed kernel")
+    return {"timed": timed, "launches": launches}
+
+
+# --- phase 12: the speculative serving main path ---------------------------------
+
+
+def phase_spec_serve(model, cfg, card: str) -> dict:
+    rng = np.random.default_rng(0)
+    warm = build_requests(rng, 8)
+    reqs = build_requests(rng, REQUESTS)  # the requests of phase_serve
+    out = {}
+    for kv_quant in (False, True):
+        spec = dict(speculative_k=SPECULATIVE_K, draft_table=fit_draft_table(model, cfg, kv_quant))
+        drain(model, cfg, warm, kv_quant, **spec)
+        torch.cuda.reset_peak_memory_stats()
+        # the counts of the main path's run only
+        da.decode_attention_chunk.launches = 0
+        da.decode_attention.launches = 0
+        results, seconds, eng = drain(model, cfg, reqs, kv_quant, **spec)
+        chunk_launches = da.decode_attention_chunk.launches
+        decode_launches = da.decode_attention.launches
+        stats = eng.stats()
+        rounds = stats["verify_rounds"]
+        delivered = sum(len(r.tokens) for r in results.values())
+        log("spec_serve", model="10L8H d384 bf16 fused_qkv", kv_quant=kv_quant,
+            speculative_k=SPECULATIVE_K, requests=len(reqs), slots=ENGINE["slots"],
+            rounds_per_sync=ENGINE["steps_per_sync"], cache_positions=eng.state["k"].shape[2],
+            delivered_tokens=delivered, seconds=seconds,
+            delivered_tokens_per_s=delivered / seconds, verify_rounds=rounds,
+            ms_per_round=seconds * 1e3 / rounds,
+            delivered_tokens_per_round=delivered / rounds,
+            tokens_per_slot_round=stats["speculative_tokens_per_round"],
+            accept_rate=stats["speculative_accept_rate"],
+            chunk_kernel_launches=chunk_launches, decode_kernel_launches=decode_launches,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
+        if chunk_launches == 0 or chunk_launches != cfg.n_layer * rounds:
+            raise AssertionError(f"chunk launches {chunk_launches} != n_layer x rounds "
+                                 f"({cfg.n_layer} x {rounds})")
+        if decode_launches != 0:
+            raise AssertionError(f"the speculative drain launched the decode kernel "
+                                 f"{decode_launches} times")
+        out[kv_quant] = chunk_launches
+        # the plain engine on the same requests in the same call, for the record
+        results, seconds, eng = drain(model, cfg, reqs, kv_quant)
+        delivered = sum(len(r.tokens) for r in results.values())
+        log("spec_serve_plain", kv_quant=kv_quant, delivered_tokens=delivered,
+            seconds=seconds, delivered_tokens_per_s=delivered / seconds,
+            decode_steps=eng.stats()["decode_steps"], card=card)
+    return {"launches": out[False], "launches_int8": out[True]}
+
+
+# --- phase 13: speculative serving on the card against the CPU -------------------
+
+
+def phase_spec_parity() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CodonGPTConfig(**dict(MAIN, n_layer=2, block_size=256, compute_dtype="float32"))
+    torch.manual_seed(1)
+    cpu_model = CodonGPT(cfg).eval()
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(1)
+    reqs = [([1] + [int(t) for t in rng.integers(4, 68, n)], 24) for n in (9, 23, 40, 17)]
+    reqs[1][0][7] = 3  # a <SEP> inside one prompt
+    table = fit_bigram_table(rng.integers(0, 68, 4000), 68)
+
+    def tokens(model, device, **kw):
+        eng = ServingEngine(model, cfg, slots=4, max_seq_len=128, steps_per_sync=8,
+                            device=device, **kw)
+        rids = [eng.submit(p, n) for p, n in reqs]
+        res = eng.run()
+        return [res[r].tokens for r in rids]
+
+    spec = dict(speculative_k=SPECULATIVE_K, draft_table=table)
+    before = da.decode_attention_chunk.launches
+    on_card, on_cpu = tokens(gpu_model, "cuda", **spec), tokens(cpu_model, "cpu", **spec)
+    launched = da.decode_attention_chunk.launches - before
+    plain_card = tokens(gpu_model, "cuda")
+
+    allowed = np.zeros(68, bool)
+    allowed[4:] = True  # the CDS codons
+    prompts = np.concatenate([np.ones((3, 1), np.int64), rng.integers(4, 68, (3, 6))], 1)
+    masked_spec, _, _ = generate_tokens_speculative(
+        gpu_model, cfg, prompts, 24, None, restrict_table(table, allowed), SPECULATIVE_K,
+        0.0, False, allowed, device="cuda")
+    masked_plain = generate_masked_tokens(gpu_model, cfg, prompts, 24, None, 0.0, allowed,
+                                          device="cuda")
+    same = on_card == on_cpu
+    same_plain = on_card == plain_card
+    same_masked = bool(torch.equal(masked_spec, masked_plain))
+    log("spec_parity", model="2L8H d384 f32", prompts=len(reqs), identical_tokens=same,
+        identical_to_plain_engine=same_plain, masked_identical=same_masked,
+        chunk_kernel_launches=launched)
+    if not (same and same_plain and same_masked) or launched == 0:
+        raise AssertionError("greedy speculative tokens differ between card, CPU and the "
+                             "plain path")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -673,6 +927,10 @@ def main() -> int:
     flash_timed = phase_flash(peak_bw, peak_ops)
     trained = phase_train(card_line)
     phase_train_parity()
+    chunk_timed = phase_chunk(peak_bw, peak_ops)
+    streamed = phase_streamed(peak_bw, peak_ops)
+    spec_served = phase_spec_serve(served["model"], served["cfg"], card_line)
+    phase_spec_parity()
 
     main_bf16, main_int8 = timed["main_bf16"], timed["main_int8"]
     kernels = [{
@@ -694,6 +952,25 @@ def main() -> int:
             "launches": trained[wrapper.__name__],
             **flash_timed[key],
         })
+    kernels.append({
+        "name": "decode_attention_chunk",
+        "route": "cuda",
+        "source": "genomics_lm_torch/csrc/decode_attention_chunk.cu",
+        "replaces": "genomics_lm_tpu/ops/decode_attention.py:565",
+        "launches": spec_served["launches"],
+        **chunk_timed["main_bf16"],
+        "int8": dict(chunk_timed["main_int8"], launches=spec_served["launches_int8"]),
+    })
+    st = streamed["timed"]
+    kernels.append({
+        "name": "decode_attention_streamed",
+        "route": "cuda",
+        "source": "genomics_lm_torch/csrc/decode_attention_streamed.cu",
+        "replaces": "genomics_lm_tpu/ops/decode_attention.py:397",
+        "launches": streamed["launches"],
+        **st["b64_bf16"],
+        "int8": st["b64_int8"], "b256": st["b256_bf16"], "b256_int8": st["b256_int8"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -34,75 +34,9 @@
 // query routing matrix and its (Hq, P) output band are TPU layout choices
 // and are not carried over.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
-#include <type_traits>
+#include "decode_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
-
-// Elements per vector load: 16 bytes for 2- and 4-byte types, 8 for int8
-// (an int8 chunk of 16 would need 16 accumulators per query head).
-template <typename T, bool VEC>
-struct Chunk {
-  static constexpr int bytes = std::is_same<T, int8_t>::value ? 8 : 16;
-  static constexpr int width = VEC ? bytes / static_cast<int>(sizeof(T)) : 1;
-};
-
-template <typename T, int CW>
-__device__ __forceinline__ void load_chunk(const T* __restrict__ p, float (&out)[CW]) {
-  if constexpr (CW == 1) {
-    out[0] = to_f32(p[0]);
-  } else {
-    constexpr int bytes = CW * static_cast<int>(sizeof(T));
-    using V = typename std::conditional<bytes == 16, uint4, uint2>::type;
-    const V raw = *reinterpret_cast<const V*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < CW; ++i) out[i] = to_f32(e[i]);
-  }
-}
-
-// Block-wide max (IS_MAX) or sum of GM per-thread values; every thread
-// receives the results. `red` holds kWarps * GM floats.
-template <int GM, bool IS_MAX>
-__device__ __forceinline__ void block_reduce(float (&v)[GM], float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int gi = 0; gi < GM; ++gi) {
-    float x = v[gi];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float y = __shfl_xor_sync(0xffffffffu, x, off);
-      x = IS_MAX ? fmaxf(x, y) : x + y;
-    }
-    if (lane == 0) red[warp * GM + gi] = x;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int gi = 0; gi < GM; ++gi) {
-    float x = red[gi];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      const float y = red[w * GM + gi];
-      x = IS_MAX ? fmaxf(x, y) : x + y;
-    }
-    v[gi] = x;
-  }
-  __syncthreads();  // `red` is reused by the next reduction
-}
 
 // GM: compile-time bound on G = Hq / Hkv (1, 2, 4 or 8); G <= GM at run time.
 template <typename TQ, typename TC, int GM, bool VEC>
@@ -172,7 +106,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TC* __restrict__ k_cache
       }
     }
   }
-  block_reduce<GM, true>(mx, red);
+  block_reduce<GM, true>(mx, GM, red);
 
   // Phase 2: exponentials and their sum, then normalized probabilities
   // (times the v scale for an int8 cache).
@@ -189,7 +123,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TC* __restrict__ k_cache
       }
     }
   }
-  block_reduce<GM, false>(sm, red);
+  block_reduce<GM, false>(sm, GM, red);
   for (int s = tid; s < S; s += kThreads) {
     const float sv = kQuant ? v_scale[scale_row + s] : 1.f;
 #pragma unroll

@@ -287,9 +287,13 @@ def sample_categorical(logits: torch.Tensor,
     """One draw per row from softmax(logits), by the Gumbel-max trick.
 
     The same construction as ``jax.random.categorical``; the draws differ
-    from JAX's (another generator), the distribution does not. No host sync.
+    from JAX's (another generator), the distribution does not. As in
+    ``jax.random.gumbel`` the uniforms lie in [tiny, 1), so the Gumbel
+    noise is finite and a row of log-probabilities that is -inf off one
+    entry (a one-hot) always returns that entry. No host sync.
     """
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_min_(torch.finfo(u.dtype).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
@@ -312,6 +316,35 @@ def generate_tokens(
     ids. The cache is bucketed to the generation horizon, as in JAX; a
     Python loop replaces the JAX ``lax.scan``.
     """
+    return _generate(model, cfg, prompt, n_tokens, generator, temperature, kv_quant,
+                     None, device)
+
+
+@torch.no_grad()
+def generate_masked_tokens(
+    model: CodonGPT,
+    cfg: CodonGPTConfig,
+    prompt,
+    n_tokens: int,
+    generator: torch.Generator | None,
+    temperature: float,
+    allowed_mask,
+    kv_quant: bool = False,
+    *,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """``generate_tokens`` with a vocabulary mask applied at every step.
+
+    ``allowed_mask``: (V,) bool (e.g. the CDS codon set); sampling, or the
+    greedy argmax when ``temperature <= 0``, is restricted to allowed ids.
+    Twin of the JAX ``generate_masked_tokens``. Returns (B, n_tokens) ids.
+    """
+    return _generate(model, cfg, prompt, n_tokens, generator, temperature, kv_quant,
+                     allowed_mask, device)
+
+
+def _generate(model, cfg, prompt, n_tokens, generator, temperature, kv_quant,
+              allowed_mask, device) -> torch.Tensor:
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt, dtype=torch.long).to(device)
     horizon = prompt.shape[1] + int(n_tokens)
@@ -320,8 +353,12 @@ def generate_tokens(
             f"prompt+n_tokens {horizon} exceeds block_size {cfg.block_size}")
     logits, cache, _ = prefill(model, cfg, prompt, cache_bucket(cfg, horizon),
                                kv_quant, want_aux=False, device=device)
+    blocked = (None if allowed_mask is None
+               else ~torch.as_tensor(allowed_mask, dtype=torch.bool).to(device))
     tokens = []
     for i in range(int(n_tokens)):
+        if blocked is not None:
+            logits = logits.float().masked_fill(blocked[None, :], NEG_INF)
         if temperature <= 0:
             token = torch.argmax(logits, dim=-1)
         else:
@@ -413,6 +450,7 @@ __all__ = [
     "CachedDecoder",
     "cache_bucket",
     "decode_step",
+    "generate_masked_tokens",
     "generate_tokens",
     "init_cache",
     "next_token_logits",

@@ -3,9 +3,10 @@
 Each ``genomics_lm_torch/csrc/<name>.cu`` exposes a plain C interface and
 is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 that ``ctypes`` loads — no PyTorch headers, so a build takes seconds, not
-the minutes of ``torch.utils.cpp_extension``. A library is built at first
-use and again whenever its source (or the flags) change: the file name
-carries a hash of both. Builds land in ``genomics_lm_torch/kernels/_build``
+the minutes of ``torch.utils.cpp_extension``. A source may include the
+shared headers ``csrc/*.cuh``. A library is built at first use and again
+whenever its source, a header or the flags change: the file name carries a
+hash of all three. Builds land in ``genomics_lm_torch/kernels/_build``
 (git-ignored); the ``nvcc -Xptxas -v`` report (registers, shared memory,
 spills) is kept beside each library as ``<lib>.log``.
 
@@ -46,8 +47,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives for its current source."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the library built from ``csrc/<name>.cu`` lives for its current
+    source and headers."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

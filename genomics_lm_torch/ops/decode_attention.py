@@ -1,19 +1,26 @@
 """Fused decode attention over the packed-lane KV cache.
 
-Twin of ``genomics_lm_tpu/ops/decode_attention.py::decode_attention``:
-the Pallas TPU kernel is replaced by the hand-written Hopper kernel in
-``csrc/decode_attention.cu`` (its header note says what bounds it and what
-the design does about that). The cache layout is the JAX package's packed
-(L, B, S, P = Hkv·D): all heads' K (or V) of one position in one
-contiguous row, so the per-step append is one (B, P) row write. The TPU's
-block-diagonal query routing (``pack_query``/``extract_heads``) is a lane
-trick that does not cross over: the kernel reads each kv head's D-slice of
-the packed row directly.
+Twin of ``genomics_lm_tpu/ops/decode_attention.py``. Its three Pallas TPU
+kernels are replaced by hand-written Hopper kernels (each source's header
+note says what bounds it and what the design does about that):
 
-``decode_attention`` runs ``decode_attention_reference`` (the twin of
-``decode_attention_xla``) only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises — it never falls back. Each launch adds one
-to ``decode_attention.launches``.
+- ``decode_attention``: one query token per slot, ``csrc/decode_attention.cu``;
+- ``decode_attention_chunk``: T query tokens per slot with a per-query mask
+  (the speculative verify chunk), ``csrc/decode_attention_chunk.cu``;
+- ``decode_attention_streamed``: ``decode_attention``'s function with the
+  cache axis split over blocks and an online-softmax combine (split-S
+  flash-decoding), ``csrc/decode_attention_streamed.cu``.
+
+The cache layout is the JAX package's packed (L, B, S, P = Hkv·D): all
+heads' K (or V) of one position in one contiguous row, so the per-step
+append is one (B, P) row write. The TPU's block-diagonal query routing
+(``pack_query``/``pack_query_chunk``/``extract_heads``) is a lane trick that
+does not cross over: the kernels read each kv head's D-slice of the packed
+row directly.
+
+Each wrapper runs its plain PyTorch version (``*_reference``) only for
+tensors on the CPU; for CUDA tensors it launches its kernel or raises — it
+never falls back. Each launch adds one to the wrapper's ``launches``.
 """
 
 from __future__ import annotations
@@ -27,18 +34,29 @@ from genomics_lm_torch.ops.attention import NEG_INF
 
 KERNEL_MAX_HEAD_DIM = 128
 KERNEL_MAX_GROUP = 8
+KERNEL_MAX_CHUNK_ROWS = 32  # T·G query rows of one kv head in the chunk kernel
 _SMEM_LIMIT = 227 * 1024
+_CHUNK_TILE_S = 32  # V positions the chunk kernel stages in shared memory at once
+_KERNEL_WARPS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_KERNEL_Q_DTYPES = (torch.float32, torch.bfloat16)  # chunk and streamed kernels
 
 
-def _check_args(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads):
-    """Validate the contract; returns (B, Hq, D, S, Hkv)."""
-    if q.dim() != 3 or k_cache.dim() != 4:
+def _check_args(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads,
+                chunk=False):
+    """Validate the contract; returns (B, Hq, D, S, Hkv).
+
+    ``chunk``: q is (B, Hq, T, D) and ``mask_add`` (B, T, S), else q is
+    (B, Hq, D) and ``mask_add`` (B, S).
+    """
+    q_dims = 4 if chunk else 3
+    if q.dim() != q_dims or k_cache.dim() != 4:
+        want = "(B, Hq, T, D)" if chunk else "(B, Hq, D)"
         raise ValueError(
-            f"q must be (B, Hq, D) and the caches (L, B, S, P); got "
+            f"q must be {want} and the caches (L, B, S, P); got "
             f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
-    B, Hq, D = q.shape
+    B, Hq, D = q.shape[0], q.shape[1], q.shape[-1]
     L, Bc, S, P = k_cache.shape
     quant = k_scale is not None
     if (v_scale is not None) != quant:
@@ -54,8 +72,9 @@ def _check_args(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads
             f"{tuple(q.shape)} with kv_heads={Hkv} (need B={B}, P={Hkv * D})")
     if v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
         raise ValueError("v_cache must match k_cache in shape and dtype")
-    if tuple(mask_add.shape) != (B, S) or mask_add.dtype != torch.float32:
-        raise ValueError(f"mask_add must be float32 (B, S) = ({B}, {S})")
+    mask_shape = (B, q.shape[2], S) if chunk else (B, S)
+    if tuple(mask_add.shape) != mask_shape or mask_add.dtype != torch.float32:
+        raise ValueError(f"mask_add must be float32 {mask_shape}")
     if q.dtype not in _FLOAT_DTYPES:
         raise ValueError(f"q must be a float tensor, got {q.dtype}")
     if quant:
@@ -75,6 +94,44 @@ def _check_args(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention inputs must be contiguous")
     return B, Hq, D, S, Hkv
+
+
+def _device_route(name: str, q: torch.Tensor) -> bool:
+    """True for the plain version (CPU tensors), False for the kernel (CUDA)."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"{name} runs on cuda (kernel) or cpu (plain version), "
+            f"not {q.device.type}")
+    return False
+
+
+def _check_kernel_dtypes(q, k_cache, allowed=_FLOAT_DTYPES):
+    if q.dtype not in allowed:
+        raise ValueError(f"the kernel takes a {' or '.join(map(str, allowed))} query, "
+                         f"got {q.dtype}")
+    if k_cache.dtype != torch.int8 and k_cache.dtype != q.dtype:
+        raise ValueError(f"a {k_cache.dtype} cache needs a {k_cache.dtype} query, "
+                         f"got {q.dtype}")
+
+
+def _vector_loads(k_cache, v_cache, D, Hkv) -> bool:
+    """Whether every head's D-slice starts on a 16-byte (8 for int8) boundary."""
+    esize = k_cache.element_size()
+    vec_bytes = 8 if k_cache.dtype == torch.int8 else 16
+    return ((D * esize) % vec_bytes == 0 and (Hkv * D * esize) % vec_bytes == 0
+            and k_cache.data_ptr() % vec_bytes == 0
+            and v_cache.data_ptr() % vec_bytes == 0)
+
+
+def _scale_ptrs(k_scale, v_scale):
+    if k_scale is None:
+        return None, None
+    return k_scale.data_ptr(), v_scale.data_ptr()
+
+
+# --- one query token per slot (kernel row 4) -------------------------------------
 
 
 def decode_attention_reference(
@@ -147,13 +204,9 @@ def decode_attention(
     """
     B, Hq, D, S, Hkv = _check_args(
         q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads)
-    if q.device.type == "cpu":
+    if _device_route("decode_attention", q):
         return decode_attention_reference(
             q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads=Hkv)
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"decode_attention runs on cuda (kernel) or cpu (plain version), "
-            f"not {q.device.type}")
     return _launch(q, k_cache, v_cache, mask_add, int(layer), k_scale, v_scale,
                    B, Hq, D, S, Hkv)
 
@@ -175,9 +228,7 @@ def _kernel():
 
 def _launch(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, B, Hq, D, S, Hkv):
     G = Hq // Hkv
-    if k_cache.dtype != torch.int8 and k_cache.dtype != q.dtype:
-        raise ValueError(f"a {k_cache.dtype} cache needs a {k_cache.dtype} query, "
-                         f"got {q.dtype}")
+    _check_kernel_dtypes(q, k_cache)
     if D > KERNEL_MAX_HEAD_DIM or G > KERNEL_MAX_GROUP or B > 65535:
         raise ValueError(
             f"kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, Hq/Hkv <= "
@@ -185,20 +236,13 @@ def _launch(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, B, Hq, D, S,
     smem = 4 * (2 * G * D + G * S + 4 * KERNEL_MAX_GROUP)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"S={S} with G={G} needs {smem} B of shared memory")
-    esize = k_cache.element_size()
-    vec_bytes = 8 if k_cache.dtype == torch.int8 else 16
-    vec = ((D * esize) % vec_bytes == 0 and (Hkv * D * esize) % vec_bytes == 0
-           and k_cache.data_ptr() % vec_bytes == 0
-           and v_cache.data_ptr() % vec_bytes == 0)
+    vec = _vector_loads(k_cache, v_cache, D, Hkv)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     fn = _kernel()
-    quant = k_scale is not None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 k_scale.data_ptr() if quant else None,
-                 v_scale.data_ptr() if quant else None,
-                 mask_add.data_ptr(), out.data_ptr(),
+                 *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(), out.data_ptr(),
                  B, S, Hkv, G, D, layer, 1.0 / float(D) ** 0.5,
                  _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], int(vec), stream)
     if err != 0:
@@ -207,8 +251,295 @@ def _launch(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, B, Hq, D, S,
     return out
 
 
+# --- T query tokens per slot: the speculative verify chunk (kernel row 6) ---------
+
+
+def decode_attention_chunk_reference(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    mask_add: torch.Tensor,
+    layer: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+    *,
+    kv_heads: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the chunk kernel (twin of
+    ``decode_attention_chunk_xla``).
+
+    q (B, Hq, T, D) against the packed layer viewed as (B, S, Hkv, D), with
+    the per-query additive mask (B, T, S); operands are rounded to
+    ``compute_dtype`` and accumulated in float32. Returns (B, Hq, T, D)
+    float32.
+    """
+    B, Hq, T, D = q.shape
+    S = k_cache.shape[2]
+    quant = k_scale is not None
+    if kv_heads is None:
+        kv_heads = k_scale.shape[2] if quant else Hq
+    Hkv = int(kv_heads)
+    G = Hq // Hkv
+    qg = q.to(compute_dtype).reshape(B, Hkv, G, T, D).float()
+    k_all = k_cache[layer].to(compute_dtype).reshape(B, S, Hkv, D).float()
+    v_all = v_cache[layer].to(compute_dtype).reshape(B, S, Hkv, D).float()
+    scores = torch.einsum("bhgtd,bshd->bhgts", qg, k_all) / torch.sqrt(
+        torch.tensor(float(D), dtype=torch.float32))
+    if quant:
+        scores = scores * k_scale[layer][:, :, None, None, :]
+    scores = scores + mask_add.float()[:, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1)
+    if quant:
+        probs = probs * v_scale[layer][:, :, None, None, :]
+    out = torch.einsum("bhgts,bshd->bhgtd", probs.to(compute_dtype).float(), v_all)
+    return out.reshape(B, Hq, T, D).float()
+
+
+def decode_attention_chunk(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    mask_add: torch.Tensor,
+    layer: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    *,
+    kv_heads: int | None = None,
+) -> torch.Tensor:
+    """Multi-query decode attention: T chunk queries per slot against layer
+    ``layer`` of the cache (the speculative verify chunk).
+
+    q:        (B, Hq, T, D) float32 or bf16 on the card (any float type on
+              the CPU); the chunk's own K/V rows are already in the cache.
+    mask_add: (B, T, S) float32 additive rows, one per query (cached
+              positions plus the intra-chunk causal prefix); each row must
+              leave ≥ 1 finite slot.
+    The caches, scales and ``kv_heads`` are as in ``decode_attention``.
+
+    Returns (B, Hq, T, D) float32. CPU tensors take the plain version; CUDA
+    tensors launch the kernel, which reads every cached position once for
+    all T queries of a slot; any other device raises.
+    """
+    B, Hq, D, S, Hkv = _check_args(
+        q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads, chunk=True)
+    if _device_route("decode_attention_chunk", q):
+        return decode_attention_chunk_reference(
+            q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads=Hkv)
+    return _launch_chunk(q, k_cache, v_cache, mask_add, int(layer), k_scale, v_scale,
+                         B, Hq, D, S, Hkv)
+
+
+decode_attention_chunk.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_kernel():
+    """The C entry point of ``csrc/decode_attention_chunk.cu``, built on first use."""
+    from genomics_lm_torch.kernels.build import load
+
+    fn = load("decode_attention_chunk").glm_decode_attention_chunk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _launch_chunk(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
+                  B, Hq, D, S, Hkv):
+    G = Hq // Hkv
+    T = q.shape[2]
+    _check_kernel_dtypes(q, k_cache, _KERNEL_Q_DTYPES)
+    if D > KERNEL_MAX_HEAD_DIM or not 1 <= T * G <= KERNEL_MAX_CHUNK_ROWS or B > 65535:
+        raise ValueError(
+            f"chunk kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, 1 <= T x Hq/Hkv <= "
+            f"{KERNEL_MAX_CHUNK_ROWS} and B <= 65535; got D={D}, T={T}, G={G}, B={B}")
+    R = T * G
+    smem = 4 * (R * D + R * S + _CHUNK_TILE_S * D + _KERNEL_WARPS * KERNEL_MAX_CHUNK_ROWS)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"S={S} with T={T}, G={G} needs {smem} B of shared memory")
+    vec = _vector_loads(k_cache, v_cache, D, Hkv)
+    out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)
+    fn = _chunk_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(), out.data_ptr(),
+                 B, S, Hkv, G, T, D, layer, 1.0 / float(D) ** 0.5,
+                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], int(vec), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention_chunk kernel launch failed (error {err})")
+    decode_attention_chunk.launches += 1
+    return out
+
+
+# --- the cache streamed in S-chunks with an online softmax (kernel row 5) ---------
+
+
+def decode_attention_streamed_reference(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    mask_add: torch.Tensor,
+    layer: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+    *,
+    kv_heads: int | None = None,
+    block_s: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the streamed kernel: the JAX kernel's
+    online-softmax recurrence over S-chunks of ``block_s`` positions
+    (default: 128 when S is a multiple of it, else all of S), in float32.
+
+    Per chunk: scores (times the k scale), the running max ``m`` over every
+    score of the chunk, ``p = exp(s - m)`` zeroed where the mask blocks the
+    key (so a chunk that is wholly masked adds exactly nothing), the
+    running sum ``l`` and the P·V accumulator (p times the v scale) both
+    rescaled by ``exp(m_old - m)``. The result is ``acc / max(l, 1e-30)``:
+    (B, Hq, D) float32. Unlike the JAX kernel, a ragged last chunk is kept.
+    """
+    B, Hq, D = q.shape
+    S = k_cache.shape[2]
+    quant = k_scale is not None
+    if kv_heads is None:
+        kv_heads = k_scale.shape[2] if quant else Hq
+    Hkv = int(kv_heads)
+    G = Hq // Hkv
+    sb = int(block_s) if block_s else (128 if S % 128 == 0 else S)
+    inv_sqrt_d = 1.0 / float(D) ** 0.5
+    qg = q.to(compute_dtype).reshape(B, Hkv, G, D).float()
+    m = torch.full((B, Hkv, G, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hkv, G, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
+    for s0 in range(0, S, sb):
+        n = min(sb, S - s0)
+        k = k_cache[layer, :, s0:s0 + n].to(compute_dtype).reshape(B, n, Hkv, D).float()
+        v = v_cache[layer, :, s0:s0 + n].to(compute_dtype).reshape(B, n, Hkv, D).float()
+        s = torch.einsum("bhgd,bshd->bhgs", qg, k) * inv_sqrt_d
+        if quant:
+            s = s * k_scale[layer, :, :, None, s0:s0 + n]
+        mrow = mask_add[:, None, None, s0:s0 + n].float()
+        s = s + mrow
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mrow > 0.5 * NEG_INF, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        if quant:
+            p = p * v_scale[layer, :, :, None, s0:s0 + n]
+        acc = acc * alpha + torch.einsum("bhgs,bshd->bhgd", p.to(compute_dtype).float(), v)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).reshape(B, Hq, D)
+
+
+def decode_attention_streamed(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    mask_add: torch.Tensor,
+    layer: int,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    *,
+    kv_heads: int | None = None,
+    block_s: int | None = None,
+) -> torch.Tensor:
+    """``decode_attention``'s contract, with the cache streamed in S-chunks.
+
+    On the card the S axis is split over blocks of ``block_s`` positions
+    (default: ``stream_block_s`` of the batch, the cache length and the
+    card's SM count), each block keeping its own (max, sum, P·V) carry, and
+    a second launch combines the splits. q is float32 or bf16 on the card.
+    On the CPU the plain version runs the JAX kernel's recurrence over
+    chunks of ``block_s``. Returns (B, Hq, D) float32.
+    """
+    B, Hq, D, S, Hkv = _check_args(
+        q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads)
+    if block_s is not None and int(block_s) < 1:
+        raise ValueError(f"block_s must be positive, got {block_s}")
+    if _device_route("decode_attention_streamed", q):
+        return decode_attention_streamed_reference(
+            q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads=Hkv,
+            block_s=block_s)
+    return _launch_streamed(q, k_cache, v_cache, mask_add, int(layer), k_scale, v_scale,
+                            B, Hq, D, S, Hkv, block_s)
+
+
+decode_attention_streamed.launches = 0
+
+
+def stream_block_s(B: int, Hkv: int, S: int, sm_count: int) -> int:
+    """Positions per split of the streamed kernel when the caller names none.
+
+    Enough (slot, kv head, split) blocks for about eight per SM, splits of
+    at least 32 positions (a multiple of 32), and no split at all once the
+    batch alone gives that many blocks: splitting S is for small batches.
+    """
+    splits = min(-(-8 * sm_count // max(1, B * Hkv)), -(-S // 32))
+    if splits <= 1:
+        return S
+    chunk = -(-S // splits)
+    return min(S, -(-chunk // 32) * 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _streamed_kernel():
+    """The C entry point of ``csrc/decode_attention_streamed.cu``, built on first use."""
+    from genomics_lm_torch.kernels.build import load
+
+    fn = load("decode_attention_streamed").glm_decode_attention_streamed
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _launch_streamed(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
+                     B, Hq, D, S, Hkv, block_s):
+    G = Hq // Hkv
+    _check_kernel_dtypes(q, k_cache, _KERNEL_Q_DTYPES)
+    if block_s is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        block_s = stream_block_s(B, Hkv, S, sms)
+    block_s = min(int(block_s), S)
+    splits = -(-S // block_s)
+    if D > KERNEL_MAX_HEAD_DIM or G > KERNEL_MAX_GROUP or B > 65535 or splits > 65535:
+        raise ValueError(
+            f"streamed kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, Hq/Hkv <= "
+            f"{KERNEL_MAX_GROUP}, B <= 65535 and S/block_s <= 65535; got D={D}, "
+            f"G={G}, B={B}, splits={splits}")
+    smem = 4 * (2 * G * D + G * block_s + _KERNEL_WARPS * KERNEL_MAX_GROUP)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"block_s={block_s} with G={G} needs {smem} B of shared memory")
+    vec = _vector_loads(k_cache, v_cache, D, Hkv)
+    dev = q.device
+    m_part = torch.empty((B, Hkv, splits, G), dtype=torch.float32, device=dev)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((B, Hkv, splits, G, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
+    fn = _streamed_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(), m_part.data_ptr(),
+                 l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(),
+                 B, S, Hkv, G, D, layer, block_s, 1.0 / float(D) ** 0.5,
+                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], int(vec), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention_streamed kernel launch failed (error {err})")
+    decode_attention_streamed.launches += 1
+    return out
+
+
 __all__ = [
+    "KERNEL_MAX_CHUNK_ROWS",
     "NEG_INF",
     "decode_attention",
+    "decode_attention_chunk",
+    "decode_attention_chunk_reference",
     "decode_attention_reference",
+    "decode_attention_streamed",
+    "decode_attention_streamed_reference",
+    "stream_block_s",
 ]

@@ -1,4 +1,5 @@
-"""Serving: the continuous-batching engine and its HTTP front end."""
+"""Serving: the continuous-batching engine, speculative decoding, and the
+HTTP front end."""
 
 from genomics_lm_torch.serving.engine import (
     Request,
@@ -6,6 +7,12 @@ from genomics_lm_torch.serving.engine import (
     ServingEngine,
     init_serving_state,
     serve_steps,
+)
+from genomics_lm_torch.serving.speculative import (
+    fit_bigram_table,
+    generate_tokens_speculative,
+    serve_steps_speculative,
+    speculative_generate,
 )
 
 
@@ -23,6 +30,10 @@ __all__ = [
     "Request",
     "RequestResult",
     "ServingEngine",
+    "fit_bigram_table",
+    "generate_tokens_speculative",
     "init_serving_state",
     "serve_steps",
+    "serve_steps_speculative",
+    "speculative_generate",
 ]

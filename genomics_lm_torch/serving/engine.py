@@ -27,8 +27,12 @@ place. The decode attention of every layer goes through the CUDA kernel
 (``ops/decode_attention.py``) when ``cfg.attention_impl == "flash"``; the
 kernel consumes the per-slot additive mask and is oblivious to raggedness.
 
-Not ported: speculative decoding (``speculative_k > 0``) and
-tensor-parallel serving (``mesh``) — both raise ``NotImplementedError``.
+With ``speculative_k = K > 0`` and a bigram ``draft_table`` each sync chunk
+is ``steps_per_sync`` draft → verify → accept rounds
+(``serving/speculative.py``), each emitting 1..K+1 tokens per slot; the
+verify chunk's attention is the CUDA chunk kernel under ``flash``.
+
+Not ported: tensor-parallel serving (``mesh``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from genomics_lm_torch.generation.decode import (
+    CACHE_BUCKET,
     _decode_layers,
     _decode_mask,
     prefill,
@@ -66,6 +71,26 @@ def _to_device(array, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _draft_table(draft_table, vocab_size: int, allowed_ids) -> np.ndarray:
+    """The engine's (V, V) draft table: checked, then restricted to
+    ``allowed_ids`` or floored so every row can be sampled."""
+    if draft_table is None:
+        raise ValueError("speculative_k > 0 requires a draft_table "
+                         "(serving.speculative.fit_bigram_table)")
+    table = np.asarray(draft_table, np.float32)
+    if table.shape != (vocab_size, vocab_size):
+        raise ValueError(f"draft_table shape {table.shape} != ({vocab_size}, {vocab_size})")
+    if allowed_ids is not None:
+        from genomics_lm_torch.serving.speculative import restrict_table
+
+        allowed = np.zeros((vocab_size,), bool)
+        allowed[np.asarray(allowed_ids, int)] = True
+        return restrict_table(table, allowed)
+    # strictly positive rows: a zero row would make the draft degenerate
+    table = np.maximum(table, 1e-8)
+    return table / table.sum(axis=1, keepdims=True)
+
+
 def init_serving_state(
     cfg: CodonGPTConfig,
     slots: int,
@@ -87,6 +112,10 @@ def init_serving_state(
         "seg_count": torch.zeros((slots,), dtype=torch.int32, device=device),
         "last_logits": torch.full((slots, cfg.vocab_size), NEG_INF,
                                   dtype=torch.float32, device=device),
+        # True: last_logits are raw model logits (transformed at sampling);
+        # False: a speculative round stored an already-transformed residual
+        # or bonus distribution as log-probabilities (serving/speculative.py)
+        "logits_raw": torch.ones((slots,), dtype=torch.bool, device=device),
         "active": torch.zeros((slots,), dtype=torch.bool, device=device),
     }
     if kv_quant:
@@ -137,6 +166,7 @@ def admit_many(model: CodonGPT, cfg: CodonGPTConfig, state: dict, slot_idx,
     state["lengths"][slots] = _to_device(lens, device, torch.long)
     state["seg_count"][slots] = mini["seg_count"]
     state["last_logits"][slots] = logits.float()
+    state["logits_raw"][slots] = True
     state["active"][slots] = True
     return state
 
@@ -295,13 +325,13 @@ class ServingEngine:
         seed: int = 0,
         mesh=None,
         speculative_k: int = 0,
+        draft_table=None,
         pipeline_depth: int = 1,
+        warm_spec_filters: bool = False,
         device: str | torch.device | None = None,
     ):
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving (mesh) is not ported")
-        if speculative_k:
-            raise NotImplementedError("speculative decoding (speculative_k > 0) is not ported")
         self.device = resolve_device(device)
         check_on_device(model, self.device)
         self.model = model
@@ -314,7 +344,17 @@ class ServingEngine:
         self.steps_per_sync = int(steps_per_sync)
         # chunks kept in flight by the pipelined drain (see run())
         self.pipeline_depth = max(1, int(pipeline_depth))
-        self.state = init_serving_state(cfg, self.slots, self.S, kv_quant,
+        # speculative decoding: each sync chunk is steps_per_sync rounds, and
+        # the cache takes K+1 positions of headroom for the optimistic chunk
+        # writes, rounded up to the cache bucket
+        self._spec_k = int(speculative_k)
+        cache_cap = self.S
+        if self._spec_k:
+            self._table = _to_device(
+                _draft_table(draft_table, cfg.vocab_size, allowed_ids),
+                self.device, torch.float32)
+            cache_cap = -(-(self.S + self._spec_k + 1) // CACHE_BUCKET) * CACHE_BUCKET
+        self.state = init_serving_state(cfg, self.slots, cache_cap, kv_quant,
                                         device=self.device)
         # small admission bucket: prompts at or under this length prefill
         # at this width, longer ones at the full window
@@ -331,10 +371,16 @@ class ServingEngine:
             m = np.zeros((cfg.vocab_size,), bool)
             m[np.asarray(allowed_ids, int)] = True
             self._allowed = _to_device(m, self.device, torch.bool)
+        self._spec_rounds = 0   # active (slot, round) pairs retired
+        self._spec_emitted = 0  # tokens those rounds emitted
+        # the top-k/top-p chain turns on at the first filtered request and
+        # stays on (warm_spec_filters: on from the start)
+        self._spec_filters_seen = bool(warm_spec_filters and self._spec_k)
         self.pending: list[Request] = []
         self.results: dict[int, RequestResult] = {}
         self._completed = 0  # finished (incl. cancelled); thread-safe to read
         self._decode_steps = 0  # ragged decode steps dispatched
+        self._verify_rounds = 0  # speculative rounds dispatched
         self._slot_req: list[Request | None] = [None] * self.slots
         self._next_id = 0
 
@@ -400,7 +446,7 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Scheduler observability snapshot (host-side, no device sync)."""
-        return {
+        out = {
             "slots": self.slots,
             "active": self.n_active,
             "pending": len(self.pending),
@@ -409,9 +455,19 @@ class ServingEngine:
             "kv_quant": self.kv_quant,
             "steps_per_sync": self.steps_per_sync,
             "tensor_parallel": False,
-            "speculative_k": 0,
+            "speculative_k": self._spec_k,
             "decode_steps": self._decode_steps,
+            "verify_rounds": self._verify_rounds,
         }
+        if self._spec_k and self._spec_rounds:
+            # clamped: a read from another thread between the two counter
+            # updates can see a transiently high emitted total
+            rate = ((self._spec_emitted - self._spec_rounds)
+                    / (self._spec_rounds * self._spec_k))
+            out["speculative_accept_rate"] = round(min(max(rate, 0.0), 1.0), 4)
+            out["speculative_tokens_per_round"] = round(
+                min(self._spec_emitted / self._spec_rounds, self._spec_k + 1), 3)
+        return out
 
     # -- scheduling --------------------------------------------------------
     def _admit_pending(self) -> None:
@@ -493,13 +549,28 @@ class ServingEngine:
         self._admit_pending()
         if self.n_active == 0:
             return None
+        # the top-k/top-p chain runs only while a live request uses it (slot
+        # params persist after retirement, hence the mask to live slots)
         live = np.array([r is not None for r in self._slot_req])
         use_filters = bool((self._topk[live] > 0).any()
                            or ((self._topp[live] > 0) & (self._topp[live] < 1)).any())
-        self.state, toks = serve_steps(
-            self.model, self.cfg, self.state, self.steps_per_sync,
-            self._samp_dev, self._generator, self._allowed, use_filters)
-        self._decode_steps += self.steps_per_sync
+        if self._spec_k:
+            from genomics_lm_torch.serving.speculative import serve_steps_speculative
+
+            use_filters = self._spec_filters_seen = self._spec_filters_seen or use_filters
+            self.state, toks, counts = serve_steps_speculative(
+                self.model, self.cfg, self.state, self.steps_per_sync,
+                self._samp_dev, self._table, self._generator, self._allowed,
+                self._spec_k, use_filters)
+            self._verify_rounds += self.steps_per_sync
+            # counts and tokens in one (slots, rounds, 1 + K+1) tensor: one
+            # copy to the host per chunk
+            toks = torch.cat([counts[:, :, None], toks], dim=2)
+        else:
+            self.state, toks = serve_steps(
+                self.model, self.cfg, self.state, self.steps_per_sync,
+                self._samp_dev, self._generator, self._allowed, use_filters)
+            self._decode_steps += self.steps_per_sync
         if toks.device.type != "cuda":
             return (toks, None), list(self._slot_req)
         host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
@@ -508,20 +579,38 @@ class ServingEngine:
         ready.record()
         return (host, ready), list(self._slot_req)
 
-    @staticmethod
-    def _chunk_token_rows(payload) -> np.ndarray:
-        """Wait for a dispatched chunk's tokens and return them as (slots, steps)."""
+    def _chunk_token_rows(self, payload):
+        """Wait for a dispatched chunk's tokens; return one token row per slot.
+
+        A plain chunk is a dense (slots, steps) array. A speculative chunk
+        is packed (slots, rounds, 1 + K+1): per round, column 0 is the
+        emitted count and only that many of the other columns are real.
+        """
         host, ready = payload
         if ready is not None:
             ready.synchronize()
-        return host.numpy()
+        rows = host.numpy()
+        if not self._spec_k:
+            return rows
+        counts, toks = rows[:, :, 0], rows[:, :, 1:]
+        # counts > 0 marks an active (slot, round) pair, which emitted
+        # 1 + accepted tokens; emitted first, so that a concurrent stats()
+        # never sees fewer tokens than rounds
+        self._spec_emitted += int(counts.sum())
+        self._spec_rounds += int((counts > 0).sum())
+        return [[int(t) for r in range(toks.shape[1]) for t in toks[s, r, : counts[s, r]]]
+                for s in range(self.slots)]
 
     def step(self) -> int:
-        """Admit + decode one chunk + retire. Returns #tokens sampled."""
+        """Admit + decode one chunk + retire. Returns #tokens sampled (in
+        speculative mode, the tokens the chunk's rounds emitted)."""
         chunk = self._dispatch_chunk()
         if chunk is None:
             return 0
-        self._retire(self._chunk_token_rows(chunk[0]), chunk[1])
+        rows = self._chunk_token_rows(chunk[0])
+        self._retire(rows, chunk[1])
+        if self._spec_k:
+            return sum(len(r) for r in rows)
         return int(self.n_active and self.steps_per_sync * self.slots)
 
     def run(self, max_chunks: int = 10_000, *,

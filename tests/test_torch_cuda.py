@@ -7,10 +7,10 @@ runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.) Inputs come from
-numpy with a seed. Tolerances: 1e-5 (decode, float32) or 1e-4 (flash,
-float32) where only the order of float32 sums differs; 1e-3 and 2e-2 of
-the largest entry in bf16, where outputs may round to neighbouring bf16
-values.
+numpy with a seed. Tolerances: 1e-5 (decode, chunk and streamed, float32)
+or 1e-4 (flash, float32) where only the order of float32 sums differs;
+1e-3 and 2e-2 of the largest entry in bf16, where outputs may round to
+neighbouring bf16 values.
 """
 
 from __future__ import annotations
@@ -21,8 +21,13 @@ import torch
 
 from genomics_lm_torch.ops import flash_attention as fa
 from genomics_lm_torch.ops.decode_attention import (
+    KERNEL_MAX_CHUNK_ROWS,
     decode_attention,
+    decode_attention_chunk,
+    decode_attention_chunk_reference,
     decode_attention_reference,
+    decode_attention_streamed,
+    decode_attention_streamed_reference,
 )
 from genomics_lm_torch.ops.quant import quantize_kv
 
@@ -107,3 +112,82 @@ def test_cuda_flash_refuses_float16(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q, q, q)
     assert fa.flash_fwd.launches == before
+
+
+def to_card(tensors, dtype, quant, device):
+    """q and a float cache to ``dtype``; every tensor to the card."""
+    q, k, v, mask, ks, vs = tensors
+    q = q.to(dtype)
+    if not quant:
+        k, v = k.to(dtype), v.to(dtype)
+    return [None if t is None else t.to(device) for t in (q, k, v, mask, ks, vs)]
+
+
+def chunk_inputs(rng, B, Hkv, G, T, quant, S=96, D=48):
+    """Packed caches, (B, Hq, T, D) query and a (B, T, S) staircase mask."""
+    q, k, v, _, ks, vs = decode_inputs(rng, B, Hkv, G, quant, S=S, D=D)
+    q = torch.from_numpy(rng.normal(size=(B, Hkv * G, T, D)).astype(np.float32))
+    lengths = rng.integers(1, S - T + 1, B)
+    pos = np.arange(S)[None, None, :]
+    valid = pos < (lengths[:, None] + np.arange(T)[None, :] + 1)[:, :, None]
+    valid[0, :, 2:9] = False  # a segment gap below slot 0's chunk
+    mask = np.where(valid, 0.0, -1e30).astype(np.float32)
+    return q, k, v, torch.from_numpy(mask), ks, vs
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_kernel_matches_plain_version(cuda):
+    """The verify-chunk kernel against its plain version: T 5 over MHA in
+    bf16 and int8, and T 8 over GQA 4 in float32 (32 rows per block)."""
+    rng = np.random.default_rng(9)
+    for (B, Hkv, G, T), quant, dtype, tol in (((6, 4, 1, 5), False, torch.bfloat16, 1e-3),
+                                             ((6, 4, 1, 5), True, torch.bfloat16, 1e-3),
+                                             ((3, 2, 4, 8), False, torch.float32, 1e-5)):
+        dev = to_card(chunk_inputs(rng, B, Hkv, G, T, quant), dtype, quant, cuda)
+        before = decode_attention_chunk.launches
+        got = decode_attention_chunk(*dev[:4], 1, *dev[4:], kv_heads=Hkv)
+        want = decode_attention_chunk_reference(*dev[:4], 1, *dev[4:], kv_heads=Hkv)
+        torch.cuda.synchronize()
+        assert decode_attention_chunk.launches == before + 1
+        assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_kernel_matches_plain_version(cuda):
+    """The split-S kernel against its plain version: its default split and
+    splits of 16 with a wholly masked first split, bf16, int8 and float32."""
+    rng = np.random.default_rng(10)
+    for (B, Hkv, G), quant, dtype, block_s, tol in (
+            ((8, 2, 4), False, torch.bfloat16, None, 1e-3),
+            ((8, 2, 4), True, torch.bfloat16, 16, 1e-3),
+            ((3, 2, 2), False, torch.float32, 16, 1e-5)):
+        q, k, v, mask, ks, vs = decode_inputs(rng, B, Hkv, G, quant)
+        if block_s:
+            mask[:, :block_s] = -1e30
+            mask[:, -1] = 0.0
+        dev = to_card((q, k, v, mask, ks, vs), dtype, quant, cuda)
+        got = decode_attention_streamed(*dev[:4], 1, *dev[4:], kv_heads=Hkv, block_s=block_s)
+        want = decode_attention_streamed_reference(*dev[:4], 1, *dev[4:], kv_heads=Hkv,
+                                                   block_s=block_s)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_and_streamed_refuse_shapes_outside_their_limits(cuda):
+    """Past the kernels' limits the wrappers raise before any launch
+    instead of taking the plain version."""
+    rng = np.random.default_rng(11)
+    G = 8
+    T = KERNEL_MAX_CHUNK_ROWS // G + 1  # T x G rows exceed one block's bound
+    dev = to_card(chunk_inputs(rng, 2, 1, G, T, False, S=64, D=16), torch.float32, False,
+                  cuda)
+    before = decode_attention_chunk.launches
+    with pytest.raises(ValueError, match="chunk kernel takes"):
+        decode_attention_chunk(*dev[:4], 0, kv_heads=1)
+    assert decode_attention_chunk.launches == before
+    dev = to_card(decode_inputs(rng, 2, 2, 1, False), torch.float16, False, cuda)
+    before = decode_attention_streamed.launches
+    with pytest.raises(ValueError, match="query"):
+        decode_attention_streamed(*dev[:4], 0, kv_heads=2)
+    assert decode_attention_streamed.launches == before

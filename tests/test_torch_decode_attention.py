@@ -1,11 +1,13 @@
-"""Decode attention: the port's wrapper against the JAX Pallas kernel.
+"""Decode attention: the port's wrappers against the JAX Pallas kernels.
 
-On the CPU the port's ``decode_attention`` runs its plain version; the
-JAX kernel runs in Pallas interpret mode (as ``tests/test_decode_attention.py``
-runs it) and beside it the JAX einsum reference ``decode_attention_xla``.
-The same numpy inputs go to all three; float32, tolerance 1e-5 (both sides
-accumulate in f32, in different orders). The test of the CUDA kernel
-itself needs the card: it is in ``tests/test_torch_cuda.py``.
+On the CPU the port's ``decode_attention``, ``decode_attention_chunk`` and
+``decode_attention_streamed`` run their plain versions; the JAX kernels
+run in Pallas interpret mode (as ``tests/test_decode_attention.py`` and
+``tests/test_speculative.py`` run them) and beside them the JAX einsum
+references. The same numpy inputs go to all; float32, tolerance 1e-5 for
+the single-token op and 2e-6 for the chunk and streamed ops (both sides
+accumulate in f32, in different orders). The tests of the CUDA kernels
+themselves need the card: they are in ``tests/test_torch_cuda.py``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ from genomics_lm_tpu.ops import decode_attention as jax_da
 from genomics_lm_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from genomics_lm_torch.ops.decode_attention import (
     decode_attention,
+    decode_attention_chunk,
     decode_attention_reference,
+    decode_attention_streamed,
+    stream_block_s,
 )
 from genomics_lm_torch.ops.quant import quantize_kv
 
@@ -132,8 +137,9 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):
-    """A library's name carries the hash of its source, so an edited source
-    rebuilds; without nvcc a build raises instead of loading anything."""
+    """A library's name carries the hash of its source and the shared
+    headers, so an edited source or header rebuilds; without nvcc a build
+    raises instead of loading anything."""
     from genomics_lm_torch.kernels import build as kb
 
     lib = kb.library_path("decode_attention")
@@ -143,10 +149,164 @@ def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     (tmp_path / "decode_attention.cu").write_text("// another source\n")
     monkeypatch.setattr(kb, "CSRC", tmp_path)
     monkeypatch.setattr(kb, "BUILD_DIR", tmp_path / "_build")
-    assert kb.library_path("decode_attention").name != lib.name
+    edited = kb.library_path("decode_attention").name
+    assert edited != lib.name
+    (tmp_path / "decode_common.cuh").write_text("// a shared header\n")
+    assert kb.library_path("decode_attention").name != edited  # headers count too
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc not found"):
             kb.build(["decode_attention"])
+
+
+# --- the verify-chunk op (kernel row 6) and the streamed op (kernel row 5) ------
+
+KERNEL_ATOL = 2e-6  # float32 on both sides; only the order of the sums differs
+
+
+def make_chunk_inputs(rng, B, Hkv, G, T, S_, quant):
+    """Packed caches, (B, Hq, T, D) query and a (B, T, S) mask with an
+    intra-chunk staircase and, in slot 1, a segment gap."""
+    L_, D_ = 3, 48
+    kh = rng.normal(size=(L_, B, Hkv, S_, D_)).astype(np.float32)
+    vh = rng.normal(size=(L_, B, Hkv, S_, D_)).astype(np.float32)
+    ks = vs = None
+    if quant:
+        kh, ks = (np.asarray(a) for a in jax_quantize_kv(jnp.asarray(kh)))
+        vh, vs = (np.asarray(a) for a in jax_quantize_kv(jnp.asarray(vh)))
+    pack = lambda a: np.ascontiguousarray(  # noqa: E731
+        a.transpose(0, 1, 3, 2, 4).reshape(L_, B, S_, Hkv * D_))
+    q = rng.normal(size=(B, Hkv * G, T, D_)).astype(np.float32)
+    mask = np.zeros((B, T, S_), np.float32)
+    for t in range(T):
+        mask[:, t, S_ // 2 + t + 1:] = -1e30
+    mask[1, :, 5:20] = -1e30
+    return q, pack(kh), pack(vh), mask, ks, vs
+
+
+@pytest.mark.parametrize("G,quant", [(1, False), (2, False), (2, True)],
+                         ids=["g1", "g2", "g2_int8"])
+def test_chunk_matches_jax_kernel_and_reference(G, quant):
+    """The chunk op's plain version against JAX ``decode_attention_chunk``
+    (Pallas interpret mode) and ``decode_attention_chunk_xla``: float32,
+    tolerance 2e-6."""
+    rng = np.random.default_rng(20 + G + quant)
+    Hkv, T = 2, 4
+    q, k, v, mask, ks, vs = make_chunk_inputs(rng, 5, Hkv, G, T, 64, quant)
+    jargs = [jnp.asarray(a) for a in (q, k, v, mask)]
+    jscales = [None if a is None else jnp.asarray(a) for a in (ks, vs)]
+    for layer in (0, 2):
+        want_kernel = np.asarray(jax_da.decode_attention_chunk(
+            *jargs, layer, *jscales, kv_heads=Hkv, interpret=True))
+        want_xla = np.asarray(jax_da.decode_attention_chunk_xla(
+            *jargs, layer, *jscales, kv_heads=Hkv))
+        got = decode_attention_chunk(*to_torch(q, k, v, mask), layer, *to_torch(ks, vs),
+                                     kv_heads=Hkv)
+        assert got.dtype == torch.float32 and got.shape == (5, Hkv * G, T, 48)
+        np.testing.assert_allclose(got.numpy(), want_kernel, atol=KERNEL_ATOL)
+        np.testing.assert_allclose(got.numpy(), want_xla, atol=KERNEL_ATOL)
+
+
+def test_chunk_row_equals_single_token_op():
+    """A chunk of one query is the single-token op on the same mask row."""
+    rng = np.random.default_rng(27)
+    q, k, v, mask, ks, vs = to_torch(*make_chunk_inputs(rng, 3, 2, 2, 1, 40, True))
+    got = decode_attention_chunk(q, k, v, mask, 1, ks, vs, kv_heads=2)
+    want = decode_attention(q[:, :, 0].contiguous(), k, v, mask[:, 0].contiguous(), 1,
+                            ks, vs, kv_heads=2)
+    np.testing.assert_allclose(got[:, :, 0].numpy(), want.numpy(), atol=KERNEL_ATOL)
+
+
+@pytest.mark.parametrize("block_s,first_masked",
+                         [(None, False), (32, False), (16, False), (16, True)],
+                         ids=["default", "bs32", "bs16", "bs16_first_chunk_masked"])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_streamed_matches_jax_kernel_and_reference(block_s, first_masked, quant):
+    """The streamed op's plain version (JAX's online-softmax recurrence over
+    chunks of ``block_s``) against JAX ``decode_attention_streamed`` in
+    Pallas interpret mode and ``decode_attention_xla``: float32, 2e-6."""
+    rng = np.random.default_rng(40 + (block_s or 0) + first_masked + 2 * quant)
+    B, Hkv, G = 4, 2, 2
+    q, k, v, mask, ks, vs = make_inputs(rng, B, Hkv, G, quant)
+    if first_masked:
+        mask[:, :block_s] = -1e30  # every row's whole first chunk is blocked
+        mask[:, S - 1] = 0.0
+    jargs = [jnp.asarray(a) for a in (q, k, v, mask)]
+    jscales = [None if a is None else jnp.asarray(a) for a in (ks, vs)]
+    for layer in (0, L - 1):
+        want_kernel = np.asarray(jax_da.decode_attention_streamed(
+            *jargs, layer, *jscales, kv_heads=Hkv, block_s=block_s, interpret=True))
+        want_xla = np.asarray(jax_da.decode_attention_xla(
+            *jargs, layer, *jscales, kv_heads=Hkv))
+        got = decode_attention_streamed(*to_torch(q, k, v, mask), layer, *to_torch(ks, vs),
+                                        kv_heads=Hkv, block_s=block_s)
+        assert got.dtype == torch.float32 and got.shape == (B, Hkv * G, D)
+        np.testing.assert_allclose(got.numpy(), want_kernel, atol=KERNEL_ATOL)
+        np.testing.assert_allclose(got.numpy(), want_xla, atol=KERNEL_ATOL)
+
+
+def test_streamed_ragged_last_chunk_matches_single_pass():
+    """A ``block_s`` that does not divide S keeps the ragged last chunk."""
+    rng = np.random.default_rng(46)
+    args = to_torch(*make_inputs(rng, 3, 2, 1, True))
+    got = decode_attention_streamed(*args[:4], 1, *args[4:], kv_heads=2, block_s=24)
+    want = decode_attention(*args[:4], 1, *args[4:], kv_heads=2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=KERNEL_ATOL)
+
+
+def test_stream_block_s_splits_small_batches_only():
+    """The streamed kernel's default split: none once the batch fills the
+    card, multiples of 32 positions below that, never more than S."""
+    assert stream_block_s(256, 8, 256, 132) == 256
+    assert stream_block_s(64, 8, 256, 132) == 96  # 3 splits of 512 blocks
+    assert stream_block_s(1, 1, 256, 132) == 32
+    assert stream_block_s(1, 1, 20, 132) == 20
+    for B in (1, 5, 64, 256):
+        bs = stream_block_s(B, 8, 384, 132)
+        assert 32 <= bs <= 384 and (bs % 32 == 0 or bs == 384)
+
+
+def test_chunk_and_streamed_wrappers_check_contract():
+    rng = np.random.default_rng(47)
+    q, k, v, mask, ks, vs = to_torch(*make_chunk_inputs(rng, 2, 2, 1, 3, 32, True))
+    with pytest.raises(ValueError, match="mask_add"):
+        decode_attention_chunk(q, k, v, mask[:, 0].contiguous(), 0, ks, vs)
+    with pytest.raises(ValueError, match="T, D"):
+        decode_attention_chunk(q[:, :, 0].contiguous(), k, v, mask, 0, ks, vs)
+    with pytest.raises(ValueError, match="layer"):
+        decode_attention_chunk(q, k, v, mask, 3, ks, vs)
+    q1, k1, v1, m1, ks1, vs1 = to_torch(*make_inputs(rng, 2, 2, 1, True))
+    with pytest.raises(ValueError, match="block_s"):
+        decode_attention_streamed(q1, k1, v1, m1, 0, ks1, vs1, block_s=0)
+    with pytest.raises(ValueError, match="together"):
+        decode_attention_streamed(q1, k1, v1, m1, 0, ks1, None)
+    meta = [t.to("meta") for t in to_torch(*make_chunk_inputs(rng, 2, 2, 1, 3, 32,
+                                                                False)[:4])]
+    before = decode_attention_chunk.launches
+    with pytest.raises(ValueError, match="not meta"):
+        decode_attention_chunk(*meta, 0, kv_heads=2)
+    assert decode_attention_chunk.launches == before
+    meta1 = [t.to("meta") for t in to_torch(*make_inputs(rng, 2, 2, 1, False)[:4])]
+    before = decode_attention_streamed.launches
+    with pytest.raises(ValueError, match="not meta"):
+        decode_attention_streamed(*meta1, 0, kv_heads=2)
+    assert decode_attention_streamed.launches == before
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_benchmark_inputs_follow_the_decode_contract(kv_quant):
+    """``benchmark_decode_kernel``'s inputs pass the ops' checks, and the
+    blocked and streamed ops agree on them (plain versions on the CPU)."""
+    from genomics_lm_torch.serving import benchmark_decode_kernel as bench
+
+    args = bench.parse_args(["--n_layer", "2", "--batch_size", "3", "--cache_slots", "40",
+                             "--n_head", "4", "--kv_heads", "2"] + ["--kv_quant"] * kv_quant)
+    q, k, v, mask, ks, vs = bench.make_inputs(args, device="cpu")
+    assert k.shape == (2, 3, 40, 2 * 48) and k.dtype == (torch.int8 if kv_quant
+                                                         else torch.bfloat16)
+    assert (ks is not None) == kv_quant and bool((mask[:, :10] == 0).all())
+    blocked = decode_attention(q, k, v, mask, 1, ks, vs, kv_heads=2)
+    streamed = decode_attention_streamed(q, k, v, mask, 1, ks, vs, kv_heads=2, block_s=16)
+    np.testing.assert_allclose(streamed.numpy(), blocked.numpy(), atol=KERNEL_ATOL)

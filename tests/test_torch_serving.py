@@ -273,8 +273,8 @@ def test_validation_and_unported_options():
         eng.submit([1, 99], 3)
     with pytest.raises(ValueError):
         engine(model, tcfg, max_seq_len=128)
-    with pytest.raises(NotImplementedError):
-        engine(model, tcfg, speculative_k=2)
+    with pytest.raises(ValueError, match="requires a draft_table"):
+        engine(model, tcfg, speculative_k=2)  # speculative serving needs a draft
     with pytest.raises(NotImplementedError):
         engine(model, tcfg, mesh=object())
     with pytest.raises(ValueError, match="model parameters are on cpu"):
