@@ -12,7 +12,8 @@ exits non-zero:
 1. device  — the card's name and power limit (``nvidia-smi``), CUDA version.
 2. build   — compiles every kernel of the serving and training paths from
    ``csrc/`` with nvcc for sm_90a (one nvcc per source, all started
-   together).
+   together); logs the registers and spills of each bf16 tensor-core
+   flash kernel.
 3. kernel  — the decode-attention kernel against its plain PyTorch version
    on the card at the serving shapes (bf16 and int8 caches, MHA and GQA,
    off-grid and unvectorizable shapes), then its time beside its bound,
@@ -30,8 +31,11 @@ exits non-zero:
    their plain versions (O, LSE, and the gradients of a fixed cotangent)
    at the training shape with and without dropout, GQA, a window, suffix
    queries, an off-grid length, and float32 with and without the causal
-   mask; then each kernel's time beside its bound, its plain version's
-   time and one library call's.
+   mask; for the bf16 tensor-core kernels also a segment every 4th token at
+   dropout 0.5, random non-monotone ids, D 20/64/128, GQA 4:1 with a window
+   off the grid, and non-causal; each case logs the tiles the kernels visit
+   (``flash_live_tiles``) beside the band's. Then each kernel's time beside
+   its bound, its plain version's time and one library call's.
 8. train   — the training main path (``training/profile_step.py``): the
    same CodonGPT with dropout 0.1 and label smoothing, AdamW in two LR
    groups, 3 warm-up and 10 measured groups of 16 x 8 x 512 tokens; every
@@ -122,11 +126,16 @@ KERNEL_ATOL_REASON = (
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
 FLASH_TOL_REASON = (
     "kernel and plain version read the same rounded operands and the same Philox "
-    "keep bits and accumulate in float32, so only the order of the sums differs "
-    "(~1e-6 relative); bf16 outputs may then round to neighbouring bf16 values, "
-    "which are up to 2^-7 apart relative to the entry; a fault of indexing, "
-    "masking or keep bits moves entries by much more (the float32 case, at "
-    "1e-4, sees a single flipped keep bit)")
+    "keep bits and accumulate in float32. float32 (SIMT kernels): only the order "
+    "of the sums differs (~1e-6 relative). bf16: the tensor-core forward and "
+    "dK/dV kernels round P and dS to bf16 before the second product, as "
+    "FlashAttention-2 does (the plain version keeps them float32), ~2^-9 "
+    "relative per term, and outputs round to bf16 (up to 2^-8 relative); "
+    "together well under 2^-6 of the largest entry. A fault of indexing, "
+    "masking, tile skipping or keep bits moves entries by much more: the "
+    "float32 case at 1e-4 sees one flipped keep bit, and so does the bf16 case "
+    "with a segment every 4 tokens at dropout 0.5, where each row sees at most "
+    "4 keys")
 # Card-vs-CPU step: both sides run float32 (TF32 off) and differ only in the
 # order of their sums, so loss and gradients are held tightly. Adam's first
 # step moves an element by lr * g / (|g| + eps) with lr = 3e-4 whatever the
@@ -163,6 +172,30 @@ def phase_build() -> None:
             seconds=round(seconds, 2), instantiations=len(regs),
             max_registers=max(regs, default=None),
             spill_store_bytes=sum(spills))
+        if name == "flash_attention":
+            log("build_mma", **tensor_core_report(text))
+
+
+def tensor_core_report(text: str) -> dict:
+    """{kernel<DP>: {registers, spill_store_bytes}} of the bf16 tensor-core
+    flash kernels, read from the ``-Xptxas -v`` report."""
+    out, current = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?"
+                          r"(?: for|$)", line)
+        if entry:
+            mma = re.search(r"(flash_(?:fwd|bwd_dkv)_mma_kernel)ILi(\d+)E", entry.group(1))
+            current = f"{mma.group(1)}<{mma.group(2)}>" if mma else None
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            out.setdefault(current, {})["spill_store_bytes"] = int(spill.group(1))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out.setdefault(current, {})["registers"] = int(used.group(1))
+    return out
 
 
 # --- phase 3: the kernel against its plain version ------------------------------
@@ -400,14 +433,19 @@ def phase_http(model, cfg) -> None:
 # --- phase 7: the flash kernels against their plain versions ---------------------
 
 
-def flash_case(gen, B, Hq, Hkv, T, S, D, dtype, window, rate, causal=True):
-    """Random q, k, v, <SEP>-segment ids (every 97th token), seed, config."""
+def flash_case(gen, B, Hq, Hkv, T, S, D, dtype, window, rate, causal=True, segs=97):
+    """Random q, k, v, segment ids, seed, config. ``segs``: a <SEP> every
+    ``segs``-th token (running count, as the main path's batches), or
+    "random": ids drawn from {0..3}, not monotone."""
     dev = "cuda"
     q = torch.randn((B, Hq, T, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
-    seps = (torch.arange(S, device=dev) % 97 == 0).to(torch.int32)
-    seg = torch.cumsum(seps[None, :].expand(B, S), dim=-1, dtype=torch.int32).contiguous()
+    if segs == "random":
+        seg = torch.randint(0, 4, (B, S), generator=gen, device=dev, dtype=torch.int32)
+    else:
+        seps = (torch.arange(S, device=dev) % segs == 0).to(torch.int32)
+        seg = torch.cumsum(seps[None, :].expand(B, S), dim=-1, dtype=torch.int32).contiguous()
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
     return q, k, v, seg, seed, fa.FlashCfg(causal, window, rate)
 
@@ -448,21 +486,36 @@ def phase_flash(peak_bw, peak_ops) -> dict:
     width = train_main.MAIN_TRAIN
     B, H, T, D = train_main.B, width["n_head"], train_main.T, width["n_embd"] // width["n_head"]
     cases = [
-        # name, B, Hq, Hkv, T, S, D, dtype, window, dropout, timed
-        ("main_bf16", B, H, H, T, T, D, bf16, None, 0.0, False),
-        ("main_bf16_dropout", B, H, H, T, T, D, bf16, None, 0.1, True),
-        ("gqa_bf16", B, H, 2, T, T, D, bf16, None, 0.1, False),
-        ("window64_bf16", B, H, H, T, T, D, bf16, 64, 0.1, False),
-        ("suffix_bf16", B, H, H, 128, T, D, bf16, None, 0.1, False),
-        ("offgrid_bf16", B, H, H, 130, 130, D, bf16, None, 0.1, False),
-        ("f32_gqa_window_d20", 2, 4, 2, 200, 333, 20, f32, 50, 0.1, False),
-        ("f32_noncausal_d64", 2, 4, 4, 150, 150, 64, f32, None, 0.1, False),
+        # name, B, Hq, Hkv, T, S, D, dtype, window, dropout, segments, timed
+        ("main_bf16", B, H, H, T, T, D, bf16, None, 0.0, 97, False),
+        ("main_bf16_dropout", B, H, H, T, T, D, bf16, None, 0.1, 97, True),
+        ("gqa_bf16", B, H, 2, T, T, D, bf16, None, 0.1, 97, False),
+        ("window64_bf16", B, H, H, T, T, D, bf16, 64, 0.1, 97, False),
+        ("suffix_bf16", B, H, H, 128, T, D, bf16, None, 0.1, 97, False),
+        ("offgrid_bf16", B, H, H, 130, 130, D, bf16, None, 0.1, 97, False),
+        ("f32_gqa_window_d20", 2, 4, 2, 200, 333, 20, f32, 50, 0.1, 97, False),
+        ("f32_noncausal_d64", 2, 4, 4, 150, 150, 64, f32, None, 0.1, 97, False),
+        # the tensor-core kernels' failure modes: a wrong keep bit or a wrongly
+        # skipped tile (only diagonal tiles live; <= 4 keys a row), ids that
+        # skip no tile, padded head widths, GQA 4:1 with a window off the grid
+        ("seg4_dropout50_bf16", 2, H, H, T, T, D, bf16, None, 0.5, 4, False),
+        ("random_ids_bf16", 2, H, H, T, T, D, bf16, None, 0.1, "random", False),
+        ("d20_bf16", 2, 4, 4, 200, 200, 20, bf16, None, 0.1, 97, False),
+        ("d64_bf16", 2, 4, 4, 200, 200, 64, bf16, None, 0.1, 97, False),
+        ("d128_bf16", 2, 4, 4, 200, 200, 128, bf16, None, 0.1, 97, False),
+        ("gqa4_window50_bf16", 2, 8, 2, 130, 333, D, bf16, 50, 0.1, 97, False),
+        ("noncausal_bf16", 2, 4, 4, 150, 150, D, bf16, None, 0.1, 97, False),
     ]
     timed = {}
-    for name, b, hq, hkv, t, s_len, d, dtype, window, rate, is_timed in cases:
+    for name, b, hq, hkv, t, s_len, d, dtype, window, rate, segs, is_timed in cases:
         causal = "noncausal" not in name
         q, k, v, seg, seed, cfg = flash_case(gen, b, hq, hkv, t, s_len, d, dtype, window, rate,
-                                             causal)
+                                             causal, segs)
+        live = fa.flash_live_tiles(seg, t, s_len, causal, window)
+        band = fa.flash_live_tiles(None, t, s_len, causal, window)
+        tiles = dict(band_tiles=int(band.sum()) * b * hq)
+        # the bf16 forward and dK/dV skip dead tiles; the float32 kernels visit the band
+        tiles["tiles_visited"] = int(live.sum()) * hq if dtype == bf16 else tiles["band_tiles"]
         qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
         out = fa.flash_attention(qg, kg, vg, segment_ids=seg, attention_window=window,
                                  dropout_rate=rate, seed=seed, causal=causal)
@@ -484,7 +537,7 @@ def phase_flash(peak_bw, peak_ops) -> dict:
         tol = FLASH_TOL[dtype]
         log("flash", case=name, shape=dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s_len, D=d),
             dtype=str(dtype).removeprefix("torch."), causal=causal, window=window,
-            dropout=rate,
+            dropout=rate, segments=segs, **tiles,
             rel_err=errs, max_abs_err=abs_errs, tol=tol, tol_reason=FLASH_TOL_REASON)
         if max(errs.values()) > tol:
             raise AssertionError(f"flash {name}: kernel disagrees with its plain version "
@@ -528,9 +581,11 @@ def phase_flash(peak_bw, peak_ops) -> dict:
                               bound_by=bounds[key]["bound_by"],
                               library_ms=library["fwd" if key == "fwd" else "bwd"],
                               max_abs_err=err_of[key])
+            # the bf16 forward and dK/dV visit the live tiles; dQ the band
+            visits = tiles if key != "dq" else dict(tiles, tiles_visited=tiles["band_tiles"])
             log("flash_time", kernel=key, case=name, attended_pairs=pairs,
                 bytes=bounds[key]["bytes"], operations=bounds[key]["operations"],
-                **timed[key], roofline_share=bounds[key]["bound_ms"] / ms)
+                **timed[key], **visits, roofline_share=bounds[key]["bound_ms"] / ms)
     return timed
 
 
@@ -942,8 +997,12 @@ def main() -> int:
         **main_bf16,
         "int8": dict(main_int8, launches=served["launches_int8"]),
     }]
-    for key, wrapper, line in (("fwd", fa.flash_fwd, 206), ("dq", fa.flash_bwd_dq, 365),
-                               ("dkv", fa.flash_bwd_dkv, 390)):
+    tensor_core = ("bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix), cp.async double "
+                   "buffering, band-and-segment tile skipping; float32: SIMT")
+    for key, wrapper, line, design in (
+            ("fwd", fa.flash_fwd, 206, tensor_core),
+            ("dq", fa.flash_bwd_dq, 365, "SIMT float32 multiply-adds, both types"),
+            ("dkv", fa.flash_bwd_dkv, 390, tensor_core)):
         kernels.append({
             "name": wrapper.__name__,
             "route": "cuda",
@@ -951,6 +1010,7 @@ def main() -> int:
             "replaces": f"genomics_lm_tpu/ops/flash_attention.py:{line}",
             "launches": trained[wrapper.__name__],
             **flash_timed[key],
+            "design": design,
         })
     kernels.append({
         "name": "decode_attention_chunk",

@@ -2,9 +2,11 @@
 
 Twin of ``genomics_lm_tpu/ops/flash_attention.py::flash_attention``. The
 three Pallas TPU kernels (forward ``_fwd_kernel``, backward
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) are replaced by three
-hand-written Hopper kernels in ``csrc/flash_attention.cu``; its header note
-says what bounds them and what the design does about that. They are wired
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) are replaced by hand-written
+Hopper kernels in ``csrc/flash_attention.cu``: in bf16 the forward and
+dK/dV run on the tensor cores and skip the tiles ``flash_live_tiles``
+rules out; dQ and every float32 kernel are SIMT. Its header note says what
+bounds them and what each design does about that. They are wired
 into a ``torch.autograd.Function`` as the JAX ``custom_vjp`` wires the
 Pallas kernels: the forward saves (q, k, v, segment ids, seed, O, LSE),
 the backward computes ``delta = rowsum(dO * O)`` in plain torch and runs
@@ -186,6 +188,45 @@ def flash_bwd_dkv_reference(q, k, v, segment_ids, seed, dout, lse, delta, cfg: "
                                   q.float().view(B, Hkv, Hq // Hkv, T, D))
     dv = torch.einsum("bhgts,bhgtd->bhsd", pd, dout.float().view(B, Hkv, Hq // Hkv, T, D))
     return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _tile_ranges(ids: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(min, max) of (B, n) ids over each tile of ``block``: (B, ceil(n / block))."""
+    B, n = ids.shape
+    pad = -n % block
+    lo = torch.nn.functional.pad(ids, (0, pad), value=torch.iinfo(torch.int32).max)
+    hi = torch.nn.functional.pad(ids, (0, pad), value=torch.iinfo(torch.int32).min)
+    return lo.view(B, -1, block).amin(-1), hi.view(B, -1, block).amax(-1)
+
+
+def flash_live_tiles(segment_ids, T: int, S: int, causal: bool = True,
+                     window: int | None = None, block_q: int = 64,
+                     block_k: int = 64) -> torch.Tensor:
+    """(B, nqb, nkb) boolean: the (query tile, key tile) pairs the bf16
+    tensor-core kernels visit (B = 1 without segment ids).
+
+    A pair is visited when the key tile lies in the query tile's causal and
+    window band (the kernels' ``key_band``, JAX's ``_band_bounds``) and the
+    segment-id ranges of the two tiles' rows overlap. Every attended pair
+    lies in a visited tile, for any ids. Used by the tests and
+    ``chip_smoke.py``; the main path never calls it.
+    """
+    nqb, nkb = -(-T // block_q), -(-S // block_k)
+    q_offset = S - T
+    qb = torch.arange(nqb)[:, None]
+    kb = torch.arange(nkb)[None, :]
+    live = torch.ones((1, nqb, nkb), dtype=torch.bool)
+    if causal:
+        live = live & (kb < (q_offset + qb * block_q + block_q - 1) // block_k + 1)
+    if window is not None:
+        live = live & (kb >= torch.clamp_min(q_offset + qb * block_q - int(window) + 1, 0)
+                       // block_k)
+    if segment_ids is None:
+        return live
+    ids = segment_ids.to("cpu", torch.int32)
+    q_lo, q_hi = _tile_ranges(ids[:, q_offset:], block_q)
+    k_lo, k_hi = _tile_ranges(ids, block_k)
+    return live & (k_lo[:, None, :] <= q_hi[:, :, None]) & (q_lo[:, :, None] <= k_hi[:, None, :])
 
 
 # --- the kernels ----------------------------------------------------------------
@@ -375,6 +416,7 @@ __all__ = [
     "flash_bwd_dq_reference",
     "flash_forward_reference",
     "flash_fwd",
+    "flash_live_tiles",
     "philox4x32_10",
     "philox_keep",
 ]

@@ -10,7 +10,8 @@ runs on a machine that has only the port's dependencies:
 numpy with a seed. Tolerances: 1e-5 (decode, chunk and streamed, float32)
 or 1e-4 (flash, float32) where only the order of float32 sums differs;
 1e-3 and 2e-2 of the largest entry in bf16, where outputs may round to
-neighbouring bf16 values.
+neighbouring bf16 values (and the bf16 flash forward and dK/dV kernels
+round P and dS to bf16 before their second product).
 """
 
 from __future__ import annotations
@@ -77,20 +78,34 @@ def test_cuda_kernel_matches_plain_version(cuda):
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions(cuda):
     """The three flash kernels on the card against their plain versions,
-    with dropout, segments, a window, GQA and ragged lengths."""
+    with dropout, segments, a window, GQA and ragged lengths; in bf16 also
+    the tensor-core kernels' failure modes: a segment every 4 tokens at
+    dropout 0.5 (a wrong keep bit or skipped tile moves an output far),
+    random non-monotone ids, padded head widths (20, 64, 128) and GQA 4:1
+    with a window off the grid."""
     rng = np.random.default_rng(8)
-    for (B, Hq, Hkv, T, S, D, window), dtype, tol in (
-            ((2, 2, 1, 64, 64, 16, 21), torch.float32, 1e-4),
-            ((2, 2, 2, 76, 130, 16, None), torch.bfloat16, 2e-2)):
+    bf16 = torch.bfloat16
+    for (B, Hq, Hkv, T, S, D, window), segs, rate, dtype, tol in (
+            ((2, 2, 1, 64, 64, 16, 21), 17, 0.1, torch.float32, 1e-4),
+            ((2, 2, 2, 76, 130, 16, None), 17, 0.1, bf16, 2e-2),
+            ((2, 2, 2, 256, 256, 48, None), 4, 0.5, bf16, 2e-2),
+            ((2, 2, 2, 192, 192, 48, None), "random", 0.1, bf16, 2e-2),
+            ((2, 2, 2, 100, 100, 20, None), 17, 0.1, bf16, 2e-2),
+            ((2, 2, 2, 100, 100, 64, None), 17, 0.1, bf16, 2e-2),
+            ((2, 2, 2, 100, 100, 128, None), 17, 0.1, bf16, 2e-2),
+            ((2, 8, 2, 130, 333, 48, 50), 17, 0.1, bf16, 2e-2)):
         q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                    .to(cuda, dtype) for shape in ((B, Hq, T, D), (B, Hkv, S, D), (B, Hkv, S, D)))
-        seps = (torch.arange(S) % 17 == 0).int()
-        seg = torch.cumsum(seps[None].expand(B, S), -1, dtype=torch.int32).to(cuda)
+        if segs == "random":
+            seg = torch.from_numpy(rng.integers(0, 4, (B, S)).astype(np.int32)).to(cuda)
+        else:
+            seps = (torch.arange(S) % segs == 0).int()
+            seg = torch.cumsum(seps[None].expand(B, S), -1, dtype=torch.int32).to(cuda)
         seed = torch.tensor([3], dtype=torch.int32, device=cuda)
-        cfg = fa.FlashCfg(True, window, 0.1)
+        cfg = fa.FlashCfg(True, window, rate)
         args = [t.clone().requires_grad_() for t in (q, k, v)]
         out = fa.flash_attention(*args, segment_ids=seg, attention_window=window,
-                                 dropout_rate=0.1, seed=seed)
+                                 dropout_rate=rate, seed=seed)
         cot = torch.randn_like(out)
         grads = torch.autograd.grad(out, args, cot)
         ref, lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)

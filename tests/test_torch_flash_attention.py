@@ -172,6 +172,65 @@ def test_einsum_path_drops_the_same_probabilities():
                                .numpy(), atol=1e-5)
 
 
+def _seps(B, S, every):
+    """Running <SEP> count with a <SEP> at every ``every``-th position."""
+    seps = (np.arange(S) % every == 0).astype(np.int32)
+    return np.cumsum(np.broadcast_to(seps, (B, S)), axis=-1).astype(np.int32)
+
+
+# (T, S, ids, causal, window): the main path's layout, short segments,
+# random non-monotone ids, a window, suffix queries, off-grid lengths,
+# non-causal, no ids
+LIVE_CASES = [
+    (512, 512, 97, True, None),
+    (256, 256, 4, True, None),
+    (200, 200, "random", True, None),
+    (300, 300, 97, True, 50),
+    (100, 333, 40, True, None),
+    (130, 130, 17, True, None),
+    (200, 200, 60, False, None),
+    (150, 150, None, True, 70),
+]
+
+
+@pytest.mark.parametrize("T,S,ids,causal,window", LIVE_CASES,
+                         ids=[f"T{c[0]}_S{c[1]}_{c[2]}_{'causal' if c[3] else 'full'}_w{c[4]}"
+                              for c in LIVE_CASES])
+def test_live_tiles_cover_every_attended_pair(T, S, ids, causal, window):
+    """The tensor-core kernels' tile rule (band and segment-range overlap)
+    keeps every tile that holds an attended pair of ``structure_mask``."""
+    B = 2
+    if ids is None:
+        seg = None
+    elif ids == "random":
+        seg = torch.from_numpy(np.random.default_rng(T + S).integers(0, 4, (B, S))
+                               .astype(np.int32))
+    else:
+        seg = torch.from_numpy(_seps(B, S, ids))
+    live = fa.flash_live_tiles(seg, T, S, causal, window)
+    band = fa.flash_live_tiles(None, T, S, causal, window)
+    nqb, nkb = -(-T // 64), -(-S // 64)
+    assert live.shape == (1 if seg is None else B, nqb, nkb) and band.shape == (1, nqb, nkb)
+    assert not (live & ~band).any()
+    mask = structure_mask(T, S, causal=causal, window=window, segment_ids=seg)[:, 0]
+    mask = torch.nn.functional.pad(mask, (0, 64 * nkb - S, 0, 64 * nqb - T))
+    attended = mask.view(mask.shape[0], nqb, 64, nkb, 64).any(dim=4).any(dim=2)
+    assert not (attended & ~live).any()
+    if ids == 97 and T == S == 512 and causal and window is None:
+        assert live.sum((1, 2)).tolist() == [17] * B and int(band.sum()) == 36
+    if ids == "random" or seg is None:  # nothing to skip beyond the band
+        assert torch.equal(live, band.expand_as(live))
+
+
+def test_flash_benchmark_refuses_to_time_without_a_card(monkeypatch):
+    """The kernel benchmark fails without CUDA instead of timing the CPU."""
+    from genomics_lm_torch.training import benchmark_flash
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        benchmark_flash.main()
+
+
 def test_wrapper_checks_contract():
     q, k, v, seg, _ = (None if a is None else torch.from_numpy(a)
                        for a in make_case(dict(seg=True), seed=6))
