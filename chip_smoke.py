@@ -13,7 +13,7 @@ exits non-zero:
 2. build   — compiles every kernel of the serving and training paths from
    ``csrc/`` with nvcc for sm_90a (one nvcc per source, all started
    together); logs the registers and spills of each bf16 tensor-core
-   flash kernel.
+   kernel (flash forward, dQ and dK/dV; verify chunk).
 3. kernel  — the decode-attention kernel against its plain PyTorch version
    on the card at the serving shapes (bf16 and int8 caches, MHA and GQA,
    off-grid and unvectorizable shapes), then its time beside its bound,
@@ -47,9 +47,17 @@ exits non-zero:
    and batch; loss, gradients and updated parameters agree.
 10. chunk  — the verify-chunk kernel against its plain version at the
    speculative shape (T 5 queries per slot over a 384-position cache, bf16
-   and int8), GQA, T 1 and T 8, an off-grid cache, D 20, and a mask with a
-   segment gap under the intra-chunk staircase; then its time beside its
-   bound, the plain version's time and one library call's.
+   and int8, random lengths and every slot full), GQA, T 1 and T 8, an
+   off-grid cache, D 20, a mask with a segment gap under the intra-chunk
+   staircase, and 32 rows at D 128 over int8; the bf16-query kernel held to
+   a bound per output element, which a skipped live tile and another slot's
+   mask rows must exceed. Each case logs the cache tiles read
+   (``chunk_live_tiles``) beside the total. Then its times beside the bound
+   of the positions its mask needs (also logged: the full-cache bound and
+   the bound of the tiles read), the plain version's time and one library
+   call's; with every slot full, also at batch 16, 128 and 512 (one kv head:
+   whole rows instead of head slices), S 768 and T 1, to show what bounds
+   the kernel.
 11. streamed — the split-S decode kernel against its plain version at the
    decode kernel's nine shapes, with a wholly masked first split, and with
    splits of 16 and 32 positions; its times at batch 64 and 256 (bf16 and
@@ -122,15 +130,26 @@ KERNEL_ATOL_REASON = (
     "(~1e-6 on outputs of order 1); an indexing or masking fault moves an "
     "output by order 1")
 
+# The bf16-query chunk kernel (tensor cores): a bound per output element.
+CHUNK_BF16_TOL = 2.0**-7
+CHUNK_BF16_TOL_REASON = (
+    "the kernel rounds each probability to bf16 (unit roundoff 2^-8) before P.V, where "
+    "the plain version keeps it float32; every other operand is the same rounded value "
+    "on both sides and every sum is float32. So output (r, d) moves by at most 2^-8 "
+    "times sum_j p_j |v_j| (v_j times its scale in int8, p normalized), the plain "
+    "version run on |V|; the bound allows twice that plus 1e-5 for the order of the "
+    "float32 sums. Checked to catch a skipped live tile and another slot's mask rows "
+    "(their errors over the bound are logged as fault_ratios and must exceed 1)")
+
 # Flash kernels: error over max(1, max |plain|) of each output.
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
 FLASH_TOL_REASON = (
     "kernel and plain version read the same rounded operands and the same Philox "
     "keep bits and accumulate in float32. float32 (SIMT kernels): only the order "
-    "of the sums differs (~1e-6 relative). bf16: the tensor-core forward and "
-    "dK/dV kernels round P and dS to bf16 before the second product, as "
-    "FlashAttention-2 does (the plain version keeps them float32), ~2^-9 "
-    "relative per term, and outputs round to bf16 (up to 2^-8 relative); "
+    "of the sums differs (~1e-6 relative). bf16: the tensor-core kernels round "
+    "P and dS to bf16 before the second product, as FlashAttention-2 does (the "
+    "plain version keeps them float32), at most 2^-8 relative per term, and "
+    "outputs round to bf16 (up to 2^-8 relative); "
     "together well under 2^-6 of the largest entry. A fault of indexing, "
     "masking, tile skipping or keep bits moves entries by much more: the "
     "float32 case at 1e-4 sees one flipped keep bit, and so does the bf16 case "
@@ -172,20 +191,32 @@ def phase_build() -> None:
             seconds=round(seconds, 2), instantiations=len(regs),
             max_registers=max(regs, default=None),
             spill_store_bytes=sum(spills))
-        if name == "flash_attention":
-            log("build_mma", **tensor_core_report(text))
+        if name in ("flash_attention", "decode_attention_chunk"):
+            log("build_mma", source=name, **tensor_core_report(text))
+
+
+def _mma_name(symbol: str) -> str | None:
+    """``kernel<template arguments>`` of a tensor-core kernel's mangled name."""
+    flash = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_mma_kernel)ILi(\d+)E", symbol)
+    if flash:
+        return f"{flash.group(1)}<{flash.group(2)}>"
+    chunk = re.search(r"(decode_attention_chunk_mma_kernel)ILi(\d+)ELi(\d+)ELb([01])E", symbol)
+    if chunk:
+        cache = "int8" if chunk.group(4) == "1" else "bf16"
+        return f"{chunk.group(1)}<{chunk.group(2)},{chunk.group(3)},{cache}>"
+    return None
 
 
 def tensor_core_report(text: str) -> dict:
-    """{kernel<DP>: {registers, spill_store_bytes}} of the bf16 tensor-core
-    flash kernels, read from the ``-Xptxas -v`` report."""
+    """{kernel<DP, ...>: {registers, spill_store_bytes}} of the bf16
+    tensor-core kernels (flash forward, dQ, dK/dV; verify chunk), read from
+    the ``-Xptxas -v`` report."""
     out, current = {}, None
     for line in text.splitlines():
         entry = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?"
                           r"(?: for|$)", line)
         if entry:
-            mma = re.search(r"(flash_(?:fwd|bwd_dkv)_mma_kernel)ILi(\d+)E", entry.group(1))
-            current = f"{mma.group(1)}<{mma.group(2)}>" if mma else None
+            current = _mma_name(entry.group(1))
             continue
         if current is None:
             continue
@@ -514,7 +545,7 @@ def phase_flash(peak_bw, peak_ops) -> dict:
         live = fa.flash_live_tiles(seg, t, s_len, causal, window)
         band = fa.flash_live_tiles(None, t, s_len, causal, window)
         tiles = dict(band_tiles=int(band.sum()) * b * hq)
-        # the bf16 forward and dK/dV skip dead tiles; the float32 kernels visit the band
+        # the bf16 kernels skip dead tiles; the float32 kernels visit the band
         tiles["tiles_visited"] = int(live.sum()) * hq if dtype == bf16 else tiles["band_tiles"]
         qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
         out = fa.flash_attention(qg, kg, vg, segment_ids=seg, attention_window=window,
@@ -581,11 +612,9 @@ def phase_flash(peak_bw, peak_ops) -> dict:
                               bound_by=bounds[key]["bound_by"],
                               library_ms=library["fwd" if key == "fwd" else "bwd"],
                               max_abs_err=err_of[key])
-            # the bf16 forward and dK/dV visit the live tiles; dQ the band
-            visits = tiles if key != "dq" else dict(tiles, tiles_visited=tiles["band_tiles"])
             log("flash_time", kernel=key, case=name, attended_pairs=pairs,
                 bytes=bounds[key]["bytes"], operations=bounds[key]["operations"],
-                **timed[key], **visits, roofline_share=bounds[key]["bound_ms"] / ms)
+                **timed[key], **tiles, roofline_share=bounds[key]["bound_ms"] / ms)
     return timed
 
 
@@ -681,14 +710,17 @@ def phase_train_parity() -> None:
 # --- phase 10: the verify-chunk kernel against its plain version -----------------
 
 
-def chunk_case(gen, L, B, S, Hkv, G, T, D, cache_dtype, q_dtype, gap=False):
+def chunk_case(gen, L, B, S, Hkv, G, T, D, cache_dtype, q_dtype, gap=False, full=False):
     """Random packed caches, a (B, Hq, T, D) chunk query and the verify's
     (B, T, S) mask: row t attends positions below length + t + 1 (the
-    intra-chunk staircase); ``gap`` blocks a segment below every length."""
+    intra-chunk staircase); ``gap`` blocks a segment below every length;
+    ``full`` puts every slot at length S - T, so no cache tile is dead."""
     dev = "cuda"
     _, k, v, _, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype)
     q = torch.randn((B, Hkv * G, T, D), generator=gen, device=dev).to(q_dtype)
     lengths = torch.randint(1, S - T + 1, (B,), generator=gen, device=dev)
+    if full:
+        lengths.fill_(S - T)
     pos = torch.arange(S, device=dev)
     valid = pos[None, None, :] < (lengths[:, None] + torch.arange(T, device=dev) + 1)[:, :, None]
     if gap:
@@ -699,27 +731,71 @@ def chunk_case(gen, L, B, S, Hkv, G, T, D, cache_dtype, q_dtype, gap=False):
     return q, k, v, mask, ks, vs
 
 
+def chunk_bound(q, k, v, mask, layer, ks, vs, Hkv):
+    """Per-element bound on |bf16 chunk kernel - plain version| (see
+    ``CHUNK_BF16_TOL_REASON``): ``CHUNK_BF16_TOL`` times the row's
+    sum_j p_j |v_j| (v_j times its scale for an int8 cache), plus 1e-5."""
+    mag = da.decode_attention_chunk_reference(q, k, v.abs(), mask, layer, ks, vs, kv_heads=Hkv)
+    return CHUNK_BF16_TOL * mag + 1e-5
+
+
+def chunk_fault_ratios(q, k, v, mask, ks, vs, Hkv) -> dict:
+    """How far two faults the bound must catch move the plain version on
+    layer 0, as the largest ratio of error to ``chunk_bound`` (> 1: caught):
+    the first live tile of every slot that has two skipped, and each slot
+    given the previous slot's mask rows. None where the case has no such
+    fault (every slot one live tile, or every slot the same mask)."""
+    want = da.decode_attention_chunk_reference(q, k, v, mask, 0, ks, vs, kv_heads=Hkv)
+    bound = chunk_bound(q, k, v, mask, 0, ks, vs, Hkv)
+    live = da.chunk_live_tiles(mask)
+    skipped = mask.clone()
+    for b in range(mask.shape[0]):
+        tiles = torch.nonzero(live[b]).flatten().tolist()
+        if len(tiles) >= 2:
+            j0 = tiles[0] * da.CHUNK_TILE
+            skipped[b, :, j0:j0 + da.CHUNK_TILE] = da.NEG_INF
+    out = {}
+    for fault, m in (("skipped_live_tile", skipped), ("other_slot_mask", mask.roll(1, 0))):
+        if torch.equal(m, mask):
+            out[fault] = None
+            continue
+        got = da.decode_attention_chunk_reference(q, k, v, m, 0, ks, vs, kv_heads=Hkv)
+        out[fault] = float(((got - want).abs() / bound).max())
+    return out
+
+
 def phase_chunk(peak_bw, peak_ops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     S_spec = 384  # ENGINE's cache with K+1 = 5 positions of headroom, rounded to 128
     cases = [
-        # name, L, B, S, Hkv, G, T, D, cache dtype, q dtype, gap, timed
-        ("main_bf16", 10, 64, S_spec, 8, 1, 5, 48, bf16, bf16, False, True),
-        ("main_int8", 10, 64, S_spec, 8, 1, 5, 48, i8, bf16, False, True),
-        ("gqa4_bf16", 4, 64, S_spec, 2, 4, 5, 48, bf16, bf16, False, False),
-        ("t1_bf16", 2, 64, S_spec, 8, 1, 1, 48, bf16, bf16, False, False),
-        ("t8_bf16", 2, 64, S_spec, 8, 1, 8, 48, bf16, bf16, False, False),
-        ("t8_gqa4_int8", 2, 16, S_spec, 2, 4, 8, 48, i8, bf16, False, False),
-        ("offgrid_s130_b5", 2, 5, 130, 8, 1, 5, 48, bf16, bf16, False, False),
-        ("d20_f32", 2, 5, 130, 2, 2, 5, 20, f32, f32, False, False),
-        ("scalar_loads_d20_bf16", 2, 3, 77, 2, 2, 5, 20, bf16, bf16, False, False),
-        ("segment_gap_staircase", 2, 8, 256, 8, 1, 5, 48, bf16, bf16, True, False),
+        # name, L, B, S, Hkv, G, T, D, cache dtype, q dtype, gap, full, timed
+        ("main_bf16", 10, 64, S_spec, 8, 1, 5, 48, bf16, bf16, False, False, True),
+        ("main_int8", 10, 64, S_spec, 8, 1, 5, 48, i8, bf16, False, False, True),
+        ("full_bf16", 10, 64, S_spec, 8, 1, 5, 48, bf16, bf16, False, True, True),
+        ("full_int8", 10, 64, S_spec, 8, 1, 5, 48, i8, bf16, False, True, True),
+        # what bounds the kernel: fewer and more blocks than a wave, the same
+        # bytes as whole rows of one kv head, twice the cache, one query a slot
+        ("full_b16_bf16", 10, 16, S_spec, 8, 1, 5, 48, bf16, bf16, False, True, True),
+        ("full_b128_bf16", 10, 128, S_spec, 8, 1, 5, 48, bf16, bf16, False, True, True),
+        ("full_rows_b512_bf16", 10, 512, S_spec, 1, 1, 5, 48, bf16, bf16, False, True, True),
+        ("full_s768_bf16", 10, 64, 768, 8, 1, 5, 48, bf16, bf16, False, True, True),
+        ("full_t1_bf16", 10, 64, S_spec, 8, 1, 1, 48, bf16, bf16, False, True, True),
+        ("gqa4_bf16", 4, 64, S_spec, 2, 4, 5, 48, bf16, bf16, False, False, False),
+        ("t1_bf16", 2, 64, S_spec, 8, 1, 1, 48, bf16, bf16, False, False, False),
+        ("t8_bf16", 2, 64, S_spec, 8, 1, 8, 48, bf16, bf16, False, False, False),
+        ("t8_gqa4_int8", 2, 16, S_spec, 2, 4, 8, 48, i8, bf16, False, False, False),
+        ("offgrid_s130_b5", 2, 5, 130, 8, 1, 5, 48, bf16, bf16, False, False, False),
+        ("d20_f32", 2, 5, 130, 2, 2, 5, 20, f32, f32, False, False, False),
+        ("scalar_loads_d20_bf16", 2, 3, 77, 2, 2, 5, 20, bf16, bf16, False, False, False),
+        ("segment_gap_staircase", 2, 8, 256, 8, 1, 5, 48, bf16, bf16, True, False, False),
+        ("d128_r32_int8", 2, 8, 200, 1, 4, 8, 128, i8, bf16, True, False, False),
     ]
     timed = {}
-    for name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, is_timed in cases:
-        q, k, v, mask, ks, vs = chunk_case(gen, L, B, S, Hkv, G, T, D, cdt, qdt, gap)
-        err = 0.0
+    for name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full, is_timed in cases:
+        q, k, v, mask, ks, vs = chunk_case(gen, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full)
+        tensor_core = qdt == bf16
+        err = ratio = 0.0
         for layer in range(L):
             got = da.decode_attention_chunk(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
             want = da.decode_attention_chunk_reference(q, k, v, mask, layer, ks, vs,
@@ -727,13 +803,28 @@ def phase_chunk(peak_bw, peak_ops) -> dict:
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"chunk {name}: non-finite kernel output")
-            err = max(err, float((got - want).abs().max()))
+            diff = (got - want).abs()
+            err = max(err, float(diff.max()))
+            bound = (chunk_bound(q, k, v, mask, layer, ks, vs, Hkv) if tensor_core
+                     else KERNEL_ATOL)
+            ratio = max(ratio, float((diff / bound).max()))
+        live = da.chunk_live_tiles(mask)
+        tiles = dict(tiles_read=int(live.sum()) * Hkv, tiles_total=live.numel() * Hkv)
+        check = (dict(tol=f"{CHUNK_BF16_TOL} * sum_j p_j |v_j| + 1e-5",
+                      tol_reason=CHUNK_BF16_TOL_REASON,
+                      fault_ratios=chunk_fault_ratios(q, k, v, mask, ks, vs, Hkv))
+                 if tensor_core else dict(tol=KERNEL_ATOL, tol_reason=KERNEL_ATOL_REASON))
         log("chunk", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, T=T, D=D),
-            cache=str(cdt).removeprefix("torch."), segment_gap=gap, max_abs_err=err,
-            tol=KERNEL_ATOL, tol_reason=KERNEL_ATOL_REASON)
-        if err > KERNEL_ATOL:
+            cache=str(cdt).removeprefix("torch."), query=str(qdt).removeprefix("torch."),
+            segment_gap=gap, full=full, **tiles, max_abs_err=err, err_over_bound=ratio,
+            **check)
+        if ratio > 1.0:
             raise AssertionError(f"chunk {name}: kernel disagrees with its plain version "
-                                 f"({err} > {KERNEL_ATOL})")
+                                 f"(error {ratio} x its bound)")
+        if tensor_core and any(r is not None and r <= 1.0
+                               for r in check["fault_ratios"].values()):
+            raise AssertionError(f"chunk {name}: the bound would miss a fault "
+                                 f"{check['fault_ratios']}")
         if not is_timed:
             continue
         quant = ks is not None
@@ -756,13 +847,26 @@ def phase_chunk(peak_bw, peak_ops) -> dict:
                         q, kl, vl, attn_mask=am, enable_gqa=True)
 
             library_ms = median_ms(sweep_library) / L
-        b_ms, b_by, nbytes = decode_bound_ms(B, S, Hkv, G, D, k.element_size(),
-                                             q.element_size(), quant, peak_bw, peak_ops, T=T)
+        # the bound of what the mask needs (positions live in some row) goes
+        # into the kernels line; the full cache's and that of the tiles the
+        # kernel reads (whole tiles) are logged beside it
+        needed = int((mask > 0.5 * da.NEG_INF).any(dim=1).sum())
+        sizes = (S - torch.arange(live.shape[1], device=live.device) * da.CHUNK_TILE
+                 ).clamp_max(da.CHUNK_TILE)
+        read = int((live * sizes).sum())
+        bound = {key: decode_bound_ms(B, S, Hkv, G, D, k.element_size(), q.element_size(),
+                                      quant, peak_bw, peak_ops, T=T, positions=positions)
+                 for key, positions in (("needed", needed), ("full", None), ("read", read))}
+        b_ms, b_by, nbytes = bound["needed"]
         timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                            library_ms=library_ms, max_abs_err=err)
-        log("chunk_time", case=name, bytes=nbytes, **timed[name],
+        log("chunk_time", case=name, bytes=nbytes, positions_needed=needed,
+            positions_read=read, **tiles, **timed[name],
+            full_bound_ms=bound["full"][0], live_bound_ms=bound["read"][0],
             achieved_gb_per_s=nbytes / (kernel_ms * 1e-3) / 1e9,
-            roofline_share=b_ms / kernel_ms)
+            roofline_share=b_ms / kernel_ms,
+            full_roofline_share=bound["full"][0] / kernel_ms,
+            live_roofline_share=bound["read"][0] / kernel_ms)
     return timed
 
 
@@ -999,10 +1103,8 @@ def main() -> int:
     }]
     tensor_core = ("bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix), cp.async double "
                    "buffering, band-and-segment tile skipping; float32: SIMT")
-    for key, wrapper, line, design in (
-            ("fwd", fa.flash_fwd, 206, tensor_core),
-            ("dq", fa.flash_bwd_dq, 365, "SIMT float32 multiply-adds, both types"),
-            ("dkv", fa.flash_bwd_dkv, 390, tensor_core)):
+    for key, wrapper, line in (("fwd", fa.flash_fwd, 206), ("dq", fa.flash_bwd_dq, 365),
+                               ("dkv", fa.flash_bwd_dkv, 390)):
         kernels.append({
             "name": wrapper.__name__,
             "route": "cuda",
@@ -1010,7 +1112,7 @@ def main() -> int:
             "replaces": f"genomics_lm_tpu/ops/flash_attention.py:{line}",
             "launches": trained[wrapper.__name__],
             **flash_timed[key],
-            "design": design,
+            "design": tensor_core,
         })
     kernels.append({
         "name": "decode_attention_chunk",
@@ -1020,6 +1122,11 @@ def main() -> int:
         "launches": spec_served["launches"],
         **chunk_timed["main_bf16"],
         "int8": dict(chunk_timed["main_int8"], launches=spec_served["launches_int8"]),
+        "full": chunk_timed["full_bf16"],
+        "full_int8": chunk_timed["full_int8"],
+        "design": ("bf16 query, bf16 or int8 cache: tensor-core tiles (mma.sync m16n8k16, "
+                   "ldmatrix), one pass with an online softmax, three cp.async stages, only "
+                   "cache tiles with a live mask position read; float32 query: SIMT"),
     })
     st = streamed["timed"]
     kernels.append({

@@ -15,26 +15,31 @@
 // attended pairs ~24k per head-batch, so the least time is set by
 // device-memory bytes (a few microseconds), not by the tensor cores. What a
 // kernel loses beyond that comes from instruction issue (SIMT multiply-adds,
-// per-element loads), from copies that do not overlap the math, and from
-// tiles it computes for nothing.
+// per-element loads), from copies that do not overlap the math, from tiles
+// it computes for nothing, and, once those are gone, from the latency of
+// each block's chain of loads and per-score work.
 //
-// Two designs live here.
+// Two designs live here: one for bfloat16, one for float32.
 //
-// bfloat16 forward and dK/dV (flash_fwd_mma_kernel, flash_bwd_dkv_mma_kernel):
+// bfloat16, all three kernels (flash_fwd_mma_kernel, flash_bwd_dq_mma_kernel,
+// flash_bwd_dkv_mma_kernel):
 // - Products on the tensor cores: mma.sync m16n8k16 bf16 -> f32, operands
 //   fetched by ldmatrix (transposed where the product needs it) from bf16
 //   tiles in shared memory with rows padded by 16 bytes (no bank conflicts).
 //   D is padded to DP, a multiple of 16, with zeros; the kernels are
-//   templated on DP. 128 threads: each of 4 warps owns 16 query rows (forward)
-//   or 16 keys (dK/dV).
+//   templated on DP. 128 threads: each of 4 warps owns 16 query rows
+//   (forward, dQ) or 16 keys (dK/dV).
 // - Accumulators stay in registers (FlashAttention-2): the forward keeps Q's
 //   fragments, S, the online softmax and O in registers, and feeds P to
-//   P.V as an A operand straight from the S accumulator. dK/dV computes the
-//   transposed products S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are
-//   A operands of dV += Pd^T dO and dK += dS^T Q without leaving registers;
-//   K and V fragments are held for the whole loop (DP <= 64) and the
-//   queries run in passes of 32 (DP <= 64) or 16 rows to bound registers.
-//   P and dS enter the second product rounded to bf16, as in
+//   P.V as an A operand straight from the S accumulator. dQ holds Q's and
+//   dO's fragments, computes S = Q K^T and dP = dO V^T per key tile, and
+//   feeds dS to dQ += dS K the same way, with K's B operand by ldmatrix
+//   .trans; at DP > 64 it takes each key tile in two passes of 32 keys to
+//   bound registers. dK/dV computes the transposed products S^T = K Q^T and
+//   dP^T = V dO^T, so P^T and dS^T are A operands of dV += Pd^T dO and
+//   dK += dS^T Q without leaving registers; K and V fragments are held for
+//   the whole loop (DP <= 64) and the queries run in passes of 32 (DP <= 64)
+//   or 16 rows. P and dS enter the second product rounded to bf16, as in
 //   FlashAttention-2 (the JAX kernels keep them float32).
 // - Few instructions per score: the masks become one [lo, hi] range per row
 //   and tile plus a segment compare, with no branches; scores are kept in
@@ -45,7 +50,8 @@
 //   dropout to show it).
 // - Copies are asynchronous: 16-byte cp.async (when D % 8 == 0 and rows are
 //   16-byte aligned; plain loads otherwise) into two stages, so the next
-//   tile (K/V forward, Q/dO/LSE/delta dK/dV) loads while this one computes.
+//   tile (K/V forward and dQ, Q/dO/LSE/delta dK/dV) loads while this one
+//   computes.
 //   Rows past T or S are zero-filled by the copy itself.
 // - Tiles are skipped unless they lie in the causal/window band AND the
 //   segment-id ranges of their query and key rows overlap. At its start a
@@ -58,10 +64,10 @@
 //   (eight Philox calls per thread), into a 512-byte bit mask in shared
 //   memory that the fragment owners read.
 //
-// dQ (both types) and every float32 kernel keep the first, SIMT design: the
-// tensor cores have no exact float32 path (TF32 would break the 1e-4 float32
-// checks and the float32 card-vs-CPU training step), and dQ's redesign is
-// separate work. Tiles of 64 query rows x 64 keys, 256 threads as 16 x 16; a
+// float32, all three kernels, keep the first, SIMT design: the tensor cores
+// have no exact float32 path (TF32 would break the 1e-4 float32 checks and
+// the float32 card-vs-CPU training step). They visit every tile of the band.
+// Tiles of 64 query rows x 64 keys, 256 threads as 16 x 16; a
 // thread owns the score elements of rows ty + 16a (a < 4) and keys 4tx + b
 // (b < 4) and the output elements of rows ty + 16a and head dims tx + 16c
 // (c < NC = ceil(D / 16)); operands are converted to float32 in shared
@@ -81,7 +87,6 @@
 
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -93,18 +98,6 @@ constexpr int kThreads = 256;
 constexpr int kLDT = kBK + 4;  // row length of a transposed (D x 64) tile
 constexpr int kLDP = kBK + 1;  // row length of a (64 x 64) score tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Philox-4x32-10 (Salmon et al., SC'11).
 __device__ __forceinline__ uint4 philox(uint4 c, uint2 k) {
@@ -172,27 +165,25 @@ __device__ __forceinline__ bool attends(const Params& p, int i, int j, int qseg,
   return p.seg == nullptr || qseg == kseg;
 }
 
-// rows x D tile of (B, H, len, D) tensor `src` (head row `head`) from row r0
-// into shared memory, row-major with row length ld, times `mul`; rows past
-// `len` are zero.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, size_t head,
+// rows x D tile of (B, H, len, D) float32 tensor `src` (head row `head`) from
+// row r0 into shared memory, row-major with row length ld, times `mul`; rows
+// past `len` are zero.
+__device__ __forceinline__ void load_rows(float* dst, int ld, const void* src, size_t head,
                                           int r0, int rows, int len, int D, float mul) {
-  const T* base = src + head * static_cast<size_t>(len) * D;
+  const float* base = static_cast<const float*>(src) + head * static_cast<size_t>(len) * D;
   for (int e = threadIdx.x; e < rows * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
-    dst[r * ld + d] = r0 + r < len ? to_f32(base[static_cast<size_t>(r0 + r) * D + d]) * mul : 0.f;
+    dst[r * ld + d] = r0 + r < len ? base[static_cast<size_t>(r0 + r) * D + d] * mul : 0.f;
   }
 }
 
 // The same, transposed: dst[d * kLDT + r].
-template <typename T>
-__device__ __forceinline__ void load_rows_t(float* dst, const T* src, size_t head, int r0,
+__device__ __forceinline__ void load_rows_t(float* dst, const void* src, size_t head, int r0,
                                             int rows, int len, int D) {
-  const T* base = src + head * static_cast<size_t>(len) * D;
+  const float* base = static_cast<const float*>(src) + head * static_cast<size_t>(len) * D;
   for (int e = threadIdx.x; e < rows * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
-    dst[d * kLDT + r] = r0 + r < len ? to_f32(base[static_cast<size_t>(r0 + r) * D + d]) : 0.f;
+    dst[d * kLDT + r] = r0 + r < len ? base[static_cast<size_t>(r0 + r) * D + d] : 0.f;
   }
 }
 
@@ -229,7 +220,7 @@ __device__ __forceinline__ bool kept(const uint4& w, int b, uint32_t threshold) 
 
 // --- forward ------------------------------------------------------------------
 
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D, ldq = D + 1;
@@ -247,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const size_t khead = static_cast<size_t>(b) * p.Hkv + h / G;
   const uint32_t seed = p.dropout ? static_cast<uint32_t>(p.seed[0]) : 0u;
 
-  load_rows(qs, ldq, static_cast<const T*>(p.q), qhead, i0, kBQ, p.T, D, p.scale);
+  load_rows(qs, ldq, p.q, qhead, i0, kBQ, p.T, D, p.scale);
   for (int r = tid; r < kBQ; r += kThreads)
     qseg[r] = (p.seg != nullptr && i0 + r < p.T) ? p.seg[static_cast<size_t>(b) * p.S + (p.S - p.T) + i0 + r] : 0;
 
@@ -265,8 +256,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int kb = lo; kb < hi; ++kb) {
     const int j0 = kb * kBK;
     __syncthreads();  // the previous tile is no longer read
-    load_rows_t(kt, static_cast<const T*>(p.k), khead, j0, kBK, p.S, D);
-    load_rows(vs, D, static_cast<const T*>(p.v), khead, j0, kBK, p.S, D, 1.f);
+    load_rows_t(kt, p.k, khead, j0, kBK, p.S, D);
+    load_rows(vs, D, p.v, khead, j0, kBK, p.S, D, 1.f);
     for (int r = tid; r < kBK; r += kThreads)
       kseg[r] = (p.seg != nullptr && j0 + r < p.S) ? p.seg[static_cast<size_t>(b) * p.S + j0 + r] : 0;
     __syncthreads();
@@ -327,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     }
   }
 
-  T* out = static_cast<T*>(p.out) + qhead * static_cast<size_t>(p.T) * D;
+  float* out = static_cast<float*>(p.out) + qhead * static_cast<size_t>(p.T) * D;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = i0 + ty + 16 * a;
@@ -336,7 +327,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) out[static_cast<size_t>(i) * D + d] = from_f32<T>(acc[a][c] / l_safe);
+      if (d < D) out[static_cast<size_t>(i) * D + d] = acc[a][c] / l_safe;
     }
     if (tx == 0) p.lse_out[qhead * p.T + i] = m[a] + logf(l_safe);
   }
@@ -344,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 
 // --- backward: dQ ---------------------------------------------------------------
 
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D, ldq = D + 1;
@@ -363,8 +354,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const size_t khead = static_cast<size_t>(b) * p.Hkv + h / G;
   const uint32_t seed = p.dropout ? static_cast<uint32_t>(p.seed[0]) : 0u;
 
-  load_rows(qs, ldq, static_cast<const T*>(p.q), qhead, i0, kBQ, p.T, D, 1.f);
-  load_rows(dos, ldq, static_cast<const T*>(p.dout), qhead, i0, kBQ, p.T, D, 1.f);
+  load_rows(qs, ldq, p.q, qhead, i0, kBQ, p.T, D, 1.f);
+  load_rows(dos, ldq, p.dout, qhead, i0, kBQ, p.T, D, 1.f);
   for (int r = tid; r < kBQ; r += kThreads)
     qseg[r] = (p.seg != nullptr && i0 + r < p.T) ? p.seg[static_cast<size_t>(b) * p.S + (p.S - p.T) + i0 + r] : 0;
   float lse[4], delta[4], dq[4][NC];
@@ -382,8 +373,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   for (int kb = lo; kb < hi; ++kb) {
     const int j0 = kb * kBK;
     __syncthreads();
-    load_rows_t(kt, static_cast<const T*>(p.k), khead, j0, kBK, p.S, D);
-    load_rows_t(vt, static_cast<const T*>(p.v), khead, j0, kBK, p.S, D);
+    load_rows_t(kt, p.k, khead, j0, kBK, p.S, D);
+    load_rows_t(vt, p.v, khead, j0, kBK, p.S, D);
     for (int r = tid; r < kBK; r += kThreads)
       kseg[r] = (p.seg != nullptr && j0 + r < p.S) ? p.seg[static_cast<size_t>(b) * p.S + j0 + r] : 0;
     __syncthreads();
@@ -424,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
     }
   }
 
-  T* out = static_cast<T*>(p.out) + qhead * static_cast<size_t>(p.T) * D;
+  float* out = static_cast<float*>(p.out) + qhead * static_cast<size_t>(p.T) * D;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = i0 + ty + 16 * a;
@@ -432,14 +423,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) out[static_cast<size_t>(i) * D + d] = from_f32<T>(p.scale * dq[a][c]);
+      if (d < D) out[static_cast<size_t>(i) * D + d] = p.scale * dq[a][c];
     }
   }
 }
 
 // --- backward: dK and dV ----------------------------------------------------------
 
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D, ldq = D + 1;
@@ -460,8 +451,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   const size_t khead = static_cast<size_t>(b) * p.Hkv + hk;
   const uint32_t seed = p.dropout ? static_cast<uint32_t>(p.seed[0]) : 0u;
 
-  load_rows_t(kt, static_cast<const T*>(p.k), khead, j0, kBK, p.S, D);
-  load_rows_t(vt, static_cast<const T*>(p.v), khead, j0, kBK, p.S, D);
+  load_rows_t(kt, p.k, khead, j0, kBK, p.S, D);
+  load_rows_t(vt, p.v, khead, j0, kBK, p.S, D);
   for (int r = tid; r < kBK; r += kThreads)
     kseg[r] = (p.seg != nullptr && j0 + r < p.S) ? p.seg[static_cast<size_t>(b) * p.S + j0 + r] : 0;
 
@@ -479,8 +470,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
     for (int qb = lo; qb < hi; ++qb) {
       const int i0 = qb * kBQ;
       __syncthreads();
-      load_rows(qs, ldq, static_cast<const T*>(p.q), qhead, i0, kBQ, p.T, D, 1.f);
-      load_rows(dos, ldq, static_cast<const T*>(p.dout), qhead, i0, kBQ, p.T, D, 1.f);
+      load_rows(qs, ldq, p.q, qhead, i0, kBQ, p.T, D, 1.f);
+      load_rows(dos, ldq, p.dout, qhead, i0, kBQ, p.T, D, 1.f);
       for (int r = tid; r < kBQ; r += kThreads) {
         const bool in = i0 + r < p.T;
         lse_s[r] = in ? p.lse[qhead * p.T + i0 + r] : 0.f;
@@ -533,8 +524,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 
   const size_t base = khead * static_cast<size_t>(p.S) * D;
-  T* dk_out = static_cast<T*>(p.dk) + base;
-  T* dv_out = static_cast<T*>(p.dv) + base;
+  float* dk_out = static_cast<float*>(p.dk) + base;
+  float* dv_out = static_cast<float*>(p.dv) + base;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int j = j0 + ty + 16 * a;
@@ -543,8 +534,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
       if (d < D) {
-        dk_out[static_cast<size_t>(j) * D + d] = from_f32<T>(p.scale * dk[a][c]);
-        dv_out[static_cast<size_t>(j) * D + d] = from_f32<T>(dv[a][c]);
+        dk_out[static_cast<size_t>(j) * D + d] = p.scale * dk[a][c];
+        dv_out[static_cast<size_t>(j) * D + d] = dv[a][c];
       }
     }
   }
@@ -636,6 +627,8 @@ __device__ __forceinline__ void mark_live(uint8_t* live, int lo, int hi, int2 ow
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
 // Shared layout of the bf16 kernels: bf16 tiles of 64 rows x (DP + 8), then
 // 32-bit rows of 64 (segment ids, LSE, delta), the keep masks, and one byte
 // per tile of the band (the live flags).
@@ -643,45 +636,63 @@ template <int DP>
 struct MmaTiles {
   static constexpr int ld = DP + 8;
   static constexpr int tile = kBQ * ld;  // elements of one tile
-  static constexpr int fwd_tiles = 5;    // Q, K x 2, V x 2
-  static constexpr int dkv_tiles = 6;    // K, V, Q x 2, dO x 2
-  static constexpr int fwd_rows = 3;     // qseg, kseg x 2
-  static constexpr int dkv_rows = 7;     // lse x 2, delta x 2, qseg x 2, kseg
+  // forward: Q, K x 2, V x 2; dQ: Q, dO, K x 2, V x 2; dK/dV: K, V, Q x 2, dO x 2
+  __host__ __device__ static constexpr int tiles(Kind kind) { return kind == kFwd ? 5 : 6; }
+  // forward: qseg, kseg x 2; dQ: lse, delta, qseg, kseg x 2;
+  // dK/dV: lse x 2, delta x 2, qseg x 2, kseg
+  __host__ __device__ static constexpr int rows(Kind kind) {
+    return kind == kFwd ? 3 : kind == kDq ? 5 : 7;
+  }
   static constexpr int keep_words = 2 * 2 * kBQ;
-  static constexpr size_t bytes(bool fwd, int flags) {
-    return (fwd ? fwd_tiles : dkv_tiles) * tile * sizeof(__nv_bfloat16) +
-           ((fwd ? fwd_rows : dkv_rows) * kBQ + keep_words) * sizeof(int) +
-           (flags + 15) / 16 * 16;
+  static constexpr size_t bytes(Kind kind, int flags) {
+    return tiles(kind) * tile * sizeof(__nv_bfloat16) +
+           (rows(kind) * kBQ + keep_words) * sizeof(int) + (flags + 15) / 16 * 16;
   }
 };
 
-// Fragment addresses inside a tile of row length LD, for lane l of a warp.
-// A operand (16 rows from r0, k16 from k0), or with .trans the B operand of
-// a (k16 rows from r0) x (two n8 column tiles from k0) product:
-template <int LD>
-__device__ __forceinline__ const __nv_bfloat16* frag_a(const __nv_bfloat16* t, int r0, int k0) {
-  const int l = threadIdx.x & 31;
-  return t + (r0 + (l & 7) + ((l >> 3) & 1) * 8) * LD + k0 + ((l >> 4) & 1) * 8;
-}
-// B operand of two n8 tiles (rows r0 .. r0 + 15 of the tile) at k16 from k0:
-template <int LD>
-__device__ __forceinline__ const __nv_bfloat16* frag_b(const __nv_bfloat16* t, int r0, int k0) {
-  const int l = threadIdx.x & 31;
-  return t + (r0 + (l & 7) + ((l >> 4) & 1) * 8) * LD + k0 + ((l >> 3) & 1) * 8;
-}
-
 // Blocks per SM the register budget is cut for. The forward at padded
 // D <= 64 is held to 168 registers (3 blocks of 128 threads per SM) with no
-// spills; 4 blocks (128 registers) spill. The dK/dV kernel needs ~245
-// registers there, so it runs 2 blocks per SM; a tighter bound spills and
-// measured no faster.
+// spills; 4 blocks (128 registers) spill. The dQ and dK/dV kernels keep the
+// compiler's own choice (up to 255); dK/dV needs ~245 registers at D <= 64,
+// and a tighter bound spills and measured no faster.
 template <int DP>
-constexpr int mma_min_blocks(bool fwd) {
-  return DP <= 64 && fwd ? 3 : 1;
+constexpr int mma_min_blocks(Kind kind) {
+  return DP <= 64 && kind == kFwd ? 3 : 1;
 }
 
+// The key tiles one query tile streams, shared by the forward and dQ
+// kernels: the band [lo, hi) of key_band, walked over the tiles that
+// mark_live flagged, with K, V and the key segment ids of a tile copied into
+// one of two stages by cp.async.
 template <int DP>
-__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(true))
+struct KeyStream {
+  __nv_bfloat16 *ks, *vs;  // [2][64][ld] each
+  int* kseg;               // [2][64]
+  const uint8_t* live;     // [hi - lo]
+  const void *k, *v;
+  const int* seg;  // this batch row's ids, or nullptr (every band tile live)
+  size_t khead;
+  int S, D, lo, hi;
+  bool vec;
+
+  __device__ __forceinline__ int next_live(int kb) const {  // the first from kb that may attend
+    if (seg)
+      while (kb < hi && !live[kb - lo]) ++kb;
+    return kb;
+  }
+  __device__ __forceinline__ void load(int kb, int stage) const {  // always commits a group
+    constexpr int LD = MmaTiles<DP>::ld, TILE = MmaTiles<DP>::tile;
+    if (kb < hi) {
+      copy_rows(ks + stage * TILE, LD, k, khead, kb * kBK, S, D, vec);
+      copy_rows(vs + stage * TILE, LD, v, khead, kb * kBK, S, D, vec);
+      if (seg) copy_vals(kseg + stage * kBQ, seg, kb * kBK, S, 0);
+    }
+    cp_async_commit();
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(kFwd))
     flash_fwd_mma_kernel(Params p) {
   using L = MmaTiles<DP>;
   constexpr int LD = L::ld, TILE = L::tile, KS = DP / 16, NT = DP / 8;
@@ -707,7 +718,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(true))
   const float inv_keep = 1.f / p.keep_div;
 
   if (D < DP) {  // the padding columns must read as zeros
-    for (int e = threadIdx.x; e < L::fwd_tiles * TILE / 8; e += kMmaThreads)
+    for (int e = threadIdx.x; e < L::tiles(kFwd) * TILE / 8; e += kMmaThreads)
       reinterpret_cast<uint4*>(qs)[e] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
   }
@@ -720,21 +731,9 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(true))
   key_band(p, i0, lo, hi);
   if (seg) mark_live(live, lo, hi, seg_range(seg + q_offset, i0, p.T), seg, p.S);
   __syncthreads();
-  auto next_live = [&](int kb) {  // the first key tile from kb that may attend
-    if (seg)
-      while (kb < hi && !live[kb - lo]) ++kb;
-    return kb;
-  };
-  auto load_kv = [&](int kb, int stage) {  // always commits a group, maybe empty
-    if (kb < hi) {
-      copy_rows(ks + stage * TILE, LD, p.k, khead, kb * kBK, p.S, D, vec);
-      copy_rows(vs + stage * TILE, LD, p.v, khead, kb * kBK, p.S, D, vec);
-      if (seg) copy_vals(kseg + stage * kBQ, seg, kb * kBK, p.S, 0);
-    }
-    cp_async_commit();
-  };
-  int kb = next_live(lo);
-  load_kv(kb, 0);
+  const KeyStream<DP> kv{ks, vs, kseg, live, p.k, p.v, seg, khead, p.S, D, lo, hi, vec};
+  int kb = kv.next_live(lo);
+  kv.load(kb, 0);
   cp_async_wait<1>();  // Q has landed
   __syncthreads();
 
@@ -755,8 +754,8 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(true))
 
   for (int n = 0; kb < hi; ++n) {
     const int stage = n & 1, j0 = kb * kBK;
-    const int nxt = next_live(kb + 1);
-    load_kv(nxt, stage ^ 1);
+    const int nxt = kv.next_live(kb + 1);
+    kv.load(nxt, stage ^ 1);
     uint32_t* kp = keep + stage * 2 * kBQ;
     if (p.dropout) fill_keep(kp, seed, static_cast<int>(qhead), i0, j0, p.threshold);
     cp_async_wait<1>();  // this stage has landed
@@ -873,8 +872,184 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(true))
   }
 }
 
+// dQ of one 64-row query tile: the forward's loop shape (Q's and dO's
+// fragments held in registers, live key tiles streamed through two stages)
+// with three products per tile: S = Q K^T and dP = dO V^T, then dS, packed to
+// bf16 from the accumulators, as the A operand of dQ += dS K.
 template <int DP>
-__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(false))
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(kDq))
+    flash_bwd_dq_mma_kernel(Params p) {
+  using L = MmaTiles<DP>;
+  constexpr int LD = L::ld, TILE = L::tile, KS = DP / 16, NT = DP / 8;
+  constexpr int KC = DP <= 64 ? 64 : 32;  // keys per register pass
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [64][LD]
+  __nv_bfloat16* dos = qs + TILE;                                   // [64][LD]
+  __nv_bfloat16* ks = dos + TILE;                                   // [2][64][LD]
+  __nv_bfloat16* vs = ks + 2 * TILE;                                // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(vs + 2 * TILE);           // [64]
+  float* delta_s = lse_s + kBQ;                                     // [64]
+  int* qseg = reinterpret_cast<int*>(delta_s + kBQ);                // [64]
+  int* kseg = qseg + kBQ;                                           // [2][64]
+  uint32_t* keep = reinterpret_cast<uint32_t*>(kseg + 2 * kBQ);     // [2][64][2]
+  uint8_t* live = reinterpret_cast<uint8_t*>(keep + L::keep_words); // [hi - lo]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gr = lane >> 2, c = lane & 3;
+  const int qb = num_tiles(p.T, kBQ) - 1 - blockIdx.x;  // the longest rows first
+  const int i0 = qb * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int G = p.Hq / p.Hkv, D = p.D, q_offset = p.S - p.T;
+  const size_t qhead = static_cast<size_t>(b) * p.Hq + h;
+  const size_t khead = static_cast<size_t>(b) * p.Hkv + h / G;
+  const uint32_t seed = p.dropout ? static_cast<uint32_t>(p.seed[0]) : 0u;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + static_cast<size_t>(b) * p.S;
+  const bool vec = p.vec != 0;
+  const float sl2 = p.scale * kLog2e;
+  const float inv_keep = 1.f / p.keep_div;
+
+  if (D < DP) {
+    for (int e = threadIdx.x; e < L::tiles(kDq) * TILE / 8; e += kMmaThreads)
+      reinterpret_cast<uint4*>(qs)[e] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
+
+  copy_rows(qs, LD, p.q, qhead, i0, p.T, D, vec);
+  copy_rows(dos, LD, p.dout, qhead, i0, p.T, D, vec);
+  copy_vals(lse_s, p.lse + qhead * p.T, i0, p.T, 0);
+  copy_vals(delta_s, p.delta + qhead * p.T, i0, p.T, kBQ);
+  if (seg) copy_vals(qseg, seg + q_offset, i0, p.T, 0);
+  cp_async_commit();
+
+  int lo, hi;
+  key_band(p, i0, lo, hi);
+  if (seg) mark_live(live, lo, hi, seg_range(seg + q_offset, i0, p.T), seg, p.S);
+  __syncthreads();
+  const KeyStream<DP> kv{ks, vs, kseg, live, p.k, p.v, seg, khead, p.S, D, lo, hi, vec};
+  int kb = kv.next_live(lo);
+  kv.load(kb, 0);
+  cp_async_wait<1>();  // Q, dO, LSE, delta have landed
+  __syncthreads();
+
+  uint32_t qf[KS][4], df[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    ldmatrix_x4(qf[kk], frag_a<LD>(qs, 16 * warp, 16 * kk));
+    ldmatrix_x4(df[kk], frag_a<LD>(dos, 16 * warp, 16 * kk));
+  }
+  // rows gr and gr + 8 of the warp's 16: key position, segment, LSE (log2
+  // units), delta
+  int qpos[2], qsv[2];
+  float lse_l2[2], dlt[2];
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int r = 16 * warp + gr + 8 * e2;
+    qpos[e2] = i0 + r < p.T ? q_offset + i0 + r : -1;  // -1: past T, attends nothing
+    qsv[e2] = seg ? qseg[r] : 0;
+    lse_l2[e2] = lse_s[r] * kLog2e;
+    dlt[e2] = delta_s[r];
+  }
+
+  float dq[NT][4];
+#pragma unroll
+  for (int dt = 0; dt < NT; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+
+  for (int n = 0; kb < hi; ++n) {
+    const int stage = n & 1, j0 = kb * kBK;
+    const int nxt = kv.next_live(kb + 1);
+    kv.load(nxt, stage ^ 1);
+    uint32_t* kp = keep + stage * 2 * kBQ;
+    if (p.dropout) fill_keep(kp, seed, static_cast<int>(qhead), i0, j0, p.threshold);
+    cp_async_wait<1>();  // this stage has landed
+    __syncthreads();
+
+    const __nv_bfloat16* kt = ks + stage * TILE;
+    const __nv_bfloat16* vt = vs + stage * TILE;
+    const int* ksg = kseg + stage * kBQ;
+    int jlo[2], jhi[2];  // the keys jl row e2 attends lie in [jlo, jhi]
+    uint2 kw[2];         // its keep bits of this tile
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      jhi[e2] = min(p.S - j0, kBK) - 1;
+      if (p.causal) jhi[e2] = min(jhi[e2], qpos[e2] - j0);
+      if (qpos[e2] < 0) jhi[e2] = -1;
+      jlo[e2] = p.window > 0 ? qpos[e2] - j0 - p.window + 1 : INT_MIN;
+      kw[e2] = p.dropout ? *reinterpret_cast<const uint2*>(kp + 2 * (16 * warp + gr + 8 * e2))
+                         : make_uint2(0, 0);
+    }
+#pragma unroll
+    for (int kc = 0; kc < kBK; kc += KC) {
+      float s[KC / 8][4], dp[KC / 8][4];  // S and dP: 16 rows x KC keys
+#pragma unroll
+      for (int nt = 0; nt < KC / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < KC / 16; ++np) {
+          uint32_t bm[4];
+          ldmatrix_x4(bm, frag_b<LD>(kt, kc + 16 * np, 16 * kk));
+          mma_bf16(s[2 * np], qf[kk], bm[0], bm[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bm[2], bm[3]);
+          ldmatrix_x4(bm, frag_b<LD>(vt, kc + 16 * np, 16 * kk));
+          mma_bf16(dp[2 * np], df[kk], bm[0], bm[1]);
+          mma_bf16(dp[2 * np + 1], df[kk], bm[2], bm[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < KC / 8; ++nt) {
+        const int jb = kc + 8 * nt;  // this thread's keys jb + 2c, jb + 2c + 1
+        const int2 ksv = seg ? *reinterpret_cast<const int2*>(ksg + jb + 2 * c) : make_int2(0, 0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int e2 = e >> 1, jl = jb + 2 * c + (e & 1);
+          const bool ok = jl >= jlo[e2] && jl <= jhi[e2] && ((e & 1) ? ksv.y : ksv.x) == qsv[e2];
+          const float pr = ok ? exp2f(fmaf(s[nt][e], sl2, -lse_l2[e2])) : 0.f;
+          const uint32_t bit = ((jb < 32 ? kw[e2].x : kw[e2].y) >> (jl & 31)) & 1u;
+          const float pd = p.dropout ? (bit ? pr * inv_keep : 0.f) : pr;
+          s[nt][e] = pd * dp[nt][e] - pr * dlt[e2];  // dS
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {  // keys kc + 16kk ..: dS's A operand
+        const uint32_t da[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp2 = 0; dp2 < DP / 16; ++dp2) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, frag_a<LD>(kt, kc + 16 * kk, 16 * dp2));
+          mma_bf16(dq[2 * dp2], da, bk[0], bk[1]);
+          mma_bf16(dq[2 * dp2 + 1], da, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is read; the next iteration refills it
+    kb = nxt;
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + qhead * static_cast<size_t>(p.T) * D;
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int i = i0 + 16 * warp + gr + 8 * e2;
+    if (i >= p.T) continue;
+#pragma unroll
+    for (int dt = 0; dt < NT; ++dt) {
+      const int d = 8 * dt + 2 * c;
+      const float x0 = p.scale * dq[dt][2 * e2], x1 = p.scale * dq[dt][2 * e2 + 1];
+      __nv_bfloat16* dst = out + static_cast<size_t>(i) * D + d;
+      if (vec) {
+        if (d < D) *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (d < D) dst[0] = __float2bfloat16_rn(x0);
+        if (d + 1 < D) dst[1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(kDkv))
     flash_bwd_dkv_mma_kernel(Params p) {
   using L = MmaTiles<DP>;
   constexpr int LD = L::ld, TILE = L::tile, KS = DP / 16, NT = DP / 8;
@@ -903,7 +1078,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(false))
   const float inv_keep = 1.f / p.keep_div;
 
   if (D < DP) {
-    for (int e = threadIdx.x; e < L::dkv_tiles * TILE / 8; e += kMmaThreads)
+    for (int e = threadIdx.x; e < L::tiles(kDkv) * TILE / 8; e += kMmaThreads)
       reinterpret_cast<uint4*>(ks)[e] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
   }
@@ -1102,8 +1277,6 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(false))
 
 // --- launch -------------------------------------------------------------------------
 
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
-
 size_t smem_bytes(Kind kind, int D) {
   const size_t rows = static_cast<size_t>(kBQ) * (D + 1);  // one [64][D+1] tile
   const size_t tr = static_cast<size_t>(D) * kLDT;         // one [D][68] tile
@@ -1117,17 +1290,12 @@ size_t smem_bytes(Kind kind, int D) {
   return (floats + 2 * kBQ) * sizeof(float);  // + the two segment-id rows
 }
 
-// The SIMT kernels: all three in float32; in bf16 only dQ (the bf16 forward
-// and dK/dV run the tensor-core kernels).
-template <typename T, int NC>
+// The SIMT kernels, float32 only (bf16 runs the tensor-core kernels).
+template <int NC>
 int launch_nc(Kind kind, const Params& p, cudaStream_t stream) {
-  void (*kern)(Params) = flash_bwd_dq_kernel<T, NC>;
-  if constexpr (std::is_same<T, float>::value) {
-    if (kind == kFwd) kern = flash_fwd_kernel<T, NC>;
-    if (kind == kDkv) kern = flash_bwd_dkv_kernel<T, NC>;
-  } else if (kind != kDq) {
-    return -1;
-  }
+  void (*kern)(Params) = kind == kFwd ? flash_fwd_kernel<NC>
+                         : kind == kDq ? flash_bwd_dq_kernel<NC>
+                                       : flash_bwd_dkv_kernel<NC>;
   const size_t smem = smem_bytes(kind, p.D);
   // Opt in to more than 48 KB once per kernel instantiation: every D that
   // maps to this NC needs at most the shared memory of D = 16 * NC.
@@ -1147,34 +1315,34 @@ int launch_nc(Kind kind, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_t(Kind kind, const Params& p, cudaStream_t stream) {
+int launch_f32(Kind kind, const Params& p, cudaStream_t stream) {
   const int nc = (p.D + 15) / 16;
-  if (nc <= 1) return launch_nc<T, 1>(kind, p, stream);
-  if (nc <= 2) return launch_nc<T, 2>(kind, p, stream);
-  if (nc <= 3) return launch_nc<T, 3>(kind, p, stream);
-  if (nc <= 4) return launch_nc<T, 4>(kind, p, stream);
-  if (nc <= 6) return launch_nc<T, 6>(kind, p, stream);
-  if (nc <= 8) return launch_nc<T, 8>(kind, p, stream);
+  if (nc <= 1) return launch_nc<1>(kind, p, stream);
+  if (nc <= 2) return launch_nc<2>(kind, p, stream);
+  if (nc <= 3) return launch_nc<3>(kind, p, stream);
+  if (nc <= 4) return launch_nc<4>(kind, p, stream);
+  if (nc <= 6) return launch_nc<6>(kind, p, stream);
+  if (nc <= 8) return launch_nc<8>(kind, p, stream);
   return -1;
 }
 
-// The bf16 tensor-core forward or dK/dV kernel at padded head width DP.
+// The bf16 tensor-core kernel of `kind` at padded head width DP.
 template <int DP>
 int launch_mma_dp(Kind kind, const Params& p, cudaStream_t stream) {
-  const bool fwd = kind == kFwd;
-  void (*kern)(Params) = fwd ? flash_fwd_mma_kernel<DP> : flash_bwd_dkv_mma_kernel<DP>;
+  void (*kern)(Params) = kind == kFwd ? flash_fwd_mma_kernel<DP>
+                         : kind == kDq ? flash_bwd_dq_mma_kernel<DP>
+                                       : flash_bwd_dkv_mma_kernel<DP>;
   const int nqb = num_tiles(p.T, kBQ), nkb = num_tiles(p.S, kBK);
   // one live flag per tile of the other axis
-  const size_t smem = MmaTiles<DP>::bytes(fwd, fwd ? nkb : nqb);
-  static size_t opted_in[2] = {48 * 1024, 48 * 1024};  // per kernel instantiation
-  if (smem > opted_in[fwd]) {
+  const size_t smem = MmaTiles<DP>::bytes(kind, kind == kDkv ? nqb : nkb);
+  static size_t opted_in[3] = {48 * 1024, 48 * 1024, 48 * 1024};  // per kernel instantiation
+  if (smem > opted_in[kind]) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in[fwd] = smem;
+    opted_in[kind] = smem;
   }
-  const dim3 grid = fwd ? dim3(nqb, p.Hq, p.B) : dim3(nkb, p.Hkv, p.B);
+  const dim3 grid = kind == kDkv ? dim3(nkb, p.Hkv, p.B) : dim3(nqb, p.Hq, p.B);
   kern<<<grid, kMmaThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1200,10 +1368,8 @@ int launch(Kind kind, const Params& p, int dtype, cudaStream_t stream) {
   if (p.D < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || p.S < p.T || p.T < 1) return -1;
   if (p.dropout && p.seed == nullptr) return -1;
   switch (dtype) {
-    case 0: return launch_t<float>(kind, p, stream);
-    case 1:  // bf16: tensor-core forward and dK/dV; dQ keeps the SIMT kernel
-      return kind == kDq ? launch_t<__nv_bfloat16>(kind, p, stream)
-                         : launch_mma(kind, p, stream);
+    case 0: return launch_f32(kind, p, stream);
+    case 1: return launch_mma(kind, p, stream);
     default: return -1;
   }
 }

@@ -1,7 +1,7 @@
-// Warp-level tensor-core and asynchronous-copy helpers of the bfloat16 flash
-// kernels (flash_attention.cu): mma.sync m16n8k16 bf16 -> f32, ldmatrix
-// (plain and transposed) fragments from shared memory, and cp.async copies
-// that zero-fill what lies past a tensor's end.
+// Warp-level tensor-core and asynchronous-copy helpers of the bfloat16
+// kernels (flash_attention.cu, decode_attention_chunk.cu): mma.sync m16n8k16
+// bf16 -> f32, ldmatrix (plain and transposed) fragments from shared memory,
+// and cp.async copies that zero-fill what lies past a tensor's end.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4): the f32
 // accumulator holds (row g, cols 2c, 2c+1) in c[0], c[1] and (row g+8, the
@@ -40,6 +40,21 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_addr(p)));
 }
 
+// Fragment addresses inside a bf16 tile of row length LD, for lane l of a
+// warp. A operand (16 rows from r0, k16 from k0), or with .trans the B
+// operand of a (k16 rows from r0) x (two n8 column tiles from k0) product:
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* frag_a(const __nv_bfloat16* t, int r0, int k0) {
+  const int l = threadIdx.x & 31;
+  return t + (r0 + (l & 7) + ((l >> 3) & 1) * 8) * LD + k0 + ((l >> 4) & 1) * 8;
+}
+// B operand of two n8 tiles (rows r0 .. r0 + 15 of the tile) at k16 from k0:
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* frag_b(const __nv_bfloat16* t, int r0, int k0) {
+  const int l = threadIdx.x & 31;
+  return t + (r0 + (l & 7) + ((l >> 4) & 1) * 8) * LD + k0 + ((l >> 3) & 1) * 8;
+}
+
 // c += a . b on one 16 x 8 tile, bf16 operands, f32 accumulator.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -61,6 +76,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8-byte asynchronous copy, zero-filled when not valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 

@@ -6,7 +6,8 @@ note says what bounds it and what the design does about that):
 
 - ``decode_attention``: one query token per slot, ``csrc/decode_attention.cu``;
 - ``decode_attention_chunk``: T query tokens per slot with a per-query mask
-  (the speculative verify chunk), ``csrc/decode_attention_chunk.cu``;
+  (the speculative verify chunk), ``csrc/decode_attention_chunk.cu``; for a
+  bf16 query it reads only the cache tiles that ``chunk_live_tiles`` keeps;
 - ``decode_attention_streamed``: ``decode_attention``'s function with the
   cache axis split over blocks and an online-softmax combine (split-S
   flash-decoding), ``csrc/decode_attention_streamed.cu``.
@@ -36,7 +37,9 @@ KERNEL_MAX_HEAD_DIM = 128
 KERNEL_MAX_GROUP = 8
 KERNEL_MAX_CHUNK_ROWS = 32  # T·G query rows of one kv head in the chunk kernel
 _SMEM_LIMIT = 227 * 1024
-_CHUNK_TILE_S = 32  # V positions the chunk kernel stages in shared memory at once
+_CHUNK_TILE_S = 32  # float32 chunk kernel: V positions staged in shared memory at once
+CHUNK_TILE = 64  # bf16 chunk kernel: cache positions per tile (read only when live)
+_CHUNK_SMEM_ERROR = -2  # the chunk entry point's code for a layout over the opt-in limit
 _KERNEL_WARPS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -318,8 +321,9 @@ def decode_attention_chunk(
     The caches, scales and ``kv_heads`` are as in ``decode_attention``.
 
     Returns (B, Hq, T, D) float32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which reads every cached position once for
-    all T queries of a slot; any other device raises.
+    tensors launch the kernel, which reads the cache once for all T queries
+    of a slot (a bf16 query: only the tiles ``chunk_live_tiles`` keeps, on
+    the tensor cores); any other device raises.
     """
     B, Hq, D, S, Hkv = _check_args(
         q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, kv_heads, chunk=True)
@@ -345,6 +349,21 @@ def _chunk_kernel():
     return fn
 
 
+def chunk_live_tiles(mask_add: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(S / CHUNK_TILE)) boolean: the cache tiles the bf16 chunk kernel reads.
+
+    A position is dead when every one of the slot's T mask rows is at most
+    NEG_INF / 2 there: the softmax gives it weight exactly 0 (each row keeps
+    at least one finite entry). A tile is read when it holds a live
+    position. The kernel decides this from the mask itself; the tests and
+    ``chip_smoke.py`` use this statement of the rule.
+    """
+    B, _, S = mask_add.shape
+    live = (mask_add > 0.5 * NEG_INF).any(dim=1)
+    live = torch.nn.functional.pad(live, (0, -S % CHUNK_TILE), value=False)
+    return live.view(B, -1, CHUNK_TILE).any(dim=-1)
+
+
 def _launch_chunk(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
                   B, Hq, D, S, Hkv):
     G = Hq // Hkv
@@ -354,10 +373,11 @@ def _launch_chunk(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
         raise ValueError(
             f"chunk kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, 1 <= T x Hq/Hkv <= "
             f"{KERNEL_MAX_CHUNK_ROWS} and B <= 65535; got D={D}, T={T}, G={G}, B={B}")
-    R = T * G
-    smem = 4 * (R * D + R * S + _CHUNK_TILE_S * D + _KERNEL_WARPS * KERNEL_MAX_CHUNK_ROWS)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={S} with T={T}, G={G} needs {smem} B of shared memory")
+    if q.dtype == torch.float32:  # the SIMT kernel's scores grow with S
+        R = T * G
+        smem = 4 * (R * D + R * S + _CHUNK_TILE_S * D + _KERNEL_WARPS * KERNEL_MAX_CHUNK_ROWS)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"S={S} with T={T}, G={G} needs {smem} B of shared memory")
     vec = _vector_loads(k_cache, v_cache, D, Hkv)
     out = torch.empty((B, Hq, T, D), dtype=torch.float32, device=q.device)
     fn = _chunk_kernel()
@@ -367,6 +387,9 @@ def _launch_chunk(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
                  *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(), out.data_ptr(),
                  B, S, Hkv, G, T, D, layer, 1.0 / float(D) ** 0.5,
                  _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], int(vec), stream)
+    if err == _CHUNK_SMEM_ERROR:
+        raise ValueError(f"S={S} with T={T}, G={G}, D={D} needs more shared memory "
+                         f"than a block may have")
     if err != 0:
         raise RuntimeError(f"decode_attention_chunk kernel launch failed (error {err})")
     decode_attention_chunk.launches += 1
@@ -533,8 +556,10 @@ def _launch_streamed(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
 
 
 __all__ = [
+    "CHUNK_TILE",
     "KERNEL_MAX_CHUNK_ROWS",
     "NEG_INF",
+    "chunk_live_tiles",
     "decode_attention",
     "decode_attention_chunk",
     "decode_attention_chunk_reference",

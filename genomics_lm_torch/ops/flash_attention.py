@@ -3,10 +3,10 @@
 Twin of ``genomics_lm_tpu/ops/flash_attention.py::flash_attention``. The
 three Pallas TPU kernels (forward ``_fwd_kernel``, backward
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) are replaced by hand-written
-Hopper kernels in ``csrc/flash_attention.cu``: in bf16 the forward and
-dK/dV run on the tensor cores and skip the tiles ``flash_live_tiles``
-rules out; dQ and every float32 kernel are SIMT. Its header note says what
-bounds them and what each design does about that. They are wired
+Hopper kernels in ``csrc/flash_attention.cu``: in bf16 all three run on
+the tensor cores and skip the tiles ``flash_live_tiles`` rules out; in
+float32 they are SIMT kernels that visit the whole band. Its header note
+says what bounds them and what each design does about that. They are wired
 into a ``torch.autograd.Function`` as the JAX ``custom_vjp`` wires the
 Pallas kernels: the forward saves (q, k, v, segment ids, seed, O, LSE),
 the backward computes ``delta = rowsum(dO * O)`` in plain torch and runs
@@ -202,7 +202,7 @@ def _tile_ranges(ids: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Ten
 def flash_live_tiles(segment_ids, T: int, S: int, causal: bool = True,
                      window: int | None = None, block_q: int = 64,
                      block_k: int = 64) -> torch.Tensor:
-    """(B, nqb, nkb) boolean: the (query tile, key tile) pairs the bf16
+    """(B, nqb, nkb) boolean: the (query tile, key tile) pairs the three bf16
     tensor-core kernels visit (B = 1 without segment ids).
 
     A pair is visited when the key tile lies in the query tile's causal and

@@ -181,6 +181,28 @@ def _attend_chunk(cfg: CodonGPTConfig, q, state: dict, mask_add, layer: int):
                                             kv_heads=cfg.kv_heads)
 
 
+def verify_mask(seg: torch.Tensor, lengths: torch.Tensor, chunk_seg: torch.Tensor,
+                wpos: torch.Tensor) -> torch.Tensor:
+    """The verify chunk's (B, T, S) additive float32 mask.
+
+    Row t may attend every position below ``length + t + 1`` (the cache plus
+    chunk rows 0..t) whose segment id (``seg``, (B, S), the chunk's ids
+    already written) is its own (``chunk_seg``, (B, T)), and always its own
+    slot ``wpos`` (B, T).
+    """
+    B, T = chunk_seg.shape
+    S = seg.shape[1]
+    dev = seg.device
+    positions = torch.arange(S, device=dev)
+    offs = torch.arange(T, device=dev)
+    avail = positions[None, None, :] < (lengths[:, None] + offs[None, :] + 1)[:, :, None]
+    seg_ok = seg[:, None, :] == chunk_seg[:, :, None]
+    self_pos = positions[None, None, :] == wpos[:, :, None]
+    valid = (avail & seg_ok) | self_pos
+    mask_add = torch.zeros(valid.shape, dtype=torch.float32, device=dev)
+    return mask_add.masked_fill_(~valid, NEG_INF)
+
+
 @torch.no_grad()
 def _ragged_verify(model: CodonGPT, cfg: CodonGPTConfig, state: dict,
                    tokens: torch.Tensor):
@@ -224,16 +246,7 @@ def _ragged_verify(model: CodonGPT, cfg: CodonGPTConfig, state: dict,
 
     seg = state["seg"]
     seg[bidx, wpos] = torch.where(active[:, None], chunk_seg, seg[bidx, wpos])
-
-    positions = torch.arange(S, device=dev)
-    # row t may attend every position below length + t + 1 (the cache plus
-    # chunk rows 0..t) in its own segment, and always its own slot
-    avail = positions[None, None, :] < (lengths[:, None] + offs[None, :] + 1)[:, :, None]
-    seg_ok = seg[:, None, :] == chunk_seg[:, :, None]
-    self_pos = positions[None, None, :] == wpos[:, :, None]
-    valid = (avail & seg_ok) | self_pos
-    mask_add = torch.zeros(valid.shape, dtype=torch.float32, device=dev)
-    mask_add.masked_fill_(~valid, NEG_INF)
+    mask_add = verify_mask(seg, lengths, chunk_seg, wpos)
 
     kv_quant = "k_scale" in state
     for layer, block in enumerate(model.blocks):

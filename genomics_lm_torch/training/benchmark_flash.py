@@ -5,9 +5,9 @@ The main path's case (B 8, a <SEP> every 97th token, dropout 0.1) beside
 variants that change one thing each: no dropout, no segment ids (every tile
 of the causal band is live), a segment every 4th token (only diagonal tiles
 live), batch 1 (64 blocks: one partial wave, so the time is one block's
-latency) and batch 32. Each line gives the tiles the bf16 forward and dK/dV
-visit (``flash_live_tiles``) and each kernel's median time queued behind a
-device spin. Needs a CUDA card:
+latency) and batch 32. Each line gives the tiles the three bf16 kernels
+(forward, dQ and dK/dV alike) visit (``flash_live_tiles``) and each
+kernel's median time queued behind a device spin. Needs a CUDA card:
 
     python -m genomics_lm_torch.training.benchmark_flash
 """
@@ -34,7 +34,7 @@ CASES = [  # name, batch, <SEP> every (None: no ids), dropout
 
 
 def run_case(gen, B: int, every, rate: float) -> dict:
-    """Median µs of each kernel on one case, and the tiles the bf16 kernels visit."""
+    """Median µs of each kernel on one case, and the tiles each bf16 kernel visits."""
     q, k, v = (torch.randn((B, H, T, D), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     seg = None

@@ -67,18 +67,22 @@ def median_ms(fn, runs: int = 25, warmup: int = 3, queued: bool = True) -> float
     return statistics.median(times)
 
 
-def decode_bound_ms(B, S, Hkv, G, D, esize, q_esize, quant, peak_bw, peak_ops, T=1):
+def decode_bound_ms(B, S, Hkv, G, D, esize, q_esize, quant, peak_bw, peak_ops, T=1,
+                    positions=None):
     """Least time of one decode-attention launch over one cache layer, with
     T queries per slot (T = 1: the single-token kernels; T > 1: the verify
-    chunk, whose query, mask and output grow by T).
+    chunk, whose query, mask and output grow by T). ``positions``: the cache
+    positions the work needs, summed over the slots (default every one,
+    B * S); the whole mask is read either way.
 
     Returns (ms, "bytes" or "operations", bytes).
     """
     P = Hkv * D
     Hq = Hkv * G
-    nbytes = (2 * B * S * P * esize + B * Hq * T * D * q_esize + B * T * S * 4
-              + B * Hq * T * D * 4 + (2 * B * Hkv * S * 4 if quant else 0))
-    ops = 4 * B * Hq * T * S * D  # q·k and p·v, a multiply and an add each
+    n = B * S if positions is None else int(positions)
+    nbytes = (2 * n * P * esize + B * Hq * T * D * q_esize + B * T * S * 4
+              + B * Hq * T * D * 4 + (2 * n * Hkv * 4 if quant else 0))
+    ops = 4 * n * Hq * T * D  # q·k and p·v, a multiply and an add each
     t_bytes, t_ops = nbytes / peak_bw * 1e3, ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 

@@ -9,9 +9,11 @@ runs on a machine that has only the port's dependencies:
 (``--noconftest``: ``tests/conftest.py`` configures JAX.) Inputs come from
 numpy with a seed. Tolerances: 1e-5 (decode, chunk and streamed, float32)
 or 1e-4 (flash, float32) where only the order of float32 sums differs;
-1e-3 and 2e-2 of the largest entry in bf16, where outputs may round to
-neighbouring bf16 values (and the bf16 flash forward and dK/dV kernels
-round P and dS to bf16 before their second product).
+1e-3 (decode and streamed, bf16) and 2e-2 of the largest entry (flash,
+bf16), where outputs may round to neighbouring bf16 values and the bf16
+flash kernels round P and dS to bf16 before their second product; for the
+bf16 chunk kernel, which rounds P to bf16 before P.V, a bound per output
+element (``chunk_bf16_bound``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from genomics_lm_torch.ops import flash_attention as fa
 from genomics_lm_torch.ops.decode_attention import (
     KERNEL_MAX_CHUNK_ROWS,
+    chunk_live_tiles,
     decode_attention,
     decode_attention_chunk,
     decode_attention_chunk_reference,
@@ -150,21 +153,116 @@ def chunk_inputs(rng, B, Hkv, G, T, quant, S=96, D=48):
     return q, k, v, torch.from_numpy(mask), ks, vs
 
 
+def chunk_bf16_bound(dev, Hkv):
+    """Per-element bound on the bf16-query chunk kernel's error: it rounds
+    each probability to bf16 (unit roundoff 2^-8) before P.V, where the plain
+    version keeps it float32, so an output moves by at most 2^-8 times
+    sum_j p_j |v_j| (the plain version run on |V|); the bound is twice that
+    plus 1e-5 for the order of the float32 sums (``chip_smoke.py`` states
+    the same bound)."""
+    q, k, v, mask, ks, vs = dev
+    mag = decode_attention_chunk_reference(q, k, v.abs(), mask, 1, ks, vs, kv_heads=Hkv)
+    return 2.0**-7 * mag + 1e-5
+
+
 @pytest.mark.cuda
 def test_cuda_chunk_kernel_matches_plain_version(cuda):
     """The verify-chunk kernel against its plain version: T 5 over MHA in
-    bf16 and int8, and T 8 over GQA 4 in float32 (32 rows per block)."""
+    bf16 and int8 (tensor-core kernel, its stated per-element bound), and
+    T 8 over GQA 4 in float32 (SIMT kernel, 32 rows per block, 1e-5)."""
     rng = np.random.default_rng(9)
-    for (B, Hkv, G, T), quant, dtype, tol in (((6, 4, 1, 5), False, torch.bfloat16, 1e-3),
-                                             ((6, 4, 1, 5), True, torch.bfloat16, 1e-3),
-                                             ((3, 2, 4, 8), False, torch.float32, 1e-5)):
+    for (B, Hkv, G, T), quant, dtype in (((6, 4, 1, 5), False, torch.bfloat16),
+                                         ((6, 4, 1, 5), True, torch.bfloat16),
+                                         ((3, 2, 4, 8), False, torch.float32)):
         dev = to_card(chunk_inputs(rng, B, Hkv, G, T, quant), dtype, quant, cuda)
         before = decode_attention_chunk.launches
         got = decode_attention_chunk(*dev[:4], 1, *dev[4:], kv_heads=Hkv)
         want = decode_attention_chunk_reference(*dev[:4], 1, *dev[4:], kv_heads=Hkv)
+        tol = chunk_bf16_bound(dev, Hkv) if dtype == torch.bfloat16 else 1e-5
         torch.cuda.synchronize()
         assert decode_attention_chunk.launches == before + 1
-        assert float((got - want).abs().max()) <= tol
+        assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("G,T", [(1, 1), (1, 5), (2, 4), (4, 8)], ids=["r1", "r5", "r8", "r32"])
+def test_cuda_bf16_chunk_kernel_reads_only_live_tiles(cuda, G, T, quant):
+    """The tensor-core chunk kernel at R = T x G = 1, 5, 8 and 32 rows over a
+    cache of S 200 (not a multiple of 64): slot 0's live tiles stop at the
+    first tile, slot 1's middle tile is wholly masked. The kernel runs on a
+    cache whose dead tiles hold NaN (V and K, or an int8 cache's scales),
+    which any read would carry into the output (0 x NaN), against the plain
+    version on the clean cache."""
+    rng = np.random.default_rng(12 + 10 * G + T + quant)
+    B, Hkv, S = 4, 2, 200
+    q, k, v, mask, ks, vs = chunk_inputs(rng, B, Hkv, G, T, quant, S=S, D=48)
+    mask[0, :, 60:] = -1e30  # live tiles stop at the first ...
+    mask[0, :, 40 + torch.arange(T)] = 0.0  # ... with each row's own slot attended
+    mask[1, :, :] = 0.0
+    mask[1, :, 64:128] = -1e30  # a wholly masked middle tile
+    live = chunk_live_tiles(mask)
+    assert live[0].tolist() == [True, False, False, False]
+    assert live[1].tolist() == [True, False, True, True]
+    dev = to_card((q, k, v, mask, ks, vs), torch.bfloat16, quant, cuda)
+    want = decode_attention_chunk_reference(*dev[:4], 1, *dev[4:], kv_heads=Hkv)
+    tol = chunk_bf16_bound(dev, Hkv)
+    dead = (~live.repeat_interleave(64, 1)[:, :S]).to(cuda)
+    if quant:
+        scale_dead = dead[:, None, :].expand(B, Hkv, S)
+        dev[4][:, scale_dead] = float("nan")
+        dev[5][:, scale_dead] = float("nan")
+    else:
+        dev[1][:, dead] = float("nan")
+        dev[2][:, dead] = float("nan")
+    before = decode_attention_chunk.launches
+    got = decode_attention_chunk(*dev[:4], 1, *dev[4:], kv_heads=Hkv)
+    torch.cuda.synchronize()
+    assert decode_attention_chunk.launches == before + 1
+    assert bool(torch.isfinite(got).all()) and bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, T, S, D, window), <SEP> every (or "random" ids), dropout
+    ((2, 2, 2, 100, 100, 16, None), 17, 0.1),
+    ((2, 2, 2, 100, 100, 20, None), 17, 0.1),
+    ((2, 2, 2, 192, 192, 48, None), 17, 0.1),
+    ((2, 2, 2, 100, 100, 64, None), 17, 0.1),
+    ((2, 2, 2, 100, 100, 128, None), 17, 0.1),
+    ((2, 8, 2, 130, 333, 48, 50), 17, 0.1),
+    ((2, 2, 2, 256, 256, 48, None), 4, 0.5),
+    ((2, 2, 2, 192, 192, 48, None), "random", 0.1),
+], ids=["d16", "d20", "d48", "d64", "d128", "gqa4_window50_offgrid", "seg4_dropout50",
+        "random_ids"])
+def test_cuda_bf16_dq_kernel_matches_plain_version(cuda, case):
+    """The tensor-core dQ kernel alone against ``flash_bwd_dq_reference``
+    (both given the plain forward's LSE): 2e-2 of the largest entry, since
+    dS enters dS.K rounded to bf16 and dQ rounds to bf16; a wrongly skipped
+    tile or keep bit (a segment every 4 tokens at dropout 0.5) moves entries
+    by far more."""
+    (B, Hq, Hkv, T, S, D, window), segs, rate = case
+    rng = np.random.default_rng(13 + D + T)
+    q, dout = (torch.from_numpy(rng.normal(size=(B, Hq, T, D)).astype(np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, Hkv, S, D)).astype(np.float32))
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    if segs == "random":
+        seg = torch.from_numpy(rng.integers(0, 4, (B, S)).astype(np.int32)).to(cuda)
+    else:
+        seps = (torch.arange(S) % segs == 0).int()
+        seg = torch.cumsum(seps[None].expand(B, S), -1, dtype=torch.int32).to(cuda)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    cfg = fa.FlashCfg(True, window, rate)
+    out, lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)
+    delta = (dout.float() * out.float()).sum(-1)
+    before = fa.flash_bwd_dq.launches
+    got = fa.flash_bwd_dq(q, k, v, seg, seed, dout, lse, delta, cfg)
+    want = fa.flash_bwd_dq_reference(q, k, v, seg, seed, dout, lse, delta, cfg)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == before + 1 and got.dtype == torch.bfloat16
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
 
 
 @pytest.mark.cuda

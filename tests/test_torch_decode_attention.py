@@ -23,6 +23,8 @@ import torch
 from genomics_lm_tpu.ops import decode_attention as jax_da
 from genomics_lm_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from genomics_lm_torch.ops.decode_attention import (
+    NEG_INF,
+    chunk_live_tiles,
     decode_attention,
     decode_attention_chunk,
     decode_attention_reference,
@@ -247,6 +249,89 @@ def test_streamed_matches_jax_kernel_and_reference(block_s, first_masked, quant)
         np.testing.assert_allclose(got.numpy(), want_xla, atol=KERNEL_ATOL)
 
 
+# verify masks as serving/speculative.py builds them (S 160: tiles [0, 64),
+# [64, 128) and the ragged [128, 160); T 5): per slot its length, and the
+# cache positions [lo, hi) that hold another segment
+SPEC_S, SPEC_T = 160, 5
+MASK_SCENARIOS = {
+    "staircase": ([3, 40, 70, 100], None),
+    # slot 0's positions 60..131 belong to another segment: tile 1 wholly masked
+    "segment_gap": ([140, 20, 90, 10], (60, 132)),
+    # length + t past S - 1: the chunk's rows are written at S - 1
+    "clamped_self_pos": ([SPEC_S - 2, SPEC_S - 3, 50, SPEC_S - 1], None),
+    "empty_slot": ([0, 0, 30, 5], None),
+    # the chunk fills the cache exactly; chunks that start or end a tile
+    "full_slot": ([SPEC_S - SPEC_T, 64, 128, 59], None),
+}
+
+
+def spec_mask(lengths, other_segment):
+    """(B, T, S) mask from ``speculative.verify_mask`` after the chunk's
+    segment ids are written at their clamped positions, as ``_ragged_verify``
+    does."""
+    from genomics_lm_torch.serving.speculative import verify_mask
+
+    B = len(lengths)
+    lengths = torch.tensor(lengths)
+    seg = torch.zeros((B, SPEC_S), dtype=torch.int32)
+    if other_segment:
+        seg[0, other_segment[0]:other_segment[1]] = 7
+    wpos = (lengths[:, None] + torch.arange(SPEC_T)[None, :]).clamp_max(SPEC_S - 1)
+    chunk_seg = torch.zeros((B, SPEC_T), dtype=torch.int32)
+    seg[torch.arange(B)[:, None], wpos] = chunk_seg
+    return verify_mask(seg, lengths, chunk_seg, wpos)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("scenario", list(MASK_SCENARIOS))
+def test_chunk_live_tiles_drop_only_masked_positions(scenario, quant):
+    """The bf16 chunk kernel's tile rule on verify masks: every entry of a
+    dead tile is <= NEG_INF/2 in every row, every live tile holds an entry
+    above it, and the plain version with the dead tiles' K and V (and int8
+    scales) overwritten by large finite values is unchanged within 1e-6."""
+    lengths, other = MASK_SCENARIOS[scenario]
+    mask = spec_mask(lengths, other)
+    B, Hkv, G = len(lengths), 2, 2
+    live = chunk_live_tiles(mask)
+    assert live.shape == (B, 3) and live.dtype == torch.bool
+    for b in range(B):
+        for t in range(3):
+            tile = mask[b, :, 64 * t:64 * (t + 1)]
+            assert bool((tile > 0.5 * NEG_INF).any()) == bool(live[b, t])
+    assert not bool(live.all()) or scenario == "full_slot"
+    if scenario == "segment_gap":
+        assert live[0].tolist() == [True, False, True]
+    if scenario == "empty_slot":
+        assert live[0].tolist() == [True, False, False]
+    if scenario == "full_slot":
+        assert bool(live[0].all()) and live[1].tolist() == [True, True, False]
+        assert live[3].tolist() == [True, False, False]  # rows end at position 63
+
+    rng = np.random.default_rng(50 + len(scenario) + quant)
+    q, k, v, _, ks, vs = make_chunk_inputs(rng, B, Hkv, G, SPEC_T, SPEC_S, quant)
+    args = to_torch(q, k, v, mask.numpy(), ks, vs)
+    want = decode_attention_chunk(*args[:4], 1, *args[4:], kv_heads=Hkv)
+    dead = ~live.repeat_interleave(64, 1)[:, :SPEC_S]  # (B, S)
+    k2, v2 = args[1].clone(), args[2].clone()
+    if quant:
+        noise = torch.from_numpy(rng.integers(-127, 128, k2.shape).astype(np.int8))
+        k2[:, dead], v2[:, dead] = noise[:, dead], noise.flip(0)[:, dead]
+        ks2, vs2 = args[4].clone(), args[5].clone()
+        big = torch.from_numpy(rng.uniform(1e2, 1e3, ks2.shape).astype(np.float32))
+        ks2[:, dead[:, None, :].expand(B, Hkv, SPEC_S)] = big[:, dead[:, None, :].expand(
+            B, Hkv, SPEC_S)]
+        vs2[:, dead[:, None, :].expand(B, Hkv, SPEC_S)] = big[:, dead[:, None, :].expand(
+            B, Hkv, SPEC_S)]
+        scales = (ks2, vs2)
+    else:
+        noise = torch.from_numpy(rng.normal(0.0, 1e3, k2.shape).astype(np.float32))
+        k2[:, dead], v2[:, dead] = noise[:, dead], -noise[:, dead]
+        scales = (None, None)
+    got = decode_attention_chunk(args[0], k2, v2, args[3], 1, *scales, kv_heads=Hkv)
+    assert not torch.equal(k2, args[1])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
 def test_streamed_ragged_last_chunk_matches_single_pass():
     """A ``block_s`` that does not divide S keeps the ragged last chunk."""
     rng = np.random.default_rng(46)
@@ -293,6 +378,25 @@ def test_chunk_and_streamed_wrappers_check_contract():
     with pytest.raises(ValueError, match="not meta"):
         decode_attention_streamed(*meta1, 0, kv_heads=2)
     assert decode_attention_streamed.launches == before
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_chunk_bound_counts_only_the_positions_needed(quant):
+    """``decode_bound_ms`` with ``positions``: every position is the default;
+    fewer positions drop their cache (and scale) bytes and operations, while
+    the query, the whole mask and the output are still counted."""
+    from genomics_lm_torch.utils.timing import decode_bound_ms
+
+    B, S, Hkv, G, D, T = 4, 384, 8, 1, 48, 5
+    esize = 1 if quant else 2
+    args = (B, S, Hkv, G, D, esize, 2, quant, 3.35e12, 989e12)
+    full = decode_bound_ms(*args, T=T)
+    assert decode_bound_ms(*args, T=T, positions=B * S) == full
+    ms, by, nbytes = decode_bound_ms(*args, T=T, positions=100)
+    fixed = B * Hkv * G * T * D * (2 + 4) + B * T * S * 4  # query, output, mask
+    per_pos = 2 * Hkv * D * esize + (2 * Hkv * 4 if quant else 0)
+    assert full[2] == fixed + B * S * per_pos and nbytes == fixed + 100 * per_pos
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
 
 
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])

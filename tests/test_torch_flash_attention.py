@@ -222,6 +222,38 @@ def test_live_tiles_cover_every_attended_pair(T, S, ids, causal, window):
         assert torch.equal(live, band.expand_as(live))
 
 
+@pytest.mark.parametrize("T,S,ids,causal,window", LIVE_CASES,
+                         ids=[f"T{c[0]}_S{c[1]}_{c[2]}_{'causal' if c[3] else 'full'}_w{c[4]}"
+                              for c in LIVE_CASES])
+def test_dq_loses_nothing_outside_live_tiles(T, S, ids, causal, window):
+    """dQ's tile rule: the plain dQ with every dS entry outside the tiles
+    ``flash_live_tiles`` keeps set to zero equals the full plain dQ, with
+    dropout on (the tensor-core dQ kernel never visits those tiles)."""
+    B, Hq, Hkv, Dh = 2, 2, 1, 16
+    rng = np.random.default_rng(T + 3 * S)
+    q = torch.from_numpy(rng.normal(size=(B, Hq, T, Dh)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, Hkv, S, Dh)).astype(np.float32))
+            for _ in range(2))
+    dout = torch.from_numpy(rng.normal(size=(B, Hq, T, Dh)).astype(np.float32))
+    if ids is None:
+        seg = None
+    elif ids == "random":
+        seg = torch.from_numpy(rng.integers(0, 4, (B, S)).astype(np.int32))
+    else:
+        seg = torch.from_numpy(_seps(B, S, ids))
+    seed = torch.tensor([21], dtype=torch.int32)
+    cfg = fa.FlashCfg(causal, window, 0.3)
+    out, lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)
+    delta = (dout * out).sum(-1)
+    want = fa.flash_bwd_dq_reference(q, k, v, seg, seed, dout, lse, delta, cfg)
+    _, ds = fa._backward_probs(q, k, v, seg, seed, dout, lse, delta, cfg)
+    live = fa.flash_live_tiles(seg, T, S, causal, window)
+    inside = live.repeat_interleave(64, 1).repeat_interleave(64, 2)[:, :T, :S]
+    got = fa._scale(Dh) * torch.einsum("bhgts,bhsd->bhgtd", ds * inside[:, None, None], k)
+    assert float(ds.abs().max()) > 0
+    np.testing.assert_allclose(got.reshape(B, Hq, T, Dh).numpy(), want.numpy(), atol=1e-6)
+
+
 def test_flash_benchmark_refuses_to_time_without_a_card(monkeypatch):
     """The kernel benchmark fails without CUDA instead of timing the CPU."""
     from genomics_lm_torch.training import benchmark_flash
