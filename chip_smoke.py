@@ -13,11 +13,16 @@ exits non-zero:
 2. build   — compiles every kernel of the serving and training paths from
    ``csrc/`` with nvcc for sm_90a (one nvcc per source, all started
    together); logs the registers and spills of each bf16 tensor-core
-   kernel (flash forward, dQ and dK/dV; verify chunk).
+   kernel (flash forward, dQ and dK/dV; verify chunk) and of each
+   bf16-query single-token tile kernel (decode, streamed).
 3. kernel  — the decode-attention kernel against its plain PyTorch version
    on the card at the serving shapes (bf16 and int8 caches, MHA and GQA,
-   off-grid and unvectorizable shapes), then its time beside its bound,
-   the plain version's time and one library call's time.
+   off-grid and unvectorizable shapes, the serving drain's lengths, every
+   slot full), and again with every dead cache tile (``decode_live_tiles``)
+   set to NaN, which a read would carry into the output; then its time
+   beside the bound of the positions its mask needs (also logged: the
+   tiles read of the total, their bound and the full cache's), the plain
+   version's time and one library call's time.
 4. serve   — the serving main path: ``ServingEngine`` at the full width of
    the 10L8H d384 CodonGPT (block 512, bf16, fused QKV, random weights
    from a seed) drains 128 requests; the decode kernel's launch count is
@@ -59,10 +64,12 @@ exits non-zero:
    whole rows instead of head slices), S 768 and T 1, to show what bounds
    the kernel.
 11. streamed — the split-S decode kernel against its plain version at the
-   decode kernel's nine shapes, with a wholly masked first split, and with
-   splits of 16 and 32 positions; its times at batch 64 and 256 (bf16 and
-   int8); then ``serving/benchmark_decode_kernel.py``'s chain (plain,
-   blocked, streamed) once, counting the streamed launches.
+   decode kernel's nine shapes, with a wholly masked first or middle
+   split, and with splits of 16 and 32 positions, each also with NaN in
+   the dead tiles; its times at batch 64 and 256 (bf16 and int8) logged as
+   phase 3's, and at batch 64 the split and combine kernels' device times
+   (``torch.profiler``); then ``serving/benchmark_decode_kernel.py``'s
+   chain (plain, blocked, streamed) once, counting the streamed launches.
 12. spec serve — the speculative main path: the same engine and 128
    requests with ``speculative_k=4`` and a draft table fitted to the
    model's own samples, bf16 and int8; every budget served, the chunk
@@ -92,7 +99,7 @@ import time
 import numpy as np
 import torch
 
-from genomics_lm_torch.generation.decode import generate_masked_tokens
+from genomics_lm_torch.generation.decode import _decode_mask, generate_masked_tokens
 from genomics_lm_torch.kernels.build import CSRC, build
 from genomics_lm_torch.models.codon_gpt import CodonGPT
 from genomics_lm_torch.models.config import CodonGPTConfig
@@ -107,6 +114,7 @@ from genomics_lm_torch.serving.profile_drain import (
     REQUESTS,
     SPECULATIVE_K,
     build_requests,
+    event_device_us,
     fit_draft_table,
 )
 from genomics_lm_torch.serving.server import InferenceServer
@@ -192,11 +200,17 @@ def phase_build() -> None:
             max_registers=max(regs, default=None),
             spill_store_bytes=sum(spills))
         if name in ("flash_attention", "decode_attention_chunk"):
-            log("build_mma", source=name, **tensor_core_report(text))
+            log("build_mma", source=name, **kernel_report(text))
+        else:  # the single-token tile kernels of a bf16 query
+            log("build_tiles", source=name, **kernel_report(text))
 
 
-def _mma_name(symbol: str) -> str | None:
-    """``kernel<template arguments>`` of a tensor-core kernel's mangled name."""
+DTYPE_NAMES = {"0": "f32", "1": "bf16", "2": "f16", "3": "int8"}
+
+
+def _kernel_name(symbol: str) -> str | None:
+    """``kernel<template arguments>`` of a tensor-core kernel's mangled name,
+    or of a bf16-query instantiation of the single-token tile kernel."""
     flash = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_mma_kernel)ILi(\d+)E", symbol)
     if flash:
         return f"{flash.group(1)}<{flash.group(2)}>"
@@ -204,19 +218,24 @@ def _mma_name(symbol: str) -> str | None:
     if chunk:
         cache = "int8" if chunk.group(4) == "1" else "bf16"
         return f"{chunk.group(1)}<{chunk.group(2)},{chunk.group(3)},{cache}>"
+    tile = re.search(r"(decode_tile_kernel)ILi(\d)ELi(\d)ELi(\d)ELb([01])E", symbol)
+    if tile and tile.group(2) == "1":
+        reads = "16B" if tile.group(5) == "1" else "scalar"
+        return (f"{tile.group(1)}<{DTYPE_NAMES[tile.group(2)]},{DTYPE_NAMES[tile.group(3)]},"
+                f"G{tile.group(4)},{reads}>")
     return None
 
 
-def tensor_core_report(text: str) -> dict:
-    """{kernel<DP, ...>: {registers, spill_store_bytes}} of the bf16
-    tensor-core kernels (flash forward, dQ, dK/dV; verify chunk), read from
-    the ``-Xptxas -v`` report."""
+def kernel_report(text: str) -> dict:
+    """{kernel<...>: {registers, spill_store_bytes}} of the bf16 tensor-core
+    kernels (flash forward, dQ, dK/dV; verify chunk) and of the bf16-query
+    single-token tile kernels, read from the ``-Xptxas -v`` report."""
     out, current = {}, None
     for line in text.splitlines():
         entry = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?"
                           r"(?: for|$)", line)
         if entry:
-            current = _mma_name(entry.group(1))
+            current = _kernel_name(entry.group(1))
             continue
         if current is None:
             continue
@@ -232,8 +251,11 @@ def tensor_core_report(text: str) -> dict:
 # --- phase 3: the kernel against its plain version ------------------------------
 
 
-def make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype):
-    """Random packed caches, query and a ragged same-segment mask on the card."""
+def make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype, lengths="random"):
+    """Random packed caches and query on the card, and a (B, S) mask:
+    ``lengths`` "random" gives ragged same-segment rows (row 0 with a segment
+    boundary), "serve" the serving drain's rows (``serve_mask``), "full"
+    every position live."""
     dev = "cuda"
     P = Hkv * D
     ks = vs = None
@@ -246,6 +268,10 @@ def make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype):
         k = torch.randn((L, B, S, P), generator=gen, device=dev).to(cache_dtype)
         v = torch.randn((L, B, S, P), generator=gen, device=dev).to(cache_dtype)
     q = torch.randn((B, Hkv * G, D), generator=gen, device=dev).to(q_dtype)
+    if lengths == "serve":
+        return q, k, v, serve_mask(B, S), ks, vs
+    if lengths == "full":
+        return q, k, v, torch.zeros((B, S), device=dev), ks, vs
     lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
     pos = torch.arange(S, device=dev)[None, :]
     valid = pos < lengths[:, None]
@@ -255,76 +281,157 @@ def make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype):
     return q, k, v, mask, ks, vs
 
 
+def serve_mask(B, S):
+    """The (B, S) mask of one decode step of the serving drain: the first
+    ``B`` requests of ``profile_drain.build_requests`` (seed 0), each slot at
+    a length drawn uniformly from prompt .. prompt + budget, one segment,
+    built by ``_decode_mask`` (the code the engine runs)."""
+    rng = np.random.default_rng(0)
+    reqs = build_requests(rng, B)
+    lengths = torch.tensor([len(p) + int(rng.integers(0, b + 1)) for p, b, _ in reqs],
+                           device="cuda")
+    seg = torch.zeros((B, S), dtype=torch.int32, device="cuda")
+    return _decode_mask(seg, seg[:, 0], lengths[:, None], lengths.clamp_max(S - 1)[:, None],
+                        MAIN["sep_id"])
+
+
+def poison_dead_tiles(k, v, ks, vs, mask):
+    """Copies of the caches with every dead tile of the (B, S) mask
+    (``decode_live_tiles``) set to NaN: K and V, or an int8 cache's k and v
+    scales. A kernel that reads such a tile carries NaN into its output
+    (probability 0 times NaN)."""
+    dead = ~da.decode_live_tiles(mask).repeat_interleave(da.CHUNK_TILE, 1)[:, :mask.shape[1]]
+    if ks is None:
+        k, v = k.clone(), v.clone()
+        k[:, dead] = float("nan")
+        v[:, dead] = float("nan")
+    else:
+        sd = dead[:, None, :].expand_as(ks[0])
+        ks, vs = ks.clone(), vs.clone()
+        ks[:, sd] = float("nan")
+        vs[:, sd] = float("nan")
+    return k, v, ks, vs
+
+
+def max_err(got, want) -> float:
+    """max |got - want|, infinite where ``got`` is not finite."""
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float((got - want).abs().max())
+
+
+def decode_bounds(mask, B, S, Hkv, G, D, esize, q_esize, quant, peak_bw, peak_ops, T=1):
+    """For a (B, T, S) mask: the tiles a tile-skipping kernel reads
+    (``chunk_live_tiles``) of the total, the positions the mask needs (live
+    in some row, summed over the slots), the positions of the live tiles,
+    and the bounds of those two and of the full cache (the first is the
+    kernels line's bound)."""
+    live = da.chunk_live_tiles(mask)
+    needed = int((mask > 0.5 * da.NEG_INF).any(dim=1).sum())
+    sizes = (S - torch.arange(live.shape[1], device=live.device) * da.CHUNK_TILE
+             ).clamp_max(da.CHUNK_TILE)
+    read = int((live * sizes).sum())
+    bound = {key: decode_bound_ms(B, S, Hkv, G, D, esize, q_esize, quant, peak_bw, peak_ops,
+                                  T=T, positions=positions)
+             for key, positions in (("needed", needed), ("full", None), ("read", read))}
+    tiles = dict(tiles_read=int(live.sum()) * Hkv, tiles_total=live.numel() * Hkv)
+    return tiles, needed, read, bound
+
+
+def time_decode_case(name, q, k, v, mask, ks, vs, Hkv, G, fn, peak_bw, peak_ops, err,
+                     nan_err, phase, **extra):
+    """Times one single-token kernel ``fn`` over all L layers beside its plain
+    version and SDPA (float caches); logs the tiles it reads and the three
+    bounds; returns the kernels line's numbers."""
+    L, B, S, _ = k.shape
+    D = q.shape[-1]
+    quant = ks is not None
+    plain = (da.decode_attention_streamed_reference if fn is da.decode_attention_streamed
+             else da.decode_attention_reference)
+
+    def sweep(f):  # one timed run sweeps all L layers, so every launch reads its layer cold
+        return lambda: [f(q, k, v, mask, layer, ks, vs, kv_heads=Hkv) for layer in range(L)]
+
+    kernel_ms = median_ms(sweep(fn)) / L
+    plain_ms = median_ms(sweep(plain)) / L
+    library_ms = None
+    if not quant:
+        q4, am = q[:, :, None, :], mask[:, None, None, :].to(q.dtype)
+
+        def sweep_library():
+            for layer in range(L):
+                kl = k[layer].view(B, S, Hkv, D).transpose(1, 2)
+                vl = v[layer].view(B, S, Hkv, D).transpose(1, 2)
+                torch.nn.functional.scaled_dot_product_attention(
+                    q4, kl, vl, attn_mask=am, enable_gqa=True)
+
+        library_ms = median_ms(sweep_library) / L
+    tiles, needed, read, bound = decode_bounds(mask[:, None], B, S, Hkv, G, D, k.element_size(),
+                                               q.element_size(), quant, peak_bw, peak_ops)
+    b_ms, b_by, nbytes = bound["needed"]
+    timed = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=library_ms, max_abs_err=err)
+    log(phase, case=name, bytes=nbytes, positions_needed=needed, positions_read=read, **tiles,
+        **timed, full_bound_ms=bound["full"][0], live_bound_ms=bound["read"][0],
+        nan_dead_tiles_err=nan_err, **extra,
+        achieved_gb_per_s=nbytes / (kernel_ms * 1e-3) / 1e9, roofline_share=b_ms / kernel_ms,
+        full_roofline_share=bound["full"][0] / kernel_ms,
+        live_roofline_share=bound["read"][0] / kernel_ms)
+    return timed
+
+
 def phase_kernel(peak_bw, peak_ops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # name, L, B, S, Hkv, G, D, cache dtype, q dtype, timed
-        ("main_bf16", 10, 64, 256, 8, 1, 48, bf16, bf16, True),
-        ("main_int8", 10, 64, 256, 8, 1, 48, torch.int8, bf16, True),
-        ("gqa4_bf16", 4, 64, 256, 2, 4, 48, bf16, bf16, False),
-        ("gqa4_int8", 4, 64, 256, 2, 4, 48, torch.int8, bf16, False),
-        ("g8_d64_bf16", 2, 16, 512, 1, 8, 64, bf16, bf16, False),
-        ("offgrid_f32_d16", 2, 5, 130, 4, 2, 16, f32, f32, False),
-        ("offgrid_bf16", 2, 5, 130, 8, 1, 48, bf16, bf16, False),
-        ("scalar_loads_d20", 2, 3, 77, 2, 2, 20, bf16, bf16, False),
-        ("int8_f32_query", 2, 5, 130, 2, 2, 48, torch.int8, f32, False),
+        # name, L, B, S, Hkv, G, D, cache dtype, q dtype, lengths, timed
+        ("main_bf16", 10, 64, 256, 8, 1, 48, bf16, bf16, "random", True),
+        ("main_int8", 10, 64, 256, 8, 1, 48, torch.int8, bf16, "random", True),
+        ("gqa4_bf16", 4, 64, 256, 2, 4, 48, bf16, bf16, "random", False),
+        ("gqa4_int8", 4, 64, 256, 2, 4, 48, torch.int8, bf16, "random", False),
+        ("g8_d64_bf16", 2, 16, 512, 1, 8, 64, bf16, bf16, "random", False),
+        ("offgrid_f32_d16", 2, 5, 130, 4, 2, 16, f32, f32, "random", False),
+        ("offgrid_bf16", 2, 5, 130, 8, 1, 48, bf16, bf16, "random", False),
+        ("scalar_loads_d20", 2, 3, 77, 2, 2, 20, bf16, bf16, "random", False),
+        ("int8_f32_query", 2, 5, 130, 2, 2, 48, torch.int8, f32, "random", False),
+        # the serving drain's lengths, and every slot full (no dead tile)
+        ("serve_bf16", 10, 64, 256, 8, 1, 48, bf16, bf16, "serve", True),
+        ("serve_int8", 10, 64, 256, 8, 1, 48, torch.int8, bf16, "serve", True),
+        ("full_bf16", 10, 64, 256, 8, 1, 48, bf16, bf16, "full", True),
     ]
     timed = {}
-    for name, L, B, S, Hkv, G, D, cdt, qdt, is_timed in cases:
-        q, k, v, mask, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cdt, qdt)
-        err = 0.0
+    for name, L, B, S, Hkv, G, D, cdt, qdt, lengths, is_timed in cases:
+        q, k, v, mask, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cdt, qdt, lengths)
+        poisoned = poison_dead_tiles(k, v, ks, vs, mask)
+        err = nan_err = 0.0
         for layer in range(L):
             got = da.decode_attention(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
             want = da.decode_attention_reference(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+            pk, pv, pks, pvs = poisoned
+            got_poisoned = da.decode_attention(q, pk, pv, mask, layer, pks, pvs, kv_heads=Hkv)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{name}: non-finite kernel output")
-            err = max(err, float((got - want).abs().max()))
+            err = max(err, max_err(got, want))
+            nan_err = max(nan_err, max_err(got_poisoned, want))
+        del poisoned, pk, pv, pks, pvs
+        live = da.decode_live_tiles(mask)
         log("kernel", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, D=D),
-            cache=str(cdt).removeprefix("torch."), max_abs_err=err, tol=KERNEL_ATOL,
+            cache=str(cdt).removeprefix("torch."), lengths=lengths,
+            tiles_read=int(live.sum()) * Hkv, tiles_total=live.numel() * Hkv,
+            max_abs_err=err, nan_dead_tiles_err=nan_err, tol=KERNEL_ATOL,
             tol_reason=KERNEL_ATOL_REASON)
-        if err > KERNEL_ATOL:
+        if err > KERNEL_ATOL or nan_err > KERNEL_ATOL:
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
-                                 f"({err} > {KERNEL_ATOL})")
-        if not is_timed:
-            continue
-        # one timed run sweeps all L layers (250 MB of bf16 cache at the main
-        # shape, 5x the 50 MB L2), so every launch reads its layer cold
-        quant = ks is not None
-
-        def sweep_kernel():
-            for layer in range(L):
-                da.decode_attention(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
-
-        def sweep_plain():
-            for layer in range(L):
-                da.decode_attention_reference(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
-
-        kernel_ms = median_ms(sweep_kernel) / L
-        host_paced_ms = median_ms(sweep_kernel, queued=False) / L
-        plain_ms = median_ms(sweep_plain) / L
-        library_ms = None
-        if not quant:
-            q4 = q[:, :, None, :]
-            am = mask[:, None, None, :].to(q.dtype)
-
-            def sweep_library():
-                for layer in range(L):
-                    kl = k[layer].view(B, S, Hkv, D).transpose(1, 2)
-                    vl = v[layer].view(B, S, Hkv, D).transpose(1, 2)
-                    torch.nn.functional.scaled_dot_product_attention(
-                        q4, kl, vl, attn_mask=am, enable_gqa=True)
-
-            library_ms = median_ms(sweep_library) / L
-        b_ms, b_by, nbytes = decode_bound_ms(B, S, Hkv, G, D, k.element_size(),
-                                      q.element_size(), quant, peak_bw, peak_ops)
-        timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=library_ms, max_abs_err=err)
-        log("kernel_time", case=name, bytes=nbytes, **timed[name],
-            host_paced_ms=host_paced_ms,
-            achieved_gb_per_s=nbytes / (kernel_ms * 1e-3) / 1e9,
-            roofline_share=b_ms / kernel_ms)
+                                 f"({err}; with NaN in the dead tiles {nan_err}; "
+                                 f"tolerance {KERNEL_ATOL})")
+        if is_timed:
+            host_paced_ms = median_ms(
+                lambda: [da.decode_attention(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+                         for layer in range(L)], queued=False) / L
+            timed[name] = time_decode_case(name, q, k, v, mask, ks, vs, Hkv, G,
+                                           da.decode_attention, peak_bw, peak_ops, err,
+                                           nan_err, "kernel_time", host_paced_ms=host_paced_ms)
     return timed
 
 
@@ -808,8 +915,9 @@ def phase_chunk(peak_bw, peak_ops) -> dict:
             bound = (chunk_bound(q, k, v, mask, layer, ks, vs, Hkv) if tensor_core
                      else KERNEL_ATOL)
             ratio = max(ratio, float((diff / bound).max()))
-        live = da.chunk_live_tiles(mask)
-        tiles = dict(tiles_read=int(live.sum()) * Hkv, tiles_total=live.numel() * Hkv)
+        tiles, needed, read, bound = decode_bounds(mask, B, S, Hkv, G, D, k.element_size(),
+                                                   q.element_size(), ks is not None, peak_bw,
+                                                   peak_ops, T=T)
         check = (dict(tol=f"{CHUNK_BF16_TOL} * sum_j p_j |v_j| + 1e-5",
                       tol_reason=CHUNK_BF16_TOL_REASON,
                       fault_ratios=chunk_fault_ratios(q, k, v, mask, ks, vs, Hkv))
@@ -850,13 +958,6 @@ def phase_chunk(peak_bw, peak_ops) -> dict:
         # the bound of what the mask needs (positions live in some row) goes
         # into the kernels line; the full cache's and that of the tiles the
         # kernel reads (whole tiles) are logged beside it
-        needed = int((mask > 0.5 * da.NEG_INF).any(dim=1).sum())
-        sizes = (S - torch.arange(live.shape[1], device=live.device) * da.CHUNK_TILE
-                 ).clamp_max(da.CHUNK_TILE)
-        read = int((live * sizes).sum())
-        bound = {key: decode_bound_ms(B, S, Hkv, G, D, k.element_size(), q.element_size(),
-                                      quant, peak_bw, peak_ops, T=T, positions=positions)
-                 for key, positions in (("needed", needed), ("full", None), ("read", read))}
         b_ms, b_by, nbytes = bound["needed"]
         timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                            library_ms=library_ms, max_abs_err=err)
@@ -873,88 +974,114 @@ def phase_chunk(peak_bw, peak_ops) -> dict:
 # --- phase 11: the streamed kernel against its plain version ---------------------
 
 
+def split_combine_profile(q, k, v, mask, ks, vs, Hkv) -> dict:
+    """Device µs per launch of each kernel of the streamed op (the split
+    kernel, and the combine when there are several splits), from
+    ``torch.profiler`` over five sweeps of all L layers."""
+    L = k.shape[0]
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(5):
+            for layer in range(L):
+                da.decode_attention_streamed(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for key, kernel in (("split_us", "decode_tile_kernel"),
+                            ("combine_us", "decode_combine_kernel")):
+            if (kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.count):
+                out[key] = event_device_us(e) / e.count
+    return out
+
+
 def phase_streamed(peak_bw, peak_ops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
-        # name, L, B, S, Hkv, G, D, cache dtype, q dtype, block_s, first split masked
-        ("main_bf16", 10, 64, 256, 8, 1, 48, bf16, bf16, None, False),
-        ("main_int8", 10, 64, 256, 8, 1, 48, i8, bf16, None, False),
-        ("gqa4_bf16", 4, 64, 256, 2, 4, 48, bf16, bf16, None, False),
-        ("gqa4_int8", 4, 64, 256, 2, 4, 48, i8, bf16, None, False),
-        ("g8_d64_bf16", 2, 16, 512, 1, 8, 64, bf16, bf16, None, False),
-        ("offgrid_f32_d16", 2, 5, 130, 4, 2, 16, f32, f32, None, False),
-        ("offgrid_bf16", 2, 5, 130, 8, 1, 48, bf16, bf16, None, False),
-        ("scalar_loads_d20", 2, 3, 77, 2, 2, 20, bf16, bf16, None, False),
-        ("int8_f32_query", 2, 5, 130, 2, 2, 48, i8, f32, None, False),
-        ("first_split_masked", 2, 64, 256, 8, 1, 48, bf16, bf16, 64, True),
-        ("block_s16_int8", 2, 16, 256, 8, 1, 48, i8, bf16, 16, False),
-        ("block_s32_bf16", 2, 16, 256, 8, 1, 48, bf16, bf16, 32, False),
+        # name, L, B, S, Hkv, G, D, cache dtype, q dtype, block_s, wholly masked split
+        ("main_bf16", 10, 64, 256, 8, 1, 48, bf16, bf16, None, None),
+        ("main_int8", 10, 64, 256, 8, 1, 48, i8, bf16, None, None),
+        ("gqa4_bf16", 4, 64, 256, 2, 4, 48, bf16, bf16, None, None),
+        ("gqa4_int8", 4, 64, 256, 2, 4, 48, i8, bf16, None, None),
+        ("g8_d64_bf16", 2, 16, 512, 1, 8, 64, bf16, bf16, None, None),
+        ("offgrid_f32_d16", 2, 5, 130, 4, 2, 16, f32, f32, None, None),
+        ("offgrid_bf16", 2, 5, 130, 8, 1, 48, bf16, bf16, None, None),
+        ("scalar_loads_d20", 2, 3, 77, 2, 2, 20, bf16, bf16, None, None),
+        ("int8_f32_query", 2, 5, 130, 2, 2, 48, i8, f32, None, None),
+        ("first_split_masked", 2, 64, 256, 8, 1, 48, bf16, bf16, 64, "first"),
+        ("block_s16_int8", 2, 16, 256, 8, 1, 48, i8, bf16, 16, None),
+        ("block_s32_bf16", 2, 16, 256, 8, 1, 48, bf16, bf16, 32, None),
+        # a split with no live position between two live ones
+        ("middle_split_masked", 2, 64, 256, 8, 1, 48, bf16, bf16, 64, "middle"),
+        ("middle_split_masked_int8", 2, 64, 256, 8, 1, 48, i8, bf16, 64, "middle"),
     ]
-    for name, L, B, S, Hkv, G, D, cdt, qdt, block_s, first_masked in cases:
+    for name, L, B, S, Hkv, G, D, cdt, qdt, block_s, masked in cases:
         q, k, v, mask, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cdt, qdt)
-        if first_masked:
+        if masked == "first":
             mask[:, :block_s] = da.NEG_INF  # every row's whole first split
             mask[:, S - 1] = 0.0
-        err = 0.0
+        elif masked == "middle":
+            mask[:, :block_s] = 0.0
+            mask[:, block_s:2 * block_s] = da.NEG_INF  # every row's whole second split
+            mask[:, 2 * block_s] = 0.0
+        # splits of 16 or 32 lie inside the cache's tiles, splits of 64k are
+        # whole tiles: either way a split never reads a dead tile's position
+        pk, pv, pks, pvs = poison_dead_tiles(k, v, ks, vs, mask)
+        err = nan_err = 0.0
         for layer in range(L):
             got = da.decode_attention_streamed(q, k, v, mask, layer, ks, vs, kv_heads=Hkv,
                                                block_s=block_s)
             want = da.decode_attention_streamed_reference(q, k, v, mask, layer, ks, vs,
                                                           kv_heads=Hkv, block_s=block_s)
+            got_poisoned = da.decode_attention_streamed(q, pk, pv, mask, layer, pks, pvs,
+                                                        kv_heads=Hkv, block_s=block_s)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"streamed {name}: non-finite kernel output")
-            err = max(err, float((got - want).abs().max()))
+            err = max(err, max_err(got, want))
+            nan_err = max(nan_err, max_err(got_poisoned, want))
+        del pk, pv, pks, pvs
         log("streamed", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, D=D),
             cache=str(cdt).removeprefix("torch."),
-            block_s=block_s or da.stream_block_s(B, Hkv, S, sms), max_abs_err=err,
-            tol=KERNEL_ATOL, tol_reason=KERNEL_ATOL_REASON)
-        if err > KERNEL_ATOL:
+            block_s=block_s or da.stream_block_s(B, Hkv, S, sms), masked_split=masked,
+            max_abs_err=err, nan_dead_tiles_err=nan_err, tol=KERNEL_ATOL,
+            tol_reason=KERNEL_ATOL_REASON)
+        if err > KERNEL_ATOL or nan_err > KERNEL_ATOL:
             raise AssertionError(f"streamed {name}: kernel disagrees with its plain version "
-                                 f"({err} > {KERNEL_ATOL})")
+                                 f"({err}; with NaN in the dead tiles {nan_err}; "
+                                 f"tolerance {KERNEL_ATOL})")
 
     timed = {}
     for name, B, cdt in (("b64_bf16", 64, bf16), ("b64_int8", 64, i8),
                          ("b256_bf16", 256, bf16), ("b256_int8", 256, i8)):
         L, S, Hkv, G, D = 10, 256, 8, 1, 48
         q, k, v, mask, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cdt, bf16)
-        quant = ks is not None
-
-        def sweep(fn):
-            return lambda: [fn(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
-                            for layer in range(L)]
-
-        err = max(float((da.decode_attention_streamed(q, k, v, mask, layer, ks, vs,
-                                                      kv_heads=Hkv)
-                         - da.decode_attention_streamed_reference(
-                             q, k, v, mask, layer, ks, vs, kv_heads=Hkv)).abs().max())
-                  for layer in range(L))
-        kernel_ms = median_ms(sweep(da.decode_attention_streamed)) / L
-        blocked_ms = median_ms(sweep(da.decode_attention)) / L
-        plain_ms = median_ms(sweep(da.decode_attention_streamed_reference), runs=9) / L
-        library_ms = None
-        if not quant:
-            q4, am = q[:, :, None, :], mask[:, None, None, :].to(q.dtype)
-
-            def sweep_library():
-                for layer in range(L):
-                    kl = k[layer].view(B, S, Hkv, D).transpose(1, 2)
-                    vl = v[layer].view(B, S, Hkv, D).transpose(1, 2)
-                    torch.nn.functional.scaled_dot_product_attention(
-                        q4, kl, vl, attn_mask=am, enable_gqa=True)
-
-            library_ms = median_ms(sweep_library) / L
-        b_ms, b_by, nbytes = decode_bound_ms(B, S, Hkv, G, D, k.element_size(),
-                                             q.element_size(), quant, peak_bw, peak_ops)
-        timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=library_ms, max_abs_err=err)
-        log("streamed_time", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, D=D),
-            block_s=da.stream_block_s(B, Hkv, S, sms), bytes=nbytes, **timed[name],
-            blocked_ms=blocked_ms, roofline_share=b_ms / kernel_ms)
-        if err > KERNEL_ATOL:
-            raise AssertionError(f"streamed {name}: kernel disagrees ({err})")
+        pk, pv, pks, pvs = poison_dead_tiles(k, v, ks, vs, mask)
+        err = nan_err = 0.0
+        for layer in range(L):
+            want = da.decode_attention_streamed_reference(q, k, v, mask, layer, ks, vs,
+                                                          kv_heads=Hkv)
+            err = max(err, max_err(da.decode_attention_streamed(
+                q, k, v, mask, layer, ks, vs, kv_heads=Hkv), want))
+            nan_err = max(nan_err, max_err(da.decode_attention_streamed(
+                q, pk, pv, mask, layer, pks, pvs, kv_heads=Hkv), want))
+        del pk, pv, pks, pvs
+        if err > KERNEL_ATOL or nan_err > KERNEL_ATOL:
+            raise AssertionError(f"streamed {name}: kernel disagrees ({err}, {nan_err})")
+        blocked_ms = median_ms(lambda: [da.decode_attention(q, k, v, mask, layer, ks, vs,
+                                                            kv_heads=Hkv)
+                                        for layer in range(L)]) / L
+        timed[name] = time_decode_case(name, q, k, v, mask, ks, vs, Hkv, G,
+                                       da.decode_attention_streamed, peak_bw, peak_ops, err,
+                                       nan_err, "streamed_time",
+                                       block_s=da.stream_block_s(B, Hkv, S, sms),
+                                       blocked_ms=blocked_ms)
+        if name == "b64_bf16":  # what the second launch costs beside the split kernel
+            prof = split_combine_profile(q, k, v, mask, ks, vs, Hkv)
+            log("streamed_profile", case=name, **prof, streamed_us=timed[name]["ms"] * 1e3,
+                combine_and_launch_us=timed[name]["ms"] * 1e3 - prof.get("split_us", 0.0))
 
     # the streamed kernel's path: the decode-attention chain benchmark
     da.decode_attention_streamed.launches = 0
@@ -1091,15 +1218,21 @@ def main() -> int:
     spec_served = phase_spec_serve(served["model"], served["cfg"], card_line)
     phase_spec_parity()
 
-    main_bf16, main_int8 = timed["main_bf16"], timed["main_int8"]
+    tile_design = ("one pass with an online softmax in float32 (SIMT) over only the 64-position "
+                   "cache tiles with a live mask position, flagged by each warp from the mask "
+                   "row; three cp.async stages of K/V head slices, mask values and int8 scales")
     kernels = [{
         "name": "decode_attention",
         "route": "cuda",
         "source": "genomics_lm_torch/csrc/decode_attention.cu",
         "replaces": "genomics_lm_tpu/ops/decode_attention.py:207",
         "launches": served["launches"],
-        **main_bf16,
-        "int8": dict(main_int8, launches=served["launches_int8"]),
+        **timed["main_bf16"],
+        "int8": dict(timed["main_int8"], launches=served["launches_int8"]),
+        "serve": timed["serve_bf16"],
+        "serve_int8": timed["serve_int8"],
+        "full": timed["full_bf16"],
+        "design": tile_design + "; one block per (kv head, slot)",
     }]
     tensor_core = ("bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix), cp.async double "
                    "buffering, band-and-segment tile skipping; float32: SIMT")
@@ -1137,6 +1270,8 @@ def main() -> int:
         "launches": streamed["launches"],
         **st["b64_bf16"],
         "int8": st["b64_int8"], "b256": st["b256_bf16"], "b256_int8": st["b256_int8"],
+        "design": tile_design + "; the S axis split over blocks in whole tiles, a combine "
+                  "launch when there is more than one split",
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -63,6 +63,7 @@
 // over.
 
 #include "decode_common.cuh"
+#include "decode_tiles.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -225,14 +226,11 @@ struct Args {
 
 // --- bfloat16 query: the tensor-core kernel --------------------------------------
 
-constexpr int kTile = 64;    // cache positions per tile
+// kTile (64 cache positions), kNegInf, kLog2e, ceil_div and copy_tile come
+// from decode_tiles.cuh.
 constexpr int kErrSmem = -2;  // returned when chunk_layout(...) exceeds kSmemOptInLimit
 constexpr size_t kSmemOptInLimit = 227 * 1024;  // sm_90's largest opt-in per block
 constexpr int kStages = 3;   // tiles in shared memory: two in flight while one is computed
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__host__ __device__ constexpr int ceil_div(int n, int d) { return (n + d - 1) / d; }
 
 // Byte offsets of the tensor-core kernel's shared memory. bf16 tiles have
 // rows of DP + 8 elements (16 bytes of padding: no bank conflicts). An int8
@@ -262,43 +260,6 @@ __host__ __device__ inline Layout chunk_layout(int DP, int QM, int T, bool quant
   L.live = L.ml + static_cast<size_t>(kWarps) * QM * 2 * 4;
   L.total = L.live + static_cast<size_t>(ceil_div(ntiles, 16)) * 16;
   return L;
-}
-
-// 64 cache rows from position j0 of one head slice (row stride P elements)
-// into dst (row stride ld_bytes); rows past S are zero. cb: bytes per
-// cp.async (a warp's consecutive threads copy consecutive pieces of whole
-// rows), or 0 for plain loads.
-template <typename TC>
-__device__ __forceinline__ void copy_tile(unsigned char* dst, int ld_bytes, const TC* src,
-                                          size_t P, int j0, int S, int D, int cb) {
-  if (cb) {
-    const int cpr = D * static_cast<int>(sizeof(TC)) / cb;  // copies per row
-    // copy e is (row r, piece c); both step by kThreads without a division
-    int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
-    const int dr = kThreads / cpr, dc = kThreads - dr * cpr;
-    for (int e = threadIdx.x; e < kTile * cpr; e += kThreads) {
-      const bool in = j0 + r < S;
-      const unsigned char* s =
-          reinterpret_cast<const unsigned char*>(src + (in ? static_cast<size_t>(j0 + r) * P : 0)) +
-          c * cb;
-      unsigned char* d = dst + r * ld_bytes + c * cb;
-      if (cb == 16) cp_async16(d, s, in);
-      else if (cb == 8) cp_async8(d, s, in);
-      else cp_async4(d, s, in);
-      r += dr;
-      c += dc;
-      if (c >= cpr) {
-        c -= cpr;
-        ++r;
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-      const int r = e / D, c = e - r * D;
-      reinterpret_cast<TC*>(dst + r * ld_bytes)[c] =
-          j0 + r < S ? src[static_cast<size_t>(j0 + r) * P + c] : TC{};
-    }
-  }
 }
 
 // DP: D padded to a multiple of 16; MT: m16 tiles of query rows (R <= 16 MT).
@@ -653,13 +614,7 @@ int dispatch_mma_rows(const Args& a, bool quant, cudaStream_t stream) {
 }
 
 int dispatch_mma(Args a, bool quant, cudaStream_t stream) {
-  // the widest cp.async that every head slice's start and length allow
-  const int es = quant ? 1 : 2;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(a.k_cache) |
-                         reinterpret_cast<uintptr_t>(a.v_cache);
-  a.cb = 0;
-  for (int w = 16; w >= 4 && a.cb == 0; w /= 2)
-    if ((a.D * es) % w == 0 && (a.Hkv * a.D * es) % w == 0 && addr % w == 0) a.cb = w;
+  a.cb = copy_bytes(a.k_cache, a.v_cache, a.D, a.Hkv, quant ? 1 : 2);
   a.mvec = a.S % 4 == 0 && reinterpret_cast<uintptr_t>(a.mask) % 16 == 0;
   switch ((a.D + 15) / 16) {
     case 1: return dispatch_mma_rows<16>(a, quant, stream);

@@ -1,7 +1,8 @@
 // Device helpers shared by the decode-attention kernels (decode_attention.cu,
-// decode_attention_chunk.cu, decode_attention_streamed.cu): float32 reads of
-// the cache's element types, 8- and 16-byte vector loads of a head's
-// D-slice, and block-wide reductions over the kernels' 128 threads.
+// decode_attention_chunk.cu, decode_attention_streamed.cu, and their shared
+// core in decode_tiles.cuh): float32 reads of the cache's element types, 8-
+// and 16-byte vector loads of a head's D-slice (from device or shared
+// memory), and block-wide reductions over the kernels' 128 threads.
 
 #pragma once
 

@@ -5,12 +5,14 @@ kernels are replaced by hand-written Hopper kernels (each source's header
 note says what bounds it and what the design does about that):
 
 - ``decode_attention``: one query token per slot, ``csrc/decode_attention.cu``;
+  it reads only the cache tiles that ``decode_live_tiles`` keeps;
 - ``decode_attention_chunk``: T query tokens per slot with a per-query mask
   (the speculative verify chunk), ``csrc/decode_attention_chunk.cu``; for a
   bf16 query it reads only the cache tiles that ``chunk_live_tiles`` keeps;
 - ``decode_attention_streamed``: ``decode_attention``'s function with the
   cache axis split over blocks and an online-softmax combine (split-S
-  flash-decoding), ``csrc/decode_attention_streamed.cu``.
+  flash-decoding), ``csrc/decode_attention_streamed.cu``; each split reads
+  only its live tiles.
 
 The cache layout is the JAX package's packed (L, B, S, P = Hkv·D): all
 heads' K (or V) of one position in one contiguous row, so the per-step
@@ -38,7 +40,7 @@ KERNEL_MAX_GROUP = 8
 KERNEL_MAX_CHUNK_ROWS = 32  # T·G query rows of one kv head in the chunk kernel
 _SMEM_LIMIT = 227 * 1024
 _CHUNK_TILE_S = 32  # float32 chunk kernel: V positions staged in shared memory at once
-CHUNK_TILE = 64  # bf16 chunk kernel: cache positions per tile (read only when live)
+CHUNK_TILE = 64  # cache positions per tile of the tile-skipping kernels (read only when live)
 _CHUNK_SMEM_ERROR = -2  # the chunk entry point's code for a layout over the opt-in limit
 _KERNEL_WARPS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
@@ -225,7 +227,7 @@ def _kernel():
     fn = load("decode_attention").glm_decode_attention
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -236,10 +238,6 @@ def _launch(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, B, Hq, D, S,
         raise ValueError(
             f"kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, Hq/Hkv <= "
             f"{KERNEL_MAX_GROUP} and B <= 65535; got D={D}, G={G}, B={B}")
-    smem = 4 * (2 * G * D + G * S + 4 * KERNEL_MAX_GROUP)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={S} with G={G} needs {smem} B of shared memory")
-    vec = _vector_loads(k_cache, v_cache, D, Hkv)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     fn = _kernel()
     with torch.cuda.device(q.device):
@@ -247,7 +245,7 @@ def _launch(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale, B, Hq, D, S,
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(), out.data_ptr(),
                  B, S, Hkv, G, D, layer, 1.0 / float(D) ** 0.5,
-                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], int(vec), stream)
+                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (error {err})")
     decode_attention.launches += 1
@@ -364,6 +362,17 @@ def chunk_live_tiles(mask_add: torch.Tensor) -> torch.Tensor:
     return live.view(B, -1, CHUNK_TILE).any(dim=-1)
 
 
+def decode_live_tiles(mask_add: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(S / CHUNK_TILE)) boolean: the cache tiles the single-token
+    kernels read, for a (B, S) mask: ``chunk_live_tiles`` with T = 1.
+
+    ``decode_attention`` reads exactly these; ``decode_attention_streamed``
+    too when its splits are multiples of ``CHUNK_TILE`` positions (the
+    default; a split's tiles start at the split's first position).
+    """
+    return chunk_live_tiles(mask_add[:, None, :])
+
+
 def _launch_chunk(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
                   B, Hq, D, S, Hkv):
     G = Hq // Hkv
@@ -472,8 +481,9 @@ def decode_attention_streamed(
 
     On the card the S axis is split over blocks of ``block_s`` positions
     (default: ``stream_block_s`` of the batch, the cache length and the
-    card's SM count), each block keeping its own (max, sum, P·V) carry, and
-    a second launch combines the splits. q is float32 or bf16 on the card.
+    card's SM count), each block reading only its live tiles and keeping
+    its own (max, sum, P·V) carry, and a second launch combines the splits
+    (none with one split). q is float32 or bf16 on the card.
     On the CPU the plain version runs the JAX kernel's recurrence over
     chunks of ``block_s``. Returns (B, Hq, D) float32.
     """
@@ -496,14 +506,15 @@ def stream_block_s(B: int, Hkv: int, S: int, sm_count: int) -> int:
     """Positions per split of the streamed kernel when the caller names none.
 
     Enough (slot, kv head, split) blocks for about eight per SM, splits of
-    at least 32 positions (a multiple of 32), and no split at all once the
-    batch alone gives that many blocks: splitting S is for small batches.
+    whole tiles (a multiple of ``CHUNK_TILE`` positions, so a split reads
+    the cache's own tiles), and no split at all once the batch alone gives
+    that many blocks: splitting S is for small batches.
     """
-    splits = min(-(-8 * sm_count // max(1, B * Hkv)), -(-S // 32))
+    splits = min(-(-8 * sm_count // max(1, B * Hkv)), -(-S // CHUNK_TILE))
     if splits <= 1:
         return S
     chunk = -(-S // splits)
-    return min(S, -(-chunk // 32) * 32)
+    return min(S, -(-chunk // CHUNK_TILE) * CHUNK_TILE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -514,7 +525,7 @@ def _streamed_kernel():
     fn = load("decode_attention_streamed").glm_decode_attention_streamed
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -532,23 +543,20 @@ def _launch_streamed(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
             f"streamed kernel takes head_dim <= {KERNEL_MAX_HEAD_DIM}, Hq/Hkv <= "
             f"{KERNEL_MAX_GROUP}, B <= 65535 and S/block_s <= 65535; got D={D}, "
             f"G={G}, B={B}, splits={splits}")
-    smem = 4 * (2 * G * D + G * block_s + _KERNEL_WARPS * KERNEL_MAX_GROUP)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"block_s={block_s} with G={G} needs {smem} B of shared memory")
-    vec = _vector_loads(k_cache, v_cache, D, Hkv)
     dev = q.device
-    m_part = torch.empty((B, Hkv, splits, G), dtype=torch.float32, device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, Hkv, splits, G, D), dtype=torch.float32, device=dev)
+    parts = [None, None, None]  # one split writes the output itself
+    if splits > 1:
+        m_part = torch.empty((B, Hkv, splits, G), dtype=torch.float32, device=dev)
+        acc_part = torch.empty((B, Hkv, splits, G, D), dtype=torch.float32, device=dev)
+        parts = [m_part.data_ptr(), torch.empty_like(m_part).data_ptr(), acc_part.data_ptr()]
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     fn = _streamed_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(), m_part.data_ptr(),
-                 l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(),
+                 *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(), *parts, out.data_ptr(),
                  B, S, Hkv, G, D, layer, block_s, 1.0 / float(D) ** 0.5,
-                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], int(vec), stream)
+                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_streamed kernel launch failed (error {err})")
     decode_attention_streamed.launches += 1
@@ -566,5 +574,6 @@ __all__ = [
     "decode_attention_reference",
     "decode_attention_streamed",
     "decode_attention_streamed_reference",
+    "decode_live_tiles",
     "stream_block_s",
 ]

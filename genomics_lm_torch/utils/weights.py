@@ -52,6 +52,34 @@ def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.float32)))
 
 
+class _TreeReader:
+    """Reads leaves of a nested-dict tree by path and remembers which it read."""
+
+    def __init__(self, tree: dict):
+        self.tree = tree
+        self.used: set[tuple[str, ...]] = set()
+
+    def node(self, *path: str):
+        node = self.tree
+        for key in path:
+            node = node[key]
+        return node
+
+    def leaf(self, *path: str):
+        self.used.add(path)
+        return self.node(*path)
+
+    def unused(self) -> list[str]:
+        """The paths ("a/b/c") of the tree's leaves that were never read."""
+        def walk(node, prefix):
+            for key, child in node.items():
+                if isinstance(child, dict):
+                    yield from walk(child, prefix + (key,))
+                elif prefix + (key,) not in self.used:
+                    yield "/".join(prefix + (key,))
+        return sorted(walk(self.tree, ()))
+
+
 def _check_dense(tree: dict, where: str) -> None:
     if "w_q" in tree:
         raise NotImplementedError(f"weight-only int8 linears ({where}) are not ported")
@@ -59,12 +87,14 @@ def _check_dense(tree: dict, where: str) -> None:
         raise NotImplementedError(f"LoRA linears ({where}) are not ported")
 
 
-def _linear(tree: dict, where: str, i: int | None = None) -> dict[str, torch.Tensor]:
-    _check_dense(tree, where)
+def _linear(tree: _TreeReader, path: tuple[str, ...], i: int | None = None
+            ) -> dict[str, torch.Tensor]:
+    node = tree.node(*path)
+    _check_dense(node, "/".join(path))
     pick = (lambda a: a[i]) if i is not None else (lambda a: a)
-    out = {"weight": _f32(pick(tree["w"])).t().contiguous()}
-    if "b" in tree:
-        out["bias"] = _f32(pick(tree["b"]))
+    out = {"weight": _f32(pick(tree.leaf(*path, "w"))).t().contiguous()}
+    if "b" in node:
+        out["bias"] = _f32(pick(tree.leaf(*path, "b")))
     return out
 
 
@@ -74,48 +104,53 @@ def _put(sd: dict, prefix: str, tensors: dict[str, torch.Tensor]) -> None:
 
 
 def state_dict_from_jax(tree: dict, cfg: CodonGPTConfig) -> dict[str, torch.Tensor]:
-    """The ``CodonGPT(cfg).state_dict()`` that carries the JAX tree's weights."""
+    """The ``CodonGPT(cfg).state_dict()`` that carries the JAX tree's weights.
+
+    Raises ``ValueError`` naming every leaf of the tree that ``cfg`` leaves
+    unread (a head or a projection the config does not have, a stray leaf):
+    nothing is dropped without a word.
+    """
     if cfg.moe_experts or "router" in tree.get("blocks", {}):
         raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
-    sd: dict[str, torch.Tensor] = {"tok_emb.weight": _f32(tree["tok_emb"])}
+    t = _TreeReader(tree)
+    sd: dict[str, torch.Tensor] = {"tok_emb.weight": _f32(t.leaf("tok_emb"))}
     if not cfg.use_rope:
-        sd["pos_emb.weight"] = _f32(tree["pos_emb"])
-    blocks = tree["blocks"]
-    attn = blocks["attn"]
+        sd["pos_emb.weight"] = _f32(t.leaf("pos_emb"))
     for i in range(cfg.n_layer):
         p = f"blocks.{i}"
         for ln in ("ln1", "ln2"):
-            sd[f"{p}.{ln}.weight"] = _f32(blocks[ln]["scale"][i])
-            sd[f"{p}.{ln}.bias"] = _f32(blocks[ln]["bias"][i])
-        parts = [_linear(attn[n], f"attn/{n}", i) for n in ("query", "key", "value")]
+            sd[f"{p}.{ln}.weight"] = _f32(t.leaf("blocks", ln, "scale")[i])
+            sd[f"{p}.{ln}.bias"] = _f32(t.leaf("blocks", ln, "bias")[i])
+        parts = [_linear(t, ("blocks", "attn", n), i) for n in ("query", "key", "value")]
         if cfg.fused_qkv:
             _put(sd, f"{p}.attn.qkv", {
-                "weight": torch.cat([t["weight"] for t in parts], dim=0),
-                "bias": torch.cat([t["bias"] for t in parts], dim=0),
+                "weight": torch.cat([x["weight"] for x in parts], dim=0),
+                "bias": torch.cat([x["bias"] for x in parts], dim=0),
             })
         else:
-            for name, t in zip(("query", "key", "value"), parts):
-                _put(sd, f"{p}.attn.{name}", t)
-        _put(sd, f"{p}.attn.proj", _linear(attn["proj"], "attn/proj", i))
-        mlp = blocks["mlp"]
+            for name, x in zip(("query", "key", "value"), parts):
+                _put(sd, f"{p}.attn.{name}", x)
+        _put(sd, f"{p}.attn.proj", _linear(t, ("blocks", "attn", "proj"), i))
         if cfg.use_swiglu:
             for name in ("w_gate", "w_up", "w_down"):
-                _put(sd, f"{p}.mlp.{name}", _linear(mlp[name], f"mlp/{name}", i))
+                _put(sd, f"{p}.mlp.{name}", _linear(t, ("blocks", "mlp", name), i))
         else:
-            _put(sd, f"{p}.mlp.0", _linear(mlp["fc"], "mlp/fc", i))
-            _put(sd, f"{p}.mlp.2", _linear(mlp["proj"], "mlp/proj", i))
-    sd["ln_f.weight"] = _f32(tree["ln_f"]["scale"])
-    sd["ln_f.bias"] = _f32(tree["ln_f"]["bias"])
+            _put(sd, f"{p}.mlp.0", _linear(t, ("blocks", "mlp", "fc"), i))
+            _put(sd, f"{p}.mlp.2", _linear(t, ("blocks", "mlp", "proj"), i))
+    sd["ln_f.weight"] = _f32(t.leaf("ln_f", "scale"))
+    sd["ln_f.bias"] = _f32(t.leaf("ln_f", "bias"))
     if not cfg.tie_embeddings:
-        _put(sd, "head", _linear(tree["head"], "head"))
+        _put(sd, "head", _linear(t, ("head",)))
     if cfg.termination_aux:
-        _put(sd, "termination_head", _linear(tree["termination_head"], "termination_head"))
+        _put(sd, "termination_head", _linear(t, ("termination_head",)))
     if cfg.use_shape_guidance:
-        _put(sd, "shape_proj", _linear(tree["shape_proj"], "shape_proj"))
+        _put(sd, "shape_proj", _linear(t, ("shape_proj",)))
     for o in cfg.multi_offset_targets:
-        proj = tree["offset_projs"][str(o)]
-        _put(sd, f"offset_projs.{o}.0", _linear(proj["fc"], f"offset_projs/{o}/fc"))
-        _put(sd, f"offset_projs.{o}.2", _linear(proj["proj"], f"offset_projs/{o}/proj"))
+        _put(sd, f"offset_projs.{o}.0", _linear(t, ("offset_projs", str(o), "fc")))
+        _put(sd, f"offset_projs.{o}.2", _linear(t, ("offset_projs", str(o), "proj")))
+    unused = t.unused()
+    if unused:
+        raise ValueError(f"the tree has leaves this config has no place for: {unused}")
     return sd
 
 

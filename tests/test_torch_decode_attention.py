@@ -23,12 +23,15 @@ import torch
 from genomics_lm_tpu.ops import decode_attention as jax_da
 from genomics_lm_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from genomics_lm_torch.ops.decode_attention import (
+    CHUNK_TILE,
     NEG_INF,
     chunk_live_tiles,
     decode_attention,
     decode_attention_chunk,
     decode_attention_reference,
     decode_attention_streamed,
+    decode_attention_streamed_reference,
+    decode_live_tiles,
     stream_block_s,
 )
 from genomics_lm_torch.ops.quant import quantize_kv
@@ -332,6 +335,111 @@ def test_chunk_live_tiles_drop_only_masked_positions(scenario, quant):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
+# single-token masks as the engine builds them (generation/decode.py::_decode_mask;
+# S 160: tiles [0, 64), [64, 128) and the ragged [128, 160)): per slot its
+# length and the position where its current segment starts
+DEC_S = 160
+DECODE_SCENARIOS = {
+    # slot 0's segment starts at 70 (tile 0 dead), slot 1's at 130 (tiles 0-1 dead)
+    "segment_gap": ([150, 155, 90, 20], [70, 130, 0, 0]),
+    "empty_tail": ([5, 63, 64, 100], [0, 0, 0, 0]),
+    # every position filled: the write position clamps to S - 1
+    "full_slot": ([DEC_S, DEC_S - 1, 127, 128], [0, 0, 0, 0]),
+}
+
+
+def decode_mask(lengths, seg_starts):
+    """(B, S) mask from ``_decode_mask``: cache positions at or after a
+    slot's segment start hold its current segment (1), those before it an
+    earlier one (0)."""
+    from genomics_lm_torch.generation.decode import _decode_mask
+
+    lengths = torch.tensor(lengths)
+    seg = (torch.arange(DEC_S)[None, :] >= torch.tensor(seg_starts)[:, None]).to(torch.int32)
+    return _decode_mask(seg, torch.ones(len(lengths), dtype=torch.int32), lengths[:, None],
+                        lengths.clamp_max(DEC_S - 1)[:, None], 3)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("scenario", list(DECODE_SCENARIOS))
+def test_decode_live_tiles_drop_only_masked_positions(scenario, quant):
+    """The single-token kernels' tile rule on decode masks: a tile is live
+    when some entry of it is above NEG_INF/2; the plain versions of the
+    single-pass and the streamed op with the dead tiles' K and V (and int8
+    scales) overwritten by large finite values are unchanged within 1e-6."""
+    mask = decode_mask(*DECODE_SCENARIOS[scenario])
+    B, Hkv, G = mask.shape[0], 2, 2
+    live = decode_live_tiles(mask)
+    assert live.shape == (B, 3) and live.dtype == torch.bool
+    for b in range(B):
+        for t in range(3):
+            assert bool((mask[b, 64 * t:64 * (t + 1)] > 0.5 * NEG_INF).any()) == bool(live[b, t])
+    want_live = {
+        "segment_gap": [[False, True, True], [False, False, True], [True, True, False],
+                        [True, False, False]],
+        "empty_tail": [[True, False, False], [True, False, False], [True, True, False],
+                       [True, True, False]],
+        "full_slot": [[True, True, True], [True, True, True], [True, True, False],
+                      [True, True, True]],
+    }[scenario]
+    assert live.tolist() == want_live
+
+    rng = np.random.default_rng(60 + len(scenario) + quant)
+    L_ = 2
+    kh = rng.normal(size=(L_, B, Hkv, DEC_S, D)).astype(np.float32)
+    vh = rng.normal(size=(L_, B, Hkv, DEC_S, D)).astype(np.float32)
+    ks = vs = None
+    if quant:
+        kh, ks = (torch.from_numpy(np.array(a)) for a in jax_quantize_kv(jnp.asarray(kh)))
+        vh, vs = (torch.from_numpy(np.array(a)) for a in jax_quantize_kv(jnp.asarray(vh)))
+    else:
+        kh, vh = torch.from_numpy(kh), torch.from_numpy(vh)
+    k, v = (a.transpose(2, 3).reshape(L_, B, DEC_S, Hkv * D).contiguous() for a in (kh, vh))
+    q = torch.from_numpy(rng.normal(size=(B, Hkv * G, D)).astype(np.float32))
+    dead = ~live.repeat_interleave(64, 1)[:, :DEC_S]  # (B, S)
+    k2, v2 = k.clone(), v.clone()
+    ks2 = vs2 = None
+    if quant:
+        noise = torch.from_numpy(rng.integers(-127, 128, k2.shape).astype(np.int8))
+        k2[:, dead], v2[:, dead] = noise[:, dead], noise.flip(0)[:, dead]
+        sd = dead[:, None, :].expand(B, Hkv, DEC_S)
+        big = torch.from_numpy(rng.uniform(1e2, 1e3, ks.shape).astype(np.float32))
+        ks2, vs2 = ks.clone(), vs.clone()
+        ks2[:, sd], vs2[:, sd] = big[:, sd], big.flip(0)[:, sd]
+    else:
+        noise = torch.from_numpy(rng.normal(0.0, 1e3, k2.shape).astype(np.float32))
+        k2[:, dead], v2[:, dead] = noise[:, dead], -noise[:, dead]
+    assert not torch.equal(k2, k)
+    for op in (decode_attention, decode_attention_streamed_reference):
+        want = op(q, k, v, mask, 1, ks, vs, kv_heads=Hkv)
+        got = op(q, k2, v2, mask, 1, ks2, vs2, kv_heads=Hkv)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_streamed_middle_split_without_live_position(quant):
+    """A split with no live position between two live ones adds exactly
+    nothing: the streamed op's plain version against JAX
+    ``decode_attention_streamed`` (Pallas interpret mode) and
+    ``decode_attention_xla``, float32, 2e-6."""
+    rng = np.random.default_rng(48 + quant)
+    B, Hkv, G, block_s = 4, 2, 2, 16
+    q, k, v, mask, ks, vs = make_inputs(rng, B, Hkv, G, quant)
+    mask[:, :block_s] = 0.0
+    mask[:, block_s:2 * block_s] = -1e30  # every row's whole second split
+    mask[:, 2 * block_s] = 0.0
+    jargs = [jnp.asarray(a) for a in (q, k, v, mask)]
+    jscales = [None if a is None else jnp.asarray(a) for a in (ks, vs)]
+    want_kernel = np.asarray(jax_da.decode_attention_streamed(
+        *jargs, 1, *jscales, kv_heads=Hkv, block_s=block_s, interpret=True))
+    want_xla = np.asarray(jax_da.decode_attention_xla(*jargs, 1, *jscales, kv_heads=Hkv))
+    got = decode_attention_streamed(*to_torch(q, k, v, mask), 1, *to_torch(ks, vs),
+                                    kv_heads=Hkv, block_s=block_s)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want_kernel, atol=KERNEL_ATOL)
+    np.testing.assert_allclose(got.numpy(), want_xla, atol=KERNEL_ATOL)
+
+
 def test_streamed_ragged_last_chunk_matches_single_pass():
     """A ``block_s`` that does not divide S keeps the ragged last chunk."""
     rng = np.random.default_rng(46)
@@ -343,14 +451,16 @@ def test_streamed_ragged_last_chunk_matches_single_pass():
 
 def test_stream_block_s_splits_small_batches_only():
     """The streamed kernel's default split: none once the batch fills the
-    card, multiples of 32 positions below that, never more than S."""
+    card, whole 64-position tiles below that (so a split reads the cache's
+    own tiles), never more than S."""
     assert stream_block_s(256, 8, 256, 132) == 256
-    assert stream_block_s(64, 8, 256, 132) == 96  # 3 splits of 512 blocks
-    assert stream_block_s(1, 1, 256, 132) == 32
+    assert stream_block_s(64, 8, 256, 132) == 128  # 3 splits wanted, 2 of whole tiles
+    assert stream_block_s(1, 1, 256, 132) == 64
     assert stream_block_s(1, 1, 20, 132) == 20
+    assert stream_block_s(1, 1, 130, 132) == 64  # the last split ragged
     for B in (1, 5, 64, 256):
         bs = stream_block_s(B, 8, 384, 132)
-        assert 32 <= bs <= 384 and (bs % 32 == 0 or bs == 384)
+        assert 64 <= bs <= 384 and (bs % CHUNK_TILE == 0 or bs == 384)
 
 
 def test_chunk_and_streamed_wrappers_check_contract():

@@ -139,6 +139,64 @@ def test_unported_variants_raise():
         state_dict_from_jax(jax.tree.map(np.asarray, quantize_params(params)), tcfg)
 
 
+LEFTOVER_LEAVES = {
+    # JAX config of the tree, extra leaves put in it, leaves the error must name
+    "aux_heads": ({"termination_aux": True, "multi_offset_targets": (1, 3)}, {},
+                  ["termination_head/w", "termination_head/b", "offset_projs/1/fc/w",
+                   "offset_projs/3/proj/b"]),
+    "untied_head": ({"tie_embeddings": False}, {}, ["head/w"]),
+    "learned_positions": ({}, {}, ["pos_emb"]),  # loaded into a RoPE config
+    "stray_top_level": ({}, {("stray",): np.zeros(3, np.float32)}, ["stray"]),
+    "stray_block_leaf": ({}, {("blocks", "attn", "query", "extra"): np.zeros(2, np.float32)},
+                         ["blocks/attn/query/extra"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEFTOVER_LEAVES))
+def test_leftover_tree_leaves_raise(case):
+    """A tree leaf the config has no place for raises, naming it, where it was
+    once dropped without a word: heads of a config with termination_aux or
+    multi_offset_targets loaded into one without them, an untied head into a
+    tied config, learned positions into a RoPE config, a stray leaf."""
+    jover, extra, names = LEFTOVER_LEAVES[case]
+    params, _, _, tcfg = make_pair(**jover)
+    tree = jax.tree.map(np.asarray, params)
+    for path, leaf in extra.items():
+        node = tree
+        for key in path[:-1]:
+            node[key] = dict(node[key])
+            node = node[key]
+        node[path[-1]] = leaf
+    target = tcfg.replace(termination_aux=False, multi_offset_targets=(), tie_embeddings=True,
+                          use_rope=case == "learned_positions")
+    with pytest.raises(ValueError, match="no place for") as raised:
+        params_from_jax(tree, target, "cpu")
+    for name in names:
+        assert name in str(raised.value)
+
+
+WINDOW_VARIANTS = {"mha": {}, "gqa_rope": {"n_kv_head": 1, "use_rope": True}}
+
+
+@pytest.mark.parametrize("window", [1, 5, 17])
+@pytest.mark.parametrize("variant", sorted(WINDOW_VARIANTS))
+def test_attention_window_forward_matches_jax(variant, window):
+    """``forward(..., attention_window=w)`` against JAX's forward with the
+    same window: the einsum path and the flash op's plain version (CPU) both
+    hold JAX's logits to 1e-4."""
+    params, jcfg, model, tcfg = make_pair(seed=5, **WINDOW_VARIANTS[variant])
+    idx = make_ids(np.random.default_rng(6), 2, 40)
+    want, _ = jax_gpt.forward(params, jcfg, idx, attention_window=window)
+    for impl in ("xla", "flash"):
+        with torch.no_grad():
+            got, _ = forward(model, tcfg.replace(attention_impl=impl), torch.from_numpy(idx),
+                             attention_window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, err_msg=impl)
+    if window == 1:  # each token sees only itself: not the full-context logits
+        full, _ = jax_gpt.forward(params, jcfg, idx)
+        assert not np.allclose(np.asarray(want), np.asarray(full), atol=1e-2)
+
+
 LOSS_CASES = {
     "plain": {},
     "smoothing": {"label_smoothing": 0.05},

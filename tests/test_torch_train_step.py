@@ -93,9 +93,22 @@ def assert_rel(got, want, rtol=RTOL, what="", floor=1e-12):
     assert err <= rtol, f"{what}: {err} > {rtol}"
 
 
-@pytest.mark.parametrize("fused_qkv", [False, True], ids=["qkv", "fused_qkv"])
-def test_group_gradients_and_metrics_match_jax(fused_qkv):
-    params, jcfg, model, tcfg = make_pair(fused_qkv=fused_qkv)
+GROUP_CASES = {
+    "qkv": {},
+    "fused_qkv": {"fused_qkv": True},
+    "gqa_kv2": {"n_kv_head": 2},
+    "gqa_kv1": {"n_kv_head": 1},
+    "rope": {"use_rope": True},
+    "swiglu_untied": {"use_swiglu": True, "tie_embeddings": False},
+    "rope_fused_gqa": {"use_rope": True, "fused_qkv": True, "n_kv_head": 2},
+    "no_sep": {"sep_id": None},
+    "loss_weights": {"loss_weights": tuple(0.5 + (i % 3) * 0.5 for i in range(68))},
+}
+
+
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_group_gradients_and_metrics_match_jax(case):
+    params, jcfg, model, tcfg = make_pair(**GROUP_CASES[case])
     x, y = make_batch()
     _, jgrads, jmetrics = run_jax(params, jcfg, x, y)
     metrics = run_torch(model, tcfg, x, y)
