@@ -67,9 +67,9 @@ exits non-zero:
    decode kernel's nine shapes, with a wholly masked first or middle
    split, and with splits of 16 and 32 positions, each also with NaN in
    the dead tiles; its times at batch 64 and 256 (bf16 and int8) logged as
-   phase 3's, and at batch 64 the split and combine kernels' device times
-   (``torch.profiler``); then ``serving/benchmark_decode_kernel.py``'s
-   chain (plain, blocked, streamed) once, counting the streamed launches.
+   phase 3's, and at batch 64 also with splits of 64 and 128 positions;
+   then ``serving/benchmark_decode_kernel.py``'s chain (plain, blocked,
+   streamed) once, counting the streamed launches.
 12. spec serve — the speculative main path: the same engine and 128
    requests with ``speculative_k=4`` and a draft table fitted to the
    model's own samples, bf16 and int8; every budget served, the chunk
@@ -114,7 +114,6 @@ from genomics_lm_torch.serving.profile_drain import (
     REQUESTS,
     SPECULATIVE_K,
     build_requests,
-    event_device_us,
     fit_draft_table,
 )
 from genomics_lm_torch.serving.server import InferenceServer
@@ -974,27 +973,6 @@ def phase_chunk(peak_bw, peak_ops) -> dict:
 # --- phase 11: the streamed kernel against its plain version ---------------------
 
 
-def split_combine_profile(q, k, v, mask, ks, vs, Hkv) -> dict:
-    """Device µs per launch of each kernel of the streamed op (the split
-    kernel, and the combine when there are several splits), from
-    ``torch.profiler`` over five sweeps of all L layers."""
-    L = k.shape[0]
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(5):
-            for layer in range(L):
-                da.decode_attention_streamed(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        for key, kernel in (("split_us", "decode_tile_kernel"),
-                            ("combine_us", "decode_combine_kernel")):
-            if (kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.count):
-                out[key] = event_device_us(e) / e.count
-    return out
-
-
 def phase_streamed(peak_bw, peak_ops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
@@ -1078,10 +1056,12 @@ def phase_streamed(peak_bw, peak_ops) -> dict:
                                        nan_err, "streamed_time",
                                        block_s=da.stream_block_s(B, Hkv, S, sms),
                                        blocked_ms=blocked_ms)
-        if name == "b64_bf16":  # what the second launch costs beside the split kernel
-            prof = split_combine_profile(q, k, v, mask, ks, vs, Hkv)
-            log("streamed_profile", case=name, **prof, streamed_us=timed[name]["ms"] * 1e3,
-                combine_and_launch_us=timed[name]["ms"] * 1e3 - prof.get("split_us", 0.0))
+        if name == "b64_bf16":  # what splitting S would cost or buy here (the default: none)
+            split_ms = {block_s: median_ms(lambda: [da.decode_attention_streamed(
+                q, k, v, mask, layer, ks, vs, kv_heads=Hkv, block_s=block_s)
+                for layer in range(L)]) / L for block_s in (64, 128)}
+            log("streamed_splits", case=name, ms=timed[name]["ms"],
+                block_s=da.stream_block_s(B, Hkv, S, sms), ms_by_block_s=split_ms)
 
     # the streamed kernel's path: the decode-attention chain benchmark
     da.decode_attention_streamed.launches = 0
@@ -1270,8 +1250,9 @@ def main() -> int:
         "launches": streamed["launches"],
         **st["b64_bf16"],
         "int8": st["b64_int8"], "b256": st["b256_bf16"], "b256_int8": st["b256_int8"],
-        "design": tile_design + "; the S axis split over blocks in whole tiles, a combine "
-                  "launch when there is more than one split",
+        "design": tile_design + "; the S axis split over blocks in whole tiles only while "
+                  "the batch leaves resident blocks idle, the last split block of a (kv head, "
+                  "slot) combining the splits in the same launch",
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

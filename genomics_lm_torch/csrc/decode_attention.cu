@@ -23,14 +23,16 @@
 // - It reads only the 64-position tiles that hold a live mask position
 //   (ops/decode_attention.py::decode_live_tiles states the rule): a serving
 //   slot holds at most 192 of 256 positions, and usually far fewer.
-// - The live tiles stream through three cp.async stages (K and V head
-//   slices, mask values, int8 scales), so up to three tiles of a block are
-//   in flight at once; every warp flags the tiles from the mask row itself,
-//   so the first copies wait on one round trip of mask reads only.
+// - The live tiles stream through four cp.async stages (three for a
+//   float32 cache) of K and V head slices, mask values and int8 scales, so
+//   a slot of up to 256 positions has all its tiles in flight at once;
+//   every warp flags the tiles from the mask row itself, so the first
+//   copies wait on one round trip of mask reads only.
 // - One pass with an online softmax in float32 on the SIMT units; each
-//   warp owns 16 positions of every tile and the warps combine once. Every
-//   query and cache type the wrapper takes: q float32, bfloat16 or float16,
-//   a cache of q's type or int8 with scales (converted 16 bytes at a time).
+//   warp owns 16 positions of every tile and the warps combine once,
+//   through shared memory without atomics. Every query and cache type the
+//   wrapper takes: q float32, bfloat16 or float16, a cache of q's type or
+//   int8 with scales (converted 8 bytes at a time by byte permutes).
 // - The G = Hq/Hkv query heads of a kv head share one read of its slice.
 // What it does not do: use the tensor cores (G = 1 at the serving shape),
 // TMA, or split S over blocks (decode_attention_streamed.cu does).

@@ -20,62 +20,32 @@
 //
 // What this design does about that: the S axis is split over blocks, grid
 // (Hkv, B, splits), splits of block_s positions (the wrapper's
-// stream_block_s picks a multiple of the 64-position tile, so a split's
-// tiles are the cache's tiles). Each split block runs decode_tiles.cuh's
-// core over its positions: it reads only its live tiles through three
-// cp.async stages, with an online softmax, and writes (m, l, acc) for its G
-// query heads (m = NEG_INF, l = 0, acc = 0 for a split without a live
-// tile). A second launch combines the splits per (slot, head):
-// M = max m, w = 2^(m - M), out = sum w*acc / max(sum w*l, 1e-30). One
-// split (a batch that fills the card) is the single-pass kernel: it writes
-// the output itself and no combine is launched.
+// stream_block_s splits only a batch too small to fill the card's resident
+// blocks, in whole 64-position tiles, so a split's tiles are the cache's
+// tiles). Each split block runs decode_tiles.cuh's core over its positions:
+// it reads only its live tiles through cp.async stages, with an online
+// softmax, and writes (m, l, acc) for its G query heads (m = NEG_INF, l =
+// 0, acc = 0 for a split without a live tile). The last split block of a
+// (slot, kv head) to finish, found with a per-(slot, kv head) counter that
+// it resets to 0, combines the splits: M = max m, w = 2^(m - M), out =
+// sum w*acc / max(sum w*l, 1e-30). A combine launch of its own would cost
+// more than its work (on an H100 at 700 W, B 64: 5.5 us with its launch,
+// 2.55 us of kernel time). One split (a batch that fills the card) is the
+// single-pass kernel: it writes the output itself.
 
 #include "decode_tiles.cuh"
-
-namespace {
-
-// Combine the splits of one (slot, head): grid (Hq, B), threads over D.
-// m is in log2 units.
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ m_part, const float* __restrict__ l_part,
-                      const float* __restrict__ acc_part, float* __restrict__ out, int Hkv,
-                      int G, int D, int splits) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int Hq = Hkv * G;
-  // part rows of (b, kv head h / G, split z, group member h % G)
-  const size_t row0 = (static_cast<size_t>(b) * Hkv + h / G) * splits * G + h % G;
-  float M = kNegInf;
-  for (int z = 0; z < splits; ++z) M = fmaxf(M, m_part[row0 + static_cast<size_t>(z) * G]);
-  float l = 0.f;
-  for (int z = 0; z < splits; ++z) {
-    const size_t row = row0 + static_cast<size_t>(z) * G;
-    l += exp2f(m_part[row] - M) * l_part[row];
-  }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float a = 0.f;
-    for (int z = 0; z < splits; ++z) {
-      const size_t row = row0 + static_cast<size_t>(z) * G;
-      a += exp2f(m_part[row] - M) * acc_part[row * D + d];
-    }
-    out[(static_cast<size_t>(b) * Hq + h) * D + d] = a * inv;
-  }
-}
-
-}  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16, 3 int8. A float cache has the
 // query's dtype; an int8 cache takes a float32 or bfloat16 query. With
 // splits = ceil(S / block_s) > 1 the scratch buffers are (B, Hkv, splits, G)
-// for m and l and (B, Hkv, splits, G, D) for acc, and the split kernel and
-// the combine kernel are launched on `stream`; with one split the scratch
-// pointers are not read and only the split kernel runs. Returns the first
-// launch error, or -1 for arguments it does not take.
+// for m and l, (B, Hkv, splits, G, D) for acc, and `done` is (B, Hkv) int32,
+// all zero before the first launch (the kernel leaves it zero); with one
+// split they are not read. Launches one kernel on `stream`; returns the
+// launch's cudaError_t, or -1 for arguments it does not take.
 extern "C" int glm_decode_attention_streamed(
     const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
     const void* v_scale, const void* mask, void* m_part, void* l_part, void* acc_part,
-    void* out, int B, int S, int Hkv, int G, int D, int layer, int block_s,
+    void* done, void* out, int B, int S, int Hkv, int G, int D, int layer, int block_s,
     float inv_sqrt_d, int q_dtype, int cache_dtype, void* stream) {
   if (block_s < 1 || block_s > S) return -1;
   DecodeArgs a{};
@@ -89,6 +59,7 @@ extern "C" int glm_decode_attention_streamed(
   a.m_part = static_cast<float*>(m_part);
   a.l_part = static_cast<float*>(l_part);
   a.acc_part = static_cast<float*>(acc_part);
+  a.done = static_cast<int*>(done);
   a.B = B;
   a.S = S;
   a.Hkv = Hkv;
@@ -97,11 +68,5 @@ extern "C" int glm_decode_attention_streamed(
   a.layer = layer;
   a.block_s = block_s;
   a.inv_sqrt_d = inv_sqrt_d;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = launch_decode_tiles<false>(a, q_dtype, cache_dtype, st);
-  const int splits = ceil_div(S, block_s);
-  if (err != 0 || splits == 1) return err;
-  decode_combine_kernel<<<dim3(Hkv * G, B), kThreads, 0, st>>>(
-      a.m_part, a.l_part, a.acc_part, a.out, Hkv, G, D, splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch_decode_tiles<false>(a, q_dtype, cache_dtype, static_cast<cudaStream_t>(stream));
 }

@@ -13,21 +13,26 @@
 //   lane) and keeps the flags of 64 tiles as one 64-bit word in registers,
 //   so the first copies are issued right after one round trip of mask
 //   reads, with no barrier and nothing in shared memory that grows with S.
-// - Pipeline. The live tiles stream through kTileStages stages of shared
-//   memory with cp.async (16-, 8- or 4-byte copies of the head's D-slice of
-//   consecutive positions; rows past the split are zero-filled), each with
-//   its 64 mask values and, for an int8 cache, its k and v scales. Up to
-//   kTileStages tiles are in flight while one is computed.
+// - Pipeline. The live tiles stream through four stages of shared memory
+//   (three for a float32 cache) with cp.async (16-, 8- or 4-byte copies of
+//   the head's D-slice of consecutive positions; rows past the split are
+//   zero-filled), each with its 64 mask values and, for an int8 cache, its
+//   k and v scales: a slot of up to 256 positions has all its tiles in
+//   flight at once, and the block waits on memory once. One barrier a tile.
 // - One pass. Each of the 4 warps owns 16 positions of every tile and keeps
 //   its own running max m, sum l and P.V accumulator for the G query rows
 //   (float32 on the SIMT units: the serving model is MHA, G = 1, where the
 //   tensor cores buy little). Scores: two lanes per position, each half of
-//   D, summed by one shuffle. P.V: lanes own (query row, 16 bytes of D)
-//   items over a share of the warp's positions. The warps combine once at
-//   the end. Scores are kept in log2 units (exp2).
-// - Output. One split writes the normalized (B, Hq, D) rows; several write
-//   (m, l, unnormalized acc) per split for a combine (a split without a live
-//   tile writes m = NEG_INF, l = 0, acc = 0, so it adds exactly nothing).
+//   D, summed by one shuffle. P.V: lanes own (query row, 16 bytes of D, 8
+//   for int8) items over a share of the warp's positions. The warps combine once at
+//   the end through shared memory (no atomics). Scores are kept in log2
+//   units (exp2); int8 turns into float32 with a byte permute and a
+//   subtraction, not the quarter-rate integer conversion.
+// - Output. One split writes the normalized (B, Hq, D) rows. Several write
+//   (m, l, unnormalized acc) per split (a split without a live tile writes
+//   m = NEG_INF, l = 0, acc = 0, so it adds exactly nothing), and the last
+//   block of a (slot, kv head) to finish, found with a counter that it
+//   resets, combines them: no second launch.
 
 #pragma once
 
@@ -39,7 +44,6 @@ namespace {
 constexpr int kTile = 64;           // cache positions per tile
 constexpr float kNegInf = -1e30f;   // the mask's NEG_INF; <= kNegInf / 2 blocks a key
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTileStages = 3;      // tiles of the single-token core in shared memory
 constexpr int kMaxGroup = 8;        // G = Hq / Hkv bound of the single-token core
 
 __host__ __device__ constexpr int ceil_div(int n, int d) { return (n + d - 1) / d; }
@@ -53,14 +57,14 @@ __device__ __forceinline__ void copy_tile(unsigned char* dst, int ld_bytes, cons
                                           size_t P, int j0, int end, int D, int cb) {
   if (cb) {
     const int cpr = D * static_cast<int>(sizeof(TC)) / cb;  // copies per row
+    const int row_bytes = static_cast<int>(P * sizeof(TC));  // < 2^31 / kTile
+    const unsigned char* base = reinterpret_cast<const unsigned char*>(src + static_cast<size_t>(j0) * P);
     // copy e is (row r, piece c); both step by kThreads without a division
     int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
     const int dr = kThreads / cpr, dc = kThreads - dr * cpr;
     for (int e = threadIdx.x; e < kTile * cpr; e += kThreads) {
       const bool in = j0 + r < end;
-      const unsigned char* s =
-          reinterpret_cast<const unsigned char*>(src + (in ? static_cast<size_t>(j0 + r) * P : 0)) +
-          c * cb;
+      const unsigned char* s = in ? base + r * row_bytes + c * cb : base;
       unsigned char* d = dst + r * ld_bytes + c * cb;
       if (cb == 16) cp_async16(d, s, in);
       else if (cb == 8) cp_async8(d, s, in);
@@ -92,6 +96,36 @@ inline int copy_bytes(const void* k_cache, const void* v_cache, int D, int Hkv, 
 
 // --- the single-token core ----------------------------------------------------------
 
+// Tiles of the single-token core in shared memory: four (a slot of 256
+// positions at once), three for a float32 cache, whose four would not fit.
+__host__ __device__ constexpr int tile_stages(int esize) { return esize == 4 ? 3 : 4; }
+
+// Elements a lane reads from a K or V row in shared memory at once: 16
+// bytes, 8 for int8 (so that 48 bytes split evenly over the two lanes of a
+// position), or one element when D's bytes are no multiple of that.
+template <typename TC>
+__host__ __device__ constexpr int row_chunk_bytes() {
+  return std::is_same<TC, int8_t>::value ? 8 : 16;
+}
+
+// CW float32 values of consecutive elements of a K or V row in shared
+// memory. An int8 row goes 8 bytes at a time: byte x + 128 placed in the
+// mantissa of 2^23 is 2^23 + 128 + x exactly, and one subtraction leaves x.
+template <typename TC, int CW>
+__device__ __forceinline__ void load_row(const TC* p, float (&out)[CW]) {
+  if constexpr (std::is_same<TC, int8_t>::value && CW == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[4 * i + j] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540 | j)) - 8388736.f;
+  } else {
+    load_chunk<TC, CW>(p, out);
+  }
+}
+
 // dtype codes of the C entry points: 0 float32, 1 bfloat16, 2 float16, 3 int8
 template <int CODE> struct DType;
 template <> struct DType<0> { using T = float; };
@@ -106,43 +140,64 @@ struct DecodeArgs {
   const float* k_scale;
   const float* v_scale;  // (L, B, Hkv, S), int8 cache only
   const float* mask;     // (B, S)
-  float* out;            // (B, Hq, D), one split
-  float* m_part;         // (B, Hkv, splits, G), several splits
+  float* out;            // (B, Hq, D)
+  float* m_part;         // (B, Hkv, splits, G), several splits only
   float* l_part;         // (B, Hkv, splits, G)
   float* acc_part;       // (B, Hkv, splits, G, D)
+  int* done;             // (B, Hkv) split blocks finished, zero between launches
   int B, S, Hkv, G, D, layer, block_s;
   float inv_sqrt_d;
   int cb;    // bytes per cp.async of a head-slice row (copy_bytes)
   int mvec;  // mask rows take 16-byte reads: S % 4 == 0, block_s % 4 == 0, aligned
 };
 
-// Byte offsets of the core's shared memory: kTileStages stages of K and V
-// rows (ld bytes each: D's bytes rounded up to an odd number of 16-byte
-// units, so the 8 rows a quarter-warp reads fall on distinct banks), the
-// tile's mask values and scales; then the query rows, the output
-// accumulator, per-warp probabilities, rescale factors and (m, l) pairs.
+// How the lanes of a warp share P.V: item (query row g, D chunk c) = g * nc
+// + c, chunks of cw elements (row_chunk_bytes, or one element); a lane holds
+// items lane % span + 32k over the warp's positions pg, pg + npg, ... of
+// each tile.
+struct PvSplit {
+  int cw, nc, nitems, span, npg;
+};
+
+__host__ __device__ inline PvSplit pv_split(int D, int esize, int G) {
+  const int chunk = esize == 1 ? 8 : 16;  // row_chunk_bytes
+  PvSplit v{};
+  v.cw = (D * esize) % chunk == 0 ? chunk / esize : 1;
+  v.nc = D / v.cw;
+  v.nitems = G * v.nc;
+  v.span = v.nitems < 32 ? v.nitems : 32;
+  v.npg = 32 / v.span;
+  return v;
+}
+
+// Byte offsets of the core's shared memory: tile_stages stages of K and V
+// rows (ld bytes each, D's bytes rounded up to 16), the tile's mask values
+// and scales; then the query rows, per-warp probabilities, rescale factors
+// and (m, l) pairs, and the block's flags. After the loop the stage area
+// holds each lane group's share of the output (comb: [kWarps][npg][G][D]
+// floats).
 struct TileLayout {
-  int ld;
-  size_t k, v, msk, ksc, vsc, stage, q, o, p, alpha, ml, j0, total;
+  int ld, k, v, msk, ksc, vsc, stage, comb, q, p, alpha, ml, flags, total;
 };
 
 __host__ __device__ inline TileLayout tile_layout(int D, int esize, int G, bool quant) {
   TileLayout L{};
-  const int row = ceil_div(D * esize, 16) * 16;
-  L.ld = (row / 16) % 2 ? row : row + 16;
+  L.ld = ceil_div(D * esize, 16) * 16;
   L.k = 0;
-  L.v = L.k + static_cast<size_t>(kTile) * L.ld;
-  L.msk = L.v + static_cast<size_t>(kTile) * L.ld;
+  L.v = L.k + kTile * L.ld;
+  L.msk = L.v + kTile * L.ld;
   L.ksc = L.msk + kTile * 4;
   L.vsc = L.ksc + (quant ? kTile * 4 : 0);
   L.stage = L.vsc + (quant ? kTile * 4 : 0);
-  L.q = kTileStages * L.stage;
-  L.o = L.q + static_cast<size_t>(ceil_div(G * D, 4)) * 16;
-  L.p = L.o + static_cast<size_t>(ceil_div(G * D, 4)) * 16;
-  L.alpha = L.p + static_cast<size_t>(kWarps) * G * 16 * 4;
-  L.ml = L.alpha + static_cast<size_t>(kWarps) * G * 4;
-  L.j0 = L.ml + static_cast<size_t>(kWarps) * G * 2 * 4;
-  L.total = L.j0 + kTileStages * 4;
+  L.comb = 0;
+  const int comb_end = kWarps * pv_split(D, esize, G).npg * G * D * 4;
+  const int stages_end = tile_stages(esize) * L.stage;
+  L.q = ceil_div(stages_end > comb_end ? stages_end : comb_end, 16) * 16;
+  L.p = L.q + ceil_div(G * D, 4) * 16;
+  L.alpha = L.p + kWarps * G * 16 * 4;
+  L.ml = L.alpha + kWarps * G * 4;
+  L.flags = L.ml + kWarps * G * 2 * 4;  // j0 of each stage; the last-block flag
+  L.total = L.flags + (tile_stages(esize) + 1) * 4;
   return L;
 }
 
@@ -217,24 +272,26 @@ struct LiveWalk {
 
 // One (kv head, slot, split) per block: grid (Hkv, B, splits), kThreads
 // threads. QT/CT: the query's and the cache's dtype codes; GM: compile-time
-// bound on G (1, 2, 4 or 8); VEC: K/V rows are read from shared memory 16
-// bytes at a time (D's bytes a multiple of 16), else one element at a time.
+// bound on G (1, 2, 4 or 8); VEC: K/V rows are read from shared memory
+// row_chunk_bytes at a time (D's bytes a multiple of it), else one element
+// at a time.
 template <int QT, int CT, int GM, bool VEC>
 __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeArgs a) {
   using TQ = typename DType<QT>::T;
   using TC = typename DType<CT>::T;
   constexpr bool kQuant = CT == 3;
-  constexpr int CW = VEC ? 16 / static_cast<int>(sizeof(TC)) : 1;  // elements per read
+  constexpr int ST = tile_stages(sizeof(TC));
+  constexpr int CW = VEC ? row_chunk_bytes<TC>() / static_cast<int>(sizeof(TC)) : 1;
   constexpr int IPL = (4 * GM + CW - 1) / CW;  // P.V items a lane may own: G*D/CW/32, D <= 128
   const int G = a.G, D = a.D, S = a.S;
   const TileLayout lay = tile_layout(D, sizeof(TC), G, kQuant);
   extern __shared__ __align__(16) unsigned char tile_smem[];
   float* q_s = reinterpret_cast<float*>(tile_smem + lay.q);          // [G][D]
-  float* o_s = reinterpret_cast<float*>(tile_smem + lay.o);          // [G][D]
   float* p_s = reinterpret_cast<float*>(tile_smem + lay.p);          // [kWarps][G][16]
   float* alpha_s = reinterpret_cast<float*>(tile_smem + lay.alpha);  // [kWarps][G]
   float* ml_s = reinterpret_cast<float*>(tile_smem + lay.ml);        // [kWarps][G][2]
-  int* j0_s = reinterpret_cast<int*>(tile_smem + lay.j0);            // [kTileStages]
+  int* j0_s = reinterpret_cast<int*>(tile_smem + lay.flags);         // [ST]
+  int* last_s = j0_s + ST;                                           // this block combines
 
   const int hk = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const int s0 = z * a.block_s, s1 = min(S, s0 + a.block_s);
@@ -284,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeAr
 
   int fetched = 0, t_next = walk.next();
 #pragma unroll
-  for (int st = 0; st < kTileStages - 1; ++st) {
+  for (int st = 0; st < ST - 1; ++st) {
     if (t_next < ntiles) {
       issue(t_next, st);
       ++fetched;
@@ -295,21 +352,15 @@ __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeAr
 #pragma unroll
   for (int k = 0; k < GM; ++k) {
     const int i = threadIdx.x + k * kThreads;
-    if (i < G * D) {
-      q_s[i] = to_f32(qr[k]);
-      o_s[i] = 0.f;
-    }
+    if (i < G * D) q_s[i] = to_f32(qr[k]);
   }
 
   // scores: lanes i and i + 16 share position 16 * warp + i, half of D each
   const int i16 = lane & 15, half = lane >> 4;
   const int jw = 16 * warp + i16;
-  const int nc = D / CW;
-  // P.V: item (query row g, D chunk c) = g * nc + c; lanes hold items
-  // lane % span + 32k over the warp's positions pg, pg + npg, ...
-  const int nitems = G * nc;
-  const int span = min(nitems, 32);
-  const int pg = lane / span, npg = 32 / span;
+  const PvSplit pv = pv_split(D, sizeof(TC), G);
+  const int nc = pv.nc, nitems = pv.nitems, span = pv.span, npg = pv.npg;
+  const int pg = lane / span;
 
   float m[GM], l[GM], o[IPL][CW];
 #pragma unroll
@@ -323,30 +374,40 @@ __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeAr
     for (int e = 0; e < CW; ++e) o[k][e] = 0.f;
 
   for (int n = 0; n < fetched; ++n) {
-    if (t_next < ntiles) {
-      issue(t_next, (n + kTileStages - 1) % kTileStages);
+    cp_async_wait<ST - 2>();  // tile n has landed ...
+    __syncthreads();  // ... for every thread, and every thread is done with tile n - 1
+    if (t_next < ntiles) {  // into tile n - 1's stage
+      issue(t_next, (n + ST - 1) % ST);
       ++fetched;
       t_next = walk.next();
     }
     cp_async_commit();
-    cp_async_wait<kTileStages - 1>();  // this stage has landed
-    __syncthreads();
 
-    const unsigned char* stg = tile_smem + (n % kTileStages) * lay.stage;
-    const int j0 = j0_s[n % kTileStages];
+    const unsigned char* stg = tile_smem + (n % ST) * lay.stage;
+    const int j0 = j0_s[n % ST];
     const TC* kr = reinterpret_cast<const TC*>(stg + lay.k + jw * lay.ld);
     float acc[GM];
 #pragma unroll
     for (int g = 0; g < GM; ++g) acc[g] = 0.f;
     for (int c = half; c < nc; c += 2) {
       float kv[CW];
-      load_chunk<TC, CW>(kr + c * CW, kv);
+      load_row<TC, CW>(kr + c * CW, kv);
 #pragma unroll
       for (int g = 0; g < GM; ++g)
         if (g < G) {
           const float* qg = q_s + g * D + c * CW;
+          if constexpr (VEC) {  // 16-byte aligned: CW and D are multiples of 4 (8 for int8)
 #pragma unroll
-          for (int e = 0; e < CW; ++e) acc[g] = fmaf(qg[e], kv[e], acc[g]);
+            for (int e = 0; e < CW; e += 4) {
+              const float4 qq = *reinterpret_cast<const float4*>(qg + e);
+              acc[g] = fmaf(qq.x, kv[e], acc[g]);
+              acc[g] = fmaf(qq.y, kv[e + 1], acc[g]);
+              acc[g] = fmaf(qq.z, kv[e + 2], acc[g]);
+              acc[g] = fmaf(qq.w, kv[e + 3], acc[g]);
+            }
+          } else {
+            acc[g] = fmaf(qg[0], kv[0], acc[g]);
+          }
         }
     }
     const float mv = reinterpret_cast<const float*>(stg + lay.msk)[jw];
@@ -383,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeAr
         const float* pr = p_s + (warp * G + g) * 16;
         for (int jj = pg; jj < 16; jj += npg) {
           float vv[CW];
-          load_chunk<TC, CW>(
+          load_row<TC, CW>(
               reinterpret_cast<const TC*>(stg + lay.v + (16 * warp + jj) * lay.ld) + d0, vv);
           const float p = pr[jj];
 #pragma unroll
@@ -391,7 +452,6 @@ __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeAr
         }
       }
     }
-    __syncthreads();  // this stage is read; a later iteration refills it
   }
   cp_async_wait<0>();
 
@@ -408,7 +468,7 @@ __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeAr
       }
     }
   }
-  __syncthreads();
+  __syncthreads();  // also: every warp is done with the stages, which comb reuses
   auto row_max_sum = [&](int g, float& M, float& L) {
     M = kNegInf;
 #pragma unroll
@@ -417,7 +477,10 @@ __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeAr
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) L += exp2f(ml_s[(w * G + g) * 2] - M) * ml_s[(w * G + g) * 2 + 1];
   };
-  const bool single = gridDim.z == 1;
+  const int splits = gridDim.z;
+  // each lane's items, rescaled to the block's max (and normalized for one
+  // split), into its lane group's share of the output
+  float* comb = reinterpret_cast<float*>(tile_smem + lay.comb) + (warp * npg + pg) * G * D;
 #pragma unroll
   for (int k = 0; k < IPL; ++k) {
     const int item = lane % span + 32 * k;
@@ -426,32 +489,73 @@ __global__ void __launch_bounds__(kThreads, 4) decode_tile_kernel(const DecodeAr
       float M, L;
       row_max_sum(g, M, L);
       float f = exp2f(ml_s[(warp * G + g) * 2] - M);
-      if (single) f /= fmaxf(L, 1e-30f);
+      if (splits == 1) f /= fmaxf(L, 1e-30f);
 #pragma unroll
-      for (int e = 0; e < CW; ++e) atomicAdd(&o_s[g * D + d0 + e], o[k][e] * f);
+      for (int e = 0; e < CW; ++e) comb[g * D + d0 + e] = o[k][e] * f;
     }
   }
+  __syncthreads();
+  const float* comb0 = reinterpret_cast<const float*>(tile_smem + lay.comb);
+  auto sum_comb = [&](int i) {
+    float x = 0.f;
+    for (int r = 0; r < kWarps * npg; ++r) x += comb0[r * G * D + i];
+    return x;
+  };
+  if (splits == 1) {
+    for (int i = threadIdx.x; i < G * D; i += kThreads) a.out[head0 + i] = sum_comb(i);
+    return;
+  }
+
   // (m, l, acc) of this split: part row ((b * Hkv + hk) * splits + z) * G + g
-  const size_t part0 = ((static_cast<size_t>(b) * a.Hkv + hk) * gridDim.z + z) * G;
-  if (!single && threadIdx.x < G) {
+  const size_t part_bh = (static_cast<size_t>(b) * a.Hkv + hk) * splits;
+  const size_t part0 = (part_bh + z) * G;
+  for (int i = threadIdx.x; i < G * D; i += kThreads) a.acc_part[part0 * D + i] = sum_comb(i);
+  if (threadIdx.x < G) {
     float M, L;
     row_max_sum(threadIdx.x, M, L);
     a.m_part[part0 + threadIdx.x] = M;
     a.l_part[part0 + threadIdx.x] = L;
   }
+  // the last split block of this (slot, kv head) to finish combines them all:
+  // M = max m, w = 2^(m - M), out = sum w * acc / max(sum w * l, 1e-30)
+  __threadfence();  // this split's partials are visible before it is counted
   __syncthreads();
-  float* dst = single ? a.out + head0 : a.acc_part + part0 * D;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) dst[i] = o_s[i];
+  int* done = a.done + static_cast<size_t>(b) * a.Hkv + hk;
+  if (threadIdx.x == 0) *last_s = atomicAdd(done, 1) == splits - 1;
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
+  float* w_s = ml_s;  // [G][2]: M and 1 / max(L, 1e-30) of each row
+  if (threadIdx.x < G) {
+    const size_t row0 = part_bh * G + threadIdx.x;
+    float M = kNegInf, L = 0.f;
+    for (int zz = 0; zz < splits; ++zz) M = fmaxf(M, __ldcg(a.m_part + row0 + zz * G));
+    for (int zz = 0; zz < splits; ++zz)
+      L += exp2f(__ldcg(a.m_part + row0 + zz * G) - M) * __ldcg(a.l_part + row0 + zz * G);
+    w_s[threadIdx.x * 2] = M;
+    w_s[threadIdx.x * 2 + 1] = 1.f / fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int g = i / D;
+    const size_t row0 = part_bh * G + g;
+    float x = 0.f;
+    for (int zz = 0; zz < splits; ++zz)
+      x += exp2f(__ldcg(a.m_part + row0 + zz * G) - w_s[g * 2]) *
+           __ldcg(a.acc_part + (row0 + zz * G) * D + (i - g * D));
+    a.out[head0 + i] = x * w_s[g * 2 + 1];
+  }
+  if (threadIdx.x == 0) *done = 0;  // ready for the next launch
 }
 
 template <int QT, int CT, int GM, bool VEC>
 int launch_tiles(const DecodeArgs& a, int splits, cudaStream_t stream) {
   auto kern = decode_tile_kernel<QT, CT, GM, VEC>;
-  const size_t smem = tile_layout(a.D, sizeof(typename DType<CT>::T), a.G, CT == 3).total;
-  static size_t opted_in = 48 * 1024;  // per kernel instantiation
+  const int smem = tile_layout(a.D, sizeof(typename DType<CT>::T), a.G, CT == 3).total;
+  static int opted_in = 48 * 1024;  // per kernel instantiation
   if (smem > opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = smem;
   }
@@ -461,7 +565,8 @@ int launch_tiles(const DecodeArgs& a, int splits, cudaStream_t stream) {
 
 template <int QT, int CT>
 int launch_tiles_g(const DecodeArgs& a, int splits, cudaStream_t stream) {
-  const bool vec = (a.D * static_cast<int>(sizeof(typename DType<CT>::T))) % 16 == 0;
+  using TC = typename DType<CT>::T;
+  const bool vec = (a.D * static_cast<int>(sizeof(TC))) % row_chunk_bytes<TC>() == 0;
 #define GLM_TILES_VEC(GM)                                                        \
   return vec ? launch_tiles<QT, CT, GM, true>(a, splits, stream)                 \
              : launch_tiles<QT, CT, GM, false>(a, splits, stream)

@@ -41,6 +41,7 @@ KERNEL_MAX_CHUNK_ROWS = 32  # T·G query rows of one kv head in the chunk kernel
 _SMEM_LIMIT = 227 * 1024
 _CHUNK_TILE_S = 32  # float32 chunk kernel: V positions staged in shared memory at once
 CHUNK_TILE = 64  # cache positions per tile of the tile-skipping kernels (read only when live)
+_RESIDENT_BLOCKS_PER_SM = 4  # the single-token core's __launch_bounds__ minimum
 _CHUNK_SMEM_ERROR = -2  # the chunk entry point's code for a layout over the opt-in limit
 _KERNEL_WARPS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
@@ -482,8 +483,8 @@ def decode_attention_streamed(
     On the card the S axis is split over blocks of ``block_s`` positions
     (default: ``stream_block_s`` of the batch, the cache length and the
     card's SM count), each block reading only its live tiles and keeping
-    its own (max, sum, P·V) carry, and a second launch combines the splits
-    (none with one split). q is float32 or bf16 on the card.
+    its own (max, sum, P·V) carry; the last block of a slot's kv head to
+    finish combines the splits. q is float32 or bf16 on the card.
     On the CPU the plain version runs the JAX kernel's recurrence over
     chunks of ``block_s``. Returns (B, Hq, D) float32.
     """
@@ -505,12 +506,13 @@ decode_attention_streamed.launches = 0
 def stream_block_s(B: int, Hkv: int, S: int, sm_count: int) -> int:
     """Positions per split of the streamed kernel when the caller names none.
 
-    Enough (slot, kv head, split) blocks for about eight per SM, splits of
-    whole tiles (a multiple of ``CHUNK_TILE`` positions, so a split reads
-    the cache's own tiles), and no split at all once the batch alone gives
-    that many blocks: splitting S is for small batches.
+    As many splits as the card holds (slot, kv head, split) blocks at once
+    (``_RESIDENT_BLOCKS_PER_SM`` per SM), in whole tiles (a multiple of
+    ``CHUNK_TILE`` positions, so a split reads the cache's own tiles), and
+    no split at all once the batch alone fills them: a second wave of
+    blocks costs more than a split saves.
     """
-    splits = min(-(-8 * sm_count // max(1, B * Hkv)), -(-S // CHUNK_TILE))
+    splits = min(_RESIDENT_BLOCKS_PER_SM * sm_count // max(1, B * Hkv), -(-S // CHUNK_TILE))
     if splits <= 1:
         return S
     chunk = -(-S // splits)
@@ -524,9 +526,22 @@ def _streamed_kernel():
 
     fn = load("decode_attention_streamed").glm_decode_attention_streamed
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
+
+
+def _split_counters(device, n: int) -> torch.Tensor:
+    """n int32 zeros on ``device`` that outlive the launch: the streamed
+    kernel counts each (slot, kv head)'s finished splits there, and the
+    block that combines them sets its count back to 0."""
+    have = _COUNTERS.get(device)
+    if have is None or have.numel() < n:
+        have = _COUNTERS[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return have
+
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
 def _launch_streamed(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
@@ -544,17 +559,19 @@ def _launch_streamed(q, k_cache, v_cache, mask_add, layer, k_scale, v_scale,
             f"{KERNEL_MAX_GROUP}, B <= 65535 and S/block_s <= 65535; got D={D}, "
             f"G={G}, B={B}, splits={splits}")
     dev = q.device
-    parts = [None, None, None]  # one split writes the output itself
+    parts = []  # (m, l, acc, counters) of the splits; one split writes the output itself
     if splits > 1:
         m_part = torch.empty((B, Hkv, splits, G), dtype=torch.float32, device=dev)
-        acc_part = torch.empty((B, Hkv, splits, G, D), dtype=torch.float32, device=dev)
-        parts = [m_part.data_ptr(), torch.empty_like(m_part).data_ptr(), acc_part.data_ptr()]
+        parts = [m_part, torch.empty_like(m_part),
+                 torch.empty((B, Hkv, splits, G, D), dtype=torch.float32, device=dev),
+                 _split_counters(dev, B * Hkv)]
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     fn = _streamed_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(), *parts, out.data_ptr(),
+                 *_scale_ptrs(k_scale, v_scale), mask_add.data_ptr(),
+                 *([t.data_ptr() for t in parts] or [None] * 4), out.data_ptr(),
                  B, S, Hkv, G, D, layer, block_s, 1.0 / float(D) ** 0.5,
                  _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], stream)
     if err != 0:

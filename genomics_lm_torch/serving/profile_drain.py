@@ -78,8 +78,7 @@ def _drain(model, cfg, reqs, kv_quant, spec_kw):
     return seconds, sum(len(r.tokens) for r in results.values()), eng.stats()
 
 
-def event_device_us(event) -> float:
-    """A profiler event's own device time in µs (its name differs across torch releases)."""
+def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
             return float(getattr(event, name))
@@ -116,8 +115,8 @@ def main(argv=None) -> int:
     with torch.profiler.profile(activities=activities) as prof:
         prof_s, _, prof_stats = _drain(model, cfg, reqs, args.kv_quant, spec_kw)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and event_device_us(e) > 0]
-    device_us = sum(event_device_us(e) for e in kernels)
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    device_us = sum(_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     report = {
         "card": torch.cuda.get_device_name(0), "kv_quant": args.kv_quant,
@@ -139,10 +138,10 @@ def main(argv=None) -> int:
         if key in stats:
             report[key] = stats[key]
     print(json.dumps(report))
-    for e in sorted(kernels, key=event_device_us, reverse=True)[: args.top]:
+    for e in sorted(kernels, key=_device_us, reverse=True)[: args.top]:
         print(json.dumps({"kernel": e.key[:120], "count": e.count,
-                          "device_ms": event_device_us(e) / 1e3,
-                          "share_of_device": event_device_us(e) / device_us}))
+                          "device_ms": _device_us(e) / 1e3,
+                          "share_of_device": _device_us(e) / device_us}))
     return 0
 
 

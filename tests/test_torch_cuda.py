@@ -32,6 +32,7 @@ from genomics_lm_torch.ops.decode_attention import (
     decode_attention_reference,
     decode_attention_streamed,
     decode_attention_streamed_reference,
+    decode_live_tiles,
 )
 from genomics_lm_torch.ops.quant import quantize_kv
 
@@ -284,6 +285,50 @@ def test_cuda_streamed_kernel_matches_plain_version(cuda):
                                                    block_s=block_s)
         torch.cuda.synchronize()
         assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("op", ["decode", "streamed"])
+def test_cuda_single_token_kernels_read_only_live_tiles(cuda, op, quant):
+    """The single-token kernels over a cache of S 200 (not a multiple of 64)
+    whose dead tiles hold NaN (K and V, or an int8 cache's scales), which
+    any read would carry into the output (0 x NaN), against the plain
+    version on the clean cache (1e-3): slot 0 is live in its first tile
+    only, slot 1's second tile is wholly masked (with splits of 64, a split
+    with no live position), slot 2 is full, slot 3's segment starts at 130
+    (tiles 0 and 1 dead)."""
+    rng = np.random.default_rng(30 + quant + 2 * (op == "streamed"))
+    B, Hkv, G, S = 4, 2, 2, 200
+    q, k, v, _, ks, vs = decode_inputs(rng, B, Hkv, G, quant, S=S, D=48)
+    mask = torch.zeros((B, S))
+    mask[0, 40:] = -1e30
+    mask[1, 64:128] = -1e30
+    mask[3, :130] = -1e30
+    live = decode_live_tiles(mask)
+    assert live.tolist() == [[True, False, False, False], [True, False, True, True],
+                             [True, True, True, True], [False, False, True, True]]
+    dev = to_card((q, k, v, mask, ks, vs), torch.bfloat16, quant, cuda)
+    if op == "decode":
+        kernel, plain, kw = decode_attention, decode_attention_reference, {}
+    else:
+        kernel, plain = decode_attention_streamed, decode_attention_streamed_reference
+        kw = {"block_s": 64}
+    want = plain(*dev[:4], 1, *dev[4:], kv_heads=Hkv, **kw)
+    dead = (~live.repeat_interleave(64, 1)[:, :S]).to(cuda)
+    if quant:
+        scale_dead = dead[:, None, :].expand(B, Hkv, S)
+        dev[4][:, scale_dead] = float("nan")
+        dev[5][:, scale_dead] = float("nan")
+    else:
+        dev[1][:, dead] = float("nan")
+        dev[2][:, dead] = float("nan")
+    before = kernel.launches
+    got = kernel(*dev[:4], 1, *dev[4:], kv_heads=Hkv, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-3
 
 
 @pytest.mark.cuda

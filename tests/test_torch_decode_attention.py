@@ -451,10 +451,13 @@ def test_streamed_ragged_last_chunk_matches_single_pass():
 
 def test_stream_block_s_splits_small_batches_only():
     """The streamed kernel's default split: none once the batch fills the
-    card, whole 64-position tiles below that (so a split reads the cache's
-    own tiles), never more than S."""
+    card's resident blocks (4 a SM), whole 64-position tiles below that (so
+    a split reads the cache's own tiles), never more than S."""
     assert stream_block_s(256, 8, 256, 132) == 256
-    assert stream_block_s(64, 8, 256, 132) == 128  # 3 splits wanted, 2 of whole tiles
+    assert stream_block_s(64, 8, 256, 132) == 256  # 512 blocks: one wave of 4 x 132 already
+    assert stream_block_s(32, 8, 256, 132) == 128  # 2 splits
+    assert stream_block_s(32, 8, 384, 132) == 192  # 2 splits of 3 tiles
+    assert stream_block_s(16, 8, 256, 132) == 64  # 4 splits of one tile
     assert stream_block_s(1, 1, 256, 132) == 64
     assert stream_block_s(1, 1, 20, 132) == 20
     assert stream_block_s(1, 1, 130, 132) == 64  # the last split ragged
