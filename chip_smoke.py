@@ -1200,7 +1200,8 @@ def main() -> int:
 
     tile_design = ("one pass with an online softmax in float32 (SIMT) over only the 64-position "
                    "cache tiles with a live mask position, flagged by each warp from the mask "
-                   "row; three cp.async stages of K/V head slices, mask values and int8 scales")
+                   "row; four cp.async stages (three for a float32 cache) of K/V head slices, "
+                   "mask values and int8 scales")
     kernels = [{
         "name": "decode_attention",
         "route": "cuda",
