@@ -80,6 +80,33 @@ exits non-zero:
    version), equal to the plain engine's; and masked greedy speculative
    generation equals ``generate_masked_tokens``.
 
+14. pipeline — ``training/bench_pipeline.py``'s three protocols of
+   ``bench.py`` on one built model and step at the training main path's
+   width: synthetic windows on the card, then the real host pipeline under
+   ``multi`` and ``binpack`` packing (chunking, packing, mmap sidecars,
+   ``EpochPlan``, grouped microbatches, ``DevicePrefetcher`` from pinned
+   memory), each 3 warm-up, 20 measured and 3 profiled groups; logs
+   tokens/s, pad fraction, ms per group, busy share and the host→device
+   copies in the trace, and ``bench.py``'s one line. Each group's non-pad
+   tokens counted on the card by the step must equal the host's count, and
+   each flash kernel's launches, reset before each protocol, must equal
+   16 x 10 per group.
+15. trainer — the train CLI (``training/train_codon_lm.py``, in process
+   through ``main(argv)``) at the same width on a packed synthetic corpus
+   from ``build_packed_dataset`` (4 groups an epoch) for 2 epochs; a
+   ``--resume`` with the same ``epochs`` must fail closed, one to epoch 3
+   must succeed. Every artifact is checked, the losses finite and falling,
+   3 rows in ``curves.csv``, the dK/dV and dQ launches 160 per group and
+   the forward's 160 per group plus 10 per validation microbatch; the
+   validation loss recomputed from ``last.npz`` (``load_checkpoint`` +
+   ``params_from_jax``) must equal the trained model's.
+16. spec trained — ``serving/benchmark_speculative.py`` once in bf16 (the
+   JAX script's defaults, 2 serving repeats): a 4L4H d256 model trained on
+   a Markov corpus by ``run_training``, then plain and speculative drains;
+   logs acceptance, tokens per slot-round, both drains' tokens/s and the
+   validation loss beside the chain's entropy rate; the chunk kernel must
+   launch n_layer times per verify round.
+
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -94,7 +121,9 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -107,6 +136,7 @@ from genomics_lm_torch.ops import decode_attention as da
 from genomics_lm_torch.ops import flash_attention as fa
 from genomics_lm_torch.ops.masks import structure_mask
 from genomics_lm_torch.serving import benchmark_decode_kernel as bench_decode
+from genomics_lm_torch.serving import benchmark_speculative as bench_spec
 from genomics_lm_torch.serving.engine import ServingEngine
 from genomics_lm_torch.serving.profile_drain import (
     ENGINE,
@@ -122,10 +152,17 @@ from genomics_lm_torch.serving.speculative import (
     generate_tokens_speculative,
     restrict_table,
 )
+from genomics_lm_torch.training import bench_pipeline as bench_pipe
 from genomics_lm_torch.training import profile_step as train_main
+from genomics_lm_torch.training.checkpoints import load_checkpoint
+from genomics_lm_torch.data.datasets import EpochPlan, PackedDataset
+from genomics_lm_torch.tokenizers.codon import write_itos
+from genomics_lm_torch.training.lifecycle import RunLifecycleError
+from genomics_lm_torch.training.train_codon_lm import main as train_cli
 from genomics_lm_torch.training.optim import build_optimizer
-from genomics_lm_torch.training.train_step import LossConfig, make_train_step
+from genomics_lm_torch.training.train_step import LossConfig, make_eval_step, make_train_step
 from genomics_lm_torch.utils.timing import card_peaks, decode_bound_ms, median_ms
+from genomics_lm_torch.utils.weights import params_from_jax
 
 KERNEL_SOURCES = ["decode_attention", "flash_attention", "decode_attention_chunk",
                   "decode_attention_streamed"]
@@ -176,6 +213,12 @@ FLASH_TOL_REASON = (
 # leaf that sets each error.
 TRAIN_PARITY_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4, param_atol=3e-5,
                         noise_grad_share=1e-3, noise_param_atol=1.5e-4)
+
+# last.npz against the run: the reloaded model runs the same bf16 eval path on
+# the same float32 weights and batches, so its validation loss repeats the
+# recorded one up to the order of float32 sums (the flash forward and GEMMs
+# are deterministic); a wrong leaf moves it by far more
+TRAINER_RELOAD_RTOL = 1e-5
 
 
 def log(phase: str, **fields) -> None:
@@ -1169,6 +1212,204 @@ def phase_spec_parity() -> None:
 
 
 
+# --- phase 14: bench.py's protocols, the real host pipeline ----------------------
+
+
+def phase_pipeline(card: str) -> dict:
+    built = train_main.build_main("cuda")
+    cfg = built[0]
+    gen = torch.Generator(device="cuda").manual_seed(train_main.SEED)
+    runs = {}
+    for name, run in (("synthetic", lambda: bench_pipe.run_synthetic(built, gen)),
+                      ("multi", lambda: bench_pipe.run_real_pipeline(built, gen, "multi")),
+                      ("binpack", lambda: bench_pipe.run_real_pipeline(built, gen, "binpack"))):
+        for w in FLASH_WRAPPERS:
+            w.launches = 0  # this protocol's run only
+        r = run()
+        launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+        want = train_main.G * cfg.n_layer * r["groups_run"]
+        log("pipeline", protocol=r["protocol"], nonpad_tokens_per_s=r["value"],
+            pad_fraction=r.get("pad_fraction"), ms_per_group=r["ms_per_group"],
+            fetch_ms_per_group=r["fetch_ms_per_group"],
+            device_ms_per_group=r["device_ms_per_group"],
+            flash_ms_per_group=r["flash_ms_per_group"],
+            device_busy_share=r["device_busy_share"],
+            device_busy_share_profiled=r["device_busy_share_profiled"],
+            h2d_copies_per_group=r["h2d_copies_per_group"],
+            h2d_copy_ms_per_group=r["h2d_copy_ms_per_group"],
+            kernel_launches_per_group=r["kernel_launches_per_group"],
+            nonpad_tokens_per_group=r["nonpad_tokens_per_group"],
+            device_nonpad_equals_host=r["device_nonpad_equals_host"],
+            groups_run=r["groups_run"], flash_launches=launches, want_launches=want,
+            dataset_build_s=r.get("dataset_build_s"), windows=r.get("windows"),
+            storage=r.get("storage"), card=card)
+        if not r["device_nonpad_equals_host"]:
+            raise AssertionError(f"{name}: the card's non-pad counts differ from the host's")
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"{name}: flash launches {launches} != G x n_layer x "
+                                 f"groups = {want}")
+        runs[name] = r
+    line = bench_pipe.summarize(runs["synthetic"], runs["multi"], runs["binpack"])
+    log("pipeline_line", **{k: line[k] for k in ("metric", "value", "vs_baseline",
+                                                   "protocol", "pad_fraction")},
+        reference_packing_protocol={k: line["reference_packing_protocol"][k] for k in
+                                    ("value", "vs_baseline", "protocol")},
+        synthetic_device_only={k: line["synthetic_device_only"][k] for k in
+                               ("value", "vs_baseline")}, card=card)
+    return line
+
+
+# --- phase 15: the train CLI on a packed corpus ----------------------------------
+
+TRAINER_GROUPS_PER_EPOCH = 4
+TRAINER_VAL_WINDOWS = 64
+
+
+def trainer_config(workdir: Path) -> Path:
+    """A packed corpus from ``build_packed_dataset`` (train windows for 4
+    groups an epoch, 64 validation windows) with mmap sidecars, the codon
+    itos beside it, and a YAML run config at the training main path's
+    width with its paths under a ``data:`` map."""
+    G, B = train_main.G, train_main.B
+    n_train = TRAINER_GROUPS_PER_EPOCH * G * B
+    npz, _ = bench_pipe.build_packed_dataset(n_train + TRAINER_VAL_WINDOWS, train_main.T,
+                                             workdir / "build", pack_mode="binpack")
+    with np.load(npz) as data:
+        X, Y = data["X"], data["Y"]
+    for name, sl in (("train", slice(0, n_train)),
+                     ("val", slice(n_train, n_train + TRAINER_VAL_WINDOWS))):
+        np.savez(workdir / f"{name}.npz", X=X[sl], Y=Y[sl])
+        np.save(workdir / f"{name}_X.npy", X[sl])
+        np.save(workdir / f"{name}_Y.npy", Y[sl])
+    write_itos(workdir / "itos.txt")
+    m = train_main.MAIN_TRAIN
+    lines = [
+        "data:",
+        f"  train_npz: {workdir / 'train.npz'}",
+        f"  val_npz: {workdir / 'val.npz'}",
+        "use_mmap_dataset: true",
+        f"block_size: {m['block_size']}", f"n_layer: {m['n_layer']}",
+        f"n_head: {m['n_head']}", f"n_embd: {m['n_embd']}",
+        f"dropout: {m['dropout']}", f"label_smoothing: {m['label_smoothing']}",
+        f"sep_id: {m['sep_id']}", "tie_embeddings: true", "fused_qkv: true",
+        "attention_impl: flash", "compute_dtype: bfloat16",
+        f"batch_size: {B}", f"grad_accum_steps: {G}",
+        "lr: 0.001", "lr_embedding: 0.001", "min_lr: 0.0001", "weight_decay: 0.05",
+        "warmup_steps: 2", "scheduler: cosine", "epochs: 2", "seed: 1337",
+        "run_id: smoke-trainer", "early_stop_patience: 0",
+    ]
+    path = workdir / "trainer.yaml"
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def phase_trainer(card: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="smoke_trainer_") as tmp:
+        tmp = Path(tmp)
+        config = trainer_config(tmp)
+        runs = tmp / "runs"
+        run_dir = runs / "smoke-trainer"
+        last = run_dir / "checkpoints" / "last.npz"
+        argv = ["--config", str(config), "--run_root", str(runs)]
+        for w in FLASH_WRAPPERS:
+            w.launches = 0  # the main path's run only: 2 epochs, then the resume
+        t0 = time.perf_counter()
+        rc = train_cli(argv)
+        first_s = time.perf_counter() - t0
+        refused = None
+        try:
+            train_cli(argv + ["--resume", str(last)])
+        except RunLifecycleError as exc:
+            refused = str(exc)
+        config.write_text(config.read_text().replace("epochs: 2", "epochs: 3"))
+        t0 = time.perf_counter()
+        rc_resume = train_cli(argv + ["--resume", str(last)])
+        resume_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+
+        artifacts = ["checkpoints/last.npz", "checkpoints/best.npz",
+                     "checkpoints/best_epoch_001.npz", "checkpoints/meta.json",
+                     "checkpoints/config.yaml", "scores/curves.csv",
+                     "scores/metrics.json", "itos.txt", "vocabulary.json",
+                     "run_complete.json", "run_complete_epoch_002.json"]
+        missing = [a for a in artifacts if not (run_dir / a).exists()]
+        rows = (run_dir / "scores" / "curves.csv").read_text().strip().splitlines()[1:]
+        payload = load_checkpoint(last)
+        meta = json.loads((run_dir / "checkpoints" / "meta.json").read_text())
+        epochs = [load_checkpoint(run_dir / "checkpoints" / f"best_epoch_{e:03d}.npz")
+                  for e in (1, 2, 3)
+                  if (run_dir / "checkpoints" / f"best_epoch_{e:03d}.npz").exists()]
+        train_losses = [float(r.split(",")[1]) for r in rows]
+        val_losses = [float(r.split(",")[2]) for r in rows]
+        groups = int(payload["step"])
+
+        # the validation loss again, from last.npz through the loader
+        mcfg = CodonGPTConfig.from_run_config(payload["cfg"])
+        model = params_from_jax(payload["model"], mcfg, "cuda")
+        step = make_eval_step(mcfg, LossConfig())
+        val = PackedDataset(str(tmp / "val.npz"), use_mmap=True)
+        plan = EpochPlan(val, batch_size=train_main.B, seed=1337, epoch=0, shuffle=False)
+        losses = [float(step(model, torch.from_numpy(x).cuda().long(),
+                             torch.from_numpy(y).cuda().long())["total_loss"])
+                  for x, y in plan.microbatches()]
+        reloaded_val = sum(losses) / len(losses)
+        val_mb = len(losses)
+    G, L = train_main.G, mcfg.n_layer
+    want_bwd = G * L * groups
+    want_fwd = want_bwd + L * val_mb * len(rows)
+    val_err = abs(reloaded_val - float(payload["val_loss"])) / abs(float(payload["val_loss"]))
+    log("trainer", model="10L8H d384 bf16 fused_qkv dropout 0.1 flash",
+        rc=rc, rc_resume=rc_resume, first_run_s=first_s, resume_run_s=resume_s,
+        refused_same_epochs=refused is not None, curves_rows=len(rows),
+        train_losses=train_losses, val_losses=val_losses, groups=groups,
+        status=meta["status"], missing_artifacts=missing, flash_launches=launches,
+        want_fwd=want_fwd, want_bwd=want_bwd, reloaded_val_loss=reloaded_val,
+        checkpoint_val_loss=float(payload["val_loss"]), reloaded_val_rel_err=val_err,
+        best_epochs=len(epochs), peak_mem_gib=meta["runtime_memory"]["device_peak_bytes"] / 2**30,
+        card=card)
+    if rc or rc_resume or refused is None or missing or len(rows) != 3:
+        raise AssertionError("the train CLI's runs or artifacts are wrong")
+    if groups != 3 * TRAINER_GROUPS_PER_EPOCH or meta["status"] != "completed":
+        raise AssertionError(f"{groups} groups, status {meta['status']}")
+    if not all(np.isfinite(train_losses + val_losses)) or not (
+            train_losses[-1] < train_losses[0] and val_losses[-1] < val_losses[0]):
+        raise AssertionError(f"losses not finite and falling: {train_losses}, {val_losses}")
+    if (launches["flash_fwd"] != want_fwd or launches["flash_bwd_dq"] != want_bwd
+            or launches["flash_bwd_dkv"] != want_bwd):
+        raise AssertionError(f"flash launches {launches}: want fwd {want_fwd}, "
+                             f"dq/dkv {want_bwd}")
+    if val_err > TRAINER_RELOAD_RTOL:
+        raise AssertionError(f"last.npz gives validation loss {reloaded_val}, the run "
+                             f"recorded {payload['val_loss']}")
+    return {"launches": launches, "groups": groups}
+
+
+# --- phase 16: speculative decoding on a trained model ---------------------------
+
+
+def phase_spec_trained(card: str) -> dict:
+    args = bench_spec.parser().parse_args(["--repeats", "2"])
+    da.decode_attention_chunk.launches = 0
+    da.decode_attention.launches = 0
+    report = bench_spec.run(args, "cuda")
+    log("spec_trained", **{k: report[k] for k in (
+        "model", "accept_rate", "tokens_per_round", "serving_accept_rate",
+        "serving_tokens_per_slot_round", "serving_plain_tok_per_sec",
+        "serving_plain_samples", "serving_speculative_tok_per_sec",
+        "serving_speculative_samples", "speedup_serving", "offline_plain_tok_per_sec",
+        "offline_speculative_tok_per_sec", "speedup_offline", "verify_rounds",
+        "chunk_kernel_launches", "val_loss", "val_next_loss", "chain_entropy_rate_nats",
+        "train_sec", "n_draft", "batch_size", "decode_tokens", "temperature")},
+        decode_kernel_launches=da.decode_attention.launches, card=card)
+    want = report["n_layer"] * report["verify_rounds"]
+    if report["chunk_kernel_launches"] == 0 or report["chunk_kernel_launches"] != want:
+        raise AssertionError(f"chunk launches {report['chunk_kernel_launches']} != n_layer x "
+                             f"verify rounds = {want}")
+    if not np.isfinite(report["val_loss"]):
+        raise AssertionError("the trained model's validation loss is not finite")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1197,6 +1438,9 @@ def main() -> int:
     streamed = phase_streamed(peak_bw, peak_ops)
     spec_served = phase_spec_serve(served["model"], served["cfg"], card_line)
     phase_spec_parity()
+    phase_pipeline(card_line)
+    phase_trainer(card_line)
+    phase_spec_trained(card_line)
 
     tile_design = ("one pass with an online softmax in float32 (SIMT) over only the 64-position "
                    "cache tiles with a live mask position, flagged by each warp from the mask "

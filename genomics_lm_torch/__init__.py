@@ -5,8 +5,8 @@ the path and the public names of its JAX counterpart, so a reader finds
 each twin, and the ``tests/test_torch_*.py`` suites hold the two against
 each other on the same numpy inputs. This package imports ``torch`` and
 numpy only — never ``jax`` and nothing of ``genomics_lm_tpu``; where it
-needs a numpy-only module of the JAX package (the codon vocabulary) it
-keeps its own copy.
+needs a numpy-only module of the JAX package (the codon vocabulary, the
+data layer, the run config) it keeps its own copy.
 
 Every Pallas kernel on a ported path becomes a kernel written by hand for
 Hopper (``sm_90a``) under ``csrc/``, built at first use by
@@ -14,21 +14,26 @@ Hopper (``sm_90a``) under ``csrc/``, built at first use by
 only for tensors on the CPU; for a CUDA tensor it launches the kernel or
 raises.
 
-Layer map (ported so far — the continuous-batching serving path and one
-training step):
+Layer map (ported so far — the continuous-batching serving path,
+speculative serving, the training step and the trainer):
 
 - ``tokenizers`` — codon vocabulary ids, ``to_ids`` / ``decode_ids``
+- ``data``       — lossless packing, packed datasets with ``EpochPlan`` and
+  grouped batches, the CUDA-stream ``DevicePrefetcher``, dataset
+  manifests and vocabulary contracts (numpy copies of the JAX modules)
 - ``models``     — ``CodonGPTConfig`` and the ``CodonGPT`` forward (loss
   and dropout included)
 - ``ops``        — attention, masks, int8 KV quantization, the
-  cross-entropy loss, and the wrappers of the decode-attention kernel
-  (``csrc/decode_attention.cu``) and the flash-attention kernels
+  cross-entropy loss, and the wrappers of the decode-attention kernels
+  (``csrc/decode_attention*.cu``) and the flash-attention kernels
   (``csrc/flash_attention.cu``)
 - ``generation`` — KV-cached prefill / decode / ``generate_tokens``
-- ``serving``    — ``ServingEngine`` (continuous batching) and the HTTP
-  ``InferenceServer``
-- ``training``   — AdamW in two LR groups and the accumulation-group step
-- ``utils``      — device selection and the JAX-weights loader
+- ``serving``    — ``ServingEngine`` (continuous batching, speculative
+  decoding) and the HTTP ``InferenceServer``
+- ``training``   — AdamW in two LR groups, the accumulation-group step,
+  the ``.npz`` checkpoints of the JAX package, the run lifecycle and
+  ``run_training`` with its CLI (``train_codon_lm``)
+- ``utils``      — device selection and the JAX-tree weight maps
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA and no explicit device they raise rather than fall back.

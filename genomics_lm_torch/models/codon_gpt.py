@@ -121,6 +121,12 @@ class CodonGPT(nn.Module):
                        attention_window=attention_window)
 
 
+def param_count(model: nn.Module) -> int:
+    """Number of parameter elements: the JAX ``param_count`` of the same
+    model's tree (a fused QKV linear holds exactly the three it replaces)."""
+    return int(sum(p.numel() for p in model.parameters()))
+
+
 # --- Forward pieces ----------------------------------------------------------
 
 
@@ -307,6 +313,7 @@ __all__ = [
     "apply_rope",
     "block_epilogue",
     "forward",
+    "param_count",
     "rope_cos_sin",
     "rotate_half",
 ]

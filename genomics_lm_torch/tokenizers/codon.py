@@ -1,7 +1,8 @@
 """Codon vocabulary: the 68-token id contract and single-CDS encode/decode.
 
 The port's own copy of the part of ``genomics_lm_tpu/tokenizers/codon.py``
-that serving needs (``VOCAB`` and the ids, ``to_ids``, ``decode_ids``):
+that serving and training need (``VOCAB`` and the ids, ``to_ids``,
+``decode_ids``, ``write_itos``):
 
     0: <PAD>   1: <BOS_CDS>   2: <EOS_CDS>   3: <SEP>
     4..67: the 64 codons AAA..TTT in lexical (A<C<G<T) order
@@ -12,6 +13,8 @@ holds this copy equal to the JAX package's.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -105,6 +108,12 @@ def decode_ids(ids) -> str:
     return "".join(itos[int(i)] for i in ids if int(i) >= CODON_BASE_ID)
 
 
+def write_itos(path: str | Path) -> None:
+    """Write the canonical one-token-per-line itos file."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text("\n".join(VOCAB) + "\n")
+
+
 __all__ = [
     "ALIASES",
     "AmbiguousCodonError",
@@ -122,4 +131,5 @@ __all__ = [
     "itos",
     "stoi",
     "to_ids",
+    "write_itos",
 ]

@@ -1,1 +1,2 @@
-"""Training: the loss step and the optimizer of one accumulation group."""
+"""Training: the accumulation-group step and its optimizer, checkpoints,
+the run lifecycle, and the trainer (``loop.run_training``) with its CLI."""

@@ -1,0 +1,893 @@
+"""The codon-LM trainer on one device (twin of ``genomics_lm_tpu/training/loop.py``).
+
+``run_training`` follows the JAX trainer step for step, single device:
+
+- manifest discovery and vocabulary-contract binding (fail closed),
+- the run lifecycle: locking, serial directories, the configuration
+  fingerprint, the newest-checkpoint and curve-history checks, epoch
+  headroom,
+- transfer init through ``transfer_load_params`` with the vocabulary-row
+  remap (the source may be a JAX checkpoint), and full resume: model,
+  AdamW state, the trainer's generator, step, group-aligned position and
+  the accumulation-health counters,
+- AdamW in two LR groups over ``resolve_epochs``' total steps (cosine or
+  plateau),
+- the epoch loop over ``grouped_batches`` and ``DevicePrefetcher``, one
+  group step (``train_step.make_train_step``) per optimizer step, the
+  nonfinite-group abort and its limit, periodic / wall-time / preemption
+  saves,
+- validation, ``curves.csv``, ``metrics.json``, ``meta.json``,
+  ``last``/``best``/``best_epoch_NNN``/``epoch_N`` checkpoints, early
+  stopping, and the OOM safeguard.
+
+Checkpoints hold the model in the JAX tree layout (``params_to_jax``), so
+the JAX package loads them, and the AdamW state keyed by parameter name
+(``optimizer.format`` = ``OPTIMIZER_FORMAT``). A checkpoint whose optimizer
+state is another trainer's (a JAX one holds optax's) cannot resume here and
+says so; its weights still transfer with ``transfer_from``.
+
+The host reads a group's metrics in one device→host copy (beside the
+step's own read of whether the group commits), and validation in one copy
+at its end: the path is host-bound.
+
+Not ported, and refused with ``NotImplementedError`` naming the flag
+(``UNPORTED_FLAGS``): meshes, tensor and pipeline parallelism and
+multi-process runs, LoRA, the replay, multi-offset and termination losses,
+shape guidance, MoE, remat, ``primary_training_contract``, ``grad_clip``,
+Adafactor, ``freeze_backbone`` and ``unfreeze_encoder``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import csv
+import json
+import math
+import shutil
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from genomics_lm_torch.data import manifest as manifest_lib
+from genomics_lm_torch.data import vocabulary as vocab_lib
+from genomics_lm_torch.data.datasets import (
+    DevicePrefetcher,
+    EpochPlan,
+    PackedDataset,
+    dataset_length_audit,
+    grouped_batches,
+)
+from genomics_lm_torch.models.codon_gpt import CodonGPT, param_count
+from genomics_lm_torch.models.config import CodonGPTConfig
+from genomics_lm_torch.training import checkpoints as ckpt_lib
+from genomics_lm_torch.training import optim as optim_lib
+from genomics_lm_torch.training.config import (
+    auto_run_id,
+    ensure_path_list,
+    normalize_run_id,
+    write_meta,
+)
+from genomics_lm_torch.training.lifecycle import (
+    RunLifecycleError,
+    TrainingRun,
+    capture_rng_state,
+    configuration_fingerprint,
+    restore_rng_state,
+)
+from genomics_lm_torch.training.runtime import (
+    GracefulPreemption,
+    PeriodicCheckpointPolicy,
+    PreemptionRequested,
+    WallTimeLimitException,
+    WallTimer,
+    atomic_write,
+    device_memory_stats,
+)
+from genomics_lm_torch.training.train_step import (
+    LossConfig,
+    make_eval_step,
+    make_train_step,
+)
+from genomics_lm_torch.utils.device import resolve_device
+from genomics_lm_torch.utils.weights import params_to_jax, state_dict_from_jax
+
+PAD_ID = 0
+LAST = "last.npz"
+OPTIMIZER_FORMAT = "torch.optim.AdamW/by-parameter-name/v1"
+
+# (flag, predicate on the run config): each raises NotImplementedError
+UNPORTED_FLAGS = (
+    ("mesh_devices", lambda v: v is not None and int(v) > 1),
+    ("tensor_parallel", lambda v: v is not None and int(v) > 1),
+    ("pipeline_stages", lambda v: v is not None and int(v) > 1),
+    ("lora_rank", bool),
+    ("lora_only", bool),
+    ("replay_loss_enabled", bool),
+    ("replay_data", bool),
+    ("multi_offset_targets", bool),
+    ("termination_loss_enabled", bool),
+    ("use_shape_guidance", bool),
+    ("moe_experts", bool),
+    ("use_checkpoint", bool),
+    ("primary_training_contract", bool),
+    ("grad_clip", bool),
+    ("optimizer", lambda v: v is not None and str(v).lower() == "adafactor"),
+    ("freeze_backbone", bool),
+    ("unfreeze_encoder", bool),
+)
+
+
+def refuse_unported(cfg: dict) -> None:
+    """Raise ``NotImplementedError`` naming the first flag of ``cfg`` that
+    asks for something the port does not have, or for a multi-process run."""
+    for flag, asks in UNPORTED_FLAGS:
+        if flag in cfg and asks(cfg[flag]):
+            raise NotImplementedError(f"{flag}={cfg[flag]!r} is not ported")
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError("multi-process training is not ported")
+
+
+class NonfiniteGroupLimitError(RuntimeError):
+    """Raised when aborted accumulation groups exceed the configured limit."""
+
+
+# substrings identifying device-memory exhaustion in an error's text, beside
+# PyTorch's own type (the JAX trainer's list, from XLA's messages)
+OOM_PATTERNS = (
+    "RESOURCE_EXHAUSTED",
+    "Out of memory",
+    "out of memory",
+    "OOM",
+    "Attempting to allocate",
+)
+
+
+def _is_oom_error(exc: BaseException) -> bool:
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    text = f"{type(exc).__name__}: {exc}"
+    return any(pattern in text for pattern in OOM_PATTERNS)
+
+
+def _apply_oom_downscale(config_path: str | None, cfg: dict) -> dict | None:
+    """Halve batch_size / double grad_accum in the YAML config so the next
+    launch fits (parity: reference loop.py:1516-1549); returns the rewrite
+    summary or None."""
+    batch_size = int(cfg.get("batch_size", 1))
+    if batch_size <= 1:
+        print("[oom] batch_size already 1 — cannot downscale further",
+              file=sys.stderr)
+        return None
+    new_batch = max(1, batch_size // 2)
+    new_accum = int(cfg.get("grad_accum_steps", 1)) * 2
+    summary = {"batch_size": new_batch, "grad_accum_steps": new_accum}
+    if config_path and Path(config_path).exists():
+        import yaml
+
+        path = Path(config_path)
+        doc = yaml.safe_load(path.read_text()) or {}
+        doc.update(summary)
+        text = yaml.safe_dump(doc, sort_keys=False)
+        atomic_write(path, lambda tmp: tmp.write_text(text))
+        print(f"[oom] rewrote {path}: batch_size {batch_size}->{new_batch}, "
+              f"grad_accum x2 -> {new_accum}", file=sys.stderr)
+    else:
+        print(f"[oom] retry with batch_size={new_batch} "
+              f"grad_accum_steps={new_accum}", file=sys.stderr)
+    return summary
+
+
+class AccumulationHealth:
+    """Checkpointable counters for accumulation-group integrity
+    (parity: reference loop.py:90-143, group-granular)."""
+
+    def __init__(self):
+        self.nonfinite_microbatches = 0
+        self.aborted_groups = 0
+        self.discarded_finite_microbatches = 0
+
+    def record_abort(self, discarded_finite: int) -> None:
+        self.nonfinite_microbatches += 1
+        self.aborted_groups += 1
+        self.discarded_finite_microbatches += int(discarded_finite)
+
+    def exceeds_limit(self, max_aborted_groups: int) -> bool:
+        if max_aborted_groups < 0:
+            return False
+        return self.aborted_groups > max_aborted_groups
+
+    def state_dict(self) -> dict:
+        return {
+            "active_microbatches": 0,
+            "nonfinite_microbatches": self.nonfinite_microbatches,
+            "aborted_groups": self.aborted_groups,
+            "discarded_finite_microbatches": self.discarded_finite_microbatches,
+        }
+
+    def load_state_dict(self, state: dict | None) -> None:
+        state = state or {}
+        self.nonfinite_microbatches = int(state.get("nonfinite_microbatches", 0))
+        self.aborted_groups = int(state.get("aborted_groups", 0))
+        self.discarded_finite_microbatches = int(
+            state.get("discarded_finite_microbatches", 0)
+        )
+
+
+def _model_config(cfg: dict, vocab_size: int) -> CodonGPTConfig:
+    merged = dict(cfg)
+    merged["vocab_size"] = vocab_size
+    if merged.get("multi_offset_targets") is None:
+        merged["multi_offset_targets"] = ()
+    return CodonGPTConfig.from_run_config(merged)
+
+
+# --- optimizer state in the checkpoint ---------------------------------------
+
+
+def _param_index_names(bundle, model: torch.nn.Module) -> dict[int, str]:
+    """The optimizer ``state_dict``'s parameter index → parameter name."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [p for group in bundle.optimizer.param_groups for p in group["params"]]
+    return {i: names[id(p)] for i, p in enumerate(order)}
+
+
+def optimizer_state(bundle, model: torch.nn.Module) -> dict:
+    """The AdamW state keyed by parameter name, in the checkpoint's layout."""
+    index_names = _param_index_names(bundle, model)
+    state = bundle.optimizer.state_dict()["state"]
+    return {
+        "format": OPTIMIZER_FORMAT,
+        "applied_steps": int(bundle.applied_steps),
+        "state": {index_names[i]: dict(s) for i, s in state.items()},
+    }
+
+
+def load_optimizer_state(bundle, model: torch.nn.Module, saved) -> None:
+    """Restore ``optimizer_state``'s output; raises ``RunLifecycleError`` for
+    an optimizer state this trainer did not write (a JAX checkpoint holds
+    optax's)."""
+    if not isinstance(saved, dict) or saved.get("format") != OPTIMIZER_FORMAT:
+        raise RunLifecycleError(
+            "the resume checkpoint's optimizer state was not written by this "
+            f"trainer (expected format {OPTIMIZER_FORMAT!r}; a JAX checkpoint holds "
+            "optax state, which cannot be read here). Start a new run with "
+            "transfer_from to take its weights.")
+    name_index = {n: i for i, n in _param_index_names(bundle, model).items()}
+    unknown = sorted(set(saved["state"]) - set(name_index))
+    if unknown:
+        raise RunLifecycleError(f"the optimizer state names unknown parameters: {unknown}")
+    sd = bundle.optimizer.state_dict()
+    sd["state"] = {
+        name_index[n]: {k: torch.as_tensor(np.asarray(v)) for k, v in s.items()}
+        for n, s in saved["state"].items()
+    }
+    bundle.optimizer.load_state_dict(sd)
+    bundle.applied_steps = int(saved["applied_steps"])
+
+
+# --- host reads ---------------------------------------------------------------
+
+GROUP_METRIC_KEYS = ("applied", "finite_microbatches", "nonpad_tokens", "total_loss_sum",
+                     "next_loss_sum", "committed_microbatches", "first_loss",
+                     "discarded_before_nonfinite")
+EVAL_METRIC_KEYS = ("total_loss", "next_loss", "nonpad_tokens", "next_loss_token_sum")
+
+
+def read_metrics(metrics: dict, keys) -> dict[str, float]:
+    """The named 0-dim device metrics as Python floats, in one device→host
+    copy (float32 values and int32 counts are exact in float64)."""
+    values = torch.stack([metrics[k].to(torch.float64) for k in keys]).cpu().tolist()
+    return dict(zip(keys, values))
+
+
+def _to_device(group, device: torch.device):
+    return tuple(torch.from_numpy(p).to(device) if isinstance(p, np.ndarray) else p
+                 for p in group)
+
+
+def run_training(
+    cfg: dict,
+    *,
+    config_path: str | None = None,
+    resume: str | None = None,
+    transfer_from: str | None = None,
+    run_root: str | Path = "runs",
+    device: str | torch.device | None = None,
+    progress_every: int = 200,
+) -> dict:
+    """Train a codon LM per the flat run config; returns the final meta dict.
+
+    Runs on ``device`` (default ``cuda``; raises without CUDA unless a
+    device is named)."""
+    refuse_unported(cfg)
+    device = resolve_device(device)
+    run_id = normalize_run_id(cfg.get("run_id")) or auto_run_id(cfg, config_path)
+    seed = int(cfg.get("seed", 1337))
+
+    # --- datasets + contracts ----------------------------------------------
+    train_paths = ensure_path_list(None, cfg.get("train_npz"), "train_npz")
+    val_paths = ensure_path_list(None, cfg.get("val_npz"), "val_npz")
+    use_mmap = bool(cfg.get("use_mmap_dataset", False))
+
+    dataset_id = None
+    manifest_path = manifest_lib.discover_manifest(train_paths + val_paths)
+    if cfg.get("dataset_manifest"):
+        manifest_path = Path(cfg["dataset_manifest"])
+    if manifest_path is not None:
+        manifest = manifest_lib.load_dataset_manifest(
+            manifest_path, verify_artifacts=bool(cfg.get("verify_manifest_artifacts", False))
+        )
+        dataset_id = manifest["dataset"]["id"]
+        if bool(cfg.get("require_scientific_valid", False)) and not manifest["dataset"].get(
+            "scientific_valid"
+        ):
+            raise manifest_lib.DatasetManifestError(
+                "config requires a scientifically valid dataset manifest"
+            )
+
+    contract = vocab_lib.resolve_vocabulary_contract(
+        train_paths + val_paths,
+        configured_path=cfg.get("itos_path"),
+        configured_size=cfg.get("vocab_size"),
+    )
+    vocab_size = contract.size
+
+    train_ds = PackedDataset(train_paths, use_mmap=use_mmap)
+    val_ds = PackedDataset(val_paths, use_mmap=use_mmap)
+    block_size = int(cfg["block_size"])
+
+    model_cfg = _model_config(cfg, vocab_size)
+    loss_cfg = LossConfig()  # the auxiliary losses were refused above
+
+    # --- run lifecycle -------------------------------------------------------
+    fingerprint = configuration_fingerprint(cfg)
+    if resume is not None:
+        vocab_lib.validate_resume_checkpoint(resume, contract, dataset_id=dataset_id)
+    training_run = TrainingRun.open(
+        run_root,
+        run_id,
+        resume=resume,
+        target_epochs=(int(cfg["epochs"]) if str(cfg.get("epochs", "")).strip().isdigit() else None),
+        config_fingerprint=fingerprint,
+    )
+    run_dir = training_run.run_dir
+    ckpt_dir = training_run.checkpoints
+    scores_dir = training_run.scores
+    log_csv = scores_dir / "curves.csv"
+
+    snapshot = vocab_lib.snapshot_vocabulary(contract, run_dir / "itos.txt")
+    vocab_lib.write_vocabulary_manifest(
+        contract.provenance(snapshot), run_dir / "vocabulary.json"
+    )
+    cfg = dict(cfg)
+    cfg["vocab_size"] = vocab_size
+    cfg["vocabulary"] = {"sha256": contract.sha256, "size": vocab_size}
+    if dataset_id is not None:
+        cfg["dataset_manifest"] = {"dataset_id": dataset_id}
+    if config_path and Path(config_path).exists():
+        shutil.copy2(config_path, ckpt_dir / "config.yaml")
+
+    print(f"[run] id={run_dir.name} device={device}")
+    print(f"[paths] ckpts={ckpt_dir} scores={scores_dir} log_csv={log_csv}")
+    print(f"[data] train={len(train_ds)} val={len(val_ds)} windows "
+          f"storage={train_ds.storage_mode}")
+    print(f"[audit] {dataset_length_audit(train_ds, block_size)}")
+
+    # --- model init / transfer ----------------------------------------------
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = CodonGPT(model_cfg)
+    n_params = param_count(model)
+    print(f"[model] params={n_params} spec={model_cfg.to_dict()}")
+
+    if transfer_from is not None:
+        source = ckpt_lib.load_checkpoint(transfer_from)
+        source_itos = source.get("cfg", {}).get("itos")
+        src_dir = Path(transfer_from).parent.parent
+        if source_itos is None and (src_dir / "itos.txt").exists():
+            source_itos = list(vocab_lib.load_itos(src_dir / "itos.txt"))
+        params, report = ckpt_lib.transfer_load_params(
+            params_to_jax(model, model_cfg),
+            source["model"],
+            source_itos=source_itos,
+            target_itos=list(contract.tokens),
+            vocab_axis_size=vocab_size,
+        )
+        model.load_state_dict(state_dict_from_jax(params, model_cfg), strict=True)
+        print(
+            f"[transfer] loaded={len(report['loaded'])} adapted={len(report['adapted'])} "
+            f"skipped={len(report['skipped'])} missing={len(report['missing'])}"
+        )
+        adaptation = {
+            "legacy_adaptation": True,
+            "transfer_from": str(transfer_from),
+            "loaded": len(report["loaded"]),
+            "adapted": len(report["adapted"]),
+            "skipped": len(report["skipped"]),
+        }
+        prov = contract.provenance(snapshot)
+        prov.update(adaptation)
+        vocab_lib.write_vocabulary_manifest(prov, run_dir / "vocabulary.json")
+    model.to(device)
+
+    # --- optimizer / schedule ----------------------------------------------
+    batch_size = int(cfg["batch_size"])
+    gacc = int(cfg.get("grad_accum_steps", 16))
+    max_nonfinite_groups = int(cfg.get("max_nonfinite_accumulation_groups", 3))
+    if max_nonfinite_groups < -1:
+        raise ValueError("max_nonfinite_accumulation_groups must be -1 or greater")
+
+    plan_probe = EpochPlan(
+        train_ds, batch_size=batch_size, seed=seed, epoch=1,
+        bucket_batching=bool(cfg.get("bucket_batching", False)),
+    )
+    microbatches_per_epoch = len(plan_probe)
+    steps_per_epoch = math.ceil(microbatches_per_epoch / max(1, gacc))
+    max_epochs = optim_lib.resolve_epochs(
+        cfg, n_params, len(train_ds) * block_size
+    )
+    computed_total = max(1, steps_per_epoch * max_epochs)
+    total_steps = int(cfg.get("scheduler_total_steps", computed_total))
+    bundle = optim_lib.build_optimizer(cfg, model, total_steps)
+    cfg["resolved_warmup_steps"] = bundle.warmup_steps
+    train_step = make_train_step(model_cfg, loss_cfg)
+    eval_step = make_eval_step(model_cfg, loss_cfg)
+    # draws every dropout mask and attention seed; its state is checkpointed
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+
+    # --- resume --------------------------------------------------------------
+    start_epoch = 0
+    best = float("inf")
+    best_epoch = -1
+    no_improve = 0
+    step = 0
+    consumed_train_tokens = 0
+    resume_microbatch_idx = 0
+    health = AccumulationHealth()
+    epoch_train_metrics = {
+        "total_loss_sum": 0.0, "next_loss_sum": 0.0, "microbatches": 0,
+        "initial_loss": None,
+    }
+    history: list[dict] = []
+    runtime_memory = {"device_peak_bytes": 0}
+
+    if training_run.resume_checkpoint is not None:
+        payload = ckpt_lib.load_checkpoint(training_run.resume_checkpoint)
+        try:
+            saved_objective = payload.get("train_objective")
+            if saved_objective and saved_objective != "microbatch_mean" and gacc > 1:
+                raise RunLifecycleError(
+                    "resume would switch the training objective from "
+                    f"{saved_objective} to microbatch_mean at grad_accum_steps={gacc}: "
+                    "whole-group CE and mean-of-microbatch-means weight ragged "
+                    "microbatches differently. Use grad_accum_steps: 1, where the "
+                    "objectives coincide."
+                )
+            model.load_state_dict(state_dict_from_jax(payload["model"], model_cfg),
+                                  strict=True)
+            load_optimizer_state(bundle, model, payload.get("optimizer"))
+            restore_rng_state(payload.get("rng_state"), generator)
+        except Exception:
+            training_run.close()  # release the run lock before failing closed
+            raise
+        step = int(payload["step"])
+        start_epoch = int(payload["run_progress"]["completed_epochs"])
+        best = float(payload.get("best_val", float("inf")))
+        best_epoch = int(payload.get("best_epoch", -1))
+        no_improve = int(payload.get("no_improve", 0))
+        consumed_train_tokens = int(payload.get("consumed_train_tokens", 0))
+        health.load_state_dict(payload.get("accumulation_health"))
+        if (
+            int(payload.get("batch_size", batch_size)) == batch_size
+            and int(payload.get("grad_accum_steps", gacc)) == gacc
+        ):
+            resume_microbatch_idx = int(payload.get("epoch_microbatch_idx", 0))
+        else:
+            print("[resume] batch_size/grad_accum changed; dropping mid-epoch position")
+        saved_metrics = payload.get("epoch_train_metrics")
+        if saved_metrics and resume_microbatch_idx:
+            epoch_train_metrics.update(saved_metrics)
+        if bundle.plateau is not None and payload.get("scheduler"):
+            bundle.plateau.load_state_dict(payload["scheduler"])
+        print(
+            f"[resume] epoch={start_epoch} step={step} microbatch={resume_microbatch_idx}"
+        )
+
+    periodic_ckpt = PeriodicCheckpointPolicy(
+        every_steps=int(cfg.get("checkpoint_every_steps", 0) or 0),
+        every_minutes=float(cfg.get("checkpoint_every_minutes", 0.0) or 0.0),
+        last_saved_step=step,
+    )
+
+    current_epoch_idx = start_epoch
+    current_resume_microbatch_idx = resume_microbatch_idx
+
+    def make_checkpoint_payload(epoch_idx: int, **metrics) -> dict:
+        val_loss = metrics.get("val_loss", float("inf"))
+        epoch_complete = val_loss != float("inf")
+        return {
+            "model": params_to_jax(model, model_cfg),
+            "optimizer": optimizer_state(bundle, model),
+            "scheduler": bundle.plateau.state_dict() if bundle.plateau else None,
+            "cfg": {k: v for k, v in cfg.items() if _jsonable(v)},
+            "epoch": epoch_idx if epoch_complete else max(0, epoch_idx - 1),
+            "val_loss": val_loss,
+            "train_loss": metrics.get("train_loss", float("inf")),
+            "train_next_loss": metrics.get("train_next_loss"),
+            "val_next_loss": metrics.get("val_next_loss"),
+            "train_term_loss": None,
+            "val_term_loss": None,
+            "train_replay_term_loss": None,
+            "best_val": best,
+            "best_epoch": best_epoch,
+            "no_improve": no_improve,
+            "step": step,
+            "consumed_train_tokens": int(consumed_train_tokens),
+            "runtime_memory": dict(runtime_memory),
+            "epoch_microbatch_idx": (
+                0 if epoch_complete else int(current_resume_microbatch_idx)
+            ),
+            "batch_size": batch_size,
+            "grad_accum_steps": gacc,
+            "train_objective": "microbatch_mean",
+            "train_examples": len(train_ds),
+            "train_batches": microbatches_per_epoch,
+            "accumulation_health": health.state_dict(),
+            "max_nonfinite_accumulation_groups": max_nonfinite_groups,
+            "epoch_train_metrics": dict(epoch_train_metrics),
+            "run_progress": {
+                "completed_epochs": epoch_idx if epoch_complete else max(0, epoch_idx - 1),
+                "current_epoch": epoch_idx,
+                "microbatch": 0 if epoch_complete else int(current_resume_microbatch_idx),
+                "optimizer_step": step,
+            },
+            "rng_state": capture_rng_state(generator),
+            "run_fingerprint": fingerprint,
+        }
+
+    async_ckpt = (
+        ckpt_lib.AsyncCheckpointer() if bool(cfg.get("async_checkpointing", False))
+        else None
+    )
+
+    def write_ckpt(payload, path) -> None:
+        if async_ckpt is not None:
+            async_ckpt.save(payload, path)
+        else:
+            ckpt_lib.save_checkpoint(payload, path)
+
+    def save_last(epoch_idx: int, reason: str, **metrics) -> None:
+        payload = make_checkpoint_payload(epoch_idx, **metrics)
+        payload["checkpoint_reason"] = reason
+        write_ckpt(payload, ckpt_dir / LAST)
+        periodic_ckpt.mark_saved(step)
+        print(f"[checkpoint] saved {ckpt_dir / LAST} reason={reason} step={step}")
+
+    max_time_minutes = cfg.get("max_time_minutes")
+    wall_timer = WallTimer(max_time_minutes)
+    preemption = GracefulPreemption().install()
+    train_wall0 = time.perf_counter()
+    train_cpu0 = time.process_time()
+    dataloader_seed = int(cfg.get("dataloader_seed", seed))
+    base_lr = float(cfg.get("lr", 5e-6))
+
+    def lr_of_step(s: int) -> float:
+        if bundle.schedule_name == "cosine":
+            return base_lr * bundle.lr_lambda(s)
+        return base_lr * bundle.plateau.scale(s)
+
+    def run_validation(epoch_idx: int):
+        plan = EpochPlan(
+            val_ds, batch_size=batch_size, seed=dataloader_seed, epoch=0, shuffle=False,
+            bucket_batching=bool(cfg.get("bucket_batching", False)),
+        )
+        rows = []
+        for x, y in plan.microbatches():
+            if x.shape[0] == 0:
+                continue
+            xb, yb = _to_device((x, y), device)
+            out = eval_step(model, xb.long(), yb.long())
+            rows.append(torch.stack([out[k].to(torch.float64) for k in EVAL_METRIC_KEYS]))
+        sums: dict[str, float] = {}
+        values = torch.stack(rows).cpu().tolist() if rows else []  # one host read
+        for row in values:
+            for k, v in zip(EVAL_METRIC_KEYS, row):
+                sums[k] = sums.get(k, 0.0) + v
+        n = max(len(values), 1)
+        avg = {k: v / n for k, v in sums.items()}
+        avg["microbatches"] = n
+        # exact token-weighted corpus NLL for perplexity parity
+        if sums.get("nonpad_tokens"):
+            avg["nll_token_weighted"] = sums["next_loss_token_sum"] / sums["nonpad_tokens"]
+        return avg
+
+    status = "completed"
+    failure: Exception | None = None
+    try:
+        if start_epoch >= max_epochs:
+            print(
+                f"[resume] start_epoch {start_epoch} >= epochs {max_epochs}; "
+                "no new epochs will run unless you increase 'epochs'."
+            )
+        print(
+            f"[train] starting: epochs={max_epochs}, steps_per_epoch={steps_per_epoch}, "
+            f"total_steps={total_steps}, batch_size={batch_size}, grad_accum={gacc}, "
+            f"scheduler={bundle.schedule_name}"
+        )
+        for epoch in range(start_epoch, max_epochs):
+            epoch_idx = epoch + 1
+            current_epoch_idx = epoch_idx
+            ep_wall0 = time.perf_counter()
+            skip = resume_microbatch_idx if epoch == start_epoch else 0
+            resume_microbatch_idx = 0
+            if skip == 0:
+                epoch_train_metrics.update(
+                    total_loss_sum=0.0, next_loss_sum=0.0, microbatches=0,
+                    initial_loss=None,
+                )
+            else:
+                # group-aligned resume
+                skip = (skip // gacc) * gacc
+                print(f"[resume] skipping {skip}/{microbatches_per_epoch} applied microbatches")
+
+            plan = EpochPlan(
+                train_ds, batch_size=batch_size, seed=dataloader_seed, epoch=epoch_idx,
+                bucket_batching=bool(cfg.get("bucket_batching", False)),
+            )
+            mb_seen = 0
+            epoch_start = time.perf_counter()
+
+            prefetch_depth = int(cfg.get("prefetch_batches", 2))
+            raw_groups = grouped_batches(
+                plan, gacc, skip_microbatches=skip, pad_batch_to=batch_size,
+            )
+            stage = lambda g: (g[0], g[1], g[2], g[0].shape[0])  # noqa: E731
+            if prefetch_depth:
+                # a worker thread stages each group on the device from pinned
+                # memory, overlapping the copy with the running step
+                batch_iter = DevicePrefetcher(raw_groups, stage, depth=prefetch_depth,
+                                              device=device)
+            else:
+                batch_iter = (_to_device(stage(g), device) for g in raw_groups)
+            with contextlib.closing(batch_iter):
+                for bx, by, mb_index, n_mb in batch_iter:
+                    batch = {"x": bx.long(), "y": by.long()}
+                    lr_scale = 1.0 if bundle.plateau is None else bundle.plateau.scale(step)
+                    metrics = read_metrics(
+                        train_step(model, bundle, batch, generator, lr_scale),
+                        GROUP_METRIC_KEYS)
+                    applied = bool(metrics["applied"])
+                    if applied:
+                        step += 1
+                        consumed_train_tokens += int(metrics["nonpad_tokens"])
+                        epoch_train_metrics["total_loss_sum"] += metrics["total_loss_sum"]
+                        epoch_train_metrics["next_loss_sum"] += metrics["next_loss_sum"]
+                        epoch_train_metrics["microbatches"] += int(
+                            metrics["committed_microbatches"])
+                        if epoch_train_metrics["initial_loss"] is None:
+                            epoch_train_metrics["initial_loss"] = metrics["first_loss"]
+                            print(f"[train] initial_loss={epoch_train_metrics['initial_loss']:.6f}")
+                    else:
+                        discarded = int(metrics["discarded_before_nonfinite"])
+                        health.record_abort(discarded)
+                        print(
+                            "[train] aborted nonfinite accumulation group at "
+                            f"microbatch={mb_index}; discarded_finite_microbatches={discarded} "
+                            f"aborted_groups={health.aborted_groups}"
+                        )
+                        if health.exceeds_limit(max_nonfinite_groups):
+                            raise NonfiniteGroupLimitError(
+                                "nonfinite accumulation groups exceeded configured maximum "
+                                f"{max_nonfinite_groups}: {health.aborted_groups}"
+                            )
+                    current_resume_microbatch_idx = mb_index
+                    mb_seen += n_mb
+                    if progress_every and mb_seen and mb_seen % progress_every < n_mb:
+                        elapsed = time.perf_counter() - epoch_start
+                        print(
+                            f"[train] progress: {mb_index}/{microbatches_per_epoch} "
+                            f"speed: {mb_seen * batch_size / max(elapsed, 1e-9):.2f} seq/sec"
+                        )
+                    if applied and periodic_ckpt.should_save(step):
+                        save_last(epoch_idx, reason="periodic")
+                    if hasattr(wall_timer, "expired"):
+                        if wall_timer.expired():
+                            raise WallTimeLimitException()
+                    else:
+                        # duck-typed fake timers (tests monkeypatch
+                        # loop.WallTimer) raise from check() directly
+                        wall_timer.check()
+                    preemption.check()
+
+            mem = device_memory_stats(device)
+            if mem.get("peak_bytes_in_use"):
+                runtime_memory["device_peak_bytes"] = max(
+                    runtime_memory["device_peak_bytes"], mem["peak_bytes_in_use"]
+                )
+
+            n_train = max(epoch_train_metrics["microbatches"], 1)
+            train_loss = epoch_train_metrics["total_loss_sum"] / n_train
+            train_next_loss = epoch_train_metrics["next_loss_sum"] / n_train
+
+            val = run_validation(epoch_idx)
+            val_loss = val.get("total_loss", float("inf"))
+            val_next_loss = val.get("next_loss", float("inf"))
+            ppl = math.exp(min(20.0, val_next_loss))
+
+            if bundle.plateau is not None:
+                bundle.plateau.step_metric(val_loss)
+            lr_now = lr_of_step(max(step - 1, 0))
+
+            msg = (
+                f"[epoch {epoch_idx}] train {train_loss:.3f} | val {val_loss:.3f} "
+                f"| next_val {val_next_loss:.3f} | ppl {ppl:.2f} | lr {lr_now:.2e}"
+            )
+            if health.aborted_groups:
+                msg += (
+                    f" | aborted_groups={health.aborted_groups} "
+                    f"discarded_finite_microbatches={health.discarded_finite_microbatches}"
+                )
+            print(msg)
+            print(
+                f"[timing] epoch {epoch_idx} wall_sec={time.perf_counter() - ep_wall0:.2f}"
+            )
+
+            improved = val_loss + 1e-6 < best
+            if improved:
+                best = val_loss
+                best_epoch = epoch_idx
+                no_improve = 0
+            else:
+                no_improve += 1
+
+            epoch_metrics = dict(
+                train_loss=train_loss, val_loss=val_loss,
+                train_next_loss=train_next_loss, val_next_loss=val_next_loss,
+            )
+            payload = make_checkpoint_payload(epoch_idx, **epoch_metrics)
+            if async_ckpt is not None:
+                # a periodic save of last.npz may still be writing through the
+                # same staging file: join it before this synchronous save
+                async_ckpt.wait()
+            ckpt_lib.save_checkpoint(payload, ckpt_dir / LAST)
+            periodic_ckpt.mark_saved(step)
+            if cfg.get("save_epochs", False):
+                ckpt_lib.save_checkpoint(payload, ckpt_dir / f"epoch_{epoch_idx}.npz")
+
+            write_header = not log_csv.exists()
+            with log_csv.open("a", newline="") as f:
+                writer = csv.writer(f)
+                if write_header:
+                    writer.writerow(["epoch", "train_loss", "val_loss", "train_next_loss",
+                                     "val_next_loss", "perplexity", "lr"])
+                writer.writerow([
+                    epoch_idx, f"{train_loss:.4f}", f"{val_loss:.4f}",
+                    f"{train_next_loss:.4f}", f"{val_next_loss:.4f}",
+                    f"{ppl:.3f}", f"{lr_now:.3e}",
+                ])
+
+            history.append({
+                "epoch": epoch_idx,
+                "train_loss": train_loss,
+                "val_loss": val_loss,
+                "train_next_loss": train_next_loss,
+                "val_next_loss": val_next_loss,
+                "perplexity": ppl,
+                "lr": lr_now,
+                "nonfinite_microbatches": health.nonfinite_microbatches,
+                "aborted_accumulation_groups": health.aborted_groups,
+                "discarded_finite_microbatches": health.discarded_finite_microbatches,
+            })
+
+            if improved:
+                write_ckpt(payload, ckpt_dir / "best.npz")
+                write_ckpt(payload, ckpt_dir / f"best_epoch_{epoch_idx:03d}.npz")
+            elif int(cfg.get("early_stop_patience", 5)) > 0 and no_improve >= int(
+                cfg.get("early_stop_patience", 5)
+            ):
+                print("[early-stopping] no improvement; stopping.")
+                break
+
+    except PreemptionRequested as exc:
+        print(f"\n[info] {exc} — saving preemption checkpoint mid-epoch.")
+        save_last(current_epoch_idx or (start_epoch + 1), reason="preempted")
+        status = "stopped"
+    except WallTimeLimitException:
+        print(f"\n[info] Wall-time limit of {max_time_minutes} minutes reached mid-epoch.")
+        save_last(current_epoch_idx or (start_epoch + 1), reason="wall_time")
+        status = "stopped"
+    except NonfiniteGroupLimitError as exc:
+        save_last(current_epoch_idx or (start_epoch + 1), reason="nonfinite_group_limit")
+        status = "failed"
+        failure = exc
+    except Exception as exc:
+        if _is_oom_error(exc):
+            print("\n[oom] device memory exhausted", file=sys.stderr)
+            try:
+                save_last(current_epoch_idx or (start_epoch + 1), reason="oom")
+            except Exception as save_exc:  # the checkpoint itself may not fit
+                print(f"[oom] checkpoint save failed: {save_exc}", file=sys.stderr)
+            _apply_oom_downscale(config_path, cfg)
+            status = "stopped"
+            failure = exc
+        else:
+            status = "failed"
+            failure = exc
+            print(f"[error] training failed: {exc}", file=sys.stderr)
+    finally:
+        # restore prior signal handlers even on BaseException unwinds, so a
+        # later SIGTERM is never swallowed by a stale flag-only handler
+        preemption.uninstall()
+
+    total_time = time.perf_counter() - train_wall0
+    meta = {
+        "run_id": run_dir.name,
+        "train_wall_sec": round(total_time, 2),
+        "train_cpu_sec": round(time.process_time() - train_cpu0, 2),
+        "best_epoch": best_epoch,
+        "best_val_loss": float(best) if best != float("inf") else None,
+        "status": status,
+        "accumulation_health": health.state_dict(),
+        "model_spec": model_cfg.to_dict(),
+        "n_params": n_params,
+        "consumed_train_tokens": int(consumed_train_tokens),
+        "runtime_memory": dict(runtime_memory),
+        "device": str(device),
+    }
+    if failure is not None:
+        meta["error"] = f"{type(failure).__name__}: {failure}"
+    if preemption.requested:
+        meta["preempted_by_signal"] = preemption.signum
+    if history:
+        meta.update({
+            "last_epoch": history[-1]["epoch"],
+            "last_val_loss": history[-1]["val_loss"],
+            "last_train_loss": history[-1]["train_loss"],
+            "last_val_next_loss": history[-1].get("val_next_loss"),
+            "last_train_next_loss": history[-1].get("train_next_loss"),
+            "last_val_term_loss": None,
+            "last_train_term_loss": None,
+            "last_train_replay_term_loss": None,
+            "last_perplexity": history[-1]["perplexity"],
+        })
+        (scores_dir / "metrics.json").write_text(json.dumps(meta, indent=2) + "\n")
+    write_meta(ckpt_dir, meta)
+    if status == "completed" and history:
+        training_run.mark_complete({
+            "run_id": run_dir.name,
+            "completed_epochs": history[-1]["epoch"],
+            "best_epoch": best_epoch,
+            "best_validation_loss": meta["best_val_loss"],
+        })
+    if async_ckpt is not None:
+        async_ckpt.close()  # join the in-flight checkpoint write
+    training_run.close()
+    print(f"[timing] train_wall_sec={total_time:.2f}")
+    if failure is not None and status == "failed":
+        # OOM ends as status "stopped" (checkpoint saved, config downscaled)
+        # and returns meta like a wall-time stop instead of re-raising
+        raise failure
+    return meta
+
+
+def _jsonable(v) -> bool:
+    try:
+        json.dumps(v)
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+__all__ = [
+    "AccumulationHealth",
+    "NonfiniteGroupLimitError",
+    "OPTIMIZER_FORMAT",
+    "UNPORTED_FLAGS",
+    "refuse_unported",
+    "run_training",
+]

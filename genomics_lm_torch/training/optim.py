@@ -15,9 +15,9 @@ optimizer step, as optax counts its updates, and ``lr_scale`` multiplies
 each group's lr for that step, which is torch's counterpart of the JAX
 step's ``updates * lr_scale`` (it scales the decay step too, as there).
 
-``resolve_warmup_steps``, ``cosine_lr_lambda`` and ``PlateauScheduler``
-are plain-Python copies. Not ported: Adafactor, ``freeze_backbone``,
-``unfreeze_encoder`` and the LoRA groups, which raise
+``resolve_warmup_steps``, ``cosine_lr_lambda``, ``PlateauScheduler`` and
+``resolve_epochs`` are plain-Python copies. Not ported: Adafactor,
+``freeze_backbone``, ``unfreeze_encoder`` and the LoRA groups, which raise
 ``NotImplementedError``, and ``grad_clip``.
 """
 
@@ -186,6 +186,22 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int) -> Opti
                            lr_lambda=lr_lambda)
 
 
+def resolve_epochs(cfg: dict, n_params: int, tokens_per_epoch: float) -> int:
+    """``epochs: auto`` via the tokens-per-param heuristic (loop.py:745-759)."""
+    epochs_cfg = cfg.get("epochs", 5)
+    if isinstance(epochs_cfg, str) and epochs_cfg.strip().lower() == "auto":
+        tokens_per_param = float(cfg.get("tokens_per_param", 20.0))
+        tokens_target = max(1.0, tokens_per_param * float(n_params))
+        per_epoch = max(1.0, float(tokens_per_epoch))
+        est = int(math.ceil(tokens_target / per_epoch))
+        est = max(
+            int(cfg.get("epochs_min", 1)),
+            min(est, int(cfg.get("epochs_max", max(1, est)))),
+        )
+        return est
+    return int(epochs_cfg)
+
+
 __all__ = [
     "FAST_GROUP_MARKERS",
     "OptimizerBundle",
@@ -193,5 +209,6 @@ __all__ = [
     "build_optimizer",
     "cosine_lr_lambda",
     "param_group_labels",
+    "resolve_epochs",
     "resolve_warmup_steps",
 ]

@@ -1,7 +1,12 @@
-"""Load a JAX CodonGPT parameter tree into the port's ``CodonGPT`` module.
+"""Move CodonGPT weights between the JAX parameter tree and the port's module.
 
 The tree is given as nested dicts of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, params)`` — this module never imports JAX.
+``params_from_jax`` loads a tree into a ``CodonGPT``; ``params_to_jax`` is
+its inverse, the layout the checkpoints store, so the JAX package loads a
+model trained by the port and the port loads one trained by JAX. A round
+trip tree → module → tree is exact: the maps only transpose, stack and
+split float32 arrays.
 
 Layout map (JAX param tree → ``CodonGPT.state_dict`` key; the keys follow
 the reference ``TinyGPT`` layout):
@@ -166,4 +171,73 @@ def params_from_jax(tree: dict, cfg: CodonGPTConfig,
     return model.to(device).eval()
 
 
-__all__ = ["params_from_jax", "state_dict_from_jax"]
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def params_to_jax(model: CodonGPT, cfg: CodonGPTConfig) -> dict:
+    """The JAX parameter tree (nested dicts of float32 numpy arrays) that
+    carries ``model``'s weights: the inverse of ``params_from_jax``.
+
+    Per-layer leaves stack on a leading L axis, linear weights transpose to
+    (in, out), and a fused QKV linear splits back into query, key and
+    value.
+    """
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+
+    def lin(prefix: str) -> dict[str, np.ndarray]:
+        out = {"w": _np(sd[f"{prefix}.weight"]).T.copy()}
+        if f"{prefix}.bias" in sd:
+            out["b"] = _np(sd[f"{prefix}.bias"])
+        return out
+
+    def stacked(fn) -> dict:
+        per_layer = [fn(i) for i in range(cfg.n_layer)]
+
+        def merge(nodes):
+            if isinstance(nodes[0], dict):
+                return {k: merge([n[k] for n in nodes]) for k in nodes[0]}
+            return np.stack(nodes)
+
+        return merge(per_layer)
+
+    def block(i: int) -> dict:
+        p = f"blocks.{i}"
+        out = {ln: {"scale": _np(sd[f"{p}.{ln}.weight"]), "bias": _np(sd[f"{p}.{ln}.bias"])}
+               for ln in ("ln1", "ln2")}
+        if cfg.fused_qkv:
+            w = _np(sd[f"{p}.attn.qkv.weight"])
+            b = _np(sd[f"{p}.attn.qkv.bias"])
+            c_q, c_kv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+            cuts = np.cumsum([c_q, c_kv])
+            attn = {name: {"w": ww.T.copy(), "b": bb.copy()} for name, ww, bb in
+                    zip(("query", "key", "value"), np.split(w, cuts), np.split(b, cuts))}
+        else:
+            attn = {name: lin(f"{p}.attn.{name}") for name in ("query", "key", "value")}
+        attn["proj"] = lin(f"{p}.attn.proj")
+        out["attn"] = attn
+        if cfg.use_swiglu:
+            out["mlp"] = {name: lin(f"{p}.mlp.{name}") for name in ("w_gate", "w_up", "w_down")}
+        else:
+            out["mlp"] = {"fc": lin(f"{p}.mlp.0"), "proj": lin(f"{p}.mlp.2")}
+        return out
+
+    tree: dict = {"tok_emb": _np(sd["tok_emb.weight"]),
+                  "ln_f": {"scale": _np(sd["ln_f.weight"]), "bias": _np(sd["ln_f.bias"])}}
+    if not cfg.use_rope:
+        tree["pos_emb"] = _np(sd["pos_emb.weight"])
+    tree["blocks"] = stacked(block)
+    if not cfg.tie_embeddings:
+        tree["head"] = lin("head")
+    if cfg.termination_aux:
+        tree["termination_head"] = lin("termination_head")
+    if cfg.use_shape_guidance:
+        tree["shape_proj"] = lin("shape_proj")
+    if cfg.multi_offset_targets:
+        tree["offset_projs"] = {
+            str(o): {"fc": lin(f"offset_projs.{o}.0"), "proj": lin(f"offset_projs.{o}.2")}
+            for o in cfg.multi_offset_targets}
+    return tree
+
+
+__all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax"]

@@ -349,3 +349,112 @@ def test_cuda_chunk_and_streamed_refuse_shapes_outside_their_limits(cuda):
     with pytest.raises(ValueError, match="query"):
         decode_attention_streamed(*dev[:4], 0, kv_heads=2)
     assert decode_attention_streamed.launches == before
+
+
+# --- the training stack on the card ----------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_prefetcher_waits_for_its_copies_and_keeps_their_memory(cuda):
+    """``DevicePrefetcher`` stages from pinned memory on a side stream. The
+    consumer must wait for the copy and ``record_stream`` the tensor: here a
+    consumer reads each batch at once (a missing wait reads a half-copied
+    128 MB batch), and reads it again from a kernel queued behind a long
+    device spin after dropping its reference (a missing ``record_stream``
+    lets the next copy reuse the memory first). Both reads must equal the
+    host arrays."""
+    import time
+
+    from genomics_lm_torch.data.datasets import DevicePrefetcher
+
+    n = 32 << 20
+    host = [np.arange(n, dtype=np.int32) * (i + 3) + i for i in range(6)]
+    first, late = [], []
+    with DevicePrefetcher(iter(host), depth=2, device=cuda) as pf:
+        for _ in host:
+            x = next(pf)
+            first.append(x[::4096].clone())  # at once, on the consumer stream
+            torch.cuda._sleep(200_000_000)   # hold the consumer stream
+            late.append(x[1::4096].clone())  # queued behind the spin
+            del x
+            time.sleep(0.02)  # the worker copies the next batches meanwhile
+    torch.cuda.synchronize()
+    for h, a, b in zip(host, first, late):
+        assert np.array_equal(a.cpu().numpy(), h[::4096])
+        assert np.array_equal(b.cpu().numpy(), h[1::4096])
+
+
+def _trainer_fixture(tmp_path, block=32):
+    from genomics_lm_torch.tokenizers.codon import write_itos
+
+    rng = np.random.default_rng(0)
+    succ = rng.integers(4, 68, (68, 3))
+    for name, n in (("train", 64), ("val", 16)):
+        X = np.zeros((n, block), np.int32)
+        X[:, 0] = rng.integers(4, 68, n)
+        for t in range(1, block):
+            X[:, t] = succ[X[:, t - 1], rng.integers(0, 3, n)]
+        X[:, ::11] = 3
+        Y = np.roll(X, -1, axis=1)
+        Y[:, -1] = 0
+        np.savez(tmp_path / f"{name}.npz", X=X, Y=Y)
+    write_itos(tmp_path / "itos.txt")
+    return dict(train_npz=str(tmp_path / "train.npz"), val_npz=str(tmp_path / "val.npz"),
+                block_size=block, n_layer=2, n_head=2, n_embd=32, dropout=0.0,
+                label_smoothing=0.05, attention_impl="flash", batch_size=8,
+                grad_accum_steps=2, lr=1e-3, min_lr=1e-4, warmup_steps=2, epochs=2,
+                seed=1337, early_stop_patience=0, save_epochs=True)
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_tracks_the_cpu_run(cuda, tmp_path):
+    """A 2-layer float32 ``run_training`` on the card (flash kernels, float32
+    SIMT) and on the CPU (their plain versions), from the same seed: the
+    per-epoch losses agree within 1e-5 relative, the bound
+    ``tests/test_torch_trainer.py`` holds the port to JAX with (TF32 off:
+    only the order of float32 sums differs)."""
+    from genomics_lm_torch.ops import flash_attention as fa_ops
+    from genomics_lm_torch.training.checkpoints import load_checkpoint
+    from genomics_lm_torch.training.loop import run_training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _trainer_fixture(tmp_path)
+    before = fa_ops.flash_bwd_dkv.launches
+    for device in ("cuda", "cpu"):
+        meta = run_training(dict(cfg, run_id=device), run_root=str(tmp_path / "runs"),
+                            device=device)
+        assert meta["status"] == "completed" and meta["device"].startswith(device)
+    assert fa_ops.flash_bwd_dkv.launches - before == 2 * 2 * 4 * 2  # G x L x groups x epochs
+    for epoch in (1, 2):
+        card, cpu = (load_checkpoint(tmp_path / "runs" / d / "checkpoints" / f"epoch_{epoch}.npz")
+                     for d in ("cuda", "cpu"))
+        for key in ("train_loss", "val_loss", "val_next_loss"):
+            assert abs(card[key] - cpu[key]) <= 1e-5 * abs(cpu[key]), (epoch, key)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_checkpoint_reloads_bit_exactly(cuda, tmp_path):
+    """bf16 (and float32, int) tensors on the card, written directly and
+    through ``AsyncCheckpointer``, reload with the same bits."""
+    from genomics_lm_torch.training.checkpoints import (
+        AsyncCheckpointer,
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b16 = torch.randn(257, 96, generator=g, device=cuda).bfloat16()
+    f32 = torch.randn(33, generator=g, device=cuda)
+    payload = {"model": {"w": b16, "b": f32, "n": torch.arange(5, device=cuda)},
+               "t": (b16[:3],)}
+    save_checkpoint(payload, tmp_path / "direct.npz")
+    with AsyncCheckpointer() as ck:
+        ck.save(payload, tmp_path / "async.npz")
+    for name in ("direct.npz", "async.npz"):
+        got = load_checkpoint(tmp_path / name)
+        w = got["model"]["w"]
+        assert w.dtype == torch.bfloat16 and torch.equal(
+            w.view(torch.int16), b16.cpu().view(torch.int16))
+        assert torch.equal(got["t"][0].view(torch.int16), b16[:3].cpu().view(torch.int16))
+        assert np.array_equal(got["model"]["b"], f32.cpu().numpy())
+        assert np.array_equal(got["model"]["n"], np.arange(5))
