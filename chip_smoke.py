@@ -105,7 +105,12 @@ exits non-zero:
    a Markov corpus by ``run_training``, then plain and speculative drains;
    logs acceptance, tokens per slot-round, both drains' tokens/s and the
    validation loss beside the chain's entropy rate; the chunk kernel must
-   launch n_layer times per verify round.
+   launch n_layer times per verify round. Then, after the counts are read,
+   the decode and chunk kernels against their plain versions at the shapes
+   this path ran them at (head width 64, which builds other template
+   instances than phases 3 and 10's width 48; the cache positions each
+   protocol reported), bf16 and int8 caches, random lengths and every slot
+   full, with phase 3's and phase 10's tolerances.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -422,6 +427,37 @@ def time_decode_case(name, q, k, v, mask, ks, vs, Hkv, G, fn, peak_bw, peak_ops,
     return timed
 
 
+def check_decode_case(gen, phase, name, L, B, S, Hkv, G, D, cdt, qdt, lengths):
+    """The decode kernel against its plain version on every layer of one
+    case (``make_case``), and again with NaN in the dead tiles; logs the
+    case under ``phase`` and raises if either error passes ``KERNEL_ATOL``.
+    Returns the case's tensors and the two errors."""
+    q, k, v, mask, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cdt, qdt, lengths)
+    pk, pv, pks, pvs = poison_dead_tiles(k, v, ks, vs, mask)
+    err = nan_err = 0.0
+    for layer in range(L):
+        got = da.decode_attention(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+        want = da.decode_attention_reference(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+        got_poisoned = da.decode_attention(q, pk, pv, mask, layer, pks, pvs, kv_heads=Hkv)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = max(err, max_err(got, want))
+        nan_err = max(nan_err, max_err(got_poisoned, want))
+    del pk, pv, pks, pvs
+    live = da.decode_live_tiles(mask)
+    log(phase, case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, D=D),
+        cache=str(cdt).removeprefix("torch."), lengths=lengths,
+        tiles_read=int(live.sum()) * Hkv, tiles_total=live.numel() * Hkv,
+        max_abs_err=err, nan_dead_tiles_err=nan_err, tol=KERNEL_ATOL,
+        tol_reason=KERNEL_ATOL_REASON)
+    if err > KERNEL_ATOL or nan_err > KERNEL_ATOL:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"({err}; with NaN in the dead tiles {nan_err}; "
+                             f"tolerance {KERNEL_ATOL})")
+    return q, k, v, mask, ks, vs, err, nan_err
+
+
 def phase_kernel(peak_bw, peak_ops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -443,30 +479,8 @@ def phase_kernel(peak_bw, peak_ops) -> dict:
     ]
     timed = {}
     for name, L, B, S, Hkv, G, D, cdt, qdt, lengths, is_timed in cases:
-        q, k, v, mask, ks, vs = make_case(gen, L, B, S, Hkv, G, D, cdt, qdt, lengths)
-        poisoned = poison_dead_tiles(k, v, ks, vs, mask)
-        err = nan_err = 0.0
-        for layer in range(L):
-            got = da.decode_attention(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
-            want = da.decode_attention_reference(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
-            pk, pv, pks, pvs = poisoned
-            got_poisoned = da.decode_attention(q, pk, pv, mask, layer, pks, pvs, kv_heads=Hkv)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"{name}: non-finite kernel output")
-            err = max(err, max_err(got, want))
-            nan_err = max(nan_err, max_err(got_poisoned, want))
-        del poisoned, pk, pv, pks, pvs
-        live = da.decode_live_tiles(mask)
-        log("kernel", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, D=D),
-            cache=str(cdt).removeprefix("torch."), lengths=lengths,
-            tiles_read=int(live.sum()) * Hkv, tiles_total=live.numel() * Hkv,
-            max_abs_err=err, nan_dead_tiles_err=nan_err, tol=KERNEL_ATOL,
-            tol_reason=KERNEL_ATOL_REASON)
-        if err > KERNEL_ATOL or nan_err > KERNEL_ATOL:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version "
-                                 f"({err}; with NaN in the dead tiles {nan_err}; "
-                                 f"tolerance {KERNEL_ATOL})")
+        q, k, v, mask, ks, vs, err, nan_err = check_decode_case(
+            gen, "kernel", name, L, B, S, Hkv, G, D, cdt, qdt, lengths)
         if is_timed:
             host_paced_ms = median_ms(
                 lambda: [da.decode_attention(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
@@ -913,6 +927,48 @@ def chunk_fault_ratios(q, k, v, mask, ks, vs, Hkv) -> dict:
     return out
 
 
+def check_chunk_case(gen, phase, name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full,
+                     peak_bw, peak_ops):
+    """The chunk kernel against its plain version on every layer of one case
+    (``chunk_case``): a bf16 query within ``chunk_bound`` per element, which
+    the case's faults must exceed, a float32 one within ``KERNEL_ATOL``.
+    Logs the case under ``phase`` and raises on a failure. Returns the
+    case's tensors, the largest error and its ``decode_bounds``."""
+    q, k, v, mask, ks, vs = chunk_case(gen, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full)
+    tensor_core = qdt == torch.bfloat16
+    err = ratio = 0.0
+    for layer in range(L):
+        got = da.decode_attention_chunk(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
+        want = da.decode_attention_chunk_reference(q, k, v, mask, layer, ks, vs,
+                                                   kv_heads=Hkv)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"chunk {name}: non-finite kernel output")
+        diff = (got - want).abs()
+        err = max(err, float(diff.max()))
+        bound = (chunk_bound(q, k, v, mask, layer, ks, vs, Hkv) if tensor_core
+                 else KERNEL_ATOL)
+        ratio = max(ratio, float((diff / bound).max()))
+    bounds = decode_bounds(mask, B, S, Hkv, G, D, k.element_size(), q.element_size(),
+                           ks is not None, peak_bw, peak_ops, T=T)
+    check = (dict(tol=f"{CHUNK_BF16_TOL} * sum_j p_j |v_j| + 1e-5",
+                  tol_reason=CHUNK_BF16_TOL_REASON,
+                  fault_ratios=chunk_fault_ratios(q, k, v, mask, ks, vs, Hkv))
+             if tensor_core else dict(tol=KERNEL_ATOL, tol_reason=KERNEL_ATOL_REASON))
+    log(phase, case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, T=T, D=D),
+        cache=str(cdt).removeprefix("torch."), query=str(qdt).removeprefix("torch."),
+        segment_gap=gap, full=full, **bounds[0], max_abs_err=err, err_over_bound=ratio,
+        **check)
+    if ratio > 1.0:
+        raise AssertionError(f"chunk {name}: kernel disagrees with its plain version "
+                             f"(error {ratio} x its bound)")
+    if tensor_core and any(r is not None and r <= 1.0
+                           for r in check["fault_ratios"].values()):
+        raise AssertionError(f"chunk {name}: the bound would miss a fault "
+                             f"{check['fault_ratios']}")
+    return q, k, v, mask, ks, vs, err, bounds
+
+
 def phase_chunk(peak_bw, peak_ops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
@@ -942,39 +998,8 @@ def phase_chunk(peak_bw, peak_ops) -> dict:
     ]
     timed = {}
     for name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full, is_timed in cases:
-        q, k, v, mask, ks, vs = chunk_case(gen, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full)
-        tensor_core = qdt == bf16
-        err = ratio = 0.0
-        for layer in range(L):
-            got = da.decode_attention_chunk(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
-            want = da.decode_attention_chunk_reference(q, k, v, mask, layer, ks, vs,
-                                                       kv_heads=Hkv)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"chunk {name}: non-finite kernel output")
-            diff = (got - want).abs()
-            err = max(err, float(diff.max()))
-            bound = (chunk_bound(q, k, v, mask, layer, ks, vs, Hkv) if tensor_core
-                     else KERNEL_ATOL)
-            ratio = max(ratio, float((diff / bound).max()))
-        tiles, needed, read, bound = decode_bounds(mask, B, S, Hkv, G, D, k.element_size(),
-                                                   q.element_size(), ks is not None, peak_bw,
-                                                   peak_ops, T=T)
-        check = (dict(tol=f"{CHUNK_BF16_TOL} * sum_j p_j |v_j| + 1e-5",
-                      tol_reason=CHUNK_BF16_TOL_REASON,
-                      fault_ratios=chunk_fault_ratios(q, k, v, mask, ks, vs, Hkv))
-                 if tensor_core else dict(tol=KERNEL_ATOL, tol_reason=KERNEL_ATOL_REASON))
-        log("chunk", case=name, shape=dict(L=L, B=B, S=S, Hkv=Hkv, Hq=Hkv * G, T=T, D=D),
-            cache=str(cdt).removeprefix("torch."), query=str(qdt).removeprefix("torch."),
-            segment_gap=gap, full=full, **tiles, max_abs_err=err, err_over_bound=ratio,
-            **check)
-        if ratio > 1.0:
-            raise AssertionError(f"chunk {name}: kernel disagrees with its plain version "
-                                 f"(error {ratio} x its bound)")
-        if tensor_core and any(r is not None and r <= 1.0
-                               for r in check["fault_ratios"].values()):
-            raise AssertionError(f"chunk {name}: the bound would miss a fault "
-                                 f"{check['fault_ratios']}")
+        q, k, v, mask, ks, vs, err, (tiles, needed, read, bound) = check_chunk_case(
+            gen, "chunk", name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full, peak_bw, peak_ops)
         if not is_timed:
             continue
         quant = ks is not None
@@ -1387,7 +1412,31 @@ def phase_trainer(card: str) -> dict:
 # --- phase 16: speculative decoding on a trained model ---------------------------
 
 
-def phase_spec_trained(card: str) -> dict:
+def check_spec_trained_kernels(report: dict, peak_bw, peak_ops) -> None:
+    """The decode kernel at the cache positions of the plain protocols and
+    the chunk kernel (T = K + 1) at those of the speculative ones, on the
+    trained model's layers, batch and heads, as ``report`` gives them."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf16, i8 = torch.bfloat16, torch.int8
+    L, B, K = report["n_layer"], report["batch_size"], report["n_draft"]
+    Hkv, D = report["kv_heads"], report["head_dim"]
+    G = report["n_head"] // Hkv
+    positions = report["cache_positions"]
+    decode_S = sorted({S for key, S in positions.items() if key.endswith("_plain")})
+    chunk_S = sorted({S for key, S in positions.items() if key.endswith("_speculative")})
+    for S in decode_S:
+        for cdt, lengths in ((bf16, "random"), (i8, "random"), (bf16, "full")):
+            name = f"decode_s{S}_{'int8' if cdt == i8 else 'bf16'}_{lengths}"
+            check_decode_case(gen, "spec_trained_kernel", name, L, B, S, Hkv, G, D, cdt,
+                              bf16, lengths)
+    for S in chunk_S:
+        for cdt, full in ((bf16, False), (i8, False), (bf16, True)):
+            name = f"chunk_s{S}_{'int8' if cdt == i8 else 'bf16'}_{'full' if full else 'random'}"
+            check_chunk_case(gen, "spec_trained_kernel", name, L, B, S, Hkv, G, K + 1, D, cdt,
+                             bf16, False, full, peak_bw, peak_ops)
+
+
+def phase_spec_trained(card: str, peak_bw, peak_ops) -> dict:
     args = bench_spec.parser().parse_args(["--repeats", "2"])
     da.decode_attention_chunk.launches = 0
     da.decode_attention.launches = 0
@@ -1399,7 +1448,8 @@ def phase_spec_trained(card: str) -> dict:
         "serving_speculative_samples", "speedup_serving", "offline_plain_tok_per_sec",
         "offline_speculative_tok_per_sec", "speedup_offline", "verify_rounds",
         "chunk_kernel_launches", "val_loss", "val_next_loss", "chain_entropy_rate_nats",
-        "train_sec", "n_draft", "batch_size", "decode_tokens", "temperature")},
+        "train_sec", "n_draft", "batch_size", "decode_tokens", "temperature",
+        "cache_positions", "kv_heads", "head_dim")},
         decode_kernel_launches=da.decode_attention.launches, card=card)
     want = report["n_layer"] * report["verify_rounds"]
     if report["chunk_kernel_launches"] == 0 or report["chunk_kernel_launches"] != want:
@@ -1407,6 +1457,7 @@ def phase_spec_trained(card: str) -> dict:
                              f"verify rounds = {want}")
     if not np.isfinite(report["val_loss"]):
         raise AssertionError("the trained model's validation loss is not finite")
+    check_spec_trained_kernels(report, peak_bw, peak_ops)
     return report
 
 
@@ -1440,7 +1491,7 @@ def main() -> int:
     phase_spec_parity()
     phase_pipeline(card_line)
     phase_trainer(card_line)
-    phase_spec_trained(card_line)
+    phase_spec_trained(card_line, peak_bw, peak_ops)
 
     tile_design = ("one pass with an online softmax in float32 (SIMT) over only the 64-position "
                    "cache tiles with a live mask position, flagged by each warp from the mask "

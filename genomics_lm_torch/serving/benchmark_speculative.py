@@ -4,8 +4,9 @@ Speculation pays in proportion to how well the bigram draft predicts the
 target model, which for random weights is near zero. So, as the JAX
 script does:
 
-1. synthesize a first-order-Markov codon corpus (``markov_windows``, a copy
-   of ``scripts/benchmark_speculative.py:47-67``);
+1. synthesize a first-order-Markov codon corpus (``markov_windows``: the
+   code of ``scripts/benchmark_speculative.py:47-67``, its transition matrix
+   built by one helper that the entropy rate reads too);
 2. train the model on it with the port's ``run_training`` (the JAX script's
    run config: bf16 and flash attention on the card);
 3. fit the bigram draft table on the training tokens;
@@ -17,7 +18,8 @@ script does:
 It prints one JSON line with the JAX script's keys (throughputs, speedups,
 the acceptance rate and tokens per round), plus the serving engine's
 acceptance and tokens per slot-round, the chunk kernel's launches and the
-verify rounds of the measured speculative drains, and the validation loss
+verify rounds of the measured speculative drains, each protocol's cache
+positions (the shapes its kernels ran at), and the validation loss
 beside the chain's entropy rate (``markov_entropy_rate``, from its
 transition matrix), which says how much of the chain the model learnt.
 Not ported: the open-loop Poisson latency protocol (``--arrival_rate``).
@@ -36,13 +38,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from genomics_lm_torch.generation.decode import generate_tokens
+from genomics_lm_torch.generation.decode import cache_bucket, generate_tokens
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops import decode_attention as da
 from genomics_lm_torch.serving.engine import ServingEngine
 from genomics_lm_torch.serving.speculative import (
     fit_bigram_table,
     generate_tokens_speculative,
+    speculative_cache_size,
 )
 from genomics_lm_torch.tokenizers.codon import write_itos
 from genomics_lm_torch.training.checkpoints import load_checkpoint
@@ -51,15 +54,22 @@ from genomics_lm_torch.utils.device import resolve_device
 from genomics_lm_torch.utils.weights import params_from_jax
 
 
-def markov_windows(n, T, seed, concentration=0.5, vocab=64, offset=4):
-    """Windows from a sparse random bigram chain over codon ids 4..67
-    (the generator from tests/test_learning_dynamics.py)."""
-    rng = np.random.default_rng(seed)
+def _markov_transitions(rng, concentration, vocab) -> np.ndarray:
+    """The chain's (vocab, vocab) transition matrix, from the first draws of
+    ``rng``: four successors a state, Dirichlet weights over them, 1e-3
+    everywhere else, rows normalized."""
     trans = np.full((vocab, vocab), 1e-3)
     for i in range(vocab):
         successors = rng.choice(vocab, 4, replace=False)
         trans[i, successors] = rng.dirichlet(np.ones(4) * concentration) * 10
-    trans /= trans.sum(axis=1, keepdims=True)
+    return trans / trans.sum(axis=1, keepdims=True)
+
+
+def markov_windows(n, T, seed, concentration=0.5, vocab=64, offset=4):
+    """Windows from a sparse random bigram chain over codon ids 4..67
+    (the generator from tests/test_learning_dynamics.py)."""
+    rng = np.random.default_rng(seed)
+    trans = _markov_transitions(rng, concentration, vocab)
     X = np.zeros((n, T), np.int32)
     state = rng.integers(0, vocab, n)
     for t in range(T):
@@ -73,14 +83,8 @@ def markov_windows(n, T, seed, concentration=0.5, vocab=64, offset=4):
 
 
 def markov_transitions(seed, concentration=0.5, vocab=64) -> np.ndarray:
-    """The (vocab, vocab) transition matrix ``markov_windows`` draws its
-    windows from (the same first draws of the same generator)."""
-    rng = np.random.default_rng(seed)
-    trans = np.full((vocab, vocab), 1e-3)
-    for i in range(vocab):
-        successors = rng.choice(vocab, 4, replace=False)
-        trans[i, successors] = rng.dirichlet(np.ones(4) * concentration) * 10
-    return trans / trans.sum(axis=1, keepdims=True)
+    """The transition matrix ``markov_windows`` draws its windows from."""
+    return _markov_transitions(np.random.default_rng(seed), concentration, vocab)
 
 
 def markov_entropy_rate(trans: np.ndarray) -> float:
@@ -166,6 +170,11 @@ def run(args, device=None) -> dict:
     plain_tps, spec_tps = generated / plain_sec, generated / spec_sec
     row_rounds, emitted = out[1], out[2]
 
+    # the cache positions each protocol's kernels read (decode: plain;
+    # chunk: speculative), so a check can run the kernels at the same shapes
+    horizon = args.prefill_len + args.decode_tokens
+    cache_positions = {"offline_plain": cache_bucket(cfg, horizon),
+                       "offline_speculative": speculative_cache_size(horizon, args.n_draft)}
     serving = {}
     if args.serving_requests > 0:
         n_req = int(args.serving_requests)
@@ -186,6 +195,8 @@ def run(args, device=None) -> dict:
                 t0 = time.perf_counter()
                 results = eng.run()
                 delivered = sum(len(r.tokens) for r in results.values())
+                cache_positions[f"serving_{'speculative' if spec else 'plain'}"] = int(
+                    eng.state["k"].shape[2])
                 return delivered / (time.perf_counter() - t0), eng.stats()
 
             once(args.batch_size)  # warm
@@ -233,6 +244,10 @@ def run(args, device=None) -> dict:
         "temperature": args.temperature,
         "kv_quant": bool(args.kv_quant),
         "n_layer": cfg.n_layer,
+        "n_head": cfg.n_head,
+        "kv_heads": cfg.kv_heads,
+        "head_dim": cfg.head_dim,
+        "cache_positions": cache_positions,
         "train_sec": train_sec,
         "val_loss": val_loss,
         "val_next_loss": float(payload["val_next_loss"]),

@@ -367,6 +367,12 @@ def serve_steps_speculative(
     return state, torch.stack(tokens, dim=1), torch.stack(counts, dim=1)
 
 
+def speculative_cache_size(horizon: int, n_draft: int) -> int:
+    """Cache positions of ``generate_tokens_speculative``: the horizon plus
+    2(K+1) positions of chunk headroom, rounded up to ``CACHE_BUCKET``."""
+    return -(-(int(horizon) + 2 * (int(n_draft) + 1)) // CACHE_BUCKET) * CACHE_BUCKET
+
+
 @torch.no_grad()
 def generate_tokens_speculative(
     model: CodonGPT,
@@ -405,8 +411,7 @@ def generate_tokens_speculative(
     if Plen + n_tokens > cfg.block_size:
         raise ValueError(
             f"prompt+n_tokens {Plen + n_tokens} exceeds block_size {cfg.block_size}")
-    raw = Plen + n_tokens + 2 * (K + 1)
-    S = -(-raw // CACHE_BUCKET) * CACHE_BUCKET
+    S = speculative_cache_size(Plen + n_tokens, K)
     logits0, cache, _ = prefill(model, cfg, prompts, S, kv_quant, want_aux=False,
                                 device=device)
     state = {
@@ -490,6 +495,7 @@ __all__ = [
     "fit_bigram_table",
     "generate_tokens_speculative",
     "restrict_table",
+    "speculative_cache_size",
     "serve_steps_speculative",
     "speculative_acceptance",
     "speculative_generate",

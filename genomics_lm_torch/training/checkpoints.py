@@ -40,13 +40,15 @@ _META_ENTRY = "__meta__"
 _BFLOAT16_TAG = "bfloat16"
 
 
-def _host_materialize(x):
-    """A leaf as a host array: a tensor is detached and copied to the host
-    (a bfloat16 tensor stays a tensor, since numpy has no bfloat16)."""
+def _host_materialize(x, copy: bool = False):
+    """A leaf as a host array: a tensor is detached and moved to the host
+    (a bfloat16 tensor stays a tensor, since numpy has no bfloat16).
+    ``copy`` copies a leaf that already lies on the host too, so the result
+    shares no memory with ``x``."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = x.detach().to("cpu", copy=copy)
         return x if x.dtype == torch.bfloat16 else x.numpy()
-    return np.asarray(x)
+    return np.array(x, copy=True) if copy else np.asarray(x)
 
 
 def _flatten(obj: Any, path: str, arrays: dict[str, np.ndarray]):
@@ -111,19 +113,23 @@ def save_checkpoint(payload: dict[str, Any], path: str | Path) -> None:
 
 
 def _host_tree(tree):
+    """The payload with every array leaf copied to the host: the caller goes
+    on changing its tensors in place (the model, AdamW's moments and its
+    CPU step counts) while the copy is written."""
     if isinstance(tree, dict):
         return {k: _host_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         seq = [_host_tree(v) for v in tree]
         return tuple(seq) if isinstance(tree, tuple) else seq
     if hasattr(tree, "shape") and hasattr(tree, "dtype"):
-        return _host_materialize(tree)
+        return _host_materialize(tree, copy=True)
     return tree
 
 
 class AsyncCheckpointer:
-    """Background checkpoint writer: the device→host copy happens on the
-    caller thread (the tensors change with the next step), the
+    """Background checkpoint writer: the copy of every array to the host
+    happens on the caller thread (the tensors change with the next step,
+    on the card and on the host alike), the
     serialization and the atomic file write on one worker thread. ``wait()``
     joins the in-flight write; a new ``save`` first joins the previous one so
     writes never reorder. Exceptions surface on the next ``save``/``wait``.

@@ -13,7 +13,9 @@ restores a generator's stream.
 
 from __future__ import annotations
 
+import copy
 import random
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -111,6 +113,63 @@ def test_async_checkpointer_orders_writes_and_surfaces_errors(tmp_path):
     with pytest.raises(TypeError):
         ck.wait()
     ck.close()
+
+
+def _adamw_state():
+    """A live AdamW state after one step, and a function that takes the
+    next step: it changes the moments and the CPU ``step`` tensors in place."""
+    torch.manual_seed(0)
+    layer = torch.nn.Linear(3, 2)
+    opt = torch.optim.AdamW(layer.parameters(), lr=1e-2)
+
+    def step():
+        layer(torch.ones(1, 3)).sum().backward()
+        opt.step()
+
+    step()
+    return {str(i): dict(s) for i, s in enumerate(opt.state.values())}, step
+
+
+def _host_leaf(kind):
+    """(leaf, in-place change) for a leaf kind that lies on the host."""
+    if kind == "numpy":
+        x = np.arange(6, dtype=np.float32)
+        return x, lambda: x.__iadd__(1)
+    if kind == "adamw":
+        return _adamw_state()
+    x = torch.arange(6, dtype=torch.float32).to(getattr(torch, kind))
+    return x, lambda: x.add_(1)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "float32", "bfloat16", "adamw"])
+def test_async_checkpointer_writes_the_values_at_save(tmp_path, monkeypatch, kind):
+    """A leaf changed in place after ``save`` returns, while the write is
+    still queued, reaches the file as it was at ``save``: the checkpointer
+    copies host leaves too, not only the card's."""
+    gate = threading.Event()
+    write = tckpt.save_checkpoint
+
+    def held_write(payload, path):
+        assert gate.wait(30)
+        write(payload, path)
+
+    monkeypatch.setattr(tckpt, "save_checkpoint", held_write)
+    leaf, change = _host_leaf(kind)
+    path = tmp_path / "c.npz"
+    want = copy.deepcopy(leaf)
+    with tckpt.AsyncCheckpointer() as ck:
+        ck.save({"x": leaf}, path)
+        change()
+        gate.set()
+    got = tckpt.load_checkpoint(path)["x"]
+
+    def same(a, b):
+        return all(torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+                   for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))
+
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    assert not same(leaf, want)  # the change reached the live leaf ...
+    assert same(got, want)       # ... and not the file
 
 
 LAYOUTS = {

@@ -442,3 +442,43 @@ def test_profile_drain_fits_the_benchmark_draft_table():
                              torch.Generator().manual_seed(3), 1.0, device="cpu")
     np.testing.assert_array_equal(table, fit_bigram_table(list(stream.numpy()), 68))
     np.testing.assert_allclose(table.sum(1), 1.0, atol=1e-6)
+
+
+def test_markov_corpus_matches_the_jax_script():
+    """``benchmark_speculative``'s corpus is the JAX script's, and the
+    transition matrix its entropy rate reads is the one that drew it."""
+    from genomics_lm_torch.serving import benchmark_speculative as bench_spec
+    from scripts.benchmark_speculative import markov_windows as jax_markov_windows
+
+    X, Y = bench_spec.markov_windows(200, 64, 3)
+    Xj, Yj = jax_markov_windows(200, 64, 3)
+    assert np.array_equal(X, Xj) and np.array_equal(Y, Yj)
+    trans = bench_spec.markov_transitions(3)
+    np.testing.assert_allclose(trans.sum(axis=1), 1.0, rtol=1e-12)
+    steps = trans[X[:, :-1] - 4, X[:, 1:] - 4]
+    assert (steps > 1e-2).mean() > 0.97  # the windows walk the matrix's support
+    assert 0.0 < bench_spec.markov_entropy_rate(trans) < np.log(4)
+
+
+def test_offline_speculative_runs_without_autograd(monkeypatch):
+    """``generate_tokens_speculative`` runs its forwards with autograd off
+    (as ``generate_tokens`` does), in a cache of ``speculative_cache_size``
+    positions."""
+    from genomics_lm_torch.serving import speculative as tspec
+
+    _, _, model, tcfg = make_pair()
+    seen = []
+    prefill = tspec.prefill
+
+    def recording_prefill(*args, **kw):
+        seen.append((torch.is_grad_enabled(), args[3]))
+        return prefill(*args, **kw)
+
+    monkeypatch.setattr(tspec, "prefill", recording_prefill)
+    prompts = np.ones((2, 5), np.int64)
+    table = fit_bigram_table(np.random.default_rng(0).integers(0, 68, 500), 68)
+    tspec.generate_tokens_speculative(model, tcfg, prompts, 6, None, table, 3, 0.0,
+                                      device="cpu")
+    assert seen == [(False, tspec.speculative_cache_size(11, 3))]
+    assert tspec.speculative_cache_size(11, 3) == 128
+    assert tspec.speculative_cache_size(192, 4) == 256

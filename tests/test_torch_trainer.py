@@ -168,10 +168,14 @@ class _StopAfter:
             raise loop.WallTimeLimitException()
 
 
-@pytest.mark.parametrize("stop", ["after_epoch_1", "mid_epoch"])
+@pytest.mark.parametrize("stop", ["after_epoch_1", "mid_epoch", "mid_epoch_async"])
 def test_resume_reproduces_the_straight_run(tmp_path, monkeypatch, stop):
+    """``mid_epoch_async`` resumes from a ``last.npz`` that the background
+    writer saved after every step while training went on."""
     make_fixture(tmp_path)
     kw = dict(dropout=0.1, save_epochs=True, scheduler_total_steps=8)
+    if stop == "mid_epoch_async":
+        kw.update(async_checkpointing=True, checkpoint_every_steps=1)
     runs = str(tmp_path / "runs")
     straight = run_training(base_cfg(tmp_path, run_id="straight", **kw), run_root=runs,
                             device="cpu")
