@@ -38,9 +38,12 @@ exits non-zero:
    queries, an off-grid length, and float32 with and without the causal
    mask; for the bf16 tensor-core kernels also a segment every 4th token at
    dropout 0.5, random non-monotone ids, D 20/64/128, GQA 4:1 with a window
-   off the grid, and non-causal; each case logs the tiles the kernels visit
+   off the grid, and non-causal; and at the LoRA fine-tuning path's width
+   (B 8, H 8, T 512, heads of 64: MHA with dropout and ``<SEP>`` segments,
+   and GQA 4:1); each case logs the tiles the kernels visit
    (``flash_live_tiles``) beside the band's. Then each kernel's time beside
-   its bound, its plain version's time and one library call's.
+   its bound, its plain version's time and one library call's, at the
+   training shape and at d512.
 8. train   — the training main path (``training/profile_step.py``): the
    same CodonGPT with dropout 0.1 and label smoothing, AdamW in two LR
    groups, 3 warm-up and 10 measured groups of 16 x 8 x 512 tokens; every
@@ -49,7 +52,11 @@ exits non-zero:
    16 microbatches x 10 layers x 10 groups.
 9. train parity — a 2-layer float32 model takes one group step on the
    card (kernels) and on the CPU (plain versions) from the same weights
-   and batch; loss, gradients and updated parameters agree.
+   and batch; loss, gradients and updated parameters agree. Then again
+   with every objective and option of the fine-tuning slice: two offset
+   heads, the termination and replay losses, shape guidance through the
+   encoder, LoRA r8 under ``lora_only``, Adafactor and an active
+   ``grad_clip``.
 10. chunk  — the verify-chunk kernel against its plain version at the
    speculative shape (T 5 queries per slot over a 384-position cache, bf16
    and int8, random lengths and every slot full), GQA, T 1 and T 8, an
@@ -111,6 +118,33 @@ exits non-zero:
    instances than phases 3 and 10's width 48; the cache positions each
    protocol reported), bf16 and int8 caches, random lengths and every slot
    full, with phase 3's and phase 10's tolerances.
+17. lora d512 — ``training/benchmark_lora.py`` (the port of
+   ``scripts/benchmark_lora.py --d512_efficiency``): 12L8H d512, block
+   512, batch 8, fused QKV, bf16, flash; full fine-tuning against LoRA r8
+   on the attention linears: trainable parameters (393,216 adapters),
+   moment bytes, dense and adapter-only checkpoint bytes, ms per step and
+   flash launches per step; re-attached adapters forward exactly.
+18. finetune — the LoRA recipe (``configs/finetune_lora_r8_d512.yaml``,
+   read, never edited; the phase writes derived YAMLs with its data
+   paths, epochs, warmup and schedule length, and logs each override)
+   through the CLIs on a packed corpus: pretrain a d512 base for 2 groups,
+   ``--transfer_from`` it into LoRA for one epoch, resume a second, run
+   the two epochs straight, merge with ``merge_lora``, and serve the
+   merged checkpoint through ``ServingEngine`` (the decode kernel's
+   launches reset before the drain and read after). Hard checks: every
+   frozen weight of ``last.npz`` bit-equal to the base, only adapter
+   moments in the optimizer state and as many as ``lora_param_count``,
+   the resumed run bit-equal to the straight one, merged and unmerged
+   float32 forwards within ``FINETUNE_MERGE_RTOL`` and their float32
+   greedy tokens from ``ServingEngine`` equal, decode launches = layers x
+   decode steps, flash launches per group and validation. Then the decode
+   kernel against its plain version at the serve's shape (heads of 64).
+19. remat contract — the primary training contract's model and step
+   (``training/contracts.py``: 10L8H d384, B 4 x G 32 x T 512, bf16
+   flash, ``use_checkpoint``) on synthetic windows, one group with remat
+   and one without from one generator seed: equal loss, gradients within
+   ``REMAT_GRAD_RTOL``, peak memory of each, flash forward launches 2 x 10
+   x 32 against 10 x 32, ms per group over 3 more groups each.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -136,6 +170,7 @@ import torch
 from genomics_lm_torch.generation.decode import _decode_mask, generate_masked_tokens
 from genomics_lm_torch.kernels.build import CSRC, build
 from genomics_lm_torch.models.codon_gpt import CodonGPT
+from genomics_lm_torch.models.codon_gpt import forward as model_forward
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops import decode_attention as da
 from genomics_lm_torch.ops import flash_attention as fa
@@ -158,16 +193,21 @@ from genomics_lm_torch.serving.speculative import (
     restrict_table,
 )
 from genomics_lm_torch.training import bench_pipeline as bench_pipe
+from genomics_lm_torch.training import benchmark_lora as bench_lora
+from genomics_lm_torch.training import contracts
+from genomics_lm_torch.training import lora as lora_lib
 from genomics_lm_torch.training import profile_step as train_main
 from genomics_lm_torch.training.checkpoints import load_checkpoint
 from genomics_lm_torch.data.datasets import EpochPlan, PackedDataset
-from genomics_lm_torch.tokenizers.codon import write_itos
+from genomics_lm_torch.models.biophysics import ShapeEncoder, shape_lookup_table
+from genomics_lm_torch.tokenizers.codon import STOP_IDS, write_itos
 from genomics_lm_torch.training.lifecycle import RunLifecycleError
+from genomics_lm_torch.training.merge_lora import main as merge_cli
 from genomics_lm_torch.training.train_codon_lm import main as train_cli
 from genomics_lm_torch.training.optim import build_optimizer
 from genomics_lm_torch.training.train_step import LossConfig, make_eval_step, make_train_step
 from genomics_lm_torch.utils.timing import card_peaks, decode_bound_ms, median_ms
-from genomics_lm_torch.utils.weights import params_from_jax
+from genomics_lm_torch.utils.weights import params_from_jax, params_to_jax
 
 KERNEL_SOURCES = ["decode_attention", "flash_attention", "decode_attention_chunk",
                   "decode_attention_streamed"]
@@ -218,6 +258,14 @@ FLASH_TOL_REASON = (
 # leaf that sets each error.
 TRAIN_PARITY_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4, param_atol=3e-5,
                         noise_grad_share=1e-3, noise_param_atol=1.5e-4)
+# The same step with every objective, LoRA under lora_only, Adafactor and an
+# active grad_clip. Adafactor's first update of an unfactored leaf is
+# lr * g / |g| (its eps is 1e-30, Adam's 1e-8 shrinks the step of a tiny
+# gradient): a parameter whose gradient is rounding noise may take +lr on one
+# side and -lr on the other, so those are held to two steps (6e-4); the
+# parameters with a real gradient keep param_atol.
+OBJECTIVES_GRAD_CLIP = 0.05
+TRAIN_PARITY_OBJECTIVES_TOL = dict(TRAIN_PARITY_TOL, noise_param_atol=6e-4)
 
 # last.npz against the run: the reloaded model runs the same bf16 eval path on
 # the same float32 weights and batches, so its validation loss repeats the
@@ -699,8 +747,11 @@ def phase_flash(peak_bw, peak_ops) -> dict:
         ("d128_bf16", 2, 4, 4, 200, 200, 128, bf16, None, 0.1, 97, False),
         ("gqa4_window50_bf16", 2, 8, 2, 130, 333, D, bf16, 50, 0.1, 97, False),
         ("noncausal_bf16", 2, 4, 4, 150, 150, D, bf16, None, 0.1, 97, False),
+        # the LoRA fine-tuning path's width: 12L8H d512, heads of 64 at T 512
+        ("d512_main_bf16", B, 8, 8, T, T, 64, bf16, None, 0.1, 97, True),
+        ("d512_gqa_bf16", B, 8, 2, T, T, 64, bf16, None, 0.1, 97, False),
     ]
-    timed = {}
+    timed: dict[str, dict] = {}
     for name, b, hq, hkv, t, s_len, d, dtype, window, rate, segs, is_timed in cases:
         causal = "noncausal" not in name
         q, k, v, seg, seed, cfg = flash_case(gen, b, hq, hkv, t, s_len, d, dtype, window, rate,
@@ -768,16 +819,17 @@ def phase_flash(peak_bw, peak_ops) -> dict:
                        lib_out, (ql, kl, vl), dout, retain_graph=True), runs=15)}
         err_of = {"fwd": max(abs_errs["out"], abs_errs["lse"]), "dq": abs_errs["dq"],
                   "dkv": max(abs_errs["dk"], abs_errs["dv"])}
+        timed[name] = {}
         for key in ("fwd", "dq", "dkv"):
             ms = median_ms(kernel[key], runs=15)
-            timed[key] = dict(ms=ms, plain_ms=median_ms(plain[key], runs=5),
-                              bound_ms=bounds[key]["bound_ms"],
-                              bound_by=bounds[key]["bound_by"],
-                              library_ms=library["fwd" if key == "fwd" else "bwd"],
-                              max_abs_err=err_of[key])
+            timed[name][key] = dict(ms=ms, plain_ms=median_ms(plain[key], runs=5),
+                                    bound_ms=bounds[key]["bound_ms"],
+                                    bound_by=bounds[key]["bound_by"],
+                                    library_ms=library["fwd" if key == "fwd" else "bwd"],
+                                    max_abs_err=err_of[key])
             log("flash_time", kernel=key, case=name, attended_pairs=pairs,
                 bytes=bounds[key]["bytes"], operations=bounds[key]["operations"],
-                **timed[key], **tiles, roofline_share=bounds[key]["bound_ms"] / ms)
+                **timed[name][key], **tiles, roofline_share=bounds[key]["bound_ms"] / ms)
     return timed
 
 
@@ -819,28 +871,24 @@ def phase_train(card: str) -> dict:
 # --- phase 9: one group step on the card against the CPU -------------------------
 
 
-def phase_train_parity() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = CodonGPTConfig(**dict(train_main.MAIN_TRAIN, n_layer=2, dropout=0.0,
-                                compute_dtype="float32"))
-    torch.manual_seed(3)
-    cpu_model = CodonGPT(cfg)
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    step = make_train_step(cfg, LossConfig())
-    run_cfg = dict(train_main.RUN_CFG, warmup_steps=0)  # the full lr, 3e-4
-    batch = train_main.make_batch(7, "cpu", groups=2, batch=4)
+def _parity_step(name, cfg, tree, run_cfg, loss_cfg, batch, tol, **step_kw) -> dict:
+    """One group step from the JAX-layout ``tree`` on the card (kernels) and
+    on the CPU (plain versions); loss, gradients and updated parameters
+    compared under ``tol`` (``TRAIN_PARITY_TOL``'s keys)."""
     before = [w.launches for w in FLASH_WRAPPERS]
     results = {}
-    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(tree, cfg, dev).train()
         bundle = build_optimizer(run_cfg, model, total_steps=train_main.TOTAL_STEPS)
-        m = step(model, bundle, {k: t.to(dev) for k, t in batch.items()}, None, 1.0)
+        kw = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in step_kw.items()}
+        step = make_train_step(cfg, loss_cfg, **kw)
+        m = step(model, bundle, {k: (t.to(dev) if isinstance(t, torch.Tensor) else t)
+                                 for k, t in batch.items()}, None, 1.0)
         results[dev] = (float(m["total_loss_sum"]), bool(m["applied"]),
                         {n: (p.detach().cpu(), p.grad.cpu()) for n, p in
-                         model.named_parameters()})
+                         model.named_parameters() if p.grad is not None})
     launched = [w.launches - b for w, b in zip(FLASH_WRAPPERS, before)]
     (loss_g, ok_g, gpu), (loss_c, ok_c, cpu) = results["cuda"], results["cpu"]
-    tol = TRAIN_PARITY_TOL
     gmax = max(float(g.abs().max()) for _, g in cpu.values())
     grad_err = max(float((gpu[n][1] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * gmax)
                    for n, (_, g) in cpu.items())
@@ -857,17 +905,63 @@ def phase_train_parity() -> None:
             worst[key] = (max(err, best[0]), n if err > best[0] else best[1], best[2] + count)
     param_err, noise_err = worst["signal"][0], worst["noise"][0]
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
-    log("train_parity", model="2L8H d384 f32", group_shape=[2, 4, train_main.T],
-        loss_card=loss_g, loss_cpu=loss_c, loss_rel_err=loss_err, grad_rel_err=grad_err,
-        param_abs_err=param_err, param_abs_err_leaf=worst["signal"][1],
-        noise_param_abs_err=noise_err, noise_param_abs_err_leaf=worst["noise"][1],
-        noise_elements=worst["noise"][2], signal_elements=worst["signal"][2],
-        kernel_launches=launched, tol=tol)
+    grad_norm = float(torch.cat([g.reshape(-1) for _, g in cpu.values()]).norm())
+    out = dict(case=name, loss_card=loss_g, loss_cpu=loss_c, loss_rel_err=loss_err,
+               grad_rel_err=grad_err, param_abs_err=param_err,
+               param_abs_err_leaf=worst["signal"][1], noise_param_abs_err=noise_err,
+               noise_param_abs_err_leaf=worst["noise"][1], noise_elements=worst["noise"][2],
+               signal_elements=worst["signal"][2], trained_tensors=len(cpu),
+               applied_grad_norm=grad_norm, kernel_launches=launched, tol=tol)
+    log("train_parity", **out)
     if not (ok_g and ok_c) or min(launched) == 0:
-        raise AssertionError("the parity step was not applied or launched no kernel")
+        raise AssertionError(f"{name}: the parity step was not applied or launched no kernel")
     if (loss_err > tol["loss_rtol"] or grad_err > tol["grad_rtol"]
             or param_err > tol["param_atol"] or noise_err > tol["noise_param_atol"]):
-        raise AssertionError("the card's step disagrees with the CPU's")
+        raise AssertionError(f"{name}: the card's step disagrees with the CPU's")
+    return out
+
+
+def phase_train_parity() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CodonGPTConfig(**dict(train_main.MAIN_TRAIN, n_layer=2, dropout=0.0,
+                                compute_dtype="float32"))
+    torch.manual_seed(3)
+    tree = params_to_jax(CodonGPT(cfg), cfg)
+    run_cfg = dict(train_main.RUN_CFG, warmup_steps=0)  # the full lr, 3e-4
+    batch = train_main.make_batch(7, "cpu", groups=2, batch=4)
+    _parity_step("adamw", cfg, tree, run_cfg, LossConfig(), batch, TRAIN_PARITY_TOL)
+
+    # every objective and option of the fine-tuning slice at once: two offset
+    # heads, the termination and replay losses, shape guidance through the
+    # encoder, LoRA r8 under lora_only, Adafactor and an active grad_clip
+    ocfg = cfg.replace(termination_aux=True, multi_offset_targets=(2, 3),
+                       use_shape_guidance=True)
+    torch.manual_seed(4)
+    base = CodonGPT(ocfg)
+    base.shape_encoder = ShapeEncoder()
+    rng = np.random.default_rng(4)
+    tree = lora_lib.add_lora_adapters(params_to_jax(base, ocfg), rng, rank=8)
+    for name in ("query", "key", "value", "proj"):  # adapters off their zero start
+        b = tree["blocks"]["attn"][name]["lora_b"]
+        tree["blocks"]["attn"][name]["lora_b"] = (0.02 * rng.standard_normal(b.shape)
+                                                  ).astype(np.float32)
+    tree["shape_proj"]["w"] = (0.1 * rng.standard_normal((3, ocfg.n_embd))).astype(np.float32)
+    loss_cfg = LossConfig(multi_offset_weights=((2, 0.3), (3, 0.2)), label_smoothing=0.05,
+                          termination_enabled=True, termination_stop_ids=STOP_IDS,
+                          replay_enabled=True, replay_weight=0.5)
+    replay_x = torch.from_numpy(rng.integers(4, 68, (4, train_main.T)))
+    replay_labels = torch.full((4, train_main.T), -100)
+    replay_labels[:, 100:400:50] = torch.from_numpy(rng.integers(0, 5, (4, 6)))
+    batch = dict(train_main.make_batch(8, "cpu", groups=2, batch=4), replay_x=replay_x,
+                 replay_labels=replay_labels, replay_mask=[False, True])
+    run_cfg = dict(run_cfg, optimizer="adafactor", grad_clip=OBJECTIVES_GRAD_CLIP, lora_rank=8)
+    out = _parity_step("objectives_lora_adafactor_clip", ocfg, tree, run_cfg, loss_cfg, batch,
+                       TRAIN_PARITY_OBJECTIVES_TOL, use_replay=True,
+                       shape_lookup=torch.from_numpy(shape_lookup_table()))
+    # the clipped gradient's norm is the clip's: it was active
+    if abs(out["applied_grad_norm"] - OBJECTIVES_GRAD_CLIP) > 1e-4 * OBJECTIVES_GRAD_CLIP:
+        raise AssertionError(f"grad_clip was not active: norm {out['applied_grad_norm']}")
 
 
 # --- phase 10: the verify-chunk kernel against its plain version -----------------
@@ -1290,23 +1384,27 @@ TRAINER_GROUPS_PER_EPOCH = 4
 TRAINER_VAL_WINDOWS = 64
 
 
-def trainer_config(workdir: Path) -> Path:
-    """A packed corpus from ``build_packed_dataset`` (train windows for 4
-    groups an epoch, 64 validation windows) with mmap sidecars, the codon
-    itos beside it, and a YAML run config at the training main path's
-    width with its paths under a ``data:`` map."""
-    G, B = train_main.G, train_main.B
-    n_train = TRAINER_GROUPS_PER_EPOCH * G * B
-    npz, _ = bench_pipe.build_packed_dataset(n_train + TRAINER_VAL_WINDOWS, train_main.T,
+def packed_corpus(workdir: Path, n_train: int, n_val: int) -> None:
+    """``train.npz`` / ``val.npz`` in ``workdir``: ``n_train`` and ``n_val``
+    packed binpack windows from ``build_packed_dataset`` with mmap
+    sidecars, and the codon itos beside them."""
+    npz, _ = bench_pipe.build_packed_dataset(n_train + n_val, train_main.T,
                                              workdir / "build", pack_mode="binpack")
     with np.load(npz) as data:
         X, Y = data["X"], data["Y"]
-    for name, sl in (("train", slice(0, n_train)),
-                     ("val", slice(n_train, n_train + TRAINER_VAL_WINDOWS))):
+    for name, sl in (("train", slice(0, n_train)), ("val", slice(n_train, n_train + n_val))):
         np.savez(workdir / f"{name}.npz", X=X[sl], Y=Y[sl])
         np.save(workdir / f"{name}_X.npy", X[sl])
         np.save(workdir / f"{name}_Y.npy", Y[sl])
     write_itos(workdir / "itos.txt")
+
+
+def trainer_config(workdir: Path) -> Path:
+    """A packed corpus (``packed_corpus``: train windows for 4 groups an
+    epoch, 64 validation windows) and a YAML run config at the training
+    main path's width with its paths under a ``data:`` map."""
+    G, B = train_main.G, train_main.B
+    packed_corpus(workdir, TRAINER_GROUPS_PER_EPOCH * G * B, TRAINER_VAL_WINDOWS)
     m = train_main.MAIN_TRAIN
     lines = [
         "data:",
@@ -1461,6 +1559,293 @@ def phase_spec_trained(card: str, peak_bw, peak_ops) -> dict:
     return report
 
 
+# --- phase 17: LoRA efficiency at 12L8H d512 ------------------------------------
+
+
+def phase_lora_d512(card: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="smoke_lora_") as tmp:
+        args = bench_lora.parser().parse_args(["--workdir", tmp])
+        r = bench_lora.run_d512_efficiency(args, "cuda")
+    full, lora = r["full_finetune"], r["lora"]
+    log("lora_d512", protocol=r["protocol"], adapter_params=r["adapter_params"],
+        checkpoint_bytes=r["checkpoint_bytes"], full_finetune=full, lora=lora,
+        opt_state_ratio=r["opt_state_ratio"], step_time_ratio=r["step_time_ratio"],
+        roundtrip_max_abs_err=r["roundtrip_max_abs_err"], card=card)
+    n_layer = bench_lora.D512_MODEL["n_layer"]
+    want_adapters = n_layer * 4 * 2 * 512 * args.d512_rank  # q, k, v, proj: a and b
+    if lora["trainable_params"] != r["adapter_params"] or r["adapter_params"] != want_adapters:
+        raise AssertionError(f"LoRA trains {lora['trainable_params']} parameters, the "
+                             f"adapters hold {r['adapter_params']}, want {want_adapters}")
+    if any(row["flash_fwd_launches_per_step"] != n_layer for row in (full, lora)):
+        raise AssertionError("a d512 step did not launch the flash forward once per layer")
+    if not (r["opt_state_ratio"] < 0.02 and np.isfinite([full["loss"], lora["loss"]]).all()):
+        raise AssertionError(f"moment ratio {r['opt_state_ratio']}, losses {full['loss']}, "
+                             f"{lora['loss']}")
+    return r
+
+
+# --- phase 18: LoRA fine-tuning at d512 through the CLI ---------------------------
+
+FINETUNE_CONFIG = Path(__file__).resolve().parent / "configs" / "finetune_lora_r8_d512.yaml"
+FINETUNE_GROUPS_PER_EPOCH = 2
+FINETUNE_VAL_WINDOWS = 32
+FINETUNE_REQUESTS = 64
+# merged against unmerged float32 forwards: W + s a b folded once against
+# x W + s (x a) b, the same float32 products summed in another order
+# (~1e-7 relative each); a missing or doubled adapter moves logits by far more
+FINETUNE_MERGE_RTOL = 1e-5
+
+
+def finetune_yaml(workdir: Path, name: str, drop_lora: bool = False, **overrides) -> Path:
+    """``configs/finetune_lora_r8_d512.yaml`` (read, never edited) with the
+    phase's data paths, epochs and run id, written into ``workdir``; each
+    override is logged. ``drop_lora`` leaves out the ``lora_*`` keys (the
+    base pretraining)."""
+    import yaml
+
+    cfg = yaml.safe_load(FINETUNE_CONFIG.read_text())
+    if drop_lora:
+        cfg = {k: v for k, v in cfg.items() if not k.startswith("lora_")}
+    overrides = dict(train_npz=str(workdir / "train.npz"), val_npz=str(workdir / "val.npz"),
+                     run_id=name, **overrides)
+    log("finetune_config", config=name, source=str(FINETUNE_CONFIG.name),
+        dropped_lora_keys=drop_lora,
+        overrides={k: {"recipe": cfg.get(k), "here": v} for k, v in overrides.items()})
+    cfg.update(overrides)
+    path = workdir / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def serve_tokens(model, cfg, reqs, **engine) -> tuple[list, ServingEngine]:
+    eng = ServingEngine(model, cfg, device="cuda", **engine)
+    rids = [eng.submit(p, b, temperature=t) for p, b, t in reqs]
+    results = eng.run()
+    return [results[r].tokens for r in rids], eng
+
+
+def phase_finetune(card: str) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="smoke_finetune_") as tmp:
+        tmp = Path(tmp)
+        batch, gacc = 8, 16  # the recipe's
+        packed_corpus(tmp, FINETUNE_GROUPS_PER_EPOCH * batch * gacc, FINETUNE_VAL_WINDOWS)
+        runs = tmp / "runs"
+        # few steps here: warm up over one step, schedule over the 2 epochs
+        short = dict(warmup_steps=1, scheduler_total_steps=2 * FINETUNE_GROUPS_PER_EPOCH)
+        base_cfg = finetune_yaml(tmp, "smoke-base", drop_lora=True, epochs=1, **short)
+        lora_cfg = finetune_yaml(tmp, "smoke-lora", epochs=1, **short)
+        straight_cfg = finetune_yaml(tmp, "smoke-lora-straight", epochs=2, **short)
+        base_last = runs / "smoke-base" / "checkpoints" / "last.npz"
+        lora_last = runs / "smoke-lora" / "checkpoints" / "last.npz"
+        t0 = time.perf_counter()
+        rc_base = train_cli(["--config", str(base_cfg), "--run_root", str(runs)])
+        base_s = time.perf_counter() - t0
+        lora_argv = ["--config", str(lora_cfg), "--run_root", str(runs),
+                     "--transfer_from", str(base_last)]
+        for w in FLASH_WRAPPERS:
+            w.launches = 0  # the fine-tuning path's runs only: one epoch and its resume
+        t0 = time.perf_counter()
+        rc_lora = train_cli(lora_argv)
+        lora_s = time.perf_counter() - t0
+        lora_cfg.write_text(lora_cfg.read_text().replace("epochs: 1", "epochs: 2"))
+        rc_resume = train_cli(lora_argv + ["--resume", str(lora_last)])
+        launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+        rc_straight = train_cli(["--config", str(straight_cfg), "--run_root", str(runs),
+                                 "--transfer_from", str(base_last)])
+        merged_path = tmp / "merged.npz"
+        rc_merge = merge_cli([str(lora_last), str(merged_path)])
+        base = load_checkpoint(base_last)
+        tuned = load_checkpoint(lora_last)
+        straight = load_checkpoint(runs / "smoke-lora-straight" / "checkpoints" / "last.npz")
+        merged = load_checkpoint(merged_path)
+        lora_meta = json.loads((runs / "smoke-lora" / "checkpoints" / "meta.json").read_text())
+        val = np.load(tmp / "val.npz")["X"][:8]
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    base_leaves, tuned_leaves = dict(leaves(base["model"])), dict(leaves(tuned["model"]))
+    frozen_moved = [p for p, v in base_leaves.items() if not np.array_equal(tuned_leaves[p], v)]
+    adapters = {p: v for p, v in tuned_leaves.items() if "lora_" in p}
+    state = tuned["optimizer"]["state"]
+    state_names = sorted(state)
+    not_adapter = [n for n in state_names if "lora_a" not in n and "lora_b" not in n]
+    moment_elements = int(sum(np.size(s["exp_avg"]) for s in state.values()))
+    trainable = lora_lib.lora_param_count(tuned["model"])
+    straight_leaves = dict(leaves(straight["model"]))
+    resume_diff = max(float(np.abs(straight_leaves[p] - v).max()) for p, v in tuned_leaves.items())
+
+    # merged against unmerged, float32 on the card
+    mcfg = CodonGPTConfig.from_run_config(dict(tuned["cfg"]))
+    f32 = mcfg.replace(compute_dtype="float32", dropout=0.0)
+    unmerged_model = params_from_jax(tuned["model"], f32, "cuda")
+    merged_model = params_from_jax(merged["model"], f32, "cuda")
+    x = torch.from_numpy(val).cuda().long()
+    with torch.no_grad():
+        want = model_forward(unmerged_model, f32, x)[0].float()
+        got = model_forward(merged_model, f32, x)[0].float()
+    merge_err = float((got - want).abs().max()) / float(want.abs().max())
+    rng = np.random.default_rng(3)
+    greedy = [(p, min(b, 64), 0.0) for p, b, _ in build_requests(rng, 16)]
+    engine = dict(slots=16, max_seq_len=256, steps_per_sync=16)
+    tok_unmerged, _ = serve_tokens(unmerged_model, f32, greedy, **engine)
+    tok_merged, _ = serve_tokens(merged_model, f32, greedy, **engine)
+    del unmerged_model, merged_model
+
+    # the main path's serve: the merged checkpoint in bf16, as users serve it
+    scfg = mcfg.replace(dropout=0.0)
+    serve_model = params_from_jax(merged["model"], scfg, "cuda")
+    reqs = build_requests(np.random.default_rng(4), FINETUNE_REQUESTS)
+    da.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served, eng = serve_tokens(serve_model, scfg, reqs, **ENGINE)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    decode_launches = da.decode_attention.launches
+    steps = eng.stats()["decode_steps"]
+    delivered = sum(len(t) for t in served)
+    G, L = gacc, mcfg.n_layer
+    groups = 2 * FINETUNE_GROUPS_PER_EPOCH
+    val_mb = FINETUNE_VAL_WINDOWS // batch
+    want_bwd = G * L * groups
+    want_fwd = want_bwd + L * val_mb * 2
+    out = dict(model="12L8H d512 bf16 fused_qkv flash, LoRA r8 attn, lora_only",
+               rc=[rc_base, rc_lora, rc_resume, rc_straight, rc_merge],
+               base_run_s=base_s, lora_epoch_s=lora_s,
+               lora_val_loss=lora_meta.get("last_val_loss"),
+               frozen_leaves=len(base_leaves), frozen_moved=frozen_moved,
+               adapter_leaves=len(adapters),
+               adapter_max_abs={p: float(np.abs(v).max()) for p, v in adapters.items()
+                                if p.endswith("lora_b")},
+               optimizer_state_tensors=len(state_names), optimizer_state_not_adapter=not_adapter,
+               moment_elements=moment_elements, lora_param_count=trainable,
+               resume_vs_straight_max_abs_diff=resume_diff,
+               resume_val_loss=float(tuned["val_loss"]),
+               straight_val_loss=float(straight["val_loss"]),
+               merged_vs_unmerged_rel_err=merge_err, merge_tol=FINETUNE_MERGE_RTOL,
+               f32_greedy_tokens_equal=tok_unmerged == tok_merged,
+               serve_requests=len(reqs), serve_delivered_tokens=delivered, serve_s=serve_s,
+               serve_tokens_per_s=delivered / serve_s, serve_decode_steps=steps,
+               decode_launches=decode_launches, flash_launches=launches,
+               want_fwd=want_fwd, want_bwd=want_bwd, card=card)
+    log("finetune", **out)
+    if any(out["rc"]) or frozen_moved or not_adapter or not adapters:
+        raise AssertionError("the fine-tuning runs, the frozen weights or the optimizer "
+                             "state are wrong")
+    if moment_elements != trainable or trainable != 393_216:
+        raise AssertionError(f"{moment_elements} moment elements, {trainable} adapter "
+                             "parameters, want 393216")
+    if not all(v > 0 for v in out["adapter_max_abs"].values()):
+        raise AssertionError("an adapter did not train")
+    if resume_diff != 0.0 or out["resume_val_loss"] != out["straight_val_loss"]:
+        raise AssertionError(f"the resumed run differs from the straight one ({resume_diff})")
+    if merge_err > FINETUNE_MERGE_RTOL or tok_unmerged != tok_merged:
+        raise AssertionError(f"merged and unmerged models differ ({merge_err})")
+    if decode_launches == 0 or decode_launches != L * steps:
+        raise AssertionError(f"decode launches {decode_launches} != n_layer x decode steps "
+                             f"({L} x {steps})")
+    if (launches["flash_fwd"] != want_fwd or launches["flash_bwd_dq"] != want_bwd
+            or launches["flash_bwd_dkv"] != want_bwd):
+        raise AssertionError(f"flash launches {launches}: want fwd {want_fwd}, "
+                             f"dq/dkv {want_bwd}")
+    # the decode kernel at the shapes this serve ran it at (heads of 64, G 1)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for cdt, lengths in ((torch.bfloat16, "serve"), (torch.bfloat16, "random")):
+        check_decode_case(gen, "finetune_kernel", f"decode_d512_{lengths}", L,
+                          ENGINE["slots"], ENGINE["max_seq_len"], mcfg.kv_heads, 1,
+                          mcfg.head_dim, cdt, torch.bfloat16, lengths)
+    return {"flash": launches, "decode": decode_launches}
+
+
+# --- phase 19: the primary training contract's step, with and without remat ------
+
+REMAT_TIMED_GROUPS = 3
+# the same kernels on the same inputs in the same order: the recomputed
+# block gives the stored activations' values, so loss and gradients agree up
+# to the order of the library's float32 sums; a recompute that drew other
+# dropout masks or seeds moves the gradients by order 1
+REMAT_GRAD_RTOL = 1e-5
+
+
+def phase_remat_contract(card: str) -> dict:
+    expected = contracts.expected_primary_config("primary", "genome", 1337)
+    header = {"schema": contracts.SCHEMA_NAME, "version": contracts.SCHEMA_VERSION,
+              "release": contracts.RELEASE, "dataset_freeze_id": contracts.DATASET_FREEZE_ID,
+              "role": "primary", "protocol": "genome",
+              "dataset_id": contracts.DATASETS["genome"]["dataset_id"]}
+    bound = contracts.validate_primary_training_config(
+        dict(expected, seed=1337, primary_training_contract=header))
+    mcfg = CodonGPTConfig.from_run_config(dict(expected))
+    if not (mcfg.use_checkpoint and mcfg.attention_impl == "flash"):
+        raise AssertionError("the contract does not pin remat and flash attention")
+    run_cfg = {k: expected[k] for k in ("lr", "lr_embedding", "min_lr", "weight_decay",
+                                        "scheduler", "warmup_steps", "optimizer")}
+    G, B, T = expected["grad_accum_steps"], expected["batch_size"], expected["block_size"]
+    batches = [train_main.make_batch(s, "cuda", groups=G, batch=B, length=T)
+               for s in range(2)]
+    rows = {}
+    for remat in (True, False):
+        cfg = mcfg.replace(use_checkpoint=remat)
+        torch.manual_seed(1337)
+        model = CodonGPT(cfg).to("cuda").train()
+        bundle = build_optimizer(run_cfg, model, expected["scheduler_total_steps"])
+        step = make_train_step(cfg, LossConfig(label_smoothing=expected["label_smoothing"]))
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in FLASH_WRAPPERS:
+            w.launches = 0  # one group of the contract's step
+        m = step(model, bundle, batches[0], gen, 1.0)
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        seconds, metrics = train_main.run_groups(model, bundle, step, batches, gen,
+                                                 REMAT_TIMED_GROUPS)
+        rows[remat] = dict(loss=float(m["total_loss_sum"]), applied=bool(m["applied"]),
+                           launches=launches, peak_mem_bytes=peak, grads=grads,
+                           ms_per_group=seconds * 1e3 / REMAT_TIMED_GROUPS,
+                           applied_all=all(bool(x["applied"]) for x in metrics))
+        del model, bundle
+    on, off = rows[True], rows[False]
+    gmax = max(float(g.abs().max()) for g in off["grads"].values())
+    grad_err = max(float((on["grads"][n] - g).abs().max()) / max(float(g.abs().max()),
+                                                                  1e-3 * gmax)
+                   for n, g in off["grads"].items())
+    loss_err = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    L = mcfg.n_layer
+    out = dict(contract=bound["run_id"], model="10L8H d384 bf16 flash, dropout 0.1",
+               group_shape=[G, B, T], loss_remat=on["loss"], loss_plain=off["loss"],
+               loss_rel_err=loss_err, grad_rel_err=grad_err, grad_tol=REMAT_GRAD_RTOL,
+               launches_remat=on["launches"], launches_plain=off["launches"],
+               peak_mem_gib_remat=on["peak_mem_bytes"] / 2**30,
+               peak_mem_gib_plain=off["peak_mem_bytes"] / 2**30,
+               ms_per_group_remat=on["ms_per_group"], ms_per_group_plain=off["ms_per_group"],
+               nonpad_tokens_per_group=int((batches[0]["y"] != 0).sum()), card=card)
+    log("remat_contract", **out)
+    if not (on["applied"] and off["applied"] and on["applied_all"] and off["applied_all"]):
+        raise AssertionError("a contract group was not applied")
+    if loss_err > REMAT_GRAD_RTOL or grad_err > REMAT_GRAD_RTOL:
+        raise AssertionError(f"remat changes the step: loss {loss_err}, grads {grad_err}")
+    want = {True: (2 * L * G, L * G), False: (L * G, L * G)}
+    for remat, row in rows.items():
+        fwd, bwd = want[remat]
+        got = row["launches"]
+        if (got["flash_fwd"], got["flash_bwd_dq"], got["flash_bwd_dkv"]) != (fwd, bwd, bwd):
+            raise AssertionError(f"remat={remat}: flash launches {got}, want fwd {fwd}, "
+                                 f"dq/dkv {bwd}")
+    if not on["peak_mem_bytes"] < off["peak_mem_bytes"]:
+        raise AssertionError("remat did not lower the step's peak memory")
+    return {"remat": on["launches"], "plain": off["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1492,6 +1877,9 @@ def main() -> int:
     phase_pipeline(card_line)
     phase_trainer(card_line)
     phase_spec_trained(card_line, peak_bw, peak_ops)
+    phase_lora_d512(card_line)
+    finetuned = phase_finetune(card_line)
+    remat = phase_remat_contract(card_line)
 
     tile_design = ("one pass with an online softmax in float32 (SIMT) over only the 64-position "
                    "cache tiles with a live mask position, flagged by each warp from the mask "
@@ -1508,6 +1896,7 @@ def main() -> int:
         "serve": timed["serve_bf16"],
         "serve_int8": timed["serve_int8"],
         "full": timed["full_bf16"],
+        "launches_finetune_serve": finetuned["decode"],
         "design": tile_design + "; one block per (kv head, slot)",
     }]
     tensor_core = ("bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix), cp.async double "
@@ -1520,7 +1909,11 @@ def main() -> int:
             "source": "genomics_lm_torch/csrc/flash_attention.cu",
             "replaces": f"genomics_lm_tpu/ops/flash_attention.py:{line}",
             "launches": trained[wrapper.__name__],
-            **flash_timed[key],
+            **flash_timed["main_bf16_dropout"][key],
+            "d512": flash_timed["d512_main_bf16"][key],
+            "launches_finetune": finetuned["flash"][wrapper.__name__],
+            "launches_remat_contract": remat["remat"][wrapper.__name__],
+            "launches_plain_contract": remat["plain"][wrapper.__name__],
             "design": tensor_core,
         })
     kernels.append({

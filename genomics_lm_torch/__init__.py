@@ -15,24 +15,32 @@ only for tensors on the CPU; for a CUDA tensor it launches the kernel or
 raises.
 
 Layer map (ported so far — the continuous-batching serving path,
-speculative serving, the training step and the trainer):
+speculative serving, the training step and the trainer with its one-card
+options: LoRA fine-tuning and merging, remat, the auxiliary objectives,
+shape guidance, Adafactor, ``grad_clip``, frozen groups, the primary
+training contract and expansion):
 
 - ``tokenizers`` — codon vocabulary ids, ``to_ids`` / ``decode_ids``
 - ``data``       — lossless packing, packed datasets with ``EpochPlan`` and
   grouped batches, the CUDA-stream ``DevicePrefetcher``, dataset
-  manifests and vocabulary contracts (numpy copies of the JAX modules)
-- ``models``     — ``CodonGPTConfig`` and the ``CodonGPT`` forward (loss
-  and dropout included)
+  manifests, vocabulary contracts and replay batches (numpy copies of the
+  JAX modules)
+- ``models``     — ``CodonGPTConfig``, the ``CodonGPT`` forward (loss,
+  dropout, LoRA adapters and remat included) and the biophysics shape
+  encoder
 - ``ops``        — attention, masks, int8 KV quantization, the
-  cross-entropy loss, and the wrappers of the decode-attention kernels
+  cross-entropy loss and the auxiliary objectives, and the wrappers of the decode-attention kernels
   (``csrc/decode_attention*.cu``) and the flash-attention kernels
   (``csrc/flash_attention.cu``)
 - ``generation`` — KV-cached prefill / decode / ``generate_tokens``
 - ``serving``    — ``ServingEngine`` (continuous batching, speculative
   decoding) and the HTTP ``InferenceServer``
-- ``training``   — AdamW in two LR groups, the accumulation-group step,
-  the ``.npz`` checkpoints of the JAX package, the run lifecycle and
-  ``run_training`` with its CLI (``train_codon_lm``)
+- ``training``   — AdamW or Adafactor in the fast/base/lora groups with
+  frozen labels and ``grad_clip``, the accumulation-group step with the
+  composite loss, the ``.npz`` checkpoints of the JAX package, the run
+  lifecycle, the primary contract, ``run_training`` with its CLI
+  (``train_codon_lm``), LoRA on checkpoint trees (``lora``,
+  ``merge_lora``), ``expansion`` and ``benchmark_lora``
 - ``utils``      — device selection and the JAX-tree weight maps
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -15,26 +15,56 @@ the attention softmax run in float32.
 
 Covered: learned positions or RoPE, GELU or SwiGLU MLP, MHA or GQA, fused
 or separate QKV, tied or untied LM head, the termination and multi-offset
-auxiliary heads, shape guidance, and training: the cross-entropy loss and
-dropout. Embedding and MLP-output dropout are plain draws from the
-caller's ``torch.Generator``; attention dropout runs inside the attention
-op (the flash kernels on the card) from a seed drawn from the same
-generator. Attention follows ``cfg.attention_impl``. Not ported: the MoE
-MLP, LoRA and weight-only int8 linears (building or loading such a model
-raises ``NotImplementedError``); remat (``use_checkpoint``) is refused by
-``training/train_step.py``, since it changes only the training memory.
+auxiliary heads, shape guidance, LoRA adapters, and training: the
+cross-entropy loss, dropout and remat. Embedding and MLP-output dropout are
+plain draws from the caller's ``torch.Generator``; attention dropout runs
+inside the attention op (the flash kernels on the card) from a seed drawn
+from the same generator. Attention follows ``cfg.attention_impl``.
+
+LoRA (``training/lora.py``): a ``LoRA`` module on a block linear adds
+``scale * (x @ lora_a) @ lora_b`` to its output, as the JAX ``_linear``
+does when its parameter dict holds ``lora_a``; a fused QKV linear keeps
+three adapters (``attn.qkv_lora``) beside the concatenated base product,
+as JAX's fused branch does. ``lora_scale`` never trains
+(``requires_grad=False``). Cached decode and serving reuse ``_linear`` and
+``_qkv``, so an adapted model decodes unmerged.
+
+Remat (``cfg.use_checkpoint``, JAX's ``jax.checkpoint`` around the block):
+each block runs under ``torch.utils.checkpoint``, and the recomputed block
+draws the same dropout masks and attention seed as the first pass: it
+runs on a copy of the caller's generator taken at the block's start (JAX
+replays the block's key). Not ported: the MoE MLP and weight-only int8
+linears (building or loading such a model raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops.attention import attention
 from genomics_lm_torch.ops.losses import cross_entropy
 from genomics_lm_torch.ops.masks import segment_ids_from_tokens
+
+
+class LoRA(nn.Module):
+    """A rank-r adapter of one linear, in the JAX leaves' orientation:
+    ``lora_a`` (fan_in, r), ``lora_b`` (r, fan_out) and the frozen output
+    scale ``lora_scale`` (alpha / r). Zeros until ``training/lora.py`` or a
+    loaded tree fills them."""
+
+    def __init__(self, fan_in: int, fan_out: int, rank: int):
+        super().__init__()
+        self.lora_a = nn.Parameter(torch.zeros(fan_in, rank))
+        self.lora_b = nn.Parameter(torch.zeros(rank, fan_out))
+        self.lora_scale = nn.Parameter(torch.ones(()), requires_grad=False)
+
+    def delta(self, x: torch.Tensor) -> torch.Tensor:
+        d = torch.matmul(torch.matmul(x, self.lora_a.to(x.dtype)), self.lora_b.to(x.dtype))
+        return self.lora_scale.to(x.dtype) * d
 
 
 class _Attention(nn.Module):
@@ -127,14 +157,64 @@ def param_count(model: nn.Module) -> int:
     return int(sum(p.numel() for p in model.parameters()))
 
 
+# JAX block-linear names of each group (``training/lora.py`` targets)
+ATTN_LINEARS = ("query", "key", "value", "proj")
+MLP_LINEARS = ("fc", "proj", "w_gate", "w_up", "w_down")
+_GELU_MLP_INDEX = {"fc": 0, "proj": 2}
+
+
+def block_linears(block: Block, cfg: CodonGPTConfig) -> dict[tuple[str, str], nn.Linear]:
+    """The block's linears by their JAX (group, name), e.g. ("attn", "query")
+    or ("mlp", "fc"). With ``fused_qkv`` the query, key and value entries
+    are absent: their weights are rows of ``attn.qkv``."""
+    out = {("attn", "proj"): block.attn.proj}
+    if not cfg.fused_qkv:
+        out.update({("attn", n): getattr(block.attn, n) for n in ("query", "key", "value")})
+    if cfg.use_swiglu:
+        out.update({("mlp", n): getattr(block.mlp, n) for n in ("w_gate", "w_up", "w_down")})
+    else:
+        out.update({("mlp", n): block.mlp[i] for n, i in _GELU_MLP_INDEX.items()})
+    return out
+
+
+def attach_lora(model: CodonGPT, targets, rank: int) -> None:
+    """Give every block a zero ``LoRA`` of ``rank`` on each JAX (group, name)
+    of ``targets``; a fused QKV's query, key and value adapters go to
+    ``attn.qkv_lora``."""
+    cfg = model.cfg
+    kv_dim = cfg.kv_heads * cfg.head_dim
+    fan_out = {"query": cfg.n_embd, "key": kv_dim, "value": kv_dim}
+    for block in model.blocks:
+        linears = block_linears(block, cfg)
+        fused = {}
+        for group, name in targets:
+            if (group, name) in linears:
+                lin = linears[(group, name)]
+                lin.lora = LoRA(lin.in_features, lin.out_features, rank)
+            elif cfg.fused_qkv and group == "attn" and name in fan_out:
+                fused[name] = LoRA(cfg.n_embd, fan_out[name], rank)
+            else:
+                raise ValueError(f"the model has no block linear {group}/{name}")
+        if fused:
+            if set(fused) != set(fan_out):
+                raise ValueError("a fused QKV takes adapters on all of query, key "
+                                 f"and value, not {sorted(fused)}")
+            block.attn.qkv_lora = nn.ModuleDict({n: fused[n] for n in fan_out})
+    model.to(model.tok_emb.weight.device)
+
+
 # --- Forward pieces ----------------------------------------------------------
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``x @ W + b`` in x's dtype, with the float32 weights cast at use."""
+    """``x @ W + b`` in x's dtype, with the float32 weights cast at use,
+    plus the linear's LoRA delta when it has one."""
     y = torch.matmul(x, lin.weight.to(x.dtype).t())
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
+    lora = lin._modules.get("lora")
+    if lora is not None:
+        y = y + lora.delta(x)
     return y
 
 
@@ -176,7 +256,13 @@ def _qkv(block: Block, x: torch.Tensor, cfg: CodonGPTConfig):
     if hasattr(attn, "qkv"):
         c_q = cfg.n_head * hd
         c_kv = cfg.kv_heads * hd
-        q, k, v = torch.split(_linear(attn.qkv, x), [c_q, c_kv, c_kv], dim=-1)
+        qkv = _linear(attn.qkv, x)
+        adapters = attn._modules.get("qkv_lora")
+        if adapters is not None:
+            # per-projection adapters beside the fused base product
+            qkv = qkv + torch.cat([adapters[n].delta(x) for n in ("query", "key", "value")],
+                                  dim=-1)
+        q, k, v = torch.split(qkv, [c_q, c_kv, c_kv], dim=-1)
     else:
         q, k, v = _linear(attn.query, x), _linear(attn.key, x), _linear(attn.value, x)
     q = q.reshape(B, T, cfg.n_head, hd).transpose(1, 2)
@@ -239,6 +325,50 @@ def _offset_logits(model: CodonGPT, cfg: CodonGPTConfig, x: torch.Tensor, offset
     return _lm_logits(model, cfg, _linear(mlp[2], F.gelu(_linear(mlp[0], x))))
 
 
+def _block_apply(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, *, segment_ids,
+                 attention_window, rope, drop: bool, generator) -> torch.Tensor:
+    """One block of the training forward: LN1, QKV, attention, epilogue."""
+    B, T, C = x.shape
+    h = _layer_norm(block.ln1, x)
+    q, k, v = _qkv(block, h, cfg)
+    if rope is not None:
+        q, k = apply_rope(q, k, *rope)
+    seed = (torch.randint(0, 2**31 - 1, (1,), generator=generator, device=x.device,
+                          dtype=torch.int32) if drop else None)
+    y = attention(q, k, v, segment_ids=segment_ids, attention_window=attention_window,
+                  dropout_rate=cfg.dropout if drop else 0.0, seed=seed,
+                  impl=cfg.attention_impl)
+    return block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(B, T, C), train=drop,
+                          generator=generator)
+
+
+def _remat_block(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, generator,
+                 *, drop: bool, **kw) -> torch.Tensor:
+    """``_block_apply`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward instead of kept. Both passes draw from a copy
+    of ``generator`` taken at the block's start, so the recomputed dropout
+    masks and attention seed are the first pass's; ``generator`` then
+    continues from where the first pass left its copy."""
+    start = generator.get_state() if drop else None
+    end: list[torch.Tensor] = []
+
+    def run(h):
+        gen = None
+        if drop:
+            gen = torch.Generator(device=h.device)
+            gen.set_state(start)
+        out = _block_apply(block, cfg, h, drop=drop, generator=gen, **kw)
+        if drop and not end:
+            end.append(gen.get_state())
+        return out
+
+    out = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                            preserve_rng_state=False)
+    if drop:
+        generator.set_state(end[0])
+    return out
+
+
 def forward(
     model: CodonGPT,
     cfg: CodonGPTConfig,
@@ -272,20 +402,13 @@ def forward(
         rope_cos_sin(idx.shape[1], cfg.head_dim, cfg.rope_base, cfg.dtype, idx.device)
         if cfg.use_rope else None
     )
-    B, T, C = x.shape
     for block in model.blocks:
-        h = _layer_norm(block.ln1, x)
-        q, k, v = _qkv(block, h, cfg)
-        if rope is not None:
-            q, k = apply_rope(q, k, *rope)
-        seed = (torch.randint(0, 2**31 - 1, (1,), generator=generator, device=idx.device,
-                              dtype=torch.int32) if drop else None)
-        y = attention(q, k, v, segment_ids=segment_ids,
-                      attention_window=attention_window,
-                      dropout_rate=cfg.dropout if drop else 0.0, seed=seed,
-                      impl=cfg.attention_impl)
-        x = block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(B, T, C),
-                           train=drop, generator=generator)
+        kw = dict(segment_ids=segment_ids, attention_window=attention_window, rope=rope,
+                  drop=drop)
+        if cfg.use_checkpoint and torch.is_grad_enabled():
+            x = _remat_block(block, cfg, x, generator, **kw)
+        else:
+            x = _block_apply(block, cfg, x, generator=generator, **kw)
     x = _layer_norm(model.ln_f, x)
     logits = _lm_logits(model, cfg, x)
 
@@ -308,8 +431,13 @@ def forward(
 
 
 __all__ = [
+    "ATTN_LINEARS",
     "Block",
     "CodonGPT",
+    "LoRA",
+    "MLP_LINEARS",
+    "attach_lora",
+    "block_linears",
     "apply_rope",
     "block_epilogue",
     "forward",

@@ -9,9 +9,10 @@ ignored. With label smoothing the target distribution is
 ``(1 - eps) * one_hot + eps / C``, the class weight multiplies inside the
 smoothing sum, and the denominator is still indexed by the hard label.
 
-The multi-offset, termination and replay objectives
-(``multi_offset_lm_loss``, ``termination_*``, ``offset_target_mask``) are
-not ported; ``training/train_step.py::composite_loss`` raises for them.
+Also the multi-offset and termination auxiliary objectives
+(``offset_target_mask``, ``multi_offset_lm_loss``,
+``termination_distance_bucket_labels``, ``termination_aux_loss``), which
+the replay loss reuses.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 PAD_ID = 0
+DEFAULT_BOUNDARY_IDS = (2, 3)  # <EOS_CDS>, <SEP>
 
 
 def cross_entropy(
@@ -102,4 +104,114 @@ def cross_entropy_parts(
     return numer, denom
 
 
-__all__ = ["PAD_ID", "cross_entropy", "cross_entropy_parts"]
+def offset_target_mask(yb: torch.Tensor, offset: int,
+                       boundary_ids=DEFAULT_BOUNDARY_IDS) -> torch.Tensor:
+    """Valid positions for predicting seq[t + offset] from logits at t.
+
+    A target is invalid if it is PAD or if reaching it from t would cross an
+    earlier EOS/SEP boundary (the target being a boundary is allowed).
+    Returns (B, T - offset + 1) bool.
+    """
+    if offset < 1:
+        raise ValueError("offset must be >= 1")
+    B, T = yb.shape
+    if offset > T:
+        return torch.zeros((B, 0), dtype=torch.bool, device=yb.device)
+    target = yb[:, offset - 1:]
+    valid = target != PAD_ID
+    boundary = torch.zeros_like(yb, dtype=torch.bool)
+    for bid in boundary_ids:
+        boundary |= yb == int(bid)
+    width = target.shape[1]
+    for shift in range(offset - 1):
+        valid &= ~boundary[:, shift:shift + width]
+    return valid
+
+
+def multi_offset_lm_loss(
+    logits,
+    yb: torch.Tensor,
+    offset_weights: dict[int, float],
+    *,
+    label_smoothing: float = 0.0,
+    loss_weights: torch.Tensor | None = None,
+    boundary_ids=DEFAULT_BOUNDARY_IDS,
+):
+    """Weighted sum of per-offset CE losses over boundary-respecting targets.
+
+    ``logits`` is either a single (B, T, C) tensor (shared head) or a dict
+    ``{offset: (B, T, C)}`` from per-offset heads. Offsets <= 1 or beyond the
+    sequence are skipped; an offset with no valid target contributes 0.
+    """
+    total = torch.zeros((), dtype=torch.float32, device=yb.device)
+    losses: dict[int, torch.Tensor] = {}
+    T = yb.shape[1]
+    for offset, weight in sorted(offset_weights.items()):
+        if weight == 0.0 or offset <= 1 or offset > T:
+            continue
+        target = yb[:, offset - 1:]
+        if isinstance(logits, dict):
+            if offset not in logits:
+                continue
+            pred = logits[offset][:, :target.shape[1], :]
+        else:
+            pred = logits[:, :target.shape[1], :]
+        valid = offset_target_mask(yb, offset, boundary_ids=boundary_ids)
+        offset_loss = cross_entropy(pred, target, ignore_index=PAD_ID,
+                                    label_smoothing=label_smoothing, weight=loss_weights,
+                                    valid_mask=valid)
+        offset_loss = torch.where(valid.any(), offset_loss, torch.zeros_like(offset_loss))
+        losses[offset] = offset_loss
+        total = total + float(weight) * offset_loss
+    return total, losses
+
+
+def termination_distance_bucket_labels(
+    yb: torch.Tensor,
+    stop_ids: tuple[int, ...],
+    bucket_edges: tuple[int, ...] = (0, 3, 10, 30),
+    ignore_index: int = -100,
+) -> torch.Tensor:
+    """Bucket each position's distance to the next stop token: positions
+    after the last stop get the final bucket; PAD positions get
+    ``ignore_index``."""
+    if not stop_ids:
+        raise ValueError("stop_ids must not be empty")
+    if tuple(bucket_edges) != tuple(sorted(bucket_edges)):
+        raise ValueError("bucket_edges must be sorted")
+    B, T = yb.shape
+    positions = torch.arange(T, device=yb.device).expand(B, T)
+    stop_mask = torch.isin(yb, torch.tensor(stop_ids, dtype=yb.dtype, device=yb.device))
+    stop_positions = torch.where(stop_mask, positions, T)
+    # next stop at or after each position: reversed running minimum
+    next_stop = torch.flip(torch.cummin(torch.flip(stop_positions, [1]), dim=1).values, [1])
+    distances = next_stop - positions
+    edges = torch.tensor(bucket_edges, dtype=distances.dtype, device=yb.device)
+    labels = (distances[:, :, None] > edges[None, None, :]).sum(dim=-1)
+    labels = torch.where(next_stop == T, len(bucket_edges), labels)
+    return torch.where(yb == PAD_ID, ignore_index, labels)
+
+
+def termination_aux_loss(
+    termination_logits: torch.Tensor,
+    labels: torch.Tensor,
+    class_weights: torch.Tensor | None = None,
+    ignore_index: int = -100,
+) -> torch.Tensor:
+    """f32 CE over bucket labels, ignoring ``ignore_index`` positions."""
+    # ignored labels are clamped into range before the gather; they are masked out
+    safe = torch.where(labels == ignore_index, 0, labels)
+    return cross_entropy(termination_logits, safe, ignore_index=None, weight=class_weights,
+                         valid_mask=labels != ignore_index)
+
+
+__all__ = [
+    "DEFAULT_BOUNDARY_IDS",
+    "PAD_ID",
+    "cross_entropy",
+    "cross_entropy_parts",
+    "multi_offset_lm_loss",
+    "offset_target_mask",
+    "termination_aux_loss",
+    "termination_distance_bucket_labels",
+]

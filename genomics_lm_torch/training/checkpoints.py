@@ -17,8 +17,8 @@ here). A model is stored in the JAX tree layout
 
 ``transfer_load_params`` is the JAX function over numpy trees (token-aware
 vocabulary-row remap with the same ``loaded/adapted/skipped/missing``
-report). Not ported: the width/depth expansion loaders of
-``training/expansion.py``.
+report). The width/depth expansion of ``training/expansion.py`` is the
+port's own module of that name.
 """
 
 from __future__ import annotations

@@ -2,16 +2,24 @@
 
 ``run_training`` follows the JAX trainer step for step, single device:
 
+- primary-contract validation (``training/contracts.py``, fail closed;
+  the OOM safeguard never rewrites a contract-bound config),
 - manifest discovery and vocabulary-contract binding (fail closed),
 - the run lifecycle: locking, serial directories, the configuration
   fingerprint, the newest-checkpoint and curve-history checks, epoch
   headroom,
-- transfer init through ``transfer_load_params`` with the vocabulary-row
-  remap (the source may be a JAX checkpoint), and full resume: model,
-  AdamW state, the trainer's generator, step, group-aligned position and
-  the accumulation-health counters,
-- AdamW in two LR groups over ``resolve_epochs``' total steps (cosine or
-  plateau),
+- shape guidance (the nucleotide encoder, from ``shape_encoder_checkpoint``
+  or fresh, and the codon one-hot table), transfer init through
+  ``transfer_load_params`` with the vocabulary-row remap (the source may be
+  a JAX checkpoint), LoRA adapters attached after it, and full resume:
+  model (adapters included), optimizer state, the trainer's generator,
+  step, group-aligned position and the accumulation-health counters,
+- AdamW or Adafactor in the fast/base/lora groups with the frozen labels
+  and ``grad_clip`` (``optim.build_optimizer``) over ``resolve_epochs``'
+  total steps (cosine or plateau),
+- the multi-offset, termination and replay losses (one replay batch a
+  group, used on every ``replay_every_microbatches``-th microbatch), and
+  remat (``use_checkpoint``),
 - the epoch loop over ``grouped_batches`` and ``DevicePrefetcher``, one
   group step (``train_step.make_train_step``) per optimizer step, the
   nonfinite-group abort and its limit, periodic / wall-time / preemption
@@ -21,10 +29,12 @@
   stopping, and the OOM safeguard.
 
 Checkpoints hold the model in the JAX tree layout (``params_to_jax``), so
-the JAX package loads them, and the AdamW state keyed by parameter name
-(``optimizer.format`` = ``OPTIMIZER_FORMAT``). A checkpoint whose optimizer
-state is another trainer's (a JAX one holds optax's) cannot resume here and
-says so; its weights still transfer with ``transfer_from``.
+the JAX package loads them, and the optimizer state of the trainable
+parameters only: AdamW's keyed by parameter name (``optimizer.format`` =
+``OPTIMIZER_FORMAT``), Adafactor's by JAX leaf (``ADAFACTOR_FORMAT``). A
+checkpoint whose optimizer state is another trainer's (a JAX one holds
+optax's) cannot resume here and says so; its weights still transfer with
+``transfer_from``.
 
 The host reads a group's metrics in one device→host copy (beside the
 step's own read of whether the group commits), and validation in one copy
@@ -32,9 +42,7 @@ at its end: the path is host-bound.
 
 Not ported, and refused with ``NotImplementedError`` naming the flag
 (``UNPORTED_FLAGS``): meshes, tensor and pipeline parallelism and
-multi-process runs, LoRA, the replay, multi-offset and termination losses,
-shape guidance, MoE, remat, ``primary_training_contract``, ``grad_clip``,
-Adafactor, ``freeze_backbone`` and ``unfreeze_encoder``.
+multi-process runs, and MoE.
 """
 
 from __future__ import annotations
@@ -60,16 +68,22 @@ from genomics_lm_torch.data.datasets import (
     dataset_length_audit,
     grouped_batches,
 )
+from genomics_lm_torch.data.replay import GeneratedTerminationReplayDataset
+from genomics_lm_torch.models import biophysics
 from genomics_lm_torch.models.codon_gpt import CodonGPT, param_count
 from genomics_lm_torch.models.config import CodonGPTConfig
+from genomics_lm_torch.tokenizers.codon import STOP_IDS
 from genomics_lm_torch.training import checkpoints as ckpt_lib
+from genomics_lm_torch.training import lora as lora_lib
 from genomics_lm_torch.training import optim as optim_lib
 from genomics_lm_torch.training.config import (
     auto_run_id,
     ensure_path_list,
+    normalize_offset_weights,
     normalize_run_id,
     write_meta,
 )
+from genomics_lm_torch.training.contracts import validate_primary_training_config
 from genomics_lm_torch.training.lifecycle import (
     RunLifecycleError,
     TrainingRun,
@@ -92,31 +106,23 @@ from genomics_lm_torch.training.train_step import (
     make_train_step,
 )
 from genomics_lm_torch.utils.device import resolve_device
-from genomics_lm_torch.utils.weights import params_to_jax, state_dict_from_jax
+from genomics_lm_torch.utils.weights import (
+    attach_from_tree,
+    params_to_jax,
+    state_dict_from_jax,
+)
 
 PAD_ID = 0
 LAST = "last.npz"
 OPTIMIZER_FORMAT = "torch.optim.AdamW/by-parameter-name/v1"
+ADAFACTOR_FORMAT = "adafactor/by-jax-leaf/v1"
 
 # (flag, predicate on the run config): each raises NotImplementedError
 UNPORTED_FLAGS = (
     ("mesh_devices", lambda v: v is not None and int(v) > 1),
     ("tensor_parallel", lambda v: v is not None and int(v) > 1),
     ("pipeline_stages", lambda v: v is not None and int(v) > 1),
-    ("lora_rank", bool),
-    ("lora_only", bool),
-    ("replay_loss_enabled", bool),
-    ("replay_data", bool),
-    ("multi_offset_targets", bool),
-    ("termination_loss_enabled", bool),
-    ("use_shape_guidance", bool),
     ("moe_experts", bool),
-    ("use_checkpoint", bool),
-    ("primary_training_contract", bool),
-    ("grad_clip", bool),
-    ("optimizer", lambda v: v is not None and str(v).lower() == "adafactor"),
-    ("freeze_backbone", bool),
-    ("unfreeze_encoder", bool),
 )
 
 
@@ -153,11 +159,16 @@ def _is_oom_error(exc: BaseException) -> bool:
     return any(pattern in text for pattern in OOM_PATTERNS)
 
 
-def _apply_oom_downscale(config_path: str | None, cfg: dict) -> dict | None:
+def _apply_oom_downscale(config_path: str | None, cfg: dict,
+                         contract_bound: bool = False) -> dict | None:
     """Halve batch_size / double grad_accum in the YAML config so the next
-    launch fits (parity: reference loop.py:1516-1549); returns the rewrite
-    summary or None."""
+    launch fits (parity: reference loop.py:1516-1549). Refuses to touch a
+    contract-bound config; returns the rewrite summary or None."""
     batch_size = int(cfg.get("batch_size", 1))
+    if contract_bound:
+        print("[oom] primary contract is immutable — not rewriting the config",
+              file=sys.stderr)
+        return None
     if batch_size <= 1:
         print("[oom] batch_size already 1 — cannot downscale further",
               file=sys.stderr)
@@ -236,7 +247,11 @@ def _param_index_names(bundle, model: torch.nn.Module) -> dict[int, str]:
 
 
 def optimizer_state(bundle, model: torch.nn.Module) -> dict:
-    """The AdamW state keyed by parameter name, in the checkpoint's layout."""
+    """The optimizer state in the checkpoint's layout: AdamW's keyed by
+    parameter name, Adafactor's by JAX leaf path."""
+    if isinstance(bundle.optimizer, optim_lib.Adafactor):
+        return {"format": ADAFACTOR_FORMAT, "applied_steps": int(bundle.applied_steps),
+                **bundle.optimizer.state_dict()}
     index_names = _param_index_names(bundle, model)
     state = bundle.optimizer.state_dict()["state"]
     return {
@@ -250,12 +265,25 @@ def load_optimizer_state(bundle, model: torch.nn.Module, saved) -> None:
     """Restore ``optimizer_state``'s output; raises ``RunLifecycleError`` for
     an optimizer state this trainer did not write (a JAX checkpoint holds
     optax's)."""
+    if isinstance(saved, dict) and saved.get("format") == ADAFACTOR_FORMAT:
+        if not isinstance(bundle.optimizer, optim_lib.Adafactor):
+            raise RunLifecycleError("the resume checkpoint holds Adafactor state; this "
+                                    "run uses AdamW")
+        try:
+            bundle.optimizer.load_state_dict(saved)
+        except ValueError as exc:
+            raise RunLifecycleError(str(exc)) from exc
+        bundle.applied_steps = int(saved["applied_steps"])
+        return
     if not isinstance(saved, dict) or saved.get("format") != OPTIMIZER_FORMAT:
         raise RunLifecycleError(
             "the resume checkpoint's optimizer state was not written by this "
             f"trainer (expected format {OPTIMIZER_FORMAT!r}; a JAX checkpoint holds "
             "optax state, which cannot be read here). Start a new run with "
             "transfer_from to take its weights.")
+    if isinstance(bundle.optimizer, optim_lib.Adafactor):
+        raise RunLifecycleError("the resume checkpoint holds AdamW state; this run "
+                                "uses Adafactor")
     name_index = {n: i for i, n in _param_index_names(bundle, model).items()}
     unknown = sorted(set(saved["state"]) - set(name_index))
     if unknown:
@@ -305,6 +333,13 @@ def run_training(
     device is named)."""
     refuse_unported(cfg)
     device = resolve_device(device)
+    # --- primary contract (fail-closed frozen-config validation) ------------
+    primary_contract = None
+    if cfg.get("primary_training_contract"):
+        primary_contract = validate_primary_training_config(cfg)
+        cfg = dict(cfg)
+        cfg["run_id"] = primary_contract["run_id"]
+
     run_id = normalize_run_id(cfg.get("run_id")) or auto_run_id(cfg, config_path)
     seed = int(cfg.get("seed", 1337))
 
@@ -341,7 +376,13 @@ def run_training(
     block_size = int(cfg["block_size"])
 
     model_cfg = _model_config(cfg, vocab_size)
-    loss_cfg = LossConfig()  # the auxiliary losses were refused above
+    loss_cfg_dict = dict(cfg)
+    offsets = cfg.get("multi_offset_targets") or []
+    multi_offset_weights = normalize_offset_weights(
+        offsets, cfg.get("multi_offset_weights")
+    )
+    loss_cfg_dict["multi_offset_weights"] = multi_offset_weights
+    loss_cfg = LossConfig.from_run_config(loss_cfg_dict, STOP_IDS)
 
     # --- run lifecycle -------------------------------------------------------
     fingerprint = configuration_fingerprint(cfg)
@@ -381,6 +422,23 @@ def run_training(
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = CodonGPT(model_cfg)
+        # shape guidance: attach the nucleotide encoder + codon one-hot LUT
+        shape_lookup = None
+        if model_cfg.use_shape_guidance:
+            if cfg.get("shape_encoder_checkpoint"):
+                enc_payload = ckpt_lib.load_checkpoint(cfg["shape_encoder_checkpoint"])
+                encoder_tree = enc_payload.get("encoder", enc_payload.get("model", enc_payload))
+                attach_from_tree(model, {"shape_encoder": encoder_tree})
+                model.load_state_dict(state_dict_from_jax(
+                    dict(params_to_jax(model, model_cfg), shape_encoder=encoder_tree),
+                    model_cfg), strict=True)
+            else:
+                model.shape_encoder = biophysics.ShapeEncoder()
+            shape_lookup = torch.from_numpy(biophysics.shape_lookup_table()).to(device)
+            print(
+                f"[biophysics] shape guidance on; encoder "
+                f"{'unfrozen' if cfg.get('unfreeze_encoder') else 'frozen'}"
+            )
     n_params = param_count(model)
     print(f"[model] params={n_params} spec={model_cfg.to_dict()}")
 
@@ -412,6 +470,24 @@ def run_training(
         prov = contract.provenance(snapshot)
         prov.update(adaptation)
         vocab_lib.write_vocabulary_manifest(prov, run_dir / "vocabulary.json")
+
+    # --- LoRA (after transfer, so adapters wrap the loaded base weights) ----
+    if cfg.get("lora_rank"):
+        tree = lora_lib.add_lora_adapters(
+            params_to_jax(model, model_cfg),
+            np.random.default_rng(seed),
+            rank=int(cfg["lora_rank"]),
+            alpha=float(cfg["lora_alpha"]) if cfg.get("lora_alpha") else None,
+            targets=str(cfg.get("lora_targets", "attn")),
+        )
+        attach_from_tree(model, tree)
+        model.load_state_dict(state_dict_from_jax(tree, model_cfg), strict=True)
+        n_params = param_count(model)
+        print(
+            f"[lora] rank={cfg['lora_rank']} targets={cfg.get('lora_targets', 'attn')} "
+            f"trainable={lora_lib.lora_param_count(tree)} "
+            f"lora_only={bool(cfg.get('lora_only', True))}"
+        )
     model.to(device)
 
     # --- optimizer / schedule ----------------------------------------------
@@ -434,8 +510,26 @@ def run_training(
     total_steps = int(cfg.get("scheduler_total_steps", computed_total))
     bundle = optim_lib.build_optimizer(cfg, model, total_steps)
     cfg["resolved_warmup_steps"] = bundle.warmup_steps
-    train_step = make_train_step(model_cfg, loss_cfg)
-    eval_step = make_eval_step(model_cfg, loss_cfg)
+
+    # --- replay --------------------------------------------------------------
+    replay_iter = None
+    replay_every = int(cfg.get("replay_every_microbatches", 4) or 4)
+    if loss_cfg.replay_enabled:
+        replay_ds = GeneratedTerminationReplayDataset(cfg["replay_data"], block_size)
+        replay_iter = replay_ds.batches(
+            int(cfg.get("replay_batch_size", batch_size)), seed=seed
+        )
+
+    train_step = make_train_step(model_cfg, loss_cfg, use_replay=loss_cfg.replay_enabled,
+                                 shape_lookup=shape_lookup)
+    eval_step = make_eval_step(model_cfg, loss_cfg, shape_lookup=shape_lookup)
+    group_keys = GROUP_METRIC_KEYS + tuple(
+        [f"offset_{o}_sum" for o in multi_offset_weights]
+        + (["term_loss_sum"] if loss_cfg.termination_enabled else [])
+        + (["replay_loss_sum", "replay_count"] if loss_cfg.replay_enabled else []))
+    eval_keys = EVAL_METRIC_KEYS + tuple(
+        [f"offset_{o}" for o in multi_offset_weights]
+        + (["term_loss"] if loss_cfg.termination_enabled else []))
     # draws every dropout mask and attention seed; its state is checkpointed
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -449,10 +543,21 @@ def run_training(
     consumed_train_tokens = 0
     resume_microbatch_idx = 0
     health = AccumulationHealth()
-    epoch_train_metrics = {
-        "total_loss_sum": 0.0, "next_loss_sum": 0.0, "microbatches": 0,
-        "initial_loss": None,
-    }
+
+    def fresh_epoch_metrics() -> dict:
+        m = {"total_loss_sum": 0.0, "next_loss_sum": 0.0, "microbatches": 0,
+             "initial_loss": None}
+        # the auxiliary objectives' sums ride in the checkpoint too, so a
+        # mid-epoch resume reports the whole epoch (the JAX trainer restarts
+        # them at the resume, ROADMAP.md §3)
+        m.update({f"offset_{o}_sum": 0.0 for o in multi_offset_weights})
+        if loss_cfg.termination_enabled:
+            m["term_loss_sum"] = 0.0
+        if loss_cfg.replay_enabled:
+            m.update(replay_loss_sum=0.0, replay_count=0)
+        return m
+
+    epoch_train_metrics = fresh_epoch_metrics()
     history: list[dict] = []
     runtime_memory = {"device_peak_bytes": 0}
 
@@ -520,9 +625,9 @@ def run_training(
             "train_loss": metrics.get("train_loss", float("inf")),
             "train_next_loss": metrics.get("train_next_loss"),
             "val_next_loss": metrics.get("val_next_loss"),
-            "train_term_loss": None,
-            "val_term_loss": None,
-            "train_replay_term_loss": None,
+            "train_term_loss": metrics.get("train_term_loss"),
+            "val_term_loss": metrics.get("val_term_loss"),
+            "train_replay_term_loss": metrics.get("train_replay_term_loss"),
             "best_val": best,
             "best_epoch": best_epoch,
             "no_improve": no_improve,
@@ -592,11 +697,11 @@ def run_training(
                 continue
             xb, yb = _to_device((x, y), device)
             out = eval_step(model, xb.long(), yb.long())
-            rows.append(torch.stack([out[k].to(torch.float64) for k in EVAL_METRIC_KEYS]))
+            rows.append(torch.stack([out[k].to(torch.float64) for k in eval_keys]))
         sums: dict[str, float] = {}
         values = torch.stack(rows).cpu().tolist() if rows else []  # one host read
         for row in values:
-            for k, v in zip(EVAL_METRIC_KEYS, row):
+            for k, v in zip(eval_keys, row):
                 sums[k] = sums.get(k, 0.0) + v
         n = max(len(values), 1)
         avg = {k: v / n for k, v in sums.items()}
@@ -626,10 +731,7 @@ def run_training(
             skip = resume_microbatch_idx if epoch == start_epoch else 0
             resume_microbatch_idx = 0
             if skip == 0:
-                epoch_train_metrics.update(
-                    total_loss_sum=0.0, next_loss_sum=0.0, microbatches=0,
-                    initial_loss=None,
-                )
+                epoch_train_metrics.update(fresh_epoch_metrics())
             else:
                 # group-aligned resume
                 skip = (skip // gacc) * gacc
@@ -657,10 +759,17 @@ def run_training(
             with contextlib.closing(batch_iter):
                 for bx, by, mb_index, n_mb in batch_iter:
                     batch = {"x": bx.long(), "y": by.long()}
+                    if loss_cfg.replay_enabled:
+                        # one replay batch a group, on every replay_every-th microbatch
+                        batch["replay_mask"] = [
+                            (mb_index - n_mb + j + 1) % replay_every == 0
+                            for j in range(n_mb)]
+                        rx, rlabels = next(replay_iter)
+                        batch["replay_x"] = torch.from_numpy(rx).to(device).long()
+                        batch["replay_labels"] = torch.from_numpy(rlabels).to(device).long()
                     lr_scale = 1.0 if bundle.plateau is None else bundle.plateau.scale(step)
                     metrics = read_metrics(
-                        train_step(model, bundle, batch, generator, lr_scale),
-                        GROUP_METRIC_KEYS)
+                        train_step(model, bundle, batch, generator, lr_scale), group_keys)
                     applied = bool(metrics["applied"])
                     if applied:
                         step += 1
@@ -672,6 +781,14 @@ def run_training(
                         if epoch_train_metrics["initial_loss"] is None:
                             epoch_train_metrics["initial_loss"] = metrics["first_loss"]
                             print(f"[train] initial_loss={epoch_train_metrics['initial_loss']:.6f}")
+                        for key in ([f"offset_{o}_sum" for o in multi_offset_weights]
+                                    + (["term_loss_sum"] if loss_cfg.termination_enabled
+                                       else [])
+                                    + (["replay_loss_sum"] if loss_cfg.replay_enabled
+                                       else [])):
+                            epoch_train_metrics[key] += metrics[key]
+                        if loss_cfg.replay_enabled:
+                            epoch_train_metrics["replay_count"] += int(metrics["replay_count"])
                     else:
                         discarded = int(metrics["discarded_before_nonfinite"])
                         health.record_abort(discarded)
@@ -713,10 +830,20 @@ def run_training(
             n_train = max(epoch_train_metrics["microbatches"], 1)
             train_loss = epoch_train_metrics["total_loss_sum"] / n_train
             train_next_loss = epoch_train_metrics["next_loss_sum"] / n_train
+            train_term_loss = (epoch_train_metrics["term_loss_sum"] / n_train
+                               if loss_cfg.termination_enabled else None)
+            train_replay_loss = (
+                epoch_train_metrics["replay_loss_sum"]
+                / max(epoch_train_metrics["replay_count"], 1)
+                if loss_cfg.replay_enabled else None)
+            train_offsets = {o: epoch_train_metrics[f"offset_{o}_sum"] / n_train
+                             for o in multi_offset_weights}
 
             val = run_validation(epoch_idx)
             val_loss = val.get("total_loss", float("inf"))
             val_next_loss = val.get("next_loss", float("inf"))
+            val_term_loss = val.get("term_loss")
+            val_offsets = {o: val.get(f"offset_{o}", 0.0) for o in multi_offset_weights}
             ppl = math.exp(min(20.0, val_next_loss))
 
             if bundle.plateau is not None:
@@ -732,6 +859,15 @@ def run_training(
                     f" | aborted_groups={health.aborted_groups} "
                     f"discarded_finite_microbatches={health.discarded_finite_microbatches}"
                 )
+            if multi_offset_weights:
+                msg += " | offsets " + " ".join(
+                    f"o{o}:train={train_offsets.get(o, 0.0):.3f}/val={val_offsets.get(o, 0.0):.3f}"
+                    for o in sorted(multi_offset_weights)
+                )
+            if loss_cfg.termination_enabled:
+                msg += f" | term train={train_term_loss:.3f}/val={val_term_loss:.3f}"
+            if loss_cfg.replay_enabled:
+                msg += f" | replay_term train={train_replay_loss:.3f}"
             print(msg)
             print(
                 f"[timing] epoch {epoch_idx} wall_sec={time.perf_counter() - ep_wall0:.2f}"
@@ -748,6 +884,8 @@ def run_training(
             epoch_metrics = dict(
                 train_loss=train_loss, val_loss=val_loss,
                 train_next_loss=train_next_loss, val_next_loss=val_next_loss,
+                train_term_loss=train_term_loss, val_term_loss=val_term_loss,
+                train_replay_term_loss=train_replay_loss,
             )
             payload = make_checkpoint_payload(epoch_idx, **epoch_metrics)
             if async_ckpt is not None:
@@ -763,13 +901,27 @@ def run_training(
             with log_csv.open("a", newline="") as f:
                 writer = csv.writer(f)
                 if write_header:
-                    writer.writerow(["epoch", "train_loss", "val_loss", "train_next_loss",
-                                     "val_next_loss", "perplexity", "lr"])
-                writer.writerow([
+                    header = ["epoch", "train_loss", "val_loss", "train_next_loss",
+                              "val_next_loss", "perplexity", "lr"]
+                    for o in sorted(multi_offset_weights):
+                        header += [f"train_offset_{o}", f"val_offset_{o}"]
+                    if loss_cfg.termination_enabled:
+                        header += ["train_term_loss", "val_term_loss"]
+                    if loss_cfg.replay_enabled:
+                        header += ["train_replay_term_loss"]
+                    writer.writerow(header)
+                row = [
                     epoch_idx, f"{train_loss:.4f}", f"{val_loss:.4f}",
                     f"{train_next_loss:.4f}", f"{val_next_loss:.4f}",
                     f"{ppl:.3f}", f"{lr_now:.3e}",
-                ])
+                ]
+                for o in sorted(multi_offset_weights):
+                    row += [f"{train_offsets.get(o, 0.0):.4f}", f"{val_offsets.get(o, 0.0):.4f}"]
+                if loss_cfg.termination_enabled:
+                    row += [f"{train_term_loss:.4f}", f"{val_term_loss:.4f}"]
+                if loss_cfg.replay_enabled:
+                    row += [f"{train_replay_loss:.4f}"]
+                writer.writerow(row)
 
             history.append({
                 "epoch": epoch_idx,
@@ -777,6 +929,9 @@ def run_training(
                 "val_loss": val_loss,
                 "train_next_loss": train_next_loss,
                 "val_next_loss": val_next_loss,
+                "train_term_loss": train_term_loss,
+                "val_term_loss": val_term_loss,
+                "train_replay_term_loss": train_replay_loss,
                 "perplexity": ppl,
                 "lr": lr_now,
                 "nonfinite_microbatches": health.nonfinite_microbatches,
@@ -812,7 +967,8 @@ def run_training(
                 save_last(current_epoch_idx or (start_epoch + 1), reason="oom")
             except Exception as save_exc:  # the checkpoint itself may not fit
                 print(f"[oom] checkpoint save failed: {save_exc}", file=sys.stderr)
-            _apply_oom_downscale(config_path, cfg)
+            _apply_oom_downscale(config_path, cfg,
+                                 contract_bound=primary_contract is not None)
             status = "stopped"
             failure = exc
         else:
@@ -850,9 +1006,9 @@ def run_training(
             "last_train_loss": history[-1]["train_loss"],
             "last_val_next_loss": history[-1].get("val_next_loss"),
             "last_train_next_loss": history[-1].get("train_next_loss"),
-            "last_val_term_loss": None,
-            "last_train_term_loss": None,
-            "last_train_replay_term_loss": None,
+            "last_val_term_loss": history[-1].get("val_term_loss"),
+            "last_train_term_loss": history[-1].get("train_term_loss"),
+            "last_train_replay_term_loss": history[-1].get("train_replay_term_loss"),
             "last_perplexity": history[-1]["perplexity"],
         })
         (scores_dir / "metrics.json").write_text(json.dumps(meta, indent=2) + "\n")
@@ -884,6 +1040,7 @@ def _jsonable(v) -> bool:
 
 
 __all__ = [
+    "ADAFACTOR_FORMAT",
     "AccumulationHealth",
     "NonfiniteGroupLimitError",
     "OPTIMIZER_FORMAT",

@@ -1,12 +1,32 @@
 """Optimizer and LR schedules (twin of ``genomics_lm_tpu/training/optim.py``).
 
 The JAX package builds an optax ``multi_transform`` over a label tree; here
-one ``torch.optim.AdamW`` holds one parameter group per label:
+one optimizer holds one parameter group per label, the labels given by
+the JAX rules applied to the parameter names (which carry the same
+markers as the JAX paths):
 
 - ``fast`` (``shape_proj``, ``offset_projs``, ``termination_head``):
   ``lr_embedding``, weight decay 0;
 - ``base`` (every other parameter: biases, layer norms and embeddings
-  included, exactly as JAX labels them): ``lr``, ``weight_decay``.
+  included, exactly as JAX labels them): ``lr``, ``weight_decay``;
+- ``lora`` (the adapters' ``lora_a``/``lora_b``): ``lora_lr`` (default
+  ``lr``), weight decay 0;
+- ``frozen``: ``lora_scale``; the shape encoder unless
+  ``unfreeze_encoder``; everything outside ``fast`` under
+  ``freeze_backbone``, and outside ``fast`` and ``lora`` under
+  ``lora_only`` (default: on when ``lora_rank`` is set). A frozen
+  parameter gets ``requires_grad=False``, so no weight-gradient product is
+  computed for it (JAX puts it under ``stop_gradient``), and it is in no
+  group: the optimizer holds no state for it.
+
+``optimizer: adafactor`` is optax's ``adafactor(lr,
+multiply_by_parameter_scale=False)`` in each group (no weight decay),
+written here (``Adafactor``) on the JAX leaves (``utils/weights.py::
+jax_leaves``): its statistics are factored over each stacked leaf's two
+largest dimensions and its update clipped by each leaf's RMS, as optax
+does, with the fused QKV split into its three leaves. ``grad_clip`` is
+optax's ``clip_by_global_norm`` on the averaged gradient of the trainable
+parameters, before the update.
 
 Optax's ``adamw`` and torch's ``AdamW`` are the same update: decoupled
 decay of the pre-update parameter, bias-corrected moments, and ``eps``
@@ -16,9 +36,7 @@ each group's lr for that step, which is torch's counterpart of the JAX
 step's ``updates * lr_scale`` (it scales the decay step too, as there).
 
 ``resolve_warmup_steps``, ``cosine_lr_lambda``, ``PlateauScheduler`` and
-``resolve_epochs`` are plain-Python copies. Not ported: Adafactor,
-``freeze_backbone``, ``unfreeze_encoder`` and the LoRA groups, which raise
-``NotImplementedError``, and ``grad_clip``.
+``resolve_epochs`` are plain-Python copies.
 """
 
 from __future__ import annotations
@@ -27,6 +45,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 FAST_GROUP_MARKERS = ("shape_proj", "offset_projs", "termination_head")
@@ -112,49 +131,170 @@ class PlateauScheduler:
         self.current_scale = float(state.get("current_scale", 1.0))
 
 
-def param_group_labels(model: torch.nn.Module) -> dict[str, str]:
-    """Label each parameter 'fast' | 'base' by its name, as JAX labels the
-    leaves of its tree by path."""
-    return {name: "fast" if any(m in name for m in FAST_GROUP_MARKERS) else "base"
-            for name, _ in model.named_parameters()}
+def param_group_labels(
+    model: torch.nn.Module,
+    *,
+    freeze_backbone: bool = False,
+    unfreeze_encoder: bool = False,
+    lora_only: bool = False,
+) -> dict[str, str]:
+    """Label each parameter 'fast' | 'base' | 'lora' | 'frozen' by its name,
+    with the JAX rules for a leaf's path (the same markers appear in both)."""
+
+    def label_path(path: str) -> str:
+        if "lora_scale" in path:
+            return "frozen"
+        if "lora_" in path:
+            return "lora"
+        if "shape_encoder" in path:
+            return "base" if (unfreeze_encoder and not freeze_backbone) else "frozen"
+        fast = any(marker in path for marker in FAST_GROUP_MARKERS)
+        if freeze_backbone or lora_only:
+            return "fast" if fast else "frozen"
+        return "fast" if fast else "base"
+
+    return {name: label_path(name) for name, _ in model.named_parameters()}
+
+
+def _factored_dims(shape: tuple[int, ...], min_dim_size_to_factor: int = 128):
+    """optax's choice: the two largest axes, when the second is >= 128."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class Adafactor:
+    """optax ``adafactor(learning_rate, multiply_by_parameter_scale=False)``
+    over the JAX leaves of the parameters in ``param_groups``: per leaf,
+    factored second moments (row and column means of g² + 1e-30 over its
+    two largest axes, when the second is >= 128) or a full one, decayed at
+    ``1 - (t + 1)^-0.8``; the update g / sqrt(v) divided by max(1, its RMS)
+    and scaled by -lr. No momentum, no weight decay."""
+
+    def __init__(self, param_groups: list[dict], leaves):
+        self.param_groups = param_groups
+        group_of = {id(p): g for g in param_groups for p in g["params"]}
+        self.leaves = [(leaf, group_of[id(leaf.parts[0][0])]) for leaf in leaves
+                       if id(leaf.parts[0][0]) in group_of]
+        self.count = 0
+        self.state: dict[str, dict[str, torch.Tensor]] = {}
+        for leaf, _ in self.leaves:
+            shape = tuple(leaf.gather().shape)
+            dims = _factored_dims(shape)
+            device = leaf.parts[0][0].device
+            zeros = lambda s: torch.zeros(tuple(int(d) for d in s), device=device)  # noqa: E731
+            if dims is None:
+                self.state[leaf.path] = {"v": zeros(shape)}
+            else:
+                d1, d0 = dims
+                self.state[leaf.path] = {"v_row": zeros(np.delete(shape, d0)),
+                                         "v_col": zeros(np.delete(shape, d1))}
+
+    @torch.no_grad()
+    def step(self) -> None:
+        t = torch.tensor(self.count + 1, dtype=torch.float32)
+        decay = float(1.0 - t ** -0.8)
+        for leaf, group in self.leaves:
+            g = leaf.gather(lambda p: p.grad).float()
+            st = self.state[leaf.path]
+            grad_sqr = g * g + 1e-30
+            dims = _factored_dims(tuple(g.shape))
+            if dims is None:
+                st["v"] = decay * st["v"] + (1.0 - decay) * grad_sqr
+                update = g * st["v"] ** -0.5
+            else:
+                d1, d0 = dims
+                st["v_row"] = decay * st["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0)
+                st["v_col"] = decay * st["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
+                row_factor = (st["v_row"] / row_col_mean) ** -0.5
+                col_factor = st["v_col"] ** -0.5
+                update = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            # clip_by_block_rms(1.0)
+            update = update / torch.clamp_min(update.pow(2).mean().sqrt(), 1.0)
+            leaf.write(lambda p: p.data, update * -group["lr"], add=True)
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count,
+                "state": {path: dict(st) for path, st in self.state.items()}}
+
+    def load_state_dict(self, saved: dict) -> None:
+        unknown = sorted(set(saved["state"]) - set(self.state))
+        missing = sorted(set(self.state) - set(saved["state"]))
+        if unknown or missing:
+            raise ValueError(f"Adafactor state: unknown leaves {unknown}, missing {missing}")
+        for path, st in saved["state"].items():
+            for key, value in st.items():
+                if key not in self.state[path]:
+                    raise ValueError(f"Adafactor state: {path} has no {key}")
+                self.state[path][key] = torch.as_tensor(np.asarray(value)).to(
+                    self.state[path][key].device)
+        self.count = int(saved["count"])
+
+
+@torch.no_grad()
+def clip_by_global_norm(params, max_norm: float) -> None:
+    """optax ``clip_by_global_norm``: scale every gradient by max_norm / norm
+    when the global norm is at least max_norm (no epsilon), on the device."""
+    grads = [p.grad for p in params]
+    norm = torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
 
 
 @dataclass
 class OptimizerBundle:
-    """AdamW with one group per label, and the schedule that drives its lr."""
+    """The optimizer (AdamW or ``Adafactor``) with one group per trainable
+    label, and the schedule that drives its lr."""
 
-    optimizer: torch.optim.Optimizer
+    optimizer: Any
     labels: dict[str, str]
     schedule_name: str  # "cosine" | "plateau"
     total_steps: int
     warmup_steps: int
     plateau: PlateauScheduler | None
     lr_lambda: Callable[[int], float] | None
+    grad_clip: float | None = None
     applied_steps: int = 0  # optimizer steps taken: the schedule's index
 
     def step(self, lr_scale: float = 1.0) -> None:
-        """One AdamW step on the gradients in ``.grad``, at the group lrs of
-        this step: base lr x schedule multiplier x ``lr_scale``."""
+        """One step on the gradients in ``.grad`` (clipped first when
+        ``grad_clip`` is set), at the group lrs of this step: base lr x
+        schedule multiplier x ``lr_scale``."""
         mult = self.lr_lambda(self.applied_steps) if self.lr_lambda is not None else 1.0
         for group in self.optimizer.param_groups:
             group["lr"] = group["base_lr"] * mult * float(lr_scale)
+        if self.grad_clip:
+            clip_by_global_norm(self.trainable(), self.grad_clip)
         self.optimizer.step()
         self.applied_steps += 1
 
+    def trainable(self) -> list[torch.nn.Parameter]:
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    def state_bytes(self) -> int:
+        """Bytes of the optimizer's state tensors (the moments; AdamW's
+        appear after its first step)."""
+        return int(sum(t.numel() * t.element_size()
+                       for st in self.optimizer.state.values() for t in st.values()
+                       if isinstance(t, torch.Tensor)))
+
 
 def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int) -> OptimizerBundle:
-    """AdamW in the fast and base groups from a flat run config."""
-    for key in ("freeze_backbone", "unfreeze_encoder", "lora_rank", "lora_only"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} is not ported")
-    if str(cfg.get("optimizer", "adamw")).lower() == "adafactor":
-        raise NotImplementedError("Adafactor is not ported")
-    if cfg.get("grad_clip"):
-        raise NotImplementedError("grad_clip is not ported")
+    """The optimizer and its schedule from a flat run config. Sets
+    ``requires_grad=False`` on every parameter labeled frozen."""
     base_lr = float(cfg.get("lr", 5e-6))
     lr_embed = float(cfg.get("lr_embedding", base_lr))
+    lora_lr = float(cfg.get("lora_lr", base_lr))
     weight_decay = float(cfg.get("weight_decay", 0.05))
     min_lr = float(cfg.get("min_lr", 1e-5))
+    optimizer_name = str(cfg.get("optimizer", "adamw")).lower()
     scheduler_name = str(cfg.get("scheduler", "cosine")).lower()
     if scheduler_name not in {"cosine", "plateau"}:
         scheduler_name = "cosine"
@@ -171,19 +311,34 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int) -> Opti
                                    patience=int(cfg.get("plateau_patience", 2)),
                                    warmup_steps=warmup_steps)
 
-    labels = param_group_labels(model)
-    settings = {"fast": (lr_embed, 0.0), "base": (base_lr, weight_decay)}
+    labels = param_group_labels(
+        model,
+        freeze_backbone=bool(cfg.get("freeze_backbone", False)),
+        unfreeze_encoder=bool(cfg.get("unfreeze_encoder", False)),
+        lora_only=bool(cfg.get("lora_only", bool(cfg.get("lora_rank")))),
+    )
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != "frozen")
+    settings = {"fast": (lr_embed, 0.0), "base": (base_lr, weight_decay),
+                "lora": (lora_lr, 0.0)}
     groups = []
     for label, (lr, wd) in settings.items():
         params = [p for name, p in model.named_parameters() if labels[name] == label]
         if params:
             groups.append({"params": params, "lr": lr, "base_lr": lr,
                            "weight_decay": wd, "label": label})
-    optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
+    if optimizer_name == "adafactor":
+        from genomics_lm_torch.utils.weights import jax_leaves
+
+        optimizer = Adafactor(groups, jax_leaves(model, model.cfg))
+    else:
+        optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
+    grad_clip = cfg.get("grad_clip")
     return OptimizerBundle(optimizer=optimizer, labels=labels,
                            schedule_name=scheduler_name, total_steps=total_steps,
                            warmup_steps=warmup_steps, plateau=plateau,
-                           lr_lambda=lr_lambda)
+                           lr_lambda=lr_lambda,
+                           grad_clip=float(grad_clip) if grad_clip else None)
 
 
 def resolve_epochs(cfg: dict, n_params: int, tokens_per_epoch: float) -> int:
@@ -203,10 +358,12 @@ def resolve_epochs(cfg: dict, n_params: int, tokens_per_epoch: float) -> int:
 
 
 __all__ = [
+    "Adafactor",
     "FAST_GROUP_MARKERS",
     "OptimizerBundle",
     "PlateauScheduler",
     "build_optimizer",
+    "clip_by_global_norm",
     "cosine_lr_lambda",
     "param_group_labels",
     "resolve_epochs",

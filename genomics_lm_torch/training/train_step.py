@@ -17,10 +17,17 @@ Per microbatch, ``finite`` and every metric stay on the device
 optimizer steps only then. The metrics are 0-dim device tensors with the
 JAX step's keys.
 
-The auxiliary objectives (multi-offset, termination, replay), the MoE
-router loss, shape guidance from a lookup table, remat and frozen labels
-are not ported: ``composite_loss`` and ``make_train_step`` raise
-``NotImplementedError`` for them.
+``composite_loss`` is the JAX one: CE + the weighted multi-offset CEs +
+termination weight x bucket CE, and on the microbatches the loop flags,
+replay weight x the termination CE of a replay batch's forward. JAX reuses
+the microbatch's key for the replay forward; here the replay forward draws
+its dropout from the same generator after the main one. With a shape
+lookup table and an attached encoder, each microbatch's codon one-hots go
+through the encoder into the model's shape guidance. Frozen parameters
+(``requires_grad=False``, set by ``build_optimizer``) get no gradient,
+remat is the model's (``cfg.use_checkpoint``), and ``grad_clip`` is the
+optimizer's. The MoE router loss is not ported: ``composite_loss`` and
+``make_train_step`` raise ``NotImplementedError`` for an MoE model.
 """
 
 from __future__ import annotations
@@ -31,51 +38,127 @@ from typing import Callable
 import torch
 
 from genomics_lm_torch.models import codon_gpt
+from genomics_lm_torch.models.biophysics import encode
 from genomics_lm_torch.models.config import CodonGPTConfig
+from genomics_lm_torch.ops import losses as L
 from genomics_lm_torch.ops.losses import PAD_ID
 from genomics_lm_torch.training.optim import OptimizerBundle
 
 
 @dataclass(frozen=True)
 class LossConfig:
-    """Which auxiliary losses the step adds (the JAX fields that enable them).
-
-    None of them is ported, so the step raises when one is enabled; their
-    weights, stop ids, buckets and class weights join this class when they
-    are. The next-token loss takes its label smoothing from the model
-    config, as in JAX.
-    """
+    """Static auxiliary-loss configuration of the step (the JAX class)."""
 
     multi_offset_weights: tuple[tuple[int, float], ...] = ()
+    label_smoothing: float = 0.0
     termination_enabled: bool = False
+    termination_weight: float = 1.0
+    termination_stop_ids: tuple[int, ...] = ()
+    termination_bucket_edges: tuple[int, ...] = (0, 3, 10, 30)
     replay_enabled: bool = False
+    replay_weight: float = 1.0
+    termination_class_weights: tuple[float, ...] | None = None
+    replay_class_weights: tuple[float, ...] | None = None
+
+    @classmethod
+    def from_run_config(cls, cfg: dict, stop_ids: tuple[int, ...]) -> "LossConfig":
+        offsets = cfg.get("multi_offset_weights") or {}
+        term_cw = cfg.get("termination_class_weights")
+        replay_cw = cfg.get("replay_class_weights")
+        return cls(
+            multi_offset_weights=tuple(sorted((int(k), float(v)) for k, v in offsets.items())),
+            label_smoothing=float(cfg.get("label_smoothing", 0.0)),
+            termination_enabled=bool(cfg.get("termination_loss_enabled", False)),
+            termination_weight=float(cfg.get("termination_loss_weight", 1.0)),
+            termination_stop_ids=tuple(cfg.get("termination_stop_ids", stop_ids)),
+            termination_bucket_edges=tuple(cfg.get("termination_bucket_edges", (0, 3, 10, 30))),
+            replay_enabled=bool(cfg.get("replay_loss_enabled", False)),
+            replay_weight=float(cfg.get("replay_loss_weight", 1.0)),
+            termination_class_weights=tuple(term_cw) if term_cw else None,
+            replay_class_weights=tuple(replay_cw) if replay_cw else None,
+        )
 
 
-def _check_ported(model_cfg: CodonGPTConfig, loss_cfg: LossConfig) -> None:
-    if loss_cfg.multi_offset_weights:
-        raise NotImplementedError("the multi-offset loss is not ported")
-    if loss_cfg.termination_enabled:
-        raise NotImplementedError("the termination loss is not ported")
-    if loss_cfg.replay_enabled:
-        raise NotImplementedError("the replay loss is not ported")
+def _check_ported(model_cfg: CodonGPTConfig) -> None:
     if model_cfg.moe_experts:
         raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
 
 
+def _class_weights(weights, device) -> torch.Tensor | None:
+    return torch.tensor(weights, dtype=torch.float32, device=device) if weights else None
+
+
+def _shape_embeddings_for(model, xb: torch.Tensor, shape_lookup: torch.Tensor | None):
+    """Token batch → codon-aligned DNA-shape features through the attached
+    encoder: the 3 nucleotide one-hots of every token, then ``encode``."""
+    encoder = model._modules.get("shape_encoder")
+    if shape_lookup is None or encoder is None:
+        return None
+    B, T = xb.shape
+    return encode(encoder, shape_lookup[xb].reshape(B, 3 * T, 4))
+
+
+def replay_loss(model, model_cfg: CodonGPTConfig, loss_cfg: LossConfig,
+                replay: tuple[torch.Tensor, torch.Tensor], *, train: bool,
+                generator: torch.Generator | None) -> torch.Tensor:
+    """The termination CE of a replay batch's forward (no shape guidance)."""
+    replay_x, replay_labels = replay
+    _, _, aux = codon_gpt.forward(model, model_cfg, replay_x, None, train=train,
+                                  generator=generator, return_aux=True)
+    return L.termination_aux_loss(
+        aux["termination_logits"], replay_labels,
+        class_weights=_class_weights(loss_cfg.replay_class_weights, replay_x.device))
+
+
 def composite_loss(model, model_cfg: CodonGPTConfig, loss_cfg: LossConfig,
                    xb: torch.Tensor, yb: torch.Tensor, *, train: bool,
-                   generator: torch.Generator | None):
-    """Total loss and its parts for one microbatch: the next-token CE."""
-    _check_ported(model_cfg, loss_cfg)
-    _, next_loss = codon_gpt.forward(model, model_cfg, xb, yb, train=train,
-                                     generator=generator)
-    return next_loss, {"next_loss": next_loss}
+                   generator: torch.Generator | None,
+                   replay: tuple[torch.Tensor, torch.Tensor] | None = None,
+                   shape_embeddings: torch.Tensor | None = None,
+                   shape_lookup: torch.Tensor | None = None):
+    """Total loss and its parts for one microbatch (the JAX ``composite_loss``)."""
+    _check_ported(model_cfg)
+    if shape_embeddings is None:
+        shape_embeddings = _shape_embeddings_for(model, xb, shape_lookup)
+    logits, next_loss, aux = codon_gpt.forward(
+        model, model_cfg, xb, yb, train=train, generator=generator, return_aux=True,
+        shape_embeddings=shape_embeddings)
+    total = next_loss
+    parts: dict = {"next_loss": next_loss}
+
+    if loss_cfg.multi_offset_weights:
+        lw = (None if model_cfg.uniform_loss_weights
+              else torch.tensor(model_cfg.loss_weights, dtype=torch.float32,
+                                device=xb.device))
+        offset_total, offset_losses = L.multi_offset_lm_loss(
+            aux.get("offset_logits", logits), yb, dict(loss_cfg.multi_offset_weights),
+            label_smoothing=loss_cfg.label_smoothing, loss_weights=lw)
+        total = total + offset_total
+        parts["offset_losses"] = offset_losses
+
+    if loss_cfg.termination_enabled:
+        term_labels = L.termination_distance_bucket_labels(
+            yb, stop_ids=loss_cfg.termination_stop_ids,
+            bucket_edges=loss_cfg.termination_bucket_edges)
+        term_loss = L.termination_aux_loss(
+            aux["termination_logits"], term_labels,
+            class_weights=_class_weights(loss_cfg.termination_class_weights, xb.device))
+        total = total + loss_cfg.termination_weight * term_loss
+        parts["term_loss"] = term_loss
+
+    if loss_cfg.replay_enabled and replay is not None:
+        rl = replay_loss(model, model_cfg, loss_cfg, replay, train=train,
+                         generator=generator)
+        total = total + loss_cfg.replay_weight * rl
+        parts["replay_loss"] = rl
+
+    return total, parts
 
 
-def _zeros_metrics(device) -> dict[str, torch.Tensor]:
+def _zeros_metrics(loss_cfg: LossConfig, device) -> dict[str, torch.Tensor]:
     f32 = lambda: torch.zeros((), dtype=torch.float32, device=device)  # noqa: E731
     i32 = lambda: torch.zeros((), dtype=torch.int32, device=device)  # noqa: E731
-    return {
+    m = {
         "total_loss_sum": f32(),
         "next_loss_sum": f32(),
         "finite_microbatches": i32(),
@@ -84,23 +167,36 @@ def _zeros_metrics(device) -> dict[str, torch.Tensor]:
         "discarded_before_nonfinite": i32(),
         "saw_nonfinite": torch.zeros((), dtype=torch.bool, device=device),
     }
+    for offset, _ in loss_cfg.multi_offset_weights:
+        m[f"offset_{offset}_sum"] = f32()
+    if loss_cfg.termination_enabled:
+        m["term_loss_sum"] = f32()
+    if loss_cfg.replay_enabled:
+        m["replay_loss_sum"] = f32()
+        m["replay_count"] = i32()
+    return m
 
 
-def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig) -> Callable:
+def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
+                    use_replay: bool = False,
+                    shape_lookup: torch.Tensor | None = None) -> Callable:
     """Build the group step::
 
         metrics = step(model, optimizer, batch, generator, lr_scale)
 
     ``batch`` holds ``x``/``y`` of shape (G, B, T) on the model's device
-    (G = accumulation group size); ``optimizer`` is the ``OptimizerBundle``
-    of ``build_optimizer``; ``generator`` (on the model's device, or None
-    for no dropout) draws every dropout mask and attention seed. When the
-    group commits, the parameters are updated and each ``.grad`` holds the
-    averaged group gradient; when it aborts, ``.grad`` is None.
+    (G = accumulation group size) and, with ``use_replay``, ``replay_x``/
+    ``replay_labels`` (one replay batch, on the device) and ``replay_mask``
+    (G host booleans: the microbatches that add the replay loss);
+    ``optimizer`` is the ``OptimizerBundle`` of ``build_optimizer``;
+    ``generator`` (on the model's device, or None for no dropout) draws
+    every dropout mask and attention seed. ``shape_lookup`` (the (V, 3, 4)
+    table of ``biophysics.shape_lookup_table`` on the device) feeds the
+    model's shape encoder. When the group commits, the parameters are
+    updated and each trainable ``.grad`` holds the averaged group gradient
+    (clipped, under ``grad_clip``); when it aborts, ``.grad`` is None.
     """
-    _check_ported(model_cfg, loss_cfg)
-    if model_cfg.use_checkpoint:
-        raise NotImplementedError("remat (use_checkpoint) is not ported")
+    _check_ported(model_cfg)
 
     def step(model: torch.nn.Module, optimizer: OptimizerBundle, batch: dict,
              generator: torch.Generator | None, lr_scale: float = 1.0) -> dict:
@@ -111,12 +207,19 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig) -> Callable
         device = x.device
         sizes = [p.numel() for p in params]
         grads_acc = torch.zeros(sum(sizes), dtype=torch.float32, device=device)
-        metrics = _zeros_metrics(device)
+        metrics = _zeros_metrics(loss_cfg, device)
         zero = torch.zeros((), dtype=torch.float32, device=device)
         for g in range(x.shape[0]):
             xb, yb = x[g], y[g]
             loss, parts = composite_loss(model, model_cfg, loss_cfg, xb, yb, train=True,
-                                         generator=generator)
+                                         generator=generator, shape_lookup=shape_lookup)
+            with_replay = use_replay and bool(batch["replay_mask"][g])
+            if with_replay:
+                # only on flagged microbatches, as the JAX step's cond
+                rl = replay_loss(model, model_cfg, loss_cfg,
+                                 (batch["replay_x"], batch["replay_labels"]), train=True,
+                                 generator=generator)
+                loss = loss + loss_cfg.replay_weight * rl
             grads = torch.autograd.grad(loss, params, allow_unused=True,
                                         materialize_grads=True)
             finite = torch.isfinite(loss)
@@ -131,6 +234,18 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig) -> Callable
             metrics["nonpad_tokens"] += torch.where(finite, (yb != PAD_ID).sum().int(), 0)
             metrics["discarded_before_nonfinite"] += (finite & ~metrics["saw_nonfinite"]).int()
             metrics["saw_nonfinite"] |= ~finite
+            for offset, _ in loss_cfg.multi_offset_weights:
+                # the loss skips zero-weight / out-of-range offsets
+                part = parts["offset_losses"].get(offset)
+                if part is not None:
+                    metrics[f"offset_{offset}_sum"] += torch.where(finite, part.detach(), zero)
+            if loss_cfg.termination_enabled:
+                metrics["term_loss_sum"] += torch.where(finite, parts["term_loss"].detach(),
+                                                        zero)
+            if with_replay and loss_cfg.replay_enabled:
+                has_rl = finite & torch.isfinite(rl)
+                metrics["replay_loss_sum"] += torch.where(has_rl, rl.detach(), zero)
+                metrics["replay_count"] += has_rl.int()
 
         grads_finite = torch.isfinite(grads_acc).all()
         group_ok = (~metrics["saw_nonfinite"]) & grads_finite & (
@@ -153,24 +268,32 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig) -> Callable
     return step
 
 
-def make_eval_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig) -> Callable:
+def make_eval_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
+                   shape_lookup: torch.Tensor | None = None) -> Callable:
     """Validation step over one (B, T) batch: loss parts and counts."""
-    _check_ported(model_cfg, loss_cfg)
+    _check_ported(model_cfg)
 
     @torch.no_grad()
     def step(model: torch.nn.Module, xb: torch.Tensor, yb: torch.Tensor) -> dict:
         total, parts = composite_loss(model, model_cfg, loss_cfg, xb, yb, train=False,
-                                      generator=None)
+                                      generator=None, shape_lookup=shape_lookup)
         nonpad = (yb != PAD_ID).sum()
-        return {
+        out = {
             "total_loss": total,
             "next_loss": parts["next_loss"],
             "nonpad_tokens": nonpad.int(),
             # token-weighted CE sum for exact corpus perplexity
             "next_loss_token_sum": parts["next_loss"] * nonpad.float(),
         }
+        for offset, _ in loss_cfg.multi_offset_weights:
+            out[f"offset_{offset}"] = parts["offset_losses"].get(
+                offset, torch.zeros((), dtype=torch.float32, device=xb.device))
+        if loss_cfg.termination_enabled:
+            out["term_loss"] = parts["term_loss"]
+        return out
 
     return step
 
 
-__all__ = ["LossConfig", "composite_loss", "make_eval_step", "make_train_step"]
+__all__ = ["LossConfig", "composite_loss", "make_eval_step", "make_train_step",
+           "replay_loss"]

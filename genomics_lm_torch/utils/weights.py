@@ -35,125 +35,224 @@ JAX leaf                              state_dict key                     transfo
 ``shape_proj/{w,b}``       (3, D)     ``shape_proj.{weight,bias}``       T
 ``offset_projs/{o}/fc/{w,b}``         ``offset_projs.{o}.0.{weight,bias}``  T
 ``offset_projs/{o}/proj/{w,b}``       ``offset_projs.{o}.2.{weight,bias}``  T
+``blocks/*/*/lora_a``  [L] (in, r)    ``blocks.{i}.*.*.lora.lora_a``     unstack
+``blocks/*/*/lora_b``  [L] (r, out)   ``blocks.{i}.*.*.lora.lora_b``     unstack
+``blocks/*/*/lora_scale`` [L]         ``blocks.{i}.*.*.lora.lora_scale`` unstack
+``shape_encoder/conv1/{w,b}``         ``shape_encoder.conv1.{weight,bias}``  none
+``shape_encoder/conv2/{w,b}``         ``shape_encoder.conv2.{weight,bias}``  none
 ====================================  =================================  =========
 
 JAX stores a linear weight as (in, out), torch as (out, in), so every
 linear weight transposes ("T"); per-layer leaves are stacked on a leading
 L axis in JAX. One key departs from the reference layout: a model built
 with ``fused_qkv`` holds ``blocks.{i}.attn.qkv.{weight,bias}``, the query,
-key and value linears concatenated along the output at load time.
+key and value linears concatenated along the output at load time; their
+adapters, when the tree has them, are ``blocks.{i}.attn.qkv_lora.{query,
+key,value}.lora_*``. The LoRA leaves keep the JAX orientation (``*`` is
+``attn/{query,key,value,proj}`` or ``mlp/{fc,proj,w_gate,w_up,w_down}``,
+the port's ``attn.*`` or ``mlp.{0,2,w_*}``), and a tree without
+``lora_scale`` (an older JAX checkpoint) loads with scale 1. The adapters
+and the shape encoder (``models/biophysics.py``) exist in a model when
+its tree has their leaves (``params_from_jax``) or when the trainer
+attaches them.
+
+``jax_leaves`` is the map itself: for each JAX leaf, the port parameters
+(and the rows of each) that hold it. ``params_to_jax`` and
+``state_dict_from_jax`` read and write through it, and the Adafactor
+optimizer (``training/optim.py``) computes its statistics on the leaves it
+gives, as optax does.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+from torch import nn
 
-from genomics_lm_torch.models.codon_gpt import CodonGPT
+from genomics_lm_torch.models.biophysics import ShapeEncoder
+from genomics_lm_torch.models.codon_gpt import (
+    ATTN_LINEARS,
+    MLP_LINEARS,
+    CodonGPT,
+    attach_lora,
+    block_linears,
+)
 from genomics_lm_torch.models.config import CodonGPTConfig
+
+LORA_LEAVES = ("lora_a", "lora_b", "lora_scale")
+
+
+@dataclass
+class JaxLeaf:
+    """One leaf of the JAX tree: its path ("blocks/attn/query/w") and, for
+    each layer (or once, unstacked), the port parameter, the rows of it
+    that hold the leaf (None: all) and whether the leaf is its transpose."""
+
+    path: str
+    parts: list[tuple[nn.Parameter, slice | None, bool]]
+    stacked: bool
+
+    def gather(self, get=lambda p: p.detach()) -> torch.Tensor:
+        """The leaf in the JAX layout from ``get(param)`` of each part (the
+        parameter itself by default, or e.g. its gradient)."""
+        views = []
+        for p, rows, t in self.parts:
+            v = get(p)
+            v = v if rows is None else v[rows]
+            views.append(v.t() if t else v)
+        return torch.stack(views) if self.stacked else views[0]
+
+    def write(self, get, value: torch.Tensor, add: bool = False) -> None:
+        """Store (or with ``add``, add) ``value``, in the JAX layout, into
+        ``get(param)`` of each part."""
+        for i, (p, rows, t) in enumerate(self.parts):
+            v = value[i] if self.stacked else value
+            dst = get(p)
+            dst = dst if rows is None else dst[rows]
+            v = v.t() if t else v
+            if add:
+                dst.add_(v)
+            else:
+                dst.copy_(v)
+
+
+def jax_leaves(model: CodonGPT, cfg: CodonGPTConfig) -> list[JaxLeaf]:
+    """Every leaf of the JAX tree that ``model`` holds, in the module
+    docstring's map."""
+    leaves: list[JaxLeaf] = []
+
+    def one(path, param, t=False):
+        leaves.append(JaxLeaf(path, [(param, None, t)], False))
+
+    def linear(path, lin):
+        one(f"{path}/w", lin.weight, True)
+        if lin.bias is not None:
+            one(f"{path}/b", lin.bias)
+
+    def adapters(path, per_layer):
+        for name in LORA_LEAVES:
+            leaves.append(JaxLeaf(f"{path}/{name}",
+                                  [(getattr(a, name), None, False) for a in per_layer], True))
+
+    one("tok_emb", model.tok_emb.weight)
+    if not cfg.use_rope:
+        one("pos_emb", model.pos_emb.weight)
+    blocks = list(model.blocks)
+    for ln in ("ln1", "ln2"):
+        for jname, tname in (("scale", "weight"), ("bias", "bias")):
+            leaves.append(JaxLeaf(f"blocks/{ln}/{jname}",
+                                  [(getattr(getattr(b, ln), tname), None, False)
+                                   for b in blocks], True))
+    per_block = [block_linears(b, cfg) for b in blocks]
+    names = [("attn", n) for n in ATTN_LINEARS] + [("mlp", n) for n in MLP_LINEARS]
+    for group, name in names:
+        path = f"blocks/{group}/{name}"
+        if (group, name) in per_block[0]:
+            lins = [lb[(group, name)] for lb in per_block]
+            leaves.append(JaxLeaf(f"{path}/w", [(lin.weight, None, True) for lin in lins], True))
+            if lins[0].bias is not None:
+                leaves.append(JaxLeaf(f"{path}/b", [(lin.bias, None, False) for lin in lins],
+                                      True))
+            if "lora" in lins[0]._modules:
+                adapters(path, [lin.lora for lin in lins])
+        elif cfg.fused_qkv and group == "attn":  # rows of the fused linear
+            c_q, c_kv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+            lo = {"query": 0, "key": c_q, "value": c_q + c_kv}[name]
+            rows = slice(lo, lo + (c_q if name == "query" else c_kv))
+            leaves.append(JaxLeaf(f"{path}/w", [(b.attn.qkv.weight, rows, True)
+                                                for b in blocks], True))
+            leaves.append(JaxLeaf(f"{path}/b", [(b.attn.qkv.bias, rows, False)
+                                                for b in blocks], True))
+            if "qkv_lora" in blocks[0].attn._modules:
+                adapters(path, [b.attn.qkv_lora[name] for b in blocks])
+    one("ln_f/scale", model.ln_f.weight)
+    one("ln_f/bias", model.ln_f.bias)
+    if not cfg.tie_embeddings:
+        linear("head", model.head)
+    if cfg.termination_aux:
+        linear("termination_head", model.termination_head)
+    if cfg.use_shape_guidance:
+        linear("shape_proj", model.shape_proj)
+    for o in cfg.multi_offset_targets:
+        linear(f"offset_projs/{o}/fc", model.offset_projs[str(o)][0])
+        linear(f"offset_projs/{o}/proj", model.offset_projs[str(o)][2])
+    encoder = model._modules.get("shape_encoder")
+    if encoder is not None:
+        for conv in ("conv1", "conv2"):
+            one(f"shape_encoder/{conv}/w", getattr(encoder, conv).weight)
+            one(f"shape_encoder/{conv}/b", getattr(encoder, conv).bias)
+    return leaves
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, object]:
+    out = {}
+    for key, child in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(child, dict):
+            out.update(_flatten(child, path + "/"))
+        else:
+            out[path] = child
+    return out
+
+
+def _refuse_unported(tree: dict, cfg: CodonGPTConfig) -> None:
+    if cfg.moe_experts or "router" in tree.get("blocks", {}):
+        raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
+    quantized = sorted(p.rsplit("/", 1)[0] for p in _flatten(tree) if p.endswith("/w_q"))
+    if quantized:
+        raise NotImplementedError(
+            f"weight-only int8 linears ({', '.join(quantized)}) are not ported")
+
+
+def attach_from_tree(model: CodonGPT, tree: dict) -> CodonGPT:
+    """Give ``model`` the LoRA adapters and the shape encoder that ``tree``
+    holds leaves for (their values stay to be loaded)."""
+    blocks = tree.get("blocks", {})
+    targets, rank = [], None
+    for group, names in (("attn", ATTN_LINEARS), ("mlp", MLP_LINEARS)):
+        for name in names:
+            node = blocks.get(group, {}).get(name, {})
+            if isinstance(node, dict) and "lora_a" in node:
+                targets.append((group, name))
+                rank = int(np.shape(node["lora_a"])[-1])
+    if targets:
+        attach_lora(model, targets, rank)
+    if "shape_encoder" in tree:
+        d_shape = int(np.shape(tree["shape_encoder"]["conv2"]["w"])[0])
+        model.shape_encoder = ShapeEncoder(d_shape).to(model.tok_emb.weight.device)
+    return model
 
 
 def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.float32)))
 
 
-class _TreeReader:
-    """Reads leaves of a nested-dict tree by path and remembers which it read."""
-
-    def __init__(self, tree: dict):
-        self.tree = tree
-        self.used: set[tuple[str, ...]] = set()
-
-    def node(self, *path: str):
-        node = self.tree
-        for key in path:
-            node = node[key]
-        return node
-
-    def leaf(self, *path: str):
-        self.used.add(path)
-        return self.node(*path)
-
-    def unused(self) -> list[str]:
-        """The paths ("a/b/c") of the tree's leaves that were never read."""
-        def walk(node, prefix):
-            for key, child in node.items():
-                if isinstance(child, dict):
-                    yield from walk(child, prefix + (key,))
-                elif prefix + (key,) not in self.used:
-                    yield "/".join(prefix + (key,))
-        return sorted(walk(self.tree, ()))
-
-
-def _check_dense(tree: dict, where: str) -> None:
-    if "w_q" in tree:
-        raise NotImplementedError(f"weight-only int8 linears ({where}) are not ported")
-    if "lora_a" in tree:
-        raise NotImplementedError(f"LoRA linears ({where}) are not ported")
-
-
-def _linear(tree: _TreeReader, path: tuple[str, ...], i: int | None = None
-            ) -> dict[str, torch.Tensor]:
-    node = tree.node(*path)
-    _check_dense(node, "/".join(path))
-    pick = (lambda a: a[i]) if i is not None else (lambda a: a)
-    out = {"weight": _f32(pick(tree.leaf(*path, "w"))).t().contiguous()}
-    if "b" in node:
-        out["bias"] = _f32(pick(tree.leaf(*path, "b")))
-    return out
-
-
-def _put(sd: dict, prefix: str, tensors: dict[str, torch.Tensor]) -> None:
-    for name, t in tensors.items():
-        sd[f"{prefix}.{name}"] = t
-
-
 def state_dict_from_jax(tree: dict, cfg: CodonGPTConfig) -> dict[str, torch.Tensor]:
-    """The ``CodonGPT(cfg).state_dict()`` that carries the JAX tree's weights.
+    """The ``state_dict`` of a ``CodonGPT(cfg)`` carrying the JAX tree's
+    weights (with the tree's adapters and shape encoder attached).
 
-    Raises ``ValueError`` naming every leaf of the tree that ``cfg`` leaves
-    unread (a head or a projection the config does not have, a stray leaf):
-    nothing is dropped without a word.
+    A leaf that ``cfg`` needs and the tree lacks raises ``KeyError``; a
+    leaf of the tree that ``cfg`` leaves unread (a head or a projection the
+    config does not have, a stray leaf) raises ``ValueError`` naming every
+    one: nothing is dropped without a word.
     """
-    if cfg.moe_experts or "router" in tree.get("blocks", {}):
-        raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
-    t = _TreeReader(tree)
-    sd: dict[str, torch.Tensor] = {"tok_emb.weight": _f32(t.leaf("tok_emb"))}
-    if not cfg.use_rope:
-        sd["pos_emb.weight"] = _f32(t.leaf("pos_emb"))
-    for i in range(cfg.n_layer):
-        p = f"blocks.{i}"
-        for ln in ("ln1", "ln2"):
-            sd[f"{p}.{ln}.weight"] = _f32(t.leaf("blocks", ln, "scale")[i])
-            sd[f"{p}.{ln}.bias"] = _f32(t.leaf("blocks", ln, "bias")[i])
-        parts = [_linear(t, ("blocks", "attn", n), i) for n in ("query", "key", "value")]
-        if cfg.fused_qkv:
-            _put(sd, f"{p}.attn.qkv", {
-                "weight": torch.cat([x["weight"] for x in parts], dim=0),
-                "bias": torch.cat([x["bias"] for x in parts], dim=0),
-            })
+    _refuse_unported(tree, cfg)
+    with torch.device("meta"):
+        skeleton = attach_from_tree(CodonGPT(cfg), tree)
+    flat = _flatten(tree)
+    names = {id(p): n for n, p in skeleton.named_parameters()}
+    sd = {n: torch.empty(p.shape, dtype=torch.float32) for n, p in skeleton.named_parameters()}
+    used = set()
+    for leaf in jax_leaves(skeleton, cfg):
+        if leaf.path not in flat and leaf.path.endswith("/lora_scale"):
+            value = torch.ones(len(leaf.parts))  # an older tree: scale folded into lora_a
         else:
-            for name, x in zip(("query", "key", "value"), parts):
-                _put(sd, f"{p}.attn.{name}", x)
-        _put(sd, f"{p}.attn.proj", _linear(t, ("blocks", "attn", "proj"), i))
-        if cfg.use_swiglu:
-            for name in ("w_gate", "w_up", "w_down"):
-                _put(sd, f"{p}.mlp.{name}", _linear(t, ("blocks", "mlp", name), i))
-        else:
-            _put(sd, f"{p}.mlp.0", _linear(t, ("blocks", "mlp", "fc"), i))
-            _put(sd, f"{p}.mlp.2", _linear(t, ("blocks", "mlp", "proj"), i))
-    sd["ln_f.weight"] = _f32(t.leaf("ln_f", "scale"))
-    sd["ln_f.bias"] = _f32(t.leaf("ln_f", "bias"))
-    if not cfg.tie_embeddings:
-        _put(sd, "head", _linear(t, ("head",)))
-    if cfg.termination_aux:
-        _put(sd, "termination_head", _linear(t, ("termination_head",)))
-    if cfg.use_shape_guidance:
-        _put(sd, "shape_proj", _linear(t, ("shape_proj",)))
-    for o in cfg.multi_offset_targets:
-        _put(sd, f"offset_projs.{o}.0", _linear(t, ("offset_projs", str(o), "fc")))
-        _put(sd, f"offset_projs.{o}.2", _linear(t, ("offset_projs", str(o), "proj")))
-    unused = t.unused()
+            value = _f32(flat[leaf.path])
+            used.add(leaf.path)
+        leaf.write(lambda p: sd[names[id(p)]], value)
+    unused = sorted(set(flat) - used)
     if unused:
         raise ValueError(f"the tree has leaves this config has no place for: {unused}")
     return sd
@@ -161,18 +260,15 @@ def state_dict_from_jax(tree: dict, cfg: CodonGPTConfig) -> dict[str, torch.Tens
 
 def params_from_jax(tree: dict, cfg: CodonGPTConfig,
                     device: str | torch.device) -> CodonGPT:
-    """A ``CodonGPT`` on ``device`` holding the JAX tree's weights (float32).
+    """A ``CodonGPT`` on ``device`` holding the JAX tree's weights (float32),
+    its adapters and shape encoder included.
 
     Every key must match: a leaf missing from the tree, or one the port
     has no place for, raises.
     """
-    model = CodonGPT(cfg)
+    model = attach_from_tree(CodonGPT(cfg), tree)
     model.load_state_dict(state_dict_from_jax(tree, cfg), strict=True)
     return model.to(device).eval()
-
-
-def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
 def params_to_jax(model: CodonGPT, cfg: CodonGPTConfig) -> dict:
@@ -183,61 +279,21 @@ def params_to_jax(model: CodonGPT, cfg: CodonGPTConfig) -> dict:
     (in, out), and a fused QKV linear splits back into query, key and
     value.
     """
-    sd = {k: v.detach() for k, v in model.state_dict().items()}
-
-    def lin(prefix: str) -> dict[str, np.ndarray]:
-        out = {"w": _np(sd[f"{prefix}.weight"]).T.copy()}
-        if f"{prefix}.bias" in sd:
-            out["b"] = _np(sd[f"{prefix}.bias"])
-        return out
-
-    def stacked(fn) -> dict:
-        per_layer = [fn(i) for i in range(cfg.n_layer)]
-
-        def merge(nodes):
-            if isinstance(nodes[0], dict):
-                return {k: merge([n[k] for n in nodes]) for k in nodes[0]}
-            return np.stack(nodes)
-
-        return merge(per_layer)
-
-    def block(i: int) -> dict:
-        p = f"blocks.{i}"
-        out = {ln: {"scale": _np(sd[f"{p}.{ln}.weight"]), "bias": _np(sd[f"{p}.{ln}.bias"])}
-               for ln in ("ln1", "ln2")}
-        if cfg.fused_qkv:
-            w = _np(sd[f"{p}.attn.qkv.weight"])
-            b = _np(sd[f"{p}.attn.qkv.bias"])
-            c_q, c_kv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
-            cuts = np.cumsum([c_q, c_kv])
-            attn = {name: {"w": ww.T.copy(), "b": bb.copy()} for name, ww, bb in
-                    zip(("query", "key", "value"), np.split(w, cuts), np.split(b, cuts))}
-        else:
-            attn = {name: lin(f"{p}.attn.{name}") for name in ("query", "key", "value")}
-        attn["proj"] = lin(f"{p}.attn.proj")
-        out["attn"] = attn
-        if cfg.use_swiglu:
-            out["mlp"] = {name: lin(f"{p}.mlp.{name}") for name in ("w_gate", "w_up", "w_down")}
-        else:
-            out["mlp"] = {"fc": lin(f"{p}.mlp.0"), "proj": lin(f"{p}.mlp.2")}
-        return out
-
-    tree: dict = {"tok_emb": _np(sd["tok_emb.weight"]),
-                  "ln_f": {"scale": _np(sd["ln_f.weight"]), "bias": _np(sd["ln_f.bias"])}}
-    if not cfg.use_rope:
-        tree["pos_emb"] = _np(sd["pos_emb.weight"])
-    tree["blocks"] = stacked(block)
-    if not cfg.tie_embeddings:
-        tree["head"] = lin("head")
-    if cfg.termination_aux:
-        tree["termination_head"] = lin("termination_head")
-    if cfg.use_shape_guidance:
-        tree["shape_proj"] = lin("shape_proj")
-    if cfg.multi_offset_targets:
-        tree["offset_projs"] = {
-            str(o): {"fc": lin(f"offset_projs.{o}.0"), "proj": lin(f"offset_projs.{o}.2")}
-            for o in cfg.multi_offset_targets}
+    tree: dict = {}
+    for leaf in jax_leaves(model, cfg):
+        node = tree
+        *parents, name = leaf.path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[name] = leaf.gather().to("cpu", torch.float32).numpy().copy()
     return tree
 
 
-__all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax"]
+__all__ = [
+    "JaxLeaf",
+    "attach_from_tree",
+    "jax_leaves",
+    "params_from_jax",
+    "params_to_jax",
+    "state_dict_from_jax",
+]

@@ -458,3 +458,106 @@ def test_cuda_bf16_checkpoint_reloads_bit_exactly(cuda, tmp_path):
         assert torch.equal(got["t"][0].view(torch.int16), b16[:3].cpu().view(torch.int16))
         assert np.array_equal(got["model"]["b"], f32.cpu().numpy())
         assert np.array_equal(got["model"]["n"], np.arange(5))
+
+
+def _finetune_model(device, seed=0, **over):
+    """A 2-layer model with LoRA r4 on the attention linears (``lora_b`` off
+    zero) in the JAX layout, and its config; float32."""
+    from genomics_lm_torch.models.codon_gpt import CodonGPT
+    from genomics_lm_torch.models.config import CodonGPTConfig
+    from genomics_lm_torch.training.lora import add_lora_adapters
+    from genomics_lm_torch.utils.weights import params_to_jax
+
+    kw = dict(vocab_size=68, block_size=128, n_layer=2, n_head=4, n_embd=256, dropout=0.0,
+              label_smoothing=0.05, sep_id=3, attention_impl="flash", fused_qkv=True,
+              termination_aux=True)
+    kw.update(over)
+    cfg = CodonGPTConfig(**kw)
+    torch.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    tree = add_lora_adapters(params_to_jax(CodonGPT(cfg), cfg), rng, rank=4)
+    for name in ("query", "key", "value", "proj"):
+        b = tree["blocks"]["attn"][name]["lora_b"]
+        tree["blocks"]["attn"][name]["lora_b"] = (0.02 * rng.standard_normal(b.shape)
+                                                  ).astype(np.float32)
+    return cfg, tree
+
+
+def _group(rng, G=2, B=2, T=128):
+    x = rng.integers(4, 68, (G, B, T))
+    x[..., ::29] = 3
+    y = np.roll(x, -1, axis=-1)
+    y[..., -1] = 2
+    return {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+
+
+def _step_on(device, cfg, tree, run_cfg, batch, generator=None):
+    from genomics_lm_torch.training.optim import build_optimizer
+    from genomics_lm_torch.training.train_step import LossConfig, make_train_step
+    from genomics_lm_torch.utils.weights import params_from_jax, params_to_jax
+
+    model = params_from_jax(tree, cfg, device).train()
+    bundle = build_optimizer(run_cfg, model, total_steps=10)
+    m = make_train_step(cfg, LossConfig())(
+        model, bundle, {k: v.to(device) for k, v in batch.items()}, generator, 1.0)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return float(m["total_loss_sum"]), grads, params_to_jax(model, cfg)
+
+
+@pytest.mark.cuda
+def test_cuda_remat_with_dropout_equals_the_plain_step(cuda):
+    """bf16 flash kernels with dropout 0.1: a group step with remat and one
+    without, from one generator seed, give the same loss and gradients (the
+    recomputed blocks draw the same seeds and masks and run the same
+    kernels on the same inputs), and remat launches the forward twice."""
+    cfg, tree = _finetune_model(cuda, dropout=0.1, compute_dtype="bfloat16")
+    batch = _group(np.random.default_rng(1))
+    out = {}
+    for remat in (False, True):
+        before = fa.flash_fwd.launches
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        out[remat] = (*_step_on(cuda, cfg.replace(use_checkpoint=remat), tree,
+                                {"lr": 1e-3, "warmup_steps": 0, "lora_rank": 4}, batch, gen),
+                      fa.flash_fwd.launches - before)
+    (l0, g0, _, n0), (l1, g1, _, n1) = out[False], out[True]
+    assert n0 == 2 * 2 and n1 == 2 * n0  # G x layers; remat recomputes each forward
+    assert abs(l0 - l1) <= 1e-6 * abs(l0)
+    gmax = max(float(g.abs().max()) for g in g0.values())
+    for n in g0:
+        assert float((g0[n] - g1[n]).abs().max()) <= 1e-5 * gmax, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_cuda_fused_qkv_lora_step_tracks_the_cpu(cuda, optimizer):
+    """The fused-QKV LoRA step at head width 64 (float32, TF32 off: the flash
+    kernels' SIMT path on the card, their plain versions on the CPU), AdamW
+    or Adafactor under lora_only with an active grad_clip: loss and
+    gradients within 1e-5 relative (the order of float32 sums); parameters
+    within two steps of lr 3e-5 (a gradient at rounding level may take
+    opposite signs on the two sides, and either optimizer's first step is
+    then +-lr); frozen ones equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, tree = _finetune_model(cuda)
+    assert cfg.head_dim == 64
+    batch = _group(np.random.default_rng(2))
+    run_cfg = {"lr": 3e-5, "warmup_steps": 0, "lora_rank": 4, "grad_clip": 0.01,
+               "optimizer": optimizer}
+    lc, gc, pc = _step_on("cpu", cfg, tree, run_cfg, batch)
+    lg, gg, pg = _step_on(cuda, cfg, tree, run_cfg, batch)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert set(gg) == set(gc) and all("lora_" in n or "termination_head" in n for n in gc)
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    for n in gc:
+        assert float((gg[n] - gc[n]).abs().max()) <= 1e-5 * max(float(gc[n].abs().max()),
+                                                               1e-3 * gmax), n
+
+    def walk(a, b, path=""):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], f"{path}/{k}")
+            else:
+                assert float(np.abs(a[k] - b[k]).max()) <= 2 * 3e-5 * (1 + 1e-3), f"{path}/{k}"
+
+    walk(pg, pc)

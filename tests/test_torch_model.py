@@ -126,13 +126,9 @@ def test_unported_variants_raise():
     with pytest.raises(NotImplementedError):
         CodonGPT(CodonGPTConfig(vocab_size=68, block_size=8, n_embd=64, moe_experts=4))
     params, jcfg, _, tcfg = make_pair()
-    tree = jax.tree.map(np.asarray, params)
-    lora = dict(tree)
-    lora["blocks"] = dict(tree["blocks"], attn=dict(
-        tree["blocks"]["attn"],
-        query=dict(tree["blocks"]["attn"]["query"], lora_a=np.zeros((2, 64, 4)))))
+    moe = jax_gpt.init(jax.random.PRNGKey(0), jcfg.replace(moe_experts=2))
     with pytest.raises(NotImplementedError):
-        state_dict_from_jax(lora, tcfg)
+        state_dict_from_jax(jax.tree.map(np.asarray, moe), tcfg)
     from genomics_lm_tpu.ops.quant import quantize_params
 
     with pytest.raises(NotImplementedError):

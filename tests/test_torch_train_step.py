@@ -253,17 +253,13 @@ def test_eval_step_matches_jax():
 
 
 def test_unported_options_raise():
+    """MoE is the one option the step still refuses."""
     _, _, model, tcfg = make_pair()
     x = torch.zeros((2, 8), dtype=torch.long)
-    for loss_cfg in (LossConfig(multi_offset_weights=((1, 0.5),)),
-                     LossConfig(termination_enabled=True), LossConfig(replay_enabled=True)):
-        with pytest.raises(NotImplementedError):
-            make_train_step(tcfg, loss_cfg)
-        with pytest.raises(NotImplementedError):
-            composite_loss(model, tcfg, loss_cfg, x, x, train=False, generator=None)
+    moe = tcfg.replace(moe_experts=4)
     with pytest.raises(NotImplementedError):
-        make_train_step(tcfg.replace(use_checkpoint=True), LossConfig())
-    for extra in ({"optimizer": "adafactor"}, {"freeze_backbone": True}, {"lora_rank": 8},
-                  {"grad_clip": 1.0}):
-        with pytest.raises(NotImplementedError):
-            optim.build_optimizer(dict(RUN_CFG, **extra), model, 10)
+        make_train_step(moe, LossConfig())
+    with pytest.raises(NotImplementedError):
+        make_eval_step(moe, LossConfig())
+    with pytest.raises(NotImplementedError):
+        composite_loss(model, moe, LossConfig(), x, x, train=False, generator=None)

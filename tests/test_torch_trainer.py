@@ -22,7 +22,9 @@ On the CPU, float32:
   gives exactly the straight run's curve and weights with dropout 0.1: the
   trainer's generator state is in the checkpoint.
 - The lifecycle probes of ``tests/test_trainer_e2e.py``, the OOM safeguard,
-  the train CLI, and every unported flag raising ``NotImplementedError``.
+  the train CLI, every flag the port used to refuse taking effect in a
+  one-epoch run, and the unported ones (meshes, MoE) raising
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from genomics_lm_torch.training import loop
 from genomics_lm_torch.training.lifecycle import RunLifecycleError
 from genomics_lm_torch.training.loop import NonfiniteGroupLimitError, run_training
 from genomics_lm_torch.training.train_codon_lm import main as train_cli
-from genomics_lm_torch.utils.weights import params_from_jax
+from genomics_lm_torch.utils.weights import params_from_jax, params_to_jax
 
 CURVE_RTOL = 1e-5
 LOGIT_RTOL = 1e-4
@@ -168,14 +170,21 @@ class _StopAfter:
             raise loop.WallTimeLimitException()
 
 
-@pytest.mark.parametrize("stop", ["after_epoch_1", "mid_epoch", "mid_epoch_async"])
+@pytest.mark.parametrize("stop", ["after_epoch_1", "mid_epoch", "mid_epoch_async",
+                                  "mid_epoch_lora_adafactor"])
 def test_resume_reproduces_the_straight_run(tmp_path, monkeypatch, stop):
     """``mid_epoch_async`` resumes from a ``last.npz`` that the background
-    writer saved after every step while training went on."""
+    writer saved after every step while training went on;
+    ``mid_epoch_lora_adafactor`` with LoRA, Adafactor (its state keyed by
+    JAX leaf), an active clip, remat and the auxiliary objectives."""
     make_fixture(tmp_path)
     kw = dict(dropout=0.1, save_epochs=True, scheduler_total_steps=8)
     if stop == "mid_epoch_async":
         kw.update(async_checkpointing=True, checkpoint_every_steps=1)
+    if stop == "mid_epoch_lora_adafactor":
+        kw.update(lora_rank=4, optimizer="adafactor", grad_clip=0.5, use_checkpoint=True,
+                  termination_aux=True, termination_loss_enabled=True,
+                  multi_offset_targets=[2])
     runs = str(tmp_path / "runs")
     straight = run_training(base_cfg(tmp_path, run_id="straight", **kw), run_root=runs,
                             device="cpu")
@@ -248,7 +257,7 @@ def test_oom_saves_and_downscales_the_config(tmp_path, monkeypatch):
     config = tmp_path / "cfg.yaml"
     config.write_text(yaml.safe_dump(small_cfg(tmp_path)))
 
-    def exploding(model_cfg, loss_cfg):
+    def exploding(model_cfg, loss_cfg, **step_options):
         def step(*a, **k):
             raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2 GiB")
         return step
@@ -283,14 +292,7 @@ def test_train_cli_runs_a_yaml_config_with_a_data_map(tmp_path):
         train_cli(argv + ["--tensor_parallel", "2"])
 
 
-UNPORTED = {
-    "mesh_devices": 8, "tensor_parallel": 2, "pipeline_stages": 2, "lora_rank": 8,
-    "lora_only": True, "replay_loss_enabled": True, "replay_data": "replay.npz",
-    "multi_offset_targets": [2], "termination_loss_enabled": True,
-    "use_shape_guidance": True, "moe_experts": 4, "use_checkpoint": True,
-    "primary_training_contract": "contract.json", "grad_clip": 1.0,
-    "optimizer": "adafactor", "freeze_backbone": True, "unfreeze_encoder": True,
-}
+UNPORTED = {"mesh_devices": 8, "tensor_parallel": 2, "pipeline_stages": 2, "moe_experts": 4}
 
 
 @pytest.mark.parametrize("flag", list(UNPORTED))
@@ -300,6 +302,153 @@ def test_unported_flags_raise(tmp_path, flag):
         run_training(small_cfg(tmp_path, **{flag: UNPORTED[flag]}),
                      run_root=str(tmp_path / "runs"), device="cpu")
     assert not (tmp_path / "runs").exists()  # refused before touching the run root
+
+
+def write_replay(path):
+    rng = np.random.default_rng(3)
+    lines = [json.dumps({"ids": [int(t) for t in rng.integers(4, 68, 40)],
+                         "labels": [{"pos": 20 + i, "class": i % 5}]}) for i in range(12)]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def init_checkpoint(tmp_path, **over) -> str:
+    """A port init of ``small_cfg`` (plus ``over``) as a transfer source."""
+    mcfg = CodonGPTConfig.from_run_config(dict(small_cfg(tmp_path, **over), vocab_size=68))
+    torch.manual_seed(11)
+    path = tmp_path / "init.npz"
+    tckpt.save_checkpoint({"model": params_to_jax(codon_gpt.CodonGPT(mcfg), mcfg)}, path)
+    return str(path)
+
+
+def one_epoch(tmp_path, run_id, transfer=None, **over):
+    meta = run_training(small_cfg(tmp_path, run_id=run_id, epochs=1, **over),
+                        transfer_from=transfer, run_root=str(tmp_path / "runs"), device="cpu")
+    assert meta["status"] == "completed", meta.get("error")
+    ckpts = tmp_path / "runs" / run_id / "checkpoints"
+    return meta, tckpt.load_checkpoint(ckpts / "last.npz")
+
+
+def leaves(payload) -> dict:
+    return {"/".join(str(k.key) for k in p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(payload["model"])[0]}
+
+
+def curves_header(tmp_path, run_id) -> list[str]:
+    return (tmp_path / "runs" / run_id / "scores" / "curves.csv").read_text().splitlines()[0]\
+        .split(",")
+
+
+def moved(a: dict, b: dict) -> set[str]:
+    return {p for p in a if not np.array_equal(a[p], b[p])}
+
+
+PORTED_FLAGS = ["lora_rank", "lora_only", "replay_loss_enabled", "replay_data",
+                "multi_offset_targets", "termination_loss_enabled", "use_shape_guidance",
+                "use_checkpoint", "primary_training_contract", "grad_clip", "optimizer",
+                "freeze_backbone", "unfreeze_encoder"]
+
+
+@pytest.mark.parametrize("flag", PORTED_FLAGS)
+def test_ported_flags_take_effect(tmp_path, capsys, flag):
+    """Each option the port used to refuse, in a one-epoch CPU run; its
+    numerics against JAX are in test_torch_finetune.py and
+    test_torch_objectives.py."""
+    make_fixture(tmp_path)
+    if flag in ("lora_rank", "lora_only"):
+        init = init_checkpoint(tmp_path)
+        only = flag == "lora_rank"  # lora_only defaults to on with lora_rank
+        _, last = one_epoch(tmp_path, "r", init, lora_rank=4,
+                            **({} if only else {"lora_only": False}))
+        base = leaves(tckpt.load_checkpoint(init))
+        tuned = leaves(last)
+        assert "[lora] rank=4 targets=attn" in capsys.readouterr().out
+        state = set(last["optimizer"]["state"])
+        if only:
+            assert not moved(base, tuned)  # every base leaf frozen
+            assert state and all("lora_a" in n or "lora_b" in n for n in state)
+        else:
+            assert moved(base, tuned) == set(base)
+            assert {n for n in state if "lora_" not in n}
+    elif flag in ("replay_loss_enabled", "replay_data"):
+        path = write_replay(tmp_path / "replay.jsonl")
+        meta, _ = one_epoch(tmp_path, "r", termination_aux=True, replay_loss_enabled=True,
+                            replay_data=path, replay_every_microbatches=1)
+        assert "train_replay_term_loss" in curves_header(tmp_path, "r")
+        assert np.isfinite(meta["last_train_replay_term_loss"])
+        if flag == "replay_data":  # the file is what is read
+            with pytest.raises(FileNotFoundError):
+                one_epoch(tmp_path, "missing", termination_aux=True, replay_loss_enabled=True,
+                          replay_data=str(tmp_path / "absent.jsonl"))
+    elif flag == "multi_offset_targets":
+        meta, last = one_epoch(tmp_path, "r", multi_offset_targets=[2, 3])
+        header = curves_header(tmp_path, "r")
+        assert {"train_offset_2", "val_offset_3"} <= set(header)
+        assert "offset_projs" in last["model"]
+        assert meta["last_val_loss"] > meta["last_val_next_loss"]
+    elif flag == "termination_loss_enabled":
+        meta, _ = one_epoch(tmp_path, "r", termination_aux=True,
+                            termination_loss_enabled=True)
+        assert {"train_term_loss", "val_term_loss"} <= set(curves_header(tmp_path, "r"))
+        assert np.isfinite(meta["last_val_term_loss"]) and meta["last_val_term_loss"] > 0
+    elif flag in ("use_shape_guidance", "unfreeze_encoder"):
+        init = init_checkpoint(tmp_path, use_shape_guidance=True)
+        _, frozen = one_epoch(tmp_path, "frozen", init, use_shape_guidance=True)
+        assert "[biophysics] shape guidance on; encoder frozen" in capsys.readouterr().out
+        enc = {p for p in leaves(frozen) if p.startswith("shape_encoder")}
+        assert len(enc) == 4 and np.abs(frozen["model"]["shape_proj"]["w"]).max() > 0
+        # a fitted encoder from shape_encoder_checkpoint is the one trained with
+        fitted = jax.tree.map(lambda a: (a * 0.5 + 0.01).astype(np.float32),
+                              frozen["model"]["shape_encoder"])
+        tckpt.save_checkpoint({"encoder": fitted}, tmp_path / "encoder.npz")
+        _, loaded = one_epoch(tmp_path, "fitted", init, use_shape_guidance=True,
+                              shape_encoder_checkpoint=str(tmp_path / "encoder.npz"))
+        for p, v in leaves({"model": {"shape_encoder": fitted}}).items():
+            assert np.array_equal(leaves(loaded)[p], v), p
+        if flag == "unfreeze_encoder":
+            _, thawed = one_epoch(tmp_path, "thawed", init, use_shape_guidance=True,
+                                  unfreeze_encoder=True)
+            assert moved(leaves(frozen), leaves(thawed)) >= enc
+            assert {n for n in thawed["optimizer"]["state"] if n.startswith("shape_encoder")}
+            assert not {n for n in frozen["optimizer"]["state"]
+                        if n.startswith("shape_encoder")}
+    elif flag == "use_checkpoint":
+        plain_meta, plain = one_epoch(tmp_path, "plain", dropout=0.1)
+        remat_meta, remat = one_epoch(tmp_path, "remat", dropout=0.1, use_checkpoint=True)
+        assert remat_meta["last_val_loss"] == plain_meta["last_val_loss"]
+        assert not moved(leaves(plain), leaves(remat))
+    elif flag == "primary_training_contract":
+        from genomics_lm_tpu.training.contracts import validate_primary_training_config
+        from genomics_lm_torch.training.contracts import ContractViolation
+
+        cfg = small_cfg(tmp_path, primary_training_contract={"role": "primary",
+                                                             "protocol": "genome"})
+        with pytest.raises(ContractViolation) as got:
+            run_training(cfg, run_root=str(tmp_path / "runs"), device="cpu")
+        with pytest.raises(ValueError) as want:
+            validate_primary_training_config(cfg)
+        assert got.value.violations == want.value.violations
+        assert not (tmp_path / "runs").exists()
+        assert loop._apply_oom_downscale(None, {"batch_size": 4}, contract_bound=True) is None
+    elif flag == "grad_clip":
+        _, plain = one_epoch(tmp_path, "plain")
+        _, loose = one_epoch(tmp_path, "loose", grad_clip=1e9)
+        _, tight = one_epoch(tmp_path, "tight", grad_clip=1e-3)
+        assert not moved(leaves(plain), leaves(loose))  # inactive: the same run
+        assert moved(leaves(plain), leaves(tight))
+    elif flag == "optimizer":
+        _, last = one_epoch(tmp_path, "r", optimizer="adafactor")
+        assert last["optimizer"]["format"] == loop.ADAFACTOR_FORMAT
+        assert "blocks/attn/query/w" in last["optimizer"]["state"]
+        assert last["optimizer"]["count"] == last["step"] == 4
+    elif flag == "freeze_backbone":
+        init = init_checkpoint(tmp_path, termination_aux=True)
+        _, last = one_epoch(tmp_path, "r", init, termination_aux=True,
+                            termination_loss_enabled=True, freeze_backbone=True)
+        changed = moved(leaves(tckpt.load_checkpoint(init)), leaves(last))
+        assert changed == {"termination_head/w", "termination_head/b"}
+        assert set(last["optimizer"]["state"]) == {"termination_head.weight",
+                                                   "termination_head.bias"}
 
 
 def test_entry_point_raises_without_cuda_unless_the_cpu_is_named(tmp_path):
@@ -327,6 +476,8 @@ COPIED_HELPERS = {
     "runtime": ("runtime", ["WallTimer", "PeriodicCheckpointPolicy", "GracefulPreemption",
                             "atomic_write", "RunLogger"]),
     "optim": ("optim", ["resolve_epochs"]),
+    "train_step": ("train_step", ["LossConfig"]),
+    "expansion": ("expansion", ["_copy_overlap", "_walk", "expand_checkpoint"]),
 }
 
 
