@@ -145,6 +145,37 @@ exits non-zero:
    and one without from one generator seed: equal loss, gradients within
    ``REMAT_GRAD_RTOL``, peak memory of each, flash forward launches 2 x 10
    x 32 against 10 x 32, ms per group over 3 more groups each.
+20. int8 serve — weight-only int8 serving: phase 4's model with its block
+   linears quantized by ``quantize_params`` (their bytes, dense against
+   int8, checked and logged) drains the same 128 requests with a bf16 and
+   an int8 cache, each beside the dense model's drain just before it;
+   every budget in-vocabulary and the decode kernel launched n_layer times
+   per step; one speculative drain (K 4) launches the chunk kernel n_layer
+   times per round; a 2-layer float32 int8 model gives the same greedy
+   tokens on the card and on the CPU; ``benchmark_serving --int8_weights``
+   prints its closed-loop report and an open-loop (``--arrival_rate``) one.
+21. generate — the run phase 15 wrote, loaded by ``load_codon_model``: every
+   generator of ``generation/constrained.py`` from one seed (raw, also over
+   a context longer than the block; constrained, with the termination bias
+   when the run has the head; ReD; batch ReD under a budget; critic-guided
+   with a numpy critic; synonymous to a 40-residue protein); each ``info``
+   holds JAX's keys, the synonymous CDS translates exactly, codons stay
+   within the hard cap and batch ReD within its budget. The decode
+   kernel's launches equal n_layer x cached steps and the flash forward's
+   n_layer x uncached forwards. Then ``sample``, ``query_model`` (next,
+   generate, score) and ``serve_model --int8_weights`` (``/generate`` over
+   localhost) on the run; and the decode kernel at ``CachedDecoder``'s
+   shape (batch 1, a whole-block cache) against its plain version, timed
+   beside its bound and SDPA.
+22. score — ``context_ablation`` (windows 1, 2, 4 and full, which includes
+   ``evaluate_perplexity``) on the run's validation split and
+   ``score_mutations`` on a CDS longer than the block: every value finite,
+   the flash forward launched n_layer times per microbatch and per scored
+   window; the full-window and window-1 NLL on the card within
+   ``SCORE_NLL_RTOL`` of the CPU's, both float32 from the same weights.
+   Then the flash forward at inference (no dropout) against its plain
+   version and timed: batch 64 x 512 at windows 1, 2, 4 and full, and
+   batch 1 at 512 and an off-grid 77.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -154,8 +185,10 @@ Without CUDA it prints no result and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import http.client
+import io
 import json
 import re
 import subprocess
@@ -167,7 +200,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from genomics_lm_torch.generation.decode import _decode_mask, generate_masked_tokens
+from genomics_lm_torch.evals import mutations as mut
+from genomics_lm_torch.evals import perplexity as ppl
+from genomics_lm_torch.evals.playground import load_codon_model
+from genomics_lm_torch.generation import constrained as gc
+from genomics_lm_torch.generation import decode as decode_mod
+from genomics_lm_torch.generation.decode import (
+    CachedDecoder,
+    _decode_mask,
+    generate_masked_tokens,
+)
+from genomics_lm_torch.generation.genetic_code import translate_codons_to_aa
+from genomics_lm_torch.generation.query_model import main as query_cli
+from genomics_lm_torch.generation.sample import main as sample_cli
 from genomics_lm_torch.kernels.build import CSRC, build
 from genomics_lm_torch.models.codon_gpt import CodonGPT
 from genomics_lm_torch.models.codon_gpt import forward as model_forward
@@ -175,7 +220,9 @@ from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops import decode_attention as da
 from genomics_lm_torch.ops import flash_attention as fa
 from genomics_lm_torch.ops.masks import structure_mask
+from genomics_lm_torch.ops.quant import quantize_params
 from genomics_lm_torch.serving import benchmark_decode_kernel as bench_decode
+from genomics_lm_torch.serving import benchmark_serving as bench_serving
 from genomics_lm_torch.serving import benchmark_speculative as bench_spec
 from genomics_lm_torch.serving.engine import ServingEngine
 from genomics_lm_torch.serving.profile_drain import (
@@ -186,6 +233,8 @@ from genomics_lm_torch.serving.profile_drain import (
     build_requests,
     fit_draft_table,
 )
+from genomics_lm_torch.serving.serve_model import build_server as serve_build
+from genomics_lm_torch.serving.serve_model import parser as serve_parser
 from genomics_lm_torch.serving.server import InferenceServer
 from genomics_lm_torch.serving.speculative import (
     fit_bigram_table,
@@ -569,7 +618,7 @@ def phase_serve(card: str) -> dict:
     rng = np.random.default_rng(0)
     drain(model, cfg, build_requests(rng, 8), kv_quant=False)  # warm-up: cuBLAS, allocator
     reqs = build_requests(rng, REQUESTS)
-    counts = {}
+    counts, tokens_per_s = {}, {}
     for kv_quant in (False, True):
         torch.cuda.reset_peak_memory_stats()
         da.decode_attention.launches = 0  # the count of the main path's run only
@@ -581,6 +630,7 @@ def phase_serve(card: str) -> dict:
                                  f"({cfg.n_layer} x {steps})")
         delivered = sum(len(r.tokens) for r in results.values())
         counts[kv_quant] = launches
+        tokens_per_s[kv_quant] = delivered / seconds
         log("serve", model="10L8H d384 bf16 fused_qkv", kv_quant=kv_quant,
             requests=len(reqs), slots=ENGINE["slots"],
             steps_per_sync=ENGINE["steps_per_sync"],
@@ -590,7 +640,7 @@ def phase_serve(card: str) -> dict:
             ms_per_decode_step=seconds * 1e3 / steps,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
     return {"model": model, "cfg": cfg, "launches": counts[False],
-            "launches_int8": counts[True]}
+            "launches_int8": counts[True], "tokens_per_s": tokens_per_s}
 
 
 # --- phase 5: the card against the CPU ------------------------------------------
@@ -1426,57 +1476,61 @@ def trainer_config(workdir: Path) -> Path:
     return path
 
 
-def phase_trainer(card: str) -> dict:
-    with tempfile.TemporaryDirectory(prefix="smoke_trainer_") as tmp:
-        tmp = Path(tmp)
-        config = trainer_config(tmp)
-        runs = tmp / "runs"
-        run_dir = runs / "smoke-trainer"
-        last = run_dir / "checkpoints" / "last.npz"
-        argv = ["--config", str(config), "--run_root", str(runs)]
-        for w in FLASH_WRAPPERS:
-            w.launches = 0  # the main path's run only: 2 epochs, then the resume
-        t0 = time.perf_counter()
-        rc = train_cli(argv)
-        first_s = time.perf_counter() - t0
-        refused = None
-        try:
-            train_cli(argv + ["--resume", str(last)])
-        except RunLifecycleError as exc:
-            refused = str(exc)
-        config.write_text(config.read_text().replace("epochs: 2", "epochs: 3"))
-        t0 = time.perf_counter()
-        rc_resume = train_cli(argv + ["--resume", str(last)])
-        resume_s = time.perf_counter() - t0
-        launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+def phase_trainer(card: str, workdir: Path | None = None) -> dict:
+    """The train CLI on a packed corpus in ``workdir`` (a temporary directory
+    by default); the run stays there for the phases that read it."""
+    if workdir is None:
+        with tempfile.TemporaryDirectory(prefix="smoke_trainer_") as tmp:
+            return phase_trainer(card, Path(tmp))
+    tmp = Path(workdir)
+    config = trainer_config(tmp)
+    runs = tmp / "runs"
+    run_dir = runs / "smoke-trainer"
+    last = run_dir / "checkpoints" / "last.npz"
+    argv = ["--config", str(config), "--run_root", str(runs)]
+    for w in FLASH_WRAPPERS:
+        w.launches = 0  # the main path's run only: 2 epochs, then the resume
+    t0 = time.perf_counter()
+    rc = train_cli(argv)
+    first_s = time.perf_counter() - t0
+    refused = None
+    try:
+        train_cli(argv + ["--resume", str(last)])
+    except RunLifecycleError as exc:
+        refused = str(exc)
+    config.write_text(config.read_text().replace("epochs: 2", "epochs: 3"))
+    t0 = time.perf_counter()
+    rc_resume = train_cli(argv + ["--resume", str(last)])
+    resume_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
 
-        artifacts = ["checkpoints/last.npz", "checkpoints/best.npz",
-                     "checkpoints/best_epoch_001.npz", "checkpoints/meta.json",
-                     "checkpoints/config.yaml", "scores/curves.csv",
-                     "scores/metrics.json", "itos.txt", "vocabulary.json",
-                     "run_complete.json", "run_complete_epoch_002.json"]
-        missing = [a for a in artifacts if not (run_dir / a).exists()]
-        rows = (run_dir / "scores" / "curves.csv").read_text().strip().splitlines()[1:]
-        payload = load_checkpoint(last)
-        meta = json.loads((run_dir / "checkpoints" / "meta.json").read_text())
-        epochs = [load_checkpoint(run_dir / "checkpoints" / f"best_epoch_{e:03d}.npz")
-                  for e in (1, 2, 3)
-                  if (run_dir / "checkpoints" / f"best_epoch_{e:03d}.npz").exists()]
-        train_losses = [float(r.split(",")[1]) for r in rows]
-        val_losses = [float(r.split(",")[2]) for r in rows]
-        groups = int(payload["step"])
+    artifacts = ["checkpoints/last.npz", "checkpoints/best.npz",
+                 "checkpoints/best_epoch_001.npz", "checkpoints/meta.json",
+                 "checkpoints/config.yaml", "scores/curves.csv",
+                 "scores/metrics.json", "itos.txt", "vocabulary.json",
+                 "run_complete.json", "run_complete_epoch_002.json"]
+    missing = [a for a in artifacts if not (run_dir / a).exists()]
+    rows = (run_dir / "scores" / "curves.csv").read_text().strip().splitlines()[1:]
+    payload = load_checkpoint(last)
+    meta = json.loads((run_dir / "checkpoints" / "meta.json").read_text())
+    epochs = [load_checkpoint(run_dir / "checkpoints" / f"best_epoch_{e:03d}.npz")
+              for e in (1, 2, 3)
+              if (run_dir / "checkpoints" / f"best_epoch_{e:03d}.npz").exists()]
+    train_losses = [float(r.split(",")[1]) for r in rows]
+    val_losses = [float(r.split(",")[2]) for r in rows]
+    groups = int(payload["step"])
 
-        # the validation loss again, from last.npz through the loader
-        mcfg = CodonGPTConfig.from_run_config(payload["cfg"])
-        model = params_from_jax(payload["model"], mcfg, "cuda")
-        step = make_eval_step(mcfg, LossConfig())
-        val = PackedDataset(str(tmp / "val.npz"), use_mmap=True)
-        plan = EpochPlan(val, batch_size=train_main.B, seed=1337, epoch=0, shuffle=False)
-        losses = [float(step(model, torch.from_numpy(x).cuda().long(),
-                             torch.from_numpy(y).cuda().long())["total_loss"])
-                  for x, y in plan.microbatches()]
-        reloaded_val = sum(losses) / len(losses)
-        val_mb = len(losses)
+    # the validation loss again, from last.npz through the loader
+    mcfg = CodonGPTConfig.from_run_config(payload["cfg"])
+    model = params_from_jax(payload["model"], mcfg, "cuda")
+    step = make_eval_step(mcfg, LossConfig())
+    val = PackedDataset(str(tmp / "val.npz"), use_mmap=True)
+    plan = EpochPlan(val, batch_size=train_main.B, seed=1337, epoch=0, shuffle=False)
+    losses = [float(step(model, torch.from_numpy(x).cuda().long(),
+                         torch.from_numpy(y).cuda().long())["total_loss"])
+              for x, y in plan.microbatches()]
+    reloaded_val = sum(losses) / len(losses)
+    val_mb = len(losses)
     G, L = train_main.G, mcfg.n_layer
     want_bwd = G * L * groups
     want_fwd = want_bwd + L * val_mb * len(rows)
@@ -1504,7 +1558,8 @@ def phase_trainer(card: str) -> dict:
     if val_err > TRAINER_RELOAD_RTOL:
         raise AssertionError(f"last.npz gives validation loss {reloaded_val}, the run "
                              f"recorded {payload['val_loss']}")
-    return {"launches": launches, "groups": groups}
+    return {"launches": launches, "groups": groups, "run_dir": run_dir,
+            "val_npz": tmp / "val.npz"}
 
 
 # --- phase 16: speculative decoding on a trained model ---------------------------
@@ -1846,6 +1901,450 @@ def phase_remat_contract(card: str) -> dict:
     return {"remat": on["launches"], "plain": off["launches"]}
 
 
+# --- phase 20: weight-only int8 serving ------------------------------------------
+
+INT8_BLOCK_LINEAR_BYTES = 17_694_720  # 10 x (qkv + proj + fc + proj) weights at d384, int8
+
+# tolerance of the full-window NLL on the card against the CPU, both float32
+# with TF32 off: the same weights, the same batches and the same float32
+# products summed in another order (the flash kernel's SIMT float32 path
+# against its plain version, cuBLAS against the CPU's GEMM), ~1e-6 relative
+# on the mean; a masking, windowing or segment fault in the kernel, or a
+# wrong microbatch, moves the mean NLL of a trained model by far more
+SCORE_NLL_RTOL = 1e-4
+SCORE_CPU_WINDOWS = 8  # validation windows of 512 run on both devices
+
+
+def block_linear_bytes(model) -> int:
+    """Bytes of the block linears' weights (dense float32 or int8 ``w_q``)."""
+    return sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if n.startswith("blocks.") and n.endswith(("weight", "w_q"))
+               and ".ln" not in n)
+
+
+def model_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def int8_greedy_parity() -> dict:
+    """A 2-layer float32 model with int8 block linears serves the same greedy
+    tokens on the card (decode kernel) as on the CPU (plain version), with a
+    bf16 and an int8 cache."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CodonGPTConfig(**dict(MAIN, n_layer=2, block_size=256, compute_dtype="float32"))
+    torch.manual_seed(5)
+    cpu_model = quantize_params(CodonGPT(cfg).eval())
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(5)
+    reqs = [([1] + [int(t) for t in rng.integers(4, 68, n)], 24) for n in (9, 23, 40, 17)]
+    reqs[1][0][7] = 3  # a <SEP> inside one prompt
+    out = {}
+    for kv_quant in (False, True):
+        before = da.decode_attention.launches
+        on_card = serve_tokens(gpu_model, cfg, [(p, n, 0.0) for p, n in reqs], slots=4,
+                               max_seq_len=128, steps_per_sync=8, kv_quant=kv_quant)[0]
+        launched = da.decode_attention.launches - before
+        eng = ServingEngine(cpu_model, cfg, slots=4, max_seq_len=128, steps_per_sync=8,
+                            kv_quant=kv_quant, device="cpu")
+        rids = [eng.submit(p, n) for p, n in reqs]
+        res = eng.run()
+        on_cpu = [res[r].tokens for r in rids]
+        out[kv_quant] = dict(identical_tokens=on_card == on_cpu, kernel_launches=launched)
+        if on_card != on_cpu or launched == 0:
+            raise AssertionError(f"int8-weight greedy tokens differ between the card and the "
+                                 f"CPU (kv_quant={kv_quant})")
+    return out
+
+
+def phase_int8_serve(served: dict, card: str) -> dict:
+    """The serving main path with weight-only int8 block linears: the dense
+    model of phase 4, quantized by ``quantize_params``, drains the same 128
+    requests with a bf16 and an int8 cache; then a speculative drain, the
+    card-vs-CPU greedy check, and ``benchmark_serving --int8_weights`` (a
+    closed-loop and an open-loop run)."""
+    dense, cfg = served["model"], served["cfg"]
+    model = quantize_params(copy.deepcopy(dense))
+    bytes_row = dict(dense_model_bytes=model_bytes(dense), int8_model_bytes=model_bytes(model),
+                     dense_block_linear_bytes=block_linear_bytes(dense),
+                     int8_block_linear_bytes=block_linear_bytes(model))
+    if bytes_row["int8_block_linear_bytes"] != INT8_BLOCK_LINEAR_BYTES or (
+            4 * INT8_BLOCK_LINEAR_BYTES != bytes_row["dense_block_linear_bytes"]):
+        raise AssertionError(f"block-linear bytes {bytes_row}")
+    rng = np.random.default_rng(0)
+    warm = build_requests(rng, 8)
+    reqs = build_requests(rng, REQUESTS)  # the requests of phase_serve
+    drain(model, cfg, warm, False)
+    counts = {}
+    for kv_quant in (False, True):
+        # dense, int8, int8, dense on the same requests: the host drifts
+        # within a call, so the pair means are compared
+        runs = {"dense": [], "int8": []}  # (seconds, delivered tokens) of each drain
+        for name in ("dense", "int8", "int8", "dense"):
+            torch.cuda.reset_peak_memory_stats()
+            da.decode_attention.launches = 0  # this drain's count only
+            results, seconds, eng = drain(model if name == "int8" else dense, cfg, reqs,
+                                          kv_quant)
+            launches = da.decode_attention.launches
+            steps = eng.stats()["decode_steps"]
+            runs[name].append((seconds, sum(len(r.tokens) for r in results.values())))
+            if launches == 0 or launches != cfg.n_layer * steps:
+                raise AssertionError(f"{name}: kernel launches {launches} != n_layer x "
+                                     f"decode steps ({cfg.n_layer} x {steps})")
+            if name == "int8":
+                counts[kv_quant] = launches
+        tps = {k: [d / t for t, d in v] for k, v in runs.items()}
+        mean = {k: sum(v) / len(v) for k, v in tps.items()}
+        log("int8_serve", model="10L8H d384 bf16 fused_qkv, int8 block linears",
+            kv_quant=kv_quant, requests=len(reqs), order="dense, int8, int8, dense",
+            int8_tokens_per_s=tps["int8"], dense_tokens_per_s=tps["dense"],
+            int8_over_dense=mean["int8"] / mean["dense"],
+            phase4_dense_delivered_tokens_per_s=served["tokens_per_s"][kv_quant],
+            decode_steps=steps, kernel_launches=counts[kv_quant],
+            ms_per_decode_step_int8=[t * 1e3 / steps for t, _ in runs["int8"]],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, **bytes_row, card=card)
+
+    spec = dict(speculative_k=SPECULATIVE_K, draft_table=fit_draft_table(model, cfg))
+    da.decode_attention_chunk.launches = 0
+    da.decode_attention.launches = 0
+    results, seconds, eng = drain(model, cfg, reqs, False, **spec)
+    rounds = eng.stats()["verify_rounds"]
+    chunk_launches = da.decode_attention_chunk.launches
+    delivered = sum(len(r.tokens) for r in results.values())
+    log("int8_spec_serve", speculative_k=SPECULATIVE_K, delivered_tokens=delivered,
+        seconds=seconds, delivered_tokens_per_s=delivered / seconds, verify_rounds=rounds,
+        accept_rate=eng.stats()["speculative_accept_rate"],
+        chunk_kernel_launches=chunk_launches,
+        decode_kernel_launches=da.decode_attention.launches, card=card)
+    if chunk_launches == 0 or chunk_launches != cfg.n_layer * rounds:
+        raise AssertionError(f"chunk launches {chunk_launches} != n_layer x rounds "
+                             f"({cfg.n_layer} x {rounds})")
+    del model, eng, results
+
+    parity = int8_greedy_parity()
+    log("int8_parity", model="2L8H d384 f32, int8 block linears", **{
+        f"kv_quant_{k}": v for k, v in parity.items()})
+
+    reports = {}
+    for name, argv in (("closed_loop", ["--int8_weights", "--repeats", "1"]),
+                       ("open_loop", ["--int8_weights", "--arrival_rate", "40",
+                                      "--requests", "128"])):
+        t0 = time.perf_counter()
+        reports[name] = bench_serving.run(bench_serving.parser().parse_args(argv))
+        print(json.dumps({k: v for k, v in reports[name].items() if k != "ttft_ms"}),
+              flush=True)
+        log("int8_benchmark_serving", protocol=name, seconds=time.perf_counter() - t0,
+            value=reports[name]["value"], unit=reports[name]["unit"], card=card)
+    if len(reports["open_loop"]["ttft_ms"]) != 128:
+        raise AssertionError("the open-loop run did not time every request")
+    return {"launches": counts[False], "launches_int8_cache": counts[True]}
+
+
+# --- phase 21: generation from a trained run -------------------------------------
+
+# the info keys of each generator, as genomics_lm_tpu/generation/constrained.py
+# writes them
+_CONSTRAINED_INFO = {"protocol", "guidance_components", "had_terminal_stop", "early_stop",
+                     "hit_hard_cap", "target_codons", "generated_codons",
+                     "termination_bias_enabled", "termination_bias_steps",
+                     "termination_bias_window", "last_termination_class", "cds_only",
+                     "require_terminal_stop", "generated_tokens"}
+INFO_SCHEMA = {
+    "raw": {"protocol", "cds_only", "require_terminal_stop", "guidance_components",
+            "had_terminal_stop", "early_stop", "hit_hard_cap", "generated_codons",
+            "generated_tokens", "max_new_tokens", "stop_reason"},
+    "constrained": _CONSTRAINED_INFO,
+    "red": _CONSTRAINED_INFO | {"attempts", "total_tokens_red"},
+    "critic_guided": {"protocol", "guidance_components", "had_terminal_stop", "early_stop",
+                      "hit_hard_cap", "target_codons", "generated_codons", "cds_only",
+                      "require_terminal_stop", "generated_tokens"},
+}
+INFO_SCHEMA["synonymous"] = INFO_SCHEMA["critic_guided"]
+GENERATE_PROTEIN = "MKTAYIAKQRQISFVKSHFSRQLEERLGLIEVQAPILSRV"  # 40 residues
+
+
+def critic_score(aa_seqs) -> np.ndarray:
+    """A numpy critic for the smoke: hydrophobic residues up, prolines down."""
+    return np.asarray([sum(a in "AILMFVW" for a in s) / max(1, len(s)) - 0.5 * s.count("P")
+                       for s in aa_seqs], np.float64)
+
+
+class _StepCounter:
+    """Counts the calls of a function of ``generation/decode.py`` that
+    ``CachedDecoder`` reaches by its module name (the cached step, the
+    uncached forward), so the kernels' counts can be checked against them."""
+
+    def __init__(self, name: str):
+        self.name, self.fn, self.calls = name, getattr(decode_mod, name), 0
+
+    def __enter__(self):
+        def counted(*a, **k):
+            self.calls += 1
+            return self.fn(*a, **k)
+
+        setattr(decode_mod, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(decode_mod, self.name, self.fn)
+
+
+def phase_generate(trained: dict, card: str, peak_bw, peak_ops) -> dict:
+    """Every generator of ``generation/constrained.py`` on the run phase 15
+    wrote (10L8H d384, bf16, flash), loaded by ``load_codon_model``, from one
+    seed; then the CLIs on that run. The decode kernel's launches must equal
+    n_layer x cached decode steps, the flash forward's n_layer x uncached
+    forwards (the clip-and-recompute path of a context over the block)."""
+    run_dir = trained["run_dir"]
+    model, cfg, itos, stoi = load_codon_model(run_dir, device="cuda")
+    dec = CachedDecoder(model, cfg.replace(dropout=0.0))
+    rng = np.random.default_rng(0)
+    ctx = [stoi["<BOS_CDS>"], stoi["ATG"]]
+    long_ctx = ctx + [int(t) for t in rng.integers(4, 68, cfg.block_size + 8)]
+    term = bool(cfg.termination_aux)
+    hard_cap = 60
+    da.decode_attention.launches = 0  # the generators' run only
+    fa.flash_fwd.launches = 0
+    t0 = time.perf_counter()
+    with _StepCounter("decode_step") as steps, _StepCounter("forward") as uncached:
+        out = {
+            "raw": gc.generate_model_raw(dec, ctx, stoi, itos, 48, rng=rng),
+            "raw_long_context": gc.generate_model_raw(dec, long_ctx, stoi, itos, 4, rng=rng),
+            "constrained": gc.generate_cds_constrained(
+                dec, ctx, stoi, itos, target_codons=40, hard_cap=hard_cap,
+                termination_bias_enabled=term, termination_stop_bias=2.0 if term else 0.0,
+                termination_bias_window=8, rng=rng),
+            "red": gc.generate_cds_red(dec, ctx, stoi, itos, target_codons=24,
+                                       hard_cap=hard_cap, max_attempts=3, rng=rng),
+            "critic_guided": gc.generate_cds_critic_guided(
+                dec, critic_score, ctx, stoi, itos, target_codons=32, hard_cap=hard_cap,
+                rng=rng),
+            "synonymous": gc.generate_cds_synonymous(dec, ctx, stoi, itos, GENERATE_PROTEIN,
+                                                     score_fn=critic_score, rng=rng),
+        }
+        solved, remaining, spent = gc.batch_red_sampler(
+            dec, [ctx, ctx + [stoi["GCT"]], ctx + [stoi["AAA"]], [stoi["<BOS_CDS>"]]],
+            stoi, itos, target_codons=16, hard_cap=32, global_token_budget=200, rng=rng)
+    seconds = time.perf_counter() - t0
+    decode_launches, flash_launches = da.decode_attention.launches, fa.flash_fwd.launches
+    L = cfg.n_layer
+    problems = []
+    for name, (ids, info) in out.items():
+        schema = INFO_SCHEMA[name.removesuffix("_long_context")]
+        if set(info) != schema:
+            problems.append(f"{name}: info keys {sorted(set(info) ^ schema)}")
+        start = len(long_ctx) if name == "raw_long_context" else len(ctx)
+        new = ids[start:]
+        if not all(0 <= t < len(itos) for t in new):
+            problems.append(f"{name}: a token outside the vocabulary")
+        if name not in ("raw", "raw_long_context", "synonymous"):
+            if not all(gc._is_codon(itos[t]) for t in new) or info["generated_codons"] > hard_cap:
+                problems.append(f"{name}: a non-codon or more than {hard_cap} codons")
+    syn_ids, _ = out["synonymous"]
+    codons = [itos[t] for t in syn_ids[len(ctx):] if gc._is_codon(itos[t])]
+    translated = translate_codons_to_aa(codons[:-1])
+    if translated != GENERATE_PROTEIN or codons[-1] not in gc.STOP_CODONS:
+        problems.append(f"synonymous CDS translates to {translated}")
+    if spent > 200 + 32 or set(solved) | set(remaining) != {0, 1, 2, 3}:
+        problems.append(f"batch ReD spent {spent} of 200 (+ one attempt of 32)")
+    row = dict(run=str(run_dir.name), model="10L8H d384 bf16 fused_qkv flash (phase 15's run)",
+               termination_head=term, seconds=seconds,
+               generated={k: info["generated_codons"] for k, (_, info) in out.items()},
+               stops={k: info["had_terminal_stop"] for k, (_, info) in out.items()},
+               red_attempts=out["red"][1]["attempts"], batch_red_solved=sorted(solved),
+               batch_red_tokens=spent, synonymous_protein=translated,
+               cached_decode_steps=steps.calls, uncached_forwards=uncached.calls,
+               decode_launches=decode_launches, flash_fwd_launches=flash_launches,
+               problems=problems, card=card)
+    log("generate", **row)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if decode_launches == 0 or decode_launches != L * steps.calls:
+        raise AssertionError(f"decode launches {decode_launches} != n_layer x cached steps "
+                             f"({L} x {steps.calls})")
+    if flash_launches == 0 or flash_launches != L * uncached.calls:
+        raise AssertionError(f"flash launches {flash_launches} != n_layer x uncached "
+                             f"forwards ({L} x {uncached.calls})")
+
+    # the CLIs on the same run
+    cli = {}
+    for name, fn, argv in (
+            ("sample", sample_cli, [str(run_dir), "--max_new_tokens", "24"]),
+            ("query_next", query_cli, [str(run_dir), "--mode", "next", "--dna", "ATGGCT"]),
+            ("query_generate", query_cli, [str(run_dir), "--mode", "generate", "--dna",
+                                           "ATGGCT", "--target_codons", "16"]),
+            ("query_score", query_cli, [str(run_dir), "--mode", "score", "--dna",
+                                        "ATGGCTAAACCCGGGTTTTAA"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv + ["--device", "cuda"])
+        text = buf.getvalue()
+        cli[name] = text
+        if rc != 0 or not text.strip():
+            raise AssertionError(f"{name} exited {rc} with {text[:200]!r}")
+    nxt = json.loads(cli["query_next"])["next"]
+    gen_reply = json.loads(cli["query_generate"])
+    score = json.loads(cli["query_score"])
+    if not (len(nxt) == 10 and abs(sum(r["prob"] for r in nxt)) <= 1.0 + 1e-6
+            and np.isfinite(score["total_logprob"]) and score["tokens"] == 7
+            and set(gen_reply["info"]) == INFO_SCHEMA["constrained"]):
+        raise AssertionError(f"query_model replies: {cli}")
+    server = serve_build(serve_parser().parse_args(
+        ["--run", str(run_dir), "--port", "0", "--int8_weights", "--slots", "8",
+         "--max_seq_len", "256", "--device", "cuda"]))
+    server.start()
+    try:
+        conn = http.client.HTTPConnection(*server.address, timeout=120)
+        conn.request("POST", "/generate", json.dumps({"dna": "ATGGCTAAA",
+                                                      "max_new_tokens": 16}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        reply = json.loads(resp.read())
+        conn.close()
+    finally:
+        server.stop()
+    if resp.status != 200 or len(reply["tokens"]) != 16:
+        raise AssertionError(f"serve_model --int8_weights answered {resp.status}: {reply}")
+    log("generate_cli", sample=cli["sample"].strip().splitlines()[-1],
+        query_next_top=nxt[0], query_generate_codons=gen_reply["info"]["generated_codons"],
+        query_score=score, serve_int8_reply_tokens=len(reply["tokens"]), card=card)
+
+    # the decode kernel at CachedDecoder's shape: one sequence over a
+    # whole-block cache (its prefill's), at a random length, at a serving
+    # request's length (``serve_mask``: prompt plus part of its budget), and
+    # with every position live; the last two timed
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    S, G = cfg.block_size, cfg.n_head // cfg.kv_heads
+    b1 = {}
+    for lengths in ("random", "serve", "full"):
+        name = f"b1_{lengths}"
+        q, k, v, mask, ks, vs, err, nan_err = check_decode_case(
+            gen, "generate_kernel", name, L, 1, S, cfg.kv_heads, G, cfg.head_dim,
+            torch.bfloat16, torch.bfloat16, lengths)
+        if lengths != "random":
+            b1[lengths] = time_decode_case(name, q, k, v, mask, ks, vs, cfg.kv_heads, G,
+                                           da.decode_attention, peak_bw, peak_ops, err,
+                                           nan_err, "generate_kernel_time")
+    return {"decode": decode_launches, "flash": flash_launches, "b1": b1["serve"],
+            "b1_full": b1["full"], "model": model, "cfg": cfg}
+
+
+# --- phase 22: perplexity, context ablation and mutation scores ------------------
+
+
+def check_flash_forward(gen, phase, name, B, T, window, peak_bw, peak_ops) -> dict:
+    """The flash forward at inference (bf16, no dropout, a <SEP> every 97th
+    token, heads of 48) against its plain version, then its time beside its
+    bound, the plain version's and SDPA's forward with the dense mask."""
+    H, D = MAIN["n_head"], MAIN["n_embd"] // MAIN["n_head"]
+    q, k, v, seg, seed, fcfg = flash_case(gen, B, H, H, T, T, D, torch.bfloat16, window, 0.0)
+    out, lse = fa.flash_fwd(q, k, v, seg, seed, fcfg)
+    want, want_lse = fa.flash_forward_reference(q, k, v, seg, seed, fcfg)
+    torch.cuda.synchronize()
+    errs, abs_errs = {}, {}
+    for key, got, ref in (("out", out, want), ("lse", lse, want_lse)):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash {name}: non-finite {key}")
+        abs_errs[key] = float((got.float() - ref.float()).abs().max())
+        errs[key] = abs_errs[key] / max(1.0, float(ref.float().abs().max()))
+    live = fa.flash_live_tiles(seg, T, T, True, window)
+    tol = FLASH_TOL[torch.bfloat16]
+    if max(errs.values()) > tol:
+        raise AssertionError(f"flash {name}: kernel disagrees with its plain version "
+                             f"({errs} > {tol})")
+    bounds, pairs = flash_bounds(q, k, seg, fcfg, peak_bw, peak_ops)
+    dense = structure_mask(T, T, causal=True, window=window, segment_ids=seg,
+                           device=q.device)
+    timed = dict(ms=median_ms(lambda: fa.flash_fwd(q, k, v, seg, seed, fcfg), runs=15),
+                 plain_ms=median_ms(lambda: fa.flash_forward_reference(q, k, v, seg, seed,
+                                                                       fcfg), runs=5),
+                 bound_ms=bounds["fwd"]["bound_ms"], bound_by=bounds["fwd"]["bound_by"],
+                 library_ms=median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v, attn_mask=dense), runs=15),
+                 max_abs_err=max(abs_errs.values()))
+    log(phase, case=name, shape=dict(B=B, Hq=H, T=T, D=D), window=window, rel_err=errs,
+        tol=tol, tol_reason=FLASH_TOL_REASON, tiles_visited=int(live.sum()) * H,
+        attended_pairs=pairs, bytes=bounds["fwd"]["bytes"], **timed,
+        roofline_share=timed["bound_ms"] / timed["ms"])
+    return timed
+
+
+def phase_score(trained: dict, generated: dict, card: str, peak_bw, peak_ops) -> dict:
+    """``evaluate_perplexity`` and ``context_ablation`` on the validation
+    split of phase 15's run (64 windows of 512, one microbatch of 64 a
+    window), ``score_mutations`` on a CDS longer than the block; the flash
+    forward's launches equal n_layer x microbatches (and x windows of the
+    sliding score). The full-window NLL and window 1's on the card against
+    the CPU, both float32 from the same weights; then the flash forward at
+    these shapes against its plain version, timed."""
+    model, cfg = generated["model"], generated["cfg"]
+    val = PackedDataset(str(trained["val_npz"]))
+    L = cfg.n_layer
+    batch = 64
+    fa.flash_fwd.launches = 0  # the scoring path's run only
+    t0 = time.perf_counter()
+    ablation = ppl.context_ablation(model, cfg, val, batch_size=batch)
+    ablation_s = time.perf_counter() - t0
+    microbatches = 4 * -(-len(val) // batch)
+    ablation_launches = fa.flash_fwd.launches
+    rng = np.random.default_rng(17)
+    cds = "ATG" + "".join(rng.choice(list("ACGT"), 3 * (cfg.block_size + 80))) + "TAA"
+    fa.flash_fwd.launches = 0
+    t0 = time.perf_counter()
+    rows = mut.score_mutations(model, cfg, cds)
+    mutations_s = time.perf_counter() - t0
+    mutation_launches = fa.flash_fwd.launches
+    n_ids = len(mut.dna_to_ids(cds))
+    windows = 1 + (n_ids - cfg.block_size)  # the first window, then one a position
+    finite = all(np.isfinite(r["nll"]) for r in ablation.values()) and all(
+        np.isfinite(r["wt_logp"]) for r in rows)
+
+    # the card against the CPU, float32 (TF32 off), on the first windows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = cfg.replace(compute_dtype="float32", dropout=0.0)
+    sub = trained["val_npz"].with_name("val_score_subset.npz")
+    with np.load(trained["val_npz"]) as data:
+        np.savez(sub, X=data["X"][:SCORE_CPU_WINDOWS], Y=data["Y"][:SCORE_CPU_WINDOWS])
+    cpu_model = copy.deepcopy(model).cpu()
+    compare = {}
+    for window in (None, 1):
+        on_card = ppl.evaluate_perplexity(model, f32, sub, batch_size=SCORE_CPU_WINDOWS,
+                                          attention_window=window)["nll"]
+        on_cpu = ppl.evaluate_perplexity(cpu_model, f32, sub, batch_size=SCORE_CPU_WINDOWS,
+                                         attention_window=window)["nll"]
+        compare["full" if window is None else str(window)] = dict(
+            card=on_card, cpu=on_cpu, rel_err=abs(on_card - on_cpu) / abs(on_cpu))
+    del cpu_model
+    log("score", model="10L8H d384 bf16 flash (phase 15's run)", windows=len(val),
+        microbatch=batch, ablation={k: dict(nll=r["nll"], perplexity=r["perplexity"],
+                                            tokens=r["tokens"]) for k, r in ablation.items()},
+        ablation_s=ablation_s, flash_fwd_launches=ablation_launches,
+        want_launches=L * microbatches, mutation_codons=len(rows), mutation_windows=windows,
+        mutations_s=mutations_s, mutation_flash_launches=mutation_launches,
+        card_vs_cpu_f32=compare, tol=SCORE_NLL_RTOL, all_finite=finite, card=card)
+    if not finite or len(rows) != n_ids - 1:
+        raise AssertionError("a perplexity or mutation score is not finite, or rows missing")
+    if ablation_launches != L * microbatches or mutation_launches != L * windows:
+        raise AssertionError(f"flash launches {ablation_launches} and {mutation_launches}: "
+                             f"want {L * microbatches} and {L * windows}")
+    if any(c["rel_err"] > SCORE_NLL_RTOL for c in compare.values()):
+        raise AssertionError(f"the card's NLL differs from the CPU's: {compare}")
+
+    # the flash forward at these shapes against its plain version, timed
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    inference = {}
+    for window in (1, 2, 4, None):
+        name = f"b{batch}_w{window or 'full'}"
+        inference[name] = check_flash_forward(gen, "score_kernel", name, batch,
+                                              cfg.block_size, window, peak_bw, peak_ops)
+    for T in (cfg.block_size, 77):
+        inference[f"b1_t{T}"] = check_flash_forward(gen, "score_kernel", f"b1_t{T}", 1, T,
+                                                    None, peak_bw, peak_ops)
+    return {"launches": ablation_launches, "launches_mutations": mutation_launches,
+            "inference": inference}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1875,11 +2374,16 @@ def main() -> int:
     spec_served = phase_spec_serve(served["model"], served["cfg"], card_line)
     phase_spec_parity()
     phase_pipeline(card_line)
-    phase_trainer(card_line)
+    trainer_dir = tempfile.TemporaryDirectory(prefix="smoke_trainer_")  # read by 21, 22
+    trainer_run = phase_trainer(card_line, Path(trainer_dir.name))
     phase_spec_trained(card_line, peak_bw, peak_ops)
     phase_lora_d512(card_line)
     finetuned = phase_finetune(card_line)
     remat = phase_remat_contract(card_line)
+    int8_served = phase_int8_serve(served, card_line)
+    generated = phase_generate(trainer_run, card_line, peak_bw, peak_ops)
+    scored = phase_score(trainer_run, generated, card_line, peak_bw, peak_ops)
+    trainer_dir.cleanup()
 
     tile_design = ("one pass with an online softmax in float32 (SIMT) over only the 64-position "
                    "cache tiles with a live mask position, flagged by each warp from the mask "
@@ -1897,6 +2401,11 @@ def main() -> int:
         "serve_int8": timed["serve_int8"],
         "full": timed["full_bf16"],
         "launches_finetune_serve": finetuned["decode"],
+        "launches_int8_weights": int8_served["launches"],
+        "launches_int8_weights_int8_cache": int8_served["launches_int8_cache"],
+        "launches_generate": generated["decode"],
+        "b1": generated["b1"],
+        "b1_full": generated["b1_full"],
         "design": tile_design + "; one block per (kv head, slot)",
     }]
     tensor_core = ("bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix), cp.async double "
@@ -1914,6 +2423,10 @@ def main() -> int:
             "launches_finetune": finetuned["flash"][wrapper.__name__],
             "launches_remat_contract": remat["remat"][wrapper.__name__],
             "launches_plain_contract": remat["plain"][wrapper.__name__],
+            **({"launches_score": scored["launches"],
+                "launches_score_mutations": scored["launches_mutations"],
+                "launches_generate": generated["flash"],
+                "inference": scored["inference"]} if key == "fwd" else {}),
             "design": tensor_core,
         })
     kernels.append({

@@ -18,7 +18,8 @@ Layer map (ported so far — the continuous-batching serving path,
 speculative serving, the training step and the trainer with its one-card
 options: LoRA fine-tuning and merging, remat, the auxiliary objectives,
 shape guidance, Adafactor, ``grad_clip``, frozen groups, the primary
-training contract and expansion):
+training contract and expansion; weight-only int8 serving, run loading,
+constrained generation, perplexity and mutation scoring with their CLIs):
 
 - ``tokenizers`` — codon vocabulary ids, ``to_ids`` / ``decode_ids``
 - ``data``       — lossless packing, packed datasets with ``EpochPlan`` and
@@ -28,20 +29,26 @@ training contract and expansion):
 - ``models``     — ``CodonGPTConfig``, the ``CodonGPT`` forward (loss,
   dropout, LoRA adapters and remat included) and the biophysics shape
   encoder
-- ``ops``        — attention, masks, int8 KV quantization, the
+- ``ops``        — attention, masks, int8 KV and weight-only quantization, the
   cross-entropy loss and the auxiliary objectives, and the wrappers of the decode-attention kernels
   (``csrc/decode_attention*.cu``) and the flash-attention kernels
   (``csrc/flash_attention.cu``)
-- ``generation`` — KV-cached prefill / decode / ``generate_tokens``
+- ``generation`` — KV-cached prefill / decode / ``generate_tokens``, the
+  constrained CDS generators and the ``sample``, ``query_model`` and
+  ``benchmark_red`` CLIs
+- ``evals``      — run loading (``playground``), perplexity and context
+  ablation, in-silico mutagenesis and the ``score_mutations`` CLI
 - ``serving``    — ``ServingEngine`` (continuous batching, speculative
-  decoding) and the HTTP ``InferenceServer``
+  decoding), the HTTP ``InferenceServer`` and the ``serve_model`` and
+  ``benchmark_serving`` CLIs
 - ``training``   — AdamW or Adafactor in the fast/base/lora groups with
   frozen labels and ``grad_clip``, the accumulation-group step with the
   composite loss, the ``.npz`` checkpoints of the JAX package, the run
   lifecycle, the primary contract, ``run_training`` with its CLI
   (``train_codon_lm``), LoRA on checkpoint trees (``lora``,
   ``merge_lora``), ``expansion`` and ``benchmark_lora``
-- ``utils``      — device selection and the JAX-tree weight maps
+- ``utils``      — device selection, the JAX-tree weight maps and the CLIs'
+  shared run-directory and open-loop latency helpers
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA and no explicit device they raise rather than fall back.

@@ -33,8 +33,17 @@ Remat (``cfg.use_checkpoint``, JAX's ``jax.checkpoint`` around the block):
 each block runs under ``torch.utils.checkpoint``, and the recomputed block
 draws the same dropout masks and attention seed as the first pass: it
 runs on a copy of the caller's generator taken at the block's start (JAX
-replays the block's key). Not ported: the MoE MLP and weight-only int8
-linears (building or loading such a model raises ``NotImplementedError``).
+replays the block's key).
+
+Weight-only int8 (``ops/quant.py::quantize_params``): a block linear
+becomes an ``Int8Linear`` (int8 ``w_q``, float32 ``scale`` per output
+channel, float32 bias); ``_linear`` computes ``(x @ w_q.T) * scale + b``
+in x's dtype, JAX's order (``codon_gpt.py:148-155``), and a fused QKV
+``Int8Linear`` is JAX's concatenation of the three quantized projections
+(``:212-225``). Every path that goes through ``_linear``/``_qkv`` — the
+forward, prefill, the decode step, the engine's ragged decode and the
+speculative verify — serves an int8 model unchanged. Not ported: the MoE
+MLP (building or loading such a model raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops.attention import attention
 from genomics_lm_torch.ops.losses import cross_entropy
 from genomics_lm_torch.ops.masks import segment_ids_from_tokens
+from genomics_lm_torch.ops.quant import quantize_weight
 
 
 class LoRA(nn.Module):
@@ -65,6 +75,36 @@ class LoRA(nn.Module):
     def delta(self, x: torch.Tensor) -> torch.Tensor:
         d = torch.matmul(torch.matmul(x, self.lora_a.to(x.dtype)), self.lora_b.to(x.dtype))
         return self.lora_scale.to(x.dtype) * d
+
+
+class Int8Linear(nn.Module):
+    """A weight-only int8 linear: ``w_q`` (fan_out, fan_in) int8 and its
+    float32 per-output-channel ``scale`` (fan_out,), beside the float32
+    ``bias`` (or None), all frozen: an int8 model serves, it does not
+    train."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.w_q = nn.Parameter(torch.zeros(out_features, in_features, dtype=torch.int8),
+                                requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(out_features), requires_grad=False)
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features), requires_grad=False)
+        else:
+            self.register_parameter("bias", None)
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
+        """``lin`` quantized (``ops/quant.py::quantize_weight``), on its device."""
+        q = cls(lin.in_features, lin.out_features, lin.bias is not None).to(lin.weight.device)
+        with torch.no_grad():
+            w_q, scale = quantize_weight(lin.weight)
+            q.w_q.copy_(w_q)
+            q.scale.copy_(scale)
+            if lin.bias is not None:
+                q.bias.copy_(lin.bias)
+        return q
 
 
 class _Attention(nn.Module):
@@ -163,18 +203,33 @@ MLP_LINEARS = ("fc", "proj", "w_gate", "w_up", "w_down")
 _GELU_MLP_INDEX = {"fc": 0, "proj": 2}
 
 
-def block_linears(block: Block, cfg: CodonGPTConfig) -> dict[tuple[str, str], nn.Linear]:
+def block_linears(block: Block, cfg: CodonGPTConfig, *,
+                  with_qkv: bool = False) -> dict[tuple[str, str], nn.Module]:
     """The block's linears by their JAX (group, name), e.g. ("attn", "query")
     or ("mlp", "fc"). With ``fused_qkv`` the query, key and value entries
-    are absent: their weights are rows of ``attn.qkv``."""
+    are absent: their weights are rows of ``attn.qkv``, which ``with_qkv``
+    adds as ("attn", "qkv")."""
     out = {("attn", "proj"): block.attn.proj}
     if not cfg.fused_qkv:
         out.update({("attn", n): getattr(block.attn, n) for n in ("query", "key", "value")})
+    elif with_qkv:
+        out[("attn", "qkv")] = block.attn.qkv
     if cfg.use_swiglu:
         out.update({("mlp", n): getattr(block.mlp, n) for n in ("w_gate", "w_up", "w_down")})
     else:
         out.update({("mlp", n): block.mlp[i] for n, i in _GELU_MLP_INDEX.items()})
     return out
+
+
+def set_block_linear(block: Block, cfg: CodonGPTConfig, group: str, name: str,
+                     linear: nn.Module) -> None:
+    """Put ``linear`` in ``block`` at the JAX (group, name) place, or at
+    ("attn", "qkv") for the fused attention linear."""
+    parent = block.attn if group == "attn" else block.mlp
+    if group == "mlp" and not cfg.use_swiglu:
+        parent[_GELU_MLP_INDEX[name]] = linear
+    else:
+        setattr(parent, name, linear)
 
 
 def attach_lora(model: CodonGPT, targets, rank: int) -> None:
@@ -187,6 +242,10 @@ def attach_lora(model: CodonGPT, targets, rank: int) -> None:
     for block in model.blocks:
         linears = block_linears(block, cfg)
         fused = {}
+        if any(isinstance(m, Int8Linear) for m in block.modules()):
+            raise ValueError(
+                "cannot attach LoRA to int8-quantized weights — fine-tune "
+                "the float checkpoint, merge, then quantize")
         for group, name in targets:
             if (group, name) in linears:
                 lin = linears[(group, name)]
@@ -206,9 +265,15 @@ def attach_lora(model: CodonGPT, targets, rank: int) -> None:
 # --- Forward pieces ----------------------------------------------------------
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def _linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``x @ W + b`` in x's dtype, with the float32 weights cast at use,
-    plus the linear's LoRA delta when it has one."""
+    plus the linear's LoRA delta when it has one. An ``Int8Linear``
+    computes ``(x @ w_q.T) * scale + b``, the int8 weight converted at use."""
+    if isinstance(lin, Int8Linear):
+        y = torch.matmul(x, lin.w_q.to(x.dtype).t()) * lin.scale.to(x.dtype)
+        if lin.bias is not None:
+            y = y + lin.bias.to(x.dtype)
+        return y
     y = torch.matmul(x, lin.weight.to(x.dtype).t())
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
@@ -434,6 +499,7 @@ __all__ = [
     "ATTN_LINEARS",
     "Block",
     "CodonGPT",
+    "Int8Linear",
     "LoRA",
     "MLP_LINEARS",
     "attach_lora",
@@ -444,4 +510,5 @@ __all__ = [
     "param_count",
     "rope_cos_sin",
     "rotate_half",
+    "set_block_linear",
 ]

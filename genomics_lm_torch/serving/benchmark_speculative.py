@@ -22,7 +22,9 @@ verify rounds of the measured speculative drains, each protocol's cache
 positions (the shapes its kernels ran at), and the validation loss
 beside the chain's entropy rate (``markov_entropy_rate``, from its
 transition matrix), which says how much of the chain the model learnt.
-Not ported: the open-loop Poisson latency protocol (``--arrival_rate``).
+With ``--arrival_rate`` > 0 it also runs the open-loop Poisson latency
+protocol (``utils/cli.py::poisson_latency_drain``) on both engines and
+reports their TTFT and ITL percentiles, as the JAX script does.
 
     python -m genomics_lm_torch.serving.benchmark_speculative [--epochs 8] [--repeats 5]
 """
@@ -49,6 +51,7 @@ from genomics_lm_torch.serving.speculative import (
 )
 from genomics_lm_torch.tokenizers.codon import write_itos
 from genomics_lm_torch.training.checkpoints import load_checkpoint
+from genomics_lm_torch.utils.cli import latency_percentiles, poisson_latency_drain
 from genomics_lm_torch.training.loop import run_training
 from genomics_lm_torch.utils.device import resolve_device
 from genomics_lm_torch.utils.weights import params_from_jax
@@ -227,6 +230,24 @@ def run(args, device=None) -> dict:
         serving["speedup_serving"] = (serving["serving_speculative_tok_per_sec"]
                                       / serving["serving_plain_tok_per_sec"])
 
+        if args.arrival_rate > 0:
+            def latency(spec: bool) -> dict:
+                reqs = [([int(t) for t in prompts[i % len(prompts)]], args.decode_tokens,
+                         args.temperature) for i in range(n_req)]
+                warm = mk_engine(spec)
+                for p, b, temp in reqs[: args.batch_size]:
+                    warm.submit(p, b, temperature=temp)
+                warm.run()
+                ttft, itl, _, _ = poisson_latency_drain(
+                    mk_engine(spec), reqs, args.arrival_rate, seed=args.seed)
+                lat = latency_percentiles(ttft, itl)
+                return {k: lat[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+                                            "itl_p95_ms")}
+
+            serving["latency_plain"] = latency(False)
+            serving["latency_speculative"] = latency(True)
+            serving["arrival_rate_req_per_sec"] = args.arrival_rate
+
     val_loss = float(payload["val_loss"])
     return {
         "metric": "speculative_decode_tokens_per_sec_per_chip",
@@ -279,6 +300,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps_per_sync", type=int, default=16,
                     help="decode rounds per dispatched serving chunk")
     ap.add_argument("--repeats", type=int, default=5, help="median-of-N serving drains")
+    ap.add_argument("--arrival_rate", type=float, default=0.0,
+                    help="also run the open-loop Poisson latency protocol at this "
+                         "arrival rate (req/s) on both engines")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     ap.add_argument("--out", default=None)

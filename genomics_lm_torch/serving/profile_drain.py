@@ -10,9 +10,11 @@ kernel launches per decode step (per verify round with ``--speculative``),
 and the kernels that take the most device time. ``--speculative K`` serves
 the same requests by speculative decoding with K drafted tokens per round,
 from a bigram draft table fitted as ``scripts/benchmark_serving.py`` fits
-it (``fit_draft_table``). Needs a CUDA card:
+it (``fit_draft_table``). ``--int8_weights`` quantizes the model's block
+linears first (``ops/quant.py::quantize_params``). Needs a CUDA card:
 
-    python -m genomics_lm_torch.serving.profile_drain [--kv_quant] [--speculative K] [--top 12]
+    python -m genomics_lm_torch.serving.profile_drain [--kv_quant] [--int8_weights] \
+        [--speculative K] [--top 12]
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from genomics_lm_torch.generation.decode import generate_tokens
 from genomics_lm_torch.models.codon_gpt import CodonGPT
 from genomics_lm_torch.models.config import CodonGPTConfig
+from genomics_lm_torch.ops.quant import quantize_params
 from genomics_lm_torch.serving.engine import ServingEngine
 from genomics_lm_torch.serving.speculative import fit_bigram_table
 
@@ -90,6 +93,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kv_quant", action="store_true")
     ap.add_argument("--speculative", type=int, default=0, metavar="K",
                     help="speculative decoding with K drafted tokens per verify round")
+    ap.add_argument("--int8_weights", action="store_true",
+                    help="weight-only int8 block linears (ops/quant.py)")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -98,6 +103,8 @@ def main(argv=None) -> int:
     cfg = CodonGPTConfig(**MAIN)
     torch.manual_seed(0)
     model = CodonGPT(cfg).to("cuda").eval()
+    if args.int8_weights:
+        model = quantize_params(model)
     spec_kw = {}
     if args.speculative:
         spec_kw = {"speculative_k": args.speculative,
@@ -120,6 +127,7 @@ def main(argv=None) -> int:
     launches = sum(e.count for e in kernels)
     report = {
         "card": torch.cuda.get_device_name(0), "kv_quant": args.kv_quant,
+        "int8_weights": args.int8_weights,
         "speculative_k": args.speculative,
         "requests": REQUESTS, "delivered_tokens": delivered, f"{unit}s": steps,
         "drain_s": plain_s, "profiled_drain_s": prof_s,

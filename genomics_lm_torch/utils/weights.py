@@ -40,6 +40,8 @@ JAX leaf                              state_dict key                     transfo
 ``blocks/*/*/lora_scale`` [L]         ``blocks.{i}.*.*.lora.lora_scale`` unstack
 ``shape_encoder/conv1/{w,b}``         ``shape_encoder.conv1.{weight,bias}``  none
 ``shape_encoder/conv2/{w,b}``         ``shape_encoder.conv2.{weight,bias}``  none
+``blocks/*/*/w_q``  [L] (in, out) int8  ``blocks.{i}.*.*.w_q``  (out, in)  unstack + T
+``blocks/*/*/scale``   [L] (out,)     ``blocks.{i}.*.*.scale``           unstack
 ====================================  =================================  =========
 
 JAX stores a linear weight as (in, out), torch as (out, in), so every
@@ -55,6 +57,14 @@ the port's ``attn.*`` or ``mlp.{0,2,w_*}``), and a tree without
 and the shape encoder (``models/biophysics.py``) exist in a model when
 its tree has their leaves (``params_from_jax``) or when the trainer
 attaches them.
+
+A weight-only int8 tree (``genomics_lm_tpu.ops.quant.quantize_params``)
+holds ``w_q`` (int8) and ``scale`` (float32) with ``b`` in place of ``w``
+on each block linear; the port's linear is then an ``Int8Linear``
+(``models/codon_gpt.py``), its ``w_q`` transposed and kept int8, and a fused QKV
+takes the three projections' int8 rows and scales, concatenated. Both
+directions keep int8 leaves int8 and every other leaf float32, so the
+round trip stays exact.
 
 ``jax_leaves`` is the map itself: for each JAX leaf, the port parameters
 (and the rows of each) that hold it. ``params_to_jax`` and
@@ -76,8 +86,10 @@ from genomics_lm_torch.models.codon_gpt import (
     ATTN_LINEARS,
     MLP_LINEARS,
     CodonGPT,
+    Int8Linear,
     attach_lora,
     block_linears,
+    set_block_linear,
 )
 from genomics_lm_torch.models.config import CodonGPTConfig
 
@@ -131,6 +143,17 @@ def jax_leaves(model: CodonGPT, cfg: CodonGPTConfig) -> list[JaxLeaf]:
         if lin.bias is not None:
             one(f"{path}/b", lin.bias)
 
+    def stacked(path, lins, rows=None):
+        # a weight is "w", or "w_q" and its "scale" on an Int8Linear
+        if isinstance(lins[0], Int8Linear):
+            weights = (("w_q", "w_q", True), ("scale", "scale", False))
+        else:
+            weights = (("w", "weight", True),)
+        for jname, tname, t in weights + (("b", "bias", False),):
+            if getattr(lins[0], tname) is not None:
+                leaves.append(JaxLeaf(f"{path}/{jname}",
+                                      [(getattr(lin, tname), rows, t) for lin in lins], True))
+
     def adapters(path, per_layer):
         for name in LORA_LEAVES:
             leaves.append(JaxLeaf(f"{path}/{name}",
@@ -151,20 +174,14 @@ def jax_leaves(model: CodonGPT, cfg: CodonGPTConfig) -> list[JaxLeaf]:
         path = f"blocks/{group}/{name}"
         if (group, name) in per_block[0]:
             lins = [lb[(group, name)] for lb in per_block]
-            leaves.append(JaxLeaf(f"{path}/w", [(lin.weight, None, True) for lin in lins], True))
-            if lins[0].bias is not None:
-                leaves.append(JaxLeaf(f"{path}/b", [(lin.bias, None, False) for lin in lins],
-                                      True))
+            stacked(path, lins)
             if "lora" in lins[0]._modules:
                 adapters(path, [lin.lora for lin in lins])
         elif cfg.fused_qkv and group == "attn":  # rows of the fused linear
             c_q, c_kv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
             lo = {"query": 0, "key": c_q, "value": c_q + c_kv}[name]
             rows = slice(lo, lo + (c_q if name == "query" else c_kv))
-            leaves.append(JaxLeaf(f"{path}/w", [(b.attn.qkv.weight, rows, True)
-                                                for b in blocks], True))
-            leaves.append(JaxLeaf(f"{path}/b", [(b.attn.qkv.bias, rows, False)
-                                                for b in blocks], True))
+            stacked(path, [b.attn.qkv for b in blocks], rows)
             if "qkv_lora" in blocks[0].attn._modules:
                 adapters(path, [b.attn.qkv_lora[name] for b in blocks])
     one("ln_f/scale", model.ln_f.weight)
@@ -200,23 +217,44 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, object]:
 def _refuse_unported(tree: dict, cfg: CodonGPTConfig) -> None:
     if cfg.moe_experts or "router" in tree.get("blocks", {}):
         raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
-    quantized = sorted(p.rsplit("/", 1)[0] for p in _flatten(tree) if p.endswith("/w_q"))
-    if quantized:
-        raise NotImplementedError(
-            f"weight-only int8 linears ({', '.join(quantized)}) are not ported")
+
+
+def _quantize_layout(model: CodonGPT, quantized: set) -> None:
+    """Make each block linear whose JAX (group, name) is in ``quantized``
+    an empty ``Int8Linear`` (the fused QKV when query, key and value are)."""
+    cfg = model.cfg
+    qkv = {("attn", n) for n in ("query", "key", "value")}
+    if cfg.fused_qkv and quantized & qkv:
+        if not qkv <= quantized:
+            raise ValueError("a fused QKV loads int8 query, key and value together, not "
+                             f"{sorted(n for _, n in quantized & qkv)}")
+        quantized = (quantized - qkv) | {("attn", "qkv")}
+    for block in model.blocks:
+        linears = block_linears(block, cfg, with_qkv=True)
+        for key in quantized:
+            if key not in linears:
+                raise ValueError(f"the model has no block linear {key[0]}/{key[1]}")
+            lin = linears[key]
+            set_block_linear(block, cfg, *key, Int8Linear(
+                lin.in_features, lin.out_features, lin.bias is not None).to(
+                    lin.weight.device))
 
 
 def attach_from_tree(model: CodonGPT, tree: dict) -> CodonGPT:
-    """Give ``model`` the LoRA adapters and the shape encoder that ``tree``
-    holds leaves for (their values stay to be loaded)."""
+    """Give ``model`` the int8 linears, LoRA adapters and shape encoder
+    that ``tree`` holds leaves for (their values stay to be loaded)."""
     blocks = tree.get("blocks", {})
-    targets, rank = [], None
+    targets, rank, quantized = [], None, set()
     for group, names in (("attn", ATTN_LINEARS), ("mlp", MLP_LINEARS)):
         for name in names:
             node = blocks.get(group, {}).get(name, {})
             if isinstance(node, dict) and "lora_a" in node:
                 targets.append((group, name))
                 rank = int(np.shape(node["lora_a"])[-1])
+            if isinstance(node, dict) and "w_q" in node:
+                quantized.add((group, name))
+    if quantized:
+        _quantize_layout(model, quantized)
     if targets:
         attach_lora(model, targets, rank)
     if "shape_encoder" in tree:
@@ -225,8 +263,15 @@ def attach_from_tree(model: CodonGPT, tree: dict) -> CodonGPT:
     return model
 
 
-def _f32(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.float32)))
+def _host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """The tree leaf ``a`` as a CPU tensor: int8 for an int8 parameter,
+    else float32."""
+    a = np.asarray(a)
+    if dtype == torch.int8:
+        if a.dtype != np.int8:
+            raise ValueError(f"an int8 weight leaf holds {a.dtype}")
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
 
 
 def state_dict_from_jax(tree: dict, cfg: CodonGPTConfig) -> dict[str, torch.Tensor]:
@@ -243,13 +288,14 @@ def state_dict_from_jax(tree: dict, cfg: CodonGPTConfig) -> dict[str, torch.Tens
         skeleton = attach_from_tree(CodonGPT(cfg), tree)
     flat = _flatten(tree)
     names = {id(p): n for n, p in skeleton.named_parameters()}
-    sd = {n: torch.empty(p.shape, dtype=torch.float32) for n, p in skeleton.named_parameters()}
+    sd = {n: torch.empty(p.shape, dtype=torch.int8 if p.dtype == torch.int8 else torch.float32)
+          for n, p in skeleton.named_parameters()}
     used = set()
     for leaf in jax_leaves(skeleton, cfg):
         if leaf.path not in flat and leaf.path.endswith("/lora_scale"):
             value = torch.ones(len(leaf.parts))  # an older tree: scale folded into lora_a
         else:
-            value = _f32(flat[leaf.path])
+            value = _host_tensor(flat[leaf.path], leaf.parts[0][0].dtype)
             used.add(leaf.path)
         leaf.write(lambda p: sd[names[id(p)]], value)
     unused = sorted(set(flat) - used)
@@ -260,8 +306,9 @@ def state_dict_from_jax(tree: dict, cfg: CodonGPTConfig) -> dict[str, torch.Tens
 
 def params_from_jax(tree: dict, cfg: CodonGPTConfig,
                     device: str | torch.device) -> CodonGPT:
-    """A ``CodonGPT`` on ``device`` holding the JAX tree's weights (float32),
-    its adapters and shape encoder included.
+    """A ``CodonGPT`` on ``device`` holding the JAX tree's weights (float32,
+    and int8 ``Int8Linear`` weights where the tree is quantized), its
+    adapters and shape encoder included.
 
     Every key must match: a leaf missing from the tree, or one the port
     has no place for, raises.
@@ -272,8 +319,9 @@ def params_from_jax(tree: dict, cfg: CodonGPTConfig,
 
 
 def params_to_jax(model: CodonGPT, cfg: CodonGPTConfig) -> dict:
-    """The JAX parameter tree (nested dicts of float32 numpy arrays) that
-    carries ``model``'s weights: the inverse of ``params_from_jax``.
+    """The JAX parameter tree (nested dicts of numpy arrays: float32, and
+    int8 for ``w_q``) that carries ``model``'s weights: the inverse of
+    ``params_from_jax``.
 
     Per-layer leaves stack on a leading L axis, linear weights transpose to
     (in, out), and a fused QKV linear splits back into query, key and
@@ -285,7 +333,8 @@ def params_to_jax(model: CodonGPT, cfg: CodonGPTConfig) -> dict:
         *parents, name = leaf.path.split("/")
         for key in parents:
             node = node.setdefault(key, {})
-        node[name] = leaf.gather().to("cpu", torch.float32).numpy().copy()
+        value = leaf.gather().cpu()
+        node[name] = (value if value.dtype == torch.int8 else value.float()).numpy().copy()
     return tree
 
 

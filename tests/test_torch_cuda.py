@@ -561,3 +561,80 @@ def test_cuda_fused_qkv_lora_step_tracks_the_cpu(cuda, optimizer):
                 assert float(np.abs(a[k] - b[k]).max()) <= 2 * 3e-5 * (1 + 1e-3), f"{path}/{k}"
 
     walk(pg, pc)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_kernel_at_batch_one(cuda):
+    """The decode kernel at ``CachedDecoder``'s shape: one sequence over a
+    whole-block cache (10 layers, 8 kv heads of 48, S 512) with a prefix
+    live, bf16 and int8 caches, against its plain version."""
+    rng = np.random.default_rng(21)
+    L, S, Hkv, D = 10, 512, 8, 48
+    for quant in (False, True):
+        q, k, v, _, ks, vs = decode_inputs(rng, 1, Hkv, 1, quant, L=L, S=S, D=D)
+        mask = torch.full((1, S), -1e30)
+        mask[0, :137] = 0.0
+        q = q.to(torch.bfloat16)
+        if not quant:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        dev = [None if t is None else t.to(cuda) for t in (q, k, v, mask, ks, vs)]
+        for layer in (0, L - 1):
+            got = decode_attention(*dev[:4], layer, *dev[4:], kv_heads=Hkv)
+            want = decode_attention_reference(*dev[:4], layer, *dev[4:], kv_heads=Hkv)
+            torch.cuda.synchronize()
+            assert float((got.float() - want.float()).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_flash_forward_at_window_one(cuda):
+    """The flash forward at inference with attention window 1 (only the
+    diagonal is live) and 2, bf16 with ``<SEP>`` segments, batch 4 and batch
+    1 over an off-grid length, against its plain version."""
+    rng = np.random.default_rng(22)
+    for B, T, window in ((4, 512, 1), (4, 512, 2), (1, 77, 1)):
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, 8, T, 48)).astype(np.float32))
+                   .to(cuda, torch.bfloat16) for _ in range(3))
+        seps = (torch.arange(T) % 97 == 0).int()
+        seg = torch.cumsum(seps[None].expand(B, T), -1, dtype=torch.int32).to(cuda)
+        seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+        cfg = fa.FlashCfg(True, window, 0.0)
+        out, lse = fa.flash_fwd(q, k, v, seg, seed, cfg)
+        ref, ref_lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(ref.float().abs().max()))
+        assert float((out.float() - ref.float()).abs().max()) <= 2e-2 * scale
+        assert float((lse - ref_lse).abs().max()) <= 2e-2 * max(1.0, float(ref_lse.abs().max()))
+        if window == 1:  # each query attends only itself: the output is its value
+            assert float((out.float() - v.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_int8_weight_greedy_serving_equals_the_cpu(cuda):
+    """Greedy serving of a float32 model with int8 block linears gives the
+    same tokens on the card (decode kernel, int8 and bf16 caches) as on the
+    CPU (plain version)."""
+    from genomics_lm_torch.models.codon_gpt import CodonGPT
+    from genomics_lm_torch.models.config import CodonGPTConfig
+    from genomics_lm_torch.ops.quant import quantize_params
+    from genomics_lm_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CodonGPTConfig(vocab_size=68, block_size=128, n_layer=2, n_head=4, n_embd=64,
+                         dropout=0.0, fused_qkv=True, attention_impl="flash")
+    torch.manual_seed(23)
+    cpu_model = quantize_params(CodonGPT(cfg).eval())
+    gpu_model = quantize_params(CodonGPT(cfg).eval())
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to(cuda)
+    rng = np.random.default_rng(23)
+    reqs = [([1] + [int(t) for t in rng.integers(4, 68, n)], 20) for n in (7, 19, 30)]
+
+    def tokens(model, device, kv_quant):
+        eng = ServingEngine(model, cfg, slots=2, max_seq_len=96, steps_per_sync=4,
+                            kv_quant=kv_quant, device=device)
+        rids = [eng.submit(p, n) for p, n in reqs]
+        res = eng.run()
+        return [res[r].tokens for r in rids]
+
+    for kv_quant in (False, True):
+        assert tokens(gpu_model, cuda, kv_quant) == tokens(cpu_model, "cpu", kv_quant)

@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
 A fresh interpreter imports every module of ``genomics_lm_torch`` and the
-``chip_smoke`` script and finds neither ``jax`` nor ``genomics_lm_tpu`` in
-``sys.modules``; a source scan finds no import of either, static or
-dynamic (docstrings may still name the JAX twin of a module). The port's
-copy of the codon vocabulary equals the JAX package's.
+``chip_smoke`` script and finds neither ``jax``, ``genomics_lm_tpu`` nor the
+JAX package's ``scripts`` in ``sys.modules``; a source scan finds no import
+of any of them, static or dynamic (docstrings may still name the JAX twin
+of a module). The port's copy of the codon vocabulary equals the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def test_importing_the_port_pulls_in_no_jax():
         f"for name in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'genomics_lm_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'genomics_lm_tpu', 'scripts'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -40,8 +41,8 @@ def test_importing_the_port_pulls_in_no_jax():
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
-    static = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|genomics_lm_tpu)\b", re.M)
-    dynamic = re.compile(r"(import_module|__import__)\(\s*[\"'](jax|genomics_lm_tpu)")
+    static = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|genomics_lm_tpu|scripts)\b", re.M)
+    dynamic = re.compile(r"(import_module|__import__)\(\s*[\"'](jax|genomics_lm_tpu|scripts)")
     offenders = [str(p.relative_to(REPO)) for p in PORT_SOURCES
                  if static.search(p.read_text()) or dynamic.search(p.read_text())]
     assert not offenders
