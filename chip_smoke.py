@@ -92,7 +92,8 @@ exits non-zero:
    width: synthetic windows on the card, then the real host pipeline under
    ``multi`` and ``binpack`` packing (chunking, packing, mmap sidecars,
    ``EpochPlan``, grouped microbatches, ``DevicePrefetcher`` from pinned
-   memory), each 3 warm-up, 20 measured and 3 profiled groups; logs
+   memory), each 3 warm-up, 6 measured and 1 profiled group (the CLI
+   measures 20 and profiles 3); logs
    tokens/s, pad fraction, ms per group, busy share and the host→device
    copies in the trace, and ``bench.py``'s one line. Each group's non-pad
    tokens counted on the card by the step must equal the host's count, and
@@ -176,6 +177,52 @@ exits non-zero:
    Then the flash forward at inference (no dropout) against its plain
    version and timed: batch 64 x 512 at windows 1, 2, 4 and full, and
    batch 1 at 512 and an off-grid 77.
+23. moe train — the MoE recipe (``configs/stage2.6_moe_4e_top2_d512_ep2.yaml``
+   as is but data paths, epochs, run ids, warm-up 1 and a 6-step schedule,
+   each override logged: 12L8H d512, 4 experts top-2 at capacity 1.25,
+   router loss 0.01, B 8 x G 16, bf16 flash, dropout 0.1, label smoothing
+   0.05) through the train CLI on a packed corpus: 2 epochs of 2 groups,
+   then a resume to a third, beside a straight 3-epoch run. Hard checks:
+   ``param_count`` 113,740,800 (38,126,592 dense), every loss and every
+   router loss finite, ``router/w`` (12, 512, 4) in ``last.npz``, the
+   resumed run bit-equal to the straight one, the flash launches 12 x 16 a
+   group plus 12 a validation microbatch.
+24. moe parity — a 2-layer float32 MoE at capacity 0.5 (about half the
+   choices drop) takes one group step on the card and on the CPU:
+   ``TRAIN_PARITY_TOL`` on loss, every gradient (router and experts) and
+   the updated parameters; the dropped (token, rank) set of every layer
+   equal, a differing choice allowed only on a near-tie (its probability
+   margin, logged, within ``MOE_NEAR_TIE``).
+25. moe serve — phase 23's run through ``load_codon_model``:
+   ``ServingEngine`` drains phase 4's 128 requests (decode launches = 12
+   x steps) and once speculatively with K 4 (chunk launches = 12 x
+   rounds), then the bf16 chunk kernel at that drain's shapes (12 layers,
+   64 slots, its cache, 8 kv heads of 64, T 5; ragged and full) is held to
+   phase 10's bound and timed; ``quantize_params`` quarters the attention bytes and leaves
+   the experts' and router's, and its drain's tokens/s is logged beside
+   the dense one; ``evaluate_perplexity`` on the validation split (flash
+   launches = 12 x microbatches) and the bf16 flash forward at its shape
+   (B 8 x T 512, heads of 64, no dropout) held to phase 7's tolerance and
+   timed beside its bound and SDPA, the float32 NLL on the card within
+   ``SCORE_NLL_RTOL`` of the CPU's; at 2 layers in float32, greedy tokens
+   equal on the card and the CPU with dense and int8 weights, and one
+   request served alone equals its tokens from a full 64-slot drain.
+26. moe throughput — ``training/benchmark_moe.py`` with 5 measured groups:
+   dense, top-1 and top-2 tokens/s, ms per group, peak memory and
+   ``rel_to_dense``, each in a subprocess; then ``profile_step.py --moe``:
+   a MoE group's device time split into router, dispatch, expert products,
+   combine, flash and the rest, launches and the busy share.
+27. embeddings — on phase 15's run and phase 23's: ``extract_embeddings``
+   of 64 validation windows in the three pooling modes (finite; flash
+   launches = n_layer x batches), float32 on the card within
+   ``EMBED_F32_ATOL`` of the CPU, ``attention_maps`` at B 1 x T 512 (rows
+   sum to 1, masked entries exactly 0); the bf16 flash forward at the MoE
+   run's extraction shape (B 64 x T 512, heads of 64) held to phase 7's
+   tolerance and timed; then the ``extract_embeddings`` and
+   ``analyze_attention`` CLIs on the MoE run, their output printed.
+28. noprop — ``train_noprop`` at 10L8H d384, block 512, on phase 15's
+   corpus: 2 epochs and a resume to a third; every loss finite and one
+   denoising loss per layer.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -200,8 +247,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from genomics_lm_torch.evals import embeddings as emb_lib
 from genomics_lm_torch.evals import mutations as mut
 from genomics_lm_torch.evals import perplexity as ppl
+from genomics_lm_torch.evals.analyze_attention import main as attention_cli
+from genomics_lm_torch.evals.extract_embeddings import main as extract_cli
 from genomics_lm_torch.evals.playground import load_codon_model
 from genomics_lm_torch.generation import constrained as gc
 from genomics_lm_torch.generation import decode as decode_mod
@@ -214,11 +264,14 @@ from genomics_lm_torch.generation.genetic_code import translate_codons_to_aa
 from genomics_lm_torch.generation.query_model import main as query_cli
 from genomics_lm_torch.generation.sample import main as sample_cli
 from genomics_lm_torch.kernels.build import CSRC, build
+from genomics_lm_torch.models import codon_gpt as codon_gpt_mod
+from genomics_lm_torch.models import noprop as noprop_lib
 from genomics_lm_torch.models.codon_gpt import CodonGPT
 from genomics_lm_torch.models.codon_gpt import forward as model_forward
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops import decode_attention as da
 from genomics_lm_torch.ops import flash_attention as fa
+from genomics_lm_torch.ops.masks import segment_ids_from_tokens as segment_ids
 from genomics_lm_torch.ops.masks import structure_mask
 from genomics_lm_torch.ops.quant import quantize_params
 from genomics_lm_torch.serving import benchmark_decode_kernel as bench_decode
@@ -242,6 +295,7 @@ from genomics_lm_torch.serving.speculative import (
     restrict_table,
 )
 from genomics_lm_torch.training import bench_pipeline as bench_pipe
+from genomics_lm_torch.training import benchmark_moe as bench_moe
 from genomics_lm_torch.training import benchmark_lora as bench_lora
 from genomics_lm_torch.training import contracts
 from genomics_lm_torch.training import lora as lora_lib
@@ -253,6 +307,7 @@ from genomics_lm_torch.tokenizers.codon import STOP_IDS, write_itos
 from genomics_lm_torch.training.lifecycle import RunLifecycleError
 from genomics_lm_torch.training.merge_lora import main as merge_cli
 from genomics_lm_torch.training.train_codon_lm import main as train_cli
+from genomics_lm_torch.training.train_noprop import main as noprop_cli
 from genomics_lm_torch.training.optim import build_optimizer
 from genomics_lm_torch.training.train_step import LossConfig, make_eval_step, make_train_step
 from genomics_lm_torch.utils.timing import card_peaks, decode_bound_ms, median_ms
@@ -1113,6 +1168,47 @@ def check_chunk_case(gen, phase, name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, ful
     return q, k, v, mask, ks, vs, err, bounds
 
 
+def time_chunk_case(phase, name, case) -> dict:
+    """The chunk kernel's time on a case ``check_chunk_case`` returned, a
+    sweep of all its layers so every launch reads its layer cold, beside its
+    bound, the plain version's time and SDPA's with the dense mask (bf16
+    cache only); logged under ``phase``."""
+    q, k, v, mask, ks, vs, err, (tiles, needed, read, bound) = case
+    L, B, S, P = k.shape
+    D = q.shape[-1]
+    Hkv = P // D
+
+    def sweep(fn):
+        return lambda: [fn(q, k, v, mask, layer, ks, vs, kv_heads=Hkv) for layer in range(L)]
+
+    kernel_ms = median_ms(sweep(da.decode_attention_chunk)) / L
+    plain_ms = median_ms(sweep(da.decode_attention_chunk_reference), runs=9) / L
+    library_ms = None
+    if ks is None:
+        am = mask[:, None].to(q.dtype)  # (B, 1, T, S)
+
+        def sweep_library():
+            for layer in range(L):
+                kl = k[layer].view(B, S, Hkv, D).transpose(1, 2)
+                vl = v[layer].view(B, S, Hkv, D).transpose(1, 2)
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, kl, vl, attn_mask=am, enable_gqa=True)
+
+        library_ms = median_ms(sweep_library) / L
+    # the bound of what the mask needs (positions live in some row) goes
+    # into the kernels line; the full cache's and that of the tiles the
+    # kernel reads (whole tiles) are logged beside it
+    b_ms, b_by, nbytes = bound["needed"]
+    timed = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=library_ms, max_abs_err=err)
+    log(phase, case=name, bytes=nbytes, positions_needed=needed, positions_read=read, **tiles,
+        **timed, full_bound_ms=bound["full"][0], live_bound_ms=bound["read"][0],
+        achieved_gb_per_s=nbytes / (kernel_ms * 1e-3) / 1e9, roofline_share=b_ms / kernel_ms,
+        full_roofline_share=bound["full"][0] / kernel_ms,
+        live_roofline_share=bound["read"][0] / kernel_ms)
+    return timed
+
+
 def phase_chunk(peak_bw, peak_ops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
@@ -1142,43 +1238,10 @@ def phase_chunk(peak_bw, peak_ops) -> dict:
     ]
     timed = {}
     for name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full, is_timed in cases:
-        q, k, v, mask, ks, vs, err, (tiles, needed, read, bound) = check_chunk_case(
-            gen, "chunk", name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full, peak_bw, peak_ops)
-        if not is_timed:
-            continue
-        quant = ks is not None
-
-        def sweep(fn):
-            return lambda: [fn(q, k, v, mask, layer, ks, vs, kv_heads=Hkv)
-                            for layer in range(L)]
-
-        kernel_ms = median_ms(sweep(da.decode_attention_chunk)) / L
-        plain_ms = median_ms(sweep(da.decode_attention_chunk_reference), runs=9) / L
-        library_ms = None
-        if not quant:
-            am = mask[:, None].to(q.dtype)  # (B, 1, T, S)
-
-            def sweep_library():
-                for layer in range(L):
-                    kl = k[layer].view(B, S, Hkv, D).transpose(1, 2)
-                    vl = v[layer].view(B, S, Hkv, D).transpose(1, 2)
-                    torch.nn.functional.scaled_dot_product_attention(
-                        q, kl, vl, attn_mask=am, enable_gqa=True)
-
-            library_ms = median_ms(sweep_library) / L
-        # the bound of what the mask needs (positions live in some row) goes
-        # into the kernels line; the full cache's and that of the tiles the
-        # kernel reads (whole tiles) are logged beside it
-        b_ms, b_by, nbytes = bound["needed"]
-        timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=library_ms, max_abs_err=err)
-        log("chunk_time", case=name, bytes=nbytes, positions_needed=needed,
-            positions_read=read, **tiles, **timed[name],
-            full_bound_ms=bound["full"][0], live_bound_ms=bound["read"][0],
-            achieved_gb_per_s=nbytes / (kernel_ms * 1e-3) / 1e9,
-            roofline_share=b_ms / kernel_ms,
-            full_roofline_share=bound["full"][0] / kernel_ms,
-            live_roofline_share=bound["read"][0] / kernel_ms)
+        case = check_chunk_case(gen, "chunk", name, L, B, S, Hkv, G, T, D, cdt, qdt, gap, full,
+                                peak_bw, peak_ops)
+        if is_timed:
+            timed[name] = time_chunk_case("chunk_time", name, case)
     return timed
 
 
@@ -1384,14 +1447,21 @@ def phase_spec_parity() -> None:
 # --- phase 14: bench.py's protocols, the real host pipeline ----------------------
 
 
+# the smoke's depth of each protocol (``bench_pipeline.py`` itself measures 20
+# groups and profiles 3): the phase checks the path, the CLI measures it
+PIPELINE_DEPTH = dict(measure=6, profile_groups=1)
+
+
 def phase_pipeline(card: str) -> dict:
     built = train_main.build_main("cuda")
     cfg = built[0]
     gen = torch.Generator(device="cuda").manual_seed(train_main.SEED)
     runs = {}
-    for name, run in (("synthetic", lambda: bench_pipe.run_synthetic(built, gen)),
-                      ("multi", lambda: bench_pipe.run_real_pipeline(built, gen, "multi")),
-                      ("binpack", lambda: bench_pipe.run_real_pipeline(built, gen, "binpack"))):
+    d = PIPELINE_DEPTH
+    for name, run in (("synthetic", lambda: bench_pipe.run_synthetic(built, gen, **d)),
+                      ("multi", lambda: bench_pipe.run_real_pipeline(built, gen, "multi", **d)),
+                      ("binpack", lambda: bench_pipe.run_real_pipeline(built, gen, "binpack",
+                                                                       **d))):
         for w in FLASH_WRAPPERS:
             w.launches = 0  # this protocol's run only
         r = run()
@@ -2232,11 +2302,12 @@ def phase_generate(trained: dict, card: str, peak_bw, peak_ops) -> dict:
 # --- phase 22: perplexity, context ablation and mutation scores ------------------
 
 
-def check_flash_forward(gen, phase, name, B, T, window, peak_bw, peak_ops) -> dict:
+def check_flash_forward(gen, phase, name, B, T, window, peak_bw, peak_ops,
+                        H=MAIN["n_head"], D=MAIN["n_embd"] // MAIN["n_head"]) -> dict:
     """The flash forward at inference (bf16, no dropout, a <SEP> every 97th
-    token, heads of 48) against its plain version, then its time beside its
-    bound, the plain version's and SDPA's forward with the dense mask."""
-    H, D = MAIN["n_head"], MAIN["n_embd"] // MAIN["n_head"]
+    token, H heads of D, by default the serving model's 8 of 48) against its
+    plain version, then its time beside its bound, the plain version's and
+    SDPA's forward with the dense mask."""
     q, k, v, seg, seed, fcfg = flash_case(gen, B, H, H, T, T, D, torch.bfloat16, window, 0.0)
     out, lse = fa.flash_fwd(q, k, v, seg, seed, fcfg)
     want, want_lse = fa.flash_forward_reference(q, k, v, seg, seed, fcfg)
@@ -2345,6 +2416,465 @@ def phase_score(trained: dict, generated: dict, card: str, peak_bw, peak_ops) ->
             "inference": inference}
 
 
+
+# --- phases 23-28: the mixture-of-experts slice --------------------------------
+
+MOE_CONFIG = Path(__file__).resolve().parent / "configs" / "stage2.6_moe_4e_top2_d512_ep2.yaml"
+MOE_GROUPS_PER_EPOCH = 2
+MOE_VAL_WINDOWS = 64
+MOE_PARAMS, DENSE_PARAMS = 113_740_800, 38_126_592  # counted from JAX init's shapes
+MOE_PARITY_CAPACITY = 0.5  # about half the choices drop: a wrong slot order shows
+# a (token, rank) choice may flip between the card and the CPU only where the
+# competing experts' probabilities lie within float32 rounding of each other
+MOE_NEAR_TIE = 1e-6
+EMBED_F32_ATOL = 1e-4
+EMBED_WINDOWS = 64
+MOE_CPU_WINDOWS = 2  # validation windows of 512 scored on both devices (12L d512 on the CPU)
+
+
+def moe_yaml(workdir: Path, name: str, **overrides) -> Path:
+    """``configs/stage2.6_moe_4e_top2_d512_ep2.yaml`` (read, never edited) with
+    the phase's data paths, epochs, run id and schedule, written into
+    ``workdir``; each override is logged."""
+    import yaml
+
+    cfg = yaml.safe_load(MOE_CONFIG.read_text())
+    overrides = dict(train_npz=str(workdir / "train.npz"), val_npz=str(workdir / "val.npz"),
+                     run_id=name, **overrides)
+    log("moe_config", config=name, source=MOE_CONFIG.name,
+        overrides={k: {"recipe": cfg.get(k), "here": v} for k, v in overrides.items()})
+    cfg.update(overrides)
+    path = workdir / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+@contextlib.contextmanager
+def recorded_routes(keep: bool = False):
+    """Collect the router loss of every ``moe_route`` call that computes one
+    (or, with ``keep``, every call's whole result on the host) while the
+    block runs."""
+    routes, route = [], codon_gpt_mod.moe_route
+
+    def record(*args, **kwargs):
+        out = route(*args, **kwargs)
+        if keep:
+            routes.append({k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+                           for k, v in out.items()})
+        elif out["aux"] is not None:
+            routes.append(out["aux"].detach())
+        return out
+
+    codon_gpt_mod.moe_route = record
+    try:
+        yield routes
+    finally:
+        codon_gpt_mod.moe_route = route
+
+
+def tree_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", np.asarray(v)
+
+
+def phase_moe_train(card: str, workdir: Path) -> dict:
+    """The MoE config through the train CLI: 2 epochs of 2 groups and a resume
+    to a third, beside a straight 3-epoch run; the run stays in ``workdir``."""
+    runs = workdir / "runs"
+    batch, gacc = 8, 16  # the config's
+    packed_corpus(workdir, MOE_GROUPS_PER_EPOCH * batch * gacc, MOE_VAL_WINDOWS)
+    short = dict(warmup_steps=1, scheduler_total_steps=3 * MOE_GROUPS_PER_EPOCH)
+    cfg_path = moe_yaml(workdir, "smoke-moe", epochs=2, **short)
+    straight_path = moe_yaml(workdir, "smoke-moe-straight", epochs=3, **short)
+    run_dir = runs / "smoke-moe"
+    last = run_dir / "checkpoints" / "last.npz"
+    argv = ["--config", str(cfg_path), "--run_root", str(runs)]
+    for w in FLASH_WRAPPERS:
+        w.launches = 0  # the MoE path's runs only: 2 epochs and the resume
+    torch.cuda.reset_peak_memory_stats()
+    stdout = io.StringIO()
+    with recorded_routes() as auxes, contextlib.redirect_stdout(stdout):
+        t0 = time.perf_counter()
+        rc = train_cli(argv)
+        first_s = time.perf_counter() - t0
+        cfg_path.write_text(cfg_path.read_text().replace("epochs: 2", "epochs: 3"))
+        rc_resume = train_cli(argv + ["--resume", str(last)])
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    text = stdout.getvalue()
+    sys.stdout.write("".join(line + "\n" for line in text.splitlines()
+                             if line.startswith(("[epoch", "[timing]", "[model]"))))
+    epoch_wall = [float(m) for m in re.findall(r"\[timing\] epoch \d+ wall_sec=([\d.]+)", text)]
+    aux = torch.stack(auxes).float().cpu() if auxes else torch.zeros(0)
+    rc_straight = train_cli(["--config", str(straight_path), "--run_root", str(runs)])
+
+    payload = load_checkpoint(last)
+    straight = load_checkpoint(runs / "smoke-moe-straight" / "checkpoints" / "last.npz")
+    meta = json.loads((run_dir / "checkpoints" / "meta.json").read_text())
+    rows = (run_dir / "scores" / "curves.csv").read_text().strip().splitlines()[1:]
+    train_losses = [float(r.split(",")[1]) for r in rows]
+    val_losses = [float(r.split(",")[2]) for r in rows]
+    resumed, straight_leaves = dict(tree_leaves(payload["model"])), dict(
+        tree_leaves(straight["model"]))
+    resume_diff = max(float(np.abs(straight_leaves[p] - v).max()) for p, v in resumed.items())
+    mcfg = CodonGPTConfig.from_run_config(dict(payload["cfg"], vocab_size=68))
+    with torch.device("meta"):
+        n_params = codon_gpt_mod.param_count(CodonGPT(mcfg))
+        n_dense = codon_gpt_mod.param_count(CodonGPT(mcfg.replace(moe_experts=0)))
+    router = tuple(payload["model"]["blocks"]["router"]["w"].shape)
+    L, groups = mcfg.n_layer, int(payload["step"])
+    val_mb = MOE_VAL_WINDOWS // batch
+    want_bwd = gacc * L * groups
+    want_fwd = want_bwd + L * val_mb * len(rows)
+    out = dict(model="12L8H d512 bf16 fused_qkv flash, MoE 4 experts top-2 capacity 1.25",
+               rc=[rc, rc_resume, rc_straight], param_count=n_params, dense_param_count=n_dense,
+               meta_n_params=meta.get("n_params"), router_shape=router, groups=groups,
+               train_losses=train_losses, val_losses=val_losses,
+               moe_aux_calls=int(aux.numel()), moe_aux_min=float(aux.min()) if aux.numel() else None,
+               moe_aux_max=float(aux.max()) if aux.numel() else None,
+               moe_aux_finite=bool(torch.isfinite(aux).all()),
+               resume_vs_straight_max_abs_diff=resume_diff,
+               resume_val_loss=float(payload["val_loss"]),
+               straight_val_loss=float(straight["val_loss"]),
+               first_run_s=first_s, epoch_wall_s=epoch_wall,
+               ms_per_group_with_validation=[1e3 * s / MOE_GROUPS_PER_EPOCH for s in epoch_wall],
+               peak_mem_gib=meta["runtime_memory"]["device_peak_bytes"] / 2**30,
+               flash_launches=launches, want_fwd=want_fwd, want_bwd=want_bwd, card=card)
+    log("moe_train", **out)
+    if any(out["rc"]) or len(rows) != 3 or groups != 3 * MOE_GROUPS_PER_EPOCH:
+        raise AssertionError("the MoE runs or their artifacts are wrong")
+    if n_params != MOE_PARAMS or n_dense != DENSE_PARAMS or meta.get("n_params") != MOE_PARAMS:
+        raise AssertionError(f"param_count {n_params} (dense {n_dense}), want {MOE_PARAMS}")
+    if router != (L, mcfg.n_embd, mcfg.moe_experts):
+        raise AssertionError(f"router/w {router}")
+    if not (np.isfinite(train_losses + val_losses).all() and out["moe_aux_finite"]
+            and aux.numel() == want_fwd):  # one route a layer and forward, as flash
+        raise AssertionError("a loss or a router loss is not finite, or routes are missing")
+    if resume_diff != 0.0 or out["resume_val_loss"] != out["straight_val_loss"]:
+        raise AssertionError(f"the resumed run differs from the straight one ({resume_diff})")
+    if (launches["flash_fwd"] != want_fwd or launches["flash_bwd_dq"] != want_bwd
+            or launches["flash_bwd_dkv"] != want_bwd):
+        raise AssertionError(f"flash launches {launches}: want fwd {want_fwd}, "
+                             f"dq/dkv {want_bwd}")
+    return {"launches": launches, "run_dir": run_dir, "val_npz": workdir / "val.npz"}
+
+
+def phase_moe_parity() -> None:
+    """One MoE group step in float32 on the card and on the CPU (capacity 0.5),
+    and the dropped (token, rank) set of every layer on both."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CodonGPTConfig(**dict(train_main.MOE_TRAIN, n_layer=2, dropout=0.0,
+                                compute_dtype="float32",
+                                moe_capacity_factor=MOE_PARITY_CAPACITY))
+    torch.manual_seed(6)
+    tree = params_to_jax(CodonGPT(cfg), cfg)
+    run_cfg = dict(train_main.RUN_CFG, warmup_steps=0)
+    batch = train_main.make_batch(9, "cpu", groups=2, batch=4)
+    _parity_step("moe_capacity_0.5", cfg, tree, run_cfg, LossConfig(), batch, TRAIN_PARITY_TOL)
+    routes = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(tree, cfg, dev)
+        with recorded_routes(keep=True) as got, torch.no_grad():
+            model_forward(model, cfg, batch["x"][0].to(dev), train=True)
+        routes[dev] = got
+    flips, dropped = [], []
+    for layer, (g, c) in enumerate(zip(routes["cuda"], routes["cpu"])):
+        dropped.append(int((~c["keep"]).sum()))
+        differ = (g["gate_idx"] != c["gate_idx"]) | (g["keep"] != c["keep"])
+        for n, r in zip(*np.nonzero(differ.numpy())):
+            p = c["probs"][n]
+            pair = sorted({int(g["gate_idx"][n, r]), int(c["gate_idx"][n, r])})
+            margin = float(abs(p[pair[0]] - p[pair[-1]])) if len(pair) == 2 else 0.0
+            flips.append(dict(layer=layer, token=int(n), rank=int(r), margin=margin,
+                              near_tie=len(pair) == 2 and margin <= MOE_NEAR_TIE))
+    log("moe_parity", tokens=int(batch["x"][0].numel()), choices_per_layer=2 * int(
+        batch["x"][0].numel()), capacity=routes["cpu"][0]["C"], dropped_per_layer=dropped,
+        dropped_sets_equal=not flips, flips=flips[:20], near_tie_tol=MOE_NEAR_TIE)
+    if not all(dropped) or any(not f["near_tie"] for f in flips):
+        raise AssertionError(f"the card's routing differs from the CPU's: {flips[:5]}")
+
+
+def moe_f32_serving(tree, cfg) -> dict:
+    """A 2-layer float32 MoE model: greedy tokens on the card and the CPU,
+    dense and int8 weights; one request alone against a full 64-slot drain."""
+    rng = np.random.default_rng(7)
+    reqs = [([1] + [int(t) for t in rng.integers(4, 68, int(n))], 24, 0.0)
+            for n in rng.integers(8, 60, ENGINE["slots"])]
+    out = {}
+    for int8 in (False, True):
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            model = params_from_jax(tree, cfg, dev)
+            if int8:
+                quantize_params(model)
+            eng = ServingEngine(model, cfg, slots=8, max_seq_len=128, steps_per_sync=8,
+                                device=dev)
+            rids = [eng.submit(p, b) for p, b, _ in reqs[:8]]
+            res = eng.run()
+            toks[dev] = [res[r].tokens for r in rids]
+        out["int8" if int8 else "dense"] = toks["cuda"] == toks["cpu"]
+    model = params_from_jax(tree, cfg, "cuda")
+    full, _ = serve_tokens(model, cfg, reqs, slots=ENGINE["slots"], max_seq_len=128,
+                           steps_per_sync=8)
+    alone, _ = serve_tokens(model, cfg, reqs[5:6], slots=ENGINE["slots"], max_seq_len=128,
+                            steps_per_sync=8)
+    out["alone_equals_full_drain"] = alone[0] == full[5]
+    return out
+
+
+def phase_moe_serve(moe_run: dict, card: str, peak_bw, peak_ops) -> dict:
+    model, cfg, itos, _ = load_codon_model(moe_run["run_dir"], device="cuda")
+    cfg = cfg.replace(dropout=0.0)
+    rng = np.random.default_rng(0)
+    drain(model, cfg, build_requests(rng, 8), kv_quant=False)  # warm-up
+    reqs = build_requests(rng, REQUESTS)  # [serve]'s mix
+    da.decode_attention.launches = 0  # the MoE serving path's drain only
+    results, seconds, eng = drain(model, cfg, reqs, kv_quant=False)
+    decode_launches = da.decode_attention.launches
+    steps = eng.stats()["decode_steps"]
+    delivered = sum(len(r.tokens) for r in results.values())
+    dense_tps = delivered / seconds
+    spec = dict(speculative_k=SPECULATIVE_K, draft_table=fit_draft_table(model, cfg))
+    da.decode_attention_chunk.launches = 0
+    results, spec_s, spec_eng = drain(model, cfg, reqs, kv_quant=False, **spec)
+    chunk_launches = da.decode_attention_chunk.launches
+    rounds = spec_eng.stats()["verify_rounds"]
+    spec_delivered = sum(len(r.tokens) for r in results.values())
+    # the chunk kernel at the shapes this drain ran it at (12 layers, heads of
+    # 64, the drain's cache), ragged lengths and every slot full
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    L, B, S, _ = spec_eng.state["k"].shape
+    chunk_timed = {}
+    for full in (False, True):
+        name = f"moe_spec_{'full' if full else 'random'}"
+        case = check_chunk_case(gen, "moe_serve_kernel", name, L, B, S, cfg.kv_heads,
+                                cfg.n_head // cfg.kv_heads, SPECULATIVE_K + 1, cfg.head_dim,
+                                spec_eng.state["k"].dtype, cfg.dtype, False, full,
+                                peak_bw, peak_ops)
+        chunk_timed[name] = time_chunk_case("moe_serve_kernel", name, case)
+
+    # int8 weights: the attention linears only; the experts and router stay float32
+    attn_f32 = block_linear_bytes(model)
+    expert_bytes = lambda m: sum(p.numel() * p.element_size() for n, p in  # noqa: E731
+                                 m.named_parameters() if ".mlp." in n or ".router." in n)
+    experts_f32 = expert_bytes(model)
+    q_model = quantize_params(copy.deepcopy(model))
+    attn_int8, experts_int8 = block_linear_bytes(q_model), expert_bytes(q_model)
+    results, int8_s, _ = drain(q_model, cfg, reqs, kv_quant=False)
+    int8_tps = sum(len(r.tokens) for r in results.values()) / int8_s
+    del q_model
+
+    # scoring: the run's validation split, flash forward per layer and microbatch
+    val = PackedDataset(str(moe_run["val_npz"]))
+    fa.flash_fwd.launches = 0
+    ppl_batch = 8
+    t0 = time.perf_counter()
+    scored = ppl.evaluate_perplexity(model, cfg, val, batch_size=ppl_batch)
+    score_s = time.perf_counter() - t0
+    score_launches = fa.flash_fwd.launches
+    microbatches = -(-len(val) // ppl_batch)
+    # the flash forward at the shape scoring ran it at (B 8 x T 512, heads of 64)
+    flash_timed = check_flash_forward(gen, "moe_serve_kernel", f"moe_score_b{ppl_batch}",
+                                      ppl_batch, cfg.block_size, None, peak_bw, peak_ops,
+                                      H=cfg.n_head, D=cfg.head_dim)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = cfg.replace(compute_dtype="float32")
+    sub = moe_run["val_npz"].with_name("val_moe_subset.npz")
+    with np.load(moe_run["val_npz"]) as data:
+        np.savez(sub, X=data["X"][:MOE_CPU_WINDOWS], Y=data["Y"][:MOE_CPU_WINDOWS])
+    on_card = ppl.evaluate_perplexity(model, f32, sub, batch_size=MOE_CPU_WINDOWS)["nll"]
+    cpu_model = copy.deepcopy(model).cpu()
+    on_cpu = ppl.evaluate_perplexity(cpu_model, f32, sub, batch_size=MOE_CPU_WINDOWS)["nll"]
+    del cpu_model
+    nll_err = abs(on_card - on_cpu) / abs(on_cpu)
+
+    small = CodonGPTConfig(**dict(MAIN, n_layer=2, compute_dtype="float32", moe_experts=4,
+                                  moe_top_k=2))
+    torch.manual_seed(8)
+    parity = moe_f32_serving(params_to_jax(CodonGPT(small), small), small)
+    out = dict(model="the [moe_train] run: 12L8H d512 bf16, MoE 4 experts top-2",
+               requests=len(reqs), slots=ENGINE["slots"], delivered_tokens=delivered,
+               seconds=seconds, delivered_tokens_per_s=dense_tps, decode_steps=steps,
+               ms_per_decode_step=seconds * 1e3 / steps, decode_launches=decode_launches,
+               spec_k=SPECULATIVE_K, spec_delivered_tokens=spec_delivered, spec_seconds=spec_s,
+               spec_tokens_per_s=spec_delivered / spec_s, verify_rounds=rounds,
+               accept_rate=spec_eng.stats()["speculative_accept_rate"],
+               chunk_launches=chunk_launches,
+               attention_bytes_f32=attn_f32, attention_bytes_int8=attn_int8,
+               expert_router_bytes_f32=experts_f32, expert_router_bytes_int8=experts_int8,
+               int8_tokens_per_s=int8_tps, int8_over_dense=int8_tps / dense_tps,
+               score_nll=scored["nll"], score_perplexity=scored["perplexity"], score_s=score_s,
+               score_flash_launches=score_launches, want_score_launches=cfg.n_layer * microbatches,
+               f32_nll_card=on_card, f32_nll_cpu=on_cpu, f32_nll_rel_err=nll_err,
+               f32_2layer_greedy=parity, card=card)
+    log("moe_serve", **out)
+    if decode_launches == 0 or decode_launches != cfg.n_layer * steps:
+        raise AssertionError(f"decode launches {decode_launches} != {cfg.n_layer} x {steps}")
+    if chunk_launches == 0 or chunk_launches != cfg.n_layer * rounds:
+        raise AssertionError(f"chunk launches {chunk_launches} != {cfg.n_layer} x {rounds}")
+    if attn_int8 * 4 != attn_f32 or experts_int8 != experts_f32:
+        raise AssertionError("int8 weights: attention bytes not a quarter, or experts changed")
+    if score_launches != cfg.n_layer * microbatches or not np.isfinite(scored["nll"]):
+        raise AssertionError(f"scoring: {score_launches} flash launches, nll {scored['nll']}")
+    if nll_err > SCORE_NLL_RTOL or not all(parity.values()):
+        raise AssertionError(f"card against CPU: nll {nll_err}, greedy {parity}")
+    return {"model": model, "cfg": cfg, "decode": decode_launches, "chunk": chunk_launches,
+            "score": score_launches, "chunk_timed": chunk_timed, "flash_timed": flash_timed}
+
+
+def phase_moe_throughput(card: str) -> dict:
+    """``benchmark_moe`` (dense, top-1, top-2; 5 measured groups each, a
+    subprocess each), then one profiled MoE group split by part."""
+    with tempfile.TemporaryDirectory(prefix="smoke_moe_bench_") as tmp:
+        out = Path(tmp) / "moe.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = bench_moe.main(["--measure_steps", "5", "--out", str(out)])
+        report = json.loads(out.read_text())["throughput_d512"]
+    rows = {r["name"]: r for r in report["candidates"]}
+    log("moe_throughput", rc=rc, protocol=report["protocol"], candidates={
+        name: {k: r.get(k) for k in ("ok", "error", "nonpad_tokens_per_sec", "ms_per_group",
+                                     "peak_memory_bytes", "rel_to_dense", "last_loss",
+                                     "detail")}
+        for name, r in rows.items()}, card=card)
+    if rc or not all(r.get("ok") for r in rows.values()):
+        raise AssertionError("a benchmark_moe candidate failed")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_main.main(["--moe", "--groups", "1", "--top", "12"])
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    head = lines[0]
+    split = next(line["moe_device_split"] for line in lines if "moe_device_split" in line)
+    log("moe_profile", **{k: v for k, v in head.items() if k != "card"},
+        moe_device_split=split,
+        top_kernels=[line for line in lines if "kernel" in line], card=card)
+    return {"rows": rows, "profile": head, "split": split}
+
+
+def phase_embeddings(runs: list[tuple[str, dict]], card: str, peak_bw, peak_ops) -> dict:
+    """Embeddings of 64 validation windows in the three pooling modes on each
+    run, the float32 card against the CPU, attention maps at B 1 x T 512, the
+    flash forward at the last run's extraction shape, and the two CLIs."""
+    launches, out = {}, {}
+    for name, run in runs:
+        model, cfg, itos, stoi = load_codon_model(run["run_dir"], device="cuda")
+        cfg = cfg.replace(dropout=0.0)
+        with np.load(run["val_npz"]) as data:
+            X = data["X"][:EMBED_WINDOWS]
+        fa.flash_fwd.launches = 0  # this run's extraction only
+        t0 = time.perf_counter()
+        pooled = {mode: emb_lib.extract_embeddings(model, cfg, X, mode=mode, batch_size=64)
+                  for mode in emb_lib.POOLING_MODES}
+        seconds = time.perf_counter() - t0
+        launches[name] = fa.flash_fwd.launches
+        batches = len(emb_lib.POOLING_MODES) * -(-len(X) // 64)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        f32 = cfg.replace(compute_dtype="float32")
+        sub = X[:SCORE_CPU_WINDOWS]
+        card_f32 = emb_lib.extract_embeddings(model, f32, sub, mode="mean_nonpad")
+        cpu_f32 = emb_lib.extract_embeddings(copy.deepcopy(model).cpu(), f32, sub,
+                                             mode="mean_nonpad")
+        f32_err = float(np.abs(card_f32 - cpu_f32).max())
+        idx = torch.from_numpy(X[:1].astype(np.int64)).cuda()
+        with torch.no_grad():
+            maps = codon_gpt_mod.attention_maps(model, cfg, idx)
+        seg = segment_ids(idx, cfg.sep_id)
+        allowed = structure_mask(idx.shape[1], idx.shape[1], segment_ids=seg,
+                                 device="cuda")[0, 0]
+        row_err = max(float((m.sum(-1) - 1).abs().max()) for m in maps)
+        masked_zero = all(bool((m[0][:, ~allowed] == 0).all()) for m in maps)
+        finite = all(np.isfinite(v).all() for v in pooled.values())
+        out[name] = dict(windows=len(X), shapes={k: list(v.shape) for k, v in pooled.items()},
+                         seconds=seconds, flash_launches=launches[name],
+                         want_launches=cfg.n_layer * batches, f32_card_vs_cpu_max_abs=f32_err,
+                         maps=len(maps), map_shape=list(maps[0].shape),
+                         map_row_sum_max_err=row_err, masked_entries_zero=masked_zero,
+                         finite=finite)
+        if (not finite or launches[name] != cfg.n_layer * batches or f32_err > EMBED_F32_ATOL
+                or row_err > 1e-5 or not masked_zero or len(maps) != cfg.n_layer):
+            log("embeddings", run=name, **out[name], card=card)
+            raise AssertionError(f"embeddings of {name}: {out[name]}")
+        del model
+    # the flash forward at the shape the last run's extraction (the MoE run's,
+    # heads of 64) ran it at; the trainer run's shape is [score]'s b64_full
+    name, run = runs[-1]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flash_timed = check_flash_forward(gen, "embeddings_kernel", f"{name}_b64", 64,
+                                      cfg.block_size, None, peak_bw, peak_ops,
+                                      H=cfg.n_head, D=cfg.head_dim)
+    # the CLIs on the MoE run
+    tmp = Path(run["run_dir"])
+    fasta = tmp / "probe.fasta"
+    rng = np.random.default_rng(23)
+    fasta.write_text("".join(f">cds{i}\nATG" + "".join(rng.choice(list("ACGT"), 3 * n)) + "TAA\n"
+                             for i, n in enumerate((40, 120, 300))))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_extract = extract_cli([str(run["run_dir"]), "--input", str(fasta), "--out",
+                                  str(tmp / "probe_emb.npz"), "--pooling", "mean_content"])
+        rc_attention = attention_cli([str(run["run_dir"])])
+    printed = buf.getvalue()
+    from genomics_lm_torch.evals.visualizer import _plt
+
+    log("embeddings", runs=out, cli_rc=[rc_extract, rc_attention],
+        figures="drawn" if _plt() is not None else "not drawn (no matplotlib)",
+        cli_output=printed.strip().splitlines()[:3] + ["..."], card=card)
+    print(printed, end="", flush=True)
+    if rc_extract or rc_attention or "[extract] wrote (3, 512)" not in printed:
+        raise AssertionError("the extraction CLIs failed")
+    return {"launches": launches, "flash_timed": flash_timed}
+
+
+def phase_noprop(trained: dict, card: str) -> dict:
+    """``train_noprop`` at 10L8H d384, block 512, on phase 15's corpus: 2
+    epochs, then a resume to a third."""
+    with tempfile.TemporaryDirectory(prefix="smoke_noprop_") as tmp:
+        tmp = Path(tmp)
+        corpus = Path(trained["val_npz"]).parent
+        cfg_path = tmp / "noprop.yaml"
+        m = train_main.MAIN_TRAIN
+        cfg_path.write_text("\n".join([
+            f"train_npz: {corpus / 'train.npz'}", f"val_npz: {corpus / 'val.npz'}",
+            f"block_size: {m['block_size']}", f"n_layer: {m['n_layer']}",
+            f"n_head: {m['n_head']}", f"n_embd: {m['n_embd']}", "batch_size: 16",
+            "epochs: 2", "learning_rate: 0.0005", "seed: 1337"]) + "\n")
+        argv = ["--config", str(cfg_path), "--run_root", str(tmp / "runs"), "--run_id", "np"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            rc = noprop_cli(argv)
+            first_s = time.perf_counter() - t0
+            cfg_path.write_text(cfg_path.read_text().replace("epochs: 2", "epochs: 3"))
+            rc_resume = noprop_cli(argv + ["--resume",
+                                           str(tmp / "runs" / "np" / "checkpoints" / "last.npz")])
+        rows = (tmp / "runs" / "np" / "scores" / "curves.csv").read_text().strip().splitlines()[1:]
+        payload = load_checkpoint(tmp / "runs" / "np" / "checkpoints" / "last.npz")
+    ncfg = CodonGPTConfig(vocab_size=68, block_size=m["block_size"], n_layer=m["n_layer"],
+                          n_head=m["n_head"], n_embd=m["n_embd"])
+    model = noprop_lib.params_from_jax(payload["model"], ncfg, "cuda")
+    with np.load(Path(trained["val_npz"])) as data:
+        x = torch.from_numpy(data["X"][:8].astype(np.int64)).cuda()
+        y = torch.from_numpy(data["Y"][:8].astype(np.int64)).cuda()
+    with torch.no_grad():
+        total, parts = noprop_lib.noprop_loss(model, ncfg, x, y,
+                                              torch.Generator(device="cuda").manual_seed(0))
+    losses = [float(v) for r in rows for v in r.split(",")[1:]]
+    out = dict(model="NoProp 10L8H d384, block 512, float32, einsum attention",
+               rc=[rc, rc_resume], epochs=len(rows), curves=rows, first_run_s=first_s,
+               loss=float(total), ce=float(parts["ce"]),
+               block_mse=[float(b) for b in parts["block_mse"]], card=card)
+    log("noprop", **out)
+    if rc or rc_resume or len(rows) != 3 or not np.isfinite(losses + [out["loss"]]).all():
+        raise AssertionError("the NoProp runs failed or a loss is not finite")
+    if len(out["block_mse"]) != ncfg.n_layer:
+        raise AssertionError(f"{len(out['block_mse'])} block losses for {ncfg.n_layer} layers")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2383,6 +2913,17 @@ def main() -> int:
     int8_served = phase_int8_serve(served, card_line)
     generated = phase_generate(trainer_run, card_line, peak_bw, peak_ops)
     scored = phase_score(trainer_run, generated, card_line, peak_bw, peak_ops)
+    del generated["model"]
+    moe_dir = tempfile.TemporaryDirectory(prefix="smoke_moe_")  # read by 25, 27
+    moe_run = phase_moe_train(card_line, Path(moe_dir.name))
+    phase_moe_parity()
+    moe_served = phase_moe_serve(moe_run, card_line, peak_bw, peak_ops)
+    del moe_served["model"]
+    phase_moe_throughput(card_line)
+    embedded = phase_embeddings([("trainer", trainer_run), ("moe", moe_run)], card_line,
+                                peak_bw, peak_ops)
+    phase_noprop(trainer_run, card_line)
+    moe_dir.cleanup()
     trainer_dir.cleanup()
 
     tile_design = ("one pass with an online softmax in float32 (SIMT) over only the 64-position "
@@ -2404,6 +2945,7 @@ def main() -> int:
         "launches_int8_weights": int8_served["launches"],
         "launches_int8_weights_int8_cache": int8_served["launches_int8_cache"],
         "launches_generate": generated["decode"],
+        "launches_moe_serve": moe_served["decode"],
         "b1": generated["b1"],
         "b1_full": generated["b1_full"],
         "design": tile_design + "; one block per (kv head, slot)",
@@ -2423,10 +2965,16 @@ def main() -> int:
             "launches_finetune": finetuned["flash"][wrapper.__name__],
             "launches_remat_contract": remat["remat"][wrapper.__name__],
             "launches_plain_contract": remat["plain"][wrapper.__name__],
+            "launches_moe_train": moe_run["launches"][wrapper.__name__],
             **({"launches_score": scored["launches"],
                 "launches_score_mutations": scored["launches_mutations"],
                 "launches_generate": generated["flash"],
-                "inference": scored["inference"]} if key == "fwd" else {}),
+                "launches_moe_score": moe_served["score"],
+                "launches_embeddings": sum(embedded["launches"].values()),
+                "inference": scored["inference"],
+                "moe_inference": {"score_b8": moe_served["flash_timed"],
+                                  "embeddings_b64": embedded["flash_timed"]}}
+               if key == "fwd" else {}),
             "design": tensor_core,
         })
     kernels.append({
@@ -2439,6 +2987,8 @@ def main() -> int:
         "int8": dict(chunk_timed["main_int8"], launches=spec_served["launches_int8"]),
         "full": chunk_timed["full_bf16"],
         "full_int8": chunk_timed["full_int8"],
+        "launches_moe_spec": moe_served["chunk"],
+        "moe_spec": moe_served["chunk_timed"],
         "design": ("bf16 query, bf16 or int8 cache: tensor-core tiles (mma.sync m16n8k16, "
                    "ldmatrix), one pass with an online softmax, three cp.async stages, only "
                    "cache tiles with a live mask position read; float32 query: SIMT"),

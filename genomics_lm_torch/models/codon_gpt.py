@@ -42,11 +42,32 @@ in x's dtype, JAX's order (``codon_gpt.py:148-155``), and a fused QKV
 ``Int8Linear`` is JAX's concatenation of the three quantized projections
 (``:212-225``). Every path that goes through ``_linear``/``_qkv`` — the
 forward, prefill, the decode step, the engine's ragged decode and the
-speculative verify — serves an int8 model unchanged. Not ported: the MoE
-MLP (building or loading such a model raises ``NotImplementedError``).
+speculative verify — serves an int8 model unchanged.
+
+Mixture of experts (``cfg.moe_experts``, JAX ``_moe_mlp``,
+``codon_gpt.py:285-353``): a block's MLP is a ``MoEMLP``, its expert
+weights stacked on a leading E axis in JAX's layout, beside a bias-free
+``router``. ``_moe_mlp`` routes each token to its top-k experts by a
+float32 router, grants expert slots in (rank, token) priority up to the
+capacity in training and drops the rest to the residual, and runs the
+expert products as batched matmuls over E; dispatch and combine are index
+operations into and out of an (E, C, D) buffer, the function of JAX's
+one-hot einsums. ``block_epilogue`` routes every path: capped in training,
+dropless everywhere else (evaluation, prefill, decode, serving, the
+speculative verify, ``hidden_states``), so each token's output is
+independent of the others'. ``forward(..., return_aux=True)`` returns the
+router's load-balancing loss, the mean over layers, as ``moe_aux_loss``.
+
+``hidden_states``, ``forward_hidden`` and ``attention_maps`` are JAX's
+extraction forwards (``codon_gpt.py:574-662``): the canonical states after
+the embedding, every block and the final norm, and each layer's attention
+probabilities under the causal, window and ``<SEP>`` mask.
 """
 
 from __future__ import annotations
+
+import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -54,9 +75,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from genomics_lm_torch.models.config import CodonGPTConfig
-from genomics_lm_torch.ops.attention import attention
+from genomics_lm_torch.ops.attention import attention, sdpa
 from genomics_lm_torch.ops.losses import cross_entropy
-from genomics_lm_torch.ops.masks import segment_ids_from_tokens
+from genomics_lm_torch.ops.masks import segment_ids_from_tokens, structure_mask
 from genomics_lm_torch.ops.quant import quantize_weight
 
 
@@ -136,6 +157,49 @@ def _gelu_mlp(d_in: int, hidden: int, d_out: int) -> nn.Sequential:
     return nn.Sequential(nn.Linear(d_in, hidden), nn.GELU(), nn.Linear(hidden, d_out))
 
 
+def _uniform(shape: tuple[int, ...], fan_in: int) -> nn.Parameter:
+    """U(±1/√fan_in), the JAX ``_linear_init`` distribution."""
+    k = 1.0 / math.sqrt(fan_in)
+    return nn.Parameter(torch.empty(shape).uniform_(-k, k))
+
+
+class ExpertLinear(nn.Module):
+    """One linear per expert in JAX's layout: ``w`` (E, fan_in, fan_out) and
+    ``b`` (E, fan_out) or none."""
+
+    def __init__(self, n_experts: int, fan_in: int, fan_out: int, bias: bool = True):
+        super().__init__()
+        self.w = _uniform((n_experts, fan_in, fan_out), fan_in)
+        if bias:
+            self.b = _uniform((n_experts, fan_out), fan_in)
+        else:
+            self.register_parameter("b", None)
+
+
+class MoEMLP(nn.Module):
+    """The expert bank of a MoE block: ``fc``/``proj`` (GELU) or ``w_gate``/
+    ``w_up``/``w_down`` (SwiGLU, bias-free), each an ``ExpertLinear``."""
+
+    def __init__(self, cfg: CodonGPTConfig):
+        super().__init__()
+        E, D, H = cfg.moe_experts, cfg.n_embd, cfg.mlp_hidden
+        if cfg.use_swiglu:
+            self.w_gate = ExpertLinear(E, D, H, bias=False)
+            self.w_up = ExpertLinear(E, D, H, bias=False)
+            self.w_down = ExpertLinear(E, H, D, bias=False)
+        else:
+            self.fc = ExpertLinear(E, D, H)
+            self.proj = ExpertLinear(E, H, D)
+
+
+class Router(nn.Module):
+    """The bias-free router ``w`` (D, E) of a MoE block."""
+
+    def __init__(self, cfg: CodonGPTConfig):
+        super().__init__()
+        self.w = _uniform((cfg.n_embd, cfg.moe_experts), cfg.n_embd)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: CodonGPTConfig):
         super().__init__()
@@ -143,7 +207,11 @@ class Block(nn.Module):
         self.ln1 = nn.LayerNorm(D)
         self.attn = _Attention(cfg)
         self.ln2 = nn.LayerNorm(D)
-        self.mlp = _SwiGLU(cfg) if cfg.use_swiglu else _gelu_mlp(D, cfg.mlp_hidden, D)
+        if cfg.moe_experts:
+            self.mlp = MoEMLP(cfg)
+            self.router = Router(cfg)
+        else:
+            self.mlp = _SwiGLU(cfg) if cfg.use_swiglu else _gelu_mlp(D, cfg.mlp_hidden, D)
 
 
 class CodonGPT(nn.Module):
@@ -156,8 +224,6 @@ class CodonGPT(nn.Module):
 
     def __init__(self, cfg: CodonGPTConfig):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
         self.cfg = cfg
         D = cfg.n_embd
         self.tok_emb = nn.Embedding(cfg.vocab_size, D)
@@ -208,12 +274,15 @@ def block_linears(block: Block, cfg: CodonGPTConfig, *,
     """The block's linears by their JAX (group, name), e.g. ("attn", "query")
     or ("mlp", "fc"). With ``fused_qkv`` the query, key and value entries
     are absent: their weights are rows of ``attn.qkv``, which ``with_qkv``
-    adds as ("attn", "qkv")."""
+    adds as ("attn", "qkv"). A MoE block's expert bank is no linear: it has
+    attention entries only."""
     out = {("attn", "proj"): block.attn.proj}
     if not cfg.fused_qkv:
         out.update({("attn", n): getattr(block.attn, n) for n in ("query", "key", "value")})
     elif with_qkv:
         out[("attn", "qkv")] = block.attn.qkv
+    if cfg.moe_experts:
+        return out
     if cfg.use_swiglu:
         out.update({("mlp", n): getattr(block.mlp, n) for n in ("w_gate", "w_up", "w_down")})
     else:
@@ -239,6 +308,10 @@ def attach_lora(model: CodonGPT, targets, rank: int) -> None:
     cfg = model.cfg
     kv_dim = cfg.kv_heads * cfg.head_dim
     fan_out = {"query": cfg.n_embd, "key": kv_dim, "value": kv_dim}
+    if cfg.moe_experts and any(group == "mlp" for group, _ in targets):
+        raise ValueError(
+            "LoRA mlp targets are unsupported on MoE models — expert "
+            "banks are excluded from adaptation (use targets='attn')")
     for block in model.blocks:
         linears = block_linears(block, cfg)
         fused = {}
@@ -347,22 +420,123 @@ def _dropout_on(cfg: CodonGPTConfig, train: bool, generator) -> bool:
     return train and generator is not None and cfg.dropout > 0.0
 
 
+def moe_route(block: Block, cfg: CodonGPTConfig, ht: torch.Tensor, *, capped: bool,
+              with_aux: bool = True) -> dict:
+    """The router of a MoE block over the (N, D) tokens ``ht``: its float32
+    ``probs`` (N, E), the top-k ``gate_idx`` and renormalized ``gate_vals``
+    (N, k), each choice's slot ``pos`` in its expert's buffer (N, k; granted
+    in rank-major, then token, priority), ``keep`` (pos < the capacity
+    ``C``) and the load-balancing ``aux`` (None without ``with_aux``).
+
+    ``C`` is ``max(1, ceil(cf · k · N / E))`` over the N tokens of the whole
+    flattened microbatch when ``capped`` (training), N (dropless) otherwise,
+    in Python floats as JAX computes it (``codon_gpt.py:312``).
+
+    The router runs in float32 whatever the compute dtype, as JAX's
+    ``ht.astype(f32) @ router.w``. Ties go to the lower expert index, as
+    ``jax.lax.top_k`` puts them: a stable descending sort of the
+    probabilities, no value changed.
+    """
+    N = ht.shape[0]
+    E = cfg.moe_experts
+    k = min(cfg.moe_top_k, E)
+    C = max(1, math.ceil(cfg.moe_capacity_factor * k * N / E)) if capped else N
+    probs = torch.softmax(torch.matmul(ht.float(), block.router.w), dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :k], order[:, :k]
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    aux = None
+    if with_aux:  # Switch aux E · Σ_e f_e · p_e over all N tokens, pads included
+        top1 = F.one_hot(gate_idx[:, 0], E).float()
+        aux = E * torch.sum(top1.mean(dim=0) * probs.mean(dim=0))
+    # exclusive running count per expert over the k·N choices, rank-major: an
+    # (E, k·N) one-hot scanned along its rows (a scan down 4 columns of k·N
+    # takes ~1000x longer on the card)
+    choice = gate_idx.t().reshape(1, k * N)
+    flat = (choice == torch.arange(E, device=ht.device)[:, None]).to(torch.int32)
+    pos = (torch.cumsum(flat, dim=1, dtype=torch.int32) - flat).gather(0, choice)
+    pos = pos.view(k, N).t()
+    return {"probs": probs, "gate_idx": gate_idx, "gate_vals": gate_vals, "pos": pos,
+            "keep": pos < C, "C": C, "aux": aux}
+
+
+def _span(name: str):
+    """A profiler range named ``name`` while ``torch.profiler`` records, else
+    nothing (``training/profile_step.py --moe`` splits a group's device
+    time by these ranges)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def _moe_mlp(block: Block, cfg: CodonGPTConfig, h: torch.Tensor, *, capped: bool,
+             with_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """GShard top-k routed expert MLP of (B, T, D) ``h``: ``(y, aux)``, JAX
+    ``_moe_mlp``'s contract (``codon_gpt.py:285-353``); the decode paths,
+    which drop the router loss, skip it (``with_aux=False``: aux is None).
+
+    Each kept choice's token row goes to row ``expert · C + pos`` of an
+    (E·C, D) buffer (an index write; a dropped choice goes to one spare row
+    that is cut off), the experts run as batched matmuls over E, and each
+    token gathers its kept choices' rows back, weighted by its gates in the
+    compute dtype and summed in float32: the function of JAX's one-hot
+    dispatch and combine einsums, whose sums have one nonzero term each. A
+    dropped choice contributes 0, so the residual carries the token.
+    """
+    B, T, D = h.shape
+    N = B * T
+    E = cfg.moe_experts
+    dt = h.dtype
+    ht = h.reshape(N, D)
+    with _span("moe_router"):
+        r = moe_route(block, cfg, ht, capped=capped, with_aux=with_aux)
+    C, k = r["C"], r["gate_idx"].shape[1]
+    with _span("moe_dispatch"):
+        slot = torch.where(r["keep"], r["gate_idx"] * C + r["pos"], E * C).t().reshape(k * N)
+        xin = ht.repeat(k, 1)  # rank-major: row r·N + n is token n
+        xe = torch.index_put(ht.new_zeros(E * C + 1, D), (slot,), xin)[: E * C].view(E, C, D)
+    mlp = block.mlp
+    with _span("moe_experts"):
+        if cfg.use_swiglu:
+            gate = torch.bmm(xe, mlp.w_gate.w.to(dt))
+            up = torch.bmm(xe, mlp.w_up.w.to(dt))
+            ye = torch.bmm(F.silu(gate) * up, mlp.w_down.w.to(dt))
+        else:
+            mid = F.gelu(torch.bmm(xe, mlp.fc.w.to(dt)) + mlp.fc.b.to(dt)[:, None, :])
+            ye = torch.bmm(mid, mlp.proj.w.to(dt)) + mlp.proj.b.to(dt)[:, None, :]
+    with _span("moe_combine"):
+        rows = torch.cat([ye.reshape(E * C, D), ye.new_zeros(1, D)])[slot]
+        gates = r["gate_vals"].to(dt).t().reshape(k * N, 1)
+        y = (rows.float() * gates.float()).view(k, N, D).sum(dim=0).to(dt)
+    return y.view(B, T, D), r["aux"]
+
+
 def block_epilogue(block: Block, cfg: CodonGPTConfig, x: torch.Tensor,
                    y_attn: torch.Tensor, *, train: bool = False,
-                   generator: torch.Generator | None = None) -> torch.Tensor:
+                   generator: torch.Generator | None = None, capped: bool | None = None,
+                   return_moe_aux: bool = False):
     """Post-attention half of a block, shared by every path: the output
-    projection's residual add, LN2, and the (SwiGLU | GELU) MLP residual,
-    whose output takes dropout in training."""
+    projection's residual add, LN2, and the (SwiGLU | GELU | MoE) MLP
+    residual, whose output takes dropout in training.
+
+    A MoE MLP binds its capacity when ``capped`` (default: ``train``) and
+    routes dropless otherwise. ``return_moe_aux`` returns ``(x, aux)``, aux
+    the router loss (None for a dense block)."""
     x = x + _linear(block.attn.proj, y_attn)
     h = _layer_norm(block.ln2, x)
     mlp = block.mlp
-    if cfg.use_swiglu:
+    moe_aux = None
+    if cfg.moe_experts:
+        m, moe_aux = _moe_mlp(block, cfg, h, capped=train if capped is None else capped,
+                              with_aux=return_moe_aux)
+    elif cfg.use_swiglu:
         m = _linear(mlp.w_down, F.silu(_linear(mlp.w_gate, h)) * _linear(mlp.w_up, h))
     else:
         m = _linear(mlp[2], F.gelu(_linear(mlp[0], h)))
     if _dropout_on(cfg, train, generator):
         m = _dropout(m, cfg.dropout, generator)
-    return x + m
+    x = x + m
+    return (x, moe_aux) if return_moe_aux else x
 
 
 def _embed(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor,
@@ -391,8 +565,10 @@ def _offset_logits(model: CodonGPT, cfg: CodonGPTConfig, x: torch.Tensor, offset
 
 
 def _block_apply(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, *, segment_ids,
-                 attention_window, rope, drop: bool, generator) -> torch.Tensor:
-    """One block of the training forward: LN1, QKV, attention, epilogue."""
+                 attention_window, rope, drop: bool, generator, capped: bool = False):
+    """One block of the training forward: LN1, QKV, attention, epilogue.
+    Returns ``(x, moe_aux)``; a MoE MLP binds its capacity when ``capped``
+    (the true training flag, whether or not dropout acts)."""
     B, T, C = x.shape
     h = _layer_norm(block.ln1, x)
     q, k, v = _qkv(block, h, cfg)
@@ -404,16 +580,18 @@ def _block_apply(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, *, segment_
                   dropout_rate=cfg.dropout if drop else 0.0, seed=seed,
                   impl=cfg.attention_impl)
     return block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(B, T, C), train=drop,
-                          generator=generator)
+                          generator=generator, capped=capped, return_moe_aux=True)
 
 
 def _remat_block(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, generator,
-                 *, drop: bool, **kw) -> torch.Tensor:
-    """``_block_apply`` under ``torch.utils.checkpoint``: its activations are
-    recomputed in the backward instead of kept. Both passes draw from a copy
-    of ``generator`` taken at the block's start, so the recomputed dropout
-    masks and attention seed are the first pass's; ``generator`` then
-    continues from where the first pass left its copy."""
+                 *, drop: bool, **kw):
+    """``_block_apply`` under ``torch.utils.checkpoint``, ``(x, moe_aux)``:
+    its activations are recomputed in the backward instead of kept. Both
+    passes draw from a copy of ``generator`` taken at the block's start, so
+    the recomputed dropout masks and attention seed are the first pass's;
+    ``generator`` then continues from where the first pass left its copy.
+    The recomputed MoE routing repeats the first pass's from the same
+    inputs."""
     start = generator.get_state() if drop else None
     end: list[torch.Tensor] = []
 
@@ -422,16 +600,22 @@ def _remat_block(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, generator,
         if drop:
             gen = torch.Generator(device=h.device)
             gen.set_state(start)
-        out = _block_apply(block, cfg, h, drop=drop, generator=gen, **kw)
+        out, aux = _block_apply(block, cfg, h, drop=drop, generator=gen, **kw)
         if drop and not end:
             end.append(gen.get_state())
-        return out
+        return out if aux is None else (out, aux)
 
     out = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
                                             preserve_rng_state=False)
     if drop:
         generator.set_state(end[0])
-    return out
+    return out if cfg.moe_experts else (out, None)
+
+
+def _rope_for(cfg: CodonGPTConfig, idx: torch.Tensor):
+    if not cfg.use_rope:
+        return None
+    return rope_cos_sin(idx.shape[1], cfg.head_dim, cfg.rope_base, cfg.dtype, idx.device)
 
 
 def forward(
@@ -447,9 +631,10 @@ def forward(
     attention_window: int | None = None,
 ):
     """Full forward pass. Returns ``(logits, loss)`` or, with ``return_aux``,
-    ``(logits, loss, aux)``; aux carries ``termination_logits`` and
-    ``offset_logits`` ({offset: logits}) when those heads exist, as the JAX
-    ``forward`` does. ``loss`` is the torch-semantics cross-entropy against
+    ``(logits, loss, aux)``; aux carries ``termination_logits``,
+    ``offset_logits`` ({offset: logits}) and ``moe_aux_loss`` (the router
+    loss, the mean over layers) when those heads or experts exist, as the
+    JAX ``forward`` does. A MoE MLP binds its capacity with ``train``. ``loss`` is the torch-semantics cross-entropy against
     ``targets`` (pad id 0 ignored, ``cfg.label_smoothing`` and
     ``cfg.loss_weights``), or None without targets.
 
@@ -463,17 +648,16 @@ def forward(
     )
     drop = _dropout_on(cfg, train, generator)
     x = _embed(model, cfg, idx, shape_embeddings, train=drop, generator=generator)
-    rope = (
-        rope_cos_sin(idx.shape[1], cfg.head_dim, cfg.rope_base, cfg.dtype, idx.device)
-        if cfg.use_rope else None
-    )
+    rope = _rope_for(cfg, idx)
+    moe_aux = []
     for block in model.blocks:
         kw = dict(segment_ids=segment_ids, attention_window=attention_window, rope=rope,
-                  drop=drop)
+                  drop=drop, capped=train)
         if cfg.use_checkpoint and torch.is_grad_enabled():
-            x = _remat_block(block, cfg, x, generator, **kw)
+            x, aux = _remat_block(block, cfg, x, generator, **kw)
         else:
-            x = _block_apply(block, cfg, x, generator=generator, **kw)
+            x, aux = _block_apply(block, cfg, x, generator=generator, **kw)
+        moe_aux.append(aux)
     x = _layer_norm(model.ln_f, x)
     logits = _lm_logits(model, cfg, x)
 
@@ -487,6 +671,8 @@ def forward(
     if not return_aux:
         return logits, loss
     aux: dict = {}
+    if cfg.moe_experts:
+        aux["moe_aux_loss"] = torch.stack(moe_aux).mean()
     if cfg.termination_aux:
         aux["termination_logits"] = _linear(model.termination_head, x)
     if cfg.multi_offset_targets:
@@ -495,18 +681,81 @@ def forward(
     return logits, loss, aux
 
 
+def hidden_states(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor, *,
+                  shape_embeddings: torch.Tensor | None = None,
+                  attention_window: int | None = None) -> list:
+    """Canonical causal states at the embedding, each block and the final
+    norm: ``[(0, emb), (1, h1), ..., (L, hL), ("final", ln_f(hL))]``, from
+    the inference forward one block at a time (no dropout; a MoE block
+    routes dropless), attention by ``cfg.attention_impl`` (the flash
+    forward on the card under ``"flash"``). Runs under autograd: the
+    extraction entry points call it under ``torch.no_grad``."""
+    segment_ids = (
+        segment_ids_from_tokens(idx, cfg.sep_id) if cfg.sep_id is not None else None
+    )
+    x = _embed(model, cfg, idx, shape_embeddings)
+    rope = _rope_for(cfg, idx)
+    out = [(0, x)]
+    for layer, block in enumerate(model.blocks):
+        x, _ = _block_apply(block, cfg, x, segment_ids=segment_ids,
+                            attention_window=attention_window, rope=rope, drop=False,
+                            generator=None)
+        out.append((layer + 1, x))
+    out.append(("final", _layer_norm(model.ln_f, x)))
+    return out
+
+
+def forward_hidden(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor,
+                   **kwargs) -> torch.Tensor:
+    """Final-norm hidden states, the canonical embedding-extraction output."""
+    return hidden_states(model, cfg, idx, **kwargs)[-1][1]
+
+
+def attention_maps(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor, *,
+                   attention_window: int | None = None) -> list[torch.Tensor]:
+    """Per-layer attention probabilities (B, H, T, T) under the causal,
+    window and ``<SEP>``-segment mask, from the einsum attention (a masked
+    entry is exactly 0); the blocks continue through ``block_epilogue``
+    (dropless for MoE)."""
+    segment_ids = (
+        segment_ids_from_tokens(idx, cfg.sep_id) if cfg.sep_id is not None else None
+    )
+    x = _embed(model, cfg, idx)
+    rope = _rope_for(cfg, idx)
+    T = idx.shape[1]
+    mask = structure_mask(T, T, window=attention_window, segment_ids=segment_ids,
+                          device=idx.device)
+    maps = []
+    for block in model.blocks:
+        h = _layer_norm(block.ln1, x)
+        q, k, v = _qkv(block, h, cfg)
+        if rope is not None:
+            q, k = apply_rope(q, k, *rope)
+        y, probs = sdpa(q, k, v, mask=mask, return_probs=True)
+        maps.append(probs)
+        x = block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(x.shape))
+    return maps
+
+
 __all__ = [
     "ATTN_LINEARS",
     "Block",
     "CodonGPT",
+    "ExpertLinear",
     "Int8Linear",
     "LoRA",
     "MLP_LINEARS",
+    "MoEMLP",
+    "Router",
     "attach_lora",
+    "attention_maps",
     "block_linears",
     "apply_rope",
     "block_epilogue",
     "forward",
+    "forward_hidden",
+    "hidden_states",
+    "moe_route",
     "param_count",
     "rope_cos_sin",
     "rotate_half",

@@ -42,7 +42,7 @@ class CodonGPTConfig:
     rope_base: float = 10000.0
     use_shape_guidance: bool = False
     loss_weights: tuple[float, ...] | None = None  # per-token CE weights
-    moe_experts: int = 0  # MoE is not ported: > 0 raises where a model is built
+    moe_experts: int = 0  # > 0: a routed expert MLP (models/codon_gpt.py::MoEMLP)
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01

@@ -34,14 +34,17 @@ def sdpa(
     mask: torch.Tensor | None = None,
     dropout_rate: float = 0.0,
     seed: torch.Tensor | None = None,
-) -> torch.Tensor:
+    return_probs: bool = False,
+):
     """Scaled dot-product attention via einsum.
 
     q: (B, Hq, T, D); k, v: (B, Hkv, S, D) with Hq a multiple of Hkv.
     ``mask`` is boolean, broadcastable to (B, Hq, T, S), True = attend.
     When mask is None a causal mask aligned to the last query is applied.
     Dropout acts on the probabilities when ``seed`` (a one-element int32
-    tensor) is given and the rate is > 0.
+    tensor) is given and the rate is > 0. ``return_probs`` also returns the
+    float32 probabilities (B, Hq, T, S) before dropout, as JAX's
+    ``sdpa_xla(..., return_probs=True)``.
     """
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -63,13 +66,15 @@ def sdpa(
     scores = scores.masked_fill(~mask, NEG_INF)
 
     probs = torch.softmax(scores, dim=-1)
+    probs_out = probs.reshape(B, Hq, T, S) if return_probs else None
     if dropout_rate > 0.0 and seed is not None:
         keep = philox_keep(seed, B, Hq, T, S, dropout_rate).view(B, Hkv, G, T, S)
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     out = torch.einsum(
         "bhgts,bhsd->bhgtd", probs.to(v.dtype).float(), v.float()
     ).to(q.dtype)
-    return out.reshape(B, Hq, T, D)
+    out = out.reshape(B, Hq, T, D)
+    return (out, probs_out) if return_probs else out
 
 
 def attention(

@@ -6,7 +6,8 @@ weight and the whole KV cache each step, so int8 storage halves or
 quarters those bytes.
 
 - **Weight-only int8** (``quantize_params``): per-output-channel scales on
-  every block linear (QKV, attention projection, MLP). The product runs in
+  every block linear (QKV, attention projection, MLP; a MoE model's
+  experts and router stay full precision). The product runs in
   the activation dtype on the converted weight, ``(x @ w_q.T) * scale +
   b`` (``models/codon_gpt.py::_linear``), as JAX computes it outside any
   Pallas kernel. Embeddings, layer norms, the LM head and the auxiliary
@@ -63,9 +64,14 @@ def quantize_params(model):
     output row, so its int8 rows and scales are exactly JAX's query, key
     and value quantized apart and concatenated (``codon_gpt.py:212-225``).
 
+    A MoE model quantizes its attention linears only: the experts run
+    through the dispatch's batched products, not ``_linear``, and they and
+    the router stay float32, as in JAX (``quant.py:84-91``), so a MoE model
+    serves with ``--int8_weights``.
+
     Refuses a model with LoRA adapters (rebuilding a linear from its
     weight and bias would drop the trained factors; merge first), as JAX
-    refuses an unmerged tree, and an MoE config (not ported).
+    refuses an unmerged tree.
     """
     from genomics_lm_torch.models.codon_gpt import (
         Int8Linear,
@@ -75,8 +81,6 @@ def quantize_params(model):
     )
 
     cfg = model.cfg
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
     if any(isinstance(m, LoRA) for m in model.modules()):
         raise ValueError(
             "cannot int8-quantize an unmerged LoRA checkpoint — the adapter "

@@ -117,9 +117,10 @@ def _drive(built, gen, next_group, n: int):
     return seconds, fetch_s, host, torch.stack(device).cpu().tolist()
 
 
-def _protocol(built, gen, next_group) -> dict:
+def _protocol(built, gen, next_group, measure: int = MEASURE_STEPS,
+              profile_groups: int = PROFILE_GROUPS) -> dict:
     """Warm-up, measured and profiled groups of one protocol."""
-    warmup, measure, profile_groups = WARMUP_STEPS, MEASURE_STEPS, PROFILE_GROUPS
+    warmup = WARMUP_STEPS
     _drive(built, gen, next_group, warmup)
     seconds, fetch_s, host, device = _drive(built, gen, next_group, measure)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -156,8 +157,9 @@ def _protocol(built, gen, next_group) -> dict:
     }
 
 
-def run_synthetic(built, gen) -> dict:
-    """Full synthetic windows staged on the card once (``bench.py:94-141``)."""
+def run_synthetic(built, gen, **depth) -> dict:
+    """Full synthetic windows staged on the card once (``bench.py:94-141``).
+    ``depth`` (``measure``, ``profile_groups``) overrides the group counts."""
     batches = [main_path.make_batch(s, "cuda") for s in range(main_path.BATCHES)]
     counts = [int((b["y"] != 0).sum()) for b in batches]
     turn = iter(range(1 << 30))
@@ -166,18 +168,20 @@ def run_synthetic(built, gen) -> dict:
         i = next(turn) % len(batches)
         return batches[i]["x"], batches[i]["y"], counts[i]
 
-    out = _protocol(built, gen, next_group)
+    out = _protocol(built, gen, next_group, **depth)
     out["protocol"] = "synthetic_device_only"
     return out
 
 
-def run_real_pipeline(built, gen, pack_mode: str = "multi") -> dict:
+def run_real_pipeline(built, gen, pack_mode: str = "multi", *,
+                      measure: int = MEASURE_STEPS,
+                      profile_groups: int = PROFILE_GROUPS) -> dict:
     """The real host pipeline (``bench.py:184-257``): packing, mmap sidecars,
     ``EpochPlan`` shards, grouped microbatches and a prefetched copy from
     pinned memory every step."""
     cfg = built[0]
     G, B = main_path.G, main_path.B
-    n_groups = WARMUP_STEPS + MEASURE_STEPS + PROFILE_GROUPS
+    n_groups = WARMUP_STEPS + measure + profile_groups
     with tempfile.TemporaryDirectory(prefix="bench_realpipe_") as tmp:
         t0 = time.perf_counter()
         npz, pad_fraction = build_packed_dataset(
@@ -207,7 +211,7 @@ def run_real_pipeline(built, gen, pack_mode: str = "multi") -> dict:
                     state["groups"] = epoch_groups(state["epoch"])
 
         try:
-            out = _protocol(built, gen, next_group)
+            out = _protocol(built, gen, next_group, measure, profile_groups)
         finally:
             state["groups"].close()
     out.update(protocol=f"real_pipeline({pack_mode})", pack_mode=pack_mode,

@@ -42,7 +42,9 @@ at its end: the path is host-bound.
 
 Not ported, and refused with ``NotImplementedError`` naming the flag
 (``UNPORTED_FLAGS``): meshes, tensor and pipeline parallelism and
-multi-process runs, and MoE.
+multi-process runs. A MoE config trains on the one card with its experts
+replicated (JAX's single-device branch, where ``shard_optimizer_state`` is
+a no-op too); expert parallelism needs a mesh and raises under its flags.
 """
 
 from __future__ import annotations
@@ -122,7 +124,6 @@ UNPORTED_FLAGS = (
     ("mesh_devices", lambda v: v is not None and int(v) > 1),
     ("tensor_parallel", lambda v: v is not None and int(v) > 1),
     ("pipeline_stages", lambda v: v is not None and int(v) > 1),
-    ("moe_experts", bool),
 )
 
 

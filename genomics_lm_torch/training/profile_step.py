@@ -15,7 +15,16 @@ lines: ms per group and non-pad tokens/s, the device time summed over
 every kernel, the device's busy share, kernel launches per group, and the
 kernels that take the most device time:
 
-    python -m genomics_lm_torch.training.profile_step [--groups 3] [--top 15]
+    python -m genomics_lm_torch.training.profile_step [--groups 3] [--top 15] [--moe]
+
+``--moe`` profiles the MoE configuration instead
+(``configs/stage2.6_moe_4e_top2_d512_ep2.yaml``'s model, ``MOE_TRAIN``:
+12L8H d512, 4 experts routed top-2 at capacity 1.25, router loss weight
+0.01, the same step and group shape) and adds one line splitting the
+group's device time into the MoE MLP's router, dispatch, expert products
+and combine (each forward range of ``models/codon_gpt.py::_moe_mlp`` with
+the backward of the operations it ran, matched by autograd sequence
+number), the flash kernels and the rest (``moe_device_split``).
 """
 
 from __future__ import annotations
@@ -29,12 +38,15 @@ import torch
 
 from genomics_lm_torch.models.codon_gpt import CodonGPT
 from genomics_lm_torch.models.config import CodonGPTConfig
+from genomics_lm_torch.training.benchmark_moe import D512_MODEL
 from genomics_lm_torch.training.optim import build_optimizer
 from genomics_lm_torch.training.train_step import LossConfig, make_train_step
 
 MAIN_TRAIN = dict(vocab_size=68, block_size=512, n_layer=10, n_head=8, n_embd=384,
                   dropout=0.1, label_smoothing=0.05, sep_id=3, tie_embeddings=True,
                   attention_impl="flash", compute_dtype="bfloat16", fused_qkv=True)
+MOE_TRAIN = dict(D512_MODEL, moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25,
+                 moe_aux_weight=0.01)
 RUN_CFG = {"lr": 3e-4, "lr_embedding": 3e-4, "min_lr": 3e-5, "weight_decay": 0.05,
            "warmup_steps": 100, "scheduler": "cosine"}
 TOTAL_STEPS = 5000
@@ -54,9 +66,10 @@ def make_batch(seed: int, device, groups: int = G, batch: int = B, length: int =
     return {"x": torch.from_numpy(x).to(device), "y": torch.from_numpy(y).to(device)}
 
 
-def build_main(device, seed: int = SEED):
-    """(cfg, model, optimizer bundle, step) of the training main path."""
-    cfg = CodonGPTConfig(**MAIN_TRAIN)
+def build_main(device, seed: int = SEED, model: dict = MAIN_TRAIN):
+    """(cfg, model, optimizer bundle, step) of the training main path (or of
+    another ``model`` config, e.g. ``MOE_TRAIN``)."""
+    cfg = CodonGPTConfig(**model)
     torch.manual_seed(seed)
     model = CodonGPT(cfg).to(device)
     bundle = build_optimizer(RUN_CFG, model, total_steps=TOTAL_STEPS)
@@ -81,15 +94,55 @@ def _device_us(event) -> float:
     return 0.0
 
 
+MOE_SPANS = {"moe_router": "router", "moe_dispatch": "dispatch", "moe_experts": "experts",
+             "moe_combine": "combine"}
+BACKWARD_PREFIX = "autograd::engine::evaluate_function: "
+
+
+def kernel_us(event) -> float:
+    """Device µs of the kernels ``event`` and its children launched; the
+    ranges' own marks on the device timeline (``MOE_SPANS``) are no kernels."""
+    own = sum(k.duration for k in event.kernels if k.name not in MOE_SPANS)
+    return float(own) + sum(kernel_us(child) for child in event.cpu_children)
+
+
+def moe_device_split(events, time_of=kernel_us) -> dict:
+    """Device µs of the MoE MLP's parts in profiler ``events``: each
+    ``_moe_mlp`` range (forward) plus the backward nodes whose autograd
+    sequence numbers belong to operations run inside it. ``time_of`` reads
+    an event's time (default: its kernels' device time, its children's
+    included)."""
+    owner: dict[int, str] = {}
+    split = {part: {"forward_us": 0.0, "backward_us": 0.0} for part in MOE_SPANS.values()}
+
+    def claim(event, part):
+        if event.sequence_nr >= 0:
+            owner[event.sequence_nr] = part
+        for child in event.cpu_children:
+            claim(child, part)
+
+    for e in events:
+        part = MOE_SPANS.get(e.name)
+        if part is not None:
+            split[part]["forward_us"] += time_of(e)
+            claim(e, part)
+    for e in events:
+        if e.name.startswith(BACKWARD_PREFIX) and e.sequence_nr in owner:
+            split[owner[e.sequence_nr]]["backward_us"] += time_of(e)
+    return split
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--groups", type=int, default=3, help="measured and profiled groups")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--moe", action="store_true",
+                    help="profile MOE_TRAIN (12L8H d512, 4 experts top-2) instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
-    cfg, model, bundle, step = build_main("cuda")
+    cfg, model, bundle, step = build_main("cuda", model=MOE_TRAIN if args.moe else MAIN_TRAIN)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batches = [make_batch(s, "cuda") for s in range(BATCHES)]
     nonpad = int((batches[0]["y"] != 0).sum())
@@ -103,13 +156,16 @@ def main(argv=None) -> int:
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         prof_s, _ = run(args.groups)
+    # the MoE ranges also mark the device timeline: those marks are no kernels
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
+               and e.key not in MOE_SPANS]
     device_us = sum(_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     n = args.groups
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "groups": n,
+        "model": "MOE_TRAIN" if args.moe else "MAIN_TRAIN",
         "group_shape": [G, B, T], "nonpad_tokens_per_group": nonpad,
         "ms_per_group": plain_s * 1e3 / n,
         "nonpad_tokens_per_s": nonpad * n / plain_s,
@@ -123,6 +179,16 @@ def main(argv=None) -> int:
         "last_loss": float(metrics["total_loss_sum"]) / max(
             1, int(metrics["committed_microbatches"])),
     }))
+    if args.moe:
+        split = moe_device_split(prof.events())
+        flash_us = sum(_device_us(e) for e in kernels if "flash" in e.key)
+        moe_us = sum(p["forward_us"] + p["backward_us"] for p in split.values())
+        print(json.dumps({"moe_device_split": {
+            **{part: {k.replace("_us", "_ms"): v / 1e3 / n for k, v in times.items()}
+               for part, times in split.items()},
+            "flash_ms": flash_us / 1e3 / n,
+            "rest_ms": (device_us - moe_us - flash_us) / 1e3 / n,
+            "unit": "device ms per group"}}))
     for e in sorted(kernels, key=_device_us, reverse=True)[: args.top]:
         print(json.dumps({"kernel": e.key[:120], "launches_per_group": e.count / n,
                           "device_ms_per_group": _device_us(e) / 1e3 / n,

@@ -26,8 +26,10 @@ lookup table and an attached encoder, each microbatch's codon one-hots go
 through the encoder into the model's shape guidance. Frozen parameters
 (``requires_grad=False``, set by ``build_optimizer``) get no gradient,
 remat is the model's (``cfg.use_checkpoint``), and ``grad_clip`` is the
-optimizer's. The MoE router loss is not ported: ``composite_loss`` and
-``make_train_step`` raise ``NotImplementedError`` for an MoE model.
+optimizer's. A MoE model adds ``moe_aux_weight`` x its router
+load-balancing loss (the forward's ``moe_aux_loss``, the mean over
+layers) in training only, as ``parts["moe_aux"]``; evaluation losses stay
+pure cross-entropy.
 """
 
 from __future__ import annotations
@@ -79,11 +81,6 @@ class LossConfig:
         )
 
 
-def _check_ported(model_cfg: CodonGPTConfig) -> None:
-    if model_cfg.moe_experts:
-        raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
-
-
 def _class_weights(weights, device) -> torch.Tensor | None:
     return torch.tensor(weights, dtype=torch.float32, device=device) if weights else None
 
@@ -117,7 +114,6 @@ def composite_loss(model, model_cfg: CodonGPTConfig, loss_cfg: LossConfig,
                    shape_embeddings: torch.Tensor | None = None,
                    shape_lookup: torch.Tensor | None = None):
     """Total loss and its parts for one microbatch (the JAX ``composite_loss``)."""
-    _check_ported(model_cfg)
     if shape_embeddings is None:
         shape_embeddings = _shape_embeddings_for(model, xb, shape_lookup)
     logits, next_loss, aux = codon_gpt.forward(
@@ -125,6 +121,11 @@ def composite_loss(model, model_cfg: CodonGPTConfig, loss_cfg: LossConfig,
         shape_embeddings=shape_embeddings)
     total = next_loss
     parts: dict = {"next_loss": next_loss}
+
+    if model_cfg.moe_experts and train:
+        # the Switch router load-balancing loss, in training only
+        parts["moe_aux"] = aux["moe_aux_loss"]
+        total = total + model_cfg.moe_aux_weight * parts["moe_aux"]
 
     if loss_cfg.multi_offset_weights:
         lw = (None if model_cfg.uniform_loss_weights
@@ -196,7 +197,6 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
     updated and each trainable ``.grad`` holds the averaged group gradient
     (clipped, under ``grad_clip``); when it aborts, ``.grad`` is None.
     """
-    _check_ported(model_cfg)
 
     def step(model: torch.nn.Module, optimizer: OptimizerBundle, batch: dict,
              generator: torch.Generator | None, lr_scale: float = 1.0) -> dict:
@@ -271,7 +271,6 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
 def make_eval_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
                    shape_lookup: torch.Tensor | None = None) -> Callable:
     """Validation step over one (B, T) batch: loss parts and counts."""
-    _check_ported(model_cfg)
 
     @torch.no_grad()
     def step(model: torch.nn.Module, xb: torch.Tensor, yb: torch.Tensor) -> dict:

@@ -42,6 +42,9 @@ JAX leaf                              state_dict key                     transfo
 ``shape_encoder/conv2/{w,b}``         ``shape_encoder.conv2.{weight,bias}``  none
 ``blocks/*/*/w_q``  [L] (in, out) int8  ``blocks.{i}.*.*.w_q``  (out, in)  unstack + T
 ``blocks/*/*/scale``   [L] (out,)     ``blocks.{i}.*.*.scale``           unstack
+``blocks/mlp/*/w``  [L] (E, in, out)  ``blocks.{i}.mlp.*.w``  (E, in, out)  unstack (MoE)
+``blocks/mlp/*/b``  [L] (E, out)      ``blocks.{i}.mlp.*.b``             unstack (MoE)
+``blocks/router/w``    [L] (D, E)     ``blocks.{i}.router.w``            unstack (MoE)
 ====================================  =================================  =========
 
 JAX stores a linear weight as (in, out), torch as (out, in), so every
@@ -65,6 +68,12 @@ on each block linear; the port's linear is then an ``Int8Linear``
 takes the three projections' int8 rows and scales, concatenated. Both
 directions keep int8 leaves int8 and every other leaf float32, so the
 round trip stays exact.
+
+A MoE tree (``moe_experts`` > 0) holds each expert linear's weights
+stacked on an E axis after the L axis, ``fc``/``proj`` or ``w_gate``/
+``w_up``/``w_down``, and a bias-free ``router``; the port keeps them in
+that layout (``models/codon_gpt.py::MoEMLP``), so they only unstack over
+L. A weight-only int8 MoE tree quantizes the attention linears only.
 
 ``jax_leaves`` is the map itself: for each JAX leaf, the port parameters
 (and the rows of each) that hold it. ``params_to_jax`` and
@@ -184,6 +193,16 @@ def jax_leaves(model: CodonGPT, cfg: CodonGPTConfig) -> list[JaxLeaf]:
             stacked(path, [b.attn.qkv for b in blocks], rows)
             if "qkv_lora" in blocks[0].attn._modules:
                 adapters(path, [b.attn.qkv_lora[name] for b in blocks])
+    if cfg.moe_experts:  # the expert bank in JAX's layout, and the router
+        for name, bank in blocks[0].mlp.named_children():
+            for leaf in ("w", "b"):
+                if getattr(bank, leaf) is not None:
+                    leaves.append(JaxLeaf(
+                        f"blocks/mlp/{name}/{leaf}",
+                        [(getattr(getattr(b.mlp, name), leaf), None, False) for b in blocks],
+                        True))
+        leaves.append(JaxLeaf("blocks/router/w", [(b.router.w, None, False) for b in blocks],
+                              True))
     one("ln_f/scale", model.ln_f.weight)
     one("ln_f/bias", model.ln_f.bias)
     if not cfg.tie_embeddings:
@@ -203,20 +222,16 @@ def jax_leaves(model: CodonGPT, cfg: CodonGPTConfig) -> list[JaxLeaf]:
     return leaves
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict[str, object]:
+def flatten_tree(tree: dict, prefix: str = "") -> dict[str, object]:
+    """The tree's leaves by their "/"-joined paths."""
     out = {}
     for key, child in tree.items():
         path = f"{prefix}{key}"
         if isinstance(child, dict):
-            out.update(_flatten(child, path + "/"))
+            out.update(flatten_tree(child, path + "/"))
         else:
             out[path] = child
     return out
-
-
-def _refuse_unported(tree: dict, cfg: CodonGPTConfig) -> None:
-    if cfg.moe_experts or "router" in tree.get("blocks", {}):
-        raise NotImplementedError("MoE MLP (moe_experts > 0) is not ported")
 
 
 def _quantize_layout(model: CodonGPT, quantized: set) -> None:
@@ -280,27 +295,31 @@ def state_dict_from_jax(tree: dict, cfg: CodonGPTConfig) -> dict[str, torch.Tens
 
     A leaf that ``cfg`` needs and the tree lacks raises ``KeyError``; a
     leaf of the tree that ``cfg`` leaves unread (a head or a projection the
-    config does not have, a stray leaf) raises ``ValueError`` naming every
-    one: nothing is dropped without a word.
+    config does not have, a router beside a dense MLP, a stray leaf) raises
+    ``ValueError`` naming every one, and so does a leaf of another shape
+    than the config's (an expert bank under a dense config): nothing is
+    dropped or reshaped without a word.
     """
-    _refuse_unported(tree, cfg)
     with torch.device("meta"):
         skeleton = attach_from_tree(CodonGPT(cfg), tree)
-    flat = _flatten(tree)
+    flat = flatten_tree(tree)
+    leaves = jax_leaves(skeleton, cfg)
+    unused = sorted(set(flat) - {leaf.path for leaf in leaves})
+    if unused:
+        raise ValueError(f"the tree has leaves this config has no place for: {unused}")
     names = {id(p): n for n, p in skeleton.named_parameters()}
     sd = {n: torch.empty(p.shape, dtype=torch.int8 if p.dtype == torch.int8 else torch.float32)
           for n, p in skeleton.named_parameters()}
-    used = set()
-    for leaf in jax_leaves(skeleton, cfg):
+    for leaf in leaves:
         if leaf.path not in flat and leaf.path.endswith("/lora_scale"):
             value = torch.ones(len(leaf.parts))  # an older tree: scale folded into lora_a
         else:
             value = _host_tensor(flat[leaf.path], leaf.parts[0][0].dtype)
-            used.add(leaf.path)
+            want = tuple(leaf.gather().shape)
+            if tuple(value.shape) != want:
+                raise ValueError(f"the tree's {leaf.path} has shape {tuple(value.shape)}; "
+                                 f"this config holds {want}")
         leaf.write(lambda p: sd[names[id(p)]], value)
-    unused = sorted(set(flat) - used)
-    if unused:
-        raise ValueError(f"the tree has leaves this config has no place for: {unused}")
     return sd
 
 
@@ -341,6 +360,7 @@ def params_to_jax(model: CodonGPT, cfg: CodonGPTConfig) -> dict:
 __all__ = [
     "JaxLeaf",
     "attach_from_tree",
+    "flatten_tree",
     "jax_leaves",
     "params_from_jax",
     "params_to_jax",

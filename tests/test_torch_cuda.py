@@ -638,3 +638,97 @@ def test_cuda_int8_weight_greedy_serving_equals_the_cpu(cuda):
 
     for kv_quant in (False, True):
         assert tokens(gpu_model, cuda, kv_quant) == tokens(cpu_model, "cpu", kv_quant)
+
+
+def _moe_tree(seed=0, **over):
+    """A 2-layer float32 MoE model (4 experts, top-2, capacity 0.5 so that
+    tokens drop) in the JAX layout, and its config."""
+    from genomics_lm_torch.models.codon_gpt import CodonGPT
+    from genomics_lm_torch.models.config import CodonGPTConfig
+    from genomics_lm_torch.utils.weights import params_to_jax
+
+    kw = dict(vocab_size=68, block_size=128, n_layer=2, n_head=4, n_embd=256, dropout=0.0,
+              label_smoothing=0.05, sep_id=3, attention_impl="flash", fused_qkv=True,
+              moe_experts=4, moe_top_k=2, moe_capacity_factor=0.5)
+    kw.update(over)
+    cfg = CodonGPTConfig(**kw)
+    torch.manual_seed(seed)
+    return cfg, params_to_jax(CodonGPT(cfg), cfg)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_group_step_tracks_the_cpu(cuda):
+    """A MoE group step in float32 (TF32 off; the flash kernels' SIMT path on
+    the card, their plain versions on the CPU): loss and every gradient,
+    the router's and each expert's, within 1e-5 relative (the order of
+    float32 sums, and the combine's backward accumulates in another
+    order on the card)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, tree = _moe_tree(1)
+    batch = _group(np.random.default_rng(3))
+    lc, gc, _ = _step_on("cpu", cfg, tree, {"lr": 1e-3, "warmup_steps": 0}, batch)
+    lg, gg, _ = _step_on(cuda, cfg, tree, {"lr": 1e-3, "warmup_steps": 0}, batch)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert {n for n in gc if "router" in n or "mlp" in n} == {
+        f"blocks.{i}.{p}" for i in range(2)
+        for p in ("router.w", "mlp.fc.w", "mlp.fc.b", "mlp.proj.w", "mlp.proj.b")}
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    for n in gc:
+        assert float((gg[n] - gc[n]).abs().max()) <= 1e-5 * max(float(gc[n].abs().max()),
+                                                               1e-3 * gmax), n
+
+
+@pytest.mark.cuda
+def test_cuda_moe_dropped_set_equals_the_cpu(cuda):
+    """Capacity 0.5 drops about half the choices; the card and the CPU grant
+    the same slots: the same experts and the same dropped (token, rank)
+    pairs in every layer of a training forward."""
+    from chip_smoke import recorded_routes
+    from genomics_lm_torch.models.codon_gpt import forward
+    from genomics_lm_torch.utils.weights import params_from_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, tree = _moe_tree(2)
+    x = _group(np.random.default_rng(4))["x"][0]
+    got = []
+    for dev in ("cpu", cuda):
+        model = params_from_jax(tree, cfg, dev)
+        with recorded_routes(keep=True) as routes, torch.no_grad():
+            forward(model, cfg, x.to(dev), train=True)
+        got.append(routes)
+    assert len(got[0]) == len(got[1]) == 2
+    for c, g in zip(*got):
+        assert torch.equal(c["gate_idx"], g["gate_idx"])
+        assert torch.equal(c["keep"], g["keep"]) and not c["keep"].all()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_greedy_serving_equals_the_cpu(cuda):
+    """Greedy serving of a float32 MoE model (dropless) gives the same
+    tokens on the card (decode kernel; chunk kernel when speculative) as
+    on the CPU, dense and int8 weights."""
+    from genomics_lm_torch.ops.quant import quantize_params
+    from genomics_lm_torch.serving.engine import ServingEngine
+    from genomics_lm_torch.serving.speculative import fit_bigram_table
+    from genomics_lm_torch.utils.weights import params_from_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, tree = _moe_tree(5, n_embd=64)
+    rng = np.random.default_rng(24)
+    reqs = [([1] + [int(t) for t in rng.integers(4, 68, n)], 20) for n in (7, 19, 30)]
+    table = fit_bigram_table(rng.integers(0, 68, 4000), 68)
+
+    def tokens(device, int8, **kw):
+        model = params_from_jax(tree, cfg, device)
+        if int8:
+            quantize_params(model)
+        eng = ServingEngine(model, cfg, slots=2, max_seq_len=96, steps_per_sync=4,
+                            device=device, **kw)
+        rids = [eng.submit(p, n) for p, n in reqs]
+        res = eng.run()
+        return [res[r].tokens for r in rids]
+
+    for int8 in (False, True):
+        assert tokens(cuda, int8) == tokens("cpu", int8)
+    assert (tokens(cuda, False, speculative_k=3, draft_table=table)
+            == tokens("cpu", False, speculative_k=3, draft_table=table))

@@ -123,17 +123,21 @@ def test_config_fields_and_run_config_match_jax():
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        CodonGPT(CodonGPTConfig(vocab_size=68, block_size=8, n_embd=64, moe_experts=4))
+    """Every model variant is ported now (MoE in its turn): a MoE model
+    builds, a MoE tree loads under its own config, int8 or not, and raises
+    under a dense one, whose MLP has no place for the router."""
+    moe_cfg = CodonGPTConfig(vocab_size=68, block_size=8, n_embd=64, moe_experts=4)
+    assert CodonGPT(moe_cfg).blocks[0].router.w.shape == (64, 4)
     params, jcfg, _, tcfg = make_pair()
     moe = jax_gpt.init(jax.random.PRNGKey(0), jcfg.replace(moe_experts=2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="blocks/router/w"):
         state_dict_from_jax(jax.tree.map(np.asarray, moe), tcfg)
     from genomics_lm_tpu.ops.quant import quantize_params
 
-    # weight-only int8 is ported: a quantized MoE tree still raises on the MoE
-    with pytest.raises(NotImplementedError):
-        state_dict_from_jax(jax.tree.map(np.asarray, quantize_params(moe)), tcfg)
+    sd = state_dict_from_jax(jax.tree.map(np.asarray, quantize_params(moe)),
+                             tcfg.replace(moe_experts=2))
+    assert sd["blocks.0.attn.query.w_q"].dtype == torch.int8
+    assert sd["blocks.0.mlp.fc.w"].dtype == torch.float32
     sd = state_dict_from_jax(jax.tree.map(np.asarray, quantize_params(params)), tcfg)
     assert sd["blocks.0.attn.query.w_q"].dtype == torch.int8
 

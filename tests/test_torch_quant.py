@@ -7,7 +7,8 @@ port's own quantization of the dense model, and ``params_to_jax`` writes
 it back exactly. Int8 logits match JAX's int8 ``forward`` within 1e-5 of
 the largest logit, and greedy int8 serving (plain and speculative, bf16 or
 int8 cache) emits JAX's engine's tokens. The refusals hold: an unmerged
-LoRA model, MoE, and LoRA on int8 weights.
+LoRA model and LoRA on int8 weights; a quantized MoE tree loads with its
+experts float32.
 """
 
 from __future__ import annotations
@@ -188,12 +189,14 @@ def test_refusals():
     stray["blocks"]["attn"]["proj"]["w"] = np.zeros((2, 48, 48), np.float32)
     with pytest.raises(ValueError, match="blocks/attn/proj/w"):
         params_from_jax(stray, tcfg, "cpu")
-    # MoE stays unported, quantized or not
+    # a quantized MoE tree loads under its MoE config, and under a dense one
+    # its router has no place
     moe = jax_gpt.init(jax.random.PRNGKey(0), JaxConfig(
         vocab_size=68, block_size=16, n_layer=1, n_head=2, n_embd=16, moe_experts=2))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        params_from_jax(np_tree(jax_quant.quantize_params(moe)),
-                        CodonGPTConfig(vocab_size=68, block_size=16, n_layer=1, n_head=2,
-                                       n_embd=16), "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        quantize_params(type("M", (), {"cfg": tcfg.replace(moe_experts=2)})())
+    dense_cfg = CodonGPTConfig(vocab_size=68, block_size=16, n_layer=1, n_head=2, n_embd=16)
+    with pytest.raises(ValueError, match="blocks/router/w"):
+        params_from_jax(np_tree(jax_quant.quantize_params(moe)), dense_cfg, "cpu")
+    loaded = params_from_jax(np_tree(jax_quant.quantize_params(moe)),
+                             dense_cfg.replace(moe_experts=2), "cpu")
+    assert isinstance(loaded.blocks[0].attn.query, Int8Linear)
+    assert loaded.blocks[0].mlp.fc.w.dtype == torch.float32

@@ -253,13 +253,25 @@ def test_eval_step_matches_jax():
 
 
 def test_unported_options_raise():
-    """MoE is the one option the step still refuses."""
-    _, _, model, tcfg = make_pair()
-    x = torch.zeros((2, 8), dtype=torch.long)
-    moe = tcfg.replace(moe_experts=4)
-    with pytest.raises(NotImplementedError):
-        make_train_step(moe, LossConfig())
-    with pytest.raises(NotImplementedError):
-        make_eval_step(moe, LossConfig())
-    with pytest.raises(NotImplementedError):
-        composite_loss(model, moe, LossConfig(), x, x, train=False, generator=None)
+    """No option of the step is refused now that MoE is ported: a MoE
+    model's composite loss adds the weighted router loss in training only,
+    as JAX's does, and its eval loss stays pure cross-entropy."""
+    params, jcfg, model, tcfg = make_pair(moe_experts=4, moe_capacity_factor=0.5)
+    x, y = make_batch(seed=6)
+    xb, yb = torch.from_numpy(x[0]).long(), torch.from_numpy(y[0]).long()
+    make_train_step(tcfg, LossConfig())
+    for train in (True, False):
+        want, want_parts = jax_step.composite_loss(
+            params, jcfg, jax_step.LossConfig(), jnp.asarray(x[0]), jnp.asarray(y[0]),
+            train=train, rng=None)
+        with torch.no_grad():
+            got, parts = composite_loss(model, tcfg, LossConfig(), xb, yb, train=train,
+                                        generator=None)
+        assert ("moe_aux" in parts) == train == ("moe_aux" in want_parts)
+        assert_rel(float(got), float(want), what=f"total (train={train})")
+        if train:
+            assert_rel(float(parts["moe_aux"]), float(want_parts["moe_aux"]), what="moe_aux")
+            assert float(got) == pytest.approx(
+                float(parts["next_loss"]) + 0.01 * float(parts["moe_aux"]), rel=1e-6)
+    got = make_eval_step(tcfg, LossConfig())(model, xb, yb)
+    assert float(got["total_loss"]) == float(got["next_loss"])

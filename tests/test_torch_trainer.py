@@ -23,8 +23,8 @@ On the CPU, float32:
   trainer's generator state is in the checkpoint.
 - The lifecycle probes of ``tests/test_trainer_e2e.py``, the OOM safeguard,
   the train CLI, every flag the port used to refuse taking effect in a
-  one-epoch run, and the unported ones (meshes, MoE) raising
-  ``NotImplementedError``.
+  one-epoch run, and the unported ones (meshes, and with them MoE's expert
+  parallelism) raising ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -292,14 +292,19 @@ def test_train_cli_runs_a_yaml_config_with_a_data_map(tmp_path):
         train_cli(argv + ["--tensor_parallel", "2"])
 
 
-UNPORTED = {"mesh_devices": 8, "tensor_parallel": 2, "pipeline_stages": 2, "moe_experts": 4}
+# tensor_parallel on a MoE config is expert parallelism: MoE trains on one
+# card, its expert sharding needs a mesh and still raises, naming the flag
+# (a dense config's tensor_parallel is refused through the CLI above)
+UNPORTED = {"mesh_devices": {"mesh_devices": 8},
+            "tensor_parallel": {"tensor_parallel": 2, "moe_experts": 4},
+            "pipeline_stages": {"pipeline_stages": 2}}
 
 
 @pytest.mark.parametrize("flag", list(UNPORTED))
 def test_unported_flags_raise(tmp_path, flag):
     assert flag in dict(loop.UNPORTED_FLAGS)
     with pytest.raises(NotImplementedError, match=flag):
-        run_training(small_cfg(tmp_path, **{flag: UNPORTED[flag]}),
+        run_training(small_cfg(tmp_path, **UNPORTED[flag]),
                      run_root=str(tmp_path / "runs"), device="cpu")
     assert not (tmp_path / "runs").exists()  # refused before touching the run root
 
