@@ -223,6 +223,40 @@ exits non-zero:
 28. noprop — ``train_noprop`` at 10L8H d384, block 512, on phase 15's
    corpus: 2 epochs and a resume to a third; every loss finite and one
    denoising loss per layer.
+29. prepare — the demo corpus at ``benchmark_moe``'s defaults (800 genes,
+   seed 1337) through ``prepare_dataset`` at blocks 256 and 512 (``multi``,
+   genome-disjoint splits, ``skip_homology``), twice each: windows per
+   split, seconds, every manifest validated, each block's dataset ids equal.
+30. evaluate_test — the ``evaluate_test`` CLI on phase 23's MoE run and
+   phase 15's run over the block-512 demo splits (``--train_npz``,
+   ``--bootstrap 1000``, ``--context_ablation``): model NLL, every Markov
+   baseline, the best simple model, each margin with its CI, seconds of
+   each part; the flash forward launched n_layer times per microbatch (up
+   to 64 rows, none padded) in each of its six passes; the float32 NLL on
+   the card within ``SCORE_NLL_RTOL`` of the CPU's. Then the bf16 flash
+   forward at every shape the passes launched it at (the 23 test windows:
+   B 23 x T 512, full and windows 1, 2 and 4, heads of 64 on the MoE run
+   and of 48 on phase 15's, the windows' own segment ids) against its
+   plain version, timed. Runs trained on synthetic windows lose to the
+   baselines on this corpus: the phase checks the machinery, not the
+   verdict.
+31. moe quality — ``python -m genomics_lm_torch.training.benchmark_moe
+   --skip_throughput --converged_epochs 0``: dense, top-1 and top-2 at the
+   script's default widths (6L4H d256, block 256, B 16, lr 1e-3, 12 epochs)
+   on the demo corpus, einsum attention; per variant val and test NLL, the
+   delta to dense, whether it beats every Markov floor, parameters and
+   training seconds. The 30-epoch converged pass is cut.
+32. analysis — on phase 15's and phase 23's runs: ``run_full_analysis``,
+   every dashboard data function (saliency, attention, embeddings with PCA,
+   next codon, generation, browser, details) and ``generate_summary`` over
+   the runs root. The saliency launches the flash forward, dQ and dK/dV
+   once a layer, and its float32 result on the card is within
+   ``SALIENCY_RTOL`` of the CPU's; the playground pages launch the decode
+   kernel n_layer times a cached step, and their greedy next codon is the
+   same on the card and the CPU. Then the float32 flash kernels at the
+   saliency's shape (B 1, T 6, dropout 0, heads of 48 and of 64) and the
+   decode kernel at the playground's (B 1 over a whole-block cache, each
+   run's layers and heads) against their plain versions, timed.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -234,6 +268,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import http.client
 import io
 import json
@@ -252,7 +287,7 @@ from genomics_lm_torch.evals import mutations as mut
 from genomics_lm_torch.evals import perplexity as ppl
 from genomics_lm_torch.evals.analyze_attention import main as attention_cli
 from genomics_lm_torch.evals.extract_embeddings import main as extract_cli
-from genomics_lm_torch.evals.playground import load_codon_model
+from genomics_lm_torch.evals.playground import load_codon_model, resolve_checkpoint
 from genomics_lm_torch.generation import constrained as gc
 from genomics_lm_torch.generation import decode as decode_mod
 from genomics_lm_torch.generation.decode import (
@@ -300,7 +335,7 @@ from genomics_lm_torch.training import benchmark_lora as bench_lora
 from genomics_lm_torch.training import contracts
 from genomics_lm_torch.training import lora as lora_lib
 from genomics_lm_torch.training import profile_step as train_main
-from genomics_lm_torch.training.checkpoints import load_checkpoint
+from genomics_lm_torch.training.checkpoints import load_checkpoint, load_checkpoint_meta
 from genomics_lm_torch.data.datasets import EpochPlan, PackedDataset
 from genomics_lm_torch.models.biophysics import ShapeEncoder, shape_lookup_table
 from genomics_lm_torch.tokenizers.codon import STOP_IDS, write_itos
@@ -333,6 +368,10 @@ CHUNK_BF16_TOL_REASON = (
     "version run on |V|; the bound allows twice that plus 1e-5 for the order of the "
     "float32 sums. Checked to catch a skipped live tile and another slot's mask rows "
     "(their errors over the bound are logged as fault_ratios and must exceed 1)")
+
+# Published float32 rate of one H100 SXM outside the tensor cores (the float32
+# flash kernels are SIMT), the operations bound of a float32 case.
+F32_PEAK_OPS = 67e12
 
 # Flash kernels: error over max(1, max |plain|) of each output.
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
@@ -858,83 +897,100 @@ def phase_flash(peak_bw, peak_ops) -> dict:
     ]
     timed: dict[str, dict] = {}
     for name, b, hq, hkv, t, s_len, d, dtype, window, rate, segs, is_timed in cases:
-        causal = "noncausal" not in name
-        q, k, v, seg, seed, cfg = flash_case(gen, b, hq, hkv, t, s_len, d, dtype, window, rate,
-                                             causal, segs)
-        live = fa.flash_live_tiles(seg, t, s_len, causal, window)
-        band = fa.flash_live_tiles(None, t, s_len, causal, window)
-        tiles = dict(band_tiles=int(band.sum()) * b * hq)
-        # the bf16 kernels skip dead tiles; the float32 kernels visit the band
-        tiles["tiles_visited"] = int(live.sum()) * hq if dtype == bf16 else tiles["band_tiles"]
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        out = fa.flash_attention(qg, kg, vg, segment_ids=seg, attention_window=window,
-                                 dropout_rate=rate, seed=seed, causal=causal)
-        cot = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
-        grads = torch.autograd.grad(out, (qg, kg, vg), cot)
-        _, lse = fa.flash_fwd(q, k, v, seg, seed, cfg)
-        want_out, want_lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)
-        delta = (cot.float() * out.detach().float()).sum(dim=-1)
-        want = [fa.flash_bwd_dq_reference(q, k, v, seg, seed, cot, want_lse, delta, cfg),
-                *fa.flash_bwd_dkv_reference(q, k, v, seg, seed, cot, want_lse, delta, cfg)]
-        torch.cuda.synchronize()
-        errs, abs_errs = {}, {}
-        for key, got, ref in zip(("out", "lse", "dq", "dk", "dv"),
-                                 (out.detach(), lse, *grads), (want_out, want_lse, *want)):
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"flash {name}: non-finite {key}")
-            abs_errs[key] = float((got.float() - ref.float()).abs().max())
-            errs[key] = abs_errs[key] / max(1.0, float(ref.float().abs().max()))
-        tol = FLASH_TOL[dtype]
-        log("flash", case=name, shape=dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s_len, D=d),
-            dtype=str(dtype).removeprefix("torch."), causal=causal, window=window,
-            dropout=rate, segments=segs, **tiles,
-            rel_err=errs, max_abs_err=abs_errs, tol=tol, tol_reason=FLASH_TOL_REASON)
-        if max(errs.values()) > tol:
-            raise AssertionError(f"flash {name}: kernel disagrees with its plain version "
-                                 f"({errs} > {tol})")
-        if not is_timed:
-            continue
-        bounds, pairs = flash_bounds(q, k, seg, cfg, peak_bw, peak_ops)
-        dout = cot.contiguous()
-        kernel = {
-            "fwd": lambda: fa.flash_fwd(q, k, v, seg, seed, cfg),
-            "dq": lambda: fa.flash_bwd_dq(q, k, v, seg, seed, dout, lse, delta, cfg),
-            "dkv": lambda: fa.flash_bwd_dkv(q, k, v, seg, seed, dout, lse, delta, cfg),
-        }
-        plain = {
-            "fwd": lambda: fa.flash_forward_reference(q, k, v, seg, seed, cfg),
-            "dq": lambda: fa.flash_bwd_dq_reference(q, k, v, seg, seed, dout, lse, delta, cfg),
-            "dkv": lambda: fa.flash_bwd_dkv_reference(q, k, v, seg, seed, dout, lse, delta,
-                                                      cfg),
-        }
-        # the yardstick: SDPA with the dense boolean mask and the same dropout
-        # rate (its own random stream); its backward computes dQ, dK and dV at
-        # once, so that one time stands beside both backward kernels
-        dense = structure_mask(t, s_len, causal=causal, window=window, segment_ids=seg,
-                               device=q.device)
-        ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+        row = check_flash_case(gen, "flash", name, b, hq, hkv, t, s_len, d, dtype, window,
+                               rate, segs, is_timed, peak_bw, peak_ops)
+        if row is not None:
+            timed[name] = row
+    return timed
 
-        def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(
-                ql, kl, vl, attn_mask=dense, dropout_p=rate)
 
-        lib_out = sdpa()
-        library = {"fwd": median_ms(sdpa, runs=15),
-                   "bwd": median_ms(lambda: torch.autograd.grad(
-                       lib_out, (ql, kl, vl), dout, retain_graph=True), runs=15)}
-        err_of = {"fwd": max(abs_errs["out"], abs_errs["lse"]), "dq": abs_errs["dq"],
-                  "dkv": max(abs_errs["dk"], abs_errs["dv"])}
-        timed[name] = {}
-        for key in ("fwd", "dq", "dkv"):
-            ms = median_ms(kernel[key], runs=15)
-            timed[name][key] = dict(ms=ms, plain_ms=median_ms(plain[key], runs=5),
-                                    bound_ms=bounds[key]["bound_ms"],
-                                    bound_by=bounds[key]["bound_by"],
-                                    library_ms=library["fwd" if key == "fwd" else "bwd"],
-                                    max_abs_err=err_of[key])
-            log("flash_time", kernel=key, case=name, attended_pairs=pairs,
-                bytes=bounds[key]["bytes"], operations=bounds[key]["operations"],
-                **timed[name][key], **tiles, roofline_share=bounds[key]["bound_ms"] / ms)
+def check_flash_case(gen, phase, name, b, hq, hkv, t, s_len, d, dtype, window, rate, segs,
+                     is_timed, peak_bw, peak_ops) -> dict | None:
+    """One flash case: the forward, dQ and dK/dV kernels (through the
+    autograd Function, a fixed random cotangent) against their plain
+    versions within ``FLASH_TOL``; when ``is_timed``, then each kernel's
+    time beside its bound (bf16 operations over the bf16 peak, float32 over
+    the float32 SIMT peak), its plain version's and SDPA's, as
+    ``{"fwd"|"dq"|"dkv": {...}}``."""
+    bf16 = torch.bfloat16
+    causal = "noncausal" not in name
+    q, k, v, seg, seed, cfg = flash_case(gen, b, hq, hkv, t, s_len, d, dtype, window, rate,
+                                         causal, segs)
+    live = fa.flash_live_tiles(seg, t, s_len, causal, window)
+    band = fa.flash_live_tiles(None, t, s_len, causal, window)
+    tiles = dict(band_tiles=int(band.sum()) * b * hq)
+    # the bf16 kernels skip dead tiles; the float32 kernels visit the band
+    tiles["tiles_visited"] = int(live.sum()) * hq if dtype == bf16 else tiles["band_tiles"]
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, segment_ids=seg, attention_window=window,
+                             dropout_rate=rate, seed=seed, causal=causal)
+    cot = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    grads = torch.autograd.grad(out, (qg, kg, vg), cot)
+    _, lse = fa.flash_fwd(q, k, v, seg, seed, cfg)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)
+    delta = (cot.float() * out.detach().float()).sum(dim=-1)
+    want = [fa.flash_bwd_dq_reference(q, k, v, seg, seed, cot, want_lse, delta, cfg),
+            *fa.flash_bwd_dkv_reference(q, k, v, seg, seed, cot, want_lse, delta, cfg)]
+    torch.cuda.synchronize()
+    errs, abs_errs = {}, {}
+    for key, got, ref in zip(("out", "lse", "dq", "dk", "dv"),
+                             (out.detach(), lse, *grads), (want_out, want_lse, *want)):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash {name}: non-finite {key}")
+        abs_errs[key] = float((got.float() - ref.float()).abs().max())
+        errs[key] = abs_errs[key] / max(1.0, float(ref.float().abs().max()))
+    tol = FLASH_TOL[dtype]
+    log(phase, case=name, shape=dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s_len, D=d),
+        dtype=str(dtype).removeprefix("torch."), causal=causal, window=window,
+        dropout=rate, segments=segs, **tiles,
+        rel_err=errs, max_abs_err=abs_errs, tol=tol, tol_reason=FLASH_TOL_REASON)
+    if max(errs.values()) > tol:
+        raise AssertionError(f"flash {name}: kernel disagrees with its plain version "
+                             f"({errs} > {tol})")
+    if not is_timed:
+        return None
+    bounds, pairs = flash_bounds(q, k, seg, cfg, peak_bw,
+                                 peak_ops if dtype == bf16 else F32_PEAK_OPS)
+    dout = cot.contiguous()
+    kernel = {
+        "fwd": lambda: fa.flash_fwd(q, k, v, seg, seed, cfg),
+        "dq": lambda: fa.flash_bwd_dq(q, k, v, seg, seed, dout, lse, delta, cfg),
+        "dkv": lambda: fa.flash_bwd_dkv(q, k, v, seg, seed, dout, lse, delta, cfg),
+    }
+    plain = {
+        "fwd": lambda: fa.flash_forward_reference(q, k, v, seg, seed, cfg),
+        "dq": lambda: fa.flash_bwd_dq_reference(q, k, v, seg, seed, dout, lse, delta, cfg),
+        "dkv": lambda: fa.flash_bwd_dkv_reference(q, k, v, seg, seed, dout, lse, delta,
+                                                  cfg),
+    }
+    # the yardstick: SDPA with the dense boolean mask and the same dropout
+    # rate (its own random stream); its backward computes dQ, dK and dV at
+    # once, so that one time stands beside both backward kernels
+    dense = structure_mask(t, s_len, causal=causal, window=window, segment_ids=seg,
+                           device=q.device)
+    ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=dense, dropout_p=rate)
+
+    lib_out = sdpa()
+    library = {"fwd": median_ms(sdpa, runs=15),
+               "bwd": median_ms(lambda: torch.autograd.grad(
+                   lib_out, (ql, kl, vl), dout, retain_graph=True), runs=15)}
+    err_of = {"fwd": max(abs_errs["out"], abs_errs["lse"]), "dq": abs_errs["dq"],
+              "dkv": max(abs_errs["dk"], abs_errs["dv"])}
+    timed = {}
+    for key in ("fwd", "dq", "dkv"):
+        ms = median_ms(kernel[key], runs=15)
+        timed[key] = dict(ms=ms, plain_ms=median_ms(plain[key], runs=5),
+                          bound_ms=bounds[key]["bound_ms"], bound_by=bounds[key]["bound_by"],
+                          library_ms=library["fwd" if key == "fwd" else "bwd"],
+                          max_abs_err=err_of[key])
+        log(phase + "_time", kernel=key, case=name, dtype=str(dtype).removeprefix("torch."),
+            attended_pairs=pairs, bytes=bounds[key]["bytes"],
+            operations=bounds[key]["operations"], **timed[key], **tiles,
+            roofline_share=bounds[key]["bound_ms"] / ms)
     return timed
 
 
@@ -2303,12 +2359,15 @@ def phase_generate(trained: dict, card: str, peak_bw, peak_ops) -> dict:
 
 
 def check_flash_forward(gen, phase, name, B, T, window, peak_bw, peak_ops,
-                        H=MAIN["n_head"], D=MAIN["n_embd"] // MAIN["n_head"]) -> dict:
-    """The flash forward at inference (bf16, no dropout, a <SEP> every 97th
-    token, H heads of D, by default the serving model's 8 of 48) against its
-    plain version, then its time beside its bound, the plain version's and
-    SDPA's forward with the dense mask."""
-    q, k, v, seg, seed, fcfg = flash_case(gen, B, H, H, T, T, D, torch.bfloat16, window, 0.0)
+                        H=MAIN["n_head"], D=MAIN["n_embd"] // MAIN["n_head"], seg=None,
+                        dtype=torch.bfloat16) -> dict:
+    """The flash forward at inference (bf16 by default, no dropout, H heads
+    of D, by default the serving model's 8 of 48) against its plain version,
+    then its time beside its bound, the plain version's and SDPA's forward
+    with the dense mask. ``seg``: the (B, T) segment ids of real windows;
+    by default a <SEP> every 97th token."""
+    q, k, v, seg97, seed, fcfg = flash_case(gen, B, H, H, T, T, D, dtype, window, 0.0)
+    seg = seg97 if seg is None else seg.to(device=q.device, dtype=torch.int32).contiguous()
     out, lse = fa.flash_fwd(q, k, v, seg, seed, fcfg)
     want, want_lse = fa.flash_forward_reference(q, k, v, seg, seed, fcfg)
     torch.cuda.synchronize()
@@ -2319,7 +2378,7 @@ def check_flash_forward(gen, phase, name, B, T, window, peak_bw, peak_ops,
         abs_errs[key] = float((got.float() - ref.float()).abs().max())
         errs[key] = abs_errs[key] / max(1.0, float(ref.float().abs().max()))
     live = fa.flash_live_tiles(seg, T, T, True, window)
-    tol = FLASH_TOL[torch.bfloat16]
+    tol = FLASH_TOL[dtype]
     if max(errs.values()) > tol:
         raise AssertionError(f"flash {name}: kernel disagrees with its plain version "
                              f"({errs} > {tol})")
@@ -2333,7 +2392,8 @@ def check_flash_forward(gen, phase, name, B, T, window, peak_bw, peak_ops,
                  library_ms=median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                      q, k, v, attn_mask=dense), runs=15),
                  max_abs_err=max(abs_errs.values()))
-    log(phase, case=name, shape=dict(B=B, Hq=H, T=T, D=D), window=window, rel_err=errs,
+    log(phase, case=name, shape=dict(B=B, Hq=H, T=T, D=D), dtype=str(dtype), window=window,
+        segments="<SEP> every 97th" if seg is seg97 else "from the windows", rel_err=errs,
         tol=tol, tol_reason=FLASH_TOL_REASON, tiles_visited=int(live.sum()) * H,
         attended_pairs=pairs, bytes=bounds["fwd"]["bytes"], **timed,
         roofline_share=timed["bound_ms"] / timed["ms"])
@@ -2732,7 +2792,7 @@ def phase_moe_throughput(card: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="smoke_moe_bench_") as tmp:
         out = Path(tmp) / "moe.json"
         with contextlib.redirect_stdout(io.StringIO()):
-            rc = bench_moe.main(["--measure_steps", "5", "--out", str(out)])
+            rc = bench_moe.main(["--skip_quality", "--measure_steps", "5", "--out", str(out)])
         report = json.loads(out.read_text())["throughput_d512"]
     rows = {r["name"]: r for r in report["candidates"]}
     log("moe_throughput", rc=rc, protocol=report["protocol"], candidates={
@@ -2875,6 +2935,276 @@ def phase_noprop(trained: dict, card: str) -> dict:
     return out
 
 
+# --- phases 29-32: data preparation, evaluation, MoE quality, the dashboard -----
+
+DEMO_GENES, DEMO_SEED = 800, 1337  # benchmark_moe's corpus defaults
+DEMO_BLOCKS = (256, 512)
+EVAL_BATCH, EVAL_BOOTSTRAP = 64, 1000
+SALIENCY_PROBE = "ATGAAACCCGGGTTT"  # run_full_analysis's default: T 6 with BOS
+SALIENCY_RTOL = 1e-4
+SALIENCY_RTOL_REASON = (
+    "saliency runs in float32 on both sides (the float32 embedding rows, TF32 off): "
+    "the card's GEMMs and float32 flash kernels sum in another order than the CPU's "
+    "plain versions, ~1e-6 relative a layer, compounded through 10-12 layers forward "
+    "and back; a missing or doubled dQ or dK/dV term, or a wrong layer, moves the "
+    "gradient norms by order 1")
+DASHBOARD_SEQS = ["ATGAAACCCGGGTAA", "ATGTTTGATCTGAAATAG", "ATGCCCCCCAAAGGGTTTTGA",
+                  "ATGGCTGCTGCTAAATAA"]
+
+
+def phase_prepare(card: str, workdir: Path) -> dict:
+    """The demo corpus at ``benchmark_moe``'s defaults, prepared at blocks 256
+    and 512 (``multi``, genome-disjoint, ``skip_homology``, engine native)
+    twice each: every manifest validates and each block's two ids agree."""
+    from genomics_lm_torch.data.demo_corpus import main as demo_corpus
+    from genomics_lm_torch.data.manifest import load_dataset_manifest
+    from genomics_lm_torch.data.pipeline import prepare_dataset
+
+    records_tsv = workdir / "records.tsv"
+    with contextlib.redirect_stdout(io.StringIO()):
+        demo_corpus(["--out", str(records_tsv), "--genes", str(DEMO_GENES),
+                     "--seed", str(DEMO_SEED)])
+    with records_tsv.open() as f:
+        records = [dict(r) for r in csv.DictReader(f, delimiter="\t")]
+    out = {}
+    for block in DEMO_BLOCKS:
+        ids, seconds = [], []
+        for attempt in range(2):
+            d = workdir / f"dataset_bs{block}_{attempt}"
+            t0 = time.perf_counter()
+            manifest = prepare_dataset(records, d, block_size=block, pack_mode="multi",
+                                       group_by="genome", split_seed=DEMO_SEED,
+                                       skip_homology=True, audit_engine="native")
+            seconds.append(time.perf_counter() - t0)
+            load_dataset_manifest(d / "manifest.json", verify_artifacts=True)  # validates
+            ids.append(manifest["dataset"]["id"])
+        windows = {}
+        for split in ("train", "val", "test"):
+            with np.load(d / f"{split}_bs{block}.npz") as z:
+                windows[split] = int(z["X"].shape[0])
+        out[block] = dict(dir=workdir / f"dataset_bs{block}_0", ids=ids, windows=windows,
+                          seconds=seconds)
+        log("prepare", block=block, genes=DEMO_GENES, seed=DEMO_SEED, windows=windows,
+            records=manifest["split_policy"]["record_counts"],
+            tokenization=manifest["tokenization"]["stats"], dataset_ids=ids,
+            ids_equal=ids[0] == ids[1], manifest_valid=True,
+            scientific_valid=manifest["dataset"]["scientific_valid"], seconds=seconds,
+            card=card)
+        if ids[0] != ids[1] or min(windows.values()) == 0:
+            raise AssertionError(f"block {block}: ids {ids}, windows {windows}")
+    return out
+
+
+def phase_evaluate_test(runs: list[tuple[str, dict]], data: Path, card: str, peak_bw,
+                        peak_ops) -> dict:
+    """The ``evaluate_test`` CLI on each run over the block-512 demo splits
+    (``--train_npz``, ``--bootstrap 1000``, ``--context_ablation``): the
+    flash forward launched n_layer times per microbatch (up to 64 rows) in
+    each of the six passes (the model NLL, the per-row NLL, four ablation
+    windows); the float32 NLL on the card within ``SCORE_NLL_RTOL`` of the
+    CPU's; then the flash forward at each run's evaluation shapes against
+    its plain version: the first and the last microbatch (``EpochPlan``
+    pads no rows), each with its windows' segment ids, at the split's
+    window length, the run's heads and compute dtype, and each pass's
+    attention window."""
+    from genomics_lm_torch.evals.evaluate_test import main as evaluate_cli
+
+    test_npz, train_npz = data / "test_bs512.npz", data / "train_bs512.npz"
+    with np.load(test_npz) as z:
+        n_test, window_len = (int(n) for n in z["X"].shape)
+        first = {"X": z["X"][:SCORE_CPU_WINDOWS], "Y": z["Y"][:SCORE_CPU_WINDOWS]}
+        starts = sorted({0, (n_test - 1) // EVAL_BATCH * EVAL_BATCH})  # first, last
+        microbatches = [torch.from_numpy(z["X"][a:a + EVAL_BATCH].astype(np.int64))
+                        for a in starts]
+    launches, out, timed = {}, {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, run in runs:
+        report_path = Path(run["run_dir"]) / "scores" / "demo_test_evaluation.json"
+        fa.flash_fwd.launches = 0  # this run's evaluation only
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = evaluate_cli([str(run["run_dir"]), "--test_npz", str(test_npz),
+                               "--train_npz", str(train_npz), "--bootstrap",
+                               str(EVAL_BOOTSTRAP), "--context_ablation", "--batch_size",
+                               str(EVAL_BATCH), "--out", str(report_path)])
+        wall = time.perf_counter() - t0
+        launches[name] = fa.flash_fwd.launches
+        report = json.loads(report_path.read_text())
+        seconds = json.loads(buf.getvalue().split("[evaluate_test] seconds ")[1])
+        model, cfg, _, _ = load_codon_model(run["run_dir"], device="cuda")
+        want = 6 * cfg.n_layer * -(-n_test // EVAL_BATCH)
+        # float32 on the card and on the CPU, from the same weights
+        windows = MOE_CPU_WINDOWS if cfg.moe_experts else SCORE_CPU_WINDOWS
+        sub = report_path.with_name("demo_test_f32_subset.npz")
+        np.savez(sub, X=first["X"][:windows], Y=first["Y"][:windows])
+        f32 = cfg.replace(compute_dtype="float32", dropout=0.0)
+        on_card = ppl.evaluate_perplexity(model, f32, sub, batch_size=windows)["nll"]
+        on_cpu = ppl.evaluate_perplexity(copy.deepcopy(model).cpu(), f32, sub,
+                                         batch_size=windows)["nll"]
+        del model
+        rel = abs(on_card - on_cpu) / abs(on_cpu)
+        margins = {k: dict(margin=m["margin_nats"], ci=[m["ci_low"], m["ci_high"]],
+                           excludes_zero=m["excludes_zero"]) for k, m in report["margins"].items()}
+        out[name] = dict(model_nll=report["model"]["nll"], tokens=report["model"]["tokens"],
+                         baselines={k: v["cross_entropy_nats"]
+                                    for k, v in report["baselines"].items()},
+                         best_simple_model=report["best_simple_model"],
+                         beats_best_simple=report["beats_best_simple"], margins=margins,
+                         ablation={k: v["nll"] for k, v in report["context_ablation"].items()},
+                         seconds=seconds, cli_wall_s=wall, test_windows=n_test,
+                         flash_fwd_launches=launches[name], want_launches=want,
+                         f32_card=on_card, f32_cpu=on_cpu, f32_rel_err=rel,
+                         f32_windows=windows, tol=SCORE_NLL_RTOL)
+        log("evaluate_test", run=name, **out[name], card=card)
+        finite = all(np.isfinite(v) for v in [report["model"]["nll"], *out[name]["ablation"].values()])
+        if rc or not finite or launches[name] != want or rel > SCORE_NLL_RTOL:
+            raise AssertionError(f"evaluate_test on {name}: rc {rc}, launches "
+                                 f"{launches[name]} (want {want}), f32 rel {rel}")
+        if set(report) != {"run_id", "test_npz", "model", "baselines", "baseline_tokens",
+                           "best_simple_model", "beats_best_simple", "margins",
+                           "margins_protocol", "context_ablation"}:
+            raise AssertionError(f"evaluate_test report keys {sorted(report)}")
+        # the flash forward at every shape this run's six passes launched it at
+        windows = [None, *(int(w) for w in report["context_ablation"] if w != "full")]
+        for a, x in zip(starts, microbatches):
+            seg = segment_ids(x, cfg.sep_id) if cfg.sep_id is not None else None
+            for w in windows:
+                case = f"{name}_rows{a}-{a + len(x)}_w{w or 'full'}"
+                timed[case] = check_flash_forward(
+                    gen, "evaluate_test_kernel", case, len(x), window_len, w, peak_bw,
+                    peak_ops, H=cfg.n_head, D=cfg.head_dim, dtype=cfg.dtype, seg=seg)
+    return {"launches": sum(launches.values()), "flash_timed": timed, "runs": out}
+
+
+def phase_moe_quality(card: str) -> dict:
+    """``python -m genomics_lm_torch.training.benchmark_moe --skip_throughput
+    --converged_epochs 0``: the script's default widths and corpus (6L4H
+    d256, block 256, B 16, lr 1e-3, 12 epochs, 800 demo genes); the
+    30-epoch converged pass is cut."""
+    with tempfile.TemporaryDirectory(prefix="smoke_moe_quality_") as tmp:
+        out = Path(tmp) / "moe_quality.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "genomics_lm_torch.training.benchmark_moe",
+             "--skip_throughput", "--converged_epochs", "0", "--workdir", str(Path(tmp) / "ws"),
+             "--out", str(out)],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"benchmark_moe quality exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        quality = json.loads(out.read_text())["quality"]
+    variants = {v["name"]: {k: v[k] for k in ("val_nll", "test_nll", "val_nll_delta_vs_dense",
+                                              "beats_all_markov_baselines", "n_params",
+                                              "train_wall_sec", "best_val_loss")}
+                for v in quality["variants"]}
+    log("moe_quality", protocol=quality["protocol"], markov_baselines=quality["markov_baselines"],
+        variants=variants, seconds=seconds, cut="the 30-epoch converged pass", card=card)
+    if set(variants) != {"dense", "moe_4e_top1", "moe_4e_top2"} or not all(
+            np.isfinite([v["val_nll"], v["test_nll"]]).all() for v in variants.values()):
+        raise AssertionError(f"benchmark_moe quality variants {variants}")
+    return {"variants": variants, "baselines": quality["markov_baselines"], "seconds": seconds}
+
+
+def phase_analysis(runs: list[tuple[str, dict]], card: str, peak_bw, peak_ops) -> dict:
+    """On each run: ``run_full_analysis``, every dashboard data function and
+    ``generate_summary`` over its runs root. The saliency launches each flash
+    kernel once a layer, and its float32 result on the card is within
+    ``SALIENCY_RTOL`` of the CPU's plain versions; the playground pages
+    launch the decode kernel n_layer times a cached step, and their greedy
+    next codon is the same on the card and the CPU. Then the float32 flash
+    kernels at the saliency's shape (B 1, T 6, dropout 0) and the decode
+    kernel at the playground's against their plain versions, timed."""
+    from genomics_lm_torch import dashboard
+    from genomics_lm_torch.evals.analysis import run_full_analysis
+    from genomics_lm_torch.evals.summaries import generate_summary
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, saliency_launches, decode_launches, shapes = {}, {}, {}, {}
+    for name, run in runs:
+        run_dir = Path(run["run_dir"])
+        cfg = CodonGPTConfig.from_run_config(dict(load_checkpoint_meta(
+            resolve_checkpoint(run_dir))["cfg"], vocab_size=68))
+        L = cfg.n_layer
+        shapes[name] = (cfg.n_layer, cfg.block_size, cfg.n_head, cfg.kv_heads, cfg.head_dim)
+        for w in FLASH_WRAPPERS:
+            w.launches = 0
+        t0 = time.perf_counter()
+        steps = run_full_analysis(run_dir, run["val_npz"], device="cuda")
+        analysis_s = time.perf_counter() - t0
+        analysis_launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+        for w in FLASH_WRAPPERS:
+            w.launches = 0  # the saliency page alone
+        t0 = time.perf_counter()
+        sal = dashboard.saliency_data(run_dir, SALIENCY_PROBE, device="cuda")
+        saliency_s = time.perf_counter() - t0
+        saliency_launches[name] = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+        cpu_sal = dashboard.saliency_data(run_dir, SALIENCY_PROBE, device="cpu")
+        sal_err = float(np.abs(sal["saliency"] - cpu_sal["saliency"]).max()
+                        / np.abs(cpu_sal["saliency"]).max())
+        att = dashboard.attention_data(run_dir, SALIENCY_PROBE, device="cuda")
+        emb = dashboard.embeddings_data(run_dir, DASHBOARD_SEQS, device="cuda")
+        da.decode_attention.launches = 0  # the playground pages only
+        t0 = time.perf_counter()
+        with _StepCounter("decode_step") as cached:
+            nxt = dashboard.playground_next_codon(run_dir, "ATGAAACCC", device="cuda")
+            page = dashboard.playground_generate(run_dir, "ATGAAA", device="cuda")
+        playground_s = time.perf_counter() - t0
+        decode_launches[name] = da.decode_attention.launches
+        cpu_nxt = dashboard.playground_next_codon(run_dir, "ATGAAACCC", device="cpu")
+        browser = dashboard.run_browser_data(run_dir.parent)
+        details = dashboard.run_details_data(run_dir)
+        summary = generate_summary(run_dir.parent)
+        probs = [r["prob"] for r in nxt["next"]]
+        out[name] = dict(
+            analysis_steps=sorted(steps), analysis_s=analysis_s,
+            analysis_flash_launches=analysis_launches,
+            next_token_probe=steps["next_token_probe"], saliency_top=steps["saliency"]["top"],
+            saliency=[float(x) for x in sal["saliency"]], saliency_s=saliency_s,
+            saliency_launches=saliency_launches[name], want_saliency_launches=L,
+            saliency_f32_card_vs_cpu=sal_err, tol=SALIENCY_RTOL,
+            attention_shape=list(att["attention"].shape),
+            attention_row_sum_err=float(np.abs(att["attention"].sum(-1) - 1).max()),
+            embeddings_shape=list(emb["embeddings"].shape), pca_shape=list(emb["pca"].shape),
+            next_top=nxt["next"][0], next_top_cpu=cpu_nxt["next"][0],
+            next_top2_margin=probs[0] - probs[1], generated_codons=page["info"]["generated_codons"],
+            had_terminal_stop=page["info"]["had_terminal_stop"], playground_s=playground_s,
+            cached_steps=cached.calls, decode_launches=decode_launches[name],
+            browser_runs=len(browser["table"]), curve_series=sorted(details["series"]),
+            summary=str(summary.name))
+        log("analysis", run=name, **out[name], card=card)
+        finite = (np.isfinite(sal["saliency"]).all() and np.isfinite(emb["pca"]).all()
+                  and np.isfinite(att["attention"]).all())
+        if (not finite or any(v != L for v in saliency_launches[name].values())
+                or sal_err > SALIENCY_RTOL or out[name]["attention_row_sum_err"] > 1e-4
+                or decode_launches[name] == 0 or decode_launches[name] != L * cached.calls
+                or nxt["next"][0]["token"] != cpu_nxt["next"][0]["token"]
+                or not summary.exists() or not browser["table"]):
+            raise AssertionError(f"analysis of {name}: {out[name]}")
+    # the float32 flash kernels at the saliency's shape, and the decode kernel at
+    # the playground's (one sequence over a whole-block cache), each run's heads
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    timed, decode_timed = {}, {}
+    T = len(SALIENCY_PROBE) // 3 + 1
+    for name, (L, S, hq, hkv, d) in shapes.items():
+        timed[name] = check_flash_case(gen, "analysis_kernel", f"saliency_{name}_d{d}", 1, hq,
+                                       hkv, T, T, d, torch.float32, None, 0.0, 97, True,
+                                       peak_bw, peak_ops)
+        case = f"playground_{name}_d{d}"
+        q, k, v, mask, ks, vs, err, nan_err = check_decode_case(
+            gen, "analysis_decode", case, L, 1, S, hkv, hq // hkv, d, torch.bfloat16,
+            torch.bfloat16, "serve")
+        decode_timed[name] = time_decode_case(case, q, k, v, mask, ks, vs, hkv, hq // hkv,
+                                              da.decode_attention, peak_bw, peak_ops, err,
+                                              nan_err, "analysis_decode_time")
+    return {"saliency": saliency_launches, "decode": decode_launches, "flash_timed": timed,
+            "decode_timed": decode_timed, "runs": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2923,6 +3253,14 @@ def main() -> int:
     embedded = phase_embeddings([("trainer", trainer_run), ("moe", moe_run)], card_line,
                                 peak_bw, peak_ops)
     phase_noprop(trainer_run, card_line)
+    prepare_dir = tempfile.TemporaryDirectory(prefix="smoke_prepare_")
+    prepared = phase_prepare(card_line, Path(prepare_dir.name))
+    evaluated = phase_evaluate_test([("moe", moe_run), ("trainer", trainer_run)],
+                                    prepared[512]["dir"], card_line, peak_bw, peak_ops)
+    phase_moe_quality(card_line)
+    analysed = phase_analysis([("trainer", trainer_run), ("moe", moe_run)], card_line,
+                              peak_bw, peak_ops)
+    prepare_dir.cleanup()
     moe_dir.cleanup()
     trainer_dir.cleanup()
 
@@ -2946,6 +3284,8 @@ def main() -> int:
         "launches_int8_weights_int8_cache": int8_served["launches_int8_cache"],
         "launches_generate": generated["decode"],
         "launches_moe_serve": moe_served["decode"],
+        "launches_dashboard": sum(analysed["decode"].values()),
+        "dashboard_b1": analysed["decode_timed"],
         "b1": generated["b1"],
         "b1_full": generated["b1_full"],
         "design": tile_design + "; one block per (kv head, slot)",
@@ -2966,14 +3306,18 @@ def main() -> int:
             "launches_remat_contract": remat["remat"][wrapper.__name__],
             "launches_plain_contract": remat["plain"][wrapper.__name__],
             "launches_moe_train": moe_run["launches"][wrapper.__name__],
+            "launches_saliency": sum(r[wrapper.__name__] for r in analysed["saliency"].values()),
+            "saliency_f32": {run: t[key] for run, t in analysed["flash_timed"].items()},
             **({"launches_score": scored["launches"],
                 "launches_score_mutations": scored["launches_mutations"],
                 "launches_generate": generated["flash"],
                 "launches_moe_score": moe_served["score"],
                 "launches_embeddings": sum(embedded["launches"].values()),
+                "launches_evaluate": evaluated["launches"],
                 "inference": scored["inference"],
                 "moe_inference": {"score_b8": moe_served["flash_timed"],
-                                  "embeddings_b64": embedded["flash_timed"]}}
+                                  "embeddings_b64": embedded["flash_timed"],
+                                  "evaluate": evaluated["flash_timed"]}}
                if key == "fwd" else {}),
             "design": tensor_core,
         })

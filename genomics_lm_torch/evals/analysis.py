@@ -1,13 +1,15 @@
-"""The interpretability reports over a trained run (the first four steps
-of ``genomics_lm_tpu/evals/analysis.py``): token-frequency statistics,
-the PCA of the token embeddings, per-layer attention maps of a probe
-sequence, and next-token probe accuracy, each written into the run's
-directory as JAX writes them (``frequencies.json``, ``embedding_pca.png``,
-``attention_layer{i}.png``, ``next_token_probe.json``).
+"""The six-step interpretability analysis over a trained run (twin of
+``genomics_lm_tpu/evals/analysis.py``): token-frequency statistics, the PCA
+of the token embeddings, per-layer attention maps of a probe sequence,
+next-token probe accuracy, the gradient saliency of the top next-token
+prediction, and a bundled summary, each written into the run's directory
+as JAX writes them (``tables/frequencies.json``, ``charts/embedding_pca.png``,
+``charts/attention_layer{i}.png``, ``tables/next_token_probe.json``,
+``tables/saliency.json``, ``tables/run_summary.{json,md}``).
 
-The model runs on its own device under ``torch.no_grad``. Not ported:
-``analyze_saliency``, ``export_run_summary`` and ``run_full_analysis``,
-which need the dashboard and the aggregator.
+The model runs on its own device (the card unless the caller names
+another) under ``torch.no_grad``, apart from the saliency's gradient
+(``dashboard.py::saliency_data``).
 """
 
 from __future__ import annotations
@@ -103,5 +105,75 @@ def probe_next_token(model, cfg, dataset, out_dir: Path, *, n_batches: int = 8,
     return report
 
 
+def analyze_saliency(run_dir: Path, dna: str, out_dir: Path, *,
+                     device: str | torch.device | None = None) -> dict:
+    """Step 5: gradient saliency of the top next-token prediction."""
+    from genomics_lm_torch.dashboard import saliency_data
+
+    payload = saliency_data(run_dir, dna, device=device)
+    rows = [
+        {"position": i, "token": tok, "saliency": float(s)}
+        for i, (tok, s) in enumerate(zip(payload["tokens"], payload["saliency"]))
+    ]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "saliency.json").write_text(json.dumps(rows, indent=2))
+    top = max(rows, key=lambda r: r["saliency"]) if rows else None
+    return {"positions": len(rows), "top": top}
+
+
+def export_run_summary(run_dir: Path, steps: dict, out_dir: Path) -> Path:
+    """Step 6: bundle all analysis outputs into one summary document."""
+    from genomics_lm_torch.evals.aggregator import load_run
+
+    run = load_run(run_dir)
+    summary = {
+        "run_id": run["run_id"],
+        "meta": run.get("meta"),
+        "analysis": steps,
+    }
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path = out_dir / "run_summary.json"
+    out_path.write_text(json.dumps(summary, indent=2, default=str) + "\n")
+    md = [f"# Analysis summary — {run['run_id']}", ""]
+    for name, payload in steps.items():
+        md.append(f"## {name}")
+        md.append("```json")
+        md.append(json.dumps(payload, indent=2, default=str))
+        md.append("```")
+        md.append("")
+    (out_dir / "run_summary.md").write_text("\n".join(md))
+    return out_path
+
+
+def run_full_analysis(
+    run_dir: str | Path,
+    val_npz: str | Path,
+    *,
+    probe_dna: str = "ATGAAACCCGGGTTT",
+    device: str | torch.device | None = None,
+) -> dict:
+    """Execute steps 1–6 and return the collected reports."""
+    from genomics_lm_torch.data.datasets import PackedDataset
+    from genomics_lm_torch.evals.playground import load_codon_model
+
+    run_dir = Path(run_dir)
+    out_dir = run_dir / "charts"
+    tables_dir = run_dir / "tables"
+    model, cfg, itos, stoi = load_codon_model(run_dir, device=device)
+    cfg = cfg.replace(dropout=0.0)
+    ds = PackedDataset(val_npz)
+
+    steps = {}
+    steps["frequencies"] = analyze_frequencies(ds, itos, tables_dir)
+    steps["embeddings"] = analyze_embeddings(model, out_dir, itos)
+    steps["attention"] = analyze_attention(model, cfg, probe_dna, out_dir, itos, stoi)
+    steps["next_token_probe"] = probe_next_token(model, cfg, ds, tables_dir)
+    steps["saliency"] = analyze_saliency(run_dir, probe_dna, tables_dir,
+                                         device=module_device(model))
+    export_run_summary(run_dir, steps, tables_dir)
+    return steps
+
+
 __all__ = ["analyze_attention", "analyze_embeddings", "analyze_frequencies",
-           "probe_next_token"]
+           "analyze_saliency", "export_run_summary", "probe_next_token",
+           "run_full_analysis"]

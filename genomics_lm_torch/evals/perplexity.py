@@ -7,10 +7,8 @@ the paired bootstrap), and the context-window ablation. Every batch runs
 one ``forward`` under ``torch.no_grad`` on the model's device (the flash
 forward on the card under ``attention_impl="flash"``, with
 ``attention_window`` passed through), and the log-sum-exp runs in
-float32, as in JAX.
-
-Not ported from ``scripts/evaluate_test.py``: the Markov baseline,
-provenance and the bootstrap significance report.
+float32, as in JAX. ``evals/evaluate_test.py`` puts these beside the Markov
+baselines and the paired bootstrap.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 the PCA scatter of an embedding table and an attention heatmap, saved to
 disk headlessly.
 
-The PCA is numpy's SVD of the centred matrix (two components, as
-sklearn's ``PCA(n_components=2)``, up to the sign of each axis). Figures
+The PCA is numpy's SVD of the centred matrix with sklearn's sign rule:
+the coordinates of sklearn's ``PCA(n_components=2)``, without sklearn. Figures
 render with matplotlib (Agg); where it is not installed the figure is not
 drawn and one line says so, and the reports' JSON is written all the same.
 """
@@ -32,11 +32,15 @@ def _skipped(out_path) -> None:
 
 
 def pca_2d(X: np.ndarray) -> np.ndarray:
-    """(N, D) → (N, 2) coordinates on the two leading principal axes."""
+    """(N, D) → (N, min(2, D)) coordinates on the leading principal axes,
+    each axis signed so that its largest-magnitude loading is positive
+    (sklearn's ``svd_flip(U, Vt, u_based_decision=False)``)."""
     X = np.asarray(X, np.float64)
     centred = X - X.mean(axis=0)
     _, _, vt = np.linalg.svd(centred, full_matrices=False)
-    return centred @ vt[:2].T
+    vt = vt[:2]
+    signs = np.sign(vt[np.arange(len(vt)), np.argmax(np.abs(vt), axis=1)])
+    return centred @ (vt * signs[:, None]).T
 
 
 def plot_embedding_pca(

@@ -1,34 +1,45 @@
-"""MoE-vs-dense training throughput at the flagship width (twin of the
-throughput section of ``scripts/benchmark_moe.py:198-233`` over the probe
-of ``scripts/benchmark_training_speed.py:29-99``).
+"""MoE-vs-dense benchmark: quality at a matched step budget, and training
+throughput at the flagship width (twin of ``scripts/benchmark_moe.py``'s
+quality and throughput sections, ``:51-233``, and of its ``main``).
 
-The 12L8H d512 CodonGPT (block 512, fused QKV, bf16 on float32 masters,
-flash attention, dropout 0.1, label smoothing 0.05), dense and with a
-4-expert MLP routed top-1 and top-2 at capacity 1.25, each takes 2 warm-up
-and ``--measure_steps`` group steps of 16 x 8 x 512 synthetic windows
-(``default_rng(1337)``) with AdamW at lr 3e-4, in a fresh subprocess of
-the port so that running out of memory ends only that candidate (and is
-reported as ``"oom"``). On one card the experts are replicated.
+* **quality** — the demo corpus (``data/demo_corpus.py``, ``--genes`` genes
+  from ``--seed``) is prepared once (``data/pipeline.py``: block
+  ``--block_size``, ``multi`` packing, genome-disjoint splits,
+  ``skip_homology``, engine ``native``); dense and top-1/top-2 routed
+  variants then train on the same packed arrays with the same seed,
+  schedule and steps (only the MLP differs; dropout 0, label smoothing 0,
+  ``attention_impl`` left at its default, the einsum path), and each final
+  ``last.npz`` is scored by ``evaluate_perplexity`` on the val and test
+  splits beside the Markov count baselines fitted on the train split (the
+  quality floor). ``--converged_epochs`` (default 30, 0 disables) repeats
+  the pass at that budget as ``quality_converged``.
+* **throughput** — the 12L8H d512 CodonGPT (block 512, fused QKV, bf16 on
+  float32 masters, flash attention, dropout 0.1, label smoothing 0.05),
+  dense and with a 4-expert MLP routed top-1 and top-2 at capacity 1.25,
+  each takes 2 warm-up and ``--measure_steps`` group steps of 16 x 8 x 512
+  synthetic windows (``default_rng(1337)``) with AdamW at lr 3e-4, in a
+  fresh subprocess of the port so that running out of memory ends only that
+  candidate (and is reported as ``"oom"``). On one card the experts are
+  replicated.
 
-    python -m genomics_lm_torch.training.benchmark_moe [--measure_steps 8] \\
-        [--experts 4] [--timeout 1700] [--out report.json] [--merge_into old.json]
+    python -m genomics_lm_torch.training.benchmark_moe [--skip_throughput] \\
+        [--converged_epochs 0] [--workdir outputs/moe_quality] [--skip_quality] \\
+        [--measure_steps 8] [--out report.json] [--merge_into old.json] [--device cpu]
 
-Writes one JSON report with JAX's keys (``throughput_d512``: per
-candidate ``nonpad_tokens_per_sec``, ``wall_per_step_sec``,
-``device_memory``, ``rel_to_dense``), plus each candidate's
-``peak_memory_bytes`` and ``ms_per_group``. The quality section
-(``--skip_quality`` is implied) and the expert-parallel analysis need the
-demo-corpus pipeline, the Markov baselines and a mesh, which the port does
-not have: their flags raise ``NotImplementedError`` naming the flag, and
-so does ``--skip_throughput``, which would leave nothing to run.
+Writes one JSON report with JAX's keys (``quality``, ``quality_converged``,
+``throughput_d512``; per throughput candidate also ``peak_memory_bytes``
+and ``ms_per_group``). The expert-parallel analysis (``--ep_analysis``,
+``--ep_seq_len``) needs a mesh: those flags raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -43,10 +54,8 @@ D512_MODEL = {
 
 OOM_PATTERNS = ("out of memory", "oom", "allocate", "allocation", "hbm capacity")
 
-# the quality and expert-parallel flags of scripts/benchmark_moe.py
-UNPORTED_FLAGS = ("workdir", "genes", "block_size", "n_layer", "n_head", "n_embd",
-                  "batch_size", "grad_accum", "epochs", "converged_epochs", "lr",
-                  "warmup_steps", "seed", "ep_analysis", "ep_seq_len", "skip_throughput")
+# the expert-parallel flags of scripts/benchmark_moe.py (they need a mesh)
+UNPORTED_FLAGS = ("ep_analysis", "ep_seq_len")
 
 _PROBE_SOURCE = r"""
 import json, sys, time
@@ -98,6 +107,140 @@ print(json.dumps({
     "last_loss": float(m["total_loss_sum"]) / max(1, int(m["committed_microbatches"])),
 }))
 """
+
+
+def quality_variants(experts: int):
+    """(name, extra model cfg) — identical training budget, only the MLP differs."""
+    return [
+        ("dense", {}),
+        (f"moe_{experts}e_top1", {"moe_experts": experts, "moe_top_k": 1}),
+        (f"moe_{experts}e_top2", {"moe_experts": experts, "moe_top_k": 2}),
+    ]
+
+
+def build_dataset(workdir: Path, *, genes: int, block_size: int, seed: int) -> Path:
+    """The demo corpus's records TSV and its prepared dataset under ``workdir``."""
+    from genomics_lm_torch.data.demo_corpus import main as make_corpus
+    from genomics_lm_torch.data.pipeline import prepare_dataset
+
+    records_tsv = workdir / "records.tsv"
+    records_tsv.parent.mkdir(parents=True, exist_ok=True)
+    make_corpus(["--out", str(records_tsv), "--genes", str(genes), "--seed", str(seed)])
+    with records_tsv.open() as f:
+        records = [dict(r) for r in csv.DictReader(f, delimiter="\t")]
+    dataset_dir = workdir / "dataset"
+    prepare_dataset(records, dataset_dir, block_size=block_size, pack_mode="multi",
+                    group_by="genome", split_seed=seed, skip_homology=True,
+                    audit_engine="native")
+    return dataset_dir
+
+
+def run_quality(args, *, epochs: int | None = None, run_prefix: str = "moe-quality") -> dict:
+    """One dense-vs-MoE quality pass at an epoch budget (``--epochs``, or
+    ``epochs`` for the converged pass)."""
+    import numpy as np
+
+    from genomics_lm_torch.evals.markov import evaluate_baselines, fit_baselines
+    from genomics_lm_torch.evals.perplexity import evaluate_perplexity
+    from genomics_lm_torch.models.config import CodonGPTConfig
+    from genomics_lm_torch.tokenizers.codon import SEP_ID
+    from genomics_lm_torch.training.checkpoints import load_checkpoint
+    from genomics_lm_torch.training.loop import run_training
+    from genomics_lm_torch.utils.device import resolve_device
+    from genomics_lm_torch.utils.weights import params_from_jax
+
+    device = resolve_device(args.device)
+    epochs = args.epochs if epochs is None else epochs
+    workdir = Path(args.workdir)
+    dataset_dir = build_dataset(workdir, genes=args.genes, block_size=args.block_size,
+                                seed=args.seed)
+    block = args.block_size
+    shared_cfg = {
+        "train_npz": str(dataset_dir / f"train_bs{block}.npz"),
+        "val_npz": str(dataset_dir / f"val_bs{block}.npz"),
+        "block_size": block,
+        "vocab_size": 68,
+        "n_layer": args.n_layer,
+        "n_head": args.n_head,
+        "n_embd": args.n_embd,
+        # no per-step noise: the deltas under judgment are a few percent
+        "dropout": 0.0,
+        "label_smoothing": 0.0,  # val NLL comparable to the Markov baselines
+        "tie_embeddings": True,
+        "batch_size": args.batch_size,
+        "grad_accum_steps": args.grad_accum,
+        "lr": args.lr,
+        "min_lr": args.lr / 10.0,
+        "weight_decay": 0.05,
+        "warmup_steps": args.warmup_steps,
+        "optimizer": "adamw",
+        "scheduler": "cosine",
+        "epochs": epochs,
+        "seed": args.seed,
+        "dataloader_seed": args.seed,
+        "early_stop_patience": 0,
+        "itos_path": str(dataset_dir / "itos.txt"),
+        "use_mmap_dataset": False,
+    }
+
+    # the quality floor: the count baselines both model families must beat
+    with np.load(dataset_dir / f"train_bs{block}.npz") as z:
+        train_x, train_y = z["X"], z["Y"]
+    with np.load(dataset_dir / f"val_bs{block}.npz") as z:
+        val_x, val_y = z["X"], z["Y"]
+    counts = fit_baselines(train_x, train_y, 68, reset_token_ids=frozenset({SEP_ID}))
+    baselines, _, _ = evaluate_baselines(val_x, val_y, counts, 68,
+                                         reset_token_ids=frozenset({SEP_ID}))
+
+    rows = []
+    for name, extra in quality_variants(args.experts):
+        cfg = dict(shared_cfg)
+        cfg.update(extra)
+        cfg["run_id"] = f"{run_prefix}-{name}"
+        print(f"[{run_prefix}] training {name} (epochs={epochs}) ...", flush=True)
+        t0 = time.perf_counter()
+        meta = run_training(cfg, run_root=workdir / "runs", device=device, progress_every=0)
+        wall = time.perf_counter() - t0
+        last = workdir / "runs" / cfg["run_id"] / "checkpoints" / "last.npz"
+        model_cfg = CodonGPTConfig.from_run_config(cfg)
+        model = params_from_jax(load_checkpoint(last)["model"], model_cfg, device)
+        evals = {
+            split: evaluate_perplexity(model, model_cfg, dataset_dir / f"{split}_bs{block}.npz")
+            for split in ("val", "test")
+        }
+        row = {
+            "name": name,
+            "moe": extra or None,
+            "n_params": meta["n_params"],
+            "best_val_loss": meta["best_val_loss"],
+            "train_wall_sec": meta["train_wall_sec"],
+            "wall_sec_total": round(wall, 2),
+            "val_nll": evals["val"]["nll"],
+            "val_ppl": evals["val"]["perplexity"],
+            "test_nll": evals["test"]["nll"],
+            "test_ppl": evals["test"]["perplexity"],
+            "beats_all_markov_baselines": bool(
+                evals["val"]["nll"] < min(b["cross_entropy_nats"] for b in baselines.values())),
+        }
+        print(f"[moe-quality]   -> val ppl {row['val_ppl']:.3f} test ppl {row['test_ppl']:.3f} "
+              f"({row['n_params']:,} params, {row['train_wall_sec']:.0f}s)", flush=True)
+        rows.append(row)
+
+    dense = next(r for r in rows if r["name"] == "dense")
+    for r in rows:
+        r["val_nll_delta_vs_dense"] = r["val_nll"] - dense["val_nll"]
+    return {
+        "protocol": {
+            "corpus": f"make_demo_corpus genes={args.genes} seed={args.seed}",
+            "budget": f"epochs={epochs} b{args.batch_size}x{args.grad_accum} "
+                      f"lr={args.lr} (identical for every variant)",
+            "model": f"{args.n_layer}L{args.n_head}H d{args.n_embd} "
+                     f"block{block}, dropout 0, label smoothing 0",
+            "evaluator": "evals/perplexity.py exact corpus NLL, shared across variants",
+        },
+        "markov_baselines": {k: v["cross_entropy_nats"] for k, v in baselines.items()},
+        "variants": rows,
+    }
 
 
 def run_candidate_subprocess(spec: dict, timeout: float = 900.0) -> dict:
@@ -162,20 +305,37 @@ def run_throughput(args, *, model: dict = D512_MODEL, batch_size: int = 8,
 
 
 def parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description="MoE-vs-dense training throughput at d512")
+    ap = argparse.ArgumentParser(description="MoE-vs-dense quality and d512 throughput")
     ap.add_argument("--out", default="outputs/benchmarks/moe_benchmark_torch.json")
+    ap.add_argument("--workdir", default="outputs/moe_quality")
+    ap.add_argument("--genes", type=int, default=800)
+    ap.add_argument("--block_size", type=int, default=256)
+    ap.add_argument("--n_layer", type=int, default=6)
+    ap.add_argument("--n_head", type=int, default=4)
+    ap.add_argument("--n_embd", type=int, default=256)
+    ap.add_argument("--batch_size", type=int, default=16)
+    ap.add_argument("--grad_accum", type=int, default=1)
+    ap.add_argument("--epochs", type=int, default=12)
+    ap.add_argument("--converged_epochs", type=int, default=30,
+                    help="second quality pass at this saturated budget "
+                         "(emits quality_converged; 0 disables)")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--warmup_steps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=1337)
     ap.add_argument("--experts", type=int, default=4)
     ap.add_argument("--measure_steps", type=int, default=8)
     ap.add_argument("--timeout", type=float, default=1700.0)
-    ap.add_argument("--skip_quality", action="store_true",
-                    help="implied: the quality section is not ported")
+    ap.add_argument("--skip_quality", action="store_true")
+    ap.add_argument("--skip_throughput", action="store_true")
     ap.add_argument("--merge_into", default=None,
-                    help="read this existing artifact and merge the new section into it")
-    ap.add_argument("--device", default="cuda", help="torch device of the candidates")
+                    help="read this existing artifact and merge new sections into it "
+                         "instead of writing only the sections run")
+    ap.add_argument("--device", default=None,
+                    help="torch device of the quality runs and the throughput candidates "
+                         "(default: the CUDA card)")
     for flag in UNPORTED_FLAGS:
         ap.add_argument(f"--{flag}", default=None,
-                        action="store_true" if flag in ("ep_analysis", "skip_throughput")
-                        else "store")
+                        action="store_true" if flag == "ep_analysis" else "store")
     return ap
 
 
@@ -184,21 +344,29 @@ def main(argv=None) -> int:
     for flag in UNPORTED_FLAGS:
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(
-                f"--{flag} is not ported: the quality and expert-parallel sections need "
-                "the demo-corpus pipeline, the Markov baselines and a mesh")
+                f"--{flag} is not ported: the expert-parallel analysis needs a mesh")
     report: dict = {}
     if args.merge_into:
         report = json.loads(Path(args.merge_into).read_text())
-    report["throughput_d512"] = run_throughput(args, device=args.device)
+    if not args.skip_quality:
+        report["quality"] = run_quality(args)
+        if args.converged_epochs:
+            report["quality_converged"] = run_quality(
+                args, epochs=args.converged_epochs, run_prefix="moe-quality-conv")
+    if not args.skip_throughput:
+        report["throughput_d512"] = run_throughput(args, device=args.device or "cuda")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=2) + "\n")
-    print(json.dumps(report["throughput_d512"]), flush=True)
+    for section in ("quality", "quality_converged", "throughput_d512"):
+        if section in report:
+            print(json.dumps({section: report[section]}), flush=True)
     print(f"[moe-benchmark] wrote {out}")
     return 0
 
 
-__all__ = ["D512_MODEL", "main", "parser", "run_candidate_subprocess", "run_throughput"]
+__all__ = ["D512_MODEL", "build_dataset", "main", "parser", "quality_variants",
+           "run_candidate_subprocess", "run_quality", "run_throughput"]
 
 
 if __name__ == "__main__":

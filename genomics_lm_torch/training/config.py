@@ -1,25 +1,29 @@
 """Run-config helpers: meta writing, run IDs, offset-weight normalization.
 
 Twin of ``genomics_lm_tpu/training/config.py`` (parity: reference
-``src/codonlm/training/config.py``), copied verbatim apart from
-``write_meta``: the JAX one also refreshes the cross-run ``summary.md``
-through ``evals.summaries.generate_summary``, which is not ported, so the
-port writes ``meta.json`` only.
+``src/codonlm/training/config.py``), copied verbatim.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 from pathlib import Path
 
 RUN_ID_ENV = "RUN_ID"
 
 
 def write_meta(run_dir: Path, meta: dict) -> None:
-    """Write ``meta.json`` (the cross-run summary is not ported)."""
+    """Write ``meta.json`` and refresh the cross-run summary (best effort)."""
     meta_path = Path(run_dir) / "meta.json"
     meta_path.write_text(json.dumps(meta, indent=2, sort_keys=True) + "\n")
+    try:
+        from genomics_lm_torch.evals.summaries import generate_summary
+
+        generate_summary(Path(run_dir).parent)
+    except Exception as exc:  # summary generation must never fail a run
+        print(f"[warning] Failed to generate summary.md: {exc}", file=sys.stderr)
 
 
 def ensure_path_list(arg_value, cfg_value, key: str) -> list[str]:
