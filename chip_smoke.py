@@ -92,7 +92,7 @@ exits non-zero:
    width: synthetic windows on the card, then the real host pipeline under
    ``multi`` and ``binpack`` packing (chunking, packing, mmap sidecars,
    ``EpochPlan``, grouped microbatches, ``DevicePrefetcher`` from pinned
-   memory), each 3 warm-up, 6 measured and 1 profiled group (the CLI
+   memory), each 3 warm-up, 2 measured and 1 profiled group (the CLI
    measures 20 and profiles 3); logs
    tokens/s, pad fraction, ms per group, busy share and the host→device
    copies in the trace, and ``bench.py``'s one line. Each group's non-pad
@@ -207,7 +207,7 @@ exits non-zero:
    ``SCORE_NLL_RTOL`` of the CPU's; at 2 layers in float32, greedy tokens
    equal on the card and the CPU with dense and int8 weights, and one
    request served alone equals its tokens from a full 64-slot drain.
-26. moe throughput — ``training/benchmark_moe.py`` with 5 measured groups:
+26. moe throughput — ``training/benchmark_moe.py`` with 1 measured group:
    dense, top-1 and top-2 tokens/s, ms per group, peak memory and
    ``rel_to_dense``, each in a subprocess; then ``profile_step.py --moe``:
    a MoE group's device time split into router, dispatch, expert products,
@@ -241,11 +241,12 @@ exits non-zero:
    baselines on this corpus: the phase checks the machinery, not the
    verdict.
 31. moe quality — ``python -m genomics_lm_torch.training.benchmark_moe
-   --skip_throughput --converged_epochs 0``: dense, top-1 and top-2 at the
-   script's default widths (6L4H d256, block 256, B 16, lr 1e-3, 12 epochs)
-   on the demo corpus, einsum attention; per variant val and test NLL, the
-   delta to dense, whether it beats every Markov floor, parameters and
-   training seconds. The 30-epoch converged pass is cut.
+   --skip_throughput --converged_epochs 0 --epochs 3``: dense, top-1 and
+   top-2 at the script's default widths (6L4H d256, block 256, B 16, lr
+   1e-3) on the demo corpus, einsum attention; per variant val and test
+   NLL, the delta to dense, whether it beats every Markov floor, parameters
+   and training seconds. Cut: 3 of the script's 12 epochs, and the 30-epoch
+   converged pass.
 32. analysis — on phase 15's and phase 23's runs: ``run_full_analysis``,
    every dashboard data function (saliency, attention, embeddings with PCA,
    next codon, generation, browser, details) and ``generate_summary`` over
@@ -257,6 +258,39 @@ exits non-zero:
    saliency's shape (B 1, T 6, dropout 0, heads of 48 and of 64) and the
    decode kernel at the playground's (B 1 over a whole-block cache, each
    run's layers and heads) against their plain versions, timed.
+33. demo run — the train CLI at the main path's config (10L8H d384, block
+   512, bf16 flash) on the block-512 demo splits, B 8 x G 2 for 12 epochs:
+   phase 15's run takes 8 steps on uniform random codons and still repeats
+   its last codon, so it never stops; this run learns the corpus's codon
+   usage, stops included, for phases 34-37; its validation loss must fall.
+34. motifs — ``mine_motifs`` at its defaults (window 9, stride 1,
+   ``--max_windows`` 256) on the demo run over the block-512 demo train
+   split: one ``hidden_states`` pass over its rows (the flash forward
+   launched n_layer times), the window embeddings pooled on the card, and
+   KMeans when sklearn imports on the machine (otherwise one line says the
+   clustering did not run, and the embedding checks still gate the exit
+   code); the float32 embeddings on the card within ``CARD_CPU_RTOL`` of the
+   CPU's; the flash forward at the pass's shape (every row at T 512, their
+   segments, heads of 48), bf16 and float32, against its plain version,
+   timed.
+35. probes — ``fit_mlp`` on the card over those embeddings, labelled by each
+   window's first amino acid, for ``PROBE_EPOCHS`` epochs: seconds per epoch
+   and its metrics; float32 at dropout 0 from one init, card against CPU.
+36. gen_prefix — ``eval_generation_prefix --preset quick --samples 1`` (cut
+   from the preset's 2 for the smoke's time) on the demo run
+   over the block-512 demo splits with ``--nll_controls``, ``--emit_replay``
+   and the memorization audit: seconds of generation, scoring, controls and
+   audit; the decode kernel launched n_layer times a cached step and the
+   flash forward n_layer times a scored window; the replay loaded by
+   ``data/replay.py``; ``token_nlls`` float32 on the card against the CPU;
+   the flash forward at its B 1 windows and the decode kernel at the
+   generations' cache against their plain versions, timed.
+37. design — ``generative_design_loop`` at its defaults with
+   ``--esm_fold_top 2 --fold_backend mock``: seconds, tokens spent, decode
+   launches (n_layer a cached step), the termination rate; its candidates
+   through ``audit_generated_sequences`` against the demo corpus's
+   train-split records; a CPU run of the loop whose candidates are
+   re-scored in float32 on the card and on the CPU.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -270,6 +304,7 @@ import contextlib
 import copy
 import csv
 import http.client
+import importlib.util
 import io
 import json
 import re
@@ -493,7 +528,7 @@ def make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype, lengths="random"):
     """Random packed caches and query on the card, and a (B, S) mask:
     ``lengths`` "random" gives ragged same-segment rows (row 0 with a segment
     boundary), "serve" the serving drain's rows (``serve_mask``), "full"
-    every position live."""
+    every position live, an int that many leading positions of each row."""
     dev = "cuda"
     P = Hkv * D
     ks = vs = None
@@ -510,6 +545,9 @@ def make_case(gen, L, B, S, Hkv, G, D, cache_dtype, q_dtype, lengths="random"):
         return q, k, v, serve_mask(B, S), ks, vs
     if lengths == "full":
         return q, k, v, torch.zeros((B, S), device=dev), ks, vs
+    if isinstance(lengths, int):  # the first ``lengths`` positions of every row live
+        live = torch.arange(S, device=dev)[None, :] < lengths
+        return q, k, v, torch.zeros((B, S), device=dev).masked_fill_(~live, da.NEG_INF), ks, vs
     lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
     pos = torch.arange(S, device=dev)[None, :]
     valid = pos < lengths[:, None]
@@ -1505,7 +1543,7 @@ def phase_spec_parity() -> None:
 
 # the smoke's depth of each protocol (``bench_pipeline.py`` itself measures 20
 # groups and profiles 3): the phase checks the path, the CLI measures it
-PIPELINE_DEPTH = dict(measure=6, profile_groups=1)
+PIPELINE_DEPTH = dict(measure=2, profile_groups=1)
 
 
 def phase_pipeline(card: str) -> dict:
@@ -1575,31 +1613,40 @@ def packed_corpus(workdir: Path, n_train: int, n_val: int) -> None:
     write_itos(workdir / "itos.txt")
 
 
-def trainer_config(workdir: Path) -> Path:
-    """A packed corpus (``packed_corpus``: train windows for 4 groups an
-    epoch, 64 validation windows) and a YAML run config at the training
-    main path's width with its paths under a ``data:`` map."""
-    G, B = train_main.G, train_main.B
-    packed_corpus(workdir, TRAINER_GROUPS_PER_EPOCH * G * B, TRAINER_VAL_WINDOWS)
+def run_yaml(path: Path, train_npz: Path, val_npz: Path, *, G: int, epochs: int,
+             run_id: str) -> Path:
+    """A YAML run config at the training main path's width (10L8H d384,
+    block 512, bf16 flash, fused QKV, tied embeddings, dropout 0.1, label
+    smoothing 0.05, AdamW lr 1e-3 under a cosine schedule, B 8) with its
+    paths under a ``data:`` map."""
     m = train_main.MAIN_TRAIN
     lines = [
         "data:",
-        f"  train_npz: {workdir / 'train.npz'}",
-        f"  val_npz: {workdir / 'val.npz'}",
+        f"  train_npz: {train_npz}",
+        f"  val_npz: {val_npz}",
         "use_mmap_dataset: true",
         f"block_size: {m['block_size']}", f"n_layer: {m['n_layer']}",
         f"n_head: {m['n_head']}", f"n_embd: {m['n_embd']}",
         f"dropout: {m['dropout']}", f"label_smoothing: {m['label_smoothing']}",
         f"sep_id: {m['sep_id']}", "tie_embeddings: true", "fused_qkv: true",
         "attention_impl: flash", "compute_dtype: bfloat16",
-        f"batch_size: {B}", f"grad_accum_steps: {G}",
+        f"batch_size: {train_main.B}", f"grad_accum_steps: {G}",
         "lr: 0.001", "lr_embedding: 0.001", "min_lr: 0.0001", "weight_decay: 0.05",
-        "warmup_steps: 2", "scheduler: cosine", "epochs: 2", "seed: 1337",
-        "run_id: smoke-trainer", "early_stop_patience: 0",
+        "warmup_steps: 2", "scheduler: cosine", f"epochs: {epochs}", "seed: 1337",
+        f"run_id: {run_id}", "early_stop_patience: 0",
     ]
-    path = workdir / "trainer.yaml"
     path.write_text("\n".join(lines) + "\n")
     return path
+
+
+def trainer_config(workdir: Path) -> Path:
+    """A packed corpus (``packed_corpus``: train windows for 4 groups an
+    epoch, 64 validation windows) and the main path's run config over it
+    (G 16, 2 epochs)."""
+    G, B = train_main.G, train_main.B
+    packed_corpus(workdir, TRAINER_GROUPS_PER_EPOCH * G * B, TRAINER_VAL_WINDOWS)
+    return run_yaml(workdir / "trainer.yaml", workdir / "train.npz", workdir / "val.npz",
+                    G=G, epochs=2, run_id="smoke-trainer")
 
 
 def phase_trainer(card: str, workdir: Path | None = None) -> dict:
@@ -2195,24 +2242,34 @@ def critic_score(aa_seqs) -> np.ndarray:
                        for s in aa_seqs], np.float64)
 
 
-class _StepCounter:
-    """Counts the calls of a function of ``generation/decode.py`` that
-    ``CachedDecoder`` reaches by its module name (the cached step, the
-    uncached forward), so the kernels' counts can be checked against them."""
+class _Timed:
+    """Wraps ``module.name`` for the duration of a ``with``: counts its calls
+    and sums their seconds (nested timers included); ``record`` keeps a value
+    computed from each call's arguments. On ``generation/decode.py``'s
+    ``decode_step`` and ``forward``, which ``CachedDecoder`` reaches by their
+    module names, it counts the cached steps and the uncached forwards that
+    the kernels' launch counts are checked against."""
 
-    def __init__(self, name: str):
-        self.name, self.fn, self.calls = name, getattr(decode_mod, name), 0
+    def __init__(self, module, name: str, record=None):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.record, self.calls, self.seconds, self.records = record, 0, 0.0, []
 
     def __enter__(self):
-        def counted(*a, **k):
+        def timed(*a, **k):
             self.calls += 1
-            return self.fn(*a, **k)
+            if self.record is not None:
+                self.records.append(self.record(*a, **k))
+            t0 = time.perf_counter()
+            try:
+                return self.fn(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
 
-        setattr(decode_mod, self.name, counted)
+        setattr(self.module, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        setattr(decode_mod, self.name, self.fn)
+        setattr(self.module, self.name, self.fn)
 
 
 def phase_generate(trained: dict, card: str, peak_bw, peak_ops) -> dict:
@@ -2232,7 +2289,7 @@ def phase_generate(trained: dict, card: str, peak_bw, peak_ops) -> dict:
     da.decode_attention.launches = 0  # the generators' run only
     fa.flash_fwd.launches = 0
     t0 = time.perf_counter()
-    with _StepCounter("decode_step") as steps, _StepCounter("forward") as uncached:
+    with _Timed(decode_mod, "decode_step") as steps, _Timed(decode_mod, "forward") as uncached:
         out = {
             "raw": gc.generate_model_raw(dec, ctx, stoi, itos, 48, rng=rng),
             "raw_long_context": gc.generate_model_raw(dec, long_ctx, stoi, itos, 4, rng=rng),
@@ -2787,12 +2844,12 @@ def phase_moe_serve(moe_run: dict, card: str, peak_bw, peak_ops) -> dict:
 
 
 def phase_moe_throughput(card: str) -> dict:
-    """``benchmark_moe`` (dense, top-1, top-2; 5 measured groups each, a
+    """``benchmark_moe`` (dense, top-1, top-2; 1 measured group each, a
     subprocess each), then one profiled MoE group split by part."""
     with tempfile.TemporaryDirectory(prefix="smoke_moe_bench_") as tmp:
         out = Path(tmp) / "moe.json"
         with contextlib.redirect_stdout(io.StringIO()):
-            rc = bench_moe.main(["--skip_quality", "--measure_steps", "5", "--out", str(out)])
+            rc = bench_moe.main(["--skip_quality", "--measure_steps", "1", "--out", str(out)])
         report = json.loads(out.read_text())["throughput_d512"]
     rows = {r["name"]: r for r in report["candidates"]}
     log("moe_throughput", rc=rc, protocol=report["protocol"], candidates={
@@ -3079,17 +3136,21 @@ def phase_evaluate_test(runs: list[tuple[str, dict]], data: Path, card: str, pea
     return {"launches": sum(launches.values()), "flash_timed": timed, "runs": out}
 
 
+MOE_QUALITY_EPOCHS = 3  # of the script's 12, for the smoke's time
+
+
 def phase_moe_quality(card: str) -> dict:
     """``python -m genomics_lm_torch.training.benchmark_moe --skip_throughput
-    --converged_epochs 0``: the script's default widths and corpus (6L4H
-    d256, block 256, B 16, lr 1e-3, 12 epochs, 800 demo genes); the
-    30-epoch converged pass is cut."""
+    --converged_epochs 0 --epochs 3``: the script's default widths and corpus
+    (6L4H d256, block 256, B 16, lr 1e-3, 800 demo genes) for 3 of its 12
+    epochs; the 30-epoch converged pass is cut."""
     with tempfile.TemporaryDirectory(prefix="smoke_moe_quality_") as tmp:
         out = Path(tmp) / "moe_quality.json"
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "genomics_lm_torch.training.benchmark_moe",
-             "--skip_throughput", "--converged_epochs", "0", "--workdir", str(Path(tmp) / "ws"),
+             "--skip_throughput", "--converged_epochs", "0", "--epochs", str(MOE_QUALITY_EPOCHS),
+             "--workdir", str(Path(tmp) / "ws"),
              "--out", str(out)],
             cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900)
         seconds = time.perf_counter() - t0
@@ -3102,7 +3163,8 @@ def phase_moe_quality(card: str) -> dict:
                                               "train_wall_sec", "best_val_loss")}
                 for v in quality["variants"]}
     log("moe_quality", protocol=quality["protocol"], markov_baselines=quality["markov_baselines"],
-        variants=variants, seconds=seconds, cut="the 30-epoch converged pass", card=card)
+        variants=variants, seconds=seconds,
+        cut=f"{MOE_QUALITY_EPOCHS} of 12 epochs; the 30-epoch converged pass", card=card)
     if set(variants) != {"dense", "moe_4e_top1", "moe_4e_top2"} or not all(
             np.isfinite([v["val_nll"], v["test_nll"]]).all() for v in variants.values()):
         raise AssertionError(f"benchmark_moe quality variants {variants}")
@@ -3150,7 +3212,7 @@ def phase_analysis(runs: list[tuple[str, dict]], card: str, peak_bw, peak_ops) -
         emb = dashboard.embeddings_data(run_dir, DASHBOARD_SEQS, device="cuda")
         da.decode_attention.launches = 0  # the playground pages only
         t0 = time.perf_counter()
-        with _StepCounter("decode_step") as cached:
+        with _Timed(decode_mod, "decode_step") as cached:
             nxt = dashboard.playground_next_codon(run_dir, "ATGAAACCC", device="cuda")
             page = dashboard.playground_generate(run_dir, "ATGAAA", device="cuda")
         playground_s = time.perf_counter() - t0
@@ -3205,6 +3267,379 @@ def phase_analysis(runs: list[tuple[str, dict]], card: str, peak_bw, peak_ops) -
             "decode_timed": decode_timed, "runs": out}
 
 
+# --- phases 33-37: the demo run, motifs, probes, prefix generation, the design loop --
+
+MOTIF_ROWS = 256  # mine_motifs' default --max_windows (rows of the split)
+MOTIF_CPU_ROWS = 4  # rows whose float32 window embeddings run on both devices
+CARD_CPU_RTOL = 1e-5
+CARD_CPU_RTOL_REASON = (
+    "float32 on both devices (TF32 off) from the same weights and inputs: only the order "
+    "of the float32 sums differs (~1e-7 relative per operation); a wrong window, layer, "
+    "mask or update moves a value by far more than 1e-5 of the largest")
+PROBE_EPOCHS = 3  # of fit_mlp's default 20 on ~100k windows
+# the card-against-CPU run: 4 AdamW steps of 64 rows, held to CARD_CPU_RTOL;
+# longer float32 runs drift further apart (32 steps on these embeddings part
+# by a few 1e-5 of the largest weight)
+PROBE_CPU_ROWS, PROBE_CPU_EPOCHS = 256, 1
+PREFIX_K_LIST = "1,3,5,10"  # eval_generation_prefix's default
+PREFIX_SAMPLES = 1  # of the quick preset's 2 per (gene, k), for the smoke's time
+DESIGN_CPU = ["--n_candidates", "2", "--budget", "1200"]  # the CPU run's cut of the defaults
+
+
+def card_vs_cpu_rel(card, cpu) -> float:
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    return float(np.abs(card - cpu).max()) / max(float(np.abs(cpu).max()), 1e-12)
+
+
+DEMO_RUN_G, DEMO_RUN_EPOCHS = 2, 12  # 12 steps an epoch over the 199 train windows
+
+
+def phase_demo_run(data: Path, card: str) -> dict:
+    """The train CLI at the main path's config (``run_yaml``: 10L8H d384,
+    block 512, bf16 flash) on the block-512 demo splits, G 2 for 12 epochs.
+    Phase 15's run takes 8 steps on uniform random codons and still repeats
+    its last codon, so it never reaches a stop codon; this run learns the
+    corpus's codon usage, stops included, for the four phases after it."""
+    workdir = data.parent / "demo_run"
+    workdir.mkdir(exist_ok=True)
+    config = run_yaml(workdir / "demo.yaml", data / "train_bs512.npz", data / "val_bs512.npz",
+                      G=DEMO_RUN_G, epochs=DEMO_RUN_EPOCHS, run_id="smoke-demo")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli(["--config", str(config), "--run_root", str(workdir / "runs")])
+    seconds = time.perf_counter() - t0
+    run_dir = workdir / "runs" / "smoke-demo"
+    with (run_dir / "scores" / "curves.csv").open() as f:
+        curves = list(csv.DictReader(f))
+    val = [float(r["val_loss"]) for r in curves]
+    row = dict(run=run_dir.name, epochs=len(curves), seconds=seconds, val_loss=val,
+               config=f"10L8H d384 block 512 bf16 flash, B 8 x G {DEMO_RUN_G}")
+    log("demo_run", **row, card=card)
+    if rc != 0 or not all(np.isfinite(val)) or val[-1] >= val[0]:
+        raise AssertionError(f"demo run: {row}")
+    return {"run_dir": run_dir}
+
+
+def phase_motifs(trained: dict, data: Path, card: str, peak_bw, peak_ops) -> dict:
+    """``mine_motifs`` at its defaults on the demo run (``phase_demo_run``) over the block-512
+    demo train split: one ``hidden_states`` pass over its rows (the flash
+    forward n_layer times), the window embeddings pooled on the card, KMeans
+    (sklearn) when it imports here. Then the embeddings again, timed; float32
+    on the card against the CPU; the flash forward at the pass's shape."""
+    from genomics_lm_torch.evals.mine_motifs import main as mine_cli
+    from genomics_lm_torch.evals.motifs import extract_window_embeddings
+
+    run_dir, train_npz = trained["run_dir"], data / "train_bs512.npz"
+    model, cfg, _, _ = load_codon_model(run_dir, device="cuda")
+    cfg = cfg.replace(dropout=0.0)
+    ds = PackedDataset(str(train_npz))
+    x, _ = ds.fetch_batch(list(range(min(len(ds), MOTIF_ROWS))))
+    have_sklearn = importlib.util.find_spec("sklearn") is not None
+    out_json = Path(run_dir) / "scores" / "motifs.json"
+    fa.flash_fwd.launches = 0  # the main path's run only
+    t0 = time.perf_counter()
+    if have_sklearn:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mine_cli([str(run_dir), "--npz", str(train_npz), "--out", str(out_json),
+                           "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f"mine_motifs exited {rc}")
+        report = json.loads(out_json.read_text())
+    else:
+        extract_window_embeddings(model, cfg, x, exclude_ids=[0])
+        torch.cuda.synchronize()
+        report = None
+        log("motifs", clustering="not run: sklearn does not import on this machine, and "
+            "genomics_lm_torch/evals/motifs.py::MotifClusterer clusters with sklearn's KMeans; "
+            "the embedding pass and its checks run", card=card)
+    cli_seconds = time.perf_counter() - t0
+    launches = fa.flash_fwd.launches
+
+    t0 = time.perf_counter()
+    emb, meta = extract_window_embeddings(model, cfg, x, exclude_ids=[0])
+    extract_seconds = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = cfg.replace(compute_dtype="float32")
+    sub = x[:MOTIF_CPU_ROWS]
+    card_emb, card_meta = extract_window_embeddings(model, f32, sub, exclude_ids=[0])
+    cpu_emb, cpu_meta = extract_window_embeddings(copy.deepcopy(model).cpu(), f32, sub,
+                                                  exclude_ids=[0])
+    rel = card_vs_cpu_rel(card_emb, cpu_emb)
+    order_ok = meta == sorted(meta) and all(e - s == 9 for _, s, e in meta)
+    row = dict(run=str(Path(run_dir).name), rows=int(x.shape[0]), T=int(x.shape[1]),
+               windows=len(meta), embedding_shape=list(emb.shape),
+               embedding_mb=emb.nbytes / 1e6, sklearn=have_sklearn,
+               clusters=report["n_clusters"] if report else None,
+               clusters_with_known_motif=(sum(bool(c["known_motifs"])
+                                              for c in report["clusters"].values())
+                                          if report else None),
+               cli_seconds=cli_seconds, extract_seconds=extract_seconds,
+               clustering_seconds=(cli_seconds - extract_seconds) if report else None,
+               flash_fwd_launches=launches, want_launches=cfg.n_layer,
+               f32_card_vs_cpu_rel=rel, f32_rows=MOTIF_CPU_ROWS, tol=CARD_CPU_RTOL,
+               tol_reason=CARD_CPU_RTOL_REASON, finite=bool(np.isfinite(emb).all()),
+               metadata_in_order=order_ok)
+    log("motifs", **row, card=card)
+    if (launches != cfg.n_layer or rel > CARD_CPU_RTOL or card_meta != cpu_meta
+            or not row["finite"] or not order_ok or not meta):
+        raise AssertionError(f"motifs: {row}")
+    # the flash forward at this pass's shape: every row at T 512, the rows' own
+    # segments, the run's heads, bf16 (the run's dtype) and float32
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    seg = segment_ids(torch.from_numpy(x.astype(np.int64)), cfg.sep_id)
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"b{x.shape[0]}_{str(dtype).removeprefix('torch.')}"
+        timed[name] = check_flash_forward(
+            gen, "motifs_kernel", name, x.shape[0], x.shape[1], None, peak_bw,
+            peak_ops if dtype == torch.bfloat16 else F32_PEAK_OPS, H=cfg.n_head,
+            D=cfg.head_dim, seg=seg, dtype=dtype)
+    del model
+    return {"launches": launches, "emb": emb, "meta": meta, "x": x, "flash_timed": timed,
+            "run": row}
+
+
+def phase_probes(motifs: dict, card: str) -> dict:
+    """``fit_mlp`` on the card over the motif pass's window embeddings, each
+    labelled with its first token's amino-acid class (or "special"); then
+    float32 at dropout 0 on the card against the CPU from the same init."""
+    from genomics_lm_torch.evals.probes import fit_mlp
+    from genomics_lm_torch.generation.genetic_code import CODON_TABLE
+    from genomics_lm_torch.tokenizers.codon import VOCAB
+
+    x, meta, emb = motifs["x"], motifs["meta"], motifs["emb"]
+    first = [VOCAB[int(x[b, s])] for b, s, _ in meta]
+    names = [CODON_TABLE.get(t, "special") for t in first]
+    classes = sorted(set(names))
+    y = np.asarray([classes.index(n) for n in names])
+    t0 = time.perf_counter()
+    result = fit_mlp(emb, y, epochs=PROBE_EPOCHS, device="cuda")
+    seconds = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sub_x, sub_y = emb[:PROBE_CPU_ROWS], y[:PROBE_CPU_ROWS]
+    kw = dict(epochs=PROBE_CPU_EPOCHS, dropout=0.0, seed=5)
+    on_card = fit_mlp(sub_x, sub_y, device="cuda", **kw)
+    on_cpu = fit_mlp(sub_x, sub_y, device="cpu", **kw)
+    rel = max(card_vs_cpu_rel(a[k], b[k]) for a, b in zip(on_card.params, on_cpu.params)
+              for k in ("w", "b"))
+    proba_rel = card_vs_cpu_rel(on_card.y_proba, on_cpu.y_proba)
+    same_pred = bool(np.array_equal(on_card.y_pred, on_cpu.y_pred))
+    # the ranking metrics move by a whole swap (1 / (positives x negatives))
+    # when two near-tied probabilities trade places: logged, not held
+    metric_err = max(abs(on_card.metrics[k] - on_cpu.metrics[k]) for k in on_cpu.metrics)
+    row = dict(windows=len(y), classes=len(classes), epochs=PROBE_EPOCHS,
+               seconds=seconds, seconds_per_epoch=seconds / PROBE_EPOCHS,
+               metrics=result.metrics, f32_rows=PROBE_CPU_ROWS,
+               f32_epochs=PROBE_CPU_EPOCHS, f32_param_rel=rel, f32_proba_rel=proba_rel,
+               f32_same_predictions=same_pred, f32_metric_abs=metric_err,
+               tol=CARD_CPU_RTOL, tol_reason=CARD_CPU_RTOL_REASON)
+    log("probes", **row, card=card)
+    if rel > CARD_CPU_RTOL or proba_rel > CARD_CPU_RTOL or not same_pred or \
+            on_card.metrics.keys() != on_cpu.metrics.keys() or \
+            not np.isfinite(result.metrics["accuracy"]):
+        raise AssertionError(f"probes: {row}")
+    return row
+
+
+def _cache_shape(model, cfg, cache, token):
+    return int(cache["seg"].shape[1]), int(cache["length"])
+
+
+def phase_gen_prefix(trained: dict, data: Path, card: str, peak_bw, peak_ops) -> dict:
+    """``eval_generation_prefix --preset quick --samples 1`` on the demo run over the
+    block-512 demo splits with ``--nll_controls``, ``--emit_replay`` and the
+    memorization audit: seconds by part, the decode kernel launched n_layer
+    times a cached step and the flash forward n_layer times a scored window;
+    the replay through ``data/replay.py``; ``token_nlls`` float32 on the card
+    against the CPU; the two kernels at this path's own shapes."""
+    from genomics_lm_torch.evals import gen_prefix as gp
+    from genomics_lm_torch.evals.eval_generation_prefix import main as prefix_cli
+    from genomics_lm_torch.data.replay import GeneratedTerminationReplayDataset
+
+    run_dir = Path(trained["run_dir"])
+    label, replay = "smoke_gen_prefix", run_dir / "scores" / "smoke_gen_prefix_replay.jsonl"
+    argv = [str(run_dir), "--npz", str(data / "val_bs512.npz"), "--train_npz",
+            str(data / "train_bs512.npz"), "--preset", "quick", "--samples",
+            str(PREFIX_SAMPLES), "--k_list", PREFIX_K_LIST,
+            "--nll_controls", "--emit_replay", str(replay), "--out_label", label,
+            "--device", "cuda"]
+    da.decode_attention.launches = 0  # the main path's run only
+    fa.flash_fwd.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), _Timed(decode_mod, "forward") as uncached, \
+            _Timed(decode_mod, "decode_step", record=_cache_shape) as steps, \
+            _Timed(gc, "generate_model_raw") as raw, \
+            _Timed(gc, "generate_cds_constrained") as constrained, \
+            _Timed(gp, "score_sample") as scoring, \
+            _Timed(gp, "continuation_nll_vs_controls") as controls, \
+            _Timed(gp, "token_nlls", record=lambda dec, ids: len(list(ids))) as nlls, \
+            _Timed(gp, "build_train_ngram_indexes") as index, \
+            _Timed(gp, "fit_train_unigram") as unigram:
+        rc = prefix_cli(argv)
+    wall = time.perf_counter() - t0
+    decode_launches, flash_launches = da.decode_attention.launches, fa.flash_fwd.launches
+    printed = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"eval_generation_prefix exited {rc}: {printed[-400:]}")
+    model, cfg, itos, stoi = load_codon_model(run_dir, device="cuda")
+    L = cfg.n_layer
+    forwards = sum(1 for n in nlls.records if n >= 2)
+    out_dir = run_dir / "scores" / label
+    with (out_dir / "protocol_summary.csv").open() as f:
+        summary = list(csv.DictReader(f))
+    with (out_dir / "protocol_samples.csv").open() as f:
+        samples = list(csv.DictReader(f))
+    n_replay = sum(1 for line in replay.read_text().splitlines() if line.strip())
+    loaded = len(GeneratedTerminationReplayDataset(replay, cfg.block_size)) if n_replay else 0
+    parts = dict(generation=raw.seconds + constrained.seconds,
+                 scoring=scoring.seconds - controls.seconds, controls=controls.seconds,
+                 audit=index.seconds + unigram.seconds, wall=wall)
+    lengths = sorted(n - 1 for n in nlls.records if n >= 2)
+    row = dict(run=run_dir.name, samples=len(samples), summary_rows=len(summary),
+               seconds=parts, generations=raw.calls + constrained.calls,
+               cached_decode_steps=steps.calls, uncached_forwards=uncached.calls,
+               token_nll_forwards=forwards, decode_launches=decode_launches,
+               want_decode=L * steps.calls, flash_fwd_launches=flash_launches,
+               want_flash=L * (forwards + uncached.calls),
+               nll_T=dict(min=lengths[0], median=lengths[len(lengths) // 2], max=lengths[-1]),
+               cache_S=sorted({s for s, _ in steps.records}), replay_records=n_replay,
+               replay_rows_loaded=loaded,
+               median_gqs={f"{r['protocol']}_k{r['k']}": float(r["median_gqs"])
+                           for r in summary},
+               termination_rate={f"{r['protocol']}_k{r['k']}": float(r["termination_rate"])
+                                 for r in summary})
+    log("gen_prefix", **row, card=card)
+    if (decode_launches == 0 or decode_launches != row["want_decode"] or flash_launches == 0
+            or flash_launches != row["want_flash"] or not samples
+            or len(samples) != row["generations"] or loaded != n_replay):
+        raise AssertionError(f"gen_prefix: {row}")
+
+    # token_nlls float32 on the card against the CPU on two generated samples
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = cfg.replace(compute_dtype="float32", dropout=0.0)
+    card_dec = CachedDecoder(model, f32)
+    cpu_dec = CachedDecoder(copy.deepcopy(model).cpu(), f32)
+    fasta = (out_dir / "generated_protocols.fasta").read_text().split()[1::2]
+    rel = 0.0
+    for dna in fasta[:2]:
+        ids = [stoi["<BOS_CDS>"]] + [stoi[dna[i:i + 3]] for i in range(0, len(dna) - 2, 3)]
+        rel = max(rel, card_vs_cpu_rel(gp.token_nlls(card_dec, ids),
+                                       gp.token_nlls(cpu_dec, ids)))
+    log("gen_prefix", token_nlls_f32_card_vs_cpu_rel=rel, tol=CARD_CPU_RTOL, card=card)
+    if rel > CARD_CPU_RTOL:
+        raise AssertionError(f"token_nlls card against CPU: {rel}")
+    # the flash forward at token_nlls' B 1 shapes (shortest, median, longest
+    # window, one segment), and the decode kernel at the generations' cache
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    flash_timed = {}
+    for key in ("min", "median", "max"):
+        T = row["nll_T"][key]
+        flash_timed[f"b1_t{T}"] = check_flash_forward(
+            gen, "gen_prefix_kernel", f"b1_t{T}", 1, T, None, peak_bw, peak_ops,
+            H=cfg.n_head, D=cfg.head_dim, seg=torch.zeros((1, T), dtype=torch.int32),
+            dtype=cfg.dtype)
+    S = max(row["cache_S"])
+    live = sorted(n for _, n in steps.records)[len(steps.records) // 2]
+    case = f"b1_s{S}_live{live}"
+    q, k, v, mask, ks, vs, err, nan_err = check_decode_case(
+        gen, "gen_prefix_decode", case, L, 1, S, cfg.kv_heads, cfg.n_head // cfg.kv_heads,
+        cfg.head_dim, torch.bfloat16, torch.bfloat16, live)
+    decode_timed = time_decode_case(case, q, k, v, mask, ks, vs, cfg.kv_heads,
+                                    cfg.n_head // cfg.kv_heads, da.decode_attention, peak_bw,
+                                    peak_ops, err, nan_err, "gen_prefix_decode_time")
+    del model, card_dec, cpu_dec
+    return {"decode": decode_launches, "flash": flash_launches, "flash_timed": flash_timed,
+            "decode_timed": {case: decode_timed}, "run": row}
+
+
+def phase_design(trained: dict, data: Path, card: str) -> dict:
+    """``generative_design_loop`` at its defaults with ``--esm_fold_top 2
+    --fold_backend mock`` on the demo run: seconds, tokens spent, the
+    decode kernel's launches (n_layer a cached step) and the termination
+    rate; the candidates through ``audit_generated_sequences`` against the
+    demo corpus's train-split records; then a CPU run of the loop (its cut
+    in ``DESIGN_CPU``), whose candidates are re-scored in float32 on the card
+    and on the CPU (``score_sequence``'s mean log-probability)."""
+    from genomics_lm_torch.data.leakage import audit_generated_sequences
+    from genomics_lm_torch.evals.playground import dna_to_context_ids, score_sequence
+    from genomics_lm_torch.generation.generative_design_loop import main as design_cli
+
+    run_dir = Path(trained["run_dir"])
+    out = {}
+    for device, extra in (("cuda", []), ("cpu", DESIGN_CPU)):
+        da.decode_attention.launches = 0  # each run's own
+        fa.flash_fwd.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), _Timed(decode_mod, "decode_step") as steps, \
+                _Timed(decode_mod, "forward") as uncached:
+            rc = design_cli([str(run_dir), "--esm_fold_top", "2", "--fold_backend", "mock",
+                             "--out_dir", str(run_dir / "scores" / f"design_{device}"),
+                             "--device", device, *extra])
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"generative_design_loop on {device} exited {rc}")
+        summary = json.loads((run_dir / "scores" / f"design_{device}" / "summary.json")
+                             .read_text())
+        text = (run_dir / "scores" / f"design_{device}" / "candidates.csv").read_text()
+        rows = list(csv.DictReader(io.StringIO(text)))  # an empty file: no candidate
+        out[device] = dict(seconds=seconds, summary=summary, rows=rows, steps=steps.calls,
+                           uncached=uncached.calls, decode=da.decode_attention.launches,
+                           flash=fa.flash_fwd.launches)
+    model, cfg, itos, stoi = load_codon_model(run_dir, device="cuda")
+    L, main = cfg.n_layer, out["cuda"]
+    # the audit: the card run's candidates against the train-split records
+    with (data.parent / "records.tsv").open() as f:
+        records = list(csv.DictReader(f, delimiter="\t"))
+    with (data / "fragment_metadata.tsv").open() as f:
+        train_ids = {r["source_id"] for r in csv.DictReader(f, delimiter="\t")
+                     if r["split"] == "train"}
+    training = [r for r in records if r["source_id"] in train_ids]
+    generated = [{"source_id": f"candidate_{r['candidate']}", "sequence": r["dna"]}
+                 for r in main["rows"]]
+    t0 = time.perf_counter()
+    audit = audit_generated_sequences(training, generated,
+                                      run_dir / "scores" / "design_cuda" / "audit.json")
+    audit_seconds = time.perf_counter() - t0
+    # the CPU run's candidates re-scored in float32 on both devices
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = cfg.replace(compute_dtype="float32", dropout=0.0)
+    ctx = dna_to_context_ids("ATG", stoi)
+    err = 0.0
+    for r in out["cpu"]["rows"]:
+        ids = ctx + [stoi[r["dna"][i:i + 3]] for i in range(0, len(r["dna"]), 3)]
+        on_card = score_sequence(CachedDecoder(model, f32), ids)["mean_logprob"]
+        on_cpu = score_sequence(CachedDecoder(copy.deepcopy(model).cpu(), f32),
+                                ids)["mean_logprob"]
+        err = max(err, abs(on_card - on_cpu))
+    row = dict(run=run_dir.name, seconds=main["seconds"],
+               tokens_spent=main["summary"]["tokens_spent"],
+               solved=main["summary"]["solved"], requested=main["summary"]["requested"],
+               termination_rate=main["summary"]["termination_rate"],
+               folded=main["summary"].get("folded", 0),
+               pairwise_identity=main["summary"]["pairwise_identity"],
+               cached_decode_steps=main["steps"], decode_launches=main["decode"],
+               want_decode=L * main["steps"], uncached_forwards=main["uncached"],
+               flash_fwd_launches=main["flash"], want_flash=L * main["uncached"],
+               audit_seconds=audit_seconds, training_records=len(training),
+               audit_summary=audit["summary"], cpu_run=dict(
+                   seconds=out["cpu"]["seconds"], solved=out["cpu"]["summary"]["solved"],
+                   tokens_spent=out["cpu"]["summary"]["tokens_spent"]),
+               rescored=len(out["cpu"]["rows"]), f32_mean_logprob_card_vs_cpu_abs=err,
+               tol=CARD_CPU_RTOL)
+    log("design", **row, card=card)
+    if (main["decode"] == 0 or main["decode"] != row["want_decode"]
+            or main["flash"] != row["want_flash"] or err > CARD_CPU_RTOL
+            or not out["cpu"]["rows"] or audit["generated_count"] != len(main["rows"])):
+        raise AssertionError(f"design: {row}")
+    del model
+    return {"decode": main["decode"], "run": row}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3221,48 +3656,100 @@ def main() -> int:
         cuda=torch.version.cuda, nvidia_smi=card_line, peak_bytes_per_s=peak_bw,
         peak_bf16_ops_per_s=peak_ops)
 
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:  # each phase's wall seconds, logged as it ends
+        now = time.perf_counter()
+        seconds[name] = round(now - mark[0], 1)
+        mark[0] = now
+        log("lap", name=name, seconds=seconds[name])
+
     phase_build()
+    lap("build")
     timed = phase_kernel(peak_bw, peak_ops)
+    lap("kernel")
     served = phase_serve(card_line)
+    lap("serve")
     phase_parity()
+    lap("parity")
     phase_http(served["model"], served["cfg"])
+    lap("http")
     flash_timed = phase_flash(peak_bw, peak_ops)
+    lap("flash")
     trained = phase_train(card_line)
+    lap("train")
     phase_train_parity()
+    lap("train_parity")
     chunk_timed = phase_chunk(peak_bw, peak_ops)
+    lap("chunk")
     streamed = phase_streamed(peak_bw, peak_ops)
+    lap("streamed")
     spec_served = phase_spec_serve(served["model"], served["cfg"], card_line)
+    lap("spec_serve")
     phase_spec_parity()
+    lap("spec_parity")
     phase_pipeline(card_line)
+    lap("pipeline")
     trainer_dir = tempfile.TemporaryDirectory(prefix="smoke_trainer_")  # read by 21, 22
     trainer_run = phase_trainer(card_line, Path(trainer_dir.name))
+    lap("trainer")
     phase_spec_trained(card_line, peak_bw, peak_ops)
+    lap("spec_trained")
     phase_lora_d512(card_line)
+    lap("lora_d512")
     finetuned = phase_finetune(card_line)
+    lap("finetune")
     remat = phase_remat_contract(card_line)
+    lap("remat_contract")
     int8_served = phase_int8_serve(served, card_line)
+    lap("int8_serve")
     generated = phase_generate(trainer_run, card_line, peak_bw, peak_ops)
+    lap("generate")
     scored = phase_score(trainer_run, generated, card_line, peak_bw, peak_ops)
+    lap("score")
     del generated["model"]
     moe_dir = tempfile.TemporaryDirectory(prefix="smoke_moe_")  # read by 25, 27
     moe_run = phase_moe_train(card_line, Path(moe_dir.name))
+    lap("moe_train")
     phase_moe_parity()
+    lap("moe_parity")
     moe_served = phase_moe_serve(moe_run, card_line, peak_bw, peak_ops)
+    lap("moe_serve")
     del moe_served["model"]
     phase_moe_throughput(card_line)
+    lap("moe_throughput")
     embedded = phase_embeddings([("trainer", trainer_run), ("moe", moe_run)], card_line,
                                 peak_bw, peak_ops)
+    lap("embeddings")
     phase_noprop(trainer_run, card_line)
+    lap("noprop")
     prepare_dir = tempfile.TemporaryDirectory(prefix="smoke_prepare_")
     prepared = phase_prepare(card_line, Path(prepare_dir.name))
+    lap("prepare")
     evaluated = phase_evaluate_test([("moe", moe_run), ("trainer", trainer_run)],
                                     prepared[512]["dir"], card_line, peak_bw, peak_ops)
+    lap("evaluate_test")
     phase_moe_quality(card_line)
+    lap("moe_quality")
     analysed = phase_analysis([("trainer", trainer_run), ("moe", moe_run)], card_line,
                               peak_bw, peak_ops)
+    lap("analysis")
+    data512 = prepared[512]["dir"]
+    demo_run = phase_demo_run(data512, card_line)
+    lap("demo_run")
+    motifs = phase_motifs(demo_run, data512, card_line, peak_bw, peak_ops)
+    lap("motifs")
+    phase_probes(motifs, card_line)
+    lap("probes")
+    del motifs["emb"]
+    prefixed = phase_gen_prefix(demo_run, data512, card_line, peak_bw, peak_ops)
+    lap("gen_prefix")
+    designed = phase_design(demo_run, data512, card_line)
+    lap("design")
     prepare_dir.cleanup()
     moe_dir.cleanup()
     trainer_dir.cleanup()
+    log("phase_seconds", **seconds, total=round(sum(seconds.values()), 1))
 
     tile_design = ("one pass with an online softmax in float32 (SIMT) over only the 64-position "
                    "cache tiles with a live mask position, flagged by each warp from the mask "
@@ -3285,6 +3772,9 @@ def main() -> int:
         "launches_generate": generated["decode"],
         "launches_moe_serve": moe_served["decode"],
         "launches_dashboard": sum(analysed["decode"].values()),
+        "launches_gen_prefix": prefixed["decode"],
+        "launches_design": designed["decode"],
+        "gen_prefix_b1": prefixed["decode_timed"],
         "dashboard_b1": analysed["decode_timed"],
         "b1": generated["b1"],
         "b1_full": generated["b1_full"],
@@ -3314,6 +3804,10 @@ def main() -> int:
                 "launches_moe_score": moe_served["score"],
                 "launches_embeddings": sum(embedded["launches"].values()),
                 "launches_evaluate": evaluated["launches"],
+                "launches_motifs": motifs["launches"],
+                "launches_gen_prefix": prefixed["flash"],
+                "motifs": motifs["flash_timed"],
+                "gen_prefix_b1": prefixed["flash_timed"],
                 "inference": scored["inference"],
                 "moe_inference": {"score_b8": moe_served["flash_timed"],
                                   "embeddings_b64": embedded["flash_timed"],

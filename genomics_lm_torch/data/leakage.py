@@ -7,13 +7,15 @@ of ``genomics_lm_tpu/data/leakage.py``, numpy-free and torch-free).
   violations, minimap2 nucleotide and MMseqs2 protein nearest neighbors
   (external tools, run as subprocesses; missing tools fail closed with
   ``LeakageAuditError``, as in JAX),
-- ``block``/``report`` policies and a JSON report written on every outcome.
+- ``block``/``report`` policies and a JSON report written on every outcome;
+- ``audit_generated_sequences``: the exact-window (matching-substring)
+  coverage of generated sequences by the training records, nucleotide and
+  protein, with its JSON report.
 
 Translation uses the standard genetic code (stops inside become ``X``, a
 trailing stop is trimmed). Not ported: the bundled minhash engine's
 clustering (``engine="native"`` without ``skip_homology`` raises
-``NotImplementedError``) and ``audit_generated_sequences``, which waits for
-the design loop.
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -140,6 +142,28 @@ def cross_split_cluster_violations(
                 "source_ids": source_ids,
             })
     return violations
+
+
+def matching_substring_coverage(
+    sequence: str, training_sequences: Sequence[str], window_size: int
+) -> float:
+    """Fraction of query positions covered by exact training windows."""
+    if window_size < 1:
+        raise ValueError("window_size must be at least 1")
+    if len(sequence) < window_size:
+        return 0.0
+    training_windows = {
+        t[start : start + window_size]
+        for t in training_sequences
+        for start in range(max(0, len(t) - window_size + 1))
+    }
+    if not training_windows:
+        return 0.0
+    covered = bytearray(len(sequence))
+    for start in range(len(sequence) - window_size + 1):
+        if sequence[start : start + window_size] in training_windows:
+            covered[start : start + window_size] = b"\x01" * window_size
+    return sum(covered) / len(sequence)
 
 
 def identity_summary(rows: Sequence[Mapping[str, Any]]) -> dict[str, Any]:
@@ -488,13 +512,65 @@ def audit_source_records(
     return report
 
 
+def audit_generated_sequences(
+    training: Sequence[Mapping[str, Any]],
+    generated: Sequence[Mapping[str, Any]],
+    output_path: Path,
+    *,
+    nucleotide_window: int = 30,
+    protein_window: int = 10,
+) -> dict[str, Any]:
+    """Matching-substring coverage of generated sequences vs training.
+
+    The reference additionally reports aligner-based nearest neighbors when
+    MMseqs2/minimap2 are present; the exact-window coverage metrics here are
+    tool-free and always computed (``leakage_audit.py:603-…``).
+    """
+    output_path = Path(output_path)
+    train_nt = [normalize_cds(r["sequence"]) for r in training]
+    train_aa = [translate_cds(r["sequence"]) for r in training]
+    rows = []
+    for record in generated:
+        nt = normalize_cds(record["sequence"])
+        aa = translate_cds(record["sequence"])
+        rows.append({
+            "source_id": str(record["source_id"]),
+            "nucleotide_coverage": matching_substring_coverage(
+                nt, train_nt, nucleotide_window
+            ),
+            "protein_coverage": matching_substring_coverage(
+                aa, train_aa, protein_window
+            ),
+        })
+    report = {
+        "schema_version": 1,
+        "generated_count": len(generated),
+        "training_count": len(training),
+        "windows": {"nucleotide": nucleotide_window, "protein": protein_window},
+        "coverage": rows,
+        "summary": {
+            "nucleotide": identity_summary(
+                [{"identity": r["nucleotide_coverage"]} for r in rows]
+            ),
+            "protein": identity_summary(
+                [{"identity": r["protein_coverage"]} for r in rows]
+            ),
+        },
+    }
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    output_path.write_text(json.dumps(report, indent=2) + "\n")
+    return report
+
+
 __all__ = [
     "LeakageAuditError",
     "SPLIT_ORDER",
+    "audit_generated_sequences",
     "audit_source_records",
     "cross_split_cluster_violations",
     "exact_cross_split_duplicates",
     "identity_summary",
+    "matching_substring_coverage",
     "normalize_cds",
     "quarantine_cross_split_exact_duplicates",
     "run_mmseqs_audit",

@@ -2,12 +2,13 @@
 ``scripts/query_model.py``, the same flags plus ``--device``).
 
     python -m genomics_lm_torch.generation.query_model <run_id> \
-        --mode next|generate|score [--dna ATG...] [--device cpu]
+        --mode next|generate|score|interactive [--dna ATG...] [--device cpu]
 
 ``next`` prints the top-k next-codon distribution, ``generate`` a CDS from
 ``generate_cds_constrained`` with its ``info``, ``score`` the sequence's
-log-probability; each as the JAX script's JSON. ``--mode interactive`` is
-not ported and raises ``NotImplementedError``.
+log-probability; each as the JAX script's JSON. ``interactive`` reads DNA
+prompts from standard input, one a line, and prints ``next``'s JSON for
+each until an empty line or the end of input.
 """
 
 from __future__ import annotations
@@ -33,8 +34,6 @@ def main(argv=None) -> int:
     ap.add_argument("--run_root", default="runs")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.mode == "interactive":
-        raise NotImplementedError("--mode interactive is not ported")
 
     import numpy as np
 
@@ -52,9 +51,12 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     ids = dna_to_context_ids(args.dna, stoi)
 
+    def show_next(dna: str):
+        rows = query_next_codon(decoder, dna_to_context_ids(dna, stoi), itos, top_k=args.top_k)
+        print(json.dumps({"prompt": dna, "next": rows}, indent=2))
+
     if args.mode == "next":
-        rows = query_next_codon(decoder, ids, itos, top_k=args.top_k)
-        print(json.dumps({"prompt": args.dna, "next": rows}, indent=2))
+        show_next(args.dna)
     elif args.mode == "generate":
         out_ids, info = gen.generate_cds_constrained(
             decoder, ids, stoi, itos,
@@ -63,8 +65,18 @@ def main(argv=None) -> int:
         )
         dna = "".join(itos[t] for t in out_ids if len(itos[t]) == 3 and "<" not in itos[t])
         print(json.dumps({"dna": dna, "ids": out_ids, "info": info}, indent=2))
-    else:  # score
+    elif args.mode == "score":
         print(json.dumps(score_sequence(decoder, ids), indent=2))
+    else:  # interactive
+        print("enter DNA prompts (empty line to exit)")
+        while True:
+            try:
+                dna = input("dna> ").strip()
+            except EOFError:
+                break
+            if not dna:
+                break
+            show_next(dna)
     return 0
 
 

@@ -732,3 +732,69 @@ def test_cuda_moe_greedy_serving_equals_the_cpu(cuda):
         assert tokens(cuda, int8) == tokens("cpu", int8)
     assert (tokens(cuda, False, speculative_k=3, draft_table=table)
             == tokens("cpu", False, speculative_k=3, draft_table=table))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_forward_at_the_motif_pass(cuda):
+    """The flash forward at the motif pass's shape (heads of 48, windows of
+    512 with their ``<SEP>`` segments; 16 rows of the pass's 199), bf16 and
+    float32, against its plain version; then the window embeddings of a
+    float32 flash model on the card against the CPU within 1e-5 of the
+    largest."""
+    import copy
+
+    from genomics_lm_torch.evals.motifs import extract_window_embeddings
+    from genomics_lm_torch.models.codon_gpt import CodonGPT
+    from genomics_lm_torch.models.config import CodonGPTConfig
+    from genomics_lm_torch.ops.masks import segment_ids_from_tokens
+
+    rng = np.random.default_rng(31)
+    B, T = 16, 512
+    ids = torch.from_numpy(rng.integers(4, 68, (B, T)))
+    ids[:, ::113] = 3
+    seg = segment_ids_from_tokens(ids, 3).to(cuda, torch.int32)
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    cfg = fa.FlashCfg(True, None, 0.0)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, 8, T, 48)).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(3))
+        out, lse = fa.flash_fwd(q, k, v, seg, seed, cfg)
+        ref, ref_lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)
+        torch.cuda.synchronize()
+        assert float((out.float() - ref.float()).abs().max()) <= tol * max(
+            1.0, float(ref.float().abs().max()))
+        assert float((lse - ref_lse).abs().max()) <= tol * max(1.0, float(ref_lse.abs().max()))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mcfg = CodonGPTConfig(vocab_size=68, block_size=128, n_layer=2, n_head=4, n_embd=64,
+                          dropout=0.0, sep_id=3, fused_qkv=True, attention_impl="flash")
+    torch.manual_seed(31)
+    model = CodonGPT(mcfg).eval()
+    x = rng.integers(4, 68, (3, 128)).astype(np.int32)
+    x[:, 40] = 3
+    x[1, -20:] = 0
+    got, meta = extract_window_embeddings(copy.deepcopy(model).to(cuda), mcfg, x,
+                                          exclude_ids=[0])
+    want, want_meta = extract_window_embeddings(model, mcfg, x, exclude_ids=[0])
+    assert meta == want_meta
+    assert float(np.abs(got - want).max()) <= 1e-5 * float(np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_cuda_fit_mlp_tracks_the_cpu(cuda):
+    """``fit_mlp`` at dropout 0 from one init: float32 on the card (TF32 off)
+    against the CPU, parameters within 1e-5 of the largest and the same
+    predictions."""
+    from genomics_lm_torch.evals.probes import fit_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(32)
+    X = rng.normal(size=(512, 64)).astype(np.float32)
+    y = X[:, :5].argmax(axis=1)
+    kw = dict(epochs=2, hidden=128, dropout=0.0, seed=3)
+    card = fit_mlp(X, y, device=cuda, **kw)
+    cpu = fit_mlp(X, y, device="cpu", **kw)
+    for a, b in zip(card.params, cpu.params):
+        for key in ("w", "b"):
+            assert float(np.abs(a[key] - b[key]).max()) <= 1e-5 * float(np.abs(b[key]).max())
+    np.testing.assert_array_equal(card.y_pred, cpu.y_pred)

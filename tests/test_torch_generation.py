@@ -16,6 +16,7 @@ answers ``/generate`` over localhost, and ``benchmark_serving
 from __future__ import annotations
 
 import http.client
+import io
 import json
 
 import jax
@@ -162,7 +163,7 @@ def test_query_model_generate_prints_the_jax_scripts_json(run_dir, capsys):
     assert got == want
 
 
-def test_query_model_next_score_and_sample(run_dir, capsys):
+def test_query_model_next_score_and_sample(run_dir, capsys, monkeypatch):
     from genomics_lm_torch.generation.query_model import main as port_query
     from genomics_lm_torch.generation.sample import main as sample
     from scripts.query_model import main as jax_query
@@ -178,8 +179,23 @@ def test_query_model_next_score_and_sample(run_dir, capsys):
         else:
             np.testing.assert_allclose(got["total_logprob"], want["total_logprob"], rtol=1e-5)
             assert got["tokens"] == want["tokens"]
-    with pytest.raises(NotImplementedError, match="interactive"):
-        port_query([str(run_dir), "--mode", "interactive", "--device", "cpu"])
+    # interactive: prompts on stdin until an empty line, each answered as "next"
+    printed = {}
+    for name, query, extra in (("jax", jax_query, []), ("port", port_query, ["--device", "cpu"])):
+        monkeypatch.setattr("sys.stdin", io.StringIO("ATGGCT\nATGAAACCC\n\nATG\n"))
+        assert query([str(run_dir), "--mode", "interactive", "--top_k", "4", *extra]) == 0
+        printed[name] = capsys.readouterr().out
+    assert printed["port"].count('"prompt"') == 2
+    head, body = printed["port"].split("\n", 1)
+    want_head, want_body = printed["jax"].split("\n", 1)
+    assert head == want_head == "enter DNA prompts (empty line to exit)"
+    replies = [json.loads("{" + part.split("{", 1)[1]) for part in body.split("dna> ")[1:3]]
+    want = [json.loads("{" + part.split("{", 1)[1]) for part in want_body.split("dna> ")[1:3]]
+    for r, w in zip(replies, want):
+        assert r["prompt"] == w["prompt"]
+        assert [x["token"] for x in r["next"]] == [x["token"] for x in w["next"]]
+        np.testing.assert_allclose([x["prob"] for x in r["next"]],
+                                   [x["prob"] for x in w["next"]], rtol=1e-5)
     assert sample([str(run_dir), "--max_new_tokens", "8", "--device", "cpu"]) == 0
     dna, tail = capsys.readouterr().out.strip().splitlines()
     assert dna.startswith("ATG") and set(dna) <= set("ACGT") and "stop_reason=" in tail
