@@ -15,6 +15,12 @@ exits non-zero:
    together); logs the registers and spills of each bf16 tensor-core
    kernel (flash forward, dQ and dK/dV; verify chunk) and of each
    bf16-query single-token tile kernel (decode, streamed).
+2b. decode stress — the decode kernel's ``main_bf16`` case of phase 3 on
+   50 fresh draws, each on all 10 layers and again with NaN in the dead
+   tiles, while a second stream runs 8192² bf16 products; on an error over
+   ``KERNEL_ATOL`` the draw's seed and the first (layer, slot, head) that is
+   off are printed, its tensors saved under ``decode_stress_failures/``
+   (git-ignored), and the smoke fails.
 3. kernel  — the decode-attention kernel against its plain PyTorch version
    on the card at the serving shapes (bf16 and int8 caches, MHA and GQA,
    off-grid and unvectorizable shapes, the serving drain's lengths, every
@@ -178,11 +184,12 @@ exits non-zero:
    version and timed: batch 64 x 512 at windows 1, 2, 4 and full, and
    batch 1 at 512 and an off-grid 77.
 23. moe train — the MoE recipe (``configs/stage2.6_moe_4e_top2_d512_ep2.yaml``
-   as is but data paths, epochs, run ids, warm-up 1 and a 6-step schedule,
+   as is but data paths, epochs, run ids, warm-up 1 and a 2-step schedule,
    each override logged: 12L8H d512, 4 experts top-2 at capacity 1.25,
    router loss 0.01, B 8 x G 16, bf16 flash, dropout 0.1, label smoothing
-   0.05) through the train CLI on a packed corpus: 2 epochs of 2 groups,
-   then a resume to a third, beside a straight 3-epoch run. Hard checks:
+   0.05) through the train CLI on a packed corpus: 1 epoch of 1 group and a
+   resume to a second, beside a straight 2-epoch run (cut from 2 epochs of
+   2 groups and a third, straight 3, for the smoke's time). Hard checks:
    ``param_count`` 113,740,800 (38,126,592 dense), every loss and every
    router loss finite, ``router/w`` (12, 512, 4) in ``last.npz``, the
    resumed run bit-equal to the straight one, the flash launches 12 x 16 a
@@ -207,9 +214,10 @@ exits non-zero:
    ``SCORE_NLL_RTOL`` of the CPU's; at 2 layers in float32, greedy tokens
    equal on the card and the CPU with dense and int8 weights, and one
    request served alone equals its tokens from a full 64-slot drain.
-26. moe throughput — ``training/benchmark_moe.py`` with 1 measured group:
-   dense, top-1 and top-2 tokens/s, ms per group, peak memory and
-   ``rel_to_dense``, each in a subprocess; then ``profile_step.py --moe``:
+26. moe throughput — ``training/benchmark_moe.py``'s throughput section
+   with 1 measured group: dense and top-2 (top-1 cut for the smoke's time)
+   tokens/s, ms per group, peak memory and ``rel_to_dense``, each in
+   a subprocess; then ``profile_step.py --moe``:
    a MoE group's device time split into router, dispatch, expert products,
    combine, flash and the rest, launches and the busy share.
 27. embeddings — on phase 15's run and phase 23's: ``extract_embeddings``
@@ -241,12 +249,12 @@ exits non-zero:
    baselines on this corpus: the phase checks the machinery, not the
    verdict.
 31. moe quality — ``python -m genomics_lm_torch.training.benchmark_moe
-   --skip_throughput --converged_epochs 0 --epochs 3``: dense, top-1 and
+   --skip_throughput --converged_epochs 0 --epochs 1``: dense, top-1 and
    top-2 at the script's default widths (6L4H d256, block 256, B 16, lr
    1e-3) on the demo corpus, einsum attention; per variant val and test
    NLL, the delta to dense, whether it beats every Markov floor, parameters
-   and training seconds. Cut: 3 of the script's 12 epochs, and the 30-epoch
-   converged pass.
+   and training seconds. Cut: 1 of the script's 12 epochs,
+   and the 30-epoch converged pass.
 32. analysis — on phase 15's and phase 23's runs: ``run_full_analysis``,
    every dashboard data function (saliency, attention, embeddings with PCA,
    next codon, generation, browser, details) and ``generate_summary`` over
@@ -276,8 +284,9 @@ exits non-zero:
 35. probes — ``fit_mlp`` on the card over those embeddings, labelled by each
    window's first amino acid, for ``PROBE_EPOCHS`` epochs: seconds per epoch
    and its metrics; float32 at dropout 0 from one init, card against CPU.
-36. gen_prefix — ``eval_generation_prefix --preset quick --samples 1`` (cut
-   from the preset's 2 for the smoke's time) on the demo run
+36. gen_prefix — ``eval_generation_prefix --preset quick --samples 1
+   --max_genes 1`` (cut from the preset's 2 samples and 10 genes for the
+   smoke's time) on the demo run
    over the block-512 demo splits with ``--nll_controls``, ``--emit_replay``
    and the memorization audit: seconds of generation, scoring, controls and
    audit; the decode kernel launched n_layer times a cached step and the
@@ -292,6 +301,40 @@ exits non-zero:
    train-split records; a CPU run of the loop whose candidates are
    re-scored in float32 on the card and on the CPU.
 
+38. protein critic — the demo corpus at 800 genes of 50–510 codons (seed
+   1337) translated to protein and labelled (genus as ``pfam_id``, seeded
+   5-class ``ec_id``, seeded normal ``stability_score`` with 20% missing,
+   seeded 8-way ``go_terms``), split by genome (genome 2 of each genus
+   held out); the ``train_multi_task`` CLI at ``configs/protein_critic_12L8H.yaml``
+   (12L8H d384, block 512, attention pooling, bidirectional, B 16 x 2, lr
+   1e-4, float32; plus the data paths, its commented ``multi_label_tasks``
+   and ``task_loss_weights`` lines and a ``go_terms`` head width) for 2
+   epochs (cut from 10) and a ``--resume`` to a third: every loss finite,
+   ``curves.csv`` 3 rows, seconds, sequences/s and peak memory an epoch;
+   one float32 step of a 2-layer critic card against CPU within
+   ``TRAIN_PARITY_TOL``; the trained critic's latents for 16 validation
+   proteins card against CPU within ``CARD_CPU_RTOL``;
+   ``benchmark_protein_critic_training`` at its defaults and at the
+   config's width; a profiled 512-wide group (busy share, launches, top
+   operations). No kernel: the protein models' attention is the einsum
+   JAX's ``sdpa_xla`` computes outside any Pallas kernel.
+39. protein lm — ``train_protein_lm`` at the same widths (dropout 0.1),
+   causal, B 16 x 2, 1 epoch (a cut): finite loss, validation NLL.
+40. protein ebm — ``train_ebm`` on the critic at its defaults for 2 epochs
+   (cut from 5); ``optimize_designs_langevin`` on phase 37's candidates at
+   its defaults; Langevin card against CPU at ``noise_std`` 0 for 5 steps
+   (energies within ``CARD_CPU_RTOL``, the same sequence); then
+   ``train_mlp_heads`` for 3 epochs (cut from 20), ``eval_multi_task_critic``,
+   ``extract_protein_embeddings`` and ``protein_critic_bridge``.
+41. critic guided — on the demo run, ``eval_generation_prefix
+   --critic_guidance --critic_stability`` and once ``--ebm_guidance``, each
+   cut to 1 gene, k 1 and 10, 1 sample (``CRITIC_GUIDED_CUT``); then
+   ``generative_design_loop --critic_ckpt --ebm_ckpt --fold_backend mock``
+   at its defaults: the critic columns present and finite, the decode
+   kernel launched n_layer times a cached step and the flash forward
+   n_layer times a scored window or uncached forward, critic forwards per
+   guided codon and their share of the wall time.
+
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -303,6 +346,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import dataclasses
 import http.client
 import importlib.util
 import io
@@ -2130,6 +2174,9 @@ def int8_greedy_parity() -> dict:
     return out
 
 
+INT8_DRAIN_ORDER = ("dense", "int8")  # one pair of dense, int8, int8, dense: a cut for time
+
+
 def phase_int8_serve(served: dict, card: str) -> dict:
     """The serving main path with weight-only int8 block linears: the dense
     model of phase 4, quantized by ``quantize_params``, drains the same 128
@@ -2150,10 +2197,10 @@ def phase_int8_serve(served: dict, card: str) -> dict:
     drain(model, cfg, warm, False)
     counts = {}
     for kv_quant in (False, True):
-        # dense, int8, int8, dense on the same requests: the host drifts
-        # within a call, so the pair means are compared
+        # dense, then int8 on the same requests (one pair, cut from two for
+        # the smoke's time; the host drifts within a call)
         runs = {"dense": [], "int8": []}  # (seconds, delivered tokens) of each drain
-        for name in ("dense", "int8", "int8", "dense"):
+        for name in INT8_DRAIN_ORDER:
             torch.cuda.reset_peak_memory_stats()
             da.decode_attention.launches = 0  # this drain's count only
             results, seconds, eng = drain(model if name == "int8" else dense, cfg, reqs,
@@ -2169,7 +2216,7 @@ def phase_int8_serve(served: dict, card: str) -> dict:
         tps = {k: [d / t for t, d in v] for k, v in runs.items()}
         mean = {k: sum(v) / len(v) for k, v in tps.items()}
         log("int8_serve", model="10L8H d384 bf16 fused_qkv, int8 block linears",
-            kv_quant=kv_quant, requests=len(reqs), order="dense, int8, int8, dense",
+            kv_quant=kv_quant, requests=len(reqs), order=", ".join(INT8_DRAIN_ORDER),
             int8_tokens_per_s=tps["int8"], dense_tokens_per_s=tps["dense"],
             int8_over_dense=mean["int8"] / mean["dense"],
             phase4_dense_delivered_tokens_per_s=served["tokens_per_s"][kv_quant],
@@ -2537,7 +2584,8 @@ def phase_score(trained: dict, generated: dict, card: str, peak_bw, peak_ops) ->
 # --- phases 23-28: the mixture-of-experts slice --------------------------------
 
 MOE_CONFIG = Path(__file__).resolve().parent / "configs" / "stage2.6_moe_4e_top2_d512_ep2.yaml"
-MOE_GROUPS_PER_EPOCH = 2
+MOE_GROUPS_PER_EPOCH = 1  # cut from 2 for the smoke's time
+MOE_EPOCHS = 2  # the run's epochs and the straight run's: cut from 3 for the smoke's time
 MOE_VAL_WINDOWS = 64
 MOE_PARAMS, DENSE_PARAMS = 113_740_800, 38_126_592  # counted from JAX init's shapes
 MOE_PARITY_CAPACITY = 0.5  # about half the choices drop: a wrong slot order shows
@@ -2598,14 +2646,15 @@ def tree_leaves(tree, prefix=""):
 
 
 def phase_moe_train(card: str, workdir: Path) -> dict:
-    """The MoE config through the train CLI: 2 epochs of 2 groups and a resume
-    to a third, beside a straight 3-epoch run; the run stays in ``workdir``."""
+    """The MoE config through the train CLI: ``MOE_EPOCHS`` - 1 epochs of
+    ``MOE_GROUPS_PER_EPOCH`` groups and a resume to one more, beside a
+    straight ``MOE_EPOCHS``-epoch run; the run stays in ``workdir``."""
     runs = workdir / "runs"
     batch, gacc = 8, 16  # the config's
     packed_corpus(workdir, MOE_GROUPS_PER_EPOCH * batch * gacc, MOE_VAL_WINDOWS)
-    short = dict(warmup_steps=1, scheduler_total_steps=3 * MOE_GROUPS_PER_EPOCH)
-    cfg_path = moe_yaml(workdir, "smoke-moe", epochs=2, **short)
-    straight_path = moe_yaml(workdir, "smoke-moe-straight", epochs=3, **short)
+    short = dict(warmup_steps=1, scheduler_total_steps=MOE_EPOCHS * MOE_GROUPS_PER_EPOCH)
+    cfg_path = moe_yaml(workdir, "smoke-moe", epochs=MOE_EPOCHS - 1, **short)
+    straight_path = moe_yaml(workdir, "smoke-moe-straight", epochs=MOE_EPOCHS, **short)
     run_dir = runs / "smoke-moe"
     last = run_dir / "checkpoints" / "last.npz"
     argv = ["--config", str(cfg_path), "--run_root", str(runs)]
@@ -2617,7 +2666,8 @@ def phase_moe_train(card: str, workdir: Path) -> dict:
         t0 = time.perf_counter()
         rc = train_cli(argv)
         first_s = time.perf_counter() - t0
-        cfg_path.write_text(cfg_path.read_text().replace("epochs: 2", "epochs: 3"))
+        cfg_path.write_text(cfg_path.read_text().replace(f"epochs: {MOE_EPOCHS - 1}",
+                                                         f"epochs: {MOE_EPOCHS}"))
         rc_resume = train_cli(argv + ["--resume", str(last)])
     launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
     text = stdout.getvalue()
@@ -2660,7 +2710,7 @@ def phase_moe_train(card: str, workdir: Path) -> dict:
                peak_mem_gib=meta["runtime_memory"]["device_peak_bytes"] / 2**30,
                flash_launches=launches, want_fwd=want_fwd, want_bwd=want_bwd, card=card)
     log("moe_train", **out)
-    if any(out["rc"]) or len(rows) != 3 or groups != 3 * MOE_GROUPS_PER_EPOCH:
+    if any(out["rc"]) or len(rows) != MOE_EPOCHS or groups != MOE_EPOCHS * MOE_GROUPS_PER_EPOCH:
         raise AssertionError("the MoE runs or their artifacts are wrong")
     if n_params != MOE_PARAMS or n_dense != DENSE_PARAMS or meta.get("n_params") != MOE_PARAMS:
         raise AssertionError(f"param_count {n_params} (dense {n_dense}), want {MOE_PARAMS}")
@@ -2843,14 +2893,21 @@ def phase_moe_serve(moe_run: dict, card: str, peak_bw, peak_ops) -> dict:
             "score": score_launches, "chunk_timed": chunk_timed, "flash_timed": flash_timed}
 
 
+MOE_THROUGHPUT_TOP_KS = (2,)  # of the CLI's top-1 and top-2: one subprocess fewer
+
+
 def phase_moe_throughput(card: str) -> dict:
-    """``benchmark_moe`` (dense, top-1, top-2; 1 measured group each, a
-    subprocess each), then one profiled MoE group split by part."""
-    with tempfile.TemporaryDirectory(prefix="smoke_moe_bench_") as tmp:
-        out = Path(tmp) / "moe.json"
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = bench_moe.main(["--skip_quality", "--measure_steps", "1", "--out", str(out)])
-        report = json.loads(out.read_text())["throughput_d512"]
+    """``benchmark_moe``'s throughput section (dense and top-2, 1 measured
+    group each, a subprocess each; top-1 cut for the smoke's time), then one
+    profiled MoE group split by part."""
+    import types
+
+    args = types.SimpleNamespace(**{a.dest: a.default for a in bench_moe.parser()._actions
+                                    if a.dest != "help"})
+    args.measure_steps = 1
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = bench_moe.run_throughput(args, top_ks=MOE_THROUGHPUT_TOP_KS)
+    rc = 0
     rows = {r["name"]: r for r in report["candidates"]}
     log("moe_throughput", rc=rc, protocol=report["protocol"], candidates={
         name: {k: r.get(k) for k in ("ok", "error", "nonpad_tokens_per_sec", "ms_per_group",
@@ -3136,7 +3193,7 @@ def phase_evaluate_test(runs: list[tuple[str, dict]], data: Path, card: str, pea
     return {"launches": sum(launches.values()), "flash_timed": timed, "runs": out}
 
 
-MOE_QUALITY_EPOCHS = 3  # of the script's 12, for the smoke's time
+MOE_QUALITY_EPOCHS = 1  # of the script's 12, for the smoke's time
 
 
 def phase_moe_quality(card: str) -> dict:
@@ -3283,7 +3340,8 @@ PROBE_EPOCHS = 3  # of fit_mlp's default 20 on ~100k windows
 PROBE_CPU_ROWS, PROBE_CPU_EPOCHS = 256, 1
 PREFIX_K_LIST = "1,3,5,10"  # eval_generation_prefix's default
 PREFIX_SAMPLES = 1  # of the quick preset's 2 per (gene, k), for the smoke's time
-DESIGN_CPU = ["--n_candidates", "2", "--budget", "1200"]  # the CPU run's cut of the defaults
+PREFIX_GENES = 1  # of the quick preset's 10, for the smoke's time
+DESIGN_CPU = ["--n_candidates", "1", "--budget", "600"]  # the CPU run's cut of the defaults
 
 
 def card_vs_cpu_rel(card, cpu) -> float:
@@ -3463,7 +3521,7 @@ def phase_gen_prefix(trained: dict, data: Path, card: str, peak_bw, peak_ops) ->
     label, replay = "smoke_gen_prefix", run_dir / "scores" / "smoke_gen_prefix_replay.jsonl"
     argv = [str(run_dir), "--npz", str(data / "val_bs512.npz"), "--train_npz",
             str(data / "train_bs512.npz"), "--preset", "quick", "--samples",
-            str(PREFIX_SAMPLES), "--k_list", PREFIX_K_LIST,
+            str(PREFIX_SAMPLES), "--max_genes", str(PREFIX_GENES), "--k_list", PREFIX_K_LIST,
             "--nll_controls", "--emit_replay", str(replay), "--out_label", label,
             "--device", "cuda"]
     da.decode_attention.launches = 0  # the main path's run only
@@ -3640,6 +3698,631 @@ def phase_design(trained: dict, data: Path, card: str) -> dict:
     return {"decode": main["decode"], "run": row}
 
 
+# --- the decode kernel under load (ROADMAP.md §3) -------------------------------
+
+DECODE_STRESS_DRAWS = 50
+DECODE_STRESS_DIR = Path("decode_stress_failures")  # git-ignored
+
+
+def phase_decode_stress(draws: int = DECODE_STRESS_DRAWS) -> dict:
+    """``[kernel]``'s ``main_bf16`` case (L 10, B 64, S 256, 8 kv heads of 48,
+    random lengths) on ``draws`` fresh draws, each on all 10 layers and again
+    with NaN in the dead tiles, while a second stream runs 8192² bf16
+    products, so the kernel runs under load. On an error over
+    ``KERNEL_ATOL`` it prints the draw's seed and the first (layer, slot,
+    head) that is off, saves the draw's tensors under ``DECODE_STRESS_DIR``
+    and fails."""
+    L, B, S, Hkv, G, D = 10, 64, 256, 8, 1, 48
+    bf16 = torch.bfloat16
+    side = torch.cuda.Stream()
+    a = torch.randn((8192, 8192), device="cuda", dtype=bf16)
+    load_products = 0
+    worst = worst_nan = 0.0
+    t0 = time.perf_counter()
+    for draw in range(draws):
+        seed = 5000 + draw
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v, mask, _, _ = make_case(gen, L, B, S, Hkv, G, D, bf16, bf16, "random")
+        pk, pv, _, _ = poison_dead_tiles(k, v, None, None, mask)
+        torch.cuda.synchronize()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                a @ a
+                load_products += 1
+        for layer in range(L):
+            want = da.decode_attention_reference(q, k, v, mask, layer, kv_heads=Hkv).float()
+            for label, kk, vv in (("plain", k, v), ("nan_dead_tiles", pk, pv)):
+                got = da.decode_attention(q, kk, vv, mask, layer, kv_heads=Hkv).float()
+                bad = ~torch.isfinite(got) | ((got - want).abs() > KERNEL_ATOL)
+                err = max_err(got, want)
+                if label == "plain":
+                    worst = max(worst, err)
+                else:
+                    worst_nan = max(worst_nan, err)
+                if bool(bad.any()):
+                    slot, head, _ = (int(i) for i in bad.nonzero()[0])
+                    DECODE_STRESS_DIR.mkdir(parents=True, exist_ok=True)
+                    path = DECODE_STRESS_DIR / f"draw_seed{seed}.pt"
+                    torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "mask": mask.cpu(),
+                                "layer": layer, "got": got.cpu(), "want": want.cpu(),
+                                "case": label}, path)
+                    log("decode_stress", failed=True, seed=seed, case=label, layer=layer,
+                        slot=slot, head=head, max_abs_err=err, saved=str(path))
+                    raise AssertionError(
+                        f"decode kernel off on draw seed {seed} ({label}): layer {layer}, "
+                        f"slot {slot}, head {head}, max error {err}")
+        torch.cuda.synchronize()
+    row = dict(draws=draws, layers=L, shape=dict(L=L, B=B, S=S, Hkv=Hkv, D=D),
+               seeds=[5000, 5000 + draws - 1], max_abs_err=worst, nan_dead_tiles_err=worst_nan,
+               tol=KERNEL_ATOL, load="8192x8192 bf16 products on a second stream",
+               load_products=load_products, seconds=time.perf_counter() - t0)
+    log("decode_stress", **row)
+    del a
+    return row
+
+
+# --- phases 38-41: the protein-critic stack -------------------------------------
+
+PROTEIN_CONFIG = Path(__file__).resolve().parent / "configs" / "protein_critic_12L8H.yaml"
+PROTEIN_CORPUS = ["--genes", "800", "--min_codons", "50", "--max_codons", "510",
+                  "--seed", "1337"]
+PROTEIN_CRITIC_EPOCHS = 2  # of the config's 10, then a resume to a third
+PROTEIN_LM_EPOCHS = 1
+PROTEIN_EBM_EPOCHS = 2  # of train_ebm's 5
+PROTEIN_HEADS_EPOCHS = 3  # of train_mlp_heads' 20
+PROTEIN_CPU_LATENTS = 16  # validation proteins whose latents run on both devices
+PROTEIN_PARITY_LAYERS = 2
+LANGEVIN_CPU_STEPS = 5
+# eval_generation_prefix under the critic: 1 gene (of the quick preset's 10),
+# k 1 and 10 (of 1, 3, 5, 10), 1 sample (of 2)
+CRITIC_GUIDED_CUT = ["--preset", "quick", "--max_genes", "1", "--k_list", "1,10",
+                     "--samples", "1"]
+
+
+def protein_records(workdir: Path) -> dict:
+    """The demo corpus at ``PROTEIN_CORPUS``, each gene translated to
+    protein, labelled and split by genome: ``pfam_id`` the genus (4
+    classes), ``ec_id`` a seeded 5-class label, ``stability_score`` a seeded
+    normal with 20% missing (NaN targets), ``go_terms`` a seeded 8-way
+    multi-label vector; genome 2 of every genus is the validation split, so
+    every genus is in both. Logs the record count, lengths and bucket widths."""
+    from genomics_lm_torch.data.demo_corpus import main as corpus_cli
+    from genomics_lm_torch.data.leakage import translate_cds
+    from genomics_lm_torch.protein.dataset import (
+        MultiTaskProteinDataset,
+        length_bucket_batches,
+        pad_width_for,
+    )
+    from genomics_lm_torch.tokenizers.protein import ProteinTokenizer
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        corpus_cli(["--out", str(workdir / "records.tsv"), *PROTEIN_CORPUS])
+    with (workdir / "records.tsv").open() as f:
+        records = list(csv.DictReader(f, delimiter="\t"))
+    rng = np.random.default_rng(1337)
+    splits = {"train": [], "val": []}
+    for r in records:
+        stability = float(rng.normal())
+        row = {"id": r["source_id"], "sequence": translate_cds(r["sequence"]),
+               "pfam_id": int(r["genus"].removeprefix("genus")),
+               "ec_id": int(rng.integers(0, 5)),
+               "stability_score": None if rng.random() < 0.2 else stability,
+               "go_terms": [int(x) for x in (rng.random(8) < 0.3)]}
+        splits["val" if r["genome"].endswith("genome2") else "train"].append(row)
+    paths = {}
+    for name, rows in splits.items():
+        paths[name] = workdir / f"{name}.jsonl"
+        paths[name].write_text("".join(json.dumps(r) + "\n" for r in rows))
+    ds = MultiTaskProteinDataset(paths["train"], ProteinTokenizer(), max_length=512)
+    widths = sorted({pad_width_for([ds.sequence_length(i) for i in rows])
+                     for rows in length_bucket_batches(ds, 16, seed=1337, epoch=1)})
+    lengths = [len(r["sequence"]) for rows in splits.values() for r in rows]
+    log("protein_data", records=len(records), train=len(splits["train"]),
+        val=len(splits["val"]), residues=dict(min=min(lengths), max=max(lengths),
+                                              median=int(np.median(lengths))),
+        bucket_widths=widths, genera=sorted({r["pfam_id"] for r in splits["val"]}))
+    if widths[-1] != 512 or len({r["pfam_id"] for r in splits["val"]}) != 4:
+        raise AssertionError(f"protein records: widths {widths}")
+    return {"dir": workdir, **paths}
+
+
+def protein_model_cfg():
+    """The critic's model config at ``PROTEIN_CONFIG``'s widths, dropout 0."""
+    import yaml
+
+    from genomics_lm_torch.models.protein import ProteinClassifierConfig
+
+    cfg = yaml.safe_load(PROTEIN_CONFIG.read_text())
+    return ProteinClassifierConfig(
+        vocab_size=28, n_layer=int(cfg["n_layer"]), n_head=int(cfg["n_head"]),
+        n_embd=int(cfg["n_embd"]), block_size=int(cfg["block_size"]), dropout=0.0,
+        pooling=str(cfg["pooling"]), bidirectional=bool(cfg["bidirectional"]))
+
+
+def _protein_yaml(path: Path, **overrides) -> Path:
+    import yaml
+
+    cfg = yaml.safe_load(PROTEIN_CONFIG.read_text())
+    cfg.update(overrides)
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _critic_step_parity(data: dict, card: str) -> dict:
+    """One float32 AdamW step of a ``PROTEIN_PARITY_LAYERS``-layer critic at
+    the config's width from one JAX-layout tree, on the card (TF32 off) and
+    on the CPU, over one length bucket of the training split, held to
+    ``TRAIN_PARITY_TOL``."""
+    import yaml
+
+    from genomics_lm_torch.models import protein as pm
+    from genomics_lm_torch.protein import common
+    from genomics_lm_torch.protein.dataset import (
+        MultiTaskProteinDataset,
+        length_bucket_batches,
+        pad_width_for,
+    )
+    from genomics_lm_torch.protein.train_multi_task import (
+        critic_config,
+        critic_objective,
+        infer_task_dims,
+    )
+    from genomics_lm_torch.tokenizers.protein import ProteinTokenizer
+    from genomics_lm_torch.utils.weights import protein_params_from_jax, protein_params_to_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = yaml.safe_load(data["yaml"].read_text())
+    ds = MultiTaskProteinDataset(data["train"], ProteinTokenizer(), max_length=512,
+                                 multi_label_tasks=cfg["multi_label_tasks"])
+    dims = infer_task_dims(ds, cfg)
+    mcfg = dataclasses.replace(critic_config(cfg, 28), n_layer=PROTEIN_PARITY_LAYERS,
+                               dropout=0.0)
+    tree = protein_params_to_jax(pm.init_weights(pm.MultiTaskProteinCritic(mcfg, dims), 5))
+    buckets = {pad_width_for([ds.sequence_length(i) for i in r]): r
+               for r in length_bucket_batches(ds, 16, seed=1337, epoch=1)}
+    width = 128 if 128 in buckets else min(buckets)
+    host = ds.batch(buckets[width], pad_to=width)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = protein_params_from_jax(tree, "multitask", mcfg, device).train()
+        objective = critic_objective(cfg, ds, dims, mcfg, device)
+        opt = common.adamw(model, float(cfg["lr"]), float(cfg["weight_decay"]))
+        loss, _ = objective(model, common.batch_to_device(host, device), True)
+        loss.backward()
+        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        common.apply_accumulated(opt)
+        out[device] = (float(loss.detach()), grads,
+                       {n: p.detach().cpu() for n, p in model.named_parameters()})
+    (lc, gc_, pc), (lw, gw, pw) = out["cuda"], out["cpu"]
+    tol = TRAIN_PARITY_TOL
+    top = max(float(g.abs().max()) for g in gw.values())
+    grad_err = param_err = noise_err = 0.0
+    for name in gw:
+        # a leaf's error over its largest gradient, floored as phase 9 does
+        scale = max(float(gw[name].abs().max()), 1e-3 * top)
+        grad_err = max(grad_err, float((gc_[name] - gw[name]).abs().max()) / scale)
+        noisy = gw[name].abs() < tol["noise_grad_share"] * top
+        err = (pc[name] - pw[name]).abs()
+        param_err = max(param_err, float(torch.where(noisy, 0.0, err).max()))
+        noise_err = max(noise_err, float(torch.where(noisy, err, 0.0).max()))
+    row = dict(layers=PROTEIN_PARITY_LAYERS, batch=list(host["input_ids"].shape),
+               loss_card=lc, loss_cpu=lw, loss_rel=abs(lc - lw) / abs(lw),
+               grad_rel=grad_err, param_abs=param_err, noise_param_abs=noise_err, tol=tol)
+    log("protein_critic_parity", **row, card=card)
+    if (row["loss_rel"] > tol["loss_rtol"] or grad_err > tol["grad_rtol"]
+            or param_err > tol["param_atol"] or noise_err > tol["noise_param_atol"]):
+        raise AssertionError(f"critic step card against CPU: {row}")
+    return row
+
+
+def _profile_critic_group(data: dict, card: str) -> dict:
+    """``torch.profiler`` over one training group (2 microbatches of B 16 at
+    the 512-wide bucket, AdamW) of the full-width critic: wall and device ms,
+    busy share, kernel launches and the top operations by device time."""
+    import yaml
+
+    from genomics_lm_torch.models import protein as pm
+    from genomics_lm_torch.protein import common
+    from genomics_lm_torch.protein.dataset import (
+        MultiTaskProteinDataset,
+        length_bucket_batches,
+        pad_width_for,
+    )
+    from genomics_lm_torch.protein.train_multi_task import (
+        critic_config,
+        critic_objective,
+        infer_task_dims,
+    )
+    from genomics_lm_torch.tokenizers.protein import ProteinTokenizer
+    from genomics_lm_torch.training.profile_step import _device_us
+
+    cfg = yaml.safe_load(data["yaml"].read_text())
+    ds = MultiTaskProteinDataset(data["train"], ProteinTokenizer(), max_length=512,
+                                 multi_label_tasks=cfg["multi_label_tasks"])
+    dims = infer_task_dims(ds, cfg)
+    mcfg = critic_config(cfg, 28)
+    model = pm.init_weights(pm.MultiTaskProteinCritic(mcfg, dims), 0).cuda().train()
+    objective = critic_objective(cfg, ds, dims, mcfg, "cuda")
+    opt = common.adamw(model, float(cfg["lr"]), float(cfg["weight_decay"]))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wide = [r for r in length_bucket_batches(ds, 16, seed=1337, epoch=1)
+            if pad_width_for([ds.sequence_length(i) for i in r]) == 512][:2]
+    batches = [common.batch_to_device(ds.batch(r, pad_to=512), "cuda") for r in wide]
+
+    def group():
+        for b in batches:
+            objective(model, b, True, gen)[0].backward()
+        common.apply_accumulated(opt, len(batches))
+        torch.cuda.synchronize()
+
+    group()  # warm-up
+    t0 = time.perf_counter()
+    group()
+    plain_s = time.perf_counter() - t0
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        group()
+        prof_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    device_us = sum(_device_us(e) for e in kernels)
+    def op_us(e):  # device time of the kernels an operation launched
+        return float(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
+
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::") and op_us(e) > 0]
+    row = dict(group=f"2 x B 16 x T 512, {mcfg.n_layer}L{mcfg.n_head}H d{mcfg.n_embd} float32",
+               ms_per_group=plain_s * 1e3, profiled_ms=prof_s * 1e3,
+               device_ms=device_us / 1e3, device_busy_share=device_us / 1e6 / plain_s,
+               kernel_launches=sum(e.count for e in kernels),
+               top_kernels=[{"kernel": e.key[:80], "launches": e.count,
+                             "device_ms": _device_us(e) / 1e3}
+                            for e in sorted(kernels, key=_device_us, reverse=True)[:8]],
+               top_ops=[{"op": e.key, "calls": e.count, "device_ms": op_us(e) / 1e3}
+                        for e in sorted(ops, key=op_us, reverse=True)[:8]])
+    log("protein_critic_profile", **row, card=card)
+    if device_us <= 0:
+        raise AssertionError("the critic group's trace holds no device time")
+    del model, opt, batches
+    return row
+
+
+def _run_cli(main_fn, argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__} exited {rc}: {buf.getvalue()[-400:]}")
+    return buf.getvalue()
+
+
+def phase_protein_critic(workdir: Path, card: str) -> dict:
+    """The multi-task critic at ``configs/protein_critic_12L8H.yaml`` (as is,
+    plus the data paths, its commented ``multi_label_tasks: [go_terms]`` and
+    ``task_loss_weights`` lines and a ``task_dims`` entry for the go_terms
+    head; each override logged) through the ``train_multi_task`` CLI for
+    ``PROTEIN_CRITIC_EPOCHS`` epochs, then ``--resume`` to one more:
+    every loss finite, ``curves.csv`` 3 rows, seconds, sequences/s and peak
+    memory per epoch. Then one float32 step of a 2-layer critic card against
+    CPU, the trained critic's latents card against CPU, the training
+    benchmark at its defaults and at the config's width, and a profiled
+    group."""
+    from genomics_lm_torch.models import protein as pm
+    from genomics_lm_torch.protein.benchmark_protein_critic_training import main as bench_cli
+    from genomics_lm_torch.protein.dataset import MultiTaskProteinDataset
+    from genomics_lm_torch.protein.train_multi_task import main as critic_cli
+    from genomics_lm_torch.tokenizers.protein import ProteinTokenizer
+    from genomics_lm_torch.utils.weights import protein_params_from_jax
+
+    data = protein_records(workdir / "data")
+    overrides = dict(train_data=str(data["train"]), val_data=str(data["val"]),
+                     multi_label_tasks=["go_terms"], task_dims={"go_terms": 8},
+                     task_loss_weights={"family": 1.0, "function": 1.0, "stability": 0.5},
+                     epochs=PROTEIN_CRITIC_EPOCHS, run_id="smoke-critic")
+    data["yaml"] = _protein_yaml(workdir / "critic.yaml", **overrides)
+    runs = workdir / "runs"
+    t0 = time.perf_counter()
+    printed = _run_cli(critic_cli, ["--config", str(data["yaml"]), "--run_root", str(runs),
+                                    "--device", "cuda"])
+    run_dir = runs / "smoke-critic"
+    last = run_dir / "checkpoints" / "last_critic.npz"
+    resume_yaml = _protein_yaml(workdir / "critic_resume.yaml",
+                                **dict(overrides, epochs=PROTEIN_CRITIC_EPOCHS + 1))
+    printed += _run_cli(critic_cli, ["--config", str(resume_yaml), "--run_root", str(runs),
+                                     "--resume", str(last), "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    with (run_dir / "scores" / "curves.csv").open() as f:
+        curves = [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+    epochs = []
+    for line in printed.splitlines():
+        m = re.match(r"\[critic\] epoch (\d+) seconds ([\d.]+) ([\d.]+) seq/s ([\d.]+) res/s "
+                     r"peak_memory_bytes (\d+|None)", line)
+        if m:
+            epochs.append(dict(epoch=int(m[1]), seconds=float(m[2]), seq_per_s=float(m[3]),
+                               res_per_s=float(m[4]),
+                               peak_memory_bytes=None if m[5] == "None" else int(m[5])))
+    row = dict(config=str(PROTEIN_CONFIG.relative_to(PROTEIN_CONFIG.parent.parent)),
+               overrides={k: v for k, v in overrides.items() if not k.endswith("_data")},
+               curves=curves, epochs=epochs, seconds=seconds)
+    log("protein_critic", **row, card=card)
+    losses = [v for r in curves for k, v in r.items() if k != "epoch"]
+    if ([r["epoch"] for r in curves] != [1.0, 2.0, 3.0] or not np.isfinite(losses).all()
+            or len(epochs) != 3):
+        raise AssertionError(f"protein critic run: {row}")
+
+    parity = _critic_step_parity(data, card)
+    # the trained critic's latents for PROTEIN_CPU_LATENTS validation proteins
+    payload = load_checkpoint(last)
+    cfg = protein_model_cfg()
+    ds = MultiTaskProteinDataset(data["val"], ProteinTokenizer(), max_length=512)
+    host = ds.batch(list(range(PROTEIN_CPU_LATENTS)))
+    latents = {}
+    for device in ("cuda", "cpu"):
+        model = protein_params_from_jax(payload["model"], "multitask", cfg, device)
+        with torch.no_grad():
+            latents[device] = pm.extract_latent(
+                model, cfg, torch.as_tensor(host["input_ids"], device=device),
+                torch.as_tensor(host["attention_mask"], device=device)).cpu().numpy()
+    rel = card_vs_cpu_rel(latents["cuda"], latents["cpu"])
+    log("protein_critic", latents_card_vs_cpu_rel=rel, shape=list(host["input_ids"].shape),
+        tol=CARD_CPU_RTOL, tol_reason=CARD_CPU_RTOL_REASON, card=card)
+    if rel > CARD_CPU_RTOL or not np.isfinite(latents["cuda"]).all():
+        raise AssertionError(f"critic latents card against CPU: {rel}")
+
+    bench = {}
+    for name, extra in (("defaults", []),
+                        ("config_width", ["--n_layer", str(cfg.n_layer), "--n_head",
+                                          str(cfg.n_head), "--n_embd", str(cfg.n_embd)])):
+        out = workdir / f"bench_{name}.json"
+        _run_cli(bench_cli, ["--jsonl", str(data["train"]), "--out", str(out),
+                             "--device", "cuda", *extra])
+        bench[name] = json.loads(out.read_text())
+    log("protein_critic_benchmark", **bench, card=card)
+    profile = _profile_critic_group(data, card)
+    return {"data": data, "run_dir": run_dir, "best": run_dir / "checkpoints" /
+            "best_critic.npz", "epochs": epochs, "parity": parity, "latents_rel": rel,
+            "bench": bench, "profile": profile}
+
+
+def phase_protein_lm(critic: dict, card: str) -> dict:
+    """``train_protein_lm`` at the critic config's widths (12L8H d384, block
+    512, dropout 0.1), causal, B 16 x 2 accumulated, lr 1e-4, on the same
+    proteins for ``PROTEIN_LM_EPOCHS`` epoch: the loss finite, the
+    validation NLL logged."""
+    import yaml
+
+    from genomics_lm_torch.protein.train_protein_lm import main as plm_cli
+
+    data = critic["data"]
+    workdir = data["dir"].parent
+    width = protein_model_cfg()
+    config = {"model": {"n_layer": width.n_layer, "n_head": width.n_head,
+                        "n_embd": width.n_embd, "block_size": width.block_size,
+                        "dropout": 0.1},
+              "training": {"epochs": PROTEIN_LM_EPOCHS, "batch_size": 16,
+                           "grad_accum_steps": 2, "lr": 1e-4, "weight_decay": 0.01,
+                           "seed": 1337},
+              "data": {"train_path": str(data["train"]), "val_path": str(data["val"])},
+              "run_id": "smoke-plm"}
+    (workdir / "plm.yaml").write_text(yaml.safe_dump(config))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    printed = _run_cli(plm_cli, ["--config", str(workdir / "plm.yaml"), "--run_root",
+                                 str(workdir / "plm_runs"), "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    history = json.loads((workdir / "plm_runs" / "smoke-plm" / "scores" /
+                          "metrics.json").read_text())
+    losses = [float(line.rsplit(" ", 1)[-1]) for line in printed.splitlines()
+              if line.startswith("Epoch") and "Loss:" in line]
+    row = dict(config=config["model"], epochs=PROTEIN_LM_EPOCHS, seconds=seconds,
+               train_loss_logged=losses, val_nll=[h["val_loss"] for h in history],
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log("protein_lm", **row, card=card)
+    if not losses or not np.isfinite(losses + row["val_nll"]).all():
+        raise AssertionError(f"protein LM: {row}")
+    return row
+
+
+def phase_protein_ebm(critic: dict, design_dir: Path, card: str) -> dict:
+    """``train_ebm`` on the critic at its defaults (hidden 512, lr 1e-3) for
+    ``PROTEIN_EBM_EPOCHS`` epochs; ``optimize_designs_langevin`` on the
+    ``[design]`` phase's candidates at its defaults; Langevin card against
+    CPU at ``noise_std`` 0 for ``LANGEVIN_CPU_STEPS`` steps (energies within
+    ``CARD_CPU_RTOL``, the same projected sequence, the energy history
+    finite); then ``train_mlp_heads`` (``PROTEIN_HEADS_EPOCHS`` epochs),
+    ``eval_multi_task_critic``, ``extract_protein_embeddings`` and
+    ``protein_critic_bridge`` on the validation split and the designs."""
+    from genomics_lm_torch.models import protein as pm
+    from genomics_lm_torch.protein.eval_multi_task_critic import main as eval_cli
+    from genomics_lm_torch.protein.extract_protein_embeddings import main as embed_cli
+    from genomics_lm_torch.protein.optimize_designs_langevin import main as langevin_cli
+    from genomics_lm_torch.protein.protein_critic_bridge import main as bridge_cli
+    from genomics_lm_torch.protein.sampler import latent_langevin_sample
+    from genomics_lm_torch.protein.train_ebm import main as ebm_cli
+    from genomics_lm_torch.protein.train_mlp_heads import main as heads_cli
+    from genomics_lm_torch.tokenizers.protein import ProteinTokenizer
+    from genomics_lm_torch.utils.weights import protein_params_from_jax
+
+    data, best = critic["data"], str(critic["best"])
+    workdir = data["dir"].parent
+    t0 = time.perf_counter()
+    _run_cli(ebm_cli, ["--config", str(data["yaml"]), "--critic_ckpt", best, "--epochs",
+                       str(PROTEIN_EBM_EPOCHS), "--run_id", "smoke-ebm", "--run_root",
+                       str(workdir / "ebm_runs"), "--device", "cuda"])
+    ebm_seconds = time.perf_counter() - t0
+    ebm_dir = workdir / "ebm_runs" / "smoke-ebm"
+    with (ebm_dir / "scores" / "curves.csv").open() as f:
+        curves = [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+    ebm_ckpt = ebm_dir / "checkpoints" / "best_ebm.npz"
+    designs = design_dir / "candidates.csv"
+    t0 = time.perf_counter()
+    _run_cli(langevin_cli, ["--designs_csv", str(designs), "--critic_ckpt", best,
+                            "--ebm_ckpt", str(ebm_ckpt), "--out",
+                            str(workdir / "langevin.csv"), "--device", "cuda"])
+    langevin_seconds = time.perf_counter() - t0
+    with (workdir / "langevin.csv").open() as f:
+        optimized = list(csv.DictReader(f))
+    energies = [float(r[k]) for r in optimized for k in ("initial_energy", "final_energy")]
+    # card against CPU, noise 0, on the first design
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = protein_model_cfg()
+    cpay, epay = load_checkpoint(best), load_checkpoint(ebm_ckpt)
+    seq = optimized[0]["initial"]
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = latent_langevin_sample(
+            protein_params_from_jax(epay["model"], "ebm", None, device),
+            protein_params_from_jax(cpay["model"], "multitask", cfg, device), cfg,
+            ProteinTokenizer(), seq, steps=LANGEVIN_CPU_STEPS, lr=0.05, noise_std=0.0,
+            lambda_reg=0.1)
+    rel = card_vs_cpu_rel(out["cuda"][1], out["cpu"][1])
+    row = dict(ebm_curves=curves, ebm_seconds=ebm_seconds, designs=len(optimized),
+               langevin_seconds=langevin_seconds, langevin_steps=50,
+               changed_positions=[int(r["changed_positions"]) for r in optimized],
+               energy_first_last=[[float(r["initial_energy"]), float(r["final_energy"])]
+                                  for r in optimized],
+               langevin_card_vs_cpu_rel=rel, same_sequence=out["cuda"][0] == out["cpu"][0],
+               card_energies=out["cuda"][1], tol=CARD_CPU_RTOL)
+    log("protein_ebm", **row, card=card)
+    if (not optimized or not np.isfinite(energies + out["cuda"][1]).all()
+            or not np.isfinite([v for r in curves for v in r.values()]).all()
+            or rel > CARD_CPU_RTOL or not row["same_sequence"]):
+        raise AssertionError(f"protein EBM: {row}")
+
+    t0 = time.perf_counter()
+    heads = json.loads(_run_cli(heads_cli, [
+        "--config", str(data["yaml"]), "--critic_ckpt", best, "--epochs",
+        str(PROTEIN_HEADS_EPOCHS), "--out_dir", str(workdir / "heads"), "--device", "cuda"]))
+    heads_seconds = time.perf_counter() - t0
+    evaluated = json.loads(_run_cli(eval_cli, ["--ckpt", best, "--jsonl", str(data["val"]),
+                                               "--out", str(workdir / "eval.json"),
+                                               "--device", "cuda"]))
+    embedded = json.loads(_run_cli(embed_cli, ["--critic_ckpt", best, "--input",
+                                               str(data["val"]), "--out",
+                                               str(workdir / "emb.npz"), "--device", "cuda"]))
+    bridged = json.loads(_run_cli(bridge_cli, ["--dna_csv", str(designs), "--critic_ckpt",
+                                               best, "--target_task", "family", "--out",
+                                               str(workdir / "bridge.csv"),
+                                               "--device", "cuda"]))
+    with np.load(workdir / "emb.npz") as f:
+        emb_finite = bool(np.isfinite(f["X"]).all())
+    log("protein_ebm", heads={t: {"val_accuracy": r.get("val_accuracy")} for t, r in
+                              heads.items()}, heads_seconds=heads_seconds,
+        eval=evaluated, embeddings=embedded["embeddings"], embeddings_finite=emb_finite,
+        bridge=bridged, card=card)
+    if not emb_finite or bridged["candidates"] == 0 or not evaluated["tasks"]:
+        raise AssertionError("protein critic CLIs")
+    return {"ebm": ebm_ckpt, "row": row}
+
+
+def phase_critic_guided(trained: dict, data: Path, critic: dict, ebm: dict, card: str) -> dict:
+    """On the demo run: ``eval_generation_prefix --critic_guidance
+    --critic_stability`` and once ``--ebm_guidance`` (each cut to
+    ``CRITIC_GUIDED_CUT``), then ``generative_design_loop --critic_ckpt
+    --ebm_ckpt --fold_backend mock`` at its defaults. The critic columns
+    present and finite; the decode kernel's launches n_layer x cached steps
+    and the flash forward's n_layer x (scored windows + uncached forwards);
+    critic forwards per generated codon and their share of the wall time."""
+    from genomics_lm_torch.evals import gen_prefix as gp
+    from genomics_lm_torch.evals.eval_generation_prefix import main as prefix_cli
+    from genomics_lm_torch.generation.generative_design_loop import main as design_cli
+    from genomics_lm_torch.protein import critic_scoring as cs
+
+    run_dir = Path(trained["run_dir"])
+    model, cfg, _, _ = load_codon_model(run_dir, device="cuda")
+    L = cfg.n_layer
+    del model
+    best, ebm_ckpt = str(critic["best"]), str(ebm["ebm"])
+    out = {"decode": 0, "flash": 0}
+    runs = {"critic": ["--critic_guidance", "--critic_stability"],
+            "ebm": ["--ebm_guidance", "--ebm_ckpt", ebm_ckpt]}
+    for name, flags in runs.items():
+        label = f"smoke_critic_guided_{name}"
+        argv = [str(run_dir), "--npz", str(data / "val_bs512.npz"), "--train_npz",
+                str(data / "train_bs512.npz"), *CRITIC_GUIDED_CUT, "--critic_ckpt", best,
+                *flags, "--out_label", label, "--device", "cuda"]
+        da.decode_attention.launches = 0  # the main path's run only
+        fa.flash_fwd.launches = 0
+        t0 = time.perf_counter()
+        with _Timed(decode_mod, "forward") as uncached, \
+                _Timed(decode_mod, "decode_step") as steps, \
+                _Timed(gp, "token_nlls", record=lambda dec, ids: len(list(ids))) as nlls, \
+                _Timed(gc, "generate_cds_critic_guided") as guided, \
+                _Timed(cs, "batch_score_critic") as scored:
+            _run_cli(prefix_cli, argv)
+        wall = time.perf_counter() - t0
+        decode, flash = da.decode_attention.launches, fa.flash_fwd.launches
+        forwards = sum(1 for n in nlls.records if n >= 2)
+        with (run_dir / "scores" / label / "protocol_samples.csv").open() as f:
+            rows = list(csv.DictReader(f))
+        guided_rows = [r for r in rows if r["protocol"] == "guided"]
+        codons = sum(float(r["gen_len_codons"]) for r in guided_rows)
+        critic_scores = [float(r["critic_score"]) for r in rows if r.get("critic_score")]
+        row = dict(flags=flags, cut=CRITIC_GUIDED_CUT, samples=len(rows),
+                   guided_samples=len(guided_rows), guided_codons=codons,
+                   critic_forwards=scored.calls,
+                   critic_forwards_per_guided_codon=scored.calls / max(codons, 1),
+                   critic_seconds=scored.seconds, critic_share_of_wall=scored.seconds / wall,
+                   guided_seconds=guided.seconds, wall=wall,
+                   cached_decode_steps=steps.calls, decode_launches=decode,
+                   want_decode=L * steps.calls, uncached_forwards=uncached.calls,
+                   token_nll_forwards=forwards, flash_fwd_launches=flash,
+                   want_flash=L * (forwards + uncached.calls),
+                   critic_score_rows=len(critic_scores),
+                   guidance=json.loads((run_dir / "scores" / label /
+                                        "protocol_manifest.json").read_text())["protocols"][
+                                            "guided"]["guidance_components"])
+        log("critic_guided", run=name, **row, card=card)
+        if (decode == 0 or decode != row["want_decode"] or flash != row["want_flash"]
+                or not guided_rows or scored.calls == 0
+                or (name == "critic" and (not critic_scores
+                                          or not np.isfinite(critic_scores).all()))):
+            raise AssertionError(f"critic-guided {name}: {row}")
+        out["decode"] += decode
+        out["flash"] += flash
+        out[name] = row
+
+    da.decode_attention.launches = 0
+    fa.flash_fwd.launches = 0
+    design_out = run_dir / "scores" / "design_critic"
+    t0 = time.perf_counter()
+    with _Timed(decode_mod, "decode_step") as steps, _Timed(decode_mod, "forward") as uncached, \
+            _Timed(cs, "batch_score_critic") as scored:
+        _run_cli(design_cli, [str(run_dir), "--critic_ckpt", best, "--ebm_ckpt", ebm_ckpt,
+                              "--fold_backend", "mock", "--out_dir", str(design_out),
+                              "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    decode, flash = da.decode_attention.launches, fa.flash_fwd.launches
+    with (design_out / "candidates.csv").open() as f:
+        cands = list(csv.DictReader(f))
+    columns = ("critic_score", "stability_prob", "family_top1", "family_top1_conf",
+               "function_top1_conf")
+    values = [float(r[c]) for r in cands for c in columns if r.get(c) not in (None, "")]
+    summary = json.loads((design_out / "summary.json").read_text())
+    report = (design_out / "report.md").read_text()
+    row = dict(seconds=seconds, solved=summary["solved"], tokens_spent=summary["tokens_spent"],
+               mean_stability_prob=summary.get("mean_stability_prob"),
+               critic_forwards=scored.calls, critic_seconds=scored.seconds,
+               cached_decode_steps=steps.calls, decode_launches=decode,
+               want_decode=L * steps.calls, flash_fwd_launches=flash,
+               want_flash=L * uncached.calls,
+               critic_columns={c: [r.get(c) for r in cands] for c in columns[:2]},
+               report_has_critic_section="## 3. Critic scores" in report)
+    log("critic_guided", run="design_loop", **row, card=card)
+    if (decode == 0 or decode != row["want_decode"] or flash != row["want_flash"] or not cands
+            or len(values) != len(cands) * len(columns) or not np.isfinite(values).all()
+            or not row["report_has_critic_section"]):
+        raise AssertionError(f"critic design loop: {row}")
+    out["decode"] += decode
+    out["flash"] += flash
+    out["design"] = row
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3666,6 +4349,8 @@ def main() -> int:
 
     phase_build()
     lap("build")
+    stress = phase_decode_stress()
+    lap("decode_stress")
     timed = phase_kernel(peak_bw, peak_ops)
     lap("kernel")
     served = phase_serve(card_line)
@@ -3746,6 +4431,17 @@ def main() -> int:
     lap("gen_prefix")
     designed = phase_design(demo_run, data512, card_line)
     lap("design")
+    protein_dir = tempfile.TemporaryDirectory(prefix="smoke_protein_")
+    critic = phase_protein_critic(Path(protein_dir.name), card_line)
+    lap("protein_critic")
+    phase_protein_lm(critic, card_line)
+    lap("protein_lm")
+    ebm = phase_protein_ebm(critic, Path(demo_run["run_dir"]) / "scores" / "design_cuda",
+                            card_line)
+    lap("protein_ebm")
+    guided = phase_critic_guided(demo_run, data512, critic, ebm, card_line)
+    lap("critic_guided")
+    protein_dir.cleanup()
     prepare_dir.cleanup()
     moe_dir.cleanup()
     trainer_dir.cleanup()
@@ -3774,6 +4470,8 @@ def main() -> int:
         "launches_dashboard": sum(analysed["decode"].values()),
         "launches_gen_prefix": prefixed["decode"],
         "launches_design": designed["decode"],
+        "launches_critic_guided": guided["decode"],
+        "stress": {k: stress[k] for k in ("draws", "max_abs_err", "nan_dead_tiles_err")},
         "gen_prefix_b1": prefixed["decode_timed"],
         "dashboard_b1": analysed["decode_timed"],
         "b1": generated["b1"],
@@ -3806,6 +4504,7 @@ def main() -> int:
                 "launches_evaluate": evaluated["launches"],
                 "launches_motifs": motifs["launches"],
                 "launches_gen_prefix": prefixed["flash"],
+                "launches_critic_guided": guided["flash"],
                 "motifs": motifs["flash_timed"],
                 "gen_prefix_b1": prefixed["flash_timed"],
                 "inference": scored["inference"],

@@ -4,22 +4,27 @@
     python -m genomics_lm_torch.evals.eval_generation_prefix <run_id> --npz val_bs512.npz \
         [--train_npz train_bs512.npz] [--preset quick|standard|full] [--k_list 1,3,5,10] \
         [--nll_controls] [--emit_replay replay.jsonl] [--termination_bias ...] \
-        [--multi_offset_prior ...] [--target_protein MKV...] [--device cpu]
+        [--multi_offset_prior ...] [--target_protein MKV...] \
+        [--critic_ckpt best_critic.npz [--critic_guidance] [--critic_stability] \
+         [--ebm_ckpt best_ebm.npz --ebm_guidance]] [--device cpu]
 
 Real CDS prefixes of a frozen split are continued under every active
 protocol (``raw_model`` and ``cds_constrained`` always, ``guided`` when any
-guidance is on: termination bias, the multi-offset prior, a synonymous
-template from ``--target_protein``, a forced terminal stop, non-CDS tokens),
-from paired sha256 seeds; each sample is scored by ``evals/gen_prefix.py``
-(the decode kernel on the card generates, the flash forward scores), with
-the NLL-vs-controls and memorization audits on request. Outputs:
-samples.csv, protocol_samples.csv, protocol_summary.csv (bootstrap CIs),
-summary.csv, generated_protocols.fasta, protocol_manifest.json, the four
-metric-vs-k plots (skipped with a line without matplotlib) and the replay
-JSONL. ``--critic_guidance``, ``--ebm_guidance``, ``--critic_ckpt`` and
-``--ebm_ckpt`` raise ``NotImplementedError``: the critic belongs to the
-protein stack, which is not ported (``--critic_stability`` without a critic
-checkpoint does nothing, as in JAX).
+guidance is on: a synonymous template from ``--target_protein``, critic or
+EBM guidance, termination bias, the multi-offset prior, a forced terminal
+stop, non-CDS tokens), from paired sha256 seeds; each sample is scored by
+``evals/gen_prefix.py`` (the decode kernel on the card generates, the flash
+forward scores), with the NLL-vs-controls and memorization audits on
+request. With ``--critic_ckpt`` and any of ``--critic_guidance``,
+``--ebm_guidance`` (the EBM from ``--ebm_ckpt``), ``--critic_stability`` or
+a target protein, the protein critic (``protein/critic_scoring.py``) is
+loaded on the same device: guidance blends its scores into the top-K codon
+choice at each step (``generate_cds_critic_guided``, or the synonymous
+generator), and ``--critic_stability`` adds each sample's ``critic_score``.
+Outputs: samples.csv, protocol_samples.csv, protocol_summary.csv (bootstrap
+CIs), summary.csv, generated_protocols.fasta, protocol_manifest.json, the
+four metric-vs-k plots (skipped with a line without matplotlib) and the
+replay JSONL.
 """
 
 from __future__ import annotations
@@ -119,22 +124,8 @@ def cds_from_rows(x, itos, max_genes: int) -> list[list[str]]:
     return genes
 
 
-CRITIC_FLAGS = ("critic_guidance", "ebm_guidance", "critic_ckpt", "ebm_ckpt")
-
-
-def refuse_critic_flags(args) -> None:
-    """The critic and EBM scorers live in the protein stack, which is not
-    ported: each of their flags raises instead of running without them."""
-    used = [f"--{name}" for name in CRITIC_FLAGS if getattr(args, name)]
-    if used:
-        raise NotImplementedError(
-            f"{', '.join(used)}: critic and EBM scoring (protein.critic_scoring, the "
-            "protein stack) is not ported")
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
-    refuse_critic_flags(args)
 
     import numpy as np
 
@@ -142,6 +133,7 @@ def main(argv=None) -> int:
     from genomics_lm_torch.evals import gen_prefix as E
     from genomics_lm_torch.evals.playground import make_decoder
     from genomics_lm_torch.generation import constrained as G
+    from genomics_lm_torch.generation.genetic_code import translate_codons_to_aa
     from genomics_lm_torch.utils.cli import resolve_run_dir
 
     preset = E.PRESETS[args.preset]
@@ -187,9 +179,24 @@ def main(argv=None) -> int:
         if args.multi_offset_prior_weights else {}
     )
 
+    score_fn = critic_bundle = None
+    if args.critic_ckpt and (args.critic_guidance or args.ebm_guidance
+                             or args.critic_stability or target_protein):
+        from genomics_lm_torch.protein.critic_scoring import load_score_fn
+
+        score_fn, critic_bundle = load_score_fn(
+            args.critic_ckpt,
+            ebm_ckpt=args.ebm_ckpt if args.ebm_guidance else None,
+            device=decoder.device,
+        )
+
     guidance = []
     if target_protein:
         guidance.append("synonymous_template")
+    if args.critic_guidance:
+        guidance.append("critic")
+    if args.ebm_guidance:
+        guidance.append("ebm")
     if args.termination_bias:
         guidance.append("termination_bias")
     if args.multi_offset_prior:
@@ -232,8 +239,21 @@ def main(argv=None) -> int:
                     if protocol == "guided" and target_protein:
                         return G.generate_cds_synonymous(
                             decoder, ctx, stoi, itos, target_protein,
-                            score_fn=None, alpha=0.0, guide_top_k=args.guide_top_k,
-                            temperature=args.temperature, rng=rng,
+                            score_fn=score_fn,
+                            alpha=args.guide_alpha if score_fn else 0.0,
+                            guide_top_k=args.guide_top_k,
+                            temperature=args.temperature,
+                            ebm_guided=args.ebm_guidance, rng=rng,
+                        )
+                    if protocol == "guided" and (args.critic_guidance or args.ebm_guidance):
+                        return G.generate_cds_critic_guided(
+                            decoder, score_fn, ctx, stoi, itos,
+                            target_codons=target_codons, hard_cap=hard_cap,
+                            alpha=args.guide_alpha, guide_top_k=args.guide_top_k,
+                            temperature=args.temperature,
+                            cds_only=not args.allow_non_cds_tokens,
+                            require_terminal_stop=args.require_terminal_stop,
+                            ebm_guided=args.ebm_guidance, rng=rng,
                         )
                     # guided-without-critic and plain constrained share the core
                     biased = protocol == "guided"
@@ -267,6 +287,10 @@ def main(argv=None) -> int:
                         ngram_indexes=ngram_indexes,
                         nll_controls=args.nll_controls,
                     )
+                    if critic_bundle is not None and args.critic_stability:
+                        aa = translate_codons_to_aa(sample.continuation).split("_")[0]
+                        if aa:
+                            sample.metrics["critic_score"] = float(score_fn([aa])[0])
                     scored.append(sample)
                     fasta_entries.append((
                         f"{protocol}_gene{gene_idx}_k{k}_sample{sidx}_seed{seed}",

@@ -1,8 +1,9 @@
-"""Generative design loop: ReD → likelihood → diversity → fold → report
-(twin of ``scripts/generative_design_loop.py``, the same flags plus
-``--device``).
+"""Generative design loop: ReD → critic → likelihood → fold → report (twin
+of ``scripts/generative_design_loop.py``, the same flags plus ``--device``).
 
     python -m genomics_lm_torch.generation.generative_design_loop <run_id> \
+        [--critic_ckpt best_critic.npz [--ebm_ckpt best_ebm.npz]] \
+        [--target_task stability] [--target_class C] \
         [--n_candidates 8] [--prefix ATG] [--target_codons 24] [--hard_cap 72] \
         [--budget 4000] [--esm_fold_top 2 --fold_backend mock] [--out_dir dir] \
         [--device cpu]
@@ -10,18 +11,18 @@
 1. batch ReD generation (Reset-and-Discard until a terminal stop) from the
    prefix under a global token budget, on the decoder's device (the decode
    kernel on the card),
-2. each candidate's mean log-probability and perplexity under the model,
+2. with ``--critic_ckpt``, the multi-task protein critic on the same device
+   scores each candidate's protein (``protein/critic_scoring.py``):
+   stability probability and prediction, family/function top-1, confidence
+   and entropy, and ``critic_score`` (the target task's log-probability, or
+   the negative EBM energy with ``--ebm_ckpt``),
+3. each candidate's mean log-probability and perplexity under the model,
    its codon entropy and GC,
-3. library diversity: pairwise identity, k-mer diversity, length and GC,
-4. opt-in folding of the top candidates by likelihood (``--esm_fold_top``;
-   ``--fold_backend mock`` is deterministic and offline, ``api`` posts to
-   the public ESMFold endpoint),
-5. candidates.csv, summary.json and report.md.
-
-``--critic_ckpt`` and ``--ebm_ckpt`` raise ``NotImplementedError``: the
-critic belongs to the protein stack, which is not ported; so the critic
-columns and the critic section of the report never appear, as in a JAX run
-without a critic.
+4. library diversity: pairwise identity, k-mer diversity, length and GC,
+5. opt-in folding of the top candidates by stability (by likelihood without
+   a critic; ``--esm_fold_top``; ``--fold_backend mock`` is deterministic
+   and offline, ``api`` posts to the public ESMFold endpoint),
+6. candidates.csv, summary.json and report.md (with its critic section).
 """
 
 from __future__ import annotations
@@ -67,12 +68,6 @@ def main(argv=None) -> int:
     ap.add_argument("--run_root", default="runs")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    used = [flag for flag, value in (("--critic_ckpt", args.critic_ckpt),
-                                     ("--ebm_ckpt", args.ebm_ckpt)) if value]
-    if used:
-        raise NotImplementedError(
-            f"{', '.join(used)}: critic and EBM scoring (protein.critic_scoring, the "
-            "protein stack) is not ported")
 
     import numpy as np
 
@@ -94,6 +89,19 @@ def main(argv=None) -> int:
     run_dir = resolve_run_dir(args.run_id, args.run_root)
     decoder, itos, stoi = make_decoder(run_dir, device=args.device)
     rng = np.random.default_rng(args.seed)
+
+    # --- critic (optional) ---------------------------------------------
+    score_fn = bundle = None
+    if args.critic_ckpt:
+        from genomics_lm_torch.protein.critic_scoring import load_score_fn
+
+        score_fn, bundle = load_score_fn(
+            args.critic_ckpt,
+            ebm_ckpt=args.ebm_ckpt,
+            target_task=args.target_task,
+            target_class_idx=args.target_class,
+            device=decoder.device,
+        )
 
     # --- 1. ReD generation ---------------------------------------------
     ctx = dna_to_context_ids(args.prefix, stoi)
@@ -122,6 +130,17 @@ def main(argv=None) -> int:
             "codon_entropy_bits": shannon_entropy(codons),
             "gc": gc_content([codons])[0],
         }
+        if bundle is not None and aa:
+            from genomics_lm_torch.protein.critic_scoring import score_candidate_tasks
+
+            task_scores = score_candidate_tasks(bundle, aa)
+            for key in ("stability_prob", "stability_pred",
+                        "family_top1", "family_top1_conf", "family_entropy",
+                        "function_top1", "function_top1_conf",
+                        "function_entropy"):
+                if key in task_scores:
+                    row[key] = task_scores[key]
+            row["critic_score"] = float(score_fn([aa])[0])
         rows.append(row)
 
     # --- 4. library diversity ------------------------------------------
@@ -142,6 +161,11 @@ def main(argv=None) -> int:
         "mean_gc": float(np.mean(gcs)) if gcs else 0.0,
         "std_gc": float(np.std(gcs)) if gcs else 0.0,
     }
+    if any("stability_prob" in r for r in rows):
+        stabs = [r["stability_prob"] for r in rows if "stability_prob" in r]
+        summary["mean_stability_prob"] = float(np.mean(stabs))
+        summary["frac_stable_p70"] = float(np.mean([s > 0.7 for s in stabs]))
+
     out_dir = Path(args.out_dir) if args.out_dir else run_dir / "scores" / "design_loop"
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -150,9 +174,13 @@ def main(argv=None) -> int:
     if args.esm_fold_top > 0 and rows:
         from genomics_lm_torch.evals.folding import fold_sequences
 
+        rank_key = (
+            "stability_prob" if any("stability_prob" in r for r in rows)
+            else "mean_logprob"
+        )
         ranked = sorted(
             [r for r in rows if r["protein"]],
-            key=lambda r: r["mean_logprob"], reverse=True,
+            key=lambda r: r.get(rank_key, float("-inf")), reverse=True,
         )[: args.esm_fold_top]
         folded = fold_sequences(
             [(f"candidate_{r['candidate']}", r["protein"]) for r in ranked],
@@ -199,6 +227,13 @@ def main(argv=None) -> int:
         f"| Pairwise identity | {summary['pairwise_identity']:.3f} |",
         f"| k-mer diversity | {summary['kmer_diversity']:.4f} |", "",
     ]
+    if "mean_stability_prob" in summary:
+        md += [
+            "## 3. Critic scores", "",
+            "| Metric | Value |", "|---|---|",
+            f"| Mean stability probability | {summary['mean_stability_prob']:.3f} |",
+            f"| P(stable) > 0.7 | {summary['frac_stable_p70'] * 100:.1f}% |", "",
+        ]
     if folded:
         md += [
             "## 4. ESMFold structure confidence", "",

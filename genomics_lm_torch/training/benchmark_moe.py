@@ -269,11 +269,12 @@ def run_candidate_subprocess(spec: dict, timeout: float = 900.0) -> dict:
 
 
 def run_throughput(args, *, model: dict = D512_MODEL, batch_size: int = 8,
-                   grad_accum: int = 16, device: str = "cuda") -> dict:
-    """Dense, top-1 and top-2 candidates, each in its own subprocess."""
+                   grad_accum: int = 16, device: str = "cuda", top_ks=(1, 2)) -> dict:
+    """Dense and the top-k candidates (top-1 and top-2, as the CLI runs
+    them), each in its own subprocess."""
     rows = []
     cands = [("dense", {})]
-    for top_k in (1, 2):
+    for top_k in top_ks:
         cands.append((f"moe_{args.experts}e_top{top_k}",
                       {"moe_experts": args.experts, "moe_top_k": top_k,
                        "moe_capacity_factor": 1.25}))

@@ -357,6 +357,93 @@ def params_to_jax(model: CodonGPT, cfg: CodonGPTConfig) -> dict:
     return tree
 
 
+# --- the protein stack (``models/protein.py``) ---------------------------------
+#
+# The protein modules hold their parameters under the JAX tree's names and
+# layouts (``w`` (fan_in, fan_out), ``b``, ``scale``, blocks a list), so a
+# state_dict key is the JAX path with dots and no leaf transposes.
+
+PROTEIN_KINDS = ("lm", "classifier", "multitask", "ebm")
+
+
+def _flatten_with_lists(tree, prefix: str = "") -> dict[str, object]:
+    """A tree's leaves by dotted path, list items by their index."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, child in items:
+        out.update(_flatten_with_lists(child, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def protein_module(kind: str, cfg, tree: dict | None = None) -> nn.Module:
+    """An empty protein module of ``kind`` for ``cfg``; the multi-task heads
+    and the EBM's widths are read from ``tree`` where it has them."""
+    from genomics_lm_torch.models import protein as pm
+
+    if kind == "lm":
+        return pm.ProteinLM(cfg)
+    if kind == "classifier":
+        return pm.ProteinClassifier(cfg)
+    if kind == "multitask":
+        heads = (tree or {}).get("heads", {})
+        return pm.MultiTaskProteinCritic(
+            cfg, {name: int(np.shape(h["w"])[1]) for name, h in heads.items()})
+    if kind == "ebm":
+        fc1 = np.shape(tree["fc1"]["w"])
+        return pm.ProteinLatentEBM(int(fc1[0]), int(fc1[1]))
+    raise ValueError(f"unknown protein model kind {kind!r}; one of {PROTEIN_KINDS}")
+
+
+def protein_params_from_jax(tree: dict, kind: str, cfg, device: str | torch.device) -> nn.Module:
+    """A protein module (``kind`` in ``PROTEIN_KINDS``) on ``device`` holding
+    the JAX tree's weights in float32. ``cfg`` is the ``ProteinLMConfig``
+    (``lm``) or ``ProteinClassifierConfig``; the EBM needs none. A leaf the
+    module needs and the tree lacks, a leaf the module has no place for, and
+    a leaf of another shape raise."""
+    model = protein_module(kind, cfg, tree)
+    flat = _flatten_with_lists(tree)
+    sd = model.state_dict()
+    missing = sorted(set(sd) - set(flat))
+    unused = sorted(set(flat) - set(sd))
+    if missing:
+        raise KeyError(f"the tree lacks leaves this {kind} model needs: {missing}")
+    if unused:
+        raise ValueError(f"the tree has leaves this {kind} model has no place for: {unused}")
+    for key, want in sd.items():
+        value = _host_tensor(flat[key], torch.float32)
+        if tuple(value.shape) != tuple(want.shape):
+            raise ValueError(f"the tree's {key} has shape {tuple(value.shape)}; "
+                             f"this {kind} model holds {tuple(want.shape)}")
+        sd[key] = value
+    model.load_state_dict(sd, strict=True)
+    return model.to(device).eval()
+
+
+def protein_params_to_jax(model: nn.Module) -> dict:
+    """The JAX tree (nested dicts of float32 numpy arrays, blocks a list) of a
+    protein module: the inverse of ``protein_params_from_jax``."""
+    tree: dict = {}
+    for key, value in model.state_dict().items():
+        node = tree
+        *parents, name = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = value.detach().float().cpu().numpy().copy()
+
+    def lists(node):  # a node keyed 0..n-1 is the JAX tree's list
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
 __all__ = [
     "JaxLeaf",
     "attach_from_tree",
@@ -364,5 +451,9 @@ __all__ = [
     "jax_leaves",
     "params_from_jax",
     "params_to_jax",
+    "PROTEIN_KINDS",
+    "protein_module",
+    "protein_params_from_jax",
+    "protein_params_to_jax",
     "state_dict_from_jax",
 ]

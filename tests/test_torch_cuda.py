@@ -798,3 +798,92 @@ def test_cuda_fit_mlp_tracks_the_cpu(cuda):
         for key in ("w", "b"):
             assert float(np.abs(a[key] - b[key]).max()) <= 1e-5 * float(np.abs(b[key]).max())
     np.testing.assert_array_equal(card.y_pred, cpu.y_pred)
+
+
+def _critic_and_batch(rng, n_layer=2, width=48):
+    """A float32 attention-pooled critic (the port's init) and one padded
+    multi-task batch with NaN stability targets and a multi-label task."""
+    from genomics_lm_torch.models import protein as pm
+    from genomics_lm_torch.protein.train_multi_task import CriticObjective
+
+    cfg = pm.ProteinClassifierConfig(vocab_size=28, n_layer=n_layer, n_head=8, n_embd=384,
+                                     block_size=512, dropout=0.0, pooling="attention")
+    dims = {"family": 4, "function": 5, "stability": 1, "go_terms": 8}
+    model = pm.init_weights(pm.MultiTaskProteinCritic(cfg, dims), seed=3)
+    B = 8
+    lengths = rng.integers(8, width + 1, B)
+    ids = rng.integers(3, 23, (B, width)).astype(np.int32)
+    ids[:, 0] = 1
+    mask = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int32)
+    ids[mask == 0] = 0
+    stability = rng.normal(size=B).astype(np.float32)
+    stability[::4] = np.nan
+    batch = {"input_ids": ids, "attention_mask": mask,
+             "family": rng.integers(-1, 4, B).astype(np.int32),
+             "function": rng.integers(0, 5, B).astype(np.int32), "stability": stability,
+             "go_terms": (rng.random((B, 8)) > 0.7).astype(np.float32)}
+    objective = CriticObjective(model_cfg=cfg, stability_regression=True,
+                                multi_label_tasks=["go_terms"])
+    return model, batch, objective
+
+
+@pytest.mark.cuda
+def test_cuda_critic_step_equals_the_cpu(cuda):
+    """One float32 AdamW step of a 2-layer d384 critic from one init on the
+    card (TF32 off) and on the CPU: loss within 1e-5, every gradient within
+    1e-4 of its leaf's largest (at least 1e-3 of the model's largest: a key
+    bias's gradient is rounding noise), parameters within 3e-5 (half a step,
+    5e-5, where the gradient is under 1e-3 of the model's largest)."""
+    import copy
+
+    from genomics_lm_torch.protein import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, batch, objective = _critic_and_batch(np.random.default_rng(40))
+    results = {}
+    for device in (cuda, torch.device("cpu")):
+        m = copy.deepcopy(model).to(device).train()
+        opt = common.adamw(m, 1e-4, 0.01)
+        loss, _ = objective(m, common.batch_to_device(batch, device), True)
+        loss.backward()
+        # the final layer norm is off the feature path: its gradient is 0
+        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().clone()
+                 for n, p in m.named_parameters()}
+        common.apply_accumulated(opt)
+        results[device.type] = (float(loss.detach()), grads,
+                                {n: p.detach().cpu() for n, p in m.named_parameters()})
+    (lc, gc, pc), (lw, gw, pw) = results["cuda"], results["cpu"]
+    assert abs(lc - lw) <= 1e-5 * abs(lw)
+    top = max(float(g.abs().max()) for g in gw.values())
+    for name in gw:
+        scale = max(float(gw[name].abs().max()), 1e-3 * top)
+        assert float((gc[name] - gw[name]).abs().max()) <= 1e-4 * scale, name
+        noisy = gw[name].abs() < 1e-3 * top
+        err = (pc[name] - pw[name]).abs()
+        assert float(torch.where(noisy, 0.0, err).max()) <= 3e-5, name
+        assert float(torch.where(noisy, err, 0.0).max()) <= 5e-5, name
+
+
+@pytest.mark.cuda
+def test_cuda_langevin_equals_the_cpu(cuda):
+    """Latent Langevin at ``noise_std`` 0 through a 2-layer d384 critic and
+    an EBM: float32 energies on the card within 1e-5 of the CPU's, the same
+    projected sequence."""
+    import copy
+
+    from genomics_lm_torch.models import protein as pm
+    from genomics_lm_torch.protein.sampler import latent_langevin_sample
+    from genomics_lm_torch.tokenizers.protein import ProteinTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, _, objective = _critic_and_batch(np.random.default_rng(41))
+    ebm = pm.init_weights(pm.ProteinLatentEBM(384, 512), seed=4)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        out[device.type] = latent_langevin_sample(
+            copy.deepcopy(ebm).to(device), copy.deepcopy(model).to(device).eval(),
+            objective.model_cfg, ProteinTokenizer(), "MKTAYIAKQRQISFVKSHFSRQ", steps=5,
+            lr=3.0, noise_std=0.0, normalize_grad=True)
+    assert out["cuda"][0] == out["cpu"][0]
+    e_card, e_cpu = np.asarray(out["cuda"][1]), np.asarray(out["cpu"][1])
+    assert float(np.abs(e_card - e_cpu).max()) <= 1e-5 * max(1.0, float(np.abs(e_cpu).max()))

@@ -14,8 +14,12 @@ loop against the JAX package.
   protocol; CSV rows, manifest, FASTA and replay), ``build_generated_prefix_replay``,
   ``generative_design_loop`` (candidates and summary, wall time excluded)
   and ``audit_generated_sequences``. The port's generators match JAX's token
-  for token from one seed, so every generated sequence is equal. Each critic
-  or EBM flag raises ``NotImplementedError``.
+  for token from one seed, so every generated sequence is equal.
+- The critic and EBM flags on a JAX-initialized critic and EBM: each flag's
+  ``eval_generation_prefix`` rows (critic- and EBM-guided generation, the
+  synonymous generator under the EBM, ``--critic_stability``) and, with
+  ``--critic_ckpt``/``--ebm_ckpt``, the design loop's candidates, critic
+  columns and report equal JAX's.
 """
 
 from __future__ import annotations
@@ -283,15 +287,99 @@ def test_replay_design_loop_and_audit_clis_match_jax(tiny, tmp_path, capsys):
     capsys.readouterr()
 
 
-@pytest.mark.parametrize("flags", [["--critic_guidance"], ["--ebm_guidance"],
-                                   ["--critic_ckpt", "critic.npz"], ["--ebm_ckpt", "ebm.npz"]],
-                         ids=lambda f: f[0].strip("-"))
-def test_critic_flags_raise(tiny, flags):
-    from genomics_lm_torch.evals.eval_generation_prefix import main as prefix_main
-    from genomics_lm_torch.generation.generative_design_loop import main as design_main
+@pytest.fixture(scope="module")
+def critic_ckpts(tiny):
+    """A JAX-initialized attention-pooled critic (stability a 2-class head)
+    and an EBM over its latents, in the trainers' checkpoint format."""
+    from genomics_lm_tpu.models import protein as jpm
 
-    with pytest.raises(NotImplementedError, match=flags[0]):
-        prefix_main([str(tiny["run"]), "--npz", "unused.npz", *flags, "--device", "cpu"])
-    if flags[0].endswith("ckpt"):
-        with pytest.raises(NotImplementedError, match=flags[0]):
-            design_main([str(tiny["run"]), *flags, "--device", "cpu"])
+    dims = {"family": 3, "function": 2, "stability": 2}
+    cfg = dict(n_layer=1, n_head=2, n_embd=16, block_size=128, pooling="attention")
+    critic = jpm.init_multitask(jax.random.PRNGKey(7), jpm.ProteinClassifierConfig(
+        vocab_size=28, dropout=0.0, **cfg), dims)
+    ebm = jpm.init_ebm(jax.random.PRNGKey(8), n_embd=16, hidden_dim=8)
+    paths = {"critic": tiny["root"] / "critic.npz", "ebm": tiny["root"] / "ebm.npz"}
+    save_checkpoint({"model": jax.tree.map(np.asarray, critic), "cfg": cfg, "task_dims": dims},
+                    paths["critic"])
+    save_checkpoint({"model": jax.tree.map(np.asarray, ebm)}, paths["ebm"])
+    return paths
+
+
+@pytest.fixture
+def jitted_jax_critic(monkeypatch):
+    """JAX's critic scoring with its forwards compiled whole: the same
+    functions, one compile per shape instead of one per primitive (the
+    guided generators score a new length every step)."""
+    from genomics_lm_tpu.protein import critic_scoring as jcs
+
+    for name in ("multitask_forward", "extract_latent"):
+        monkeypatch.setattr(jcs, name, jax.jit(getattr(jcs, name), static_argnums=1))
+
+
+CRITIC_CASES = {
+    "critic_guidance": (["--critic_guidance", "--critic_stability"], False),
+    "ebm_guidance": (["--ebm_guidance", "--ebm_ckpt", "{ebm}"], False),
+    "critic_ckpt": (["--critic_stability"], True),
+    "ebm_ckpt": (["--ebm_ckpt", "{ebm}", "--ebm_guidance", "--target_protein", "MKVLAT"], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CRITIC_CASES))
+def test_critic_flags_raise(tiny, critic_ckpts, jitted_jax_critic, case, tmp_path, capsys):
+    """Each critic or EBM flag of ``eval_generation_prefix`` (all with
+    ``--critic_ckpt``) gives JAX's rows; with ``--critic_ckpt`` (and
+    ``--ebm_ckpt``) the design loop's candidates, critic columns and report
+    equal JAX's too. The name is kept from when the port refused these flags."""
+    from genomics_lm_torch.evals.eval_generation_prefix import main as port_prefix
+    from genomics_lm_torch.generation.generative_design_loop import main as port_design
+    from scripts.eval_generation_prefix import main as jax_prefix
+    from scripts.generative_design_loop import main as jax_design
+
+    flags, design = CRITIC_CASES[case]
+    flags = ["--critic_ckpt", str(critic_ckpts["critic"])] + [
+        f.format(ebm=critic_ckpts["ebm"]) for f in flags]
+    base = [str(tiny["run"]), "--npz", str(tiny["data"] / f"val_bs{BLOCK}.npz"), *PREFIX_ARGS,
+            "--no_memorization_audit", *flags]
+    outputs = {}
+    for name, main, extra in (("jax", jax_prefix, []), ("port", port_prefix,
+                                                         ["--device", "cpu"])):
+        label = f"critic_{case}_{name}"
+        assert main(base + ["--out_label", label, *extra]) == 0
+        out = tiny["run"] / "scores" / label
+        outputs[name] = {csv_name: read_rows(out / csv_name)
+                         for csv_name in ("samples.csv", "protocol_samples.csv",
+                                          "protocol_summary.csv")}
+        outputs[name]["fasta"] = (out / "generated_protocols.fasta").read_text()
+        outputs[name]["manifest"] = json.loads((out / "protocol_manifest.json").read_text())
+    capsys.readouterr()
+    assert_close(outputs["port"], outputs["jax"], case)
+    rows = outputs["port"]["protocol_samples.csv"]
+    if "--critic_stability" in flags:
+        assert all(np.isfinite(float(r["critic_score"])) for r in rows if r["critic_score"])
+        assert any(r["critic_score"] for r in rows)
+    if "--critic_guidance" in flags or "--ebm_guidance" in flags:
+        components = outputs["port"]["manifest"]["protocols"]["guided"]["guidance_components"]
+        assert ("ebm" if "--ebm_guidance" in flags else "critic") in components
+    if not design:
+        return
+    design_args = [str(tiny["run"]), "--n_candidates", "3", "--target_codons", "3",
+                   "--hard_cap", "40", "--budget", "300", "--esm_fold_top", "2",
+                   "--fold_backend", "mock", "--seed", "1",
+                   *[f for f in flags if f.endswith(".npz") or f.endswith("_ckpt")]]
+    out = {}
+    for name, main, extra in (("jax", jax_design, []), ("port", port_design,
+                                                        ["--device", "cpu"])):
+        assert main(design_args + ["--out_dir", str(tmp_path / name), *extra]) == 0
+        summary = json.loads((tmp_path / name / "summary.json").read_text())
+        summary.pop("elapsed_sec")
+        rows = read_rows(tmp_path / name / "candidates.csv")
+        for row in rows:
+            row["pdb"] = row["pdb"].replace(str(tmp_path / name), "<out>")
+        report = (tmp_path / name / "report.md").read_text().splitlines()
+        out[name] = {"summary": summary, "rows": rows,
+                     "report": [line for line in report if "Elapsed" not in line]}
+    capsys.readouterr()
+    assert_close(out["port"], out["jax"], f"design loop {case}")
+    assert out["port"]["rows"] and all("critic_score" in r and "stability_prob" in r
+                                       for r in out["port"]["rows"])
+    assert "## 3. Critic scores" in out["port"]["report"]
