@@ -98,8 +98,8 @@ exits non-zero:
    width: synthetic windows on the card, then the real host pipeline under
    ``multi`` and ``binpack`` packing (chunking, packing, mmap sidecars,
    ``EpochPlan``, grouped microbatches, ``DevicePrefetcher`` from pinned
-   memory), each 3 warm-up, 2 measured and 1 profiled group (the CLI
-   measures 20 and profiles 3); logs
+   memory), each 3 warm-up, 1 measured and 1 profiled group (the CLI
+   measures 20 and profiles 3; the measured groups cut for time); logs
    tokens/s, pad fraction, ms per group, busy share and the host→device
    copies in the trace, and ``bench.py``'s one line. Each group's non-pad
    tokens counted on the card by the step must equal the host's count, and
@@ -115,7 +115,7 @@ exits non-zero:
    validation loss recomputed from ``last.npz`` (``load_checkpoint`` +
    ``params_from_jax``) must equal the trained model's.
 16. spec trained — ``serving/benchmark_speculative.py`` once in bf16 (the
-   JAX script's defaults, 2 serving repeats): a 4L4H d256 model trained on
+   JAX script's defaults, 1 serving repeat, cut from 2 for time): a 4L4H d256 model trained on
    a Markov corpus by ``run_training``, then plain and speculative drains;
    logs acceptance, tokens per slot-round, both drains' tokens/s and the
    validation loss beside the chain's entropy rate; the chunk kernel must
@@ -160,7 +160,9 @@ exits non-zero:
    per step; one speculative drain (K 4) launches the chunk kernel n_layer
    times per round; a 2-layer float32 int8 model gives the same greedy
    tokens on the card and on the CPU; ``benchmark_serving --int8_weights``
-   prints its closed-loop report and an open-loop (``--arrival_rate``) one.
+   prints its closed-loop report and an open-loop (``--arrival_rate``) one,
+   each on 72 requests into its 64 slots (cut from the script's 256 and 128
+   for time; 8 more than the slots, so slots are refilled).
 21. generate — the run phase 15 wrote, loaded by ``load_codon_model``: every
    generator of ``generation/constrained.py`` from one seed (raw, also over
    a context longer than the block; constrained, with the termination bias
@@ -201,8 +203,8 @@ exits non-zero:
    equal, a differing choice allowed only on a near-tie (its probability
    margin, logged, within ``MOE_NEAR_TIE``).
 25. moe serve — phase 23's run through ``load_codon_model``:
-   ``ServingEngine`` drains phase 4's 128 requests (decode launches = 12
-   x steps) and once speculatively with K 4 (chunk launches = 12 x
+   ``ServingEngine`` drains the first 72 of phase 4's 128 requests into 64
+   slots (a cut for time that still refills slots; decode launches = 12 x steps) and once speculatively with K 4 (chunk launches = 12 x
    rounds), then the bf16 chunk kernel at that drain's shapes (12 layers,
    64 slots, its cache, 8 kv heads of 64, T 5; ragged and full) is held to
    phase 10's bound and timed; ``quantize_params`` quarters the attention bytes and leaves
@@ -308,9 +310,9 @@ exits non-zero:
    held out); the ``train_multi_task`` CLI at ``configs/protein_critic_12L8H.yaml``
    (12L8H d384, block 512, attention pooling, bidirectional, B 16 x 2, lr
    1e-4, float32; plus the data paths, its commented ``multi_label_tasks``
-   and ``task_loss_weights`` lines and a ``go_terms`` head width) for 2
-   epochs (cut from 10) and a ``--resume`` to a third: every loss finite,
-   ``curves.csv`` 3 rows, seconds, sequences/s and peak memory an epoch;
+   and ``task_loss_weights`` lines and a ``go_terms`` head width) for 1
+   epoch (cut from 10) and a ``--resume`` to a second: every
+   loss finite, ``curves.csv`` 2 rows, seconds, sequences/s and peak memory an epoch;
    one float32 step of a 2-layer critic card against CPU within
    ``TRAIN_PARITY_TOL``; the trained critic's latents for 16 validation
    proteins card against CPU within ``CARD_CPU_RTOL``;
@@ -334,6 +336,43 @@ exits non-zero:
    kernel launched n_layer times a cached step and the flash forward
    n_layer times a scored window or uncached forward, critic forwards per
    guided codon and their share of the wall time.
+42. parallel ranks — the ranks' work of phases 43-45 in two launches
+   (``parallel/launch.py::spawn`` of ``parallel/workers.py::each``; each
+   process takes seconds to reach the card, so the workers share them):
+   two ranks sharing the card over gloo run the data- and tensor-parallel
+   groups, the train CLI's tensor-parallel run and the tensor-parallel
+   drains; one rank over NCCL, started beside them, the bit-for-bit group. The kernels are built
+   (phase 2) before any rank starts, so no two ranks compile at once.
+43. dp train — data parallelism: the flash kernels at a rank's shape (B 4,
+   H 8, T 512, heads of 48) against their plain versions and timed; then
+   ``bench.py``'s step config (10L8H d384, bf16 flash, G 16 x B 8 x T 512
+   global) as two ranks of B 4 sharing the card over gloo with ZeRO-1
+   (``parallel/workers.py::group_steps`` through ``parallel/launch.py``):
+   1 warm-up and 3 timed groups, each rank's flash launches G x n_layer a
+   group, tokens/s, the share of wall time inside collectives and the
+   moment bytes a rank (about half). A float32 group at 2 layers (a depth
+   cut) and dropout 0 with uneven pad over the ranks against the one-rank card group within
+   ``TRAIN_PARITY_TOL``; one rank of a data mesh over NCCL, which issues
+   the data-parallel collectives and ZeRO-1's all-gather at world 1 (their
+   count checked), bit for bit (both under torch's deterministic
+   algorithms, in one fresh process); the mean time of a collective, gloo
+   and NCCL.
+44. tp train — tensor parallelism with ``residual_sharding`` (sequence
+   parallelism): the flash kernels at a rank's 4 heads (B 8) checked and
+   timed; the float32 parity and 1 timed group at ``tensor_parallel`` 2;
+   then the train CLI through its launch path (``--mesh_devices 2
+   --tensor_parallel 2``, two ranks on the card) at 2 layers (cut from 10)
+   for 1 epoch, and a ``--resume`` at world size 1 to a second.
+45. tp serve — the serving benchmark's config (phase 4's model, 64 slots,
+   128 requests, ``max_seq_len`` 256) at ``tensor_parallel`` 2 on two ranks:
+   the decode kernel at 4 kv heads a rank (bf16 and int8 caches) and the
+   chunk kernel at its local heads against their plain versions and timed;
+   drains with a bf16 cache (128 requests), an int8 cache and speculative
+   K 4 (72 requests each into the 64 slots, cut for time), the ranks' tokens equal, every
+   budget served, each rank's decode launches n_layer a step and chunk
+   launches n_layer a verify round; the 8 greedy float32 requests of the
+   smallest budgets equal to the meshless engine's. Two ranks on one card are no
+   scaling figure.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -343,6 +382,7 @@ Without CUDA it prints no result and exits 1.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import csv
@@ -388,6 +428,8 @@ from genomics_lm_torch.ops import flash_attention as fa
 from genomics_lm_torch.ops.masks import segment_ids_from_tokens as segment_ids
 from genomics_lm_torch.ops.masks import structure_mask
 from genomics_lm_torch.ops.quant import quantize_params
+from genomics_lm_torch.parallel import workers as par_workers
+from genomics_lm_torch.parallel import launch as par_launch
 from genomics_lm_torch.serving import benchmark_decode_kernel as bench_decode
 from genomics_lm_torch.serving import benchmark_serving as bench_serving
 from genomics_lm_torch.serving import benchmark_speculative as bench_spec
@@ -425,7 +467,7 @@ from genomics_lm_torch.training.train_noprop import main as noprop_cli
 from genomics_lm_torch.training.optim import build_optimizer
 from genomics_lm_torch.training.train_step import LossConfig, make_eval_step, make_train_step
 from genomics_lm_torch.utils.timing import card_peaks, decode_bound_ms, median_ms
-from genomics_lm_torch.utils.weights import params_from_jax, params_to_jax
+from genomics_lm_torch.utils.weights import params_from_jax, params_to_jax, state_dict_from_jax
 
 KERNEL_SOURCES = ["decode_attention", "flash_attention", "decode_attention_chunk",
                   "decode_attention_streamed"]
@@ -901,10 +943,12 @@ def phase_http(model, cfg) -> None:
 # --- phase 7: the flash kernels against their plain versions ---------------------
 
 
-def flash_case(gen, B, Hq, Hkv, T, S, D, dtype, window, rate, causal=True, segs=97):
+def flash_case(gen, B, Hq, Hkv, T, S, D, dtype, window, rate, causal=True, segs=97,
+               heads=None):
     """Random q, k, v, segment ids, seed, config. ``segs``: a <SEP> every
     ``segs``-th token (running count, as the main path's batches), or
-    "random": ids drawn from {0..3}, not monotone."""
+    "random": ids drawn from {0..3}, not monotone. ``heads``: the
+    ``dropout_heads`` (h0, H) of a tensor-parallel rank."""
     dev = "cuda"
     q = torch.randn((B, Hq, T, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
@@ -915,7 +959,7 @@ def flash_case(gen, B, Hq, Hkv, T, S, D, dtype, window, rate, causal=True, segs=
         seps = (torch.arange(S, device=dev) % segs == 0).to(torch.int32)
         seg = torch.cumsum(seps[None, :].expand(B, S), dim=-1, dtype=torch.int32).contiguous()
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
-    return q, k, v, seg, seed, fa.FlashCfg(causal, window, rate)
+    return q, k, v, seg, seed, fa.FlashCfg(causal, window, rate, heads)
 
 
 def flash_bounds(q, k, seg, cfg, peak_bw, peak_ops):
@@ -987,7 +1031,7 @@ def phase_flash(peak_bw, peak_ops) -> dict:
 
 
 def check_flash_case(gen, phase, name, b, hq, hkv, t, s_len, d, dtype, window, rate, segs,
-                     is_timed, peak_bw, peak_ops) -> dict | None:
+                     is_timed, peak_bw, peak_ops, heads=None) -> dict | None:
     """One flash case: the forward, dQ and dK/dV kernels (through the
     autograd Function, a fixed random cotangent) against their plain
     versions within ``FLASH_TOL``; when ``is_timed``, then each kernel's
@@ -997,7 +1041,7 @@ def check_flash_case(gen, phase, name, b, hq, hkv, t, s_len, d, dtype, window, r
     bf16 = torch.bfloat16
     causal = "noncausal" not in name
     q, k, v, seg, seed, cfg = flash_case(gen, b, hq, hkv, t, s_len, d, dtype, window, rate,
-                                         causal, segs)
+                                         causal, segs, heads)
     live = fa.flash_live_tiles(seg, t, s_len, causal, window)
     band = fa.flash_live_tiles(None, t, s_len, causal, window)
     tiles = dict(band_tiles=int(band.sum()) * b * hq)
@@ -1005,7 +1049,7 @@ def check_flash_case(gen, phase, name, b, hq, hkv, t, s_len, d, dtype, window, r
     tiles["tiles_visited"] = int(live.sum()) * hq if dtype == bf16 else tiles["band_tiles"]
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     out = fa.flash_attention(qg, kg, vg, segment_ids=seg, attention_window=window,
-                             dropout_rate=rate, seed=seed, causal=causal)
+                             dropout_rate=rate, seed=seed, causal=causal, dropout_heads=heads)
     cot = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     grads = torch.autograd.grad(out, (qg, kg, vg), cot)
     _, lse = fa.flash_fwd(q, k, v, seg, seed, cfg)
@@ -1024,7 +1068,7 @@ def check_flash_case(gen, phase, name, b, hq, hkv, t, s_len, d, dtype, window, r
     tol = FLASH_TOL[dtype]
     log(phase, case=name, shape=dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s_len, D=d),
         dtype=str(dtype).removeprefix("torch."), causal=causal, window=window,
-        dropout=rate, segments=segs, **tiles,
+        dropout=rate, dropout_heads=heads, segments=segs, **tiles,
         rel_err=errs, max_abs_err=abs_errs, tol=tol, tol_reason=FLASH_TOL_REASON)
     if max(errs.values()) > tol:
         raise AssertionError(f"flash {name}: kernel disagrees with its plain version "
@@ -1587,7 +1631,7 @@ def phase_spec_parity() -> None:
 
 # the smoke's depth of each protocol (``bench_pipeline.py`` itself measures 20
 # groups and profiles 3): the phase checks the path, the CLI measures it
-PIPELINE_DEPTH = dict(measure=2, profile_groups=1)
+PIPELINE_DEPTH = dict(measure=1, profile_groups=1)  # measured groups cut for time
 
 
 def phase_pipeline(card: str) -> dict:
@@ -1807,7 +1851,7 @@ def check_spec_trained_kernels(report: dict, peak_bw, peak_ops) -> None:
 
 
 def phase_spec_trained(card: str, peak_bw, peak_ops) -> dict:
-    args = bench_spec.parser().parse_args(["--repeats", "2"])
+    args = bench_spec.parser().parse_args(["--repeats", "1"])  # a cut for time
     da.decode_attention_chunk.launches = 0
     da.decode_attention.launches = 0
     report = bench_spec.run(args, "cuda")
@@ -2175,6 +2219,8 @@ def int8_greedy_parity() -> dict:
 
 
 INT8_DRAIN_ORDER = ("dense", "int8")  # one pair of dense, int8, int8, dense: a cut for time
+INT8_BENCH_REQUESTS = 72  # benchmark_serving's requests (cut for time from 256 closed
+# loop and 128 open loop; more than its 64 slots, so slots are refilled)
 
 
 def phase_int8_serve(served: dict, card: str) -> dict:
@@ -2246,16 +2292,17 @@ def phase_int8_serve(served: dict, card: str) -> dict:
         f"kv_quant_{k}": v for k, v in parity.items()})
 
     reports = {}
-    for name, argv in (("closed_loop", ["--int8_weights", "--repeats", "1"]),
+    for name, argv in (("closed_loop", ["--int8_weights", "--repeats", "1", "--requests",
+                                        str(INT8_BENCH_REQUESTS)]),
                        ("open_loop", ["--int8_weights", "--arrival_rate", "40",
-                                      "--requests", "128"])):
+                                      "--requests", str(INT8_BENCH_REQUESTS)])):
         t0 = time.perf_counter()
         reports[name] = bench_serving.run(bench_serving.parser().parse_args(argv))
         print(json.dumps({k: v for k, v in reports[name].items() if k != "ttft_ms"}),
               flush=True)
         log("int8_benchmark_serving", protocol=name, seconds=time.perf_counter() - t0,
             value=reports[name]["value"], unit=reports[name]["unit"], card=card)
-    if len(reports["open_loop"]["ttft_ms"]) != 128:
+    if len(reports["open_loop"]["ttft_ms"]) != INT8_BENCH_REQUESTS:
         raise AssertionError("the open-loop run did not time every request")
     return {"launches": counts[False], "launches_int8_cache": counts[True]}
 
@@ -2792,12 +2839,16 @@ def moe_f32_serving(tree, cfg) -> dict:
     return out
 
 
+MOE_SERVE_REQUESTS = 72  # of phase 4's 128, a cut for time: 8 more than the 64
+# slots, so retired requests' slots are refilled
+
+
 def phase_moe_serve(moe_run: dict, card: str, peak_bw, peak_ops) -> dict:
     model, cfg, itos, _ = load_codon_model(moe_run["run_dir"], device="cuda")
     cfg = cfg.replace(dropout=0.0)
     rng = np.random.default_rng(0)
     drain(model, cfg, build_requests(rng, 8), kv_quant=False)  # warm-up
-    reqs = build_requests(rng, REQUESTS)  # [serve]'s mix
+    reqs = build_requests(rng, REQUESTS)[:MOE_SERVE_REQUESTS]  # [serve]'s mix, a cut
     da.decode_attention.launches = 0  # the MoE serving path's drain only
     results, seconds, eng = drain(model, cfg, reqs, kv_quant=False)
     decode_launches = da.decode_attention.launches
@@ -3767,7 +3818,7 @@ def phase_decode_stress(draws: int = DECODE_STRESS_DRAWS) -> dict:
 PROTEIN_CONFIG = Path(__file__).resolve().parent / "configs" / "protein_critic_12L8H.yaml"
 PROTEIN_CORPUS = ["--genes", "800", "--min_codons", "50", "--max_codons", "510",
                   "--seed", "1337"]
-PROTEIN_CRITIC_EPOCHS = 2  # of the config's 10, then a resume to a third
+PROTEIN_CRITIC_EPOCHS = 1  # of the config's 10, then a resume to a second
 PROTEIN_LM_EPOCHS = 1
 PROTEIN_EBM_EPOCHS = 2  # of train_ebm's 5
 PROTEIN_HEADS_EPOCHS = 3  # of train_mlp_heads' 20
@@ -4006,7 +4057,7 @@ def phase_protein_critic(workdir: Path, card: str) -> dict:
     ``task_loss_weights`` lines and a ``task_dims`` entry for the go_terms
     head; each override logged) through the ``train_multi_task`` CLI for
     ``PROTEIN_CRITIC_EPOCHS`` epochs, then ``--resume`` to one more:
-    every loss finite, ``curves.csv`` 3 rows, seconds, sequences/s and peak
+    every loss finite, one ``curves.csv`` row an epoch, seconds, sequences/s and peak
     memory per epoch. Then one float32 step of a 2-layer critic card against
     CPU, the trained critic's latents card against CPU, the training
     benchmark at its defaults and at the config's width, and a profiled
@@ -4050,8 +4101,9 @@ def phase_protein_critic(workdir: Path, card: str) -> dict:
                curves=curves, epochs=epochs, seconds=seconds)
     log("protein_critic", **row, card=card)
     losses = [v for r in curves for k, v in r.items() if k != "epoch"]
-    if ([r["epoch"] for r in curves] != [1.0, 2.0, 3.0] or not np.isfinite(losses).all()
-            or len(epochs) != 3):
+    want = [float(e) for e in range(1, PROTEIN_CRITIC_EPOCHS + 2)]
+    if ([r["epoch"] for r in curves] != want or not np.isfinite(losses).all()
+            or len(epochs) != len(want)):
         raise AssertionError(f"protein critic run: {row}")
 
     parity = _critic_step_parity(data, card)
@@ -4323,6 +4375,332 @@ def phase_critic_guided(trained: dict, data: Path, critic: dict, ebm: dict, card
     return out
 
 
+
+# --- phases 42-45: data and tensor parallelism, two ranks sharing the card ------
+#
+# The card machine has one H100 and PyTorch runs one process per device, so
+# the parallel paths run as two ranks sharing cuda:0 over gloo (NCCL refuses
+# two ranks on one device) and as one rank over NCCL: real collectives and
+# the kernels at each rank's shapes, but no scaling figure. The kernels are
+# built (phase 2) before any rank is spawned, so no two ranks compile at once.
+
+PARALLEL_TIMEOUT_S = 240  # a rank whose collective waits longer fails the run
+TP_CUT_REQUESTS = 72  # the int8 and speculative TP drains (of 128, into 64 slots)
+
+
+def parallel_model(**over) -> tuple[dict, dict]:
+    """(config kwargs, JAX-layout tree) of the training main path's model
+    (random weights from its seed), with ``over`` applied."""
+    kw = dict(train_main.MAIN_TRAIN, **over)
+    cfg = CodonGPTConfig(**kw)
+    torch.manual_seed(train_main.SEED)
+    return kw, params_to_jax(CodonGPT(cfg), cfg)
+
+
+def group_spec(kw, tree, axes, groups, *, warmup=0, zero1=True, timed=False) -> dict:
+    return {"axes": axes, "model": kw, "tree": tree, "groups": groups, "warmup": warmup,
+            "run_cfg": dict(train_main.RUN_CFG, warmup_steps=0, shard_optimizer_state=zero1),
+            "total_steps": train_main.TOTAL_STEPS, "time_collectives": timed,
+            "return_grads": not timed, "return_tree": not timed, "seed": train_main.SEED}
+
+
+def spawn_ranks(fn, world: int, *args, backend=None):
+    """``fn`` on ``world`` ranks on the card; logs the launch's wall seconds."""
+    t0 = time.perf_counter()
+    out = par_launch.spawn(fn, world, *args, device="cuda:0", backend=backend,
+                           timeout_s=PARALLEL_TIMEOUT_S)
+    log("spawn", fn=fn.__name__, world=world, backend=backend or "auto",
+        seconds=time.perf_counter() - t0)
+    return out
+
+
+def compare_group(phase: str, name: str, cfg_kw: dict, ref: dict, got: dict, tol: dict,
+                  exact: bool = False) -> dict:
+    """A parallel run's first group (rank 0's global metrics, full gradient
+    and updated weights) against the one-rank card group's: within ``tol``
+    (``TRAIN_PARITY_TOL``'s rules), or bit for bit with ``exact``."""
+    cfg = CodonGPTConfig(**cfg_kw)
+    want_p = state_dict_from_jax(ref["tree"], cfg)
+    got_p = state_dict_from_jax(got["tree"], cfg)
+    want_g, got_g = ref["grads"], got["grads"]
+    gmax = max(float(g.abs().max()) for g in want_g.values())
+    loss_ref = ref["metrics"][0]["total_loss_sum"]
+    loss_err = abs(got["metrics"][0]["total_loss_sum"] - loss_ref) / abs(loss_ref)
+    grad_err = max(float((got_g[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * gmax)
+                   for n, g in want_g.items())
+    param_err = noise_err = 0.0
+    for n, g in want_g.items():
+        noise = g.abs() < tol["noise_grad_share"] * gmax
+        diff = (got_p[n] - want_p[n]).abs()
+        param_err = max(param_err, float((diff * ~noise).max()))
+        noise_err = max(noise_err, float((diff * noise).max()))
+    same = all(torch.equal(got_p[n], want_p[n]) for n in want_p) and all(
+        torch.equal(got_g[n], g) for n, g in want_g.items())
+    out = dict(case=name, loss=got["metrics"][0]["total_loss_sum"], loss_ref=loss_ref,
+               loss_rel_err=loss_err, grad_rel_err=grad_err, param_abs_err=param_err,
+               noise_param_abs_err=noise_err, bit_identical=same,
+               nonpad_tokens=got["metrics"][0]["nonpad_tokens"],
+               nonpad_tokens_ref=ref["metrics"][0]["nonpad_tokens"], tol=tol)
+    log(phase + "_parity", **out)
+    if exact and not same:
+        raise AssertionError(f"{phase} {name}: not bit for bit the one-rank group")
+    if (loss_err > tol["loss_rtol"] or grad_err > tol["grad_rtol"]
+            or param_err > tol["param_atol"] or noise_err > tol["noise_param_atol"]
+            or out["nonpad_tokens"] != out["nonpad_tokens_ref"]):
+        raise AssertionError(f"{phase} {name}: disagrees with the one-rank group {out}")
+    return out
+
+
+def log_timed_ranks(phase: str, name: str, ranks: list, nonpad_per_group: int,
+                    n_layer: int, groups: int, card: str) -> dict:
+    """Each rank's time, collective share, flash launches per group and
+    moment bytes of a timed parallel run; the launches must be G x n_layer
+    a group on every rank."""
+    G = train_main.G
+    rows = []
+    for r, res in enumerate(ranks):
+        launches = {k: v / groups for k, v in res["launches"].items()}
+        rows.append(dict(rank=r, seconds=res["seconds"], setup_seconds=res["setup_seconds"],
+                         collective_seconds=res["collective_seconds"],
+                         collective_share=res["collective_seconds"] / res["seconds"],
+                         collectives=res["collectives"], flash_launches_per_group=launches,
+                         moment_bytes=res["state_bytes"]))
+        if any(v != G * n_layer for v in launches.values()):
+            raise AssertionError(f"{phase} {name}: rank {r} launched {launches} a group, "
+                                 f"not G x n_layer = {G * n_layer}")
+    seconds = max(res["seconds"] for res in ranks)
+    out = dict(case=name, groups=groups, ranks=rows,
+               nonpad_tokens_per_s=nonpad_per_group * groups / seconds,
+               ms_per_group=seconds * 1e3 / groups, card=card)
+    log(phase, **out)
+    return out
+
+
+def phase_parallel_ranks(card: str, workdir: Path) -> dict:
+    """The ranks' work of phases 43-45, in one launch of two ranks sharing the
+    card over gloo (each process takes seconds to reach the card) and one of
+    one rank over NCCL: the data- and tensor-parallel float32 parity and
+    timed groups, the train CLI's tensor-parallel run, and the
+    tensor-parallel drains."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # float32 parity: the full width at 2 layers (a depth cut), dropout 0,
+    # 2 microbatches a group, uneven pad over the ranks' rows
+    f32_kw, f32_tree = parallel_model(compute_dtype="float32", dropout=0.0, n_layer=2)
+    parity_groups = [tuple(train_main.make_batch(21, "cpu", groups=2)[k].numpy()
+                           for k in ("x", "y"))]
+    for x, y in parity_groups:
+        y[0, 1, 200:] = 0
+        y[1, 2, :] = 0
+    bf16_kw, bf16_tree = parallel_model()
+    sp = {"residual_sharding": ("data", "model")}
+    dp_groups = [tuple(train_main.make_batch(s, "cpu")[k].numpy() for k in ("x", "y"))
+                 for s in range(3)]
+    # TP: 1 timed group (3 under DP; the float32 group before it warms the
+    # ranks up), each taking seconds of gloo collectives
+    tp_groups = dp_groups[:1]
+    tp_axes = {"data": 1, "model": 2}
+
+    # the train CLI's launch path: --mesh_devices 2 --tensor_parallel 2 at 2
+    # layers for 1 epoch (phase 44 resumes it at world size 1 to a second)
+    packed_corpus(workdir, 64, 16)
+    cfgs = {}
+    for epochs in (1, 2):
+        cfgs[epochs] = run_yaml(workdir / f"tp_e{epochs}.yaml", workdir / "train.npz",
+                                workdir / "val.npz", G=2, epochs=epochs, run_id="tp-run")
+        cfgs[epochs].write_text(cfgs[epochs].read_text().replace("n_layer: 10", "n_layer: 2")
+                                + "scheduler_total_steps: 8\n")
+    cli_argv = ["--run_root", str(workdir / "runs"), "--device", "cuda:0"]
+
+    # serving: phase 4's model at tensor parallel 2; the float32 parity on the
+    # 8 requests of the smallest budgets, the int8 and speculative drains on
+    # the first 72 (8 more than the slots, so slots are refilled): cuts of
+    # the 128 for time
+    cfg = CodonGPTConfig(**MAIN)
+    torch.manual_seed(0)
+    model = CodonGPT(cfg).cuda()
+    serve_tree = params_to_jax(model, cfg)
+    table = fit_draft_table(model, cfg)
+    del model
+    reqs = build_requests(np.random.default_rng(0), REQUESTS)
+    greedy = [(p, n, 0.0) for p, n, _ in sorted(reqs, key=lambda r: r[1])[:8]]
+    serve_specs = {
+        "f32_greedy": {"model": dict(MAIN, compute_dtype="float32"), "tree": serve_tree,
+                       "engine": dict(ENGINE), "requests": greedy},
+        "bf16": {"model": MAIN, "tree": serve_tree, "engine": dict(ENGINE), "requests": reqs},
+        "int8_cache": {"model": MAIN, "tree": serve_tree,
+                       "requests": reqs[:TP_CUT_REQUESTS],
+                       "engine": dict(ENGINE, kv_quant=True)},
+        "spec4": {"model": MAIN, "tree": serve_tree, "requests": reqs[:TP_CUT_REQUESTS],
+                  "engine": dict(ENGINE, speculative_k=SPECULATIVE_K, draft_table=table)},
+    }
+    calls = [
+        ("group_steps", [group_spec(f32_kw, f32_tree, {"data": 2}, parity_groups),
+                         group_spec(bf16_kw, bf16_tree, {"data": 2}, dp_groups, warmup=1,
+                                    timed=True),
+                         group_spec(dict(f32_kw, **sp), f32_tree, tp_axes, parity_groups),
+                         group_spec(dict(bf16_kw, **sp), bf16_tree, tp_axes, tp_groups,
+                                    timed=True)]),
+        ("train_cli", ["--config", str(cfgs[1]), *cli_argv, "--mesh_devices", "2",
+                       "--tensor_parallel", "2"]),
+        ("serve", list(serve_specs.values())),
+    ]
+    # in a fresh process under torch's deterministic algorithms (the embedding
+    # gradient's atomics otherwise reorder its sums from run to run): the
+    # one-rank card group with no mesh, then one rank of a data mesh over
+    # NCCL, which issues the data-parallel collectives (the loss shares',
+    # metrics' and gradient's all-reduces, ZeRO-1's all-gather; counted) and
+    # gathers the weights and gradients to the writer, all at world 1. It
+    # runs beside the two gloo ranks: most of its seconds go to starting up
+    exact = dict(group_spec(f32_kw, f32_tree, None, parity_groups), deterministic=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        nccl_launch = pool.submit(
+            spawn_ranks, par_workers.group_steps, 1,
+            [exact, dict(exact, axes={"data": 1}, time_collectives=True)], backend="nccl")
+        ranks = spawn_ranks(par_workers.each, 2, calls)
+        ref, nccl = nccl_launch.result()[0]
+    steps = [[r[0][i] for r in ranks] for i in range(4)]
+    return {"f32_kw": f32_kw, "bf16_tree": bf16_tree, "ref": ref, "nccl": nccl,
+            "dp_parity": steps[0], "dp_timed": steps[1], "tp_parity": steps[2],
+            "tp_timed": steps[3], "dp_groups": dp_groups, "tp_groups": tp_groups,
+            "cli": [r[1] for r in ranks], "cli_cfgs": cfgs, "cli_argv": cli_argv,
+            "workdir": workdir, "serve": [r[2] for r in ranks], "serve_specs": serve_specs,
+            "n_layer": bf16_kw["n_layer"]}
+
+
+def phase_dp_train(card: str, peak_bw, peak_ops, par: dict) -> dict:
+    """``[dp_train]``: bench.py's step config (10L8H d384, bf16 flash, G 16 x
+    B 8 x T 512 global), ZeRO-1 on, 2 ranks of B 4 sharing the card over
+    gloo and 1 rank over NCCL (run by ``phase_parallel_ranks``); the flash
+    kernels at a rank's shape against their plain versions and timed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    H, T = train_main.MAIN_TRAIN["n_head"], train_main.T
+    D = train_main.MAIN_TRAIN["n_embd"] // H
+    rank_timed = check_flash_case(gen, "dp_train_kernel", "rank_b4_h8_bf16", 4, H, H, T, T, D,
+                                  torch.bfloat16, None, 0.1, 97, True, peak_bw, peak_ops)
+    timed = par["dp_timed"]
+    nonpad = int((torch.from_numpy(par["dp_groups"][0][1]) != 0).sum())
+    row = log_timed_ranks("dp_train", "gloo_2_ranks_zero1_bf16", timed, nonpad,
+                          par["n_layer"], len(par["dp_groups"]), card)
+    parity = compare_group("dp_train", "gloo_2_ranks_zero1_f32", par["f32_kw"], par["ref"],
+                           par["dp_parity"][0], TRAIN_PARITY_TOL)
+    nccl = par["nccl"]
+    if nccl["collectives"] < 4:  # 3 all-reduces and ZeRO-1's all-gather a group
+        raise AssertionError(f"the NCCL group issued {nccl['collectives']} collectives")
+    compare_group("dp_train", "nccl_1_rank_f32", par["f32_kw"], par["ref"], nccl,
+                  TRAIN_PARITY_TOL, exact=True)
+    # the mean wall time of a collective: gloo between two ranks on the card
+    # (the bf16 groups') and NCCL at world 1 (the float32 group's)
+    log("dp_train_collectives",
+        gloo_2_ranks_ms=[r["collective_seconds"] * 1e3 / r["collectives"] for r in timed],
+        nccl_1_rank_ms=nccl["collective_seconds"] * 1e3 / nccl["collectives"],
+        nccl_collectives=nccl["collectives"], card=card)
+    moments = [r["state_bytes"] for r in timed]
+    full = 2 * 4 * sum(a.size for _, a in tree_leaves(par["bf16_tree"]))  # two f32 moments
+    log("dp_train", moment_bytes_per_rank=moments, moment_bytes_one_rank=full,
+        share_per_rank=[m / full for m in moments])
+    if max(moments) > 0.6 * full:
+        raise AssertionError(f"ZeRO-1 holds {moments} moment bytes a rank of {full}")
+    return {"timed": rank_timed, "launches": timed[0]["launches"], "run": row,
+            "parity": parity}
+
+
+def phase_tp_train(card: str, peak_bw, peak_ops, par: dict) -> dict:
+    """``[tp_train]``: the same config at tensor_parallel 2 with
+    ``residual_sharding`` (sequence parallelism), 2 ranks of 4 heads (run by
+    ``phase_parallel_ranks``); the flash kernels at a rank's shape checked
+    and timed; the train CLI's tensor-parallel run resumed at world size 1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    H, T, B = train_main.MAIN_TRAIN["n_head"], train_main.T, train_main.B
+    D = train_main.MAIN_TRAIN["n_embd"] // H
+    # rank 1's heads: its dropout keyed on heads 4..7 of 8, as the whole model's
+    rank_timed = check_flash_case(gen, "tp_train_kernel", "rank_b8_h4_bf16", B, H // 2,
+                                  H // 2, T, T, D, torch.bfloat16, None, 0.1, 97, True,
+                                  peak_bw, peak_ops, heads=(H // 2, H))
+    parity = compare_group("tp_train", "gloo_tp2_sp_f32", par["f32_kw"], par["ref"],
+                           par["tp_parity"][0], TRAIN_PARITY_TOL)
+    timed = par["tp_timed"]
+    nonpad = int((torch.from_numpy(par["tp_groups"][0][1]) != 0).sum())
+    row = log_timed_ranks("tp_train", "gloo_tp2_sp_bf16", timed, nonpad, par["n_layer"],
+                          len(par["tp_groups"]), card)
+    if [r["rc"] for r in par["cli"]] != [0, 0]:
+        raise AssertionError(f"the TP train CLI exited {par['cli']}")
+    run_dir = par["workdir"] / "runs" / "tp-run"
+    last = run_dir / "checkpoints" / "last.npz"
+    first = load_checkpoint(last)
+    if train_cli(["--config", str(par["cli_cfgs"][2]), "--resume", str(last),
+                  *par["cli_argv"]]) != 0:
+        raise AssertionError("the world-1 resume of the TP checkpoint failed")
+    curves = (run_dir / "scores" / "curves.csv").read_text().splitlines()
+    final = json.loads((run_dir / "scores" / "metrics.json").read_text())
+    losses = [float(first["train_loss"]), float(first["val_loss"]),
+              final["last_train_loss"], final["last_val_loss"]]
+    log("tp_train_cli", epochs=[1, 2], curves_rows=len(curves) - 1, losses=losses,
+        step=int(first["step"]), status=final["status"], card=card)
+    if len(curves) != 3 or not all(np.isfinite(losses)) or final["status"] != "completed":
+        raise AssertionError(f"the TP CLI run and its resume: {curves} {final}")
+    return {"timed": rank_timed, "launches": timed[0]["launches"], "run": row,
+            "parity": parity}
+
+
+def phase_tp_serve(card: str, peak_bw, peak_ops, par: dict) -> dict:
+    """``[tp_serve]``: the serving benchmark's config (10L8H d384, 64 slots,
+    128 requests, max_seq_len 256) at tensor_parallel 2 (4 kv heads a rank;
+    the drains run by ``phase_parallel_ranks``) with a bf16 and an int8
+    cache and speculative K 4; float32 greedy tokens against the meshless
+    engine's; the decode kernel at Hkv 4 and the chunk kernel at its local
+    heads against their plain versions."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    L, H, D = MAIN["n_layer"], MAIN["n_head"], MAIN["n_embd"] // MAIN["n_head"]
+    slots, S = ENGINE["slots"], ENGINE["max_seq_len"]
+    timed = {}
+    for name, cdt in (("rank_hkv4_bf16", bf16), ("rank_hkv4_int8", i8)):
+        q, k, v, mask, ks, vs, err, nan_err = check_decode_case(
+            gen, "tp_serve_kernel", name, L, slots, S, H // 2, 1, D, cdt, bf16, "serve")
+        timed[name] = time_decode_case(name, q, k, v, mask, ks, vs, H // 2, 1,
+                                       da.decode_attention, peak_bw, peak_ops, err, nan_err,
+                                       "tp_serve_kernel_time")
+    S_spec = -(-(S + SPECULATIVE_K + 1) // 128) * 128
+    case = check_chunk_case(gen, "tp_serve_kernel", "chunk_rank_hkv4_bf16", L, slots, S_spec,
+                            H // 2, 1, SPECULATIVE_K + 1, D, bf16, bf16, False, False,
+                            peak_bw, peak_ops)
+    chunk_timed = time_chunk_case("tp_serve_kernel_time", "chunk_rank_hkv4_bf16", case)
+
+    specs, ranks = par["serve_specs"], par["serve"]
+    ref = par_workers.serve(0, 1, dict(specs["f32_greedy"], mesh=False, device="cuda"))
+    runs = {}
+    for i, name in enumerate(specs):
+        r0, r1 = ranks[0][i], ranks[1][i]
+        tokens = sum(len(t) for t in r0["tokens"].values())
+        if r0["tokens"] != r1["tokens"]:
+            raise AssertionError(f"tp_serve {name}: the ranks emitted different tokens")
+        budgets = [n for _, n, _ in specs[name]["requests"]]
+        if [len(r0["tokens"][i]) for i in range(len(budgets))] != budgets:
+            raise AssertionError(f"tp_serve {name}: a budget was not served")
+        steps = r0["stats"]["decode_steps"]
+        rounds = r0["stats"]["verify_rounds"]
+        launches = [r["launches"] for r in (r0, r1)]
+        want = {"decode_attention": steps * L, "decode_attention_chunk": rounds * L}
+        if any(lc != want for lc in launches):
+            raise AssertionError(f"tp_serve {name}: launches {launches} != {want}")
+        runs[name] = dict(seconds=max(r0["seconds"], r1["seconds"]), tokens=tokens,
+                          tokens_per_s=tokens / max(r0["seconds"], r1["seconds"]),
+                          launches_per_rank=launches, decode_steps=steps,
+                          verify_rounds=rounds,
+                          accept_rate=r0["stats"].get("speculative_accept_rate"))
+        log("tp_serve", case=name, **runs[name], tensor_parallel=r0["stats"]["tensor_parallel"],
+            card=card)
+    greedy = specs["f32_greedy"]["requests"]
+    same = all(ranks[0][0]["tokens"][i] == ref["tokens"][i] for i in range(len(greedy)))
+    log("tp_serve_parity", case="f32_greedy", requests=len(greedy), equal_to_meshless=same)
+    if not same:
+        raise AssertionError("tp_serve: float32 greedy tokens differ from the meshless engine's")
+    return {"timed": timed, "chunk_timed": chunk_timed, "runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4441,6 +4819,17 @@ def main() -> int:
     lap("protein_ebm")
     guided = phase_critic_guided(demo_run, data512, critic, ebm, card_line)
     lap("critic_guided")
+    tp_dir = tempfile.TemporaryDirectory(prefix="smoke_tp_")
+    par = phase_parallel_ranks(card_line, Path(tp_dir.name))
+    lap("parallel_ranks")
+    dp_trained = phase_dp_train(card_line, peak_bw, peak_ops, par)
+    lap("dp_train")
+    tp_trained = phase_tp_train(card_line, peak_bw, peak_ops, par)
+    lap("tp_train")
+    tp_served = phase_tp_serve(card_line, peak_bw, peak_ops, par)
+    lap("tp_serve")
+    del par
+    tp_dir.cleanup()
     protein_dir.cleanup()
     prepare_dir.cleanup()
     moe_dir.cleanup()
@@ -4471,6 +4860,11 @@ def main() -> int:
         "launches_gen_prefix": prefixed["decode"],
         "launches_design": designed["decode"],
         "launches_critic_guided": guided["decode"],
+        "launches_tp_serve": tp_served["runs"]["bf16"]["launches_per_rank"][0]["decode_attention"],
+        "launches_tp_serve_int8": tp_served["runs"]["int8_cache"]["launches_per_rank"][0][
+            "decode_attention"],
+        "tp_rank_hkv4": tp_served["timed"]["rank_hkv4_bf16"],
+        "tp_rank_hkv4_int8": tp_served["timed"]["rank_hkv4_int8"],
         "stress": {k: stress[k] for k in ("draws", "max_abs_err", "nan_dead_tiles_err")},
         "gen_prefix_b1": prefixed["decode_timed"],
         "dashboard_b1": analysed["decode_timed"],
@@ -4493,6 +4887,10 @@ def main() -> int:
             "launches_finetune": finetuned["flash"][wrapper.__name__],
             "launches_remat_contract": remat["remat"][wrapper.__name__],
             "launches_plain_contract": remat["plain"][wrapper.__name__],
+            "launches_dp_train": dp_trained["launches"][wrapper.__name__],
+            "launches_tp_train": tp_trained["launches"][wrapper.__name__],
+            "dp_rank_b4_h8": dp_trained["timed"][key],
+            "tp_rank_b8_h4": tp_trained["timed"][key],
             "launches_moe_train": moe_run["launches"][wrapper.__name__],
             "launches_saliency": sum(r[wrapper.__name__] for r in analysed["saliency"].values()),
             "saliency_f32": {run: t[key] for run, t in analysed["flash_timed"].items()},
@@ -4525,6 +4923,9 @@ def main() -> int:
         "full": chunk_timed["full_bf16"],
         "full_int8": chunk_timed["full_int8"],
         "launches_moe_spec": moe_served["chunk"],
+        "launches_tp_spec": tp_served["runs"]["spec4"]["launches_per_rank"][0][
+            "decode_attention_chunk"],
+        "tp_rank_hkv4": tp_served["chunk_timed"],
         "moe_spec": moe_served["chunk_timed"],
         "design": ("bf16 query, bf16 or int8 cache: tensor-core tiles (mma.sync m16n8k16, "
                    "ldmatrix), one pass with an online softmax, three cp.async stages, only "

@@ -38,14 +38,18 @@ constrained generation, perplexity and mutation scoring with their CLIs):
   ``benchmark_red`` CLIs
 - ``evals``      — run loading (``playground``), perplexity and context
   ablation, in-silico mutagenesis and the ``score_mutations`` CLI
+- ``parallel``   — process meshes over the ranks of a process group, the
+  JAX sharding rules mapped onto the port's parameters, Megatron tensor
+  and sequence parallelism, the data-parallel loss shares, and the
+  launcher and rank workers the tests and the smoke spawn
 - ``serving``    — ``ServingEngine`` (continuous batching, speculative
   decoding), the HTTP ``InferenceServer`` and the ``serve_model`` and
   ``benchmark_serving`` CLIs
 - ``training``   — AdamW or Adafactor in the fast/base/lora groups with
-  frozen labels and ``grad_clip``, the accumulation-group step with the
+  frozen labels, ``grad_clip`` and ZeRO-1, the accumulation-group step with the
   composite loss, the ``.npz`` checkpoints of the JAX package, the run
   lifecycle, the primary contract, ``run_training`` with its CLI
-  (``train_codon_lm``), LoRA on checkpoint trees (``lora``,
+  (``train_codon_lm``, one process or a data / model mesh of them), LoRA on checkpoint trees (``lora``,
   ``merge_lora``), ``expansion`` and ``benchmark_lora``
 - ``utils``      — device selection, the JAX-tree weight maps and the CLIs'
   shared run-directory and open-loop latency helpers

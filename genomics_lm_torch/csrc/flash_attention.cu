@@ -128,6 +128,7 @@ struct Params {
   void* dk;
   void* dv;
   int B, Hq, Hkv, T, S, D, causal, window;  // window <= 0: none
+  int key_hq, key_h0;  // dropout keys: heads [key_h0, key_h0 + Hq) of key_hq
   float scale;
   uint32_t threshold;
   float keep_div;  // 1 - rate
@@ -205,6 +206,13 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A, int
       acc[a][3] += x * kv.w;
     }
   }
+}
+
+// The Philox key of query head h of batch row b: its index among the key_hq
+// heads of the whole model (a tensor-parallel rank holds heads key_h0 ..
+// key_h0 + Hq - 1), so a rank drops what the unsplit model drops there.
+__device__ __forceinline__ int key_head(const Params& p, int b, int h) {
+  return b * p.key_hq + p.key_h0 + h;
 }
 
 // Keep bits of keys j4*4 .. j4*4+3 of query row i of head bh.
@@ -292,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[a][c] *= alpha;
       if (p.dropout) {
-        const uint4 w = keep_bits(seed, static_cast<int>(qhead), i, j0 / 4 + tx);
+        const uint4 w = keep_bits(seed, key_head(p, b, h), i, j0 / 4 + tx);
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[a][c] = kept(w, c, p.threshold) ? s[a][c] / p.keep_div : 0.f;
       }
@@ -386,7 +394,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
     for (int a = 0; a < 4; ++a) {
       const int r = ty + 16 * a, i = i0 + r;
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (p.dropout) w = keep_bits(seed, static_cast<int>(qhead), i, j0 / 4 + tx);
+      if (p.dropout) w = keep_bits(seed, key_head(p, b, h), i, j0 / 4 + tx);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const bool ok = attends(p, i, j0 + 4 * tx + c, qseg[r], kseg[4 * tx + c]);
@@ -487,7 +495,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
       for (int a = 0; a < 4; ++a) {
         const int r = ty + 16 * a, i = i0 + r;
         uint4 w = make_uint4(0u, 0u, 0u, 0u);
-        if (p.dropout) w = keep_bits(seed, static_cast<int>(qhead), i, j0 / 4 + tx);
+        if (p.dropout) w = keep_bits(seed, key_head(p, b, h), i, j0 / 4 + tx);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const bool ok = attends(p, i, j0 + 4 * tx + c, qseg[r], kseg[4 * tx + c]);
@@ -757,7 +765,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(kFwd))
     const int nxt = kv.next_live(kb + 1);
     kv.load(nxt, stage ^ 1);
     uint32_t* kp = keep + stage * 2 * kBQ;
-    if (p.dropout) fill_keep(kp, seed, static_cast<int>(qhead), i0, j0, p.threshold);
+    if (p.dropout) fill_keep(kp, seed, key_head(p, b, h), i0, j0, p.threshold);
     cp_async_wait<1>();  // this stage has landed
     __syncthreads();
 
@@ -957,7 +965,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(kDq))
     const int nxt = kv.next_live(kb + 1);
     kv.load(nxt, stage ^ 1);
     uint32_t* kp = keep + stage * 2 * kBQ;
-    if (p.dropout) fill_keep(kp, seed, static_cast<int>(qhead), i0, j0, p.threshold);
+    if (p.dropout) fill_keep(kp, seed, key_head(p, b, h), i0, j0, p.threshold);
     cp_async_wait<1>();  // this stage has landed
     __syncthreads();
 
@@ -1145,7 +1153,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>(kDkv))
     }
     load_q(g2, qb2, stage ^ 1);
     uint32_t* kp = keep + stage * 2 * kBQ;
-    if (p.dropout) fill_keep(kp, seed, b * p.Hq + hk * G + g, i0, j0, p.threshold);
+    if (p.dropout) fill_keep(kp, seed, key_head(p, b, hk * G + g), i0, j0, p.threshold);
     cp_async_wait<1>();
     __syncthreads();
 
@@ -1366,7 +1374,7 @@ int launch_mma(Kind kind, Params p, cudaStream_t stream) {
 
 int launch(Kind kind, const Params& p, int dtype, cudaStream_t stream) {
   if (p.D < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || p.S < p.T || p.T < 1) return -1;
-  if (p.dropout && p.seed == nullptr) return -1;
+  if (p.dropout && (p.seed == nullptr || p.key_h0 < 0 || p.key_h0 + p.Hq > p.key_hq)) return -1;
   switch (dtype) {
     case 0: return launch_f32(kind, p, stream);
     case 1: return launch_mma(kind, p, stream);
@@ -1377,7 +1385,7 @@ int launch(Kind kind, const Params& p, int dtype, cudaStream_t stream) {
 Params make_params(const void* q, const void* k, const void* v, const void* seg,
                    const void* seed, int B, int Hq, int Hkv, int T, int S, int D, int causal,
                    int window, float scale, unsigned int threshold, float keep_div,
-                   int dropout) {
+                   int dropout, int key_hq, int key_h0) {
   Params p{};
   p.q = q;
   p.k = k;
@@ -1396,6 +1404,8 @@ Params make_params(const void* q, const void* k, const void* v, const void* seg,
   p.threshold = threshold;
   p.keep_div = keep_div;
   p.dropout = dropout;
+  p.key_hq = key_hq;
+  p.key_h0 = key_h0;
   return p;
 }
 
@@ -1403,15 +1413,17 @@ Params make_params(const void* q, const void* k, const void* v, const void* seg,
 
 // q (B, Hq, T, D), k and v (B, Hkv, S, D) contiguous in one dtype (0 float32,
 // 1 bfloat16); seg (B, S) int32 or null; seed one int32, read only
-// with dropout. window <= 0 means none. Each returns the launch's
-// cudaError_t, or -1 for arguments it does not take.
+// with dropout, whose keep bits of head h of row b are keyed on
+// b * key_hq + key_h0 + h (key_hq = Hq, key_h0 = 0 for a whole model).
+// window <= 0 means none. Each returns the launch's cudaError_t, or -1 for
+// arguments it does not take.
 extern "C" int glm_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
                              const void* seed, void* out, void* lse, int B, int Hq, int Hkv,
                              int T, int S, int D, int causal, int window, float scale,
-                             unsigned int threshold, float keep_div, int dropout, int dtype,
-                             void* stream) {
+                             unsigned int threshold, float keep_div, int dropout, int key_hq,
+                             int key_h0, int dtype, void* stream) {
   Params p = make_params(q, k, v, seg, seed, B, Hq, Hkv, T, S, D, causal, window, scale,
-                         threshold, keep_div, dropout);
+                         threshold, keep_div, dropout, key_hq, key_h0);
   p.out = out;
   p.lse_out = static_cast<float*>(lse);
   return launch(kFwd, p, dtype, static_cast<cudaStream_t>(stream));
@@ -1422,9 +1434,9 @@ extern "C" int glm_flash_bwd_dq(const void* q, const void* k, const void* v, con
                                 const void* delta, void* dq, int B, int Hq, int Hkv, int T,
                                 int S, int D, int causal, int window, float scale,
                                 unsigned int threshold, float keep_div, int dropout,
-                                int dtype, void* stream) {
+                                int key_hq, int key_h0, int dtype, void* stream) {
   Params p = make_params(q, k, v, seg, seed, B, Hq, Hkv, T, S, D, causal, window, scale,
-                         threshold, keep_div, dropout);
+                         threshold, keep_div, dropout, key_hq, key_h0);
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
@@ -1437,9 +1449,10 @@ extern "C" int glm_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* lse, const void* delta, void* dk, void* dv,
                                  int B, int Hq, int Hkv, int T, int S, int D, int causal,
                                  int window, float scale, unsigned int threshold,
-                                 float keep_div, int dropout, int dtype, void* stream) {
+                                 float keep_div, int dropout, int key_hq, int key_h0,
+                                 int dtype, void* stream) {
   Params p = make_params(q, k, v, seg, seed, B, Hq, Hkv, T, S, D, causal, window, scale,
-                         threshold, keep_div, dropout);
+                         threshold, keep_div, dropout, key_hq, key_h0);
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);

@@ -58,6 +58,17 @@ speculative verify, ``hidden_states``), so each token's output is
 independent of the others'. ``forward(..., return_aux=True)`` returns the
 router's load-balancing loss, the mean over layers, as ``moe_aux_loss``.
 
+Tensor parallelism (``parallel/tensor_parallel.py::shard_model``): a block
+of a rank holds its heads of the attention and its slice of the MLP, and
+``block.tp`` / ``model.tp`` carry the model axis. ``_qkv`` enters through a
+column-parallel entry, the projection and the MLP's down linear leave
+through row-parallel exits (the bias after the sum), and the forward runs
+each rank's attention on its local heads with the config of one rank's
+heads (``tp_local_config``); with ``residual_sharding`` the stream between
+them is split over T (sequence parallelism), its dropout masks drawn for
+the whole sequence and sliced. The serving and decode paths take the same
+pieces, so a tensor-parallel model decodes unchanged.
+
 ``hidden_states``, ``forward_hidden`` and ``attention_maps`` are JAX's
 extraction forwards (``codon_gpt.py:574-662``): the canonical states after
 the embedding, every block and the final norm, and each layer's attention
@@ -79,6 +90,7 @@ from genomics_lm_torch.ops.attention import attention, sdpa
 from genomics_lm_torch.ops.losses import cross_entropy
 from genomics_lm_torch.ops.masks import segment_ids_from_tokens, structure_mask
 from genomics_lm_torch.ops.quant import quantize_weight
+from genomics_lm_torch.parallel import tensor_parallel as tpl
 
 
 class LoRA(nn.Module):
@@ -93,8 +105,19 @@ class LoRA(nn.Module):
         self.lora_b = nn.Parameter(torch.zeros(rank, fan_out))
         self.lora_scale = nn.Parameter(torch.ones(()), requires_grad=False)
 
-    def delta(self, x: torch.Tensor) -> torch.Tensor:
-        d = torch.matmul(torch.matmul(x, self.lora_a.to(x.dtype)), self.lora_b.to(x.dtype))
+    def delta(self, x: torch.Tensor, tp_index=None) -> torch.Tensor:
+        """The adapter's output; under tensor parallelism (``tp_index``, or
+        the adapter's own for a fused QKV's) through this rank's heads'
+        slice of ``lora_b`` (a column linear) or ``lora_a`` (a row one)."""
+        a, b = self.lora_a, self.lora_b
+        tp_index = tp_index or getattr(self, "tp_index", None)
+        if tp_index is not None:
+            kind, idx = tp_index
+            if kind == "col":
+                b = tpl.take(b, 1, idx)
+            else:
+                a = tpl.take(a, 0, idx)
+        d = torch.matmul(torch.matmul(x, a.to(x.dtype)), b.to(x.dtype))
         return self.lora_scale.to(x.dtype) * d
 
 
@@ -338,21 +361,45 @@ def attach_lora(model: CodonGPT, targets, rank: int) -> None:
 # --- Forward pieces ----------------------------------------------------------
 
 
-def _linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def _linear(lin: nn.Module, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
     """``x @ W + b`` in x's dtype, with the float32 weights cast at use,
     plus the linear's LoRA delta when it has one. An ``Int8Linear``
-    computes ``(x @ w_q.T) * scale + b``, the int8 weight converted at use."""
+    computes ``(x @ w_q.T) * scale + b``, the int8 weight converted at use.
+    Under tensor parallelism the linear's ``tp_index`` picks this rank's
+    heads of the int8 weight, which the rules replicate; ``bias`` False
+    leaves the bias to the caller (a row-parallel one adds it after the
+    reduction)."""
+    tp_index = getattr(lin, "tp_index", None)
     if isinstance(lin, Int8Linear):
-        y = torch.matmul(x, lin.w_q.to(x.dtype).t()) * lin.scale.to(x.dtype)
-        if lin.bias is not None:
+        w_q, scale = lin.w_q, lin.scale
+        if tp_index is not None:
+            kind, idx = tp_index
+            if kind == "col":
+                w_q, scale = tpl.take(w_q, 0, idx), tpl.take(scale, 0, idx)
+            else:
+                w_q = tpl.take(w_q, 1, idx)
+        y = torch.matmul(x, w_q.to(x.dtype).t()) * scale.to(x.dtype)
+        if bias and lin.bias is not None:
             y = y + lin.bias.to(x.dtype)
         return y
     y = torch.matmul(x, lin.weight.to(x.dtype).t())
-    if lin.bias is not None:
+    if bias and lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
     lora = lin._modules.get("lora")
     if lora is not None:
-        y = y + lora.delta(x)
+        y = y + lora.delta(x, tp_index)
+    return y
+
+
+def _row_linear(lin: nn.Module, x: torch.Tensor, tp, seq: bool) -> torch.Tensor:
+    """A row-parallel linear: this rank's partial product, summed over the
+    model axis (reduce-scattered on T under sequence parallelism), then
+    the bias, which the rules replicate."""
+    if tp is None or getattr(lin, "tp_index", None) is None:
+        return _linear(lin, x)
+    y = tpl.exit_(_linear(lin, x, bias=False), tp, seq)
+    if lin.bias is not None:
+        y = y + lin.bias.to(x.dtype)
     return y
 
 
@@ -386,8 +433,12 @@ def apply_rope(q, k, cos, sin):
     return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
 
 
-def _qkv(block: Block, x: torch.Tensor, cfg: CodonGPTConfig):
-    """(B, T, C) → q (B, Hq, T, D), k and v (B, Hkv, T, D)."""
+def _qkv(block: Block, x: torch.Tensor, cfg: CodonGPTConfig, *, seq: bool = False):
+    """(B, T, C) → q (B, Hq, T, D), k and v (B, Hkv, T, D). Under tensor
+    parallelism ``cfg`` is this rank's (``tp_local_config``): its heads
+    only, the input entering through a column-parallel entry (an all-gather
+    on T when ``seq``, the stream split over the sequence)."""
+    x = tpl.enter(x, getattr(block, "tp", None), seq)
     B, T, _ = x.shape
     hd = cfg.head_dim
     attn = block.attn
@@ -409,10 +460,18 @@ def _qkv(block: Block, x: torch.Tensor, cfg: CodonGPTConfig):
     return q, k, v
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+             tp=None) -> torch.Tensor:
     """Inverted dropout with a keep mask drawn from ``generator`` (JAX:
-    ``bernoulli(1 - rate)``, kept values scaled by 1/(1 - rate))."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
+    ``bernoulli(1 - rate)``, kept values scaled by 1/(1 - rate)). With
+    ``tp`` (``x`` this rank's slice of the sequence) the mask is drawn for
+    the whole sequence and sliced, so the draws match the unsplit stream's."""
+    shape = list(x.shape)
+    if tp is not None:
+        shape[1] *= tp.size
+    keep = torch.rand(shape, generator=generator, device=x.device) < (1.0 - rate)
+    if tp is not None:
+        keep = keep.chunk(tp.size, dim=1)[tp.rank]
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -514,27 +573,43 @@ def _moe_mlp(block: Block, cfg: CodonGPTConfig, h: torch.Tensor, *, capped: bool
 def block_epilogue(block: Block, cfg: CodonGPTConfig, x: torch.Tensor,
                    y_attn: torch.Tensor, *, train: bool = False,
                    generator: torch.Generator | None = None, capped: bool | None = None,
-                   return_moe_aux: bool = False):
+                   return_moe_aux: bool = False, seq: bool = False):
     """Post-attention half of a block, shared by every path: the output
     projection's residual add, LN2, and the (SwiGLU | GELU | MoE) MLP
     residual, whose output takes dropout in training.
 
     A MoE MLP binds its capacity when ``capped`` (default: ``train``) and
     routes dropless otherwise. ``return_moe_aux`` returns ``(x, aux)``, aux
-    the router loss (None for a dense block)."""
-    x = x + _linear(block.attn.proj, y_attn)
+    the router loss (None for a dense block).
+
+    Under tensor parallelism the projection and the MLP's down linear are
+    row-parallel exits and its up linears column-parallel entries; an MLP
+    whose hidden width the degree does not divide runs whole on every rank.
+    With ``seq`` the residual ``x`` is this rank's slice of the sequence."""
+    tp = getattr(block, "tp", None)
+    x = x + _row_linear(block.attn.proj, y_attn, tp, seq)
     h = _layer_norm(block.ln2, x)
     mlp = block.mlp
     moe_aux = None
+    split = tp is not None and not cfg.moe_experts and getattr(
+        mlp.w_up if cfg.use_swiglu else mlp[0], "tp_index", None) is not None
+    if split:
+        h = tpl.enter(h, tp, seq)
+    elif tp is not None and seq:
+        h = tpl.gather_seq_replicated(h, tp)
     if cfg.moe_experts:
         m, moe_aux = _moe_mlp(block, cfg, h, capped=train if capped is None else capped,
                               with_aux=return_moe_aux)
     elif cfg.use_swiglu:
-        m = _linear(mlp.w_down, F.silu(_linear(mlp.w_gate, h)) * _linear(mlp.w_up, h))
+        m = F.silu(_linear(mlp.w_gate, h)) * _linear(mlp.w_up, h)
+        m = _row_linear(mlp.w_down, m, tp, seq) if split else _linear(mlp.w_down, m)
     else:
-        m = _linear(mlp[2], F.gelu(_linear(mlp[0], h)))
+        m = F.gelu(_linear(mlp[0], h))
+        m = _row_linear(mlp[2], m, tp, seq) if split else _linear(mlp[2], m)
+    if tp is not None and seq and not split:
+        m = tpl.split_seq(m, tp)
     if _dropout_on(cfg, train, generator):
-        m = _dropout(m, cfg.dropout, generator)
+        m = _dropout(m, cfg.dropout, generator, tp if seq else None)
     x = x + m
     return (x, moe_aux) if return_moe_aux else x
 
@@ -565,22 +640,28 @@ def _offset_logits(model: CodonGPT, cfg: CodonGPTConfig, x: torch.Tensor, offset
 
 
 def _block_apply(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, *, segment_ids,
-                 attention_window, rope, drop: bool, generator, capped: bool = False):
+                 attention_window, rope, drop: bool, generator, capped: bool = False,
+                 seq: bool = False):
     """One block of the training forward: LN1, QKV, attention, epilogue.
     Returns ``(x, moe_aux)``; a MoE MLP binds its capacity when ``capped``
-    (the true training flag, whether or not dropout acts)."""
-    B, T, C = x.shape
+    (the true training flag, whether or not dropout acts). ``seq``: ``x``
+    is this rank's slice of the sequence (sequence parallelism)."""
     h = _layer_norm(block.ln1, x)
-    q, k, v = _qkv(block, h, cfg)
+    q, k, v = _qkv(block, h, cfg, seq=seq)
+    B, T = q.shape[0], q.shape[2]
     if rope is not None:
         q, k = apply_rope(q, k, *rope)
     seed = (torch.randint(0, 2**31 - 1, (1,), generator=generator, device=x.device,
                           dtype=torch.int32) if drop else None)
+    # a tensor-parallel rank's heads drop as those heads of the whole model
+    tp = getattr(block, "tp", None)
+    Hq = q.shape[1]
+    heads = (tp.rank * Hq, tp.size * Hq) if tp is not None else None
     y = attention(q, k, v, segment_ids=segment_ids, attention_window=attention_window,
                   dropout_rate=cfg.dropout if drop else 0.0, seed=seed,
-                  impl=cfg.attention_impl)
-    return block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(B, T, C), train=drop,
-                          generator=generator, capped=capped, return_moe_aux=True)
+                  impl=cfg.attention_impl, dropout_heads=heads)
+    return block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(B, T, -1), train=drop,
+                          generator=generator, capped=capped, return_moe_aux=True, seq=seq)
 
 
 def _remat_block(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, generator,
@@ -610,6 +691,21 @@ def _remat_block(block: Block, cfg: CodonGPTConfig, x: torch.Tensor, generator,
     if drop:
         generator.set_state(end[0])
     return out if cfg.moe_experts else (out, None)
+
+
+def _local_cfg(model: CodonGPT, cfg: CodonGPTConfig) -> CodonGPTConfig:
+    """``cfg``, or under tensor parallelism this rank's (``tp_local_config``)."""
+    tp = getattr(model, "tp", None)
+    return cfg if tp is None else tpl.tp_local_config(cfg, tp.size)
+
+
+def _sequence_parallel(model: CodonGPT, idx: torch.Tensor):
+    """The model-axis context when the forward runs sequence-parallel:
+    ``residual_sharding`` asks for it and the degree divides T."""
+    tp = getattr(model, "tp", None)
+    if tp is None or not tp.sequence_parallel or idx.shape[1] % tp.size:
+        return None
+    return tp
 
 
 def _rope_for(cfg: CodonGPTConfig, idx: torch.Tensor):
@@ -642,6 +738,11 @@ def forward(
     as the JAX forward drops only with ``train`` and a key. Runs under
     autograd: the serving and generation entry points call it under
     ``torch.no_grad``.
+
+    Under tensor parallelism (``model.tp``, ``parallel/tensor_parallel.py``)
+    each rank runs its heads and returns the whole logits; with sequence
+    parallelism the residual stream between the embedding and the final
+    norm is split over T (JAX's ``_constrain_residual``).
     """
     segment_ids = (
         segment_ids_from_tokens(idx, cfg.sep_id) if cfg.sep_id is not None else None
@@ -649,15 +750,21 @@ def forward(
     drop = _dropout_on(cfg, train, generator)
     x = _embed(model, cfg, idx, shape_embeddings, train=drop, generator=generator)
     rope = _rope_for(cfg, idx)
+    seq_tp = _sequence_parallel(model, idx)
+    if seq_tp is not None:
+        x = tpl.split_seq(x, seq_tp)
+    lcfg = _local_cfg(model, cfg)
     moe_aux = []
     for block in model.blocks:
         kw = dict(segment_ids=segment_ids, attention_window=attention_window, rope=rope,
-                  drop=drop, capped=train)
+                  drop=drop, capped=train, seq=seq_tp is not None)
         if cfg.use_checkpoint and torch.is_grad_enabled():
-            x, aux = _remat_block(block, cfg, x, generator, **kw)
+            x, aux = _remat_block(block, lcfg, x, generator, **kw)
         else:
-            x, aux = _block_apply(block, cfg, x, generator=generator, **kw)
+            x, aux = _block_apply(block, lcfg, x, generator=generator, **kw)
         moe_aux.append(aux)
+    if seq_tp is not None:
+        x = tpl.gather_seq_replicated(x, seq_tp)
     x = _layer_norm(model.ln_f, x)
     logits = _lm_logits(model, cfg, x)
 
@@ -696,8 +803,9 @@ def hidden_states(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor, *,
     x = _embed(model, cfg, idx, shape_embeddings)
     rope = _rope_for(cfg, idx)
     out = [(0, x)]
+    lcfg = _local_cfg(model, cfg)
     for layer, block in enumerate(model.blocks):
-        x, _ = _block_apply(block, cfg, x, segment_ids=segment_ids,
+        x, _ = _block_apply(block, lcfg, x, segment_ids=segment_ids,
                             attention_window=attention_window, rope=rope, drop=False,
                             generator=None)
         out.append((layer + 1, x))
@@ -726,14 +834,15 @@ def attention_maps(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor, *,
     mask = structure_mask(T, T, window=attention_window, segment_ids=segment_ids,
                           device=idx.device)
     maps = []
+    lcfg = _local_cfg(model, cfg)
     for block in model.blocks:
         h = _layer_norm(block.ln1, x)
-        q, k, v = _qkv(block, h, cfg)
+        q, k, v = _qkv(block, h, lcfg)
         if rope is not None:
             q, k = apply_rope(q, k, *rope)
         y, probs = sdpa(q, k, v, mask=mask, return_probs=True)
         maps.append(probs)
-        x = block_epilogue(block, cfg, x, y.transpose(1, 2).reshape(x.shape))
+        x = block_epilogue(block, lcfg, x, y.transpose(1, 2).reshape(*x.shape[:2], -1))
     return maps
 
 

@@ -3,9 +3,13 @@
 Same fields, same ``__post_init__`` checks and the same ``from_run_config``
 keys as the JAX config, so one run config builds both. ``dtype`` returns a
 ``torch.dtype``. The TPU layout levers ``pad_vocab_lanes``, ``scan_unroll``,
-``flash_block_q``/``flash_block_k``, ``residual_sharding`` and
-``expert_sharding`` are accepted and have no effect here: they change how
-XLA lays the same math out on a TPU, not the math.
+``flash_block_q``/``flash_block_k`` and ``expert_sharding`` are accepted
+and have no effect here: they change how XLA lays the same math out on a
+TPU, not the math. ``residual_sharding`` ``("data", "model")`` turns on
+sequence parallelism in a tensor-parallel model
+(``parallel/tensor_parallel.py``): between the blocks' column entries and
+row exits the residual stream is split over T, as JAX's
+``_constrain_residual`` asks GSPMD for.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ class CodonGPTConfig:
     scan_unroll: int = 1  # TPU layout lever: no effect here
     flash_block_q: int = 128  # TPU layout lever: no effect here
     flash_block_k: int = 128
-    residual_sharding: tuple[str | None, ...] | None = None  # no effect here
+    residual_sharding: tuple[str | None, ...] | None = None  # ("data", "model"): sequence parallel
     expert_sharding: str | None = None  # no effect here
 
     def __post_init__(self):

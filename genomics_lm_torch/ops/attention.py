@@ -35,6 +35,7 @@ def sdpa(
     dropout_rate: float = 0.0,
     seed: torch.Tensor | None = None,
     return_probs: bool = False,
+    dropout_heads: tuple[int, int] | None = None,
 ):
     """Scaled dot-product attention via einsum.
 
@@ -42,7 +43,8 @@ def sdpa(
     ``mask`` is boolean, broadcastable to (B, Hq, T, S), True = attend.
     When mask is None a causal mask aligned to the last query is applied.
     Dropout acts on the probabilities when ``seed`` (a one-element int32
-    tensor) is given and the rate is > 0. ``return_probs`` also returns the
+    tensor) is given and the rate is > 0, keyed as the flash kernels' (with
+    ``dropout_heads``, as heads h0 .. h0 + Hq - 1 of H). ``return_probs`` also returns the
     float32 probabilities (B, Hq, T, S) before dropout, as JAX's
     ``sdpa_xla(..., return_probs=True)``.
     """
@@ -68,7 +70,8 @@ def sdpa(
     probs = torch.softmax(scores, dim=-1)
     probs_out = probs.reshape(B, Hq, T, S) if return_probs else None
     if dropout_rate > 0.0 and seed is not None:
-        keep = philox_keep(seed, B, Hq, T, S, dropout_rate).view(B, Hkv, G, T, S)
+        keep = philox_keep(seed, B, Hq, T, S, dropout_rate,
+                           dropout_heads).view(B, Hkv, G, T, S)
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     out = torch.einsum(
         "bhgts,bhsd->bhgtd", probs.to(v.dtype).float(), v.float()
@@ -88,6 +91,7 @@ def attention(
     dropout_rate: float = 0.0,
     seed: torch.Tensor | None = None,
     impl: str = "xla",
+    dropout_heads: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Dispatch between the einsum path (``impl="xla"``) and flash attention.
 
@@ -95,7 +99,9 @@ def attention(
     flash kernels consume without materializing (B, T, S); the einsum path
     lowers them to a dense mask here. Bottom-right aligned: with T < S the
     queries are the suffix of the key sequence (matches the JAX
-    ``attention`` and ``sdpa_xla``).
+    ``attention`` and ``sdpa_xla``). ``dropout_heads`` = (h0, H): q holds
+    heads h0 .. h0 + Hq - 1 of H (a tensor-parallel rank's), keyed as those
+    heads of the whole model.
     """
     if impl == "flash":
         if mask is not None:
@@ -105,14 +111,16 @@ def attention(
                 "or express the mask structurally")
         return flash_attention(q, k, v, segment_ids=segment_ids,
                                attention_window=attention_window,
-                               dropout_rate=dropout_rate, seed=seed)
+                               dropout_rate=dropout_rate, seed=seed,
+                               dropout_heads=dropout_heads)
     if impl != "xla":
         raise ValueError(f"Unknown attention impl: {impl!r}")
     if segment_ids is not None or attention_window is not None:
         dense = structure_mask(q.shape[2], k.shape[2], window=attention_window,
                                segment_ids=segment_ids, device=q.device)
         mask = dense if mask is None else (mask & dense)
-    return sdpa(q, k, v, mask=mask, dropout_rate=dropout_rate, seed=seed)
+    return sdpa(q, k, v, mask=mask, dropout_rate=dropout_rate, seed=seed,
+                dropout_heads=dropout_heads)
 
 
 __all__ = ["NEG_INF", "attention", "sdpa"]

@@ -28,6 +28,9 @@ What crosses over is the contract, not the TPU's blocking:
 The TPU's hardware PRNG cannot be reproduced here, so the keep bits come
 from Philox-4x32-10 keyed on (seed, b*Hq + h) with the counter
 (i, j // 4, 0, 0); word ``j % 4`` of the output decides element (i, j).
+A call that holds heads ``h0 .. h0 + Hq - 1`` of a model's ``H`` (a
+tensor-parallel rank's, ``dropout_heads=(h0, H)``) keys them on
+(seed, b*H + h0 + h): the rank drops what the unsplit model drops.
 A keep bit depends on neither tile size nor kernel: the three kernels and
 the plain version (``philox_keep``, integer tensor arithmetic) agree bit
 for bit. The seed is a one-element int32 tensor on q's device, drawn by
@@ -93,11 +96,14 @@ def dropout_threshold(rate: float) -> int:
 
 
 def philox_keep(seed: torch.Tensor, B: int, Hq: int, T: int, S: int,
-                rate: float) -> torch.Tensor:
-    """(B, Hq, T, S) boolean keep mask of the kernels' dropout stream."""
+                rate: float, heads: tuple[int, int] | None = None) -> torch.Tensor:
+    """(B, Hq, T, S) boolean keep mask of the kernels' dropout stream; with
+    ``heads`` = (h0, H) that of heads h0 .. h0 + Hq - 1 of H."""
     dev = seed.device
     s = seed.reshape(()).long() & _MASK32
-    bh = torch.arange(B * Hq, device=dev, dtype=torch.long).view(B, Hq, 1, 1, 1)
+    h0, H = heads if heads is not None else (0, Hq)
+    bh = (torch.arange(B, device=dev, dtype=torch.long).view(B, 1, 1, 1, 1) * H + h0
+          + torch.arange(Hq, device=dev, dtype=torch.long).view(1, Hq, 1, 1, 1))
     i = torch.arange(T, device=dev, dtype=torch.long).view(1, 1, T, 1, 1)
     j4 = torch.arange((S + 3) // 4, device=dev, dtype=torch.long).view(1, 1, 1, -1, 1)
     zero = torch.zeros((), device=dev, dtype=torch.long)
@@ -122,10 +128,11 @@ def _scale(D: int) -> float:
     return float(torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32))
 
 
-def _grouped_keep(seed, B, Hq, Hkv, T, S, rate, device):
-    if rate <= 0.0:
+def _grouped_keep(seed, B, Hq, Hkv, T, S, cfg: "FlashCfg", device):
+    if cfg.dropout_rate <= 0.0:
         return None
-    return philox_keep(seed.to(device), B, Hq, T, S, rate).view(B, Hkv, Hq // Hkv, T, S)
+    return philox_keep(seed.to(device), B, Hq, T, S, cfg.dropout_rate,
+                       cfg.dropout_heads).view(B, Hkv, Hq // Hkv, T, S)
 
 
 def flash_forward_reference(q, k, v, segment_ids, seed, cfg: "FlashCfg"):
@@ -145,7 +152,7 @@ def flash_forward_reference(q, k, v, segment_ids, seed, cfg: "FlashCfg"):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l_safe = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
-    keep = _grouped_keep(seed, B, Hq, Hkv, T, S, cfg.dropout_rate, q.device)
+    keep = _grouped_keep(seed, B, Hq, Hkv, T, S, cfg, q.device)
     if keep is not None:
         p = torch.where(keep, p / (1.0 - cfg.dropout_rate), 0.0)
     acc = torch.einsum("bhgts,bhsd->bhgtd", p, v.float())
@@ -165,7 +172,7 @@ def _backward_probs(q, k, v, segment_ids, seed, dout, lse, delta, cfg: "FlashCfg
     mask = _grouped_mask(q, k, segment_ids, cfg)
     p = torch.where(mask, torch.exp(s - lse.view(B, Hkv, G, T, 1)), 0.0)
     dpd = torch.einsum("bhgtd,bhsd->bhgts", dout.float().view(B, Hkv, G, T, D), v.float())
-    keep = _grouped_keep(seed, B, Hq, Hkv, T, S, cfg.dropout_rate, q.device)
+    keep = _grouped_keep(seed, B, Hq, Hkv, T, S, cfg, q.device)
     pd = p if keep is None else torch.where(keep, p / (1.0 - cfg.dropout_rate), 0.0)
     return pd, pd * dpd - p * delta.view(B, Hkv, G, T, 1)
 
@@ -238,8 +245,8 @@ def _kernels():
     from genomics_lm_torch.kernels.build import load
 
     lib = load("flash_attention")
-    common = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_uint, ctypes.c_float,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    common = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_uint, ctypes.c_float] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     fns = {}
     for name, n_ptrs in (("glm_flash_fwd", 7), ("glm_flash_bwd_dq", 9),
                          ("glm_flash_bwd_dkv", 10)):
@@ -260,12 +267,13 @@ def _launch(name: str, tensors: list, q, k, cfg: "FlashCfg") -> None:
         raise ValueError(f"{name}: every tensor must be contiguous and on {q.device}")
     fn = _kernels()[name]
     rate = cfg.dropout_rate
+    h0, H = cfg.dropout_heads if cfg.dropout_heads is not None else (0, Hq)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(None if t is None else t.data_ptr() for t in tensors),
                  B, Hq, Hkv, T, S, D, int(cfg.causal),
                  -1 if cfg.window is None else int(cfg.window), _scale(D),
-                 dropout_threshold(rate), float(1.0 - rate), int(rate > 0.0),
+                 dropout_threshold(rate), float(1.0 - rate), int(rate > 0.0), H, h0,
                  _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (error {err})")
@@ -316,6 +324,7 @@ class FlashCfg(NamedTuple):
     causal: bool
     window: int | None
     dropout_rate: float
+    dropout_heads: tuple[int, int] | None = None  # (h0, H): see philox_keep
 
 
 class _Flash(torch.autograd.Function):
@@ -337,7 +346,7 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _check_args(q, k, v, segment_ids, seed, dropout_rate):
+def _check_args(q, k, v, segment_ids, seed, dropout_rate, dropout_heads=None):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, Hq, T, D) and k, v (B, Hkv, S, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -360,6 +369,9 @@ def _check_args(q, k, v, segment_ids, seed, dropout_rate):
     if dropout_rate > 0.0 and (seed is None or seed.numel() != 1
                                or seed.dtype != torch.int32):
         raise ValueError("dropout needs a one-element int32 seed tensor")
+    if dropout_heads is not None and not (0 <= dropout_heads[0]
+                                          and dropout_heads[0] + Hq <= dropout_heads[1]):
+        raise ValueError(f"dropout_heads {dropout_heads} do not hold {Hq} heads")
     tensors = [t for t in (q, k, v, segment_ids, seed) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("all flash_attention inputs must be on one device")
@@ -385,6 +397,7 @@ def flash_attention(
     dropout_rate: float = 0.0,
     seed: torch.Tensor | None = None,
     causal: bool = True,
+    dropout_heads: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Flash attention with the framework's structured masks; differentiable.
 
@@ -392,14 +405,17 @@ def flash_attention(
     int32 (query segments are the trailing T entries). With T < S the
     queries are the suffix of the keys. ``seed``: a one-element int32 tensor
     on q's device; dropout acts only when it is given and the rate is > 0,
-    as the JAX function drops only with a key. Returns (B, Hq, T, D) in
-    q's dtype.
+    as the JAX function drops only with a key. ``dropout_heads`` = (h0, H):
+    q holds heads h0 .. h0 + Hq - 1 of a model's H, and each drops as that
+    head of the whole model would (tensor parallelism). Returns
+    (B, Hq, T, D) in q's dtype.
     """
     use_dropout = dropout_rate > 0.0 and seed is not None
     rate = float(dropout_rate) if use_dropout else 0.0
-    _check_args(q, k, v, segment_ids, seed if use_dropout else None, rate)
+    heads = tuple(int(h) for h in dropout_heads) if use_dropout and dropout_heads else None
+    _check_args(q, k, v, segment_ids, seed if use_dropout else None, rate, heads)
     cfg = FlashCfg(bool(causal), None if attention_window is None else int(attention_window),
-                   rate)
+                   rate, heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if segment_ids is not None:
         segment_ids = segment_ids.contiguous()

@@ -32,7 +32,17 @@ is ``steps_per_sync`` draft → verify → accept rounds
 (``serving/speculative.py``), each emitting 1..K+1 tokens per slot; the
 verify chunk's attention is the CUDA chunk kernel under ``flash``.
 
-Not ported: tensor-parallel serving (``mesh``) raises ``NotImplementedError``.
+Tensor-parallel serving (``mesh`` with a ``model`` axis of T > 1, one
+process per rank, every rank running the same engine calls): each rank
+holds its heads of every block (``parallel/tensor_parallel.py::
+shard_model``) and its heads' lanes of the packed cache and of the int8
+scales (JAX's ``serving_state_sharding``: the state is built at the local
+config, ``tp_local_config``), so the decode kernel (the chunk
+kernel in a speculative verify) runs per rank on its local heads with no
+collective before the row-parallel projection, where the partial sums meet
+in an all-reduce. Rank 0 of the model axis samples and broadcasts each
+step's tokens (and a speculative round's drafts and verify logits), so the
+ranks' caches never part. ``kv_heads`` and ``n_head`` must divide by T.
 """
 
 from __future__ import annotations
@@ -53,6 +63,8 @@ from genomics_lm_torch.generation.decode import (
 from genomics_lm_torch.models.codon_gpt import CodonGPT, _lm_logits
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops.attention import NEG_INF
+from genomics_lm_torch.parallel import tensor_parallel as tpl
+from genomics_lm_torch.parallel.mesh import MODEL_AXIS
 from genomics_lm_torch.utils.device import check_on_device, resolve_device
 
 PROMPT_BUCKET = 16  # admission prompts right-pad to multiples of this
@@ -277,6 +289,8 @@ def serve_steps(
         sampled = sample_categorical(scaled, generator)
         token = torch.where(temps <= 0, greedy, sampled)
         token = torch.where(state["active"], token, torch.zeros_like(token))
+        # tensor parallelism: every rank decodes rank 0's tokens
+        tpl.broadcast_(token, getattr(model, "tp", None))
         _, state = _ragged_decode(model, cfg, state, token)
         tokens.append(token)
     return state, torch.stack(tokens, dim=1)
@@ -330,12 +344,18 @@ class ServingEngine:
         warm_spec_filters: bool = False,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) is not ported")
         self.device = resolve_device(device)
         check_on_device(model, self.device)
+        tp = mesh.axis_size(MODEL_AXIS) if mesh is not None else 1
+        # the mesh is kept only when it splits the model
+        self.mesh = mesh if tp > 1 else None
+        if tp > 1:
+            # each rank's heads of a copy (the caller's model stays whole)
+            model = tpl.shard_model(model, tpl.TPContext.from_mesh(mesh), copy_model=True)
         self.model = model
         self.cfg = cfg
+        # the decode paths' config: this rank's heads, their cache lanes
+        self._ccfg = tpl.tp_local_config(cfg, tp)
         self.slots = int(slots)
         self.S = int(max_seq_len or cfg.block_size)
         if self.S > cfg.block_size:
@@ -354,7 +374,7 @@ class ServingEngine:
                 _draft_table(draft_table, cfg.vocab_size, allowed_ids),
                 self.device, torch.float32)
             cache_cap = -(-(self.S + self._spec_k + 1) // CACHE_BUCKET) * CACHE_BUCKET
-        self.state = init_serving_state(cfg, self.slots, cache_cap, kv_quant,
+        self.state = init_serving_state(self._ccfg, self.slots, cache_cap, kv_quant,
                                         device=self.device)
         # small admission bucket: prompts at or under this length prefill
         # at this width, longer ones at the full window
@@ -454,7 +474,7 @@ class ServingEngine:
             "max_seq_len": self.S,
             "kv_quant": self.kv_quant,
             "steps_per_sync": self.steps_per_sync,
-            "tensor_parallel": False,
+            "tensor_parallel": self.mesh is not None,
             "speculative_k": self._spec_k,
             "decode_steps": self._decode_steps,
             "verify_rounds": self._verify_rounds,
@@ -498,7 +518,7 @@ class ServingEngine:
             self.results[req.request_id] = RequestResult(
                 req.request_id, list(req.prompt))
         self._samp_dev = self._sampling_device()
-        admit_many(self.model, self.cfg, self.state, slot_idx, prompts, lens, valid)
+        admit_many(self.model, self._ccfg, self.state, slot_idx, prompts, lens, valid)
 
     def _retire(self, tokens: np.ndarray,
                 snapshot: list[Request | None] | None = None,
@@ -559,7 +579,7 @@ class ServingEngine:
 
             use_filters = self._spec_filters_seen = self._spec_filters_seen or use_filters
             self.state, toks, counts = serve_steps_speculative(
-                self.model, self.cfg, self.state, self.steps_per_sync,
+                self.model, self._ccfg, self.state, self.steps_per_sync,
                 self._samp_dev, self._table, self._generator, self._allowed,
                 self._spec_k, use_filters)
             self._verify_rounds += self.steps_per_sync
@@ -568,7 +588,7 @@ class ServingEngine:
             toks = torch.cat([counts[:, :, None], toks], dim=2)
         else:
             self.state, toks = serve_steps(
-                self.model, self.cfg, self.state, self.steps_per_sync,
+                self.model, self._ccfg, self.state, self.steps_per_sync,
                 self._samp_dev, self._generator, self._allowed, use_filters)
             self._decode_steps += self.steps_per_sync
         if toks.device.type != "cuda":

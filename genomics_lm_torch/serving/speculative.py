@@ -33,6 +33,12 @@ Python loops over device tensors; the caches and segment ids are updated
 in place where JAX donates them. Every random draw comes from the
 caller's ``torch.Generator``, so sampled draws differ from JAX's while
 their distribution does not.
+
+Under tensor parallelism (a ``ServingEngine`` with a mesh) each rank
+verifies on its local heads through the same chunk kernel (JAX's mesh
+verify takes the einsum path; the kernel is the same function, and the
+plain version stays off the card's path), and every rank takes rank 0's
+drafts and verify logits, so all of them accept the same tokens.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from genomics_lm_torch.ops.decode_attention import (
     decode_attention_chunk_reference,
 )
 from genomics_lm_torch.ops.quant import quantize_kv
+from genomics_lm_torch.parallel import tensor_parallel as tpl
 from genomics_lm_torch.serving.engine import filtered_sampling_logits
 from genomics_lm_torch.utils.device import check_on_device, resolve_device
 
@@ -268,7 +275,7 @@ def _ragged_verify(model: CodonGPT, cfg: CodonGPTConfig, state: dict,
         state["v"][layer][bidx, wpos] = v.transpose(1, 2).reshape(B, T, -1).to(
             state["v"].dtype)
         y = _attend_chunk(cfg, q, state, mask_add, layer)  # (B, Hq, T, D) f32
-        y = y.to(cfg.dtype).transpose(1, 2).reshape(B, T, cfg.n_embd)
+        y = y.to(cfg.dtype).transpose(1, 2).reshape(B, T, cfg.n_embd)  # this rank's heads
         x = block_epilogue(block, cfg, x, y)
 
     x = _layer_norm(model.ln_f, x)
@@ -319,8 +326,13 @@ def _speculative_round(model: CodonGPT, cfg: CodonGPTConfig, state: dict,
 
     tokens = torch.cat([t0[:, None], drafts], dim=1)  # (B, K+1)
     tokens = torch.where(active[:, None], tokens, torch.zeros_like(tokens))
+    # tensor parallelism: every rank verifies rank 0's drafts and accepts on
+    # rank 0's logits, so the caches stay equal
+    tp = getattr(model, "tp", None)
+    tpl.broadcast_(tokens, tp)
 
     logits_rows, _, chunk_seg = _ragged_verify(model, cfg, state, tokens)
+    tpl.broadcast_(logits_rows, tp)
     P = _chunk_probs(logits_rows, sampling, allowed_mask, use_filters)  # (B, K+1, V)
     uniforms = torch.rand(drafts.shape, generator=generator, device=drafts.device)
     m, next_probs = speculative_acceptance(P, Q, drafts, uniforms)

@@ -15,6 +15,12 @@ has no bfloat16, and the JAX reader's ``jnp.bfloat16`` is not available
 here). A model is stored in the JAX tree layout
 (``utils/weights.py::params_to_jax``), so the JAX package can load it.
 
+Under data and tensor parallelism a checkpoint still holds full arrays, in
+the one-process layout, so it resumes at any world size or tensor-parallel
+degree: ``gather_to_writer`` brings every rank's host copies (its slices
+of the split parameters, the moments it owns) to rank 0 in rank order,
+which assembles them and alone writes the file (``training/loop.py``).
+
 ``transfer_load_params`` is the JAX function over numpy trees (token-aware
 vocabulary-row remap with the same ``loaded/adapted/skipped/missing``
 report). The width/depth expansion of ``training/expansion.py`` is the
@@ -124,6 +130,18 @@ def _host_tree(tree):
     if hasattr(tree, "shape") and hasattr(tree, "dtype"):
         return _host_materialize(tree, copy=True)
     return tree
+
+
+def gather_to_writer(obj):
+    """``obj`` of every rank as a list in rank order on rank 0 (None on the
+    other ranks); ``[obj]`` without a process group. Every rank must call it."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return [obj]
+    out = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object(obj, out, dst=0)
+    return out
 
 
 class AsyncCheckpointer:
@@ -298,6 +316,7 @@ def _unflatten_paths(flat: dict[str, Any], like: dict) -> dict:
 __all__ = [
     "AsyncCheckpointer",
     "checkpoint_array",
+    "gather_to_writer",
     "load_checkpoint",
     "load_checkpoint_meta",
     "save_checkpoint",

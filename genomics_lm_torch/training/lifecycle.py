@@ -18,6 +18,14 @@ larger epoch target (its completion marker is archived).
 RNG capture covers the host PRNGs (python, numpy, torch's default CPU
 generator) plus the trainer's generator, which draws every dropout mask:
 restoring it makes a resumed run draw the masks the straight run draws.
+
+Several processes (data and tensor parallelism): ``open_run`` opens the
+run on rank 0 alone, which owns the directory, its lock and every file it
+writes; the other ranks get a ``FollowerRun`` with the same paths, or rank
+0's error. ``stop_consensus`` is the per-group agreement on the periodic,
+wall-time and signal triggers: a SIGTERM that lands on one rank stops every
+rank at the same group boundary, where the one preemption checkpoint is
+written.
 """
 
 from __future__ import annotations
@@ -360,8 +368,75 @@ class TrainingRun:
         return False
 
 
+class FollowerRun:
+    """The run as a rank other than rank 0 sees it: rank 0's directory and
+    resume checkpoint, and no lock, directory or file of its own."""
+
+    def __init__(self, run_dir: str, resume_checkpoint: str | None) -> None:
+        self.run_dir = Path(run_dir)
+        self.resume_checkpoint = Path(resume_checkpoint) if resume_checkpoint else None
+        self.checkpoints, self.scores, self.logs = (
+            self.run_dir / name for name in TrainingRun.SUBDIRS)
+
+    def close(self) -> None:
+        pass
+
+    def mark_complete(self, metadata: dict[str, Any]) -> None:
+        pass
+
+
+def _world() -> tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def open_run(root: str | Path, run_id: str, **kwargs):
+    """``TrainingRun.open`` on rank 0; the other ranks of the world get a
+    ``FollowerRun`` of the same directory, or raise rank 0's error. One
+    process: ``TrainingRun.open`` itself."""
+    rank, size = _world()
+    if size == 1:
+        return TrainingRun.open(root, run_id, **kwargs)
+    import torch.distributed as dist
+
+    run, error, shared = None, None, [None]
+    if rank == 0:
+        try:
+            run = TrainingRun.open(root, run_id, **kwargs)
+            resume = run.resume_checkpoint
+            shared = [("ok", str(run.run_dir), str(resume) if resume else None)]
+        except Exception as exc:  # every rank must leave the collective below
+            error = exc
+            shared = [("error", type(exc).__name__, str(exc))]
+    dist.broadcast_object_list(shared, src=0)
+    status, first, second = shared[0]
+    if error is not None:
+        raise error
+    if status == "error":
+        raise RunLifecycleError(f"rank 0 could not open the run: {first}: {second}")
+    return run if rank == 0 else FollowerRun(first, second)
+
+
+def stop_consensus(periodic: bool, wall: bool, preempt: bool, device) -> tuple[bool, bool, bool]:
+    """The periodic-save, wall-time and signal triggers agreed over every
+    rank (the max of each), at every group boundary and unconditionally:
+    a trigger seen on one rank (its clock, a SIGTERM sent to it alone) acts
+    on all of them at the same group, or the ranks' collectives would part."""
+    if _world()[1] == 1:
+        return periodic, wall, preempt
+    import torch.distributed as dist
+
+    bits = torch.tensor([periodic, wall, preempt], dtype=torch.int32, device=device)
+    dist.all_reduce(bits, op=dist.ReduceOp.MAX)
+    return tuple(bool(b) for b in bits.tolist())
+
+
 __all__ = [
     "DEFAULT_MUTABLE_CONFIG_KEYS",
+    "FollowerRun",
     "LAST_CHECKPOINT_NAME",
     "RunLifecycleError",
     "RunProgress",
@@ -369,6 +444,8 @@ __all__ = [
     "capture_rng_state",
     "checkpoint_progress",
     "configuration_fingerprint",
+    "open_run",
     "restore_rng_state",
+    "stop_consensus",
     "validate_curve_history",
 ]

@@ -1,6 +1,7 @@
-"""The codon-LM trainer on one device (twin of ``genomics_lm_tpu/training/loop.py``).
+"""The codon-LM trainer (twin of ``genomics_lm_tpu/training/loop.py``).
 
-``run_training`` follows the JAX trainer step for step, single device:
+``run_training`` follows the JAX trainer step for step, on one device or,
+given a ``mesh`` (``parallel/mesh.py``), on one rank of several processes:
 
 - primary-contract validation (``training/contracts.py``, fail closed;
   the OOM safeguard never rewrites a contract-bound config),
@@ -40,16 +41,33 @@ The host reads a group's metrics in one device→host copy (beside the
 step's own read of whether the group commits), and validation in one copy
 at its end: the path is host-bound.
 
+The mesh branch (JAX's ``:372-380,405-545,617-642,931-958``): ranks on the
+``data`` axis each take their strided rows of every global microbatch and
+validation batch, padded with PAD rows to equal shares
+(``EpochPlan.microbatches``), and the step reduces the loss sums, counts
+and gradients over the axis (``train_step.py``); ``shard_optimizer_state``
+splits the optimizer state ZeRO-1 style (``optim.py``). A ``model`` axis
+splits every block Megatron style (``parallel/tensor_parallel.py``), and
+``residual_sharding: [data, model]`` adds sequence parallelism. Rank 0
+alone owns the run directory and writes every file; a checkpoint gathers
+the split parameters and moments there and holds full arrays, so it
+resumes at any world size or degree. The periodic-save, wall-time and
+signal triggers are agreed over all ranks at every group boundary
+(``lifecycle.stop_consensus``). Replay under several processes, and a
+multi-process mesh without a ``data`` axis, are refused as in JAX.
+
 Not ported, and refused with ``NotImplementedError`` naming the flag
-(``UNPORTED_FLAGS``): meshes, tensor and pipeline parallelism and
-multi-process runs. A MoE config trains on the one card with its experts
-replicated (JAX's single-device branch, where ``shard_optimizer_state`` is
-a no-op too); expert parallelism needs a mesh and raises under its flags.
+(``UNPORTED_FLAGS``): pipeline parallelism, and ``tensor_parallel`` on a
+MoE config (expert parallelism); a MoE config under a data-parallel mesh
+is refused too (its capacity and router loss span the global microbatch).
+A MoE config trains on one card with its experts replicated (JAX's
+single-device branch, where ``shard_optimizer_state`` is a no-op too).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import json
 import math
@@ -74,6 +92,9 @@ from genomics_lm_torch.data.replay import GeneratedTerminationReplayDataset
 from genomics_lm_torch.models import biophysics
 from genomics_lm_torch.models.codon_gpt import CodonGPT, param_count
 from genomics_lm_torch.models.config import CodonGPTConfig
+from genomics_lm_torch.parallel import mesh as mesh_lib
+from genomics_lm_torch.parallel import tensor_parallel as tpl
+from genomics_lm_torch.parallel.data_parallel import DPContext
 from genomics_lm_torch.tokenizers.codon import STOP_IDS
 from genomics_lm_torch.training import checkpoints as ckpt_lib
 from genomics_lm_torch.training import lora as lora_lib
@@ -88,10 +109,11 @@ from genomics_lm_torch.training.config import (
 from genomics_lm_torch.training.contracts import validate_primary_training_config
 from genomics_lm_torch.training.lifecycle import (
     RunLifecycleError,
-    TrainingRun,
     capture_rng_state,
     configuration_fingerprint,
+    open_run,
     restore_rng_state,
+    stop_consensus,
 )
 from genomics_lm_torch.training.runtime import (
     GracefulPreemption,
@@ -119,23 +141,26 @@ LAST = "last.npz"
 OPTIMIZER_FORMAT = "torch.optim.AdamW/by-parameter-name/v1"
 ADAFACTOR_FORMAT = "adafactor/by-jax-leaf/v1"
 
+def _above_one(v) -> bool:
+    return v is not None and int(v) > 1
+
+
 # (flag, predicate on the run config): each raises NotImplementedError
 UNPORTED_FLAGS = (
-    ("mesh_devices", lambda v: v is not None and int(v) > 1),
-    ("tensor_parallel", lambda v: v is not None and int(v) > 1),
-    ("pipeline_stages", lambda v: v is not None and int(v) > 1),
+    ("pipeline_stages", lambda cfg: _above_one(cfg.get("pipeline_stages"))),
+    # tensor parallelism of a MoE config is expert parallelism
+    ("tensor_parallel", lambda cfg: _above_one(cfg.get("tensor_parallel"))
+     and bool(cfg.get("moe_experts"))),
 )
 
 
 def refuse_unported(cfg: dict) -> None:
     """Raise ``NotImplementedError`` naming the first flag of ``cfg`` that
-    asks for something the port does not have, or for a multi-process run."""
+    asks for something the port does not have."""
     for flag, asks in UNPORTED_FLAGS:
-        if flag in cfg and asks(cfg[flag]):
-            raise NotImplementedError(f"{flag}={cfg[flag]!r} is not ported")
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("multi-process training is not ported")
+        if asks(cfg):
+            extra = " on a MoE config (expert parallelism)" if flag == "tensor_parallel" else ""
+            raise NotImplementedError(f"{flag}={cfg[flag]!r}{extra} is not ported")
 
 
 class NonfiniteGroupLimitError(RuntimeError):
@@ -298,6 +323,92 @@ def load_optimizer_state(bundle, model: torch.nn.Module, saved) -> None:
     bundle.applied_steps = int(saved["applied_steps"])
 
 
+def _local_optimizer_state(saved, bundle, model) -> dict:
+    """A full (one-process layout) optimizer state cut to what this rank's
+    optimizer holds: under ZeRO-1 its own parameters or leaves, under
+    tensor parallelism its slice of each split parameter's moments."""
+    tp = getattr(model, "tp", None)
+    if (bundle.zero is None and tp is None) or not isinstance(saved, dict):
+        return saved
+    if saved.get("format") == ADAFACTOR_FORMAT:
+        mine = set(bundle.optimizer.state) if isinstance(
+            bundle.optimizer, optim_lib.Adafactor) else set()
+        return dict(saved, state={k: v for k, v in saved["state"].items() if k in mine})
+    if saved.get("format") != OPTIMIZER_FORMAT:
+        return saved
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+    unknown = sorted(set(saved["state"]) - set(shapes))
+    if unknown:
+        raise RunLifecycleError(f"the optimizer state names unknown parameters: {unknown}")
+    mine = set(_param_index_names(bundle, model).values())
+    state = {}
+    for name, st in saved["state"].items():
+        if name not in mine:
+            continue
+        split = tp.layout.get(name) if tp is not None else None
+        state[name] = {k: (tpl.local_slice(torch.as_tensor(np.asarray(v)), split, tp)
+                           if np.ndim(v) else v) for k, v in st.items()}
+    return dict(saved, state=state)
+
+
+def _assemble_optimizer_state(pieces: list[dict], layout: dict, tp_size: int) -> dict:
+    """The one-process optimizer state from the ranks' pieces (each
+    ``{"tp": model-axis rank, "optimizer": optimizer_state(...)}``): ZeRO-1
+    owners' parts merged, split moments joined over the model axis."""
+    first = pieces[0]["optimizer"]
+    by_name: dict[str, dict[int, dict]] = {}
+    for piece in pieces:
+        for name, st in piece["optimizer"]["state"].items():
+            by_name.setdefault(name, {})[piece["tp"]] = st
+    if first["format"] == ADAFACTOR_FORMAT:
+        return dict(first, state={n: parts[0] for n, parts in by_name.items()})
+    state = {}
+    for name in sorted(by_name):
+        parts = by_name[name]
+        split = layout.get(name)
+        state[name] = {k: (tpl.assemble([torch.as_tensor(parts[t][k]) for t in range(tp_size)],
+                                         split, tp_size)
+                           if split is not None and np.ndim(v) else v)
+                       for k, v in parts[0].items()}
+    return dict(first, state=state)
+
+
+def gather_full_state(model, bundle, model_cfg: CodonGPTConfig, template, mesh):
+    """The model tree and optimizer state in the one-process layout, on
+    rank 0 ((None, None) on the other ranks; every rank calls this). Each
+    rank sends its host copies (its slices under tensor parallelism, its
+    moments under ZeRO-1) and rank 0 assembles them, the model into
+    ``template`` (its full copy). Without a mesh: the live model and
+    optimizer."""
+    if mesh is None:
+        return params_to_jax(model, model_cfg), optimizer_state(bundle, model)
+    tp = getattr(model, "tp", None)
+    n_tp = tp.size if tp is not None else 1
+    dp_rank = mesh.axis_rank(mesh_lib.DATA_AXIS)
+    sends_state = bundle.zero is not None or dp_rank == 0
+    piece = {
+        "tp": tp.rank if tp is not None else 0,
+        "model": ({n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+                  if tp is not None and dp_rank == 0 else None),
+        "optimizer": (ckpt_lib._host_tree(optimizer_state(bundle, model))
+                      if sends_state else None),
+    }
+    pieces = ckpt_lib.gather_to_writer(piece)
+    if pieces is None:
+        return None, None
+    source = model
+    if tp is not None:
+        parts = {pc["tp"]: pc["model"] for pc in pieces if pc["model"] is not None}
+        template.load_state_dict({
+            n: (tpl.assemble([parts[t][n] for t in range(n_tp)], split, n_tp)
+                if (split := tp.layout.get(n)) is not None else parts[0][n])
+            for n in parts[0]}, strict=True)
+        source = template
+    opt = _assemble_optimizer_state([pc for pc in pieces if pc["optimizer"] is not None],
+                                    tp.layout if tp is not None else {}, n_tp)
+    return params_to_jax(source, model_cfg), opt
+
+
 # --- host reads ---------------------------------------------------------------
 
 GROUP_METRIC_KEYS = ("applied", "finite_microbatches", "nonpad_tokens", "total_loss_sum",
@@ -327,13 +438,47 @@ def run_training(
     run_root: str | Path = "runs",
     device: str | torch.device | None = None,
     progress_every: int = 200,
+    mesh: mesh_lib.Mesh | None = None,
 ) -> dict:
     """Train a codon LM per the flat run config; returns the final meta dict.
 
     Runs on ``device`` (default ``cuda``; raises without CUDA unless a
-    device is named)."""
+    device is named; under a multi-process ``mesh``, the rank's device of
+    ``parallel/mesh.py::initialize_distributed``). Every rank of the mesh
+    calls this with the same config."""
     refuse_unported(cfg)
-    device = resolve_device(device)
+    rank, world_size = mesh_lib.world()
+    is_writer = rank == 0
+    if world_size > 1 and mesh is None:
+        raise ValueError(
+            "multi-process training requires a mesh spanning all processes; "
+            "without one each process would train independently on its shard")
+    n_dp = mesh.axis_size(mesh_lib.DATA_AXIS) if mesh is not None else 1
+    n_tp = mesh.axis_size(mesh_lib.MODEL_AXIS) if mesh is not None else 1
+    if mesh is not None:
+        if world_size > 1 and mesh.size != world_size:
+            raise ValueError(f"the mesh {mesh.shape} does not span the {world_size} ranks")
+        if world_size > 1 and mesh_lib.DATA_AXIS not in mesh.shape:
+            raise ValueError(
+                "multi-process meshes need a 'data' axis to assemble global "
+                "batches from per-rank loader shards")
+        if world_size > 1 and bool(cfg.get("replay_loss_enabled", False)):
+            raise ValueError(
+                "replay loss is not supported under multi-process meshes "
+                "(replay batches are fed host-local)")
+        if n_dp > 1 and int(cfg.get("moe_experts", 0) or 0):
+            raise NotImplementedError(
+                "moe_experts under a data-parallel mesh is not ported (the capacity "
+                "and the router loss span the global microbatch)")
+        if n_tp > 1 and int(cfg.get("moe_experts", 0) or 0):
+            raise NotImplementedError(
+                "tensor_parallel on a MoE config (expert parallelism) is not ported")
+    elif _above_one(cfg.get("tensor_parallel")):
+        raise ValueError("tensor_parallel > 1 needs a mesh with a 'model' axis")
+    dp_rank = mesh.axis_rank(mesh_lib.DATA_AXIS) if mesh is not None else 0
+    dp = DPContext.from_mesh(mesh)
+    device = (mesh_lib.rank_device(device) if world_size > 1 and device is None
+              else resolve_device(device))
     # --- primary contract (fail-closed frozen-config validation) ------------
     primary_contract = None
     if cfg.get("primary_training_contract"):
@@ -389,7 +534,7 @@ def run_training(
     fingerprint = configuration_fingerprint(cfg)
     if resume is not None:
         vocab_lib.validate_resume_checkpoint(resume, contract, dataset_id=dataset_id)
-    training_run = TrainingRun.open(
+    training_run = open_run(
         run_root,
         run_id,
         resume=resume,
@@ -401,16 +546,18 @@ def run_training(
     scores_dir = training_run.scores
     log_csv = scores_dir / "curves.csv"
 
-    snapshot = vocab_lib.snapshot_vocabulary(contract, run_dir / "itos.txt")
-    vocab_lib.write_vocabulary_manifest(
-        contract.provenance(snapshot), run_dir / "vocabulary.json"
-    )
+    snapshot = None
+    if is_writer:  # rank 0 alone writes the run's files
+        snapshot = vocab_lib.snapshot_vocabulary(contract, run_dir / "itos.txt")
+        vocab_lib.write_vocabulary_manifest(
+            contract.provenance(snapshot), run_dir / "vocabulary.json"
+        )
     cfg = dict(cfg)
     cfg["vocab_size"] = vocab_size
     cfg["vocabulary"] = {"sha256": contract.sha256, "size": vocab_size}
     if dataset_id is not None:
         cfg["dataset_manifest"] = {"dataset_id": dataset_id}
-    if config_path and Path(config_path).exists():
+    if is_writer and config_path and Path(config_path).exists():
         shutil.copy2(config_path, ckpt_dir / "config.yaml")
 
     print(f"[run] id={run_dir.name} device={device}")
@@ -468,9 +615,10 @@ def run_training(
             "adapted": len(report["adapted"]),
             "skipped": len(report["skipped"]),
         }
-        prov = contract.provenance(snapshot)
-        prov.update(adaptation)
-        vocab_lib.write_vocabulary_manifest(prov, run_dir / "vocabulary.json")
+        if is_writer:
+            prov = contract.provenance(snapshot)
+            prov.update(adaptation)
+            vocab_lib.write_vocabulary_manifest(prov, run_dir / "vocabulary.json")
 
     # --- LoRA (after transfer, so adapters wrap the loaded base weights) ----
     if cfg.get("lora_rank"):
@@ -491,8 +639,26 @@ def run_training(
         )
     model.to(device)
 
+    # --- mesh: Megatron splits over the model axis ----------------------------
+    template = None  # rank 0's full copy, which checkpoints assemble into
+    if n_tp > 1:
+        if cfg.get("residual_sharding"):
+            model_cfg = model_cfg.replace(residual_sharding=tuple(cfg["residual_sharding"]))
+            model.cfg = model_cfg
+        if is_writer:
+            template = copy.deepcopy(model).cpu()
+        tpl.shard_model(model, tpl.TPContext.from_mesh(mesh))
+    if mesh is not None:
+        print(f"[mesh] shape={mesh.shape} world={world_size} rank={rank} "
+              f"backend={mesh_lib.backend()} device={device} "
+              f"sequence_parallel={bool(n_tp > 1 and model.tp.sequence_parallel)} "
+              f"zero1={bool(cfg.get('shard_optimizer_state', False) and n_dp > 1)}")
+
     # --- optimizer / schedule ----------------------------------------------
     batch_size = int(cfg["batch_size"])
+    if batch_size % n_dp:
+        raise ValueError(
+            f"batch_size {batch_size} must divide over {n_dp} data-parallel ranks")
     gacc = int(cfg.get("grad_accum_steps", 16))
     max_nonfinite_groups = int(cfg.get("max_nonfinite_accumulation_groups", 3))
     if max_nonfinite_groups < -1:
@@ -509,7 +675,7 @@ def run_training(
     )
     computed_total = max(1, steps_per_epoch * max_epochs)
     total_steps = int(cfg.get("scheduler_total_steps", computed_total))
-    bundle = optim_lib.build_optimizer(cfg, model, total_steps)
+    bundle = optim_lib.build_optimizer(cfg, model, total_steps, dp=dp)
     cfg["resolved_warmup_steps"] = bundle.warmup_steps
 
     # --- replay --------------------------------------------------------------
@@ -522,8 +688,8 @@ def run_training(
         )
 
     train_step = make_train_step(model_cfg, loss_cfg, use_replay=loss_cfg.replay_enabled,
-                                 shape_lookup=shape_lookup)
-    eval_step = make_eval_step(model_cfg, loss_cfg, shape_lookup=shape_lookup)
+                                 shape_lookup=shape_lookup, dp=dp)
+    eval_step = make_eval_step(model_cfg, loss_cfg, shape_lookup=shape_lookup, dp=dp)
     group_keys = GROUP_METRIC_KEYS + tuple(
         [f"offset_{o}_sum" for o in multi_offset_weights]
         + (["term_loss_sum"] if loss_cfg.termination_enabled else [])
@@ -531,9 +697,11 @@ def run_training(
     eval_keys = EVAL_METRIC_KEYS + tuple(
         [f"offset_{o}" for o in multi_offset_weights]
         + (["term_loss"] if loss_cfg.termination_enabled else []))
-    # draws every dropout mask and attention seed; its state is checkpointed
+    # draws every dropout mask and attention seed; its state is checkpointed.
+    # Data-parallel ranks draw distinct streams; the ranks of one model axis
+    # share theirs (their replicated activations take the same masks).
     generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    generator.manual_seed(seed + dp_rank)
 
     # --- resume --------------------------------------------------------------
     start_epoch = 0
@@ -574,10 +742,13 @@ def run_training(
                     "microbatches differently. Use grad_accum_steps: 1, where the "
                     "objectives coincide."
                 )
-            model.load_state_dict(state_dict_from_jax(payload["model"], model_cfg),
-                                  strict=True)
-            load_optimizer_state(bundle, model, payload.get("optimizer"))
+            tpl.load_full_state(model, state_dict_from_jax(payload["model"], model_cfg))
+            load_optimizer_state(bundle, model,
+                                 _local_optimizer_state(payload.get("optimizer"), bundle, model))
             restore_rng_state(payload.get("rng_state"), generator)
+            if dp_rank:  # rank 0's saved stream, made distinct for this rank
+                draw = torch.randint(0, 2**62, (1,), generator=generator, device=device)
+                generator.manual_seed(int(draw.item()) + dp_rank)
         except Exception:
             training_run.close()  # release the run lock before failing closed
             raise
@@ -613,12 +784,17 @@ def run_training(
     current_epoch_idx = start_epoch
     current_resume_microbatch_idx = resume_microbatch_idx
 
-    def make_checkpoint_payload(epoch_idx: int, **metrics) -> dict:
+    def make_checkpoint_payload(epoch_idx: int, **metrics) -> dict | None:
+        """The checkpoint payload, on rank 0 (None on the other ranks);
+        every rank calls it."""
         val_loss = metrics.get("val_loss", float("inf"))
         epoch_complete = val_loss != float("inf")
+        model_tree, opt_state = gather_full_state(model, bundle, model_cfg, template, mesh)
+        if not is_writer:
+            return None
         return {
-            "model": params_to_jax(model, model_cfg),
-            "optimizer": optimizer_state(bundle, model),
+            "model": model_tree,
+            "optimizer": opt_state,
             "scheduler": bundle.plateau.state_dict() if bundle.plateau else None,
             "cfg": {k: v for k, v in cfg.items() if _jsonable(v)},
             "epoch": epoch_idx if epoch_complete else max(0, epoch_idx - 1),
@@ -662,6 +838,8 @@ def run_training(
     )
 
     def write_ckpt(payload, path) -> None:
+        if payload is None:  # not rank 0
+            return
         if async_ckpt is not None:
             async_ckpt.save(payload, path)
         else:
@@ -669,7 +847,8 @@ def run_training(
 
     def save_last(epoch_idx: int, reason: str, **metrics) -> None:
         payload = make_checkpoint_payload(epoch_idx, **metrics)
-        payload["checkpoint_reason"] = reason
+        if payload is not None:
+            payload["checkpoint_reason"] = reason
         write_ckpt(payload, ckpt_dir / LAST)
         periodic_ckpt.mark_saved(step)
         print(f"[checkpoint] saved {ckpt_dir / LAST} reason={reason} step={step}")
@@ -693,7 +872,11 @@ def run_training(
             bucket_batching=bool(cfg.get("bucket_batching", False)),
         )
         rows = []
-        for x, y in plan.microbatches():
+        # several data-parallel ranks: each evaluates its strided rows of every
+        # batch, padded to equal shares (PAD rows carry no targets), and
+        # skips none another rank evaluates
+        for x, y in plan.microbatches(host_id=dp_rank, n_hosts=n_dp,
+                                      pad_equal_shards=n_dp > 1):
             if x.shape[0] == 0:
                 continue
             xb, yb = _to_device((x, y), device)
@@ -747,7 +930,8 @@ def run_training(
 
             prefetch_depth = int(cfg.get("prefetch_batches", 2))
             raw_groups = grouped_batches(
-                plan, gacc, skip_microbatches=skip, pad_batch_to=batch_size,
+                plan, gacc, host_id=dp_rank, n_hosts=n_dp, skip_microbatches=skip,
+                pad_batch_to=batch_size // n_dp,
             )
             stage = lambda g: (g[0], g[1], g[2], g[0].shape[0])  # noqa: E731
             if prefetch_depth:
@@ -811,16 +995,30 @@ def run_training(
                             f"[train] progress: {mb_index}/{microbatches_per_epoch} "
                             f"speed: {mb_seen * batch_size / max(elapsed, 1e-9):.2f} seq/sec"
                         )
-                    if applied and periodic_ckpt.should_save(step):
-                        save_last(epoch_idx, reason="periodic")
+                    periodic_due = applied and periodic_ckpt.should_save(step)
                     if hasattr(wall_timer, "expired"):
-                        if wall_timer.expired():
-                            raise WallTimeLimitException()
-                    else:
+                        wall_due = wall_timer.expired()
+                    elif world_size == 1:
                         # duck-typed fake timers (tests monkeypatch
-                        # loop.WallTimer) raise from check() directly
+                        # loop.WallTimer) raise from check() directly; only
+                        # in one process, where a raise parts no collective
                         wall_timer.check()
-                    preemption.check()
+                        wall_due = False
+                    else:
+                        raise TypeError(
+                            "multi-process training requires a wall timer with a "
+                            "non-raising expired() probe (trigger decisions go "
+                            "through the rank consensus)")
+                    preempt_due = preemption.requested
+                    periodic_due, wall_due, preempt_due = stop_consensus(
+                        periodic_due, wall_due, preempt_due, device)
+                    if periodic_due:
+                        save_last(epoch_idx, reason="periodic")
+                    if wall_due:
+                        raise WallTimeLimitException()
+                    if preempt_due:
+                        preemption.check()
+                        raise PreemptionRequested("preempted on a peer rank")
 
             mem = device_memory_stats(device)
             if mem.get("peak_bytes_in_use"):
@@ -893,36 +1091,38 @@ def run_training(
                 # a periodic save of last.npz may still be writing through the
                 # same staging file: join it before this synchronous save
                 async_ckpt.wait()
-            ckpt_lib.save_checkpoint(payload, ckpt_dir / LAST)
+            if is_writer:
+                ckpt_lib.save_checkpoint(payload, ckpt_dir / LAST)
             periodic_ckpt.mark_saved(step)
-            if cfg.get("save_epochs", False):
+            if is_writer and cfg.get("save_epochs", False):
                 ckpt_lib.save_checkpoint(payload, ckpt_dir / f"epoch_{epoch_idx}.npz")
 
-            write_header = not log_csv.exists()
-            with log_csv.open("a", newline="") as f:
-                writer = csv.writer(f)
-                if write_header:
-                    header = ["epoch", "train_loss", "val_loss", "train_next_loss",
-                              "val_next_loss", "perplexity", "lr"]
+            if is_writer:
+                write_header = not log_csv.exists()
+                with log_csv.open("a", newline="") as f:
+                    writer = csv.writer(f)
+                    if write_header:
+                        header = ["epoch", "train_loss", "val_loss", "train_next_loss",
+                                  "val_next_loss", "perplexity", "lr"]
+                        for o in sorted(multi_offset_weights):
+                            header += [f"train_offset_{o}", f"val_offset_{o}"]
+                        if loss_cfg.termination_enabled:
+                            header += ["train_term_loss", "val_term_loss"]
+                        if loss_cfg.replay_enabled:
+                            header += ["train_replay_term_loss"]
+                        writer.writerow(header)
+                    row = [
+                        epoch_idx, f"{train_loss:.4f}", f"{val_loss:.4f}",
+                        f"{train_next_loss:.4f}", f"{val_next_loss:.4f}",
+                        f"{ppl:.3f}", f"{lr_now:.3e}",
+                    ]
                     for o in sorted(multi_offset_weights):
-                        header += [f"train_offset_{o}", f"val_offset_{o}"]
+                        row += [f"{train_offsets.get(o, 0.0):.4f}", f"{val_offsets.get(o, 0.0):.4f}"]
                     if loss_cfg.termination_enabled:
-                        header += ["train_term_loss", "val_term_loss"]
+                        row += [f"{train_term_loss:.4f}", f"{val_term_loss:.4f}"]
                     if loss_cfg.replay_enabled:
-                        header += ["train_replay_term_loss"]
-                    writer.writerow(header)
-                row = [
-                    epoch_idx, f"{train_loss:.4f}", f"{val_loss:.4f}",
-                    f"{train_next_loss:.4f}", f"{val_next_loss:.4f}",
-                    f"{ppl:.3f}", f"{lr_now:.3e}",
-                ]
-                for o in sorted(multi_offset_weights):
-                    row += [f"{train_offsets.get(o, 0.0):.4f}", f"{val_offsets.get(o, 0.0):.4f}"]
-                if loss_cfg.termination_enabled:
-                    row += [f"{train_term_loss:.4f}", f"{val_term_loss:.4f}"]
-                if loss_cfg.replay_enabled:
-                    row += [f"{train_replay_loss:.4f}"]
-                writer.writerow(row)
+                        row += [f"{train_replay_loss:.4f}"]
+                    writer.writerow(row)
 
             history.append({
                 "epoch": epoch_idx,
@@ -968,8 +1168,9 @@ def run_training(
                 save_last(current_epoch_idx or (start_epoch + 1), reason="oom")
             except Exception as save_exc:  # the checkpoint itself may not fit
                 print(f"[oom] checkpoint save failed: {save_exc}", file=sys.stderr)
-            _apply_oom_downscale(config_path, cfg,
-                                 contract_bound=primary_contract is not None)
+            if is_writer:
+                _apply_oom_downscale(config_path, cfg,
+                                     contract_bound=primary_contract is not None)
             status = "stopped"
             failure = exc
         else:
@@ -1012,8 +1213,10 @@ def run_training(
             "last_train_replay_term_loss": history[-1].get("train_replay_term_loss"),
             "last_perplexity": history[-1]["perplexity"],
         })
-        (scores_dir / "metrics.json").write_text(json.dumps(meta, indent=2) + "\n")
-    write_meta(ckpt_dir, meta)
+        if is_writer:
+            (scores_dir / "metrics.json").write_text(json.dumps(meta, indent=2) + "\n")
+    if is_writer:
+        write_meta(ckpt_dir, meta)
     if status == "completed" and history:
         training_run.mark_complete({
             "run_id": run_dir.name,
@@ -1046,6 +1249,7 @@ __all__ = [
     "NonfiniteGroupLimitError",
     "OPTIMIZER_FORMAT",
     "UNPORTED_FLAGS",
+    "gather_full_state",
     "refuse_unported",
     "run_training",
 ]

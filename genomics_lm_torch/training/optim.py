@@ -37,6 +37,16 @@ step's ``updates * lr_scale`` (it scales the decay step too, as there).
 
 ``resolve_warmup_steps``, ``cosine_lr_lambda``, ``PlateauScheduler`` and
 ``resolve_epochs`` are plain-Python copies.
+
+ZeRO-1 (``shard_optimizer_state`` under data parallelism, ``dp``): the
+trainable parameters are dealt out to the data-parallel ranks
+(``parallel/sharding.py::zero1_owners``; for Adafactor, whole JAX leaves,
+with the leaves that share a parameter kept together), each rank's
+optimizer holds and steps only its own, and ``ZeroSync`` then gathers
+every rank's updated parameters in one all-gather. Every rank holds the
+whole averaged gradient, so the update is the unsplit one; each rank holds
+about 1/dp of the moments. Under tensor parallelism ``grad_clip``'s norm
+counts each split parameter's slices once over the model axis.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 FAST_GROUP_MARKERS = ("shape_proj", "offset_projs", "termination_head")
 
@@ -238,14 +249,60 @@ class Adafactor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(params, max_norm: float) -> None:
+def clip_by_global_norm(params, max_norm: float, *, split=None, tp=None) -> None:
     """optax ``clip_by_global_norm``: scale every gradient by max_norm / norm
-    when the global norm is at least max_norm (no epsilon), on the device."""
+    when the global norm is at least max_norm (no epsilon), on the device.
+    Under tensor parallelism (``tp``, with ``split[i]`` True for a parameter
+    the model axis splits) the split parameters' squares are summed over
+    the model axis."""
     grads = [p.grad for p in params]
-    norm = torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
+    if tp is None:
+        norm = torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
+    else:
+        sq = torch.zeros(2, dtype=torch.float32, device=grads[0].device)
+        for g, is_split in zip(grads, split):
+            sq[0 if is_split else 1] += g.float().pow(2).sum()
+        from genomics_lm_torch.parallel.launch import timed
+
+        with timed(sq.device):
+            dist.all_reduce(sq[:1], group=tp.group)
+        norm = sq.sum().sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+
+
+class ZeroSync:
+    """After a ZeRO-1 step, every rank's updated parameters on every rank:
+    each rank packs the parameters it owns (in one fixed order) into one
+    flat buffer, one all-gather over the data axis carries the buffers, and
+    each rank unpacks the others'."""
+
+    def __init__(self, params: list, owner: list[int], dp):
+        self.dp = dp
+        self.by_rank = [[p for p, o in zip(params, owner) if o == r] for r in range(dp.size)]
+        self.numel = [sum(p.numel() for p in ps) for ps in self.by_rank]
+
+    @torch.no_grad()
+    def sync(self) -> None:
+        mine = self.by_rank[self.dp.rank]
+        width = max(self.numel)
+        ref = mine[0] if mine else next(p for ps in self.by_rank for p in ps)
+        buf = torch.zeros(width, dtype=torch.float32, device=ref.device)
+        if mine:
+            torch.cat([p.detach().reshape(-1).float() for p in mine], out=buf[: self.numel[self.dp.rank]])
+        parts = [torch.empty_like(buf) for _ in range(self.dp.size)]
+        from genomics_lm_torch.parallel.launch import timed
+
+        with timed(buf.device):
+            dist.all_gather(parts, buf, group=self.dp.group)
+        for r, ps in enumerate(self.by_rank):
+            if r == self.dp.rank:
+                continue
+            off = 0
+            for p in ps:
+                p.copy_(parts[r][off: off + p.numel()].view_as(p))
+                off += p.numel()
 
 
 @dataclass
@@ -262,6 +319,10 @@ class OptimizerBundle:
     lr_lambda: Callable[[int], float] | None
     grad_clip: float | None = None
     applied_steps: int = 0  # optimizer steps taken: the schedule's index
+    params: list = field(default_factory=list)  # every trainable parameter
+    split: list = field(default_factory=list)  # per parameter: split over the model axis
+    tp: Any = None
+    zero: ZeroSync | None = None
 
     def step(self, lr_scale: float = 1.0) -> None:
         """One step on the gradients in ``.grad`` (clipped first when
@@ -271,12 +332,17 @@ class OptimizerBundle:
         for group in self.optimizer.param_groups:
             group["lr"] = group["base_lr"] * mult * float(lr_scale)
         if self.grad_clip:
-            clip_by_global_norm(self.trainable(), self.grad_clip)
+            clip_by_global_norm(self.trainable(), self.grad_clip, split=self.split,
+                                tp=self.tp)
         self.optimizer.step()
+        if self.zero is not None:
+            self.zero.sync()
         self.applied_steps += 1
 
     def trainable(self) -> list[torch.nn.Parameter]:
-        return [p for group in self.optimizer.param_groups for p in group["params"]]
+        """Every trainable parameter (under ZeRO-1 also those another rank
+        updates)."""
+        return self.params
 
     def state_bytes(self) -> int:
         """Bytes of the optimizer's state tensors (the moments; AdamW's
@@ -286,9 +352,46 @@ class OptimizerBundle:
                        if isinstance(t, torch.Tensor)))
 
 
-def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int) -> OptimizerBundle:
+def _zero1_units(model, groups: list[dict], adafactor: bool):
+    """ZeRO-1's units: (name, element count, its parameters). For AdamW a
+    unit is one parameter; for Adafactor the JAX leaves that share
+    parameters, joined (a fused QKV holds three leaves)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    trainable = [p for g in groups for p in g["params"]]
+    if not adafactor:
+        return [(names[id(p)], p.numel(), [p]) for p in trainable]
+    from genomics_lm_torch.utils.weights import jax_leaves
+
+    keep = {id(p) for p in trainable}
+    parent: dict[int, int] = {}
+
+    def find(i):
+        while parent.setdefault(i, i) != i:
+            i = parent[i]
+        return i
+
+    leaves = [leaf for leaf in jax_leaves(model, model.cfg) if id(leaf.parts[0][0]) in keep]
+    for leaf in leaves:
+        ids = [id(p) for p, _, _ in leaf.parts]
+        for i in ids[1:]:
+            parent[find(i)] = find(ids[0])
+    units: dict[int, tuple[str, list]] = {}
+    for leaf in leaves:
+        for p, _, _ in leaf.parts:
+            root = find(id(p))
+            name, ps = units.setdefault(root, (leaf.path, []))
+            if all(q is not p for q in ps):
+                ps.append(p)
+    return [(name, sum(p.numel() for p in ps), ps) for name, ps in units.values()]
+
+
+def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int, *,
+                    dp=None) -> OptimizerBundle:
     """The optimizer and its schedule from a flat run config. Sets
-    ``requires_grad=False`` on every parameter labeled frozen."""
+    ``requires_grad=False`` on every parameter labeled frozen. With ``dp``
+    (more than one data-parallel rank) and ``shard_optimizer_state`` the
+    state is split ZeRO-1 style; a tensor-parallel ``model`` (``model.tp``)
+    clips over the model axis."""
     base_lr = float(cfg.get("lr", 5e-6))
     lr_embed = float(cfg.get("lr_embedding", base_lr))
     lora_lr = float(cfg.get("lora_lr", base_lr))
@@ -327,6 +430,20 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int) -> Opti
         if params:
             groups.append({"params": params, "lr": lr, "base_lr": lr,
                            "weight_decay": wd, "label": label})
+    tp = getattr(model, "tp", None)
+    if tp is not None and optimizer_name == "adafactor":
+        raise NotImplementedError("optimizer: adafactor under tensor_parallel is not ported")
+    all_params = [p for g in groups for p in g["params"]]
+    zero = None
+    if dp is not None and bool(cfg.get("shard_optimizer_state", False)):
+        from genomics_lm_torch.parallel.sharding import zero1_owners
+
+        units = _zero1_units(model, groups, optimizer_name == "adafactor")
+        owner = zero1_owners([(name, n) for name, n, _ in units], dp.size)
+        owner_of = {id(p): owner[name] for name, _, ps in units for p in ps}
+        zero = ZeroSync(all_params, [owner_of[id(p)] for p in all_params], dp)
+        groups = [dict(g, params=[p for p in g["params"] if owner_of[id(p)] == dp.rank])
+                  for g in groups]
     if optimizer_name == "adafactor":
         from genomics_lm_torch.utils.weights import jax_leaves
 
@@ -334,11 +451,16 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int) -> Opti
     else:
         optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
     grad_clip = cfg.get("grad_clip")
+    split_names = {n for n, s in (tp.layout.items() if tp is not None else ()) if s}
+    names = {id(p): n for n, p in model.named_parameters()}
     return OptimizerBundle(optimizer=optimizer, labels=labels,
                            schedule_name=scheduler_name, total_steps=total_steps,
                            warmup_steps=warmup_steps, plateau=plateau,
                            lr_lambda=lr_lambda,
-                           grad_clip=float(grad_clip) if grad_clip else None)
+                           grad_clip=float(grad_clip) if grad_clip else None,
+                           params=all_params,
+                           split=[names[id(p)] in split_names for p in all_params],
+                           tp=tp, zero=zero)
 
 
 def resolve_epochs(cfg: dict, n_params: int, tokens_per_epoch: float) -> int:
@@ -359,6 +481,7 @@ def resolve_epochs(cfg: dict, n_params: int, tokens_per_epoch: float) -> int:
 
 __all__ = [
     "Adafactor",
+    "ZeroSync",
     "FAST_GROUP_MARKERS",
     "OptimizerBundle",
     "PlateauScheduler",

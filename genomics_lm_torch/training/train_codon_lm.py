@@ -4,16 +4,26 @@ The same flags and the same YAML handling as the JAX script: the config's
 ``data:`` sub-map merges into the flat namespace, and the path, run-id,
 resume, transfer and wall-time flags override it. ``--device`` picks the
 device (default: the CUDA card; the run raises without one unless
-``--device cpu`` is given). The mesh flags (``--mesh_devices``,
-``--tensor_parallel``, ``--pipeline_stages``) are accepted and raise
-``NotImplementedError``: the port trains on one device.
+``--device cpu`` is given).
+
+The mesh flags are JAX's (``scripts/train_codon_lm.py:61-88``), over one
+process per rank: ``--mesh_devices N`` (it must equal the world size) lays
+a ``data`` axis over the ranks, and ``--tensor_parallel T`` a ``model`` axis
+of T inside it (``{"data": -1, "model": T}``). Launched by ``torchrun``, each
+rank joins the process group strictly (a rank that cannot join raises) and
+runs on ``cuda:{LOCAL_RANK}`` over NCCL; ``--device`` puts every rank on
+one device (gloo, e.g. two ranks sharing one card, or ``--device cpu``).
+``--pipeline_stages`` above 1 raises ``NotImplementedError``.
 
     python -m genomics_lm_torch.training.train_codon_lm --config cfg.yaml [--run_root runs]
+    torchrun --nproc_per_node 2 -m genomics_lm_torch.training.train_codon_lm \
+        --config cfg.yaml --mesh_devices 2 [--tensor_parallel 2]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None) -> int:
@@ -29,9 +39,9 @@ def main(argv=None) -> int:
     ap.add_argument("--max_time_minutes", type=float, default=None)
     ap.add_argument("--run_root", default="runs")
     ap.add_argument("--mesh_devices", type=int, default=None,
-                    help="not ported: raises NotImplementedError above 1")
+                    help="ranks of the mesh; must equal the world size")
     ap.add_argument("--tensor_parallel", type=int, default=None,
-                    help="not ported: raises NotImplementedError above 1")
+                    help="size of the model (Megatron) axis")
     ap.add_argument("--pipeline_stages", type=int, default=None,
                     help="not ported: raises NotImplementedError above 1")
     ap.add_argument("--device", default=None,
@@ -56,11 +66,6 @@ def main(argv=None) -> int:
         cfg["max_time_minutes"] = args.max_time_minutes
     if args.transfer_from:
         cfg["transfer_from"] = args.transfer_from
-    for flag in ("mesh_devices", "tensor_parallel", "pipeline_stages"):
-        value = getattr(args, flag)
-        if value is not None and value > 1:
-            raise NotImplementedError(f"--{flag} {value} is not ported")
-
     meta = run_training(
         cfg,
         config_path=args.config,
@@ -68,12 +73,40 @@ def main(argv=None) -> int:
         transfer_from=cfg.get("transfer_from"),
         run_root=args.run_root,
         device=args.device,
+        mesh=launch_mesh(args, cfg),
     )
     # a preempted run saved its checkpoint; exit with the conventional
     # 128+signum so supervisors see the termination cause
     if meta and meta.get("preempted_by_signal"):
         return 128 + int(meta["preempted_by_signal"])
     return 0
+
+
+def launch_mesh(args, cfg: dict):
+    """The mesh of the mesh flags (or the config's keys), or None: under a
+    launcher (``WORLD_SIZE`` > 1) the process group is joined first."""
+    from genomics_lm_torch.parallel import mesh as mesh_lib
+
+    n_mesh = args.mesh_devices or cfg.get("mesh_devices")
+    tp = int(args.tensor_parallel or cfg.get("tensor_parallel") or 1)
+    pp = int(args.pipeline_stages or cfg.get("pipeline_stages") or 1)
+    if pp > 1:
+        raise NotImplementedError(f"--pipeline_stages {pp} is not ported")
+    if not n_mesh and tp == 1:
+        return None
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        mesh_lib.initialize_distributed(strict=True, device=args.device)
+    _, world = mesh_lib.world()
+    if n_mesh and int(n_mesh) != world:
+        raise ValueError(
+            f"--mesh_devices {n_mesh} must equal the world size {world}: launch one "
+            f"process per rank (torchrun --nproc_per_node {n_mesh} ...)")
+    if tp > 1:
+        if cfg.get("moe_experts"):
+            raise NotImplementedError(
+                f"--tensor_parallel {tp} on a MoE config (expert parallelism) is not ported")
+        return mesh_lib.make_mesh(axes={mesh_lib.DATA_AXIS: -1, mesh_lib.MODEL_AXIS: tp})
+    return mesh_lib.make_mesh()
 
 
 if __name__ == "__main__":

@@ -30,6 +30,18 @@ optimizer's. A MoE model adds ``moe_aux_weight`` x its router
 load-balancing loss (the forward's ``moe_aux_loss``, the mean over
 layers) in training only, as ``parts["moe_aux"]``; evaluation losses stay
 pure cross-entropy.
+
+Data parallelism (``dp``, ``parallel/data_parallel.py``): every rank runs
+its rows of the global microbatch, each of its mean losses scaled by its
+share of that loss's global denominator, so the shares and their
+gradients sum over the ranks to JAX's global-microbatch values. One
+reduction before the group's forwards carries the denominators, one after
+them the per-microbatch losses and counts, and one the accumulated
+gradient; the nonfinite abort is then one decision over all ranks. Under
+tensor parallelism (``model.tp``) the gradients of the replicated
+parameters that each rank sees only in part (``tp_partial_grad``) are
+summed over the model axis too. The reductions run unconditionally, so
+every rank issues the same collectives whatever its data.
 """
 
 from __future__ import annotations
@@ -44,6 +56,9 @@ from genomics_lm_torch.models.biophysics import encode
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.ops import losses as L
 from genomics_lm_torch.ops.losses import PAD_ID
+from genomics_lm_torch.parallel.data_parallel import DPContext, loss_scales
+from genomics_lm_torch.parallel.launch import timed
+from genomics_lm_torch.parallel.sharding import tp_partial_grad
 from genomics_lm_torch.training.optim import OptimizerBundle
 
 
@@ -112,13 +127,20 @@ def composite_loss(model, model_cfg: CodonGPTConfig, loss_cfg: LossConfig,
                    generator: torch.Generator | None,
                    replay: tuple[torch.Tensor, torch.Tensor] | None = None,
                    shape_embeddings: torch.Tensor | None = None,
-                   shape_lookup: torch.Tensor | None = None):
-    """Total loss and its parts for one microbatch (the JAX ``composite_loss``)."""
+                   shape_lookup: torch.Tensor | None = None,
+                   scales: torch.Tensor | None = None):
+    """Total loss and its parts for one microbatch (the JAX ``composite_loss``).
+
+    ``scales`` (``parallel/data_parallel.py::loss_scales``, one row) turns
+    each mean loss into this rank's share of the global one, parts and
+    total alike."""
     if shape_embeddings is None:
         shape_embeddings = _shape_embeddings_for(model, xb, shape_lookup)
     logits, next_loss, aux = codon_gpt.forward(
         model, model_cfg, xb, yb, train=train, generator=generator, return_aux=True,
         shape_embeddings=shape_embeddings)
+    if scales is not None:
+        next_loss = next_loss * scales[0]
     total = next_loss
     parts: dict = {"next_loss": next_loss}
 
@@ -134,6 +156,13 @@ def composite_loss(model, model_cfg: CodonGPTConfig, loss_cfg: LossConfig,
         offset_total, offset_losses = L.multi_offset_lm_loss(
             aux.get("offset_logits", logits), yb, dict(loss_cfg.multi_offset_weights),
             label_smoothing=loss_cfg.label_smoothing, loss_weights=lw)
+        if scales is not None:
+            column = {o: 1 + i for i, (o, _) in enumerate(loss_cfg.multi_offset_weights)}
+            offset_losses = {o: v * scales[column[o]] for o, v in offset_losses.items()}
+            offset_total = torch.zeros((), dtype=torch.float32, device=yb.device)
+            for o, w in sorted(loss_cfg.multi_offset_weights):
+                if o in offset_losses:
+                    offset_total = offset_total + float(w) * offset_losses[o]
         total = total + offset_total
         parts["offset_losses"] = offset_losses
 
@@ -144,6 +173,8 @@ def composite_loss(model, model_cfg: CodonGPTConfig, loss_cfg: LossConfig,
         term_loss = L.termination_aux_loss(
             aux["termination_logits"], term_labels,
             class_weights=_class_weights(loss_cfg.termination_class_weights, xb.device))
+        if scales is not None:
+            term_loss = term_loss * scales[-1]
         total = total + loss_cfg.termination_weight * term_loss
         parts["term_loss"] = term_loss
 
@@ -178,9 +209,34 @@ def _zeros_metrics(loss_cfg: LossConfig, device) -> dict[str, torch.Tensor]:
     return m
 
 
+def _metric_rows(loss_cfg: LossConfig) -> list[str]:
+    """The per-microbatch values a group records, in one tensor's rows."""
+    rows = ["loss", "next_loss", "nonpad"]
+    rows += [f"offset_{o}" for o, _ in loss_cfg.multi_offset_weights]
+    if loss_cfg.termination_enabled:
+        rows.append("term_loss")
+    if loss_cfg.replay_enabled:
+        rows += ["replay_loss", "replay_on"]
+    return rows
+
+
+def _trainable(model) -> tuple[list, int]:
+    """The trainable parameters, those whose gradient is a partial sum over
+    the model axis first, and how many those are."""
+    tp = getattr(model, "tp", None)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if tp is None:
+        return [p for _, p in named], 0
+    partial = [p for n, p in named
+               if tp_partial_grad(n, tp.layout, sequence_parallel=tp.sequence_parallel)]
+    ids = {id(p) for p in partial}
+    return partial + [p for _, p in named if id(p) not in ids], len(partial)
+
+
 def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
                     use_replay: bool = False,
-                    shape_lookup: torch.Tensor | None = None) -> Callable:
+                    shape_lookup: torch.Tensor | None = None,
+                    dp: DPContext | None = None) -> Callable:
     """Build the group step::
 
         metrics = step(model, optimizer, batch, generator, lr_scale)
@@ -193,26 +249,33 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
     ``generator`` (on the model's device, or None for no dropout) draws
     every dropout mask and attention seed. ``shape_lookup`` (the (V, 3, 4)
     table of ``biophysics.shape_lookup_table`` on the device) feeds the
-    model's shape encoder. When the group commits, the parameters are
-    updated and each trainable ``.grad`` holds the averaged group gradient
-    (clipped, under ``grad_clip``); when it aborts, ``.grad`` is None.
+    model's shape encoder. With ``dp`` the rows are this rank's part of
+    each global microbatch and the metrics are the global ones. When the
+    group commits, the parameters are updated and each trainable ``.grad``
+    holds the averaged group gradient (clipped, under ``grad_clip``); when
+    it aborts, ``.grad`` is None.
     """
+    rows = _metric_rows(loss_cfg)
+    at = {name: i for i, name in enumerate(rows)}
 
     def step(model: torch.nn.Module, optimizer: OptimizerBundle, batch: dict,
              generator: torch.Generator | None, lr_scale: float = 1.0) -> dict:
         x, y = batch["x"], batch["y"]
-        params = [p for p in model.parameters() if p.requires_grad]
+        params, n_partial = _trainable(model)
         for p in params:
             p.grad = None  # an aborted group leaves no gradient behind
         device = x.device
         sizes = [p.numel() for p in params]
         grads_acc = torch.zeros(sum(sizes), dtype=torch.float32, device=device)
-        metrics = _zeros_metrics(loss_cfg, device)
         zero = torch.zeros((), dtype=torch.float32, device=device)
-        for g in range(x.shape[0]):
+        G = x.shape[0]
+        scales = loss_scales(model_cfg, loss_cfg, y, dp) if dp is not None else None
+        values = torch.zeros((len(rows), G), dtype=torch.float32, device=device)
+        for g in range(G):
             xb, yb = x[g], y[g]
             loss, parts = composite_loss(model, model_cfg, loss_cfg, xb, yb, train=True,
-                                         generator=generator, shape_lookup=shape_lookup)
+                                         generator=generator, shape_lookup=shape_lookup,
+                                         scales=None if scales is None else scales[g])
             with_replay = use_replay and bool(batch["replay_mask"][g])
             if with_replay:
                 # only on flagged microbatches, as the JAX step's cond
@@ -225,26 +288,46 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
             finite = torch.isfinite(loss)
             flat = torch.cat([gr.reshape(-1).float() for gr in grads])
             grads_acc += torch.where(finite, flat, zero)
+            col = [loss.detach(), parts["next_loss"].detach(), (yb != PAD_ID).sum().float()]
+            for offset, _ in loss_cfg.multi_offset_weights:
+                # the loss skips zero-weight / out-of-range offsets
+                col.append(parts["offset_losses"].get(offset, zero).detach())
+            if loss_cfg.termination_enabled:
+                col.append(parts["term_loss"].detach())
+            if loss_cfg.replay_enabled:
+                col += [rl.detach(), torch.ones_like(zero)] if with_replay else [zero, zero]
+            values[:, g] = torch.stack(col)
+        if dp is not None:
+            dp.all_reduce(values)
+            dp.all_reduce(grads_acc)
+        tp = getattr(model, "tp", None)
+        if n_partial and tp is not None:
+            with timed(device):  # a view: reduced in place inside grads_acc
+                torch.distributed.all_reduce(grads_acc[: sum(sizes[:n_partial])],
+                                             group=tp.group)
+
+        metrics = _zeros_metrics(loss_cfg, device)
+        for g in range(G):
+            loss = values[at["loss"], g]
+            finite = torch.isfinite(loss)
             first = metrics["finite_microbatches"] == 0
-            metrics["total_loss_sum"] += torch.where(finite, loss.detach(), zero)
-            metrics["next_loss_sum"] += torch.where(finite, parts["next_loss"].detach(), zero)
-            metrics["first_loss"] = torch.where(finite & first, loss.detach(),
-                                                metrics["first_loss"])
+            metrics["total_loss_sum"] += torch.where(finite, loss, zero)
+            metrics["next_loss_sum"] += torch.where(finite, values[at["next_loss"], g], zero)
+            metrics["first_loss"] = torch.where(finite & first, loss, metrics["first_loss"])
             metrics["finite_microbatches"] += finite.int()
-            metrics["nonpad_tokens"] += torch.where(finite, (yb != PAD_ID).sum().int(), 0)
+            metrics["nonpad_tokens"] += torch.where(finite, values[at["nonpad"], g].int(), 0)
             metrics["discarded_before_nonfinite"] += (finite & ~metrics["saw_nonfinite"]).int()
             metrics["saw_nonfinite"] |= ~finite
             for offset, _ in loss_cfg.multi_offset_weights:
-                # the loss skips zero-weight / out-of-range offsets
-                part = parts["offset_losses"].get(offset)
-                if part is not None:
-                    metrics[f"offset_{offset}_sum"] += torch.where(finite, part.detach(), zero)
+                metrics[f"offset_{offset}_sum"] += torch.where(
+                    finite, values[at[f"offset_{offset}"], g], zero)
             if loss_cfg.termination_enabled:
-                metrics["term_loss_sum"] += torch.where(finite, parts["term_loss"].detach(),
+                metrics["term_loss_sum"] += torch.where(finite, values[at["term_loss"], g],
                                                         zero)
-            if with_replay and loss_cfg.replay_enabled:
-                has_rl = finite & torch.isfinite(rl)
-                metrics["replay_loss_sum"] += torch.where(has_rl, rl.detach(), zero)
+            if loss_cfg.replay_enabled:
+                rl = values[at["replay_loss"], g]
+                has_rl = (values[at["replay_on"], g] > 0) & finite & torch.isfinite(rl)
+                metrics["replay_loss_sum"] += torch.where(has_rl, rl, zero)
                 metrics["replay_count"] += has_rl.int()
 
         grads_finite = torch.isfinite(grads_acc).all()
@@ -269,26 +352,34 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
 
 
 def make_eval_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
-                   shape_lookup: torch.Tensor | None = None) -> Callable:
-    """Validation step over one (B, T) batch: loss parts and counts."""
+                   shape_lookup: torch.Tensor | None = None,
+                   dp: DPContext | None = None) -> Callable:
+    """Validation step over one (B, T) batch: loss parts and counts. With
+    ``dp`` the batch is this rank's part of a global one, and the outputs
+    are the global batch's."""
 
     @torch.no_grad()
     def step(model: torch.nn.Module, xb: torch.Tensor, yb: torch.Tensor) -> dict:
+        scales = loss_scales(model_cfg, loss_cfg, yb[None], dp)[0] if dp is not None else None
         total, parts = composite_loss(model, model_cfg, loss_cfg, xb, yb, train=False,
-                                      generator=None, shape_lookup=shape_lookup)
-        nonpad = (yb != PAD_ID).sum()
+                                      generator=None, shape_lookup=shape_lookup,
+                                      scales=scales)
         out = {
             "total_loss": total,
             "next_loss": parts["next_loss"],
-            "nonpad_tokens": nonpad.int(),
-            # token-weighted CE sum for exact corpus perplexity
-            "next_loss_token_sum": parts["next_loss"] * nonpad.float(),
+            "nonpad_tokens": (yb != PAD_ID).sum().float(),
         }
         for offset, _ in loss_cfg.multi_offset_weights:
             out[f"offset_{offset}"] = parts["offset_losses"].get(
                 offset, torch.zeros((), dtype=torch.float32, device=xb.device))
         if loss_cfg.termination_enabled:
             out["term_loss"] = parts["term_loss"]
+        if dp is not None:
+            reduced = dp.all_reduce(torch.stack(list(out.values())))
+            out = dict(zip(out, reduced.unbind()))
+        # token-weighted CE sum for exact corpus perplexity
+        out["next_loss_token_sum"] = out["next_loss"] * out["nonpad_tokens"]
+        out["nonpad_tokens"] = out["nonpad_tokens"].int()
         return out
 
     return step

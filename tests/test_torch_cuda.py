@@ -887,3 +887,84 @@ def test_cuda_langevin_equals_the_cpu(cuda):
     assert out["cuda"][0] == out["cpu"][0]
     e_card, e_cpu = np.asarray(out["cuda"][1]), np.asarray(out["cpu"][1])
     assert float(np.abs(e_card - e_cpu).max()) <= 1e-5 * max(1.0, float(np.abs(e_cpu).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,heads", [(4, 8, None), (8, 4, (4, 8))],
+                         ids=["dp_rank_b4_h8", "tp_rank_b8_h4"])
+def test_cuda_flash_kernels_at_a_ranks_shapes(cuda, B, H, heads):
+    """The three bf16 flash kernels at the shapes one rank runs under data
+    parallelism (half the batch) and tensor parallelism (half the heads,
+    rank 1's: dropout keyed on heads 4..7 of 8) of the training main path
+    (T 512, heads of 48, dropout 0.1, a <SEP> every 97 tokens), against
+    their plain versions within 2e-2 of the largest entry."""
+    rng = np.random.default_rng(31)
+    T, D, rate = 512, 48, 0.1
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, H, T, D)).astype(np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    seps = (torch.arange(T) % 97 == 0).int()
+    seg = torch.cumsum(seps[None].expand(B, T), -1, dtype=torch.int32).to(cuda)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    cfg = fa.FlashCfg(True, None, rate, heads)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*args, segment_ids=seg, dropout_rate=rate, seed=seed,
+                             dropout_heads=heads)
+    cot = torch.randn_like(out)
+    grads = torch.autograd.grad(out, args, cot)
+    ref, lse = fa.flash_forward_reference(q, k, v, seg, seed, cfg)
+    delta = (cot.float() * out.detach().float()).sum(-1)
+    ref_grads = (fa.flash_bwd_dq_reference(q, k, v, seg, seed, cot, lse, delta, cfg),
+                 *fa.flash_bwd_dkv_reference(q, k, v, seg, seed, cot, lse, delta, cfg))
+    torch.cuda.synchronize()
+    for got, want in zip((out.detach(), *grads), (ref, *ref_grads)):
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_cuda_decode_and_chunk_kernels_at_a_ranks_heads(cuda, quant):
+    """Tensor-parallel serving's per-rank shapes: 4 of 8 kv heads of 48,
+    one query token (decode, 1e-3) and a verify chunk of 5 (the chunk
+    kernel's per-element bound), bf16 query, bf16 or int8 cache."""
+    rng = np.random.default_rng(32)
+    q, k, v, mask, ks, vs = decode_inputs(rng, 16, 4, 1, quant, S=128, D=48)
+    dev = [None if t is None else t.to(cuda) for t in (q, k, v, mask, ks, vs)]
+    dev[0] = dev[0].bfloat16()
+    if not quant:
+        dev[1], dev[2] = dev[1].bfloat16(), dev[2].bfloat16()
+    got = decode_attention(*dev[:4], 1, *dev[4:], kv_heads=4)
+    want = decode_attention_reference(*dev[:4], 1, *dev[4:], kv_heads=4)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-3
+    chunk = to_card(chunk_inputs(rng, 16, 4, 1, 5, quant), torch.bfloat16, quant, cuda)
+    got = decode_attention_chunk(*chunk[:4], 1, *chunk[4:], kv_heads=4)
+    want = decode_attention_chunk_reference(*chunk[:4], 1, *chunk[4:], kv_heads=4)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= chunk_bf16_bound(chunk, 4)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_tp2_serving_on_two_ranks_equals_one(cuda):
+    """Two ranks sharing the card over gloo serve a 2-layer float32 model at
+    tensor_parallel 2 (the decode kernel on each rank's 2 kv heads): the
+    greedy tokens equal the meshless engine's on the card."""
+    from genomics_lm_torch.models.codon_gpt import CodonGPT
+    from genomics_lm_torch.models.config import CodonGPTConfig
+    from genomics_lm_torch.parallel import workers, launch
+    from genomics_lm_torch.utils.weights import params_to_jax
+
+    kw = dict(vocab_size=68, block_size=64, n_layer=2, n_head=4, n_embd=64, dropout=0.0,
+              fused_qkv=True, attention_impl="flash")
+    torch.manual_seed(0)
+    cfg = CodonGPTConfig(**kw)
+    rng = np.random.default_rng(33)
+    spec = {"model": kw, "tree": params_to_jax(CodonGPT(cfg), cfg),
+            "engine": dict(slots=4, max_seq_len=48, steps_per_sync=4),
+            "requests": [([1] + [int(t) for t in rng.integers(4, 68, 6 + i)], 16, 0.0)
+                         for i in range(6)]}
+    ranks = launch.spawn(workers.serve, 2, spec, device="cuda:0", timeout_s=120)
+    one = workers.serve(0, 1, dict(spec, mesh=False, device="cuda"))
+    assert ranks[0]["tokens"] == ranks[1]["tokens"] == one["tokens"]
+    assert ranks[0]["stats"]["tensor_parallel"]
+    assert ranks[0]["launches"]["decode_attention"] == 2 * ranks[0]["stats"]["decode_steps"]

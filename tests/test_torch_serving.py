@@ -22,6 +22,7 @@ from genomics_lm_tpu.models import codon_gpt as jax_gpt
 from genomics_lm_tpu.serving import engine as jax_engine
 from genomics_lm_torch.generation.decode import generate_tokens
 from genomics_lm_torch.models.config import CodonGPTConfig
+from genomics_lm_torch.parallel.mesh import make_mesh
 from genomics_lm_torch.serving.engine import (
     ServingEngine,
     _ragged_decode,
@@ -275,8 +276,13 @@ def test_validation_and_unported_options():
         engine(model, tcfg, max_seq_len=128)
     with pytest.raises(ValueError, match="requires a draft_table"):
         engine(model, tcfg, speculative_k=2)  # speculative serving needs a draft
-    with pytest.raises(NotImplementedError):
-        engine(model, tcfg, mesh=object())
+    # a model axis must divide the heads (JAX's engine raises alike); one of
+    # size 1 splits nothing and is dropped (tensor-parallel drains:
+    # tests/test_torch_tp_serving.py)
+    with pytest.raises(ValueError, match="must divide over model=3"):
+        engine(model, tcfg, mesh=make_mesh(devices=[0, 1, 2], axes={"model": 3}))
+    assert not engine(model, tcfg, mesh=make_mesh(devices=[0], axes={"model": 1})
+                      ).stats()["tensor_parallel"]
     with pytest.raises(ValueError, match="model parameters are on cpu"):
         ServingEngine(model, tcfg, device="meta")
     if not torch.cuda.is_available():

@@ -23,7 +23,7 @@ On the CPU, float32:
   trainer's generator state is in the checkpoint.
 - The lifecycle probes of ``tests/test_trainer_e2e.py``, the OOM safeguard,
   the train CLI, every flag the port used to refuse taking effect in a
-  one-epoch run, and the unported ones (meshes, and with them MoE's expert
+  one-epoch run, and the unported ones (pipeline stages, and MoE's expert
   parallelism) raising ``NotImplementedError``.
 """
 
@@ -288,15 +288,18 @@ def test_train_cli_runs_a_yaml_config_with_a_data_map(tmp_path):
     assert len((run_dir / "scores" / "curves.csv").read_text().splitlines()) == 3
     payload = tckpt.load_checkpoint(run_dir / "checkpoints" / "last.npz")
     assert payload["step"] == 8 and payload["optimizer"]["format"] == loop.OPTIMIZER_FORMAT
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+    # one process cannot lay a model axis of 2 (JAX's make_mesh error), and
+    # pipeline parallelism is not ported
+    with pytest.raises(ValueError, match="not divisible by 2"):
         train_cli(argv + ["--tensor_parallel", "2"])
+    with pytest.raises(NotImplementedError, match="pipeline_stages"):
+        train_cli(argv + ["--pipeline_stages", "2"])
 
 
 # tensor_parallel on a MoE config is expert parallelism: MoE trains on one
 # card, its expert sharding needs a mesh and still raises, naming the flag
-# (a dense config's tensor_parallel is refused through the CLI above)
-UNPORTED = {"mesh_devices": {"mesh_devices": 8},
-            "tensor_parallel": {"tensor_parallel": 2, "moe_experts": 4},
+# (data and tensor parallelism of a dense config: tests/test_torch_parallel.py)
+UNPORTED = {"tensor_parallel": {"tensor_parallel": 2, "moe_experts": 4},
             "pipeline_stages": {"pipeline_stages": 2}}
 
 
