@@ -336,13 +336,18 @@ exits non-zero:
    kernel launched n_layer times a cached step and the flash forward
    n_layer times a scored window or uncached forward, critic forwards per
    guided codon and their share of the wall time.
-42. parallel ranks — the ranks' work of phases 43-45 in two launches
+42. parallel ranks — the ranks' work of phases 43-48 in two launches
    (``parallel/launch.py::spawn`` of ``parallel/workers.py::each``; each
-   process takes seconds to reach the card, so the workers share them):
+   process takes 20-30 s to reach the card, so the workers share them):
    two ranks sharing the card over gloo run the data- and tensor-parallel
-   groups, the train CLI's tensor-parallel run and the tensor-parallel
-   drains; one rank over NCCL, started beside them, the bit-for-bit group. The kernels are built
-   (phase 2) before any rank starts, so no two ranks compile at once.
+   groups, the train CLI's tensor-parallel run, the tensor-parallel
+   drains and the expert-parallel and MoE work; one rank over NCCL, started
+   beside them, the bit-for-bit group. The two gloo ranks, and phase 49's
+   four, start before phase 41 (``prestart_ranks``) and wait for their
+   release, so they reach the card while phase 41 runs; the four pipeline
+   ranks are released when the two have ended, before any kernel is timed
+   in phases 43-48. The kernels are built (phase 2) before any rank starts,
+   so no two ranks compile at once.
 43. dp train — data parallelism: the flash kernels at a rank's shape (B 4,
    H 8, T 512, heads of 48) against their plain versions and timed; then
    ``bench.py``'s step config (10L8H d384, bf16 flash, G 16 x B 8 x T 512
@@ -364,15 +369,52 @@ exits non-zero:
    --tensor_parallel 2``, two ranks on the card) at 2 layers (cut from 10)
    for 1 epoch, and a ``--resume`` at world size 1 to a second.
 45. tp serve — the serving benchmark's config (phase 4's model, 64 slots,
-   128 requests, ``max_seq_len`` 256) at ``tensor_parallel`` 2 on two ranks:
-   the decode kernel at 4 kv heads a rank (bf16 and int8 caches) and the
-   chunk kernel at its local heads against their plain versions and timed;
-   drains with a bf16 cache (128 requests), an int8 cache and speculative
-   K 4 (72 requests each into the 64 slots, cut for time), the ranks' tokens equal, every
+   128 requests, ``max_seq_len`` 256) at ``tensor_parallel`` 2 on two ranks,
+   at 2 layers (a depth cut from 10): the decode kernel at 4 kv heads a rank
+   (bf16 and int8 caches) and the chunk kernel at its local heads against
+   their plain versions and timed at 10 layers, and checked at the drains'
+   2; drains with a bf16 cache, an int8 cache and speculative K 4, each of
+   the 66 requests of the smallest budgets into the 64 slots, so slots
+   refill (cuts for time from 128 and the first 72), the ranks' tokens
+   equal, every
    budget served, each rank's decode launches n_layer a step and chunk
    launches n_layer a verify round; the 8 greedy float32 requests of the
    smallest budgets equal to the meshless engine's. Two ranks on one card are no
    scaling figure.
+46. ep train — expert parallelism: the MoE recipe's model
+   (``configs/stage2.6_moe_4e_top2_d512_ep2.yaml``: 12L8H d512, 4 experts
+   top-2, bf16, B 8) on two ranks of ``{"data": 1, "model": 2}`` in phase
+   42's launch, each holding 2 of the 4 experts and 4 of the 8 heads: the
+   flash kernels at a rank's 4 heads of 64 (B 8, dropout keyed on heads 4..7
+   of 8) checked and timed, and in float32 at the parity groups' shapes; a
+   float32 group at 2 layers (a depth cut), capacity 0.5, B 7, against the
+   one-rank card group within ``TRAIN_PARITY_TOL``; one timed bf16 group of
+   ``EP_TIMED_G`` microbatches (cut from the recipe's 16): ms, non-pad
+   tokens/s, the share in collectives, each rank's expert bytes (half).
+47. moe dp — the same float32 MoE group on a data mesh of 2 (B 7: one rank
+   holds a padding row), routed over the global microbatch, against the
+   one-rank group within ``TRAIN_PARITY_TOL``; the dropped choices counted.
+48. tp moe serve — the MoE recipe's model served at tensor parallel 2 (64
+   slots), at 2 layers (a depth cut from 12): the decode kernel (bf16 and
+   float32) and the chunk kernel at a rank's 4 kv heads of 64 against their
+   plain versions, bf16 timed at 12 layers, and checked at the drains' 2;
+   the 4 greedy float32 requests of the smallest budgets equal to the
+   meshless engine's; a bf16 drain and a speculative K 4 drain, each of the
+   66 requests of the smallest budgets into the 64 slots, so slots refill
+   (cuts for time), each rank's decode and chunk launches n_layer a step or
+   round.
+49. pp train — GPipe: the pipeline recipe
+   (``configs/stage2.6_large_12L8H_d512_pp4.yaml``: 12L8H d512, G 16 x B 8
+   x T 512, bf16, dropout 0.1) on four ranks of ``{"data": 1, "pipe": 4}``
+   in one launch, 3 layers a stage: the flash kernels in float32 at a
+   stage's shape (bf16 at that shape is phase 7's d512 case); a float32
+   group at 4 layers (one a stage), dropout 0, every row non-pad, against
+   the one-rank group within ``TRAIN_PARITY_TOL``; one timed bf16 group: ms,
+   tokens/s, each stage's share in sends and receives and its flash
+   launches (3 layers x 16 a group), the bubble (S-1)/(M+S-1) = 3/19; then
+   the train CLI at ``--mesh_devices 4 --pipeline_stages 2`` (2 layers, a
+   cut, one microbatch a group) for 1 epoch and a ``--resume`` at world
+   size 1 from its merged checkpoint.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -2644,16 +2686,16 @@ EMBED_WINDOWS = 64
 MOE_CPU_WINDOWS = 2  # validation windows of 512 scored on both devices (12L d512 on the CPU)
 
 
-def moe_yaml(workdir: Path, name: str, **overrides) -> Path:
-    """``configs/stage2.6_moe_4e_top2_d512_ep2.yaml`` (read, never edited) with
-    the phase's data paths, epochs, run id and schedule, written into
-    ``workdir``; each override is logged."""
+def recipe_yaml(source: Path, tag: str, workdir: Path, name: str, **overrides) -> Path:
+    """A shipped recipe (``source``, read, never edited) with the phase's
+    data paths, run id (default ``name``) and ``overrides``, written into
+    ``workdir`` as ``name``; each override is logged under ``tag``."""
     import yaml
 
-    cfg = yaml.safe_load(MOE_CONFIG.read_text())
-    overrides = dict(train_npz=str(workdir / "train.npz"), val_npz=str(workdir / "val.npz"),
-                     run_id=name, **overrides)
-    log("moe_config", config=name, source=MOE_CONFIG.name,
+    cfg = yaml.safe_load(source.read_text())
+    overrides = dict(dict(train_npz=str(workdir / "train.npz"),
+                          val_npz=str(workdir / "val.npz"), run_id=name), **overrides)
+    log(tag, config=name, source=source.name,
         overrides={k: {"recipe": cfg.get(k), "here": v} for k, v in overrides.items()})
     cfg.update(overrides)
     path = workdir / f"{name}.yaml"
@@ -2661,27 +2703,20 @@ def moe_yaml(workdir: Path, name: str, **overrides) -> Path:
     return path
 
 
-@contextlib.contextmanager
-def recorded_routes(keep: bool = False):
-    """Collect the router loss of every ``moe_route`` call that computes one
-    (or, with ``keep``, every call's whole result on the host) while the
-    block runs."""
-    routes, route = [], codon_gpt_mod.moe_route
+def moe_yaml(workdir: Path, name: str, **overrides) -> Path:
+    """``configs/stage2.6_moe_4e_top2_d512_ep2.yaml`` with the phase's data
+    paths, epochs, run id and schedule (``recipe_yaml``)."""
+    return recipe_yaml(MOE_CONFIG, "moe_config", workdir, name, **overrides)
 
-    def record(*args, **kwargs):
-        out = route(*args, **kwargs)
-        if keep:
-            routes.append({k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
-                           for k, v in out.items()})
-        elif out["aux"] is not None:
-            routes.append(out["aux"].detach())
-        return out
 
-    codon_gpt_mod.moe_route = record
-    try:
-        yield routes
-    finally:
-        codon_gpt_mod.moe_route = route
+def route_aux(kwargs: dict, route: dict):
+    """For ``recorded_routes``: the router loss of a call that computes one."""
+    return None if route["aux"] is None else route["aux"].detach()
+
+
+def route_on_host(kwargs: dict, route: dict) -> dict:
+    """For ``recorded_routes``: a call's whole result on the host."""
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v for k, v in route.items()}
 
 
 def tree_leaves(tree, prefix=""):
@@ -2709,7 +2744,7 @@ def phase_moe_train(card: str, workdir: Path) -> dict:
         w.launches = 0  # the MoE path's runs only: 2 epochs and the resume
     torch.cuda.reset_peak_memory_stats()
     stdout = io.StringIO()
-    with recorded_routes() as auxes, contextlib.redirect_stdout(stdout):
+    with par_workers.recorded_routes(route_aux) as auxes, contextlib.redirect_stdout(stdout):
         t0 = time.perf_counter()
         rc = train_cli(argv)
         first_s = time.perf_counter() - t0
@@ -2791,7 +2826,7 @@ def phase_moe_parity() -> None:
     routes = {}
     for dev in ("cuda", "cpu"):
         model = params_from_jax(tree, cfg, dev)
-        with recorded_routes(keep=True) as got, torch.no_grad():
+        with par_workers.recorded_routes(route_on_host) as got, torch.no_grad():
             model_forward(model, cfg, batch["x"][0].to(dev), train=True)
         routes[dev] = got
     flips, dropped = [], []
@@ -4385,7 +4420,16 @@ def phase_critic_guided(trained: dict, data: Path, critic: dict, ebm: dict, card
 # built (phase 2) before any rank is spawned, so no two ranks compile at once.
 
 PARALLEL_TIMEOUT_S = 240  # a rank whose collective waits longer fails the run
-TP_CUT_REQUESTS = 72  # the int8 and speculative TP drains (of 128, into 64 slots)
+# every TP drain but the float32 greedy ones (of 128): the 66 of the smallest
+# budgets, 2 more than the 64 slots, so slots refill (a cut for time)
+TP_CUT_REQUESTS = 66
+TP_SERVE_LAYERS = 2  # every TP drain's depth (cut from 10 and 12 for time)
+TP_GREEDY_REQUESTS = 4  # the float32 greedy MoE drain's: its smallest budgets (a cut)
+
+
+def smallest_budgets(reqs: list, n: int) -> list:
+    """The ``n`` requests of the smallest budgets, in submission order by budget."""
+    return sorted(reqs, key=lambda r: r[1])[:n]
 
 
 def parallel_model(**over) -> tuple[dict, dict]:
@@ -4476,12 +4520,38 @@ def log_timed_ranks(phase: str, name: str, ranks: list, nonpad_per_group: int,
     return out
 
 
-def phase_parallel_ranks(card: str, workdir: Path) -> dict:
-    """The ranks' work of phases 43-45, in one launch of two ranks sharing the
-    card over gloo (each process takes seconds to reach the card) and one of
-    one rank over NCCL: the data- and tensor-parallel float32 parity and
-    timed groups, the train CLI's tensor-parallel run, and the
-    tensor-parallel drains."""
+def prestart_ranks(world: int, calls: list) -> dict:
+    """Start a launch of ``world`` ranks of ``workers.each`` now, in a thread:
+    each rank starts, joins its group and reaches the card (20-30 s a
+    process) while this process goes on, then waits for ``release_ranks``
+    before ``calls``. ``stop_ranks`` ends it instead."""
+    signal = Path(tempfile.mkdtemp(prefix="smoke_ranks_"))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(spawn_ranks, par_workers.each, world,
+                         [("wait_for", str(signal))] + calls)
+    pool.shutdown(wait=False)
+    return {"future": future, "signal": signal}
+
+
+def release_ranks(started: dict) -> list:
+    """Signal a prestarted launch to run its calls; each rank's results."""
+    (started["signal"] / "go").touch()
+    return [r[1:] for r in started["future"].result()]
+
+
+def stop_ranks(*launches: dict) -> None:
+    """End prestarted launches that have not run (a phase before them failed)."""
+    for started in launches:
+        (started["signal"] / "stop").touch()
+
+
+def prepare_parallel_ranks(card: str, workdir: Path) -> dict:
+    """The ranks' work of phases 43-48, prestarted (``prestart_ranks``) as
+    one launch of two ranks sharing the card over gloo: the data- and
+    tensor-parallel float32 parity and timed groups, the train CLI's
+    tensor-parallel run, the tensor-parallel drains, and the expert-parallel
+    and MoE work (``moe_rank_work``); ``phase_parallel_ranks`` runs it, one
+    rank over NCCL beside it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     # float32 parity: the full width at 2 layers (a depth cut), dropout 0,
     # 2 microbatches a group, uneven pad over the ranks' rows
@@ -4511,28 +4581,31 @@ def phase_parallel_ranks(card: str, workdir: Path) -> dict:
                                 + "scheduler_total_steps: 8\n")
     cli_argv = ["--run_root", str(workdir / "runs"), "--device", "cuda:0"]
 
-    # serving: phase 4's model at tensor parallel 2; the float32 parity on the
-    # 8 requests of the smallest budgets, the int8 and speculative drains on
-    # the first 72 (8 more than the slots, so slots are refilled): cuts of
-    # the 128 for time
-    cfg = CodonGPTConfig(**MAIN)
+    # serving: phase 4's model at tensor parallel 2, at 2 layers (a depth cut);
+    # the float32 parity on the 8 requests of the smallest budgets, every
+    # other drain on the 66 of the smallest (2 more than the slots, so slots
+    # are refilled): cuts of the 128 for time
+    serve_kw = dict(MAIN, n_layer=TP_SERVE_LAYERS)
+    cfg = CodonGPTConfig(**serve_kw)
     torch.manual_seed(0)
     model = CodonGPT(cfg).cuda()
     serve_tree = params_to_jax(model, cfg)
     table = fit_draft_table(model, cfg)
     del model
     reqs = build_requests(np.random.default_rng(0), REQUESTS)
-    greedy = [(p, n, 0.0) for p, n, _ in sorted(reqs, key=lambda r: r[1])[:8]]
+    greedy = [(p, n, 0.0) for p, n, _ in smallest_budgets(reqs, 8)]
+    refill = smallest_budgets(reqs, TP_CUT_REQUESTS)
     serve_specs = {
-        "f32_greedy": {"model": dict(MAIN, compute_dtype="float32"), "tree": serve_tree,
+        "f32_greedy": {"model": dict(serve_kw, compute_dtype="float32"), "tree": serve_tree,
                        "engine": dict(ENGINE), "requests": greedy},
-        "bf16": {"model": MAIN, "tree": serve_tree, "engine": dict(ENGINE), "requests": reqs},
-        "int8_cache": {"model": MAIN, "tree": serve_tree,
-                       "requests": reqs[:TP_CUT_REQUESTS],
+        "bf16": {"model": serve_kw, "tree": serve_tree, "engine": dict(ENGINE),
+                 "requests": refill},
+        "int8_cache": {"model": serve_kw, "tree": serve_tree, "requests": refill,
                        "engine": dict(ENGINE, kv_quant=True)},
-        "spec4": {"model": MAIN, "tree": serve_tree, "requests": reqs[:TP_CUT_REQUESTS],
+        "spec4": {"model": serve_kw, "tree": serve_tree, "requests": refill,
                   "engine": dict(ENGINE, speculative_k=SPECULATIVE_K, draft_table=table)},
     }
+    moe = moe_rank_work()
     calls = [
         ("group_steps", [group_spec(f32_kw, f32_tree, {"data": 2}, parity_groups),
                          group_spec(bf16_kw, bf16_tree, {"data": 2}, dp_groups, warmup=1,
@@ -4543,28 +4616,41 @@ def phase_parallel_ranks(card: str, workdir: Path) -> dict:
         ("train_cli", ["--config", str(cfgs[1]), *cli_argv, "--mesh_devices", "2",
                        "--tensor_parallel", "2"]),
         ("serve", list(serve_specs.values())),
+        ("group_steps", moe["groups"]),
+        ("serve", list(moe["serve_specs"].values())),
     ]
     # in a fresh process under torch's deterministic algorithms (the embedding
     # gradient's atomics otherwise reorder its sums from run to run): the
     # one-rank card group with no mesh, then one rank of a data mesh over
     # NCCL, which issues the data-parallel collectives (the loss shares',
     # metrics' and gradient's all-reduces, ZeRO-1's all-gather; counted) and
-    # gathers the weights and gradients to the writer, all at world 1. It
-    # runs beside the two gloo ranks: most of its seconds go to starting up
+    # gathers the weights and gradients to the writer, all at world 1
     exact = dict(group_spec(f32_kw, f32_tree, None, parity_groups), deterministic=True)
+    return {"launch": prestart_ranks(2, calls), "exact": exact, "f32_kw": f32_kw,
+            "bf16_tree": bf16_tree, "dp_groups": dp_groups, "tp_groups": tp_groups,
+            "cli_cfgs": cfgs, "cli_argv": cli_argv, "workdir": workdir,
+            "serve_specs": serve_specs, "n_layer": bf16_kw["n_layer"], "moe": moe}
+
+
+def phase_parallel_ranks(prep: dict) -> dict:
+    """Release the two gloo ranks of ``prepare_parallel_ranks`` and run the
+    NCCL rank beside them (most of its seconds go to starting up)."""
+    exact = prep["exact"]
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         nccl_launch = pool.submit(
             spawn_ranks, par_workers.group_steps, 1,
             [exact, dict(exact, axes={"data": 1}, time_collectives=True)], backend="nccl")
-        ranks = spawn_ranks(par_workers.each, 2, calls)
+        ranks = release_ranks(prep["launch"])
         ref, nccl = nccl_launch.result()[0]
+    moe = prep["moe"]
     steps = [[r[0][i] for r in ranks] for i in range(4)]
-    return {"f32_kw": f32_kw, "bf16_tree": bf16_tree, "ref": ref, "nccl": nccl,
-            "dp_parity": steps[0], "dp_timed": steps[1], "tp_parity": steps[2],
-            "tp_timed": steps[3], "dp_groups": dp_groups, "tp_groups": tp_groups,
-            "cli": [r[1] for r in ranks], "cli_cfgs": cfgs, "cli_argv": cli_argv,
-            "workdir": workdir, "serve": [r[2] for r in ranks], "serve_specs": serve_specs,
-            "n_layer": bf16_kw["n_layer"]}
+    moe_steps = [[r[3][i] for r in ranks] for i in range(len(moe["groups"]))]
+    return dict({k: v for k, v in prep.items() if k not in ("launch", "exact")},
+                ref=ref, nccl=nccl, dp_parity=steps[0], dp_timed=steps[1],
+                tp_parity=steps[2], tp_timed=steps[3], cli=[r[1] for r in ranks],
+                serve=[r[2] for r in ranks],
+                moe=dict(moe, ep_parity=moe_steps[0], ep_timed=moe_steps[1],
+                         dp_parity=moe_steps[2], serve=[r[4] for r in ranks]))
 
 
 def phase_dp_train(card: str, peak_bw, peak_ops, par: dict) -> dict:
@@ -4646,12 +4732,12 @@ def phase_tp_train(card: str, peak_bw, peak_ops, par: dict) -> dict:
 
 
 def phase_tp_serve(card: str, peak_bw, peak_ops, par: dict) -> dict:
-    """``[tp_serve]``: the serving benchmark's config (10L8H d384, 64 slots,
+    """``[tp_serve]``: the serving benchmark's config (d384 8 heads, 64 slots,
     128 requests, max_seq_len 256) at tensor_parallel 2 (4 kv heads a rank;
-    the drains run by ``phase_parallel_ranks``) with a bf16 and an int8
-    cache and speculative K 4; float32 greedy tokens against the meshless
-    engine's; the decode kernel at Hkv 4 and the chunk kernel at its local
-    heads against their plain versions."""
+    the drains, at ``TP_SERVE_LAYERS``, run by ``phase_parallel_ranks``) with
+    a bf16 and an int8 cache and speculative K 4; float32 greedy tokens
+    against the meshless engine's; the decode kernel at Hkv 4 and the chunk
+    kernel at its local heads against their plain versions."""
     bf16, i8 = torch.bfloat16, torch.int8
     gen = torch.Generator(device="cuda").manual_seed(13)
     L, H, D = MAIN["n_layer"], MAIN["n_head"], MAIN["n_embd"] // MAIN["n_head"]
@@ -4668,6 +4754,15 @@ def phase_tp_serve(card: str, peak_bw, peak_ops, par: dict) -> dict:
                             H // 2, 1, SPECULATIVE_K + 1, D, bf16, bf16, False, False,
                             peak_bw, peak_ops)
     chunk_timed = time_chunk_case("tp_serve_kernel_time", "chunk_rank_hkv4_bf16", case)
+    del case
+    # the drains' caches: 2 layers
+    for name, cdt, qdt in (("rank_hkv4_bf16_2l", bf16, bf16), ("rank_hkv4_int8_2l", i8, bf16),
+                           ("rank_hkv4_f32_2l", torch.float32, torch.float32)):
+        check_decode_case(gen, "tp_serve_kernel", name, TP_SERVE_LAYERS, slots, S, H // 2, 1,
+                          D, cdt, qdt, "serve")
+    check_chunk_case(gen, "tp_serve_kernel", "chunk_rank_hkv4_bf16_2l", TP_SERVE_LAYERS, slots,
+                     S_spec, H // 2, 1, SPECULATIVE_K + 1, D, bf16, bf16, False, False,
+                     peak_bw, peak_ops)
 
     specs, ranks = par["serve_specs"], par["serve"]
     ref = par_workers.serve(0, 1, dict(specs["f32_greedy"], mesh=False, device="cuda"))
@@ -4683,7 +4778,8 @@ def phase_tp_serve(card: str, peak_bw, peak_ops, par: dict) -> dict:
         steps = r0["stats"]["decode_steps"]
         rounds = r0["stats"]["verify_rounds"]
         launches = [r["launches"] for r in (r0, r1)]
-        want = {"decode_attention": steps * L, "decode_attention_chunk": rounds * L}
+        layers = specs[name]["model"]["n_layer"]
+        want = {"decode_attention": steps * layers, "decode_attention_chunk": rounds * layers}
         if any(lc != want for lc in launches):
             raise AssertionError(f"tp_serve {name}: launches {launches} != {want}")
         runs[name] = dict(seconds=max(r0["seconds"], r1["seconds"]), tokens=tokens,
@@ -4699,6 +4795,333 @@ def phase_tp_serve(card: str, peak_bw, peak_ops, par: dict) -> dict:
     if not same:
         raise AssertionError("tp_serve: float32 greedy tokens differ from the meshless engine's")
     return {"timed": timed, "chunk_timed": chunk_timed, "runs": runs}
+
+
+# --- phases 46-49: expert and pipeline parallelism -------------------------------
+#
+# The MoE recipe (configs/stage2.6_moe_4e_top2_d512_ep2.yaml's model, MOE_TRAIN)
+# at expert parallel 2 and under a data mesh of 2, and served at tensor parallel
+# 2, run in phase 42's launch of two ranks; the pipeline recipe
+# (configs/stage2.6_large_12L8H_d512_pp4.yaml) in one launch of four ranks, all
+# sharing the card over gloo. No scaling figure: the ranks share one card.
+
+PP_CONFIG = Path(__file__).resolve().parent / "configs" / "stage2.6_large_12L8H_d512_pp4.yaml"
+EP_TIMED_G = 4  # microbatches of the timed EP group: cut from the recipe's 16 for time
+MOE_DP_B = 7  # odd: one rank of the data mesh of 2 holds a padding row
+PP_STAGES = 4
+PP_CLI_LAYERS = 2  # the --pipeline_stages 2 CLI run's depth (cut from 12)
+
+
+def moe_parallel_model(**over) -> tuple[dict, dict]:
+    """(config kwargs, JAX-layout tree) of the MoE recipe's model (random
+    weights from a seed) with ``over`` applied."""
+    kw = dict(train_main.MOE_TRAIN, **over)
+    cfg = CodonGPTConfig(**kw)
+    torch.manual_seed(train_main.SEED)
+    return kw, params_to_jax(CodonGPT(cfg), cfg)
+
+
+def moe_rank_work() -> dict:
+    """The MoE work of phase 42's two-rank launch: the float32 parity group
+    (2 layers, capacity 0.5, B ``MOE_DP_B``) at expert parallel 2 and at
+    data parallel 2, one timed bf16 group at expert parallel 2 at full
+    width, and the tensor-parallel MoE drains."""
+    f32_kw, f32_tree = moe_parallel_model(compute_dtype="float32", dropout=0.0, n_layer=2,
+                                          moe_capacity_factor=MOE_PARITY_CAPACITY)
+    parity = [tuple(train_main.make_batch(31, "cpu", groups=2, batch=MOE_DP_B)[k].numpy()
+                    for k in ("x", "y"))]
+    for _, y in parity:
+        y[0, 1, 300:] = 0
+        y[1, 4, :] = 0
+    bf16_kw, bf16_tree = moe_parallel_model()
+    timed = [tuple(train_main.make_batch(32, "cpu", groups=EP_TIMED_G)[k].numpy()
+                   for k in ("x", "y"))]
+    ep = {"data": 1, "model": 2}
+    groups = [group_spec(f32_kw, f32_tree, ep, parity),
+              group_spec(bf16_kw, bf16_tree, ep, timed, warmup=1, timed=True),
+              group_spec(f32_kw, f32_tree, {"data": 2}, parity)]
+    # serving: the MoE model at tensor parallel 2 (experts split 2 a rank), at
+    # 2 layers (a depth cut); float32 greedy on the 4 smallest budgets, bf16
+    # and K 4 on the 66 smallest (slots refill): cuts for time
+    reqs = build_requests(np.random.default_rng(0), REQUESTS)
+    greedy = [(p, n, 0.0) for p, n, _ in smallest_budgets(reqs, TP_GREEDY_REQUESTS)]
+    greedy_kw, greedy_tree = moe_parallel_model(compute_dtype="float32", n_layer=TP_SERVE_LAYERS)
+    serve_kw, serve_tree = moe_parallel_model(n_layer=TP_SERVE_LAYERS)
+    cfg = CodonGPTConfig(**serve_kw)
+    table = fit_draft_table(params_from_jax(serve_tree, cfg, "cuda"), cfg)
+    refill = smallest_budgets(reqs, TP_CUT_REQUESTS)
+    serve_specs = {
+        "f32_greedy": {"model": greedy_kw, "tree": greedy_tree, "engine": dict(ENGINE),
+                       "requests": greedy},
+        "bf16": {"model": serve_kw, "tree": serve_tree, "engine": dict(ENGINE),
+                 "requests": refill},
+        "spec4": {"model": serve_kw, "tree": serve_tree, "requests": refill,
+                  "engine": dict(ENGINE, speculative_k=SPECULATIVE_K, draft_table=table)},
+    }
+    return {"groups": groups, "serve_specs": serve_specs, "f32_kw": f32_kw,
+            "f32_tree": f32_tree, "parity_groups": parity, "bf16_kw": bf16_kw,
+            "bf16_tree": bf16_tree, "timed_groups": timed}
+
+
+def one_rank_group(kw, tree, groups) -> dict:
+    """The float32 group on one rank of the card with no mesh (the parity
+    reference), in this process."""
+    return par_workers.group_steps(0, 1, dict(group_spec(kw, tree, None, groups),
+                                              device="cuda"))
+
+
+def phase_ep_train(card: str, peak_bw, peak_ops, par: dict) -> dict:
+    """``[ep_train]``: the MoE recipe at expert parallel 2 (two ranks on
+    ``{"data": 1, "model": 2}``, each holding 2 of the 4 experts and 4 of the
+    8 heads): the flash kernels at a rank's 4 heads of 64 checked and timed;
+    the float32 group (2 layers, capacity 0.5) against the one-rank group;
+    one timed bf16 group at full width (``EP_TIMED_G`` microbatches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    moe = par["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    H, T, B = train_main.MOE_TRAIN["n_head"], train_main.T, train_main.B
+    D = train_main.MOE_TRAIN["n_embd"] // H
+    rank_timed = check_flash_case(gen, "ep_train_kernel", "rank_b8_h4_d64_bf16", B, H // 2,
+                                  H // 2, T, T, D, torch.bfloat16, None, 0.1, 97, True,
+                                  peak_bw, peak_ops, heads=(H // 2, H))
+    # the float32 parity groups' shapes: B 7 x 4 heads (EP), B 4 x 8 heads (DP)
+    for name, b, h in (("rank_b7_h4_d64_f32", MOE_DP_B, H // 2),
+                       ("rank_b4_h8_d64_f32", -(-MOE_DP_B // 2), H)):
+        check_flash_case(gen, "ep_train_kernel", name, b, h, h, T, T, D, torch.float32, None,
+                         0.0, 97, False, peak_bw, peak_ops)
+    ref = one_rank_group(moe["f32_kw"], moe["f32_tree"], moe["parity_groups"])
+    moe["ref"] = ref
+    parity = compare_group("ep_train", "gloo_ep2_f32_capacity_0.5", moe["f32_kw"], ref,
+                           moe["ep_parity"][0], TRAIN_PARITY_TOL)
+    timed = moe["ep_timed"]
+    x, y = moe["timed_groups"][0]
+    rows = []
+    for r, res in enumerate(timed):
+        launches = {k: v for k, v in res["launches"].items()}
+        rows.append(dict(rank=r, seconds=res["seconds"], collectives=res["collectives"],
+                         collective_share=res["collective_seconds"] / res["seconds"],
+                         collective_bytes=res["collective_bytes"], flash_launches=launches,
+                         expert_bytes=res["expert_bytes"], moment_bytes=res["state_bytes"],
+                         dropped_choices=res["dropped_choices"]))
+        want = EP_TIMED_G * train_main.MOE_TRAIN["n_layer"]
+        if any(v != want for v in launches.values()):
+            raise AssertionError(f"ep_train: rank {r} launched {launches}, not {want} each")
+    full_experts = 4 * sum(a.size for n, a in tree_leaves(moe["bf16_tree"])
+                           if n.startswith("blocks/mlp/"))  # float32 masters
+    seconds = max(res["seconds"] for res in timed)
+    out = dict(case="gloo_ep2_bf16", groups=1, microbatches=EP_TIMED_G, ranks=rows,
+               ms_per_group=seconds * 1e3, nonpad_tokens_per_s=int((y != 0).sum()) / seconds,
+               expert_bytes_one_rank=full_experts,
+               expert_share_per_rank=[r["expert_bytes"] / full_experts for r in rows],
+               card=card)
+    log("ep_train", **out)
+    if any(abs(share - 0.5) > 1e-9 for share in out["expert_share_per_rank"]):
+        raise AssertionError(f"ep_train: a rank holds {out['expert_share_per_rank']} "
+                             "of the experts, not half")
+    return {"timed": rank_timed, "launches": timed[0]["launches"], "run": out,
+            "parity": parity}
+
+
+def phase_moe_dp(card: str, par: dict) -> dict:
+    """``[moe_dp]``: the same float32 MoE group (capacity 0.5, B 7) on a data
+    mesh of 2 (rank 1's fourth row is padding), routed over the global
+    microbatch, against the one-rank group; the dropped choices counted."""
+    moe = par["moe"]
+    ranks = moe["dp_parity"]
+    parity = compare_group("moe_dp", "gloo_dp2_f32_capacity_0.5_b7", moe["f32_kw"], moe["ref"],
+                           ranks[0], TRAIN_PARITY_TOL)
+    dropped = sum(r["dropped_choices"] for r in ranks)
+    choices = 2 * 2 * moe["f32_kw"]["n_layer"] * MOE_DP_B * train_main.T  # G x k x L x tokens
+    log("moe_dp", dropped_choices=dropped, dropped_choices_one_rank=moe["ref"]["dropped_choices"],
+        choices=choices, dropped_per_rank=[r["dropped_choices"] for r in ranks], card=card)
+    if not dropped:  # capacity 0.5 must bind (the counts may part on a near tie)
+        raise AssertionError("moe_dp: no choice dropped at capacity 0.5")
+    return {"parity": parity, "dropped": dropped}
+
+
+def phase_tp_moe_serve(card: str, peak_bw, peak_ops, par: dict) -> dict:
+    """``[tp_moe_serve]``: the MoE recipe's model served at tensor parallel 2
+    (4 of 8 heads and 2 of 4 experts a rank), at ``TP_SERVE_LAYERS``: float32
+    greedy tokens against the meshless engine's, a bf16 drain and a
+    speculative K 4 drain of 66 requests into 64 slots (so slots refill); the decode
+    and chunk kernels at a rank's 4 kv heads of 64 against their plain
+    versions, bf16 timed."""
+    bf16 = torch.bfloat16
+    moe = par["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    kw = moe["bf16_kw"]
+    L, H = kw["n_layer"], kw["n_head"]
+    D = kw["n_embd"] // H
+    slots, S = ENGINE["slots"], ENGINE["max_seq_len"]
+    timed = {}
+    q, k, v, mask, ks, vs, err, nan_err = check_decode_case(
+        gen, "tp_moe_serve_kernel", "rank_hkv4_d64_bf16", L, slots, S, H // 2, 1, D, bf16,
+        bf16, "serve")
+    timed["decode"] = time_decode_case("rank_hkv4_d64_bf16", q, k, v, mask, ks, vs, H // 2, 1,
+                                       da.decode_attention, peak_bw, peak_ops, err, nan_err,
+                                       "tp_moe_serve_kernel_time")
+    del q, k, v, mask, ks, vs
+    # the float32 greedy drain's model: 2 layers
+    check_decode_case(gen, "tp_moe_serve_kernel", "rank_hkv4_d64_f32", TP_SERVE_LAYERS, slots,
+                      S, H // 2, 1, D, torch.float32, torch.float32, "serve")
+    S_spec = -(-(S + SPECULATIVE_K + 1) // 128) * 128
+    case = check_chunk_case(gen, "tp_moe_serve_kernel", "chunk_rank_hkv4_d64_bf16", L, slots,
+                            S_spec, H // 2, 1, SPECULATIVE_K + 1, D, bf16, bf16, False, False,
+                            peak_bw, peak_ops)
+    timed["chunk"] = time_chunk_case("tp_moe_serve_kernel_time", "chunk_rank_hkv4_d64_bf16",
+                                     case)
+    del case
+    # the drains' caches: 2 layers
+    check_decode_case(gen, "tp_moe_serve_kernel", "rank_hkv4_d64_bf16_2l", TP_SERVE_LAYERS,
+                      slots, S, H // 2, 1, D, bf16, bf16, "serve")
+    check_chunk_case(gen, "tp_moe_serve_kernel", "chunk_rank_hkv4_d64_bf16_2l", TP_SERVE_LAYERS,
+                     slots, S_spec, H // 2, 1, SPECULATIVE_K + 1, D, bf16, bf16, False, False,
+                     peak_bw, peak_ops)
+    specs, ranks = moe["serve_specs"], moe["serve"]
+    ref = par_workers.serve(0, 1, dict(specs["f32_greedy"], mesh=False, device="cuda"))
+    runs = {}
+    for i, name in enumerate(specs):
+        r0, r1 = ranks[0][i], ranks[1][i]
+        if r0["tokens"] != r1["tokens"]:
+            raise AssertionError(f"tp_moe_serve {name}: the ranks emitted different tokens")
+        budgets = [n for _, n, _ in specs[name]["requests"]]
+        if [len(r0["tokens"][j]) for j in range(len(budgets))] != budgets:
+            raise AssertionError(f"tp_moe_serve {name}: a budget was not served")
+        steps, rounds = r0["stats"]["decode_steps"], r0["stats"]["verify_rounds"]
+        launches = [r["launches"] for r in (r0, r1)]
+        layers = specs[name]["model"]["n_layer"]
+        want = {"decode_attention": steps * layers, "decode_attention_chunk": rounds * layers}
+        if any(lc != want for lc in launches):
+            raise AssertionError(f"tp_moe_serve {name}: launches {launches} != {want}")
+        tokens = sum(len(t) for t in r0["tokens"].values())
+        seconds = max(r0["seconds"], r1["seconds"])
+        runs[name] = dict(seconds=seconds, tokens=tokens, tokens_per_s=tokens / seconds,
+                          launches_per_rank=launches, decode_steps=steps, verify_rounds=rounds,
+                          accept_rate=r0["stats"].get("speculative_accept_rate"))
+        log("tp_moe_serve", case=name, **runs[name], card=card)
+    n = len(specs["f32_greedy"]["requests"])
+    same = all(ranks[0][0]["tokens"][j] == ref["tokens"][j] for j in range(n))
+    log("tp_moe_serve_parity", case="f32_greedy", requests=n, equal_to_meshless=same)
+    if not same:
+        raise AssertionError("tp_moe_serve: float32 greedy tokens differ from the meshless "
+                             "engine's")
+    return {"timed": timed, "runs": runs}
+
+
+def prepare_pp_ranks(card: str, workdir: Path) -> dict:
+    """The ranks' work of phase 49, prestarted (``prestart_ranks``) as one
+    launch of four ranks sharing the card over gloo: the float32 pipeline
+    group (4 layers, one a stage) and one timed bf16 group at full width on
+    ``{"data": 1, "pipe": 4}``, and the train CLI at ``--mesh_devices 4
+    --pipeline_stages 2`` (2 layers, one microbatch a group, 1 epoch);
+    ``phase_pp_ranks`` runs it."""
+    import yaml
+
+    recipe = yaml.safe_load(PP_CONFIG.read_text())
+    cfg = CodonGPTConfig.from_run_config(dict(recipe, vocab_size=68))  # as the trainer builds it
+    kw = dataclasses.asdict(cfg)
+    torch.manual_seed(train_main.SEED)
+    tree = params_to_jax(CodonGPT(cfg), cfg)
+    f32_kw = dict(kw, compute_dtype="float32", dropout=0.0, n_layer=PP_STAGES)
+    f32_tree = params_to_jax(CodonGPT(CodonGPTConfig(**f32_kw)), CodonGPTConfig(**f32_kw))
+    # every row non-pad: the whole-group CE equals the one-rank step's mean of
+    # microbatch means, so the one-rank group is the reference
+    parity = [tuple(train_main.make_batch(41, "cpu", groups=2)[k].numpy() for k in ("x", "y"))]
+    timed = [tuple(train_main.make_batch(42, "cpu", groups=recipe["grad_accum_steps"])[k]
+                   .numpy() for k in ("x", "y"))]
+    axes = {"data": 1, "pipe": PP_STAGES}
+    packed_corpus(workdir, 64, 16)
+    # one microbatch a group: the objectives coincide, so the world-1 resume
+    # (no pipeline) may continue the run
+    cfgs = {e: recipe_yaml(PP_CONFIG, "pp_config", workdir, f"pp_e{e}", run_id="pp-run",
+                           n_layer=PP_CLI_LAYERS, grad_accum_steps=1, epochs=e, warmup_steps=1,
+                           scheduler_total_steps=16, pipeline_stages=2)
+            for e in (1, 2)}
+    cli_argv = ["--run_root", str(workdir / "runs"), "--device", "cuda:0"]
+    calls = [
+        ("group_steps", [group_spec(f32_kw, f32_tree, axes, parity),
+                         group_spec(kw, tree, axes, timed, warmup=1, timed=True)]),
+        ("train_cli", ["--config", str(cfgs[1]), *cli_argv, "--mesh_devices", "4"]),
+    ]
+    return {"launch": prestart_ranks(PP_STAGES, calls), "f32_kw": f32_kw,
+            "f32_tree": f32_tree, "parity_groups": parity, "timed_groups": timed,
+            "cli_cfgs": cfgs, "cli_argv": cli_argv, "workdir": workdir, "kw": kw}
+
+
+def phase_pp_ranks(prep: dict) -> dict:
+    """Release the four ranks of ``prepare_pp_ranks``; their results."""
+    ranks = release_ranks(prep["launch"])
+    return dict({k: v for k, v in prep.items() if k != "launch"},
+                parity=[r[0][0] for r in ranks], timed=[r[0][1] for r in ranks],
+                cli=[r[1] for r in ranks])
+
+
+def phase_pp_train(card: str, peak_bw, peak_ops, pp: dict) -> dict:
+    """``[pp_train]``: the pipeline recipe at full width on four ranks (3 of
+    the 12 layers a stage, G 16 x B 8 x T 512, bf16, dropout 0.1): the
+    float32 group against the one-rank group; one timed bf16 group (ms,
+    tokens/s, the share in sends and receives, the schedule's bubble); each
+    stage's flash launches; the CLI run resumed at world size 1 from its
+    merged checkpoint. The flash kernels at a stage's shape (B 8 x H 8,
+    heads of 64) are phase 7's d512 case; the float32 group's are checked
+    here."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = pp["kw"]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    H, T, B = kw["n_head"], kw["block_size"], train_main.B
+    log("pp_kernels", stage_shape=dict(B=B, H=H, T=T, D=kw["n_embd"] // H, dtype="bf16",
+                                       dropout=kw["dropout"]),
+        checked_by="phase 7's d512_main_bf16 case (the same shape)")
+    check_flash_case(gen, "pp_train_kernel", "stage_b8_h8_d64_f32", B, H, H, T, T,
+                     kw["n_embd"] // H, torch.float32, None, 0.0, 97, False, peak_bw, peak_ops)
+    ref = one_rank_group(pp["f32_kw"], pp["f32_tree"], pp["parity_groups"])
+    parity = compare_group("pp_train", "gloo_pp4_f32", pp["f32_kw"], ref, pp["parity"][0],
+                           TRAIN_PARITY_TOL)
+    G = len(pp["timed_groups"][0][0])
+    per_stage = kw["n_layer"] // PP_STAGES
+    rows = []
+    for r, res in enumerate(pp["timed"]):
+        launches = dict(res["launches"])
+        if any(v != G * per_stage for v in launches.values()):
+            raise AssertionError(f"pp_train: stage {r} launched {launches}, not "
+                                 f"{G * per_stage} each")
+        p2p = res["collective_seconds_by_op"].get("collective-permute", 0.0)
+        rows.append(dict(stage=r, seconds=res["seconds"], flash_launches=launches,
+                         p2p_seconds=p2p, p2p_share=p2p / res["seconds"],
+                         p2p_bytes=res["collective_bytes"].get("collective-permute", 0),
+                         collective_share=res["collective_seconds"] / res["seconds"],
+                         moment_bytes=res["state_bytes"]))
+    seconds = max(res["seconds"] for res in pp["timed"])
+    y = pp["timed_groups"][0][1]
+    out = dict(case="gloo_pp4_bf16", stages=PP_STAGES, microbatches=G,
+               bubble=(PP_STAGES - 1) / (G + PP_STAGES - 1), ranks=rows,
+               ms_per_group=seconds * 1e3, nonpad_tokens_per_s=int((y != 0).sum()) / seconds,
+               loss=pp["timed"][0]["metrics"][0]["first_loss"], card=card)
+    log("pp_train", **out)
+    if not np.isfinite(out["loss"]):
+        raise AssertionError("pp_train: the bf16 group's loss is not finite")
+    if any(r["rc"] != 0 for r in pp["cli"]):
+        raise AssertionError(f"the pipeline train CLI exited {pp['cli']}")
+    run_dir = pp["workdir"] / "runs" / "pp-run"
+    last = run_dir / "checkpoints" / "last.npz"
+    first = load_checkpoint(last)
+    if first["train_objective"] != "group_ce" or first["model"]["blocks"]["ln1"][
+            "scale"].shape[0] != PP_CLI_LAYERS:
+        raise AssertionError("the pipeline checkpoint is not the merged group-CE layout")
+    if train_cli(["--config", str(pp["cli_cfgs"][2]), "--resume", str(last), *pp["cli_argv"],
+                  "--pipeline_stages", "1"]) != 0:
+        raise AssertionError("the world-1 resume of the pipeline checkpoint failed")
+    curves = (run_dir / "scores" / "curves.csv").read_text().splitlines()
+    final = json.loads((run_dir / "scores" / "metrics.json").read_text())
+    losses = [float(first["train_loss"]), float(first["val_loss"]),
+              final["last_train_loss"], final["last_val_loss"]]
+    log("pp_train_cli", epochs=[1, 2], curves_rows=len(curves) - 1, losses=losses,
+        step=int(first["step"]), status=final["status"], card=card)
+    if len(curves) != 3 or not all(np.isfinite(losses)) or final["status"] != "completed":
+        raise AssertionError(f"the pipeline CLI run and its resume: {curves} {final}")
+    return {"launches": pp["timed"][0]["launches"], "run": out, "parity": parity}
 
 
 def main() -> int:
@@ -4817,18 +5240,45 @@ def main() -> int:
     ebm = phase_protein_ebm(critic, Path(demo_run["run_dir"]) / "scores" / "design_cuda",
                             card_line)
     lap("protein_ebm")
-    guided = phase_critic_guided(demo_run, data512, critic, ebm, card_line)
-    lap("critic_guided")
+    # the parallel phases' ranks start now and reach the card during phase 41;
+    # their work waits for phase 42 and 49's release
     tp_dir = tempfile.TemporaryDirectory(prefix="smoke_tp_")
-    par = phase_parallel_ranks(card_line, Path(tp_dir.name))
-    lap("parallel_ranks")
+    pp_dir = tempfile.TemporaryDirectory(prefix="smoke_pp_")
+    launches = []
+    try:
+        par_prep = prepare_parallel_ranks(card_line, Path(tp_dir.name))
+        launches.append(par_prep["launch"])
+        pp_prep = prepare_pp_ranks(card_line, Path(pp_dir.name))
+        launches.append(pp_prep["launch"])
+        lap("parallel_prepare")
+        guided = phase_critic_guided(demo_run, data512, critic, ebm, card_line)
+        lap("critic_guided")
+        par = phase_parallel_ranks(par_prep)
+        lap("parallel_ranks")
+        # the four pipeline ranks run before any kernel is timed here
+        pp = phase_pp_ranks(pp_prep)
+        lap("pp_ranks")
+    except BaseException:
+        stop_ranks(*launches)
+        raise
+    del par_prep, pp_prep
     dp_trained = phase_dp_train(card_line, peak_bw, peak_ops, par)
     lap("dp_train")
     tp_trained = phase_tp_train(card_line, peak_bw, peak_ops, par)
     lap("tp_train")
     tp_served = phase_tp_serve(card_line, peak_bw, peak_ops, par)
     lap("tp_serve")
+    ep_trained = phase_ep_train(card_line, peak_bw, peak_ops, par)
+    lap("ep_train")
+    phase_moe_dp(card_line, par)
+    lap("moe_dp")
+    tp_moe_served = phase_tp_moe_serve(card_line, peak_bw, peak_ops, par)
+    lap("tp_moe_serve")
     del par
+    pp_trained = phase_pp_train(card_line, peak_bw, peak_ops, pp)
+    lap("pp_train")
+    del pp
+    pp_dir.cleanup()
     tp_dir.cleanup()
     protein_dir.cleanup()
     prepare_dir.cleanup()
@@ -4865,6 +5315,9 @@ def main() -> int:
             "decode_attention"],
         "tp_rank_hkv4": tp_served["timed"]["rank_hkv4_bf16"],
         "tp_rank_hkv4_int8": tp_served["timed"]["rank_hkv4_int8"],
+        "launches_tp_moe_serve": tp_moe_served["runs"]["bf16"]["launches_per_rank"][0][
+            "decode_attention"],
+        "tp_moe_rank_hkv4_d64": tp_moe_served["timed"]["decode"],
         "stress": {k: stress[k] for k in ("draws", "max_abs_err", "nan_dead_tiles_err")},
         "gen_prefix_b1": prefixed["decode_timed"],
         "dashboard_b1": analysed["decode_timed"],
@@ -4889,8 +5342,11 @@ def main() -> int:
             "launches_plain_contract": remat["plain"][wrapper.__name__],
             "launches_dp_train": dp_trained["launches"][wrapper.__name__],
             "launches_tp_train": tp_trained["launches"][wrapper.__name__],
+            "launches_ep_train": ep_trained["launches"][wrapper.__name__],
+            "launches_pp_train": pp_trained["launches"][wrapper.__name__],
             "dp_rank_b4_h8": dp_trained["timed"][key],
             "tp_rank_b8_h4": tp_trained["timed"][key],
+            "ep_rank_b8_h4_d64": ep_trained["timed"][key],
             "launches_moe_train": moe_run["launches"][wrapper.__name__],
             "launches_saliency": sum(r[wrapper.__name__] for r in analysed["saliency"].values()),
             "saliency_f32": {run: t[key] for run, t in analysed["flash_timed"].items()},
@@ -4926,6 +5382,9 @@ def main() -> int:
         "launches_tp_spec": tp_served["runs"]["spec4"]["launches_per_rank"][0][
             "decode_attention_chunk"],
         "tp_rank_hkv4": tp_served["chunk_timed"],
+        "launches_tp_moe_spec": tp_moe_served["runs"]["spec4"]["launches_per_rank"][0][
+            "decode_attention_chunk"],
+        "tp_moe_rank_hkv4_d64": tp_moe_served["timed"]["chunk"],
         "moe_spec": moe_served["chunk_timed"],
         "design": ("bf16 query, bf16 or int8 cache: tensor-core tiles (mma.sync m16n8k16, "
                    "ldmatrix), one pass with an online softmax, three cp.async stages, only "

@@ -58,7 +58,7 @@ def load_codon_model(run_dir: str | Path, name: str | None = None, *,
     on ``device`` (default: the CUDA card) in eval mode."""
     device = resolve_device(device)
     run_dir = Path(run_dir)
-    payload = load_codon_checkpoint(run_dir, name)
+    payload = load_checkpoint(resolve_checkpoint(run_dir, name), keys=("cfg", "model"))
     cfg_map = dict(payload.get("cfg", {}))
     if "vocab_size" not in cfg_map:
         cfg_map["vocab_size"] = int(np.asarray(payload["model"]["tok_emb"]).shape[0])

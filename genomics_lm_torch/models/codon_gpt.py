@@ -480,7 +480,7 @@ def _dropout_on(cfg: CodonGPTConfig, train: bool, generator) -> bool:
 
 
 def moe_route(block: Block, cfg: CodonGPTConfig, ht: torch.Tensor, *, capped: bool,
-              with_aux: bool = True) -> dict:
+              with_aux: bool = True, dp=None, rows: int | None = None) -> dict:
     """The router of a MoE block over the (N, D) tokens ``ht``: its float32
     ``probs`` (N, E), the top-k ``gate_idx`` and renormalized ``gate_vals``
     (N, k), each choice's slot ``pos`` in its expert's buffer (N, k; granted
@@ -495,15 +495,22 @@ def moe_route(block: Block, cfg: CodonGPTConfig, ht: torch.Tensor, *, capped: bo
     ``ht.astype(f32) @ router.w``. Ties go to the lower expert index, as
     ``jax.lax.top_k`` puts them: a stable descending sort of the
     probabilities, no value changed.
+
+    With ``dp`` (a ``DPContext``; ``ht`` this rank's ``rows`` rows of the
+    global microbatch, each row ``N / rows`` tokens) the routing is the
+    global microbatch's, as JAX's under GSPMD: ``_route_global``.
     """
     N = ht.shape[0]
     E = cfg.moe_experts
     k = min(cfg.moe_top_k, E)
-    C = max(1, math.ceil(cfg.moe_capacity_factor * k * N / E)) if capped else N
     probs = torch.softmax(torch.matmul(ht.float(), block.router.w), dim=-1)
     vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[:, :k], order[:, :k]
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    if dp is not None:
+        return _route_global(cfg, probs, gate_idx, gate_vals, dp, rows, capped=capped,
+                             with_aux=with_aux)
+    C = max(1, math.ceil(cfg.moe_capacity_factor * k * N / E)) if capped else N
     aux = None
     if with_aux:  # Switch aux E · Σ_e f_e · p_e over all N tokens, pads included
         top1 = F.one_hot(gate_idx[:, 0], E).float()
@@ -517,6 +524,57 @@ def moe_route(block: Block, cfg: CodonGPTConfig, ht: torch.Tensor, *, capped: bo
     pos = pos.view(k, N).t()
     return {"probs": probs, "gate_idx": gate_idx, "gate_vals": gate_vals, "pos": pos,
             "keep": pos < C, "C": C, "aux": aux}
+
+
+def _route_global(cfg: CodonGPTConfig, probs, gate_idx, gate_vals, dp, rows: int, *,
+                  capped: bool, with_aux: bool) -> dict:
+    """``moe_route``'s slots, capacity and router loss over the global
+    microbatch of a data-parallel step, from this rank's ``rows`` rows.
+
+    Rank r of n holds the global rows ``r, r + n, ...`` (``EpochPlan``'s
+    strided split), padded with all-PAD rows to equal shares; a row whose
+    global index reaches ``dp.rows`` is such padding, not in JAX's batch: it
+    neither routes, nor counts toward N, nor enters the router loss. Every
+    rank gathers each row's count of choices by (choice rank, expert), a
+    few hundred bytes, and takes a choice's slot as JAX's rank-major scan
+    does: the choices of lower ranks over the whole microbatch, then those
+    of its rank in the global rows before its own, then in its row before
+    its token. ``C`` spans the ``dp.rows`` rows. The router loss uses the
+    global means of the top-1 assignments and the probabilities, from sums
+    over the data axis that carry their gradient (``sum_with_grad``); each
+    rank returns its share, 1/n of it, so the ranks' losses sum to it once.
+    ``valid`` marks the tokens of the rows in the global microbatch.
+    """
+    E = cfg.moe_experts
+    n_local, k = gate_idx.shape
+    T = n_local // rows
+    n, r = dp.size, dp.rank
+    g_rows = dp.rows if dp.rows is not None else rows * n
+    global_row = r + n * torch.arange(rows, device=probs.device)
+    valid = (global_row < g_rows).repeat_interleave(T)  # (N_local,)
+    N = g_rows * T
+    C = max(1, math.ceil(cfg.moe_capacity_factor * k * N / E)) if capped else N
+    experts = torch.arange(E, device=probs.device)
+    # (rows, k, E, T): this rank's choices one-hot by expert, padding rows empty
+    oh = ((gate_idx[:, :, None] == experts) & valid[:, None, None]).to(torch.int32)
+    oh = oh.view(rows, T, k, E).permute(0, 2, 3, 1).contiguous()
+    counts = dp.gather(oh.sum(dim=-1))  # (n, rows, k, E)
+    counts = counts.transpose(0, 1).reshape(rows * n, k, E)  # global row order
+    total = counts.sum(dim=0)
+    before_rank = torch.cumsum(total, dim=0) - total  # (k, E): lower choice ranks
+    before_row = (torch.cumsum(counts, dim=0) - counts)[global_row]  # (rows, k, E)
+    within = torch.cumsum(oh, dim=-1, dtype=torch.int32) - oh  # earlier tokens of the row
+    pos = (before_rank[None, :, :, None] + before_row[..., None] + within)
+    idx = gate_idx.view(rows, T, k).permute(0, 2, 1)[:, :, None, :]  # (rows, k, 1, T)
+    pos = pos.gather(2, idx).squeeze(2).permute(0, 2, 1).reshape(n_local, k)
+    aux = None
+    if with_aux:
+        w = valid[:, None].float()
+        top1 = F.one_hot(gate_idx[:, 0], E).float()
+        sums = dp.sum_with_grad(torch.cat([(top1 * w).sum(dim=0), (probs * w).sum(dim=0)]))
+        aux = E * torch.sum((sums[:E] / N) * (sums[E:] / N)) / n
+    return {"probs": probs, "gate_idx": gate_idx, "gate_vals": gate_vals, "pos": pos,
+            "keep": (pos < C) & valid[:, None], "C": C, "aux": aux, "valid": valid}
 
 
 def _span(name: str):
@@ -541,19 +599,39 @@ def _moe_mlp(block: Block, cfg: CodonGPTConfig, h: torch.Tensor, *, capped: bool
     compute dtype and summed in float32: the function of JAX's one-hot
     dispatch and combine einsums, whose sums have one nonzero term each. A
     dropped choice contributes 0, so the residual carries the token.
+
+    Under a data mesh (``block.moe_dp``, set by the training step) a capped
+    layer routes over the global microbatch (``moe_route``). Under expert
+    parallelism (``block.mlp.experts``: this rank's first expert and count,
+    ``parallel/tensor_parallel.py::shard_model``) every rank routes every
+    token with the replicated router, writes only the choices bound for its
+    experts into an (E/ep·C, D) buffer, runs its experts, and gathers and
+    gate-weights only their rows: ``y`` is then its float32 partial sum,
+    which the caller sums over the model axis and casts (``block_epilogue``),
+    and the router loss, whole on every rank, carries 1/ep of its gradient
+    on each, so that the model axis's sum of the router's and the input's
+    gradients (``tp_partial_grad``, the entry's all-reduce) counts it once
+    beside the combine's terms, which each rank gives for its experts only.
     """
     B, T, D = h.shape
     N = B * T
     E = cfg.moe_experts
     dt = h.dtype
     ht = h.reshape(N, D)
+    dp = getattr(block, "moe_dp", None) if capped else None
     with _span("moe_router"):
-        r = moe_route(block, cfg, ht, capped=capped, with_aux=with_aux)
+        r = moe_route(block, cfg, ht, capped=capped, with_aux=with_aux, dp=dp, rows=B)
     C, k = r["C"], r["gate_idx"].shape[1]
+    first, local = getattr(block.mlp, "experts", None) or (0, E)
     with _span("moe_dispatch"):
-        slot = torch.where(r["keep"], r["gate_idx"] * C + r["pos"], E * C).t().reshape(k * N)
+        mine = r["keep"]
+        if local < E:
+            mine = mine & (r["gate_idx"] >= first) & (r["gate_idx"] < first + local)
+        slot = torch.where(mine, (r["gate_idx"] - first) * C + r["pos"],
+                           local * C).t().reshape(k * N)
         xin = ht.repeat(k, 1)  # rank-major: row r·N + n is token n
-        xe = torch.index_put(ht.new_zeros(E * C + 1, D), (slot,), xin)[: E * C].view(E, C, D)
+        xe = torch.index_put(ht.new_zeros(local * C + 1, D), (slot,), xin)[: local * C]
+        xe = xe.view(local, C, D)
     mlp = block.mlp
     with _span("moe_experts"):
         if cfg.use_swiglu:
@@ -564,10 +642,15 @@ def _moe_mlp(block: Block, cfg: CodonGPTConfig, h: torch.Tensor, *, capped: bool
             mid = F.gelu(torch.bmm(xe, mlp.fc.w.to(dt)) + mlp.fc.b.to(dt)[:, None, :])
             ye = torch.bmm(mid, mlp.proj.w.to(dt)) + mlp.proj.b.to(dt)[:, None, :]
     with _span("moe_combine"):
-        rows = torch.cat([ye.reshape(E * C, D), ye.new_zeros(1, D)])[slot]
+        rows = torch.cat([ye.reshape(local * C, D), ye.new_zeros(1, D)])[slot]
         gates = r["gate_vals"].to(dt).t().reshape(k * N, 1)
-        y = (rows.float() * gates.float()).view(k, N, D).sum(dim=0).to(dt)
-    return y.view(B, T, D), r["aux"]
+        y = (rows.float() * gates.float()).view(k, N, D).sum(dim=0)
+    aux = r["aux"]
+    if local < E:  # a float32 partial sum over this rank's experts
+        if aux is not None:
+            aux = aux.detach() + (aux - aux.detach()) * (local / E)
+        return y.view(B, T, D), aux
+    return y.to(dt).view(B, T, D), aux
 
 
 def block_epilogue(block: Block, cfg: CodonGPTConfig, x: torch.Tensor,
@@ -585,14 +668,19 @@ def block_epilogue(block: Block, cfg: CodonGPTConfig, x: torch.Tensor,
     Under tensor parallelism the projection and the MLP's down linear are
     row-parallel exits and its up linears column-parallel entries; an MLP
     whose hidden width the degree does not divide runs whole on every rank.
-    With ``seq`` the residual ``x`` is this rank's slice of the sequence."""
+    With ``seq`` the residual ``x`` is this rank's slice of the sequence.
+    An expert-parallel MoE MLP enters and leaves as a split dense one, its
+    float32 partial sums reduced before the cast."""
     tp = getattr(block, "tp", None)
     x = x + _row_linear(block.attn.proj, y_attn, tp, seq)
     h = _layer_norm(block.ln2, x)
     mlp = block.mlp
     moe_aux = None
-    split = tp is not None and not cfg.moe_experts and getattr(
-        mlp.w_up if cfg.use_swiglu else mlp[0], "tp_index", None) is not None
+    if cfg.moe_experts:
+        split = tp is not None and getattr(mlp, "experts", None) is not None
+    else:
+        split = tp is not None and getattr(
+            mlp.w_up if cfg.use_swiglu else mlp[0], "tp_index", None) is not None
     if split:
         h = tpl.enter(h, tp, seq)
     elif tp is not None and seq:
@@ -600,6 +688,8 @@ def block_epilogue(block: Block, cfg: CodonGPTConfig, x: torch.Tensor,
     if cfg.moe_experts:
         m, moe_aux = _moe_mlp(block, cfg, h, capped=train if capped is None else capped,
                               with_aux=return_moe_aux)
+        if split:
+            m = tpl.exit_(m, tp, seq).to(h.dtype)
     elif cfg.use_swiglu:
         m = F.silu(_linear(mlp.w_gate, h)) * _linear(mlp.w_up, h)
         m = _row_linear(mlp.w_down, m, tp, seq) if split else _linear(mlp.w_down, m)
@@ -714,6 +804,53 @@ def _rope_for(cfg: CodonGPTConfig, idx: torch.Tensor):
     return rope_cos_sin(idx.shape[1], cfg.head_dim, cfg.rope_base, cfg.dtype, idx.device)
 
 
+def embed_stream(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor,
+                 shape_embeddings: torch.Tensor | None = None, *, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """The residual stream entering the blocks: the embedding (its dropout
+    in training), split over T under sequence parallelism."""
+    x = _embed(model, cfg, idx, shape_embeddings, train=_dropout_on(cfg, train, generator),
+               generator=generator)
+    seq_tp = _sequence_parallel(model, idx)
+    return tpl.split_seq(x, seq_tp) if seq_tp is not None else x
+
+
+def run_blocks(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor, x: torch.Tensor, *,
+               train: bool = False, generator: torch.Generator | None = None,
+               attention_window: int | None = None) -> tuple[torch.Tensor, list]:
+    """``model.blocks`` in turn over the stream ``x`` of the tokens ``idx``
+    (remat per block under ``use_checkpoint``): the stream and each block's
+    router loss (None for a dense block). A pipeline stage runs its own
+    blocks through it (``parallel/pipeline.py``)."""
+    segment_ids = (
+        segment_ids_from_tokens(idx, cfg.sep_id) if cfg.sep_id is not None else None
+    )
+    drop = _dropout_on(cfg, train, generator)
+    rope = _rope_for(cfg, idx)
+    seq = _sequence_parallel(model, idx) is not None
+    lcfg = _local_cfg(model, cfg)
+    moe_aux = []
+    for block in model.blocks:
+        kw = dict(segment_ids=segment_ids, attention_window=attention_window, rope=rope,
+                  drop=drop, capped=train, seq=seq)
+        if cfg.use_checkpoint and torch.is_grad_enabled():
+            x, aux = _remat_block(block, lcfg, x, generator, **kw)
+        else:
+            x, aux = _block_apply(block, lcfg, x, generator=generator, **kw)
+        moe_aux.append(aux)
+    return x, moe_aux
+
+
+def final_stream(model: CodonGPT, cfg: CodonGPTConfig, idx: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The stream after the blocks, whole again under sequence parallelism,
+    through the final layer norm."""
+    seq_tp = _sequence_parallel(model, idx)
+    if seq_tp is not None:
+        x = tpl.gather_seq_replicated(x, seq_tp)
+    return _layer_norm(model.ln_f, x)
+
+
 def forward(
     model: CodonGPT,
     cfg: CodonGPTConfig,
@@ -744,28 +881,10 @@ def forward(
     parallelism the residual stream between the embedding and the final
     norm is split over T (JAX's ``_constrain_residual``).
     """
-    segment_ids = (
-        segment_ids_from_tokens(idx, cfg.sep_id) if cfg.sep_id is not None else None
-    )
-    drop = _dropout_on(cfg, train, generator)
-    x = _embed(model, cfg, idx, shape_embeddings, train=drop, generator=generator)
-    rope = _rope_for(cfg, idx)
-    seq_tp = _sequence_parallel(model, idx)
-    if seq_tp is not None:
-        x = tpl.split_seq(x, seq_tp)
-    lcfg = _local_cfg(model, cfg)
-    moe_aux = []
-    for block in model.blocks:
-        kw = dict(segment_ids=segment_ids, attention_window=attention_window, rope=rope,
-                  drop=drop, capped=train, seq=seq_tp is not None)
-        if cfg.use_checkpoint and torch.is_grad_enabled():
-            x, aux = _remat_block(block, lcfg, x, generator, **kw)
-        else:
-            x, aux = _block_apply(block, lcfg, x, generator=generator, **kw)
-        moe_aux.append(aux)
-    if seq_tp is not None:
-        x = tpl.gather_seq_replicated(x, seq_tp)
-    x = _layer_norm(model.ln_f, x)
+    x = embed_stream(model, cfg, idx, shape_embeddings, train=train, generator=generator)
+    x, moe_aux = run_blocks(model, cfg, idx, x, train=train, generator=generator,
+                            attention_window=attention_window)
+    x = final_stream(model, cfg, idx, x)
     logits = _lm_logits(model, cfg, x)
 
     loss = None
@@ -861,6 +980,8 @@ __all__ = [
     "block_linears",
     "apply_rope",
     "block_epilogue",
+    "embed_stream",
+    "final_stream",
     "forward",
     "forward_hidden",
     "hidden_states",
@@ -868,5 +989,6 @@ __all__ = [
     "param_count",
     "rope_cos_sin",
     "rotate_half",
+    "run_blocks",
     "set_block_linear",
 ]

@@ -11,6 +11,12 @@ to the global mean, so do their gradients, and the step sums both
 (``DPContext.all_reduce``). With one rank every scale is exactly 1, and
 the collectives still run: a mesh over one rank drives the same code as
 one over many.
+
+A capped MoE layer routes over the global microbatch as JAX's does
+(``models/codon_gpt.py::moe_route``): ``rows`` is the global microbatch's
+row count while a training step runs (the step sets it), ``gather`` brings
+every rank's per-row expert counts, and ``sum_with_grad`` sums the router
+loss's statistics with their gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ class DPContext:
     group: object
     rank: int
     size: int
+    rows: int | None = None  # the global microbatch's rows while a step runs
 
     @classmethod
     def from_mesh(cls, mesh: Mesh | None) -> "DPContext | None":
@@ -45,9 +52,34 @@ class DPContext:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the data axis, in place."""
-        with timed(t.device):
+        with timed(t.device, t.numel() * t.element_size()):
             dist.all_reduce(t, group=self.group)
         return t
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t``, stacked in rank order on a new leading axis."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        with timed(t.device, self.size * t.numel() * t.element_size(), "all-gather"):
+            dist.all_gather(parts, t, group=self.group)
+        return torch.stack(parts)
+
+    def sum_with_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the data axis, differentiable: the gradient
+        of every rank's loss with respect to the sum reaches each rank's
+        ``t`` (an all-reduce backward)."""
+        return _SumOverData.apply(t, self)
+
+
+class _SumOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, dp):
+        fctx.dp = dp
+        return dp.all_reduce(t.contiguous().clone())
+
+    @staticmethod
+    def backward(fctx, grad):
+        return fctx.dp.all_reduce(grad.contiguous().clone()), None
 
 
 def _weighted_count(valid: torch.Tensor, labels: torch.Tensor, weights) -> torch.Tensor:

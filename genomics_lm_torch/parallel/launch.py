@@ -13,10 +13,13 @@ and raises; a collective that waits longer than ``timeout_s`` fails its
 rank. The caller builds any kernels before it spawns, so that no two
 ranks compile into ``kernels/_build/`` at once.
 
-``collective_seconds`` / ``timed`` measure the wall time spent inside the
-collectives the parallel layer issues, when ``COLLECTIVES["timing"]`` is
-on (a CUDA device is synchronized around each one, so the preceding work
-is not counted): the share of a step that communication takes.
+``timed`` wraps every collective the parallel layer issues. It counts the
+calls and the bytes each one outputs on this rank, by operation (JAX's HLO
+names: ``all-reduce``, ``all-gather``, ``reduce-scatter``, ``broadcast``,
+``collective-permute`` for a send to a neighbour), and, when
+``COLLECTIVES["timing"]`` is on, the wall time spent inside them (a CUDA
+device is synchronized around each one, so the preceding work is not
+counted): the share of a step that communication takes.
 """
 
 from __future__ import annotations
@@ -33,12 +36,17 @@ from pathlib import Path
 
 import torch
 
-COLLECTIVES = {"timing": False, "seconds": 0.0, "calls": 0}
+COLLECTIVES = {"timing": False, "seconds": 0.0, "calls": 0, "bytes_by_op": {},
+               "count_by_op": {}, "seconds_by_op": {}}
 
 
 @contextlib.contextmanager
-def timed(device=None):
-    """Count the enclosed collective's wall time while timing is on."""
+def timed(device=None, nbytes: int = 0, op: str = "all-reduce"):
+    """Count the enclosed collective (``op``, ``nbytes`` output bytes on
+    this rank), and its wall time while timing is on."""
+    COLLECTIVES["calls"] += 1
+    for key, add in (("bytes_by_op", int(nbytes)), ("count_by_op", 1)):
+        COLLECTIVES[key][op] = COLLECTIVES[key].get(op, 0) + add
     if not COLLECTIVES["timing"]:
         yield
         return
@@ -51,12 +59,14 @@ def timed(device=None):
     finally:
         if cuda:
             torch.cuda.synchronize(device)
-        COLLECTIVES["seconds"] += time.perf_counter() - t0
-        COLLECTIVES["calls"] += 1
+        dt = time.perf_counter() - t0
+        COLLECTIVES["seconds"] += dt
+        COLLECTIVES["seconds_by_op"][op] = COLLECTIVES["seconds_by_op"].get(op, 0.0) + dt
 
 
 def reset_collective_timing(on: bool) -> None:
-    COLLECTIVES.update(timing=bool(on), seconds=0.0, calls=0)
+    COLLECTIVES.update(timing=bool(on), seconds=0.0, calls=0, bytes_by_op={},
+                       count_by_op={}, seconds_by_op={})
 
 
 def _rank_main(call_dir: str, rank: int) -> None:

@@ -34,6 +34,7 @@ logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
 
 _STATE: dict = {"device": None, "backend": None}
 
@@ -211,6 +212,7 @@ __all__ = [
     "DATA_AXIS",
     "MODEL_AXIS",
     "Mesh",
+    "PIPE_AXIS",
     "backend",
     "initialize_distributed",
     "local_device_count",

@@ -20,6 +20,16 @@ the concatenation. JAX replicates the LoRA factors and the int8 ``w_q`` /
 the port: a rank computes with its heads' slice of them at use
 (``parallel/tensor_parallel.py``).
 
+Expert parallelism (``ep_spec``, JAX's ``:134-176``): on a MoE config the
+rule is ``moe_param_sharding``'s choice. When the model axis divides the
+expert count E, every expert-stacked leaf (``blocks/mlp/...``, whose
+second axis is E) splits its E axis, so a rank of the axis holds experts
+``[r·E/ep, (r+1)·E/ep)`` of every layer (the port's dimension 0 of an
+``ExpertLinear``); the router and every other leaf replicate, and the
+attention leaves take the Megatron split over the same axis. When the
+axis does not divide E, the experts replicate (JAX's fallback) and only
+the attention splits.
+
 ZeRO-1 (``zero1_owners``) splits the optimizer state by ownership instead
 of JAX's per-leaf axis split: each unit of parameters (one parameter, or
 the parameters that share a JAX leaf) belongs to one data-parallel rank,
@@ -102,6 +112,35 @@ def tp_spec(path_names: tuple[str, ...], shape, tp: int, axis: str) -> Partition
     return P()
 
 
+def ep_spec(path_names: tuple[str, ...], shape, ep: int, axis: str,
+            n_experts: int) -> PartitionSpec | None:
+    """PartitionSpec of one JAX-layout leaf under expert parallelism, or
+    None (no expert rule: the caller falls back to ``tp_spec`` or
+    replication): a leaf under ``mlp`` whose axis 1 (after the layer stack)
+    is the E experts splits it, when ``ep`` divides E."""
+    if ep <= 1 or n_experts % ep or "mlp" not in path_names:
+        return None
+    if len(shape) >= 2 and shape[1] == n_experts:
+        spec = [None] * len(shape)
+        spec[1] = axis
+        return P(*spec)
+    return None
+
+
+def model_axis_spec(path_names: tuple[str, ...], shape, tp: int, n_experts: int
+                    ) -> PartitionSpec:
+    """The model axis's spec of a leaf: ``tp_spec`` on a dense config; on a
+    MoE config ``moe_param_sharding``'s choice, the expert rule first and
+    ``tp_spec`` only outside the MLP (an expert bank that the degree does
+    not divide replicates)."""
+    if not n_experts:
+        return tp_spec(path_names, shape, tp, MODEL_AXIS)
+    spec = ep_spec(path_names, shape, tp, MODEL_AXIS, n_experts)
+    if spec is None and "mlp" not in path_names:
+        spec = tp_spec(path_names, shape, tp, MODEL_AXIS)
+    return spec if spec is not None else P()
+
+
 # --- The rules on the port's parameters --------------------------------------
 
 
@@ -126,8 +165,9 @@ class Split:
 
 def tp_layout(model, cfg, tp: int) -> dict[str, Split | None]:
     """Each parameter name of ``model`` (a full, unsplit ``CodonGPT``) →
-    its ``Split`` under ``tp``-way tensor parallelism, or None (replicated),
-    by ``tp_spec`` on the JAX leaves that ``jax_leaves`` maps it to."""
+    its ``Split`` under a ``tp``-wide model axis, or None (replicated), by
+    ``model_axis_spec`` on the JAX leaves that ``jax_leaves`` maps it to:
+    the Megatron split, and on a MoE config the expert split."""
     from genomics_lm_torch.utils.weights import jax_leaves
 
     names = {id(p): n for n, p in model.named_parameters()}
@@ -138,7 +178,8 @@ def tp_layout(model, cfg, tp: int) -> dict[str, Split | None]:
             jshape = tuple(reversed(shape)) if t else shape
             if leaf.stacked:
                 jshape = (len(leaf.parts),) + jshape
-            spec = tp_spec(tuple(leaf.path.split("/")), jshape, tp, MODEL_AXIS)
+            spec = model_axis_spec(tuple(leaf.path.split("/")), jshape, tp,
+                                   cfg.moe_experts)
             dim = next((d for d, a in enumerate(spec) if a is not None), None)
             if dim is not None:
                 dim -= 1 if leaf.stacked else 0
@@ -166,9 +207,14 @@ def tp_partial_grad(name: str, layout: dict, *, sequence_parallel: bool) -> bool
     model axis (each rank saw only its heads or its tokens), to be summed
     there: the LoRA factors (used through their heads' slice), and under
     sequence parallelism the block layer norms and the biases of split
-    row-parallel linears (applied to each rank's slice of the sequence)."""
+    row-parallel linears (applied to each rank's slice of the sequence).
+    Under expert parallelism the router's too: each rank's combine sees only
+    its experts' gates (its router-loss term is scaled to 1/ep a rank,
+    ``models/codon_gpt.py::_moe_mlp``)."""
     if "lora_a" in name or "lora_b" in name:
         return True
+    if name.endswith(".router.w"):
+        return expert_split(name[: -len("router.w")], layout)
     if not sequence_parallel or not name.startswith("blocks.") or layout.get(name):
         return False
     parts = name.split(".")
@@ -177,6 +223,13 @@ def tp_partial_grad(name: str, layout: dict, *, sequence_parallel: bool) -> bool
     weight = name[: -len("bias")] + "weight"
     return (parts[-1] == "bias" and parts[2:4] in (["attn", "proj"], ["mlp", "2"])
             and layout.get(weight) is not None)
+
+
+def expert_split(block_prefix: str, layout: dict) -> bool:
+    """Whether the expert bank of the block ``block_prefix`` ("blocks.3.")
+    is split over the model axis (expert parallelism)."""
+    return any(layout.get(f"{block_prefix}mlp.{bank}.w") is not None
+               for bank in ("fc", "w_up"))
 
 
 def zero1_owners(units: list[tuple[str, int]], dp: int) -> dict[str, int]:
@@ -196,6 +249,9 @@ def zero1_owners(units: list[tuple[str, int]], dp: int) -> dict[str, int]:
 
 __all__ = [
     "P",
+    "ep_spec",
+    "expert_split",
+    "model_axis_spec",
     "PartitionSpec",
     "Split",
     "tp_layout",

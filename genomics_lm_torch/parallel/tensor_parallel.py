@@ -24,7 +24,11 @@ the row exits lives split over the sequence axis T:
   forward and an all-gather backward, and the reverse.
 
 Attention is head-local, so the attention kernels run per rank on their
-local heads with no collective. ``TPContext`` carries the model axis's
+local heads with no collective. Expert parallelism shares the model axis
+(JAX's ``moe_param_sharding`` with ``tp_axis`` the same axis): a rank holds
+its experts of every MoE block, and the expert MLP enters and leaves
+through the same f/g pair as a split dense MLP (``models/codon_gpt.py::
+_moe_mlp``). ``TPContext`` carries the model axis's
 group, this rank's index and size, and ``layout`` (``parallel/
 sharding.py::tp_layout``). The forward reads it from ``block.tp`` and
 ``model.tp`` (None: no tensor parallelism). Parameters the rules replicate
@@ -64,9 +68,13 @@ class TPContext:
                    mesh.axis_size(MODEL_AXIS), sequence_parallel)
 
 
+def _nbytes(x: torch.Tensor, times: int = 1) -> int:
+    return times * x.numel() * x.element_size()
+
+
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous().clone()
-    with timed(x.device):
+    with timed(x.device, _nbytes(x)):
         dist.all_reduce(x, group=group)
     return x
 
@@ -74,7 +82,7 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 def _all_gather(x: torch.Tensor, dim: int, ctx: TPContext) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.size)]
-    with timed(x.device):
+    with timed(x.device, _nbytes(x, ctx.size), "all-gather"):
         dist.all_gather(parts, x, group=ctx.group)
     return torch.cat(parts, dim=dim)
 
@@ -82,7 +90,7 @@ def _all_gather(x: torch.Tensor, dim: int, ctx: TPContext) -> torch.Tensor:
 def _reduce_scatter(x: torch.Tensor, dim: int, ctx: TPContext) -> torch.Tensor:
     chunks = [c.contiguous() for c in x.chunk(ctx.size, dim=dim)]
     out = torch.empty_like(chunks[ctx.rank])
-    with timed(x.device):
+    with timed(x.device, _nbytes(out), "reduce-scatter"):
         dist.reduce_scatter(out, chunks, group=ctx.group)
     return out
 
@@ -192,7 +200,7 @@ def exit_(x, ctx: TPContext | None, seq: bool):
 def broadcast_(x: torch.Tensor, ctx: TPContext | None) -> torch.Tensor:
     """``x`` from the model axis's rank 0 on every rank of it (in place)."""
     if ctx is not None and ctx.size > 1:
-        with timed(x.device):
+        with timed(x.device, _nbytes(x), "broadcast"):
             dist.broadcast(x, group_src=0, group=ctx.group)
     return x
 
@@ -222,9 +230,6 @@ def tp_local_config(cfg, size: int):
 
 
 def check_tp(cfg, size: int) -> None:
-    if cfg.moe_experts and size > 1:
-        raise NotImplementedError(
-            "tensor_parallel on a MoE config (expert parallelism) is not ported")
     if cfg.kv_heads % size or cfg.n_head % size:
         raise ValueError(
             f"kv_heads {cfg.kv_heads} / n_head {cfg.n_head} must divide over model={size}")
@@ -236,8 +241,12 @@ def shard_model(model, ctx: TPContext, *, copy_model: bool = False):
     model axis, in place (or a deep copy with ``copy_model``): every
     parameter the rules split keeps this rank's slice; every block linear
     gets its ``tp_index``; the MLP is split only when the degree divides its
-    hidden width (else it runs replicated, as JAX's rules leave it)."""
+    hidden width (else it runs replicated, as JAX's rules leave it). A MoE
+    block's expert bank splits by experts when the degree divides E (expert
+    parallelism: ``block.mlp.experts`` is then this rank's (first expert,
+    count)), else it runs replicated, as ``moe_param_sharding`` falls back."""
     from genomics_lm_torch.models.codon_gpt import block_linears
+    from genomics_lm_torch.parallel.sharding import expert_split
 
     cfg = model.cfg
     check_tp(cfg, ctx.size)
@@ -270,6 +279,10 @@ def shard_model(model, ctx: TPContext, *, copy_model: bool = False):
                 out_features = (lin.w_q if hasattr(lin, "w_q") else lin.weight).shape[0]
                 split = Split(0, (out_features,))
             lin.tp_index = ("col" if split.dim == 0 else "row", _index(split, ctx, dev))
+    for i, block in enumerate(model.blocks):
+        if cfg.moe_experts and expert_split(f"blocks.{i}.", ctx.layout):
+            local = cfg.moe_experts // ctx.size
+            block.mlp.experts = (ctx.rank * local, local)
     for name, p in model.named_parameters():
         split = ctx.layout.get(name)
         if split is not None:

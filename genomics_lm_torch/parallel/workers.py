@@ -3,15 +3,17 @@
 Each function runs on one rank of a launched world and drives a main path
 the way a user's rank would, returning what the caller compares with the
 one-process run: ``group_steps`` (the trainer's group step under a data /
-model mesh), ``train_cli`` (the train CLI's launch path, optionally with a
-SIGTERM sent to one rank) and ``serve`` (a ``ServingEngine`` drain under a
-model mesh); ``each`` runs several of them in one launch. ``chip_smoke.py``
+model / pipe mesh), ``train_cli`` (the train CLI's launch path, optionally
+with a SIGTERM sent to one rank) and ``serve`` (a ``ServingEngine`` drain
+under a model mesh); ``each`` runs several of them in one launch, and
+``wait_for`` holds a launch started early until its caller signals. ``chip_smoke.py``
 runs them on the card and the tests on the CPU; they import torch and the
 port only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import signal
@@ -49,21 +51,32 @@ def group_steps(rank: int, world: int, spec: dict) -> dict:
     world), from the full weights ``spec["tree"]`` (the JAX layout): each
     rank takes its strided rows of every (G, B, T) group in
     ``spec["groups"]`` ([(x, y)]), ``spec["warmup"]`` groups run untimed
-    before them. Returns each group's metrics, the seconds, collective
-    seconds and flash launches of the timed groups, the optimizer's state
-    bytes on this rank and, on rank 0, the updated weights (JAX layout;
-    not with ``spec["return_tree"]`` False) and, with
-    ``spec["return_grads"]``, the group's gradient (port layout). With
-    ``spec["axes"]`` None the step runs with no mesh, as the one-process
-    trainer's; ``spec["deterministic"]`` turns on torch's deterministic
-    algorithms (the embedding gradient's accumulation order). A list of
-    specs runs each in turn."""
+    before them. A ``pipe`` axis runs the pipeline's group step on this
+    rank's stage (``parallel/pipeline.py``); on a MoE config a ``model``
+    axis is expert parallel. Returns each group's metrics, the seconds,
+    collective seconds, calls and bytes by operation, and flash launches of
+    the timed groups, the optimizer's state bytes and the expert weights'
+    bytes on this rank and, on rank 0, the updated weights (JAX layout; not
+    with ``spec["return_tree"]`` False) and, with ``spec["return_grads"]``,
+    the group's gradient (port layout, every stage's). ``spec["eval"]``
+    ([(x, y)] global batches) runs the trainer's eval step on each after the
+    groups, this rank's strided rows padded to equal shares, and returns
+    its outputs. With ``spec["axes"]`` None the step runs with no mesh, as
+    the one-process trainer's; ``spec["deterministic"]`` turns on torch's
+    deterministic algorithms (the embedding gradient's accumulation order).
+    A list of specs runs each in turn."""
     if isinstance(spec, list):
         return [group_steps(rank, world, s) for s in spec]
     from genomics_lm_torch.models.config import CodonGPTConfig
-    from genomics_lm_torch.training.loop import GROUP_METRIC_KEYS, gather_full_state, read_metrics
+    from genomics_lm_torch.parallel import pipeline as pp_lib
+    from genomics_lm_torch.training.loop import (
+        EVAL_METRIC_KEYS,
+        GROUP_METRIC_KEYS,
+        gather_full_state,
+        read_metrics,
+    )
     from genomics_lm_torch.training.optim import build_optimizer
-    from genomics_lm_torch.training.train_step import LossConfig, make_train_step
+    from genomics_lm_torch.training.train_step import LossConfig, make_eval_step, make_train_step
     from genomics_lm_torch.utils.weights import params_from_jax
 
     t_start = time.perf_counter()
@@ -77,13 +90,22 @@ def group_steps(rank: int, world: int, spec: dict) -> dict:
     model = params_from_jax(spec["tree"], cfg, device).train()
     template = (copy.deepcopy(model).cpu()
                 if rank == 0 and mesh is not None and spec.get("return_tree", True) else None)
+    pipe = mesh is not None and mesh.axis_size(mesh_lib.PIPE_AXIS) > 1
+    if pipe:
+        pp_lib.stage_model(model, pp_lib.PPContext.from_mesh(mesh, cfg.n_layer))
     if mesh is not None and mesh.axis_size(mesh_lib.MODEL_AXIS) > 1:
         tpl.shard_model(model, tpl.TPContext.from_mesh(mesh))
     n_dp = mesh.axis_size(mesh_lib.DATA_AXIS) if mesh is not None else 1
     dp_rank = mesh.axis_rank(mesh_lib.DATA_AXIS) if mesh is not None else 0
     dp = DPContext.from_mesh(mesh)
     bundle = build_optimizer(spec["run_cfg"], model, spec.get("total_steps", 100), dp=dp)
-    step = make_train_step(cfg, LossConfig(**spec.get("loss", {})), dp=dp)
+    loss_cfg = LossConfig(**spec.get("loss", {}))
+    if pipe:
+        step = pp_lib.make_pipeline_group_step(cfg, model.pp, dp=dp)
+        eval_step = pp_lib.make_pipeline_eval_step(cfg, model.pp, dp=dp)
+    else:
+        step = make_train_step(cfg, loss_cfg, dp=dp)
+        eval_step = make_eval_step(cfg, loss_cfg, dp=dp)
     gen = None
     if cfg.dropout > 0:
         gen = torch.Generator(device=device).manual_seed(spec.get("seed", 0) + dp_rank)
@@ -92,7 +114,8 @@ def group_steps(rank: int, world: int, spec: dict) -> dict:
         return {k: torch.from_numpy(strided_rows(a, dp_rank, n_dp)).long().to(device)
                 for k, a in (("x", x), ("y", y))}
 
-    groups = [batch(x, y) for x, y in spec["groups"]]
+    # the global microbatch's rows: a rank's padding rows are not in it
+    groups = [dict(batch(x, y), rows=x.shape[1]) for x, y in spec["groups"]]
     setup_seconds = time.perf_counter() - t_start
     for i in range(spec.get("warmup", 0)):
         step(model, bundle, groups[i % len(groups)], gen, 1.0)
@@ -102,7 +125,8 @@ def group_steps(rank: int, world: int, spec: dict) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    metrics = [step(model, bundle, g, gen, 1.0) for g in groups]
+    with recorded_routes(dropped_choices) as dropped:
+        metrics = [step(model, bundle, g, gen, 1.0) for g in groups]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
@@ -112,9 +136,20 @@ def group_steps(rank: int, world: int, spec: dict) -> dict:
     keys = GROUP_METRIC_KEYS
     out = {"metrics": [read_metrics(m, keys) for m in metrics], "seconds": seconds,
            "collective_seconds": collective["seconds"], "collectives": collective["calls"],
+           "collective_bytes": collective["bytes_by_op"],
+           "collective_counts": collective["count_by_op"],
+           "collective_seconds_by_op": collective["seconds_by_op"],
+           "dropped_choices": int(sum(int(c) for c in dropped)),
            "launches": launches, "state_bytes": bundle.state_bytes(),
+           **_resident_bytes(model, bundle, cfg),
            "local_tokens": int(sum(int((g["y"] != 0).sum()) for g in groups)),
            "setup_seconds": setup_seconds}
+    if spec.get("eval"):
+        out["eval"] = []
+        for x, y in spec["eval"]:
+            b = batch(x[None], y[None])
+            out["eval"].append(read_metrics(eval_step(model, b["x"][0], b["y"][0]),
+                                            EVAL_METRIC_KEYS))
     t0 = time.perf_counter()
     if spec.get("return_tree", True):
         out["tree"], _ = gather_full_state(model, bundle, cfg, template, mesh)
@@ -124,22 +159,69 @@ def group_steps(rank: int, world: int, spec: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_routes(take):
+    """``take(kwargs, route)`` of every ``moe_route`` call while the block
+    runs (its keyword arguments and result), in call order; a None is not
+    kept."""
+    from genomics_lm_torch.models import codon_gpt
+
+    kept, route = [], codon_gpt.moe_route
+
+    def record(*args, **kwargs):
+        out = route(*args, **kwargs)
+        item = take(kwargs, out)
+        if item is not None:
+            kept.append(item)
+        return out
+
+    codon_gpt.moe_route = record
+    try:
+        yield kept
+    finally:
+        codon_gpt.moe_route = route
+
+
+def dropped_choices(kwargs: dict, route: dict):
+    """For ``recorded_routes``: the choices a capped routing drops (of the
+    rows in the global microbatch), a 0-dim tensor read after the groups."""
+    if not kwargs.get("capped"):
+        return None
+    valid = route.get("valid")
+    return (~route["keep"] if valid is None else ~route["keep"] & valid[:, None]).sum()
+
+
+def _resident_bytes(model, bundle, cfg) -> dict:
+    """The bytes this rank holds: all parameters and, of a MoE model, the
+    expert banks' (``.mlp.``), and the optimizer moments of each."""
+    def expert(name):
+        return bool(cfg.moe_experts) and ".mlp." in name
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    moments = [(names.get(id(p), ""), t) for p, st in bundle.optimizer.state.items()
+               if not isinstance(p, str) for t in st.values()
+               if isinstance(t, torch.Tensor) and t.dim() > 0]
+    return {"param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "expert_bytes": sum(p.numel() * p.element_size()
+                                for n, p in model.named_parameters() if expert(n)),
+            "expert_state_bytes": sum(t.numel() * t.element_size()
+                                      for n, t in moments if expert(n))}
+
+
 def _gather_grads(model, dp_rank: int) -> dict | None:
-    """Every parameter's ``.grad`` in the full layout, on rank 0."""
+    """Every parameter's ``.grad`` in the full layout (every stage's), on
+    rank 0."""
+    from genomics_lm_torch.parallel import pipeline as pp_lib
     from genomics_lm_torch.training.checkpoints import gather_to_writer
 
-    tp = getattr(model, "tp", None)
-    piece = ({"tp": tp.rank if tp is not None else 0,
+    tp, pp = getattr(model, "tp", None), getattr(model, "pp", None)
+    piece = ({"tp": tp.rank if tp is not None else 0, "stage": pp.rank if pp is not None else 0,
               "grads": {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
                         if p.grad is not None}} if dp_rank == 0 else None)
     pieces = gather_to_writer(piece)
     if pieces is None:
         return None
-    parts = {pc["tp"]: pc["grads"] for pc in pieces if pc is not None}
-    n_tp = len(parts)
-    return {n: (tpl.assemble([parts[t][n] for t in range(n_tp)], split, n_tp)
-                if tp is not None and (split := tp.layout.get(n)) is not None else g)
-            for n, g in parts[0].items()}
+    return pp_lib.assemble_pieces(pieces, "grads", tp.layout if tp is not None else {}, pp)
 
 
 def _launch_counters():
@@ -218,6 +300,19 @@ def serve(rank: int, world: int, spec: dict) -> dict:
                          "decode_attention_chunk": da.decode_attention_chunk.launches}}
 
 
+def wait_for(rank: int, world: int, signal_dir: str, timeout_s: float = 1200.0) -> None:
+    """Wait, started and joined, until ``signal_dir`` holds a file ``go``
+    (return) or ``stop`` (raise): a launch started early, whose ranks reach
+    the card while the caller still works, begins its calls on the signal."""
+    from pathlib import Path
+
+    signal_dir, end = Path(signal_dir), time.monotonic() + timeout_s
+    while not (signal_dir / "go").exists():
+        if (signal_dir / "stop").exists() or time.monotonic() > end:
+            raise RuntimeError(f"rank {rank}: stopped before its calls ({signal_dir})")
+        time.sleep(0.1)
+
+
 def each(rank: int, world: int, calls: list) -> list:
     """Several workers in one launch (each process takes seconds to start
     and reach a card): ``calls`` is ``[(worker name, argument)]``, run in
@@ -225,4 +320,5 @@ def each(rank: int, world: int, calls: list) -> list:
     return [globals()[name](rank, world, arg) for name, arg in calls]
 
 
-__all__ = ["each", "group_steps", "serve", "strided_rows", "train_cli", "train_cli_sigterm"]
+__all__ = ["each", "group_steps", "serve", "strided_rows", "train_cli", "train_cli_sigterm",
+           "wait_for"]

@@ -43,6 +43,13 @@ collective before the row-parallel projection, where the partial sums meet
 in an all-reduce. Rank 0 of the model axis samples and broadcasts each
 step's tokens (and a speculative round's drafts and verify logits), so the
 ranks' caches never part. ``kv_heads`` and ``n_head`` must divide by T.
+A MoE model's experts split by the expert rule (``parallel/sharding.py::
+ep_spec``): a rank holds E/T whole experts and runs the routed tokens' MLP
+for those only, the partial sums meeting in the same all-reduce. JAX's
+engine splits every expert's hidden width instead (``tp_param_sharding``,
+``genomics_lm_tpu/serving/engine.py:541-554``); both give the same
+tokens, only the layout differs. An expert count that T does not divide
+runs its experts whole on every rank.
 """
 
 from __future__ import annotations

@@ -26,16 +26,31 @@ quality and throughput sections, ``:51-233``, and of its ``main``).
         [--converged_epochs 0] [--workdir outputs/moe_quality] [--skip_quality] \\
         [--measure_steps 8] [--out report.json] [--merge_into old.json] [--device cpu]
 
+* **ep_analysis** (``--ep_analysis``, JAX's ``:283-414``) — the same
+  12L8H d512 model with ``--experts`` experts top-2 at capacity 1.25, bf16,
+  dropout 0, block ``--ep_seq_len``, takes one group step of 1 x 8 rows
+  (``default_rng(0)``) across 8 ranks (``parallel/launch.py::spawn``; on
+  one card they share it over gloo) in two layouts: ``data=8`` with the
+  experts replicated and ZeRO-1, and ``data=4 x model=2`` with the experts
+  split over the model axis, attention tensor-parallel and ZeRO-1. For
+  rank 0 it reports the expert weights' and their moments' bytes and all
+  parameters' and moments' bytes, read from the rank's own tensors
+  (exact), and the bytes and calls of the collectives of that step by
+  operation, counted by the port's collective wrappers
+  (``parallel/launch.py::timed``): what the port's ranks send, not JAX's
+  partitioned-HLO figures, and no wall time.
+
 Writes one JSON report with JAX's keys (``quality``, ``quality_converged``,
-``throughput_d512``; per throughput candidate also ``peak_memory_bytes``
-and ``ms_per_group``). The expert-parallel analysis (``--ep_analysis``,
-``--ep_seq_len``) needs a mesh: those flags raise ``NotImplementedError``.
+``throughput_d512``, ``ep_analysis``; per throughput candidate also
+``peak_memory_bytes`` and ``ms_per_group``; per layout also each rank's
+bytes).
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,9 +68,6 @@ D512_MODEL = {
 }
 
 OOM_PATTERNS = ("out of memory", "oom", "allocate", "allocation", "hbm capacity")
-
-# the expert-parallel flags of scripts/benchmark_moe.py (they need a mesh)
-UNPORTED_FLAGS = ("ep_analysis", "ep_seq_len")
 
 _PROBE_SOURCE = r"""
 import json, sys, time
@@ -305,6 +317,66 @@ def run_throughput(args, *, model: dict = D512_MODEL, batch_size: int = 8,
     }
 
 
+def run_ep_analysis(args, *, model: dict = D512_MODEL, device: str = "cuda:0",
+                    world: int = 8) -> dict:
+    """Experts split over the model axis against experts replicated: each
+    layout's exact bytes on rank 0 and its collectives in one group step
+    (JAX's ``run_ep_analysis``, over ``world`` ranks on ``device``)."""
+    import numpy as np
+    import torch
+
+    from genomics_lm_torch.models.codon_gpt import CodonGPT
+    from genomics_lm_torch.models.config import CodonGPTConfig
+    from genomics_lm_torch.parallel import launch, workers
+    from genomics_lm_torch.utils.weights import params_to_jax
+
+    seq = int(args.ep_seq_len)
+    kw = dict(model, block_size=seq, compute_dtype="bfloat16", dropout=0.0,
+              moe_experts=args.experts, moe_top_k=2, moe_capacity_factor=1.25)
+    cfg = CodonGPTConfig.from_run_config(kw)
+    torch.manual_seed(0)
+    tree = params_to_jax(CodonGPT(cfg), cfg)
+    rng = np.random.default_rng(0)
+    batch = tuple(rng.integers(4, 68, (1, 8, seq)).astype(np.int64) for _ in range(2))
+    layouts = (("replicated", "data=8 (experts replicated, ZeRO-1)", {"data": world}),
+               ("ep_sharded", "data=4 x model=2 (EP over model, attention TP, ZeRO-1)",
+                {"data": world // 2, "model": 2}))
+    spec = {"model": dataclasses.asdict(cfg), "tree": tree, "groups": [batch], "total_steps": 10,
+            "run_cfg": {"lr": 3e-4, "warmup_steps": 0, "weight_decay": 1e-4,
+                        "shard_optimizer_state": True},
+            "return_tree": False, "return_grads": False, "device": device}
+    ranks = launch.spawn(workers.group_steps, world,
+                         [dict(spec, axes=axes) for _, _, axes in layouts], device=device)
+    report = {"protocol": (
+        f"{world} ranks on {device} (parallel/launch.py), {args.experts}-expert top-2 "
+        f"d{cfg.n_embd} MoE, b8 seq{seq}, one group step; memory from each rank's own "
+        "tensors (exact), communication from the port's collective wrappers' output bytes "
+        "(what the ranks send; not JAX's partitioned-HLO figures; no wall time)")}
+    for i, (key, name, _) in enumerate(layouts):
+        r0 = ranks[0][i]
+        report[key] = {
+            "mesh": name,
+            "expert_weight_bytes_per_device": r0["expert_bytes"],
+            "expert_moment_bytes_per_device": r0["expert_state_bytes"],
+            "total_param_bytes_per_device": r0["param_bytes"],
+            "total_moment_bytes_per_device": r0["state_bytes"],
+            "collectives_per_step": {
+                "bytes_by_op": r0["collective_bytes"], "count_by_op": r0["collective_counts"],
+                "total_bytes": int(sum(r0["collective_bytes"].values()))},
+            "per_rank": [{k: r[i][k] for k in ("expert_bytes", "expert_state_bytes",
+                                               "param_bytes", "state_bytes")} for r in ranks],
+        }
+        print(f"[ep-analysis] {name}: expert weights "
+              f"{r0['expert_bytes'] / 2**20:.1f} MiB/rank, moments "
+              f"{r0['expert_state_bytes'] / 2**20:.1f} MiB/rank, collectives "
+              f"{report[key]['collectives_per_step']['total_bytes'] / 2**20:.1f} MiB/step",
+              flush=True)
+    report["expert_memory_ratio"] = round(
+        report["ep_sharded"]["expert_weight_bytes_per_device"]
+        / max(1, report["replicated"]["expert_weight_bytes_per_device"]), 3)
+    return report
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="MoE-vs-dense quality and d512 throughput")
     ap.add_argument("--out", default="outputs/benchmarks/moe_benchmark_torch.json")
@@ -334,18 +406,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device of the quality runs and the throughput candidates "
                          "(default: the CUDA card)")
-    for flag in UNPORTED_FLAGS:
-        ap.add_argument(f"--{flag}", default=None,
-                        action="store_true" if flag == "ep_analysis" else "store")
+    ap.add_argument("--ep_analysis", action="store_true",
+                    help="EP-vs-replicated memory and collective bytes across 8 ranks "
+                         "(sharing the card over gloo, or --device cpu)")
+    ap.add_argument("--ep_seq_len", type=int, default=512)
     return ap
 
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    for flag in UNPORTED_FLAGS:
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag} is not ported: the expert-parallel analysis needs a mesh")
     report: dict = {}
     if args.merge_into:
         report = json.loads(Path(args.merge_into).read_text())
@@ -356,10 +425,12 @@ def main(argv=None) -> int:
                 args, epochs=args.converged_epochs, run_prefix="moe-quality-conv")
     if not args.skip_throughput:
         report["throughput_d512"] = run_throughput(args, device=args.device or "cuda")
+    if args.ep_analysis:
+        report["ep_analysis"] = run_ep_analysis(args, device=args.device or "cuda:0")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=2) + "\n")
-    for section in ("quality", "quality_converged", "throughput_d512"):
+    for section in ("quality", "quality_converged", "throughput_d512", "ep_analysis"):
         if section in report:
             print(json.dumps({section: report[section]}), flush=True)
     print(f"[moe-benchmark] wrote {out}")
@@ -367,7 +438,7 @@ def main(argv=None) -> int:
 
 
 __all__ = ["D512_MODEL", "build_dataset", "main", "parser", "quality_variants",
-           "run_candidate_subprocess", "run_quality", "run_throughput"]
+           "run_candidate_subprocess", "run_ep_analysis", "run_quality", "run_throughput"]
 
 
 if __name__ == "__main__":

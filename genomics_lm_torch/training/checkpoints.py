@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import io
 import json
+import os
+import shutil
 import zipfile
 from pathlib import Path
 from typing import Any
@@ -110,12 +112,25 @@ def save_checkpoint(payload: dict[str, Any], path: str | Path) -> None:
     def write(tmp: Path) -> None:
         with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
             zf.writestr(_META_ENTRY, meta)
-            for key, arr in arrays.items():
-                buf = io.BytesIO()
-                np.save(buf, arr, allow_pickle=False)
-                zf.writestr(key + ".npy", buf.getvalue())
+            for key, arr in arrays.items():  # streamed into its entry, not buffered
+                with zf.open(key + ".npy", "w", force_zip64=arr.nbytes >= 2**31 - 2**20) as f:
+                    np.save(f, arr, allow_pickle=False)
 
     atomic_write(path, write)
+
+
+def link_checkpoint(src: str | Path, dst: str | Path) -> None:
+    """Atomically make ``dst`` the checkpoint ``src`` holds, without writing
+    it again: a hard link (``save_checkpoint`` replaces a path by a new file,
+    so ``dst`` keeps these bytes), or a copy where the filesystem has none."""
+    def write(tmp: Path) -> None:
+        tmp.unlink(missing_ok=True)
+        try:
+            os.link(src, tmp)
+        except OSError:
+            shutil.copyfile(src, tmp)
+
+    atomic_write(dst, write)
 
 
 def _host_tree(tree):
@@ -182,13 +197,17 @@ class AsyncCheckpointer:
         return False
 
 
-def load_checkpoint(path: str | Path) -> dict[str, Any]:
-    """Load the full payload tree (numpy arrays; bfloat16 leaves as tensors)."""
+def load_checkpoint(path: str | Path, keys: tuple[str, ...] | None = None) -> dict[str, Any]:
+    """Load the payload tree (numpy arrays; bfloat16 leaves as tensors): the
+    whole of it, or with ``keys`` only those top-level entries (the others'
+    arrays, such as the optimizer state, are not read)."""
     with zipfile.ZipFile(path, "r") as zf:
         skel = json.loads(zf.read(_META_ENTRY).decode())
+        if keys is not None:
+            skel = {k: v for k, v in skel.items() if k in keys}
         arrays = {}
         for name in zf.namelist():
-            if name == _META_ENTRY:
+            if name == _META_ENTRY or (keys is not None and name.split("/", 1)[0] not in keys):
                 continue
             arrays[name[: -len(".npy")]] = np.load(
                 io.BytesIO(zf.read(name)), allow_pickle=False
@@ -317,6 +336,7 @@ __all__ = [
     "AsyncCheckpointer",
     "checkpoint_array",
     "gather_to_writer",
+    "link_checkpoint",
     "load_checkpoint",
     "load_checkpoint_meta",
     "save_checkpoint",

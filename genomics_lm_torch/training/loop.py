@@ -56,12 +56,17 @@ signal triggers are agreed over all ranks at every group boundary
 (``lifecycle.stop_consensus``). Replay under several processes, and a
 multi-process mesh without a ``data`` axis, are refused as in JAX.
 
-Not ported, and refused with ``NotImplementedError`` naming the flag
-(``UNPORTED_FLAGS``): pipeline parallelism, and ``tensor_parallel`` on a
-MoE config (expert parallelism); a MoE config under a data-parallel mesh
-is refused too (its capacity and router loss span the global microbatch).
-A MoE config trains on one card with its experts replicated (JAX's
-single-device branch, where ``shard_optimizer_state`` is a no-op too).
+A MoE config under a ``model`` axis is expert parallel (JAX's
+``:473-493``): each rank holds its experts of every layer and its heads of
+the attention, and prints ``[mesh] expert parallel``; under a ``data``
+axis its capped layers route over the global microbatch
+(``models/codon_gpt.py::moe_route``). A ``pipe`` axis runs GPipe (JAX's
+``:430-471,551-575``, ``parallel/pipeline.py``): each rank builds its
+stage's blocks, the group is one whole-group CE, checkpoints record
+``train_objective: "group_ce"`` in the merged layout, a resume that would
+switch objectives at ``grad_accum_steps`` > 1 raises
+``RunLifecycleError``, and every objective but the plain next-token CE
+(and MoE) raises JAX's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ from genomics_lm_torch.models import biophysics
 from genomics_lm_torch.models.codon_gpt import CodonGPT, param_count
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.parallel import mesh as mesh_lib
+from genomics_lm_torch.parallel import pipeline as pp_lib
 from genomics_lm_torch.parallel import tensor_parallel as tpl
 from genomics_lm_torch.parallel.data_parallel import DPContext
 from genomics_lm_torch.tokenizers.codon import STOP_IDS
@@ -141,26 +147,9 @@ LAST = "last.npz"
 OPTIMIZER_FORMAT = "torch.optim.AdamW/by-parameter-name/v1"
 ADAFACTOR_FORMAT = "adafactor/by-jax-leaf/v1"
 
+
 def _above_one(v) -> bool:
     return v is not None and int(v) > 1
-
-
-# (flag, predicate on the run config): each raises NotImplementedError
-UNPORTED_FLAGS = (
-    ("pipeline_stages", lambda cfg: _above_one(cfg.get("pipeline_stages"))),
-    # tensor parallelism of a MoE config is expert parallelism
-    ("tensor_parallel", lambda cfg: _above_one(cfg.get("tensor_parallel"))
-     and bool(cfg.get("moe_experts"))),
-)
-
-
-def refuse_unported(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` naming the first flag of ``cfg`` that
-    asks for something the port does not have."""
-    for flag, asks in UNPORTED_FLAGS:
-        if asks(cfg):
-            extra = " on a MoE config (expert parallelism)" if flag == "tensor_parallel" else ""
-            raise NotImplementedError(f"{flag}={cfg[flag]!r}{extra} is not ported")
 
 
 class NonfiniteGroupLimitError(RuntimeError):
@@ -353,15 +342,20 @@ def _local_optimizer_state(saved, bundle, model) -> dict:
 
 def _assemble_optimizer_state(pieces: list[dict], layout: dict, tp_size: int) -> dict:
     """The one-process optimizer state from the ranks' pieces (each
-    ``{"tp": model-axis rank, "optimizer": optimizer_state(...)}``): ZeRO-1
-    owners' parts merged, split moments joined over the model axis."""
+    ``{"tp": model-axis rank, "stage": pipe rank, "optimizer":
+    optimizer_state(...)}``): ZeRO-1 owners' parts merged, split moments
+    joined over the model axis; Adafactor's stacked leaves joined over the
+    stages (AdamW's arrive under their full names)."""
     first = pieces[0]["optimizer"]
+    if first["format"] == ADAFACTOR_FORMAT:
+        stages: dict[int, dict] = {}
+        for piece in pieces:
+            stages.setdefault(piece["stage"], {}).update(piece["optimizer"]["state"])
+        return dict(first, state=pp_lib.merge_stage_leaves([stages[s] for s in sorted(stages)]))
     by_name: dict[str, dict[int, dict]] = {}
     for piece in pieces:
         for name, st in piece["optimizer"]["state"].items():
             by_name.setdefault(name, {})[piece["tp"]] = st
-    if first["format"] == ADAFACTOR_FORMAT:
-        return dict(first, state={n: parts[0] for n, parts in by_name.items()})
     state = {}
     for name in sorted(by_name):
         parts = by_name[name]
@@ -377,35 +371,41 @@ def gather_full_state(model, bundle, model_cfg: CodonGPTConfig, template, mesh):
     """The model tree and optimizer state in the one-process layout, on
     rank 0 ((None, None) on the other ranks; every rank calls this). Each
     rank sends its host copies (its slices under tensor parallelism, its
-    moments under ZeRO-1) and rank 0 assembles them, the model into
-    ``template`` (its full copy). Without a mesh: the live model and
-    optimizer."""
+    stage under pipeline parallelism, its moments under ZeRO-1) and rank 0
+    assembles them, the model into ``template`` (its full copy), the stages
+    merged (``pipeline.merge_stage_params``). Without a mesh: the live
+    model and optimizer."""
     if mesh is None:
         return params_to_jax(model, model_cfg), optimizer_state(bundle, model)
     tp = getattr(model, "tp", None)
+    pp = getattr(model, "pp", None)
     n_tp = tp.size if tp is not None else 1
     dp_rank = mesh.axis_rank(mesh_lib.DATA_AXIS)
     sends_state = bundle.zero is not None or dp_rank == 0
+    stage = pp.rank if pp is not None else 0
+    opt = ckpt_lib._host_tree(optimizer_state(bundle, model)) if sends_state else None
+    if pp is not None and opt is not None and opt.get("format") == OPTIMIZER_FORMAT:
+        opt["state"] = pp_lib.stage_to_full(opt["state"], stage, pp.layers)
     piece = {
         "tp": tp.rank if tp is not None else 0,
+        "stage": stage,
         "model": ({n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-                  if tp is not None and dp_rank == 0 else None),
-        "optimizer": (ckpt_lib._host_tree(optimizer_state(bundle, model))
-                      if sends_state else None),
+                  if (tp is not None or pp is not None) and dp_rank == 0 else None),
+        "optimizer": opt,
     }
     pieces = ckpt_lib.gather_to_writer(piece)
     if pieces is None:
         return None, None
     source = model
-    if tp is not None:
-        parts = {pc["tp"]: pc["model"] for pc in pieces if pc["model"] is not None}
-        template.load_state_dict({
-            n: (tpl.assemble([parts[t][n] for t in range(n_tp)], split, n_tp)
-                if (split := tp.layout.get(n)) is not None else parts[0][n])
-            for n in parts[0]}, strict=True)
+    layout = tp.layout if tp is not None else {}
+    if tp is not None or pp is not None:
+        template.load_state_dict(pp_lib.assemble_pieces(pieces, "model", layout, pp),
+                                 strict=True)
         source = template
+        if pp is not None:  # every stage's split parameters, by their full names
+            layout = pp_lib.merge_stage_params([layout] * pp.size, pp.layers)
     opt = _assemble_optimizer_state([pc for pc in pieces if pc["optimizer"] is not None],
-                                    tp.layout if tp is not None else {}, n_tp)
+                                    layout, n_tp)
     return params_to_jax(source, model_cfg), opt
 
 
@@ -446,7 +446,6 @@ def run_training(
     device is named; under a multi-process ``mesh``, the rank's device of
     ``parallel/mesh.py::initialize_distributed``). Every rank of the mesh
     calls this with the same config."""
-    refuse_unported(cfg)
     rank, world_size = mesh_lib.world()
     is_writer = rank == 0
     if world_size > 1 and mesh is None:
@@ -455,6 +454,8 @@ def run_training(
             "without one each process would train independently on its shard")
     n_dp = mesh.axis_size(mesh_lib.DATA_AXIS) if mesh is not None else 1
     n_tp = mesh.axis_size(mesh_lib.MODEL_AXIS) if mesh is not None else 1
+    n_pp = mesh.axis_size(mesh_lib.PIPE_AXIS) if mesh is not None else 1
+    pipeline = n_pp > 1
     if mesh is not None:
         if world_size > 1 and mesh.size != world_size:
             raise ValueError(f"the mesh {mesh.shape} does not span the {world_size} ranks")
@@ -466,13 +467,6 @@ def run_training(
             raise ValueError(
                 "replay loss is not supported under multi-process meshes "
                 "(replay batches are fed host-local)")
-        if n_dp > 1 and int(cfg.get("moe_experts", 0) or 0):
-            raise NotImplementedError(
-                "moe_experts under a data-parallel mesh is not ported (the capacity "
-                "and the router loss span the global microbatch)")
-        if n_tp > 1 and int(cfg.get("moe_experts", 0) or 0):
-            raise NotImplementedError(
-                "tensor_parallel on a MoE config (expert parallelism) is not ported")
     elif _above_one(cfg.get("tensor_parallel")):
         raise ValueError("tensor_parallel > 1 needs a mesh with a 'model' axis")
     dp_rank = mesh.axis_rank(mesh_lib.DATA_AXIS) if mesh is not None else 0
@@ -529,6 +523,19 @@ def run_training(
     )
     loss_cfg_dict["multi_offset_weights"] = multi_offset_weights
     loss_cfg = LossConfig.from_run_config(loss_cfg_dict, STOP_IDS)
+    if pipeline:
+        # the pipeline step commits the plain next-token CE only: every
+        # other objective fails closed rather than silently training without it
+        unsupported = [name for name, on in (
+            ("multi_offset_loss", bool(multi_offset_weights)),
+            ("termination_loss", loss_cfg.termination_enabled),
+            ("replay_loss", loss_cfg.replay_enabled),
+            ("shape_guidance", model_cfg.use_shape_guidance),
+            ("moe", model_cfg.moe_experts > 0),
+        ) if on]
+        if unsupported:
+            raise ValueError("pipeline parallelism supports the plain next-token CE "
+                             f"objective only; disable: {unsupported}")
 
     # --- run lifecycle -------------------------------------------------------
     fingerprint = configuration_fingerprint(cfg)
@@ -639,20 +646,31 @@ def run_training(
         )
     model.to(device)
 
-    # --- mesh: Megatron splits over the model axis ----------------------------
+    # --- mesh: a pipeline stage's blocks; Megatron and expert splits over the
+    # model axis -------------------------------------------------------------
     template = None  # rank 0's full copy, which checkpoints assemble into
+    if is_writer and (n_tp > 1 or pipeline):
+        template = copy.deepcopy(model).cpu()
+    if pipeline:
+        pp_lib.stage_model(model, pp_lib.PPContext.from_mesh(mesh, model_cfg.n_layer))
     if n_tp > 1:
         if cfg.get("residual_sharding"):
             model_cfg = model_cfg.replace(residual_sharding=tuple(cfg["residual_sharding"]))
             model.cfg = model_cfg
-        if is_writer:
-            template = copy.deepcopy(model).cpu()
         tpl.shard_model(model, tpl.TPContext.from_mesh(mesh))
     if mesh is not None:
         print(f"[mesh] shape={mesh.shape} world={world_size} rank={rank} "
               f"backend={mesh_lib.backend()} device={device} "
               f"sequence_parallel={bool(n_tp > 1 and model.tp.sequence_parallel)} "
               f"zero1={bool(cfg.get('shard_optimizer_state', False) and n_dp > 1)}")
+        if model_cfg.moe_experts and n_tp > 1:
+            print(f"[mesh] expert parallel: experts={model_cfg.moe_experts} "
+                  f"over model={n_tp}")
+        if pipeline:
+            print(f"[mesh] pipeline: pipe={n_pp} data={n_dp} model={n_tp} "
+                  f"layers_per_stage={model_cfg.n_layer // n_pp} "
+                  f"microbatches_per_group={int(cfg.get('grad_accum_steps', 16))} "
+                  f"zero1={bool(cfg.get('shard_optimizer_state', False))}")
 
     # --- optimizer / schedule ----------------------------------------------
     batch_size = int(cfg["batch_size"])
@@ -687,9 +705,14 @@ def run_training(
             int(cfg.get("replay_batch_size", batch_size)), seed=seed
         )
 
-    train_step = make_train_step(model_cfg, loss_cfg, use_replay=loss_cfg.replay_enabled,
-                                 shape_lookup=shape_lookup, dp=dp)
-    eval_step = make_eval_step(model_cfg, loss_cfg, shape_lookup=shape_lookup, dp=dp)
+    if pipeline:
+        train_step = pp_lib.make_pipeline_group_step(model_cfg, model.pp, dp=dp)
+        eval_step = pp_lib.make_pipeline_eval_step(model_cfg, model.pp, dp=dp)
+    else:
+        train_step = make_train_step(model_cfg, loss_cfg, use_replay=loss_cfg.replay_enabled,
+                                     shape_lookup=shape_lookup, dp=dp)
+        eval_step = make_eval_step(model_cfg, loss_cfg, shape_lookup=shape_lookup, dp=dp)
+    train_objective = "group_ce" if pipeline else "microbatch_mean"
     group_keys = GROUP_METRIC_KEYS + tuple(
         [f"offset_{o}_sum" for o in multi_offset_weights]
         + (["term_loss_sum"] if loss_cfg.termination_enabled else [])
@@ -734,17 +757,29 @@ def run_training(
         payload = ckpt_lib.load_checkpoint(training_run.resume_checkpoint)
         try:
             saved_objective = payload.get("train_objective")
-            if saved_objective and saved_objective != "microbatch_mean" and gacc > 1:
+            if saved_objective and saved_objective != train_objective and gacc > 1:
                 raise RunLifecycleError(
                     "resume would switch the training objective from "
-                    f"{saved_objective} to microbatch_mean at grad_accum_steps={gacc}: "
+                    f"{saved_objective} to {train_objective} at grad_accum_steps={gacc}: "
                     "whole-group CE and mean-of-microbatch-means weight ragged "
-                    "microbatches differently. Use grad_accum_steps: 1, where the "
-                    "objectives coincide."
+                    "microbatches differently. Resume with the same pipeline_stages "
+                    "setting (any stage COUNT is fine), or use grad_accum_steps: 1 "
+                    "where the objectives coincide."
                 )
-            tpl.load_full_state(model, state_dict_from_jax(payload["model"], model_cfg))
+            full = state_dict_from_jax(payload["model"], model_cfg)
+            saved_opt = payload.get("optimizer")
+            if pipeline:  # checkpoints hold the merged layout: this stage's part
+                pp = model.pp
+                full = pp_lib.split_stage_params(full, model_cfg.n_layer, pp.size, pp.rank)
+                if isinstance(saved_opt, dict) and saved_opt.get("format") == OPTIMIZER_FORMAT:
+                    saved_opt = dict(saved_opt, state=pp_lib.split_stage_params(
+                        saved_opt["state"], model_cfg.n_layer, pp.size, pp.rank))
+                elif isinstance(saved_opt, dict) and saved_opt.get("format") == ADAFACTOR_FORMAT:
+                    saved_opt = dict(saved_opt, state=pp_lib.split_stage_leaves(
+                        saved_opt["state"], pp.first_layer, pp.layers))
+            tpl.load_full_state(model, full)
             load_optimizer_state(bundle, model,
-                                 _local_optimizer_state(payload.get("optimizer"), bundle, model))
+                                 _local_optimizer_state(saved_opt, bundle, model))
             restore_rng_state(payload.get("rng_state"), generator)
             if dp_rank:  # rank 0's saved stream, made distinct for this rank
                 draw = torch.randint(0, 2**62, (1,), generator=generator, device=device)
@@ -816,7 +851,7 @@ def run_training(
             ),
             "batch_size": batch_size,
             "grad_accum_steps": gacc,
-            "train_objective": "microbatch_mean",
+            "train_objective": train_objective,
             "train_examples": len(train_ds),
             "train_batches": microbatches_per_epoch,
             "accumulation_health": health.state_dict(),
@@ -1091,11 +1126,12 @@ def run_training(
                 # a periodic save of last.npz may still be writing through the
                 # same staging file: join it before this synchronous save
                 async_ckpt.wait()
+            # the epoch's other checkpoints hold last.npz's payload: linked to it
             if is_writer:
                 ckpt_lib.save_checkpoint(payload, ckpt_dir / LAST)
             periodic_ckpt.mark_saved(step)
             if is_writer and cfg.get("save_epochs", False):
-                ckpt_lib.save_checkpoint(payload, ckpt_dir / f"epoch_{epoch_idx}.npz")
+                ckpt_lib.link_checkpoint(ckpt_dir / LAST, ckpt_dir / f"epoch_{epoch_idx}.npz")
 
             if is_writer:
                 write_header = not log_csv.exists()
@@ -1141,8 +1177,9 @@ def run_training(
             })
 
             if improved:
-                write_ckpt(payload, ckpt_dir / "best.npz")
-                write_ckpt(payload, ckpt_dir / f"best_epoch_{epoch_idx:03d}.npz")
+                if is_writer:
+                    for name in ("best.npz", f"best_epoch_{epoch_idx:03d}.npz"):
+                        ckpt_lib.link_checkpoint(ckpt_dir / LAST, ckpt_dir / name)
             elif int(cfg.get("early_stop_patience", 5)) > 0 and no_improve >= int(
                 cfg.get("early_stop_patience", 5)
             ):
@@ -1248,8 +1285,6 @@ __all__ = [
     "AccumulationHealth",
     "NonfiniteGroupLimitError",
     "OPTIMIZER_FORMAT",
-    "UNPORTED_FLAGS",
     "gather_full_state",
-    "refuse_unported",
     "run_training",
 ]

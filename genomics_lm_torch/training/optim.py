@@ -46,7 +46,8 @@ optimizer holds and steps only its own, and ``ZeroSync`` then gathers
 every rank's updated parameters in one all-gather. Every rank holds the
 whole averaged gradient, so the update is the unsplit one; each rank holds
 about 1/dp of the moments. Under tensor parallelism ``grad_clip``'s norm
-counts each split parameter's slices once over the model axis.
+counts each split parameter's slices once over the model axis, and under
+pipeline parallelism each stage's blocks once over the stages.
 """
 
 from __future__ import annotations
@@ -183,10 +184,16 @@ class Adafactor:
     factored second moments (row and column means of g² + 1e-30 over its
     two largest axes, when the second is >= 128) or a full one, decayed at
     ``1 - (t + 1)^-0.8``; the update g / sqrt(v) divided by max(1, its RMS)
-    and scaled by -lr. No momentum, no weight decay."""
+    and scaled by -lr. No momentum, no weight decay.
 
-    def __init__(self, param_groups: list[dict], leaves):
+    Under pipeline parallelism (``pp``) a stage holds its layers of each
+    stacked leaf: their statistics are per layer, and the RMS of a stacked
+    leaf's update is the whole leaf's, its sum of squares summed over the
+    stages (every stage holds as many layers)."""
+
+    def __init__(self, param_groups: list[dict], leaves, pp=None):
         self.param_groups = param_groups
+        self.pp = pp
         group_of = {id(p): g for g in param_groups for p in g["params"]}
         self.leaves = [(leaf, group_of[id(leaf.parts[0][0])]) for leaf in leaves
                        if id(leaf.parts[0][0]) in group_of]
@@ -208,6 +215,7 @@ class Adafactor:
     def step(self) -> None:
         t = torch.tensor(self.count + 1, dtype=torch.float32)
         decay = float(1.0 - t ** -0.8)
+        deferred = []  # under pp: stacked leaves, clipped once their RMS spans the stages
         for leaf, group in self.leaves:
             g = leaf.gather(lambda p: p.grad).float()
             st = self.state[leaf.path]
@@ -225,10 +233,25 @@ class Adafactor:
                 row_factor = (st["v_row"] / row_col_mean) ** -0.5
                 col_factor = st["v_col"] ** -0.5
                 update = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-            # clip_by_block_rms(1.0)
-            update = update / torch.clamp_min(update.pow(2).mean().sqrt(), 1.0)
-            leaf.write(lambda p: p.data, update * -group["lr"], add=True)
+            if self.pp is not None and leaf.stacked:
+                deferred.append((leaf, group, update))
+            else:
+                self._apply(leaf, group, update, update.pow(2).mean())
+        if deferred:
+            from genomics_lm_torch.parallel.launch import timed
+
+            sq = torch.stack([u.pow(2).sum() for _, _, u in deferred])
+            with timed(sq.device, 4 * sq.numel()):
+                dist.all_reduce(sq, group=self.pp.group)
+            for (leaf, group, update), q in zip(deferred, sq):
+                self._apply(leaf, group, update, q / (update.numel() * self.pp.size))
         self.count += 1
+
+    @staticmethod
+    def _apply(leaf, group: dict, update: torch.Tensor, mean_sq: torch.Tensor) -> None:
+        # clip_by_block_rms(1.0), then the step
+        update = update / torch.clamp_min(mean_sq.sqrt(), 1.0)
+        leaf.write(lambda p: p.data, update * -group["lr"], add=True)
 
     def state_dict(self) -> dict:
         return {"count": self.count,
@@ -249,23 +272,29 @@ class Adafactor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(params, max_norm: float, *, split=None, tp=None) -> None:
+def clip_by_global_norm(params, max_norm: float, *, split=None, tp=None, block=None,
+                        pp=None) -> None:
     """optax ``clip_by_global_norm``: scale every gradient by max_norm / norm
     when the global norm is at least max_norm (no epsilon), on the device.
     Under tensor parallelism (``tp``, with ``split[i]`` True for a parameter
     the model axis splits) the split parameters' squares are summed over
-    the model axis."""
+    the model axis; under pipeline parallelism (``pp``, with ``block[i]``
+    True for a parameter of the stage's blocks) the blocks' squares are
+    summed over the stages, the replicated parameters' counted once."""
     grads = [p.grad for p in params]
-    if tp is None:
+    if tp is None and pp is None:
         norm = torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
     else:
-        sq = torch.zeros(2, dtype=torch.float32, device=grads[0].device)
-        for g, is_split in zip(grads, split):
-            sq[0 if is_split else 1] += g.float().pow(2).sum()
         from genomics_lm_torch.parallel.launch import timed
 
-        with timed(sq.device):
-            dist.all_reduce(sq[:1], group=tp.group)
+        sq = torch.zeros(3, dtype=torch.float32, device=grads[0].device)
+        for i, g in enumerate(grads):
+            where = 0 if split and split[i] else (1 if block and block[i] else 2)
+            sq[where] += g.float().pow(2).sum()
+        for group, part in ((tp, sq[:1]), (pp, sq[:2])):
+            if group is not None:
+                with timed(sq.device, 4 * part.numel()):
+                    dist.all_reduce(part, group=group.group)
         norm = sq.sum().sqrt()
     keep = norm < max_norm
     for g in grads:
@@ -294,7 +323,7 @@ class ZeroSync:
         parts = [torch.empty_like(buf) for _ in range(self.dp.size)]
         from genomics_lm_torch.parallel.launch import timed
 
-        with timed(buf.device):
+        with timed(buf.device, self.dp.size * buf.numel() * 4, "all-gather"):
             dist.all_gather(parts, buf, group=self.dp.group)
         for r, ps in enumerate(self.by_rank):
             if r == self.dp.rank:
@@ -321,7 +350,9 @@ class OptimizerBundle:
     applied_steps: int = 0  # optimizer steps taken: the schedule's index
     params: list = field(default_factory=list)  # every trainable parameter
     split: list = field(default_factory=list)  # per parameter: split over the model axis
+    block: list = field(default_factory=list)  # per parameter: of the blocks
     tp: Any = None
+    pp: Any = None  # the pipe axis: the blocks' squares of the clip norm span the stages
     zero: ZeroSync | None = None
 
     def step(self, lr_scale: float = 1.0) -> None:
@@ -333,7 +364,7 @@ class OptimizerBundle:
             group["lr"] = group["base_lr"] * mult * float(lr_scale)
         if self.grad_clip:
             clip_by_global_norm(self.trainable(), self.grad_clip, split=self.split,
-                                tp=self.tp)
+                                tp=self.tp, block=self.block, pp=self.pp)
         self.optimizer.step()
         if self.zero is not None:
             self.zero.sync()
@@ -431,6 +462,7 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int, *,
             groups.append({"params": params, "lr": lr, "base_lr": lr,
                            "weight_decay": wd, "label": label})
     tp = getattr(model, "tp", None)
+    pp = getattr(model, "pp", None)
     if tp is not None and optimizer_name == "adafactor":
         raise NotImplementedError("optimizer: adafactor under tensor_parallel is not ported")
     all_params = [p for g in groups for p in g["params"]]
@@ -447,7 +479,7 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int, *,
     if optimizer_name == "adafactor":
         from genomics_lm_torch.utils.weights import jax_leaves
 
-        optimizer = Adafactor(groups, jax_leaves(model, model.cfg))
+        optimizer = Adafactor(groups, jax_leaves(model, model.cfg), pp=pp)
     else:
         optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
     grad_clip = cfg.get("grad_clip")
@@ -460,7 +492,8 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int, *,
                            grad_clip=float(grad_clip) if grad_clip else None,
                            params=all_params,
                            split=[names[id(p)] in split_names for p in all_params],
-                           tp=tp, zero=zero)
+                           block=[names[id(p)].startswith("blocks.") for p in all_params],
+                           tp=tp, pp=pp, zero=zero)
 
 
 def resolve_epochs(cfg: dict, n_params: int, tokens_per_epoch: float) -> int:

@@ -8,16 +8,20 @@ device (default: the CUDA card; the run raises without one unless
 
 The mesh flags are JAX's (``scripts/train_codon_lm.py:61-88``), over one
 process per rank: ``--mesh_devices N`` (it must equal the world size) lays
-a ``data`` axis over the ranks, and ``--tensor_parallel T`` a ``model`` axis
-of T inside it (``{"data": -1, "model": T}``). Launched by ``torchrun``, each
-rank joins the process group strictly (a rank that cannot join raises) and
+a ``data`` axis over the ranks, ``--tensor_parallel T`` a ``model`` axis of
+T inside it (``{"data": -1, "model": T}``; on a MoE config the experts
+split over it), ``--pipeline_stages S`` a ``pipe`` axis (``{"data": -1,
+"pipe": S}``), and both ``{"data": -1, "model": T, "pipe": S}``, DP
+outermost and TP inside each stage. Launched by ``torchrun``, each rank
+joins the process group strictly (a rank that cannot join raises) and
 runs on ``cuda:{LOCAL_RANK}`` over NCCL; ``--device`` puts every rank on
-one device (gloo, e.g. two ranks sharing one card, or ``--device cpu``).
-``--pipeline_stages`` above 1 raises ``NotImplementedError``.
+one device (gloo, e.g. ranks sharing one card, or ``--device cpu``).
 
     python -m genomics_lm_torch.training.train_codon_lm --config cfg.yaml [--run_root runs]
     torchrun --nproc_per_node 2 -m genomics_lm_torch.training.train_codon_lm \
         --config cfg.yaml --mesh_devices 2 [--tensor_parallel 2]
+    torchrun --nproc_per_node 8 -m genomics_lm_torch.training.train_codon_lm \
+        --config cfg.yaml --mesh_devices 8 --pipeline_stages 4 [--tensor_parallel 2]
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tensor_parallel", type=int, default=None,
                     help="size of the model (Megatron) axis")
     ap.add_argument("--pipeline_stages", type=int, default=None,
-                    help="not ported: raises NotImplementedError above 1")
+                    help="size of the pipe (GPipe) axis")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -90,9 +94,7 @@ def launch_mesh(args, cfg: dict):
     n_mesh = args.mesh_devices or cfg.get("mesh_devices")
     tp = int(args.tensor_parallel or cfg.get("tensor_parallel") or 1)
     pp = int(args.pipeline_stages or cfg.get("pipeline_stages") or 1)
-    if pp > 1:
-        raise NotImplementedError(f"--pipeline_stages {pp} is not ported")
-    if not n_mesh and tp == 1:
+    if not n_mesh and tp == 1 and pp == 1:
         return None
     if int(os.environ.get("WORLD_SIZE", 1)) > 1:
         mesh_lib.initialize_distributed(strict=True, device=args.device)
@@ -101,12 +103,14 @@ def launch_mesh(args, cfg: dict):
         raise ValueError(
             f"--mesh_devices {n_mesh} must equal the world size {world}: launch one "
             f"process per rank (torchrun --nproc_per_node {n_mesh} ...)")
+    # JAX's axes (scripts/train_codon_lm.py:61-87): DP outermost, then TP
+    # inside each pipeline stage
+    axes = {mesh_lib.DATA_AXIS: -1}
     if tp > 1:
-        if cfg.get("moe_experts"):
-            raise NotImplementedError(
-                f"--tensor_parallel {tp} on a MoE config (expert parallelism) is not ported")
-        return mesh_lib.make_mesh(axes={mesh_lib.DATA_AXIS: -1, mesh_lib.MODEL_AXIS: tp})
-    return mesh_lib.make_mesh()
+        axes[mesh_lib.MODEL_AXIS] = tp
+    if pp > 1:
+        axes[mesh_lib.PIPE_AXIS] = pp
+    return mesh_lib.make_mesh(axes=axes)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,11 @@ share of that loss's global denominator, so the shares and their
 gradients sum over the ranks to JAX's global-microbatch values. One
 reduction before the group's forwards carries the denominators, one after
 them the per-microbatch losses and counts, and one the accumulated
-gradient; the nonfinite abort is then one decision over all ranks. Under
+gradient; the nonfinite abort is then one decision over all ranks. A
+MoE model's capped layers route over the global microbatch (each block's
+``moe_dp``, set by the step; ``batch["rows"]``, when given, is the global
+microbatch's row count, else every rank's rows are real), and the router
+loss enters each rank's loss as its 1/dp share. Under
 tensor parallelism (``model.tp``) the gradients of the replicated
 parameters that each rank sees only in part (``tp_partial_grad``) are
 summed over the model axis too. The reductions run unconditionally, so
@@ -270,6 +274,10 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
         zero = torch.zeros((), dtype=torch.float32, device=device)
         G = x.shape[0]
         scales = loss_scales(model_cfg, loss_cfg, y, dp) if dp is not None else None
+        if dp is not None and model_cfg.moe_experts:
+            dp.rows = int(batch.get("rows", x.shape[1] * dp.size))
+            for block in model.blocks:
+                block.moe_dp = dp
         values = torch.zeros((len(rows), G), dtype=torch.float32, device=device)
         for g in range(G):
             xb, yb = x[g], y[g]
@@ -302,7 +310,7 @@ def make_train_step(model_cfg: CodonGPTConfig, loss_cfg: LossConfig, *,
             dp.all_reduce(grads_acc)
         tp = getattr(model, "tp", None)
         if n_partial and tp is not None:
-            with timed(device):  # a view: reduced in place inside grads_acc
+            with timed(device, 4 * sum(sizes[:n_partial])):  # a view of grads_acc
                 torch.distributed.all_reduce(grads_acc[: sum(sizes[:n_partial])],
                                              group=tp.group)
 

@@ -99,6 +99,22 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
                        payload["model"]["nested"]["b16"].view(torch.int16))
 
 
+def test_a_linked_checkpoint_keeps_its_bytes_when_the_source_is_saved_again(tmp_path):
+    """The trainer links best.npz (and best_epoch, epoch_N) to the epoch's
+    last.npz: a later save of last.npz must leave them as they were, and
+    relinking must replace them, as a JAX reader sees them."""
+    last, best = tmp_path / "last.npz", tmp_path / "best.npz"
+    tckpt.save_checkpoint({"step": 1, "w": np.arange(4.0)}, last)
+    tckpt.link_checkpoint(last, best)
+    assert best.read_bytes() == last.read_bytes()
+    tckpt.save_checkpoint({"step": 2, "w": np.arange(4.0) + 1}, last)
+    assert tckpt.load_checkpoint(best)["step"] == 1
+    assert jckpt.load_checkpoint(best)["w"].tolist() == [0.0, 1.0, 2.0, 3.0]
+    tckpt.link_checkpoint(last, best)
+    assert tckpt.load_checkpoint(best)["step"] == 2
+    assert sorted(f.name for f in tmp_path.iterdir()) == ["best.npz", "last.npz"]
+
+
 def test_async_checkpointer_orders_writes_and_surfaces_errors(tmp_path):
     path = tmp_path / "a.npz"
     t = torch.zeros(4)

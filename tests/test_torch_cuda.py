@@ -683,8 +683,9 @@ def test_cuda_moe_dropped_set_equals_the_cpu(cuda):
     """Capacity 0.5 drops about half the choices; the card and the CPU grant
     the same slots: the same experts and the same dropped (token, rank)
     pairs in every layer of a training forward."""
-    from chip_smoke import recorded_routes
+    from chip_smoke import route_on_host
     from genomics_lm_torch.models.codon_gpt import forward
+    from genomics_lm_torch.parallel.workers import recorded_routes
     from genomics_lm_torch.utils.weights import params_from_jax
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -693,7 +694,7 @@ def test_cuda_moe_dropped_set_equals_the_cpu(cuda):
     got = []
     for dev in ("cpu", cuda):
         model = params_from_jax(tree, cfg, dev)
-        with recorded_routes(keep=True) as routes, torch.no_grad():
+        with recorded_routes(route_on_host) as routes, torch.no_grad():
             forward(model, cfg, x.to(dev), train=True)
         got.append(routes)
     assert len(got[0]) == len(got[1]) == 2
@@ -890,16 +891,18 @@ def test_cuda_langevin_equals_the_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,heads", [(4, 8, None), (8, 4, (4, 8))],
-                         ids=["dp_rank_b4_h8", "tp_rank_b8_h4"])
-def test_cuda_flash_kernels_at_a_ranks_shapes(cuda, B, H, heads):
+@pytest.mark.parametrize("B,H,D,heads", [(4, 8, 48, None), (8, 4, 48, (4, 8)),
+                                         (8, 4, 64, (4, 8))],
+                         ids=["dp_rank_b4_h8", "tp_rank_b8_h4", "ep_rank_b8_h4_d64"])
+def test_cuda_flash_kernels_at_a_ranks_shapes(cuda, B, H, D, heads):
     """The three bf16 flash kernels at the shapes one rank runs under data
     parallelism (half the batch) and tensor parallelism (half the heads,
     rank 1's: dropout keyed on heads 4..7 of 8) of the training main path
-    (T 512, heads of 48, dropout 0.1, a <SEP> every 97 tokens), against
+    (T 512, heads of 48, dropout 0.1, a <SEP> every 97 tokens), and under
+    expert parallelism of the MoE recipe (4 of 8 heads of 64), against
     their plain versions within 2e-2 of the largest entry."""
     rng = np.random.default_rng(31)
-    T, D, rate = 512, 48, 0.1
+    T, rate = 512, 0.1
     q, k, v = (torch.from_numpy(rng.normal(size=(B, H, T, D)).astype(np.float32))
                .to(cuda, torch.bfloat16) for _ in range(3))
     seps = (torch.arange(T) % 97 == 0).int()

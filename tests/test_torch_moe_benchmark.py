@@ -12,6 +12,10 @@ package's subprocess probe, then each ``run_throughput`` over that result
 (the port given the tiny model, the JAX script's ``D512_MODEL`` patched to
 it): the section's keys equal JAX's, the candidate rows JAX's keys plus the
 port's ``ms_per_group``, ``peak_memory_bytes`` and ``last_loss``.
+EP analysis: ``run_ep_analysis`` across 8 CPU ranks at a small width: rank
+0's expert weight bytes in each layout equal what JAX's
+``moe_param_sharding`` (or replication) leaves on device 0 of the same
+8-device mesh, and ``--ep_analysis`` writes its section.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import json
 import math
 
 import pytest
+import torch
 
 from genomics_lm_torch.training import benchmark_moe
 
@@ -87,9 +92,63 @@ def test_quality_cli_sections(tmp_path, monkeypatch, capsys):
     benchmark_moe.main(["--skip_throughput", "--converged_epochs", "0", "--out", str(out),
                         "--device", "cpu"])
     assert calls == [(12, "moe-quality", "cpu")]  # the script's default budget
-    for flag in (["--ep_analysis"], ["--ep_seq_len", "256"]):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            benchmark_moe.main(flag + ["--out", str(out)])
+    calls.clear()
+    monkeypatch.setattr(benchmark_moe, "run_ep_analysis",
+                        lambda args, device="cuda:0": calls.append((args.ep_seq_len, device))
+                        or {"expert_memory_ratio": 0.5})
+    benchmark_moe.main(["--skip_quality", "--skip_throughput", "--ep_analysis",
+                        "--ep_seq_len", "256", "--out", str(out), "--device", "cpu"])
+    assert calls == [(256, "cpu")]
+    assert json.loads(out.read_text()) == {"ep_analysis": {"expert_memory_ratio": 0.5}}
+
+
+def test_ep_analysis_expert_bytes_match_moe_param_sharding():
+    """``run_ep_analysis`` on a small model across 8 CPU ranks: rank 0's
+    expert weight bytes in each layout are what JAX's ``moe_param_sharding``
+    (and replication) leaves on device 0 of the same mesh, and its report
+    keeps JAX's keys."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from genomics_lm_tpu.models import codon_gpt
+    from genomics_lm_tpu.models.config import CodonGPTConfig
+    from genomics_lm_tpu.parallel.mesh import make_mesh
+    from genomics_lm_tpu.parallel.sharding import moe_param_sharding
+
+    tiny = dict(benchmark_moe.D512_MODEL, n_layer=2, n_head=2, n_embd=32,
+                attention_impl="xla")
+    args = argparse.Namespace(experts=4, ep_seq_len=16)
+    torch.set_num_threads(1)
+    got = benchmark_moe.run_ep_analysis(args, model=tiny, device="cpu")
+    cfg = CodonGPTConfig.from_run_config(dict(tiny, block_size=16, moe_experts=4,
+                                              moe_top_k=2, use_sdpa=False))
+    params = codon_gpt.init(jax.random.PRNGKey(0), cfg)
+    dev0 = jax.devices()[0]
+
+    def expert_bytes(shardings):
+        placed = jax.device_put(params["blocks"]["mlp"], shardings["blocks"]["mlp"])
+        return sum(s.data.nbytes for leaf in jax.tree.leaves(placed)
+                   for s in leaf.addressable_shards if s.device == dev0)
+
+    rep = make_mesh(8, axes={"data": 8})
+    ep = make_mesh(8, axes={"data": 4, "model": 2})
+    want = {"replicated": expert_bytes(jax.tree.map(lambda _: NamedSharding(rep, P()), params)),
+            "ep_sharded": expert_bytes(moe_param_sharding(params, ep, n_experts=4,
+                                                          axis="model", tp_axis="model"))}
+    for key, value in want.items():
+        assert got[key]["expert_weight_bytes_per_device"] == value, key
+        assert {r["expert_bytes"] for r in got[key]["per_rank"]} == {value}
+        assert got[key]["collectives_per_step"]["total_bytes"] > 0
+    assert got["expert_memory_ratio"] == 0.5
+    assert set(got) == {"protocol", "replicated", "ep_sharded", "expert_memory_ratio"}
+    assert set(got["ep_sharded"]) >= {"mesh", "expert_weight_bytes_per_device",
+                                      "expert_moment_bytes_per_device",
+                                      "total_param_bytes_per_device",
+                                      "total_moment_bytes_per_device", "collectives_per_step"}
+    # ZeRO-1 deals each model column's expert moments (two a weight) over its
+    # 4 data ranks: the 8 ranks hold 2 columns x 2 moments of a rank's experts
+    shares = [r["expert_state_bytes"] for r in got["ep_sharded"]["per_rank"]]
+    assert sum(shares) == 4 * want["ep_sharded"]
 
 
 def test_throughput_section_keys_match_jax(monkeypatch):

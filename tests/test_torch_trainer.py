@@ -22,9 +22,9 @@ On the CPU, float32:
   gives exactly the straight run's curve and weights with dropout 0.1: the
   trainer's generator state is in the checkpoint.
 - The lifecycle probes of ``tests/test_trainer_e2e.py``, the OOM safeguard,
-  the train CLI, every flag the port used to refuse taking effect in a
-  one-epoch run, and the unported ones (pipeline stages, and MoE's expert
-  parallelism) raising ``NotImplementedError``.
+  the train CLI, and every flag the port used to refuse taking effect in a
+  one-epoch run. (The mesh flags: ``tests/test_torch_parallel.py``,
+  ``test_torch_expert_parallel.py`` and ``test_torch_pipeline.py``.)
 """
 
 from __future__ import annotations
@@ -288,28 +288,11 @@ def test_train_cli_runs_a_yaml_config_with_a_data_map(tmp_path):
     assert len((run_dir / "scores" / "curves.csv").read_text().splitlines()) == 3
     payload = tckpt.load_checkpoint(run_dir / "checkpoints" / "last.npz")
     assert payload["step"] == 8 and payload["optimizer"]["format"] == loop.OPTIMIZER_FORMAT
-    # one process cannot lay a model axis of 2 (JAX's make_mesh error), and
-    # pipeline parallelism is not ported
+    # one process cannot lay a model or pipe axis of 2 (JAX's make_mesh error)
     with pytest.raises(ValueError, match="not divisible by 2"):
         train_cli(argv + ["--tensor_parallel", "2"])
-    with pytest.raises(NotImplementedError, match="pipeline_stages"):
+    with pytest.raises(ValueError, match="not divisible by 2"):
         train_cli(argv + ["--pipeline_stages", "2"])
-
-
-# tensor_parallel on a MoE config is expert parallelism: MoE trains on one
-# card, its expert sharding needs a mesh and still raises, naming the flag
-# (data and tensor parallelism of a dense config: tests/test_torch_parallel.py)
-UNPORTED = {"tensor_parallel": {"tensor_parallel": 2, "moe_experts": 4},
-            "pipeline_stages": {"pipeline_stages": 2}}
-
-
-@pytest.mark.parametrize("flag", list(UNPORTED))
-def test_unported_flags_raise(tmp_path, flag):
-    assert flag in dict(loop.UNPORTED_FLAGS)
-    with pytest.raises(NotImplementedError, match=flag):
-        run_training(small_cfg(tmp_path, **UNPORTED[flag]),
-                     run_root=str(tmp_path / "runs"), device="cpu")
-    assert not (tmp_path / "runs").exists()  # refused before touching the run root
 
 
 def write_replay(path):
