@@ -237,6 +237,33 @@ exits non-zero:
    seed 1337) through ``prepare_dataset`` at blocks 256 and 512 (``multi``,
    genome-disjoint splits, ``skip_homology``), twice each: windows per
    split, seconds, every manifest validated, each block's dataset ids equal.
+29a. native — the native host library (``native/genomics_native.cpp``)
+   built with g++ (its seconds logged); on the demo corpus's 800 CDS and
+   their proteins each entry point against its plain version: minhash
+   cluster labels (the audit's k 4 at the Jaccard of identity 0.3, and k 5
+   at 0.5), codon ids, reverse complements and SHA-256 digests identical.
+29b. genbank — the demo corpus written as 12 GBFF files, one a genome
+   (every other gene on the minus strand, 60-200 nt spacers, an N in every
+   9th spacer and in 3 genes, two plus-strand pairs overlapping by a base):
+   ``extract_cds_records`` returns the 800 genes as written, a multiset in
+   coding orientation; ``pipeline_prepare --gbff`` at block 512 (``multi``,
+   genome-disjoint, the native homology audit on) twice, equal ids and a
+   valid manifest; then one GBFF at E. coli K-12 MG1655's scale (4,641,652
+   bp, 4,300 CDS, after NCBI RefSeq NC_000913.3) parsed, extracted and
+   audited by the native engine, each step's seconds logged.
+29c. hybrid train — ``pipeline_prepare_hybrid`` on the 12 files (block
+   512, flanks 30 and 60 nt): its pad-only gate passes and the combined
+   ``itos.txt`` has 74 lines; the train CLI at the main path's width
+   (``run_yaml``) on the combined hybrid splits, B 8 x G 2 for 4 epochs:
+   every loss finite, the last validation loss under ln 74, the model's
+   vocabulary 74, each flash kernel's launches (reset just before, read just
+   after) 10 a training microbatch and the forward's also 10 a validation
+   microbatch; then the three flash kernels on the first real bf16
+   microbatch of the hybrid train split, with its segment ids (``<UNK>``,
+   id 3, separates the packed lines and marks an N), against their plain
+   versions within ``FLASH_TOL``, timed beside their bounds, plain versions
+   and SDPA; the microbatch's segments and the tiles visited against the
+   band's logged.
 30. evaluate_test — the ``evaluate_test`` CLI on phase 23's MoE run and
    phase 15's run over the block-512 demo splits (``--train_npz``,
    ``--bootstrap 1000``, ``--context_ablation``): model NLL, every Markov
@@ -433,6 +460,7 @@ import http.client
 import importlib.util
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -500,6 +528,7 @@ from genomics_lm_torch.training import lora as lora_lib
 from genomics_lm_torch.training import profile_step as train_main
 from genomics_lm_torch.training.checkpoints import load_checkpoint, load_checkpoint_meta
 from genomics_lm_torch.data.datasets import EpochPlan, PackedDataset
+from genomics_lm_torch.data.genbank import reverse_complement as dna_reverse_complement
 from genomics_lm_torch.models.biophysics import ShapeEncoder, shape_lookup_table
 from genomics_lm_torch.tokenizers.codon import STOP_IDS, write_itos
 from genomics_lm_torch.training.lifecycle import RunLifecycleError
@@ -988,14 +1017,17 @@ def phase_http(model, cfg) -> None:
 def flash_case(gen, B, Hq, Hkv, T, S, D, dtype, window, rate, causal=True, segs=97,
                heads=None):
     """Random q, k, v, segment ids, seed, config. ``segs``: a <SEP> every
-    ``segs``-th token (running count, as the main path's batches), or
-    "random": ids drawn from {0..3}, not monotone. ``heads``: the
+    ``segs``-th token (running count, as the main path's batches),
+    "random": ids drawn from {0..3}, not monotone, or a (B, S) tensor of
+    real windows' ids. ``heads``: the
     ``dropout_heads`` (h0, H) of a tensor-parallel rank."""
     dev = "cuda"
     q = torch.randn((B, Hq, T, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
-    if segs == "random":
+    if isinstance(segs, torch.Tensor):  # the (B, S) ids of real windows
+        seg = segs.to(device=dev, dtype=torch.int32).contiguous()
+    elif segs == "random":
         seg = torch.randint(0, 4, (B, S), generator=gen, device=dev, dtype=torch.int32)
     else:
         seps = (torch.arange(S, device=dev) % segs == 0).to(torch.int32)
@@ -1110,7 +1142,8 @@ def check_flash_case(gen, phase, name, b, hq, hkv, t, s_len, d, dtype, window, r
     tol = FLASH_TOL[dtype]
     log(phase, case=name, shape=dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s_len, D=d),
         dtype=str(dtype).removeprefix("torch."), causal=causal, window=window,
-        dropout=rate, dropout_heads=heads, segments=segs, **tiles,
+        dropout=rate, dropout_heads=heads,
+        segments="from the windows" if isinstance(segs, torch.Tensor) else segs, **tiles,
         rel_err=errs, max_abs_err=abs_errs, tol=tol, tol_reason=FLASH_TOL_REASON)
     if max(errs.values()) > tol:
         raise AssertionError(f"flash {name}: kernel disagrees with its plain version "
@@ -5124,6 +5157,349 @@ def phase_pp_train(card: str, peak_bw, peak_ops, pp: dict) -> dict:
     return {"launches": pp["timed"][0]["launches"], "run": out, "parity": parity}
 
 
+# --- phases 29a-29c: genome ingestion (the native tool, GenBank, the hybrid model) --
+
+GBFF_SPACER_NT = (60, 200)  # intergenic spacers between genes: the 30/60 nt flanks are real
+GBFF_N_SPACER_EVERY = 9  # every 9th spacer holds one N
+GBFF_N_GENES = 3  # genes given one N in a middle codon (an ambiguous codon)
+GBFF_OVERLAP_PAIRS = 2  # plus-strand neighbours sharing the upstream gene's last base
+GBFF_SEED = 16
+ECOLI_BP, ECOLI_CDS = 4_641_652, 4_300  # E. coli K-12 MG1655 (NCBI RefSeq NC_000913.3)
+HYBRID_G, HYBRID_EPOCHS = 2, 4  # 23 groups an epoch over the 367 train windows
+HYBRID_VOCAB = 74
+GBFF_STOPS = ("TAA", "TAG", "TGA")
+
+
+def gbff_record_text(locus: str, accession: str, organism: str, seq: str,
+                     features: list[tuple[str, int]]) -> str:
+    """One GenBank flat-file record: CDS features (``start..end`` or
+    ``complement(...)``, 1-based) with a locus tag and a product wrapped over
+    two lines, and the sequence as a lower-case ORIGIN block."""
+    out = [f"LOCUS       {locus}  {len(seq)} bp    DNA     circular BCT 01-JAN-2026",
+           f"DEFINITION  {organism} chromosome, synthetic.", f"ACCESSION   {accession}",
+           f"SOURCE      {organism}", f"  ORGANISM  {organism}",
+           "FEATURES             Location/Qualifiers", f"     source          1..{len(seq)}"]
+    for loc, i in features:
+        out += [f"     CDS             {loc}", f'                     /locus_tag="{locus}_{i:05d}"',
+                f'                     /product="synthetic protein {i} of',
+                f'                     {locus}"']
+    out.append("ORIGIN")
+    low = seq.lower()
+    for off in range(0, len(low), 60):
+        row = low[off:off + 60]
+        out.append(f"{off + 1:9d} " + " ".join(row[j:j + 10] for j in range(0, len(row), 10)))
+    return "\n".join(out) + "\n//\n"
+
+
+def write_demo_gbffs(records: list[dict], workdir: Path) -> dict:
+    """One GBFF a genome of the demo corpus (``GCF_<n>.1_smoke_genomic.gbff``,
+    its record ``NZ_SMOKE<n>.1``): the genome's genes in corpus order, every
+    other one on the minus strand (reverse-complemented), 60-200 nt random
+    spacers between them (every 9th with an N), 3 genes with an N in a
+    middle codon, and in the first two genomes one plus-strand pair whose
+    downstream gene starts on the upstream gene's last base (its stop's A),
+    as ``TAATG`` overlaps do. Returns the paths and the genes as written."""
+    rng = np.random.default_rng(GBFF_SEED)
+    by_genome: dict[str, list[dict]] = {}
+    for r in records:
+        by_genome.setdefault(r["genome"], []).append(r)
+    genomes = sorted(by_genome)
+    n_genes = {(int(g), int(i)) for g, i in zip(
+        rng.choice(len(genomes), GBFF_N_GENES, replace=False),
+        rng.integers(0, min(len(v) for v in by_genome.values()), GBFF_N_GENES))}
+    paths, written, minus_count, spacers_n, overlaps = [], [], 0, 0, []
+    for n, genome in enumerate(genomes):
+        genes = [r["sequence"] for r in by_genome[genome]]
+        pair = None
+        if n < GBFF_OVERLAP_PAIRS:  # an even (plus) gene ending in A, its successor forced plus
+            pair = next(i for i in range(0, len(genes) - 1, 2) if genes[i].endswith("A"))
+        parts, feats, pos, spacer_i = [], [], 0, 0
+        for i, gene in enumerate(genes):
+            if (n, i) in n_genes:
+                c = 3 * (len(gene) // 6)
+                gene = gene[:c + 1] + "N" + gene[c + 2:]
+            if pair is not None and i == pair + 1:
+                pos -= 1  # the downstream gene starts on the upstream stop's A
+                parts[-1] = parts[-1][:-1]
+                overlaps.append((genome, pair, pair + 1))
+            else:
+                spacer = list(rng.choice(list("ACGT"), int(rng.integers(*GBFF_SPACER_NT) + 1)))
+                if spacer_i % GBFF_N_SPACER_EVERY == 0:
+                    spacer[int(rng.integers(0, len(spacer)))] = "N"
+                    spacers_n += 1
+                spacer_i += 1
+                parts.append("".join(spacer))
+                pos += len(spacer)
+            minus = i % 2 == 1 and not (pair is not None and i == pair + 1)
+            minus_count += minus
+            text = dna_reverse_complement(gene) if minus else gene
+            loc = f"{pos + 1}..{pos + len(gene)}"
+            feats.append((f"complement({loc})" if minus else loc, i))
+            parts.append(text)
+            pos += len(gene)
+            written.append(gene)
+        parts.append("".join(rng.choice(list("ACGT"), 150)))
+        path = workdir / f"GCF_{n + 1:09d}.1_smoke_genomic.gbff"
+        genus = by_genome[genome][0]["genus"]
+        path.write_text(gbff_record_text(f"SMOKE{n + 1:02d}", f"NZ_SMOKE{n + 1:02d}.1",
+                                         f"{genus.capitalize()} smoke{n + 1}", "".join(parts),
+                                         feats))
+        paths.append(path)
+    return dict(paths=paths, genes=written, minus=minus_count, spacers_with_n=spacers_n,
+                genes_with_n=len(n_genes), overlaps=overlaps)
+
+
+def write_ecoli_scale_gbff(path: Path) -> dict:
+    """One synthetic record at E. coli K-12 MG1655's scale: ``ECOLI_BP``
+    bases, ``ECOLI_CDS`` CDS of 100-532 sense codons (mean ~316, as E.
+    coli's ~950 nt) on either strand, the rest spacers."""
+    rng = np.random.default_rng(GBFF_SEED + 1)
+    sense = np.array([a + b + c for a in "ACGT" for b in "ACGT" for c in "ACGT"
+                      if a + b + c not in GBFF_STOPS])
+    lengths = rng.integers(100, 533, ECOLI_CDS)
+    genes = ["ATG" + "".join(sense[rng.integers(0, len(sense), n)])
+             + GBFF_STOPS[int(rng.integers(0, 3))] for n in lengths]
+    coding = sum(len(g) for g in genes)
+    spacers = rng.multinomial(ECOLI_BP - coding, np.full(ECOLI_CDS + 1, 1 / (ECOLI_CDS + 1)))
+    bases = np.array(list("ACGT"))
+    parts, feats, pos = [], [], 0
+    for i, gene in enumerate(genes):
+        parts.append("".join(bases[rng.integers(0, 4, int(spacers[i]))]))
+        pos += int(spacers[i])
+        minus = bool(rng.integers(0, 2))
+        parts.append(dna_reverse_complement(gene) if minus else gene)
+        loc = f"{pos + 1}..{pos + len(gene)}"
+        feats.append((f"complement({loc})" if minus else loc, i))
+        pos += len(gene)
+    parts.append("".join(bases[rng.integers(0, 4, int(spacers[-1]))]))
+    seq = "".join(parts)
+    path.write_text(gbff_record_text("ECOLISCALE", "NZ_ECOLISCALE.1", "Escherichia smoke",
+                                     seq, feats))
+    return dict(bp=len(seq), cds=len(genes), coding_bp=coding, bytes=path.stat().st_size)
+
+
+def phase_native(records: list[dict], card: str) -> dict:
+    """The native host library built from ``native/genomics_native.cpp`` (g++,
+    seconds logged), then each entry point on the demo corpus's 800 CDS and
+    their 800 proteins against its plain version: cluster labels (the
+    audit's k 4 at the Jaccard of identity 0.3, and the defaults k 5 at
+    0.5), codon ids, reverse complements and digests all identical."""
+    from genomics_lm_torch import native
+    from genomics_lm_torch.data.leakage import translate_cds
+
+    fresh = not native.library_path().exists()
+    t0 = time.perf_counter()
+    native.sha256_hex(b"")  # builds and loads; raises with g++'s output on a failure
+    build_s = time.perf_counter() - t0
+    cds = [r["sequence"] for r in records]
+    proteins = [translate_cds(s) for s in cds]
+    checks, seconds = {}, {}
+    for name, kw in (("minhash_audit", dict(k=4, n_hashes=64, min_jaccard=0.3 / 1.7)),
+                     ("minhash_default", dict(k=5, n_hashes=64, min_jaccard=0.5))):
+        t0 = time.perf_counter()
+        got = native.minhash_cluster(proteins, **kw)
+        t1 = time.perf_counter()
+        want = native.minhash_cluster_reference(proteins, **kw)
+        seconds[name] = dict(library=t1 - t0, plain=time.perf_counter() - t1)
+        checks[name] = dict(equal=bool(np.array_equal(got, want)),
+                            clusters=len(set(got.tolist())))
+    pairs = {
+        "tokenize_codons": (lambda s: native.tokenize_codons(s).tolist(),
+                            lambda s: native.tokenize_codons_reference(s).tolist(), cds),
+        "reverse_complement": (native.reverse_complement, native.reverse_complement_reference,
+                               cds),
+        "sha256_hex": (lambda s: native.sha256_hex(s.encode()),
+                       lambda s: native.sha256_hex_reference(s.encode()), cds + proteins),
+    }
+    for name, (fn, ref, inputs) in pairs.items():
+        t0 = time.perf_counter()
+        got = [fn(s) for s in inputs]
+        t1 = time.perf_counter()
+        want = [ref(s) for s in inputs]
+        seconds[name] = dict(library=t1 - t0, plain=time.perf_counter() - t1)
+        checks[name] = dict(equal=got == want, inputs=len(inputs))
+    log("native", library=native.library_path().name, built_now=fresh, build_s=build_s,
+        cds=len(cds), proteins=len(proteins), checks=checks, seconds=seconds, card=card)
+    bad = [name for name, c in checks.items() if not c["equal"]]
+    if bad:
+        raise AssertionError(f"native entry points differ from their plain versions: {bad}")
+    return {"build_s": build_s, "checks": checks}
+
+
+def phase_genbank(records: list[dict], workdir: Path, card: str) -> dict:
+    """GenBank ingestion on the demo corpus written as 12 GBFF files (one a
+    genome, ``write_demo_gbffs``): ``extract_cds_records`` returns the 800
+    genes as written, as a multiset in coding orientation; ``pipeline_prepare
+    --gbff`` at block 512 (``multi``, genome-disjoint, the native homology
+    audit on) twice, equal ids and a valid manifest; then parse, extract and
+    the native audit of one GBFF at E. coli K-12 MG1655's scale, timed."""
+    from collections import Counter
+
+    from genomics_lm_torch.data.genbank import extract_cds_records
+    from genomics_lm_torch.data.leakage import audit_source_records
+    from genomics_lm_torch.data.manifest import load_dataset_manifest
+    from genomics_lm_torch.data.pipeline import assign_group_splits
+    from genomics_lm_torch.data.pipeline_prepare import main as prepare_cli
+
+    gbff_dir = workdir / "gbff"
+    gbff_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    written = write_demo_gbffs(records, gbff_dir)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = [row for p in written["paths"] for row in extract_cds_records(p)]
+    extract_s = time.perf_counter() - t0
+    genes_equal = Counter(r["sequence"] for r in rows) == Counter(written["genes"])
+    ids, seconds, manifest = [], [], None
+    for attempt in range(2):
+        out = workdir / f"gbff_dataset_{attempt}"
+        t0 = time.perf_counter()
+        _run_cli(prepare_cli, ["--gbff", *map(str, written["paths"]), "--out_dir", str(out),
+                               "--block_size", "512", "--pack_mode", "multi",
+                               "--group_by", "genome", "--audit_engine", "native"])
+        seconds.append(time.perf_counter() - t0)
+        manifest = load_dataset_manifest(out / "manifest.json", verify_artifacts=True)
+        ids.append(manifest["dataset"]["id"])
+    audit = json.loads((workdir / "gbff_dataset_0" / "leakage_audit.json").read_text())
+    windows = {}
+    for split in ("train", "val", "test"):
+        with np.load(workdir / "gbff_dataset_0" / f"{split}_bs512.npz") as z:
+            windows[split] = int(z["X"].shape[0])
+
+    ecoli_path = workdir / "ecoli_scale.gbff"
+    t0 = time.perf_counter()
+    ecoli = write_ecoli_scale_gbff(ecoli_path)
+    ecoli_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ecoli_rows = extract_cds_records(ecoli_path)
+    parse_extract_s = time.perf_counter() - t0
+    split_rows, _ = assign_group_splits(
+        [{"sequence": r["sequence"], "source_id": r["source_id"]} for r in ecoli_rows],
+        group_by="sequence", seed=0)
+    t0 = time.perf_counter()
+    ecoli_audit = audit_source_records(split_rows, workdir / "ecoli_audit.json",
+                                       engine="native")
+    audit_s = time.perf_counter() - t0
+    row = dict(files=len(written["paths"]), cds=len(rows), genes_as_written=genes_equal,
+               minus_strand=written["minus"], spacers_with_n=written["spacers_with_n"],
+               genes_with_n=written["genes_with_n"], overlaps=written["overlaps"],
+               write_s=write_s, extract_s=extract_s, dataset_ids=ids,
+               ids_equal=ids[0] == ids[1], manifest_valid=True, prepare_s=seconds,
+               records=manifest["split_policy"]["record_counts"], windows=windows,
+               audit_status=audit["status"], audit_engine=audit["engine"],
+               protein_clusters=audit["protein_homology"]["cluster_count"],
+               cross_split_clusters=audit["protein_homology"]["cross_split_cluster_count"],
+               scientific_valid=manifest["dataset"]["scientific_valid"],
+               ecoli_scale=dict(ecoli, write_s=ecoli_write_s, parse_extract_s=parse_extract_s,
+                                native_audit_s=audit_s, cds_extracted=len(ecoli_rows),
+                                clusters=ecoli_audit["protein_homology"]["cluster_count"],
+                                status=ecoli_audit["status"]),
+               card=card)
+    log("genbank", **row)
+    if not genes_equal or len(rows) != len(records):
+        raise AssertionError(f"extract_cds_records gave {len(rows)} CDS, not the "
+                             f"{len(records)} genes as written")
+    if ids[0] != ids[1] or min(windows.values()) == 0 or audit["engine"] != "native":
+        raise AssertionError(f"--gbff datasets: ids {ids}, windows {windows}")
+    if len(ecoli_rows) != ECOLI_CDS or ecoli["bp"] != ECOLI_BP:
+        raise AssertionError(f"E. coli-scale record: {ecoli}, {len(ecoli_rows)} CDS")
+    return {"paths": written["paths"], "row": row}
+
+
+def phase_hybrid_train(gbff: dict, workdir: Path, card: str, peak_bw, peak_ops) -> dict:
+    """``pipeline_prepare_hybrid`` on phase 29b's 12 GBFF files (block 512,
+    flanks 30 and 60 nt), its integrity gate passed and the combined
+    ``itos.txt`` of 74 lines; then the train CLI at the main path's width
+    (``run_yaml``: 10L8H d384, bf16 flash, dropout 0.1) on the combined
+    hybrid splits, G 2 for ``HYBRID_EPOCHS`` epochs: every loss finite, the
+    last validation loss under ln 74, the model's vocabulary 74, and each
+    flash kernel's launches (reset just before, read just after) 10 per
+    microbatch, the forward's also 10 per validation microbatch. Then the
+    three flash kernels on one real bf16 microbatch of the hybrid train split
+    with its segment ids (``<UNK>``, id 3, also separates the packed lines)
+    against their plain versions, timed."""
+    import yaml
+
+    from genomics_lm_torch.data.pipeline_prepare_hybrid import main as prepare_hybrid_cli
+
+    cfg_path = workdir / "hybrid_prepare.yaml"
+    cfg_path.write_text(yaml.safe_dump({
+        "block_size": train_main.T,
+        "datasets": [{"name": p.name.split("_genomic")[0], "gbff": str(p), "min_len": 90}
+                     for p in gbff["paths"]]}))
+    run_dir = workdir / "hybrid_prepare_run"
+    t0 = time.perf_counter()
+    printed = _run_cli(prepare_hybrid_cli, [
+        "--config", str(cfg_path), "--run-id", "smoke-hybrid", "--run-dir", str(run_dir),
+        "--out-root", str(workdir / "processed"), "--upstream", "30", "--downstream", "60",
+        "--pack_mode", "multi"])
+    prepare_s = time.perf_counter() - t0
+    result = json.loads((run_dir / "pipeline_prepare.json").read_text())
+    integrity = json.loads((run_dir / "integrity.json").read_text())
+    itos = Path(result["itos"]).read_text().splitlines()
+    train_npz, val_npz = Path(result["train_npz"]), Path(result["val_npz"])
+    with np.load(train_npz) as z:
+        X = z["X"]
+    with np.load(val_npz) as z:
+        n_val = int(z["X"].shape[0])
+    B, L = train_main.B, train_main.MAIN_TRAIN["n_layer"]
+    train_mb = len(EpochPlan(PackedDataset(str(train_npz)), batch_size=B, seed=1337, epoch=1))
+    val_mb = len(EpochPlan(PackedDataset(str(val_npz)), batch_size=B, seed=1337, epoch=0,
+                           shuffle=False))
+    config = run_yaml(workdir / "hybrid.yaml", train_npz, val_npz, G=HYBRID_G,
+                      epochs=HYBRID_EPOCHS, run_id="smoke-hybrid")
+    for w in FLASH_WRAPPERS:
+        w.launches = 0  # the hybrid run's launches only
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli(["--config", str(config), "--run_root", str(workdir / "runs")])
+    train_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    hybrid_run = workdir / "runs" / "smoke-hybrid"
+    with (hybrid_run / "scores" / "curves.csv").open() as f:
+        curves = list(csv.DictReader(f))
+    train_losses = [float(r["train_loss"]) for r in curves]
+    val_losses = [float(r["val_loss"]) for r in curves]
+    meta = json.loads((hybrid_run / "checkpoints" / "meta.json").read_text())
+    vocab = meta["model_spec"]["vocab_size"]
+    want_bwd = L * train_mb * HYBRID_EPOCHS
+    want_fwd = want_bwd + L * val_mb * HYBRID_EPOCHS
+
+    # the flash kernels on the first microbatch of the train split, its own segments
+    xb = torch.from_numpy(X[:B]).cuda().long()
+    seg = segment_ids(xb, train_main.MAIN_TRAIN["sep_id"])
+    n_segments = int((seg[:, -1] - seg[:, 0] + 1).sum())
+    width = train_main.MAIN_TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    timed = check_flash_case(gen, "hybrid_flash", "hybrid_b8_bf16_dropout", B, width["n_head"],
+                             width["n_head"], train_main.T, train_main.T,
+                             width["n_embd"] // width["n_head"], torch.bfloat16, None,
+                             width["dropout"], seg, True, peak_bw, peak_ops)
+    row = dict(prepare_rc=0, prepare_s=prepare_s, integrity=integrity["empty_windows"],
+               itos_lines=len(itos), windows=dict(train=int(X.shape[0]), val=n_val),
+               stages=len(result["stages"]), prepared=printed.strip().splitlines()[-1],
+               config=f"10L8H d384 block 512 bf16 flash dropout 0.1, B {B} x G {HYBRID_G}, "
+                      f"{HYBRID_EPOCHS} epochs", rc=rc, train_s=train_s, vocab_size=vocab,
+               train_losses=train_losses, val_losses=val_losses, ln_vocab=math.log(HYBRID_VOCAB),
+               train_microbatches=train_mb, val_microbatches=val_mb, flash_launches=launches,
+               want_fwd=want_fwd, want_bwd=want_bwd, microbatch_segments=n_segments,
+               microbatch_unk=int((xb == 3).sum()), card=card)
+    log("hybrid_train", **row)
+    if any(v != 0 for v in integrity["empty_windows"].values()) or len(itos) != HYBRID_VOCAB:
+        raise AssertionError(f"hybrid preparation: {integrity}, {len(itos)} itos lines")
+    if rc != 0 or vocab != HYBRID_VOCAB or len(curves) != HYBRID_EPOCHS:
+        raise AssertionError(f"hybrid run: rc {rc}, vocab {vocab}, {len(curves)} epochs")
+    if not all(np.isfinite(train_losses + val_losses)) or val_losses[-1] >= math.log(
+            HYBRID_VOCAB):
+        raise AssertionError(f"hybrid losses: {train_losses}, {val_losses}")
+    if (launches["flash_fwd"] != want_fwd or launches["flash_bwd_dq"] != want_bwd
+            or launches["flash_bwd_dkv"] != want_bwd):
+        raise AssertionError(f"hybrid flash launches {launches}: want fwd {want_fwd}, "
+                             f"dq/dkv {want_bwd}")
+    return {"launches": launches, "timed": timed, "run_dir": hybrid_run}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5212,6 +5588,16 @@ def main() -> int:
     prepare_dir = tempfile.TemporaryDirectory(prefix="smoke_prepare_")
     prepared = phase_prepare(card_line, Path(prepare_dir.name))
     lap("prepare")
+    with (Path(prepare_dir.name) / "records.tsv").open() as f:
+        demo_records = list(csv.DictReader(f, delimiter="\t"))
+    phase_native(demo_records, card_line)
+    lap("native")
+    ingest_dir = tempfile.TemporaryDirectory(prefix="smoke_genbank_")
+    gbff = phase_genbank(demo_records, Path(ingest_dir.name), card_line)
+    lap("genbank")
+    hybrid = phase_hybrid_train(gbff, Path(ingest_dir.name), card_line, peak_bw, peak_ops)
+    lap("hybrid_train")
+    ingest_dir.cleanup()
     evaluated = phase_evaluate_test([("moe", moe_run), ("trainer", trainer_run)],
                                     prepared[512]["dir"], card_line, peak_bw, peak_ops)
     lap("evaluate_test")
@@ -5344,6 +5730,8 @@ def main() -> int:
             "launches_tp_train": tp_trained["launches"][wrapper.__name__],
             "launches_ep_train": ep_trained["launches"][wrapper.__name__],
             "launches_pp_train": pp_trained["launches"][wrapper.__name__],
+            "launches_hybrid_train": hybrid["launches"][wrapper.__name__],
+            "hybrid_b8_h8": hybrid["timed"][key],
             "dp_rank_b4_h8": dp_trained["timed"][key],
             "tp_rank_b8_h4": tp_trained["timed"][key],
             "ep_rank_b8_h4_d64": ep_trained["timed"][key],

@@ -1,5 +1,5 @@
 """Cross-split leakage audits for dataset preparation (the port's own copy
-of ``genomics_lm_tpu/data/leakage.py``, numpy-free and torch-free).
+of ``genomics_lm_tpu/data/leakage.py``, torch-free).
 
 - sha256 exact-CDS duplicate detection and the keep-highest-priority-split
   quarantine policy,
@@ -13,9 +13,10 @@ of ``genomics_lm_tpu/data/leakage.py``, numpy-free and torch-free).
   protein, with its JSON report.
 
 Translation uses the standard genetic code (stops inside become ``X``, a
-trailing stop is trimmed). Not ported: the bundled minhash engine's
-clustering (``engine="native"`` without ``skip_homology`` raises
-``NotImplementedError``).
+trailing stop is trimmed). ``engine="native"`` clusters the translated
+proteins with the bundled minhash tool (``genomics_lm_torch/native``)
+instead of MMseqs2 and marks the report non-scientific; a library that
+cannot be built fails the audit closed, with the report written.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from pathlib import Path
 from statistics import median
 from typing import Any, Iterable, Mapping, Sequence
 
+from genomics_lm_torch import native
 from genomics_lm_torch.generation.genetic_code import CODON_TABLE
 
 SPLIT_ORDER = {"train": 0, "val": 1, "test": 2}
@@ -436,17 +438,11 @@ def audit_source_records(
 ) -> dict[str, Any]:
     """Run blocking exact + homology audits and always write the JSON report.
 
-    ``engine="native"`` records ``engine: native`` in the report (never
-    scientific); its homology clustering needs ``native/``, which is not
-    ported, so with ``skip_homology=False`` it raises ``NotImplementedError``.
+    ``engine="native"`` clusters with the bundled C++ minhash tool instead of
+    MMseqs2 (marks the report non-scientific: ``engine: native``).
     """
     if protein_homology_policy not in {"block", "report"}:
         raise ValueError("protein_homology_policy must be 'block' or 'report'")
-    if engine == "native" and not skip_homology:
-        raise NotImplementedError(
-            "engine='native' clusters with the bundled native/ minhash tool, which the "
-            "port does not have yet (ROADMAP §1, data preparation and utilities); pass "
-            "skip_homology=True or engine='external'")
     output_path = Path(output_path)
     exact = exact_cross_split_duplicates(records)
     report: dict[str, Any] = {
@@ -474,19 +470,34 @@ def audit_source_records(
     try:
         if not skip_homology:
             split_by_source = {str(r["source_id"]): str(r["split"]) for r in records}
-            homology = run_mmseqs_audit(
-                records,
-                output_path.parent / "leakage_audit_work",
-                min_protein_identity=min_protein_identity,
-                min_coverage=min_coverage,
-                threads=threads,
-                executable=executable,
-                nucleotide_executable=nucleotide_executable,
-                nucleotide_preset=nucleotide_preset,
-                nearest_query_batch_size=nearest_query_batch_size,
-                split_memory_limit=split_memory_limit,
-            )
-            clusters = homology.pop("_clusters")
+            if engine == "native":
+                proteins = {
+                    str(r["source_id"]): translate_cds(r["sequence"]) for r in records
+                }
+                try:
+                    clusters = native.native_protein_clusters(
+                        proteins, min_identity=min_protein_identity
+                    )
+                except RuntimeError as exc:  # the library did not build
+                    raise LeakageAuditError(f"native homology tool: {exc}") from exc
+                homology: dict[str, Any] = {
+                    "tool": {"name": "genomics_native_minhash", "engine": "native"},
+                    "parameters": {"min_protein_identity": min_protein_identity},
+                }
+            else:
+                homology = run_mmseqs_audit(
+                    records,
+                    output_path.parent / "leakage_audit_work",
+                    min_protein_identity=min_protein_identity,
+                    min_coverage=min_coverage,
+                    threads=threads,
+                    executable=executable,
+                    nucleotide_executable=nucleotide_executable,
+                    nucleotide_preset=nucleotide_preset,
+                    nearest_query_batch_size=nearest_query_batch_size,
+                    split_memory_limit=split_memory_limit,
+                )
+                clusters = homology.pop("_clusters")
             protein_violations = cross_split_cluster_violations(clusters, split_by_source)
             homology["cluster_count"] = len(clusters)
             homology["cross_split_cluster_count"] = len(protein_violations)

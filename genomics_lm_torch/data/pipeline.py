@@ -15,8 +15,9 @@
    ``pipeline_prepare.json``.
 
 Every artifact is the JAX package's byte for byte from the same records,
-so the manifest's ``dataset.id`` is JAX's (``tests/test_torch_data_pipeline.py``).
-``prepare_from_genbank`` raises until ``data/genbank.py`` is ported.
+so the manifest's ``dataset.id`` is JAX's (``tests/test_torch_data_pipeline.py``);
+``prepare_from_genbank`` feeds it the CDS records of GenBank files
+(``tests/test_torch_genbank.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 
 from genomics_lm_torch.data import leakage as leakage_lib
+from genomics_lm_torch.data.genbank import extract_cds_records
 from genomics_lm_torch.data import manifest as manifest_lib
 from genomics_lm_torch.data.packing import (
     chunk_record,
@@ -316,12 +318,32 @@ def prepare_dataset(
     return manifest
 
 
-def prepare_from_genbank(gbff_paths: Sequence[str | Path], out_dir: str | Path, **kwargs) -> dict:
-    """GBFF files → prepared dataset: needs ``data/genbank.py``, not ported."""
-    raise NotImplementedError(
-        "prepare_from_genbank needs data/genbank.py, which the port does not have yet "
-        "(ROADMAP §1, data preparation and utilities); extract the CDS records into a "
-        "TSV and use prepare_dataset (pipeline_prepare --records_tsv)")
+def prepare_from_genbank(
+    gbff_paths: Sequence[str | Path],
+    out_dir: str | Path,
+    *,
+    genus_of: Mapping[str, str] | None = None,
+    **kwargs,
+) -> dict:
+    """GBFF files → prepared dataset (genome identity = record accession).
+
+    The genus expression keeps JAX's precedence: it parses as
+    ``(genus_of.get(...) or organism.split()[0]) if organism else ""``, so
+    ``genus_of`` is not read for a record without an organism.
+    """
+    records = []
+    for path in gbff_paths:
+        for row in extract_cds_records(path):
+            organism = row.get("organism", "")
+            genus = (genus_of or {}).get(row["record"]) or organism.split()[0] if organism else ""
+            records.append({
+                "sequence": row["sequence"],
+                "source_id": row["source_id"],
+                "genome": row["record"],
+                "genus": genus,
+                "organism": organism,
+            })
+    return prepare_dataset(records, out_dir, **kwargs)
 
 
 __all__ = ["assign_group_splits", "prepare_dataset", "prepare_from_genbank"]

@@ -1,15 +1,19 @@
-"""Dataset preparation CLI: a records TSV → frozen packed dataset (twin of
-``scripts/pipeline_prepare.py``, the same flags).
+"""Dataset preparation CLI: GenBank files or a records TSV → frozen packed
+dataset (twin of ``scripts/pipeline_prepare.py``, the same flags).
 
-    python -m genomics_lm_torch.data.pipeline_prepare --records_tsv records.tsv \\
-        --out_dir dataset [--block_size 512] [--pack_mode multi] [--group_by genome] \\
+    python -m genomics_lm_torch.data.pipeline_prepare --gbff a.gbff b.gbff \
+        --out_dir dataset [--block_size 512] [--pack_mode multi] [--group_by genome] \
         [--skip_homology] [--audit_engine external|native]
+    python -m genomics_lm_torch.data.pipeline_prepare --records_tsv records.tsv \
+        --out_dir dataset ...
 
-The TSV has ``sequence``, ``source_id``, ``genome`` (and optionally
-``genus``) columns. ``--gbff`` raises ``NotImplementedError`` until
-``data/genbank.py`` is ported; ``--audit_engine native`` needs
-``--skip_homology`` (the bundled clustering tool is not ported). Runs on
-the host only: no device is involved.
+``--gbff`` reads the CDS of each file (``data/genbank.py``; the genome is
+the record's accession). The TSV has ``sequence``, ``source_id``,
+``genome`` (and optionally ``genus``) columns. The homology audit runs
+MMseqs2 and minimap2 (``--audit_engine external``), or the bundled minhash
+tool (``--audit_engine native``: ``native/``, built with ``g++`` at first
+use; the dataset is then marked non-scientific). Runs on the host only: no
+device is involved.
 """
 
 from __future__ import annotations

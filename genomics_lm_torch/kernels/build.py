@@ -10,6 +10,12 @@ hash of all three. Builds land in ``genomics_lm_torch/kernels/_build``
 (git-ignored); the ``nvcc -Xptxas -v`` report (registers, shared memory,
 spills) is kept beside each library as ``<lib>.log``.
 
+``build_host`` builds a host C++ library (``native/genomics_native.cpp``)
+the same way: ``g++`` (or ``$CXX``) with ``GXX_FLAGS``, the hash of source
+and flags in the file name, an atomic ``os.replace``, the compiler's output
+in ``<lib>.log``; a failed build raises with that output, a missing
+compiler raises and names it.
+
 Nothing is built or loaded at import: the CPU tests import every module.
 """
 
@@ -35,6 +41,7 @@ NVCC_FLAGS = (
     "--split-compile=0",
 )
 _BUILD_TIMEOUT_S = 600
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 
 def nvcc_path() -> str:
@@ -97,10 +104,54 @@ def build(names) -> dict[str, Path]:
     return paths
 
 
+def gxx_path() -> str:
+    """``$CXX`` if set, else ``g++``, resolved on PATH."""
+    name = os.environ.get("CXX") or "g++"
+    found = shutil.which(name)
+    if not found:
+        raise RuntimeError(f"{name} not found: the host library needs a C++17 compiler "
+                           "(put g++ on PATH or set CXX)")
+    return found
+
+
+def host_library_path(source: Path) -> Path:
+    """Where the host library built from ``source`` lives for its current text."""
+    digest = hashlib.sha256(source.read_bytes() + "\0".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+
+
+def build_host(source: Path) -> Path:
+    """Build the host C++ library of ``source`` if it is missing; its path.
+
+    Raises with the compiler's output if the build fails.
+    """
+    lib = host_library_path(source)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = gxx_path()
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run([cxx, *GXX_FLAGS, "-o", str(tmp), str(source)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=_BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host build of {source.name}: {cxx} timed out\n{exc.output}") from exc
+    lib.with_name(f"{lib.name}.log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"host build of {source.name} failed: {cxx} exited {proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     return ctypes.CDLL(str(build([name])[name]))
 
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library_path", "load", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC", "GXX_FLAGS", "NVCC_FLAGS", "build", "build_host", "gxx_path",
+           "host_library_path", "library_path", "load", "nvcc_path"]

@@ -186,12 +186,30 @@ def test_too_few_groups_fail_closed_in_both(records, tmp_path):
     assert out["port"][0]["split_policy"]["effective_group_by"] == "sequence"
 
 
-def test_unported_engines_raise(records, tmp_path):
-    with pytest.raises(NotImplementedError, match="native"):
-        pipeline.prepare_dataset(records, tmp_path / "native", block_size=64,
-                                 skip_homology=False, audit_engine="native")
-    with pytest.raises(NotImplementedError, match="genbank"):
-        prepare_cli(["--gbff", str(tmp_path / "x.gbff"), "--out_dir", str(tmp_path / "g")])
+def test_unported_engines_raise(records, tmp_path, capsys):
+    """The two engines the port once refused now run and equal JAX (the
+    name is kept from then): the native homology audit (JAX's library loaded,
+    not its fallback) and ``--gbff``. The external tools absent, both
+    packages still fail closed with the report written."""
+    from genomics_lm_tpu import native as jax_native
+    from tests.test_torch_genbank import wait_for_jax_library, write_genomes
+
+    wait_for_jax_library()
+    assert jax_native.available()
+    kw = dict(block_size=64, skip_homology=False, audit_engine="native")
+    got = pipeline.prepare_dataset(records, tmp_path / "native", **kw)
+    want = jax_pipeline.prepare_dataset(records, tmp_path / "native_jax", **kw)
+    assert got["dataset"]["id"] == want["dataset"]["id"]
+    assert ((tmp_path / "native" / "leakage_audit.json").read_bytes()
+            == (tmp_path / "native_jax" / "leakage_audit.json").read_bytes())
+    audit = json.loads((tmp_path / "native" / "leakage_audit.json").read_text())
+    assert audit["protein_homology"]["tool"]["name"] == "genomics_native_minhash"
+    gbff = write_genomes(tmp_path)
+    assert prepare_cli(["--gbff", *map(str, gbff), "--block_size", "64", "--skip_homology",
+                        "--out_dir", str(tmp_path / "g")]) == 0
+    want = jax_pipeline.prepare_from_genbank(gbff, tmp_path / "g_jax", block_size=64,
+                                             skip_homology=True)
+    assert f"[prepare] dataset_id={want['dataset']['id']}" in capsys.readouterr().out
     # the external tools are absent: both packages fail closed, with the report written
     for side, lib in (("port", leakage), ("jax", jax_leakage)):
         rows = [dict(r, split=s) for r, s in zip(records[:3], ("train", "val", "test"))]

@@ -4,12 +4,16 @@ A fresh interpreter imports every module of ``genomics_lm_torch`` and the
 ``chip_smoke`` script and finds neither ``jax``, ``genomics_lm_tpu`` nor the
 JAX package's ``scripts`` in ``sys.modules``; a source scan finds no import
 of any of them, static or dynamic (docstrings may still name the JAX twin
-of a module). The port's copy of the codon vocabulary equals the JAX
+of a module). No port source names a path under ``genomics_lm_tpu/`` or
+the JAX package's ``libgenomics_native.so`` outside its docstrings and
+comments, apart from the ``file:line`` citations of the kernels each port
+kernel replaces. The port's copy of the codon vocabulary equals the JAX
 package's.
 """
 
 from __future__ import annotations
 
+import ast
 import re
 import subprocess
 import sys
@@ -20,6 +24,23 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "genomics_lm_torch"
 PORT_SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+NATIVE_SOURCES = sorted(p for ext in ("*.cu", "*.cuh", "*.cpp", "*.h") for p in PORT.rglob(ext))
+CITATION = re.compile(r"^genomics_lm_tpu/[\w/]+\.py:\d*$")  # "replaces": file:line, never opened
+
+
+def jax_paths_named(text: str) -> list[str]:
+    """The non-docstring string constants of a Python source that name the JAX
+    package's files, citations aside."""
+    tree = ast.parse(text)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs
+            and ("libgenomics_native" in node.value
+                 or ("genomics_lm_tpu" in node.value and not CITATION.match(node.value)))]
 
 
 def test_importing_the_port_pulls_in_no_jax():
@@ -73,3 +94,18 @@ def test_vocabulary_copy_matches_the_jax_package():
         except ValueError as e:
             got = type(e).__name__
         assert got == want
+
+
+def test_no_source_names_a_path_of_the_jax_package():
+    assert sorted(jax_paths_named(
+        'from pathlib import Path\n'
+        'LIB = Path(__file__).parent.parent / "genomics_lm_tpu" / "native"\n'
+        'SO = "libgenomics_native.so"\n')) == ["genomics_lm_tpu", "libgenomics_native.so"]
+    offenders = {str(p.relative_to(REPO)): named for p in PORT_SOURCES
+                 if (named := jax_paths_named(p.read_text()))}
+    assert not offenders
+    comment = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
+    offenders = [str(p.relative_to(REPO)) for p in NATIVE_SOURCES
+                 if re.search(r"genomics_lm_tpu|libgenomics_native",
+                              comment.sub("", p.read_text()))]
+    assert NATIVE_SOURCES and not offenders
