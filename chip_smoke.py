@@ -154,8 +154,9 @@ exits non-zero:
    x 32 against 10 x 32, ms per group over 3 more groups each.
 20. int8 serve — weight-only int8 serving: phase 4's model with its block
    linears quantized by ``quantize_params`` (their bytes, dense against
-   int8, checked and logged) drains the same 128 requests with a bf16 and
-   an int8 cache, each beside the dense model's drain just before it;
+   int8, checked and logged) drains the first 72 of the 128 requests (a
+   cut for time; 8 more than the 64 slots, so slots refill) with a
+   bf16 and an int8 cache, each beside the dense model's drain just before it;
    every budget in-vocabulary and the decode kernel launched n_layer times
    per step; one speculative drain (K 4) launches the chunk kernel n_layer
    times per round; a 2-layer float32 int8 model gives the same greedy
@@ -323,8 +324,9 @@ exits non-zero:
    ``data/replay.py``; ``token_nlls`` float32 on the card against the CPU;
    the flash forward at its B 1 windows and the decode kernel at the
    generations' cache against their plain versions, timed.
-37. design — ``generative_design_loop`` at its defaults with
-   ``--esm_fold_top 2 --fold_backend mock``: seconds, tokens spent, decode
+37. design — ``generative_design_loop`` at its defaults but 4 candidates
+   (cut from 8 for time) with ``--esm_fold_top 2 --fold_backend
+   mock``: seconds, tokens spent, decode
    launches (n_layer a cached step), the termination rate; its candidates
    through ``audit_generated_sequences`` against the demo corpus's
    train-split records; a CPU run of the loop whose candidates are
@@ -359,7 +361,8 @@ exits non-zero:
    --critic_guidance --critic_stability`` and once ``--ebm_guidance``, each
    cut to 1 gene, k 1 and 10, 1 sample (``CRITIC_GUIDED_CUT``); then
    ``generative_design_loop --critic_ckpt --ebm_ckpt --fold_backend mock``
-   at its defaults: the critic columns present and finite, the decode
+   at its defaults but 4 candidates (cut from 8 for time): the
+   critic columns present and finite, the decode
    kernel launched n_layer times a cached step and the flash forward
    n_layer times a scored window or uncached forward, critic forwards per
    guided codon and their share of the wall time.
@@ -395,6 +398,13 @@ exits non-zero:
    then the train CLI through its launch path (``--mesh_devices 2
    --tensor_parallel 2``, two ranks on the card) at 2 layers (cut from 10)
    for 1 epoch, and a ``--resume`` at world size 1 to a second.
+44b. tp adafactor — the float32 parity group of phase 44 (2 layers at d384,
+   a depth cut) under ``optimizer: adafactor``, on the same two gloo ranks
+   with sequence parallelism, against the one-rank Adafactor group in the
+   NCCL process: loss, gradients and weights within ``ADAFACTOR_TP_TOL``,
+   every statistic, merged from the ranks into the JAX leaves, within
+   ``ADAFACTOR_STAT_RTOL``. (At d384 no factored leaf falls under optax's
+   128 on a rank; the CPU test holds that trap at d128.)
 45. tp serve — the serving benchmark's config (phase 4's model, 64 slots,
    128 requests, ``max_seq_len`` 256) at ``tensor_parallel`` 2 on two ranks,
    at 2 layers (a depth cut from 10): the decode kernel at 4 kv heads a rank
@@ -442,6 +452,26 @@ exits non-zero:
    the train CLI at ``--mesh_devices 4 --pipeline_stages 2`` (2 layers, a
    cut, one microbatch a group) for 1 epoch and a ``--resume`` at world
    size 1 from its merged checkpoint.
+50. engine — ``training/engine.py``'s Task/Strategy/Callback loop at the
+   main path's width (10L8H d384, bf16 flash, dropout 0.1, B 8 x T 512
+   synthetic windows with ``<SEP>`` every 97th), G 4, 2 epochs of 8
+   microbatches, one NaN loss (its group aborted); straight, then stopped
+   by the wall timer as group 1 commits, restored and resumed: the final
+   weights bit for bit and the group and validation events equal; groups
+   timed with ``utils/sync.py::hard_sync``; flash launches 10 a microbatch
+   run (the forward's also 10 a validation microbatch).
+51. biophysics fusion — ``training/train_biophysics_fusion.py`` on the card:
+   the shape encoder fit at ``train_encoder``'s defaults (2000 x 32 codons,
+   5 epochs; its loss falls), then the chained shape-guided run at the main
+   path's width, 2 epochs with ``save_epochs`` on a small packed corpus:
+   the encoder frozen as fitted, flash launches 10 a microbatch.
+52. run tools — the preflight on the card; ``eval_epoch_sweep`` and
+   ``compare_checkpoints`` over phase 51's epoch checkpoints (equal NLLs;
+   the last on the card against the CPU in float32 within
+   ``SCORE_NLL_RTOL``); ``sanity_kpis`` on phase 33's demo run (the decode
+   kernel at B 1 in its constrained generation, 10 a decode step); then host
+   only: ``compare_runs``, and the freeze of phase 29's two datasets
+   (read-only) with its verification.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -461,6 +491,7 @@ import importlib.util
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -524,6 +555,7 @@ from genomics_lm_torch.training import bench_pipeline as bench_pipe
 from genomics_lm_torch.training import benchmark_moe as bench_moe
 from genomics_lm_torch.training import benchmark_lora as bench_lora
 from genomics_lm_torch.training import contracts
+from genomics_lm_torch.training import engine as engine_lib
 from genomics_lm_torch.training import lora as lora_lib
 from genomics_lm_torch.training import profile_step as train_main
 from genomics_lm_torch.training.checkpoints import load_checkpoint, load_checkpoint_meta
@@ -536,7 +568,9 @@ from genomics_lm_torch.training.merge_lora import main as merge_cli
 from genomics_lm_torch.training.train_codon_lm import main as train_cli
 from genomics_lm_torch.training.train_noprop import main as noprop_cli
 from genomics_lm_torch.training.optim import build_optimizer
+from genomics_lm_torch.training.runtime import WallTimer
 from genomics_lm_torch.training.train_step import LossConfig, make_eval_step, make_train_step
+from genomics_lm_torch.utils.sync import hard_sync
 from genomics_lm_torch.utils.timing import card_peaks, decode_bound_ms, median_ms
 from genomics_lm_torch.utils.weights import params_from_jax, params_to_jax, state_dict_from_jax
 
@@ -2294,14 +2328,18 @@ def int8_greedy_parity() -> dict:
 
 
 INT8_DRAIN_ORDER = ("dense", "int8")  # one pair of dense, int8, int8, dense: a cut for time
+# the int8 drains' requests: the first 72 of phase 4's 128, 8 more than the 64
+# slots, so slots refill (a cut for time)
+INT8_DRAIN_REQUESTS = 72
 INT8_BENCH_REQUESTS = 72  # benchmark_serving's requests (cut for time from 256 closed
 # loop and 128 open loop; more than its 64 slots, so slots are refilled)
 
 
 def phase_int8_serve(served: dict, card: str) -> dict:
     """The serving main path with weight-only int8 block linears: the dense
-    model of phase 4, quantized by ``quantize_params``, drains the same 128
-    requests with a bf16 and an int8 cache; then a speculative drain, the
+    model of phase 4, quantized by ``quantize_params``, drains the first
+    ``INT8_DRAIN_REQUESTS`` of phase 4's requests with a bf16 and an int8
+    cache, as the dense model does; then a speculative drain, the
     card-vs-CPU greedy check, and ``benchmark_serving --int8_weights`` (a
     closed-loop and an open-loop run)."""
     dense, cfg = served["model"], served["cfg"]
@@ -2314,7 +2352,7 @@ def phase_int8_serve(served: dict, card: str) -> dict:
         raise AssertionError(f"block-linear bytes {bytes_row}")
     rng = np.random.default_rng(0)
     warm = build_requests(rng, 8)
-    reqs = build_requests(rng, REQUESTS)  # the requests of phase_serve
+    reqs = build_requests(rng, REQUESTS)[:INT8_DRAIN_REQUESTS]  # of phase_serve's
     drain(model, cfg, warm, False)
     counts = {}
     for kv_quant in (False, True):
@@ -3461,6 +3499,8 @@ PREFIX_K_LIST = "1,3,5,10"  # eval_generation_prefix's default
 PREFIX_SAMPLES = 1  # of the quick preset's 2 per (gene, k), for the smoke's time
 PREFIX_GENES = 1  # of the quick preset's 10, for the smoke's time
 DESIGN_CPU = ["--n_candidates", "1", "--budget", "600"]  # the CPU run's cut of the defaults
+# the card's design loops: 4 of the default 8 candidates (a cut for time)
+DESIGN_CUT = ["--n_candidates", "4"]
 
 
 def card_vs_cpu_rel(card, cpu) -> float:
@@ -3734,8 +3774,9 @@ def phase_gen_prefix(trained: dict, data: Path, card: str, peak_bw, peak_ops) ->
 
 
 def phase_design(trained: dict, data: Path, card: str) -> dict:
-    """``generative_design_loop`` at its defaults with ``--esm_fold_top 2
-    --fold_backend mock`` on the demo run: seconds, tokens spent, the
+    """``generative_design_loop`` at its defaults but ``DESIGN_CUT``'s 4
+    candidates, with ``--esm_fold_top 2 --fold_backend mock`` on the demo run:
+    seconds, tokens spent, the
     decode kernel's launches (n_layer a cached step) and the termination
     rate; the candidates through ``audit_generated_sequences`` against the
     demo corpus's train-split records; then a CPU run of the loop (its cut
@@ -3747,7 +3788,7 @@ def phase_design(trained: dict, data: Path, card: str) -> dict:
 
     run_dir = Path(trained["run_dir"])
     out = {}
-    for device, extra in (("cuda", []), ("cpu", DESIGN_CPU)):
+    for device, extra in (("cuda", DESIGN_CUT), ("cpu", DESIGN_CPU)):
         da.decode_attention.launches = 0  # each run's own
         fa.flash_fwd.launches = 0
         buf = io.StringIO()
@@ -4343,7 +4384,8 @@ def phase_critic_guided(trained: dict, data: Path, critic: dict, ebm: dict, card
     """On the demo run: ``eval_generation_prefix --critic_guidance
     --critic_stability`` and once ``--ebm_guidance`` (each cut to
     ``CRITIC_GUIDED_CUT``), then ``generative_design_loop --critic_ckpt
-    --ebm_ckpt --fold_backend mock`` at its defaults. The critic columns
+    --ebm_ckpt --fold_backend mock`` at its defaults but ``DESIGN_CUT``'s 4
+    candidates. The critic columns
     present and finite; the decode kernel's launches n_layer x cached steps
     and the flash forward's n_layer x (scored windows + uncached forwards);
     critic forwards per generated codon and their share of the wall time."""
@@ -4414,7 +4456,7 @@ def phase_critic_guided(trained: dict, data: Path, critic: dict, ebm: dict, card
             _Timed(cs, "batch_score_critic") as scored:
         _run_cli(design_cli, [str(run_dir), "--critic_ckpt", best, "--ebm_ckpt", ebm_ckpt,
                               "--fold_backend", "mock", "--out_dir", str(design_out),
-                              "--device", "cuda"])
+                              "--device", "cuda", *DESIGN_CUT])
     seconds = time.perf_counter() - t0
     decode, flash = da.decode_attention.launches, fa.flash_fwd.launches
     with (design_out / "candidates.csv").open() as f:
@@ -4602,6 +4644,10 @@ def prepare_parallel_ranks(card: str, workdir: Path) -> dict:
     # ranks up), each taking seconds of gloo collectives
     tp_groups = dp_groups[:1]
     tp_axes = {"data": 1, "model": 2}
+    # [tp_adafactor]: the TP + SP float32 group under Adafactor, and its
+    # one-rank reference in the NCCL process
+    ada = {"run_cfg": dict(train_main.RUN_CFG, warmup_steps=0, shard_optimizer_state=False,
+                           optimizer="adafactor"), "return_optimizer": True}
 
     # the train CLI's launch path: --mesh_devices 2 --tensor_parallel 2 at 2
     # layers for 1 epoch (phase 44 resumes it at world size 1 to a second)
@@ -4645,7 +4691,9 @@ def prepare_parallel_ranks(card: str, workdir: Path) -> dict:
                                     timed=True),
                          group_spec(dict(f32_kw, **sp), f32_tree, tp_axes, parity_groups),
                          group_spec(dict(bf16_kw, **sp), bf16_tree, tp_axes, tp_groups,
-                                    timed=True)]),
+                                    timed=True),
+                         dict(group_spec(dict(f32_kw, **sp), f32_tree, tp_axes, parity_groups),
+                              **ada)]),
         ("train_cli", ["--config", str(cfgs[1]), *cli_argv, "--mesh_devices", "2",
                        "--tensor_parallel", "2"]),
         ("serve", list(serve_specs.values())),
@@ -4659,7 +4707,9 @@ def prepare_parallel_ranks(card: str, workdir: Path) -> dict:
     # metrics' and gradient's all-reduces, ZeRO-1's all-gather; counted) and
     # gathers the weights and gradients to the writer, all at world 1
     exact = dict(group_spec(f32_kw, f32_tree, None, parity_groups), deterministic=True)
-    return {"launch": prestart_ranks(2, calls), "exact": exact, "f32_kw": f32_kw,
+    ada_ref = dict(exact, **ada)
+    return {"launch": prestart_ranks(2, calls), "exact": exact, "ada_ref": ada_ref,
+            "f32_kw": f32_kw,
             "bf16_tree": bf16_tree, "dp_groups": dp_groups, "tp_groups": tp_groups,
             "cli_cfgs": cfgs, "cli_argv": cli_argv, "workdir": workdir,
             "serve_specs": serve_specs, "n_layer": bf16_kw["n_layer"], "moe": moe}
@@ -4672,15 +4722,17 @@ def phase_parallel_ranks(prep: dict) -> dict:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         nccl_launch = pool.submit(
             spawn_ranks, par_workers.group_steps, 1,
-            [exact, dict(exact, axes={"data": 1}, time_collectives=True)], backend="nccl")
+            [exact, dict(exact, axes={"data": 1}, time_collectives=True), prep["ada_ref"]],
+            backend="nccl")
         ranks = release_ranks(prep["launch"])
-        ref, nccl = nccl_launch.result()[0]
+        ref, nccl, ada_ref = nccl_launch.result()[0]
     moe = prep["moe"]
-    steps = [[r[0][i] for r in ranks] for i in range(4)]
+    steps = [[r[0][i] for r in ranks] for i in range(5)]
     moe_steps = [[r[3][i] for r in ranks] for i in range(len(moe["groups"]))]
-    return dict({k: v for k, v in prep.items() if k not in ("launch", "exact")},
+    return dict({k: v for k, v in prep.items() if k not in ("launch", "exact", "ada_ref")},
                 ref=ref, nccl=nccl, dp_parity=steps[0], dp_timed=steps[1],
-                tp_parity=steps[2], tp_timed=steps[3], cli=[r[1] for r in ranks],
+                tp_parity=steps[2], tp_timed=steps[3], ada_ref=ada_ref,
+                tp_adafactor=steps[4], cli=[r[1] for r in ranks],
                 serve=[r[2] for r in ranks],
                 moe=dict(moe, ep_parity=moe_steps[0], ep_timed=moe_steps[1],
                          dp_parity=moe_steps[2], serve=[r[4] for r in ranks]))
@@ -5500,6 +5552,488 @@ def phase_hybrid_train(gbff: dict, workdir: Path, card: str, peak_bw, peak_ops) 
     return {"launches": launches, "timed": timed, "run_dir": hybrid_run}
 
 
+# --- phases 50-53: the training layer's last modules ----------------------------
+
+# Adafactor statistics against the one rank's: each is a mean of g² (+ 1e-30),
+# so its relative error is about twice the gradient's (grad_rtol); a leaf whose
+# gradient is rounding noise is held at the noise floor's square
+ADAFACTOR_STAT_RTOL = 2 * TRAIN_PARITY_TOL["grad_rtol"]
+# the weights: TRAIN_PARITY_TOL, but a parameter whose gradient is rounding
+# noise takes Adafactor's first unfactored step lr * g / |g| = +-lr on either
+# side, so it is held to two steps at the run's lr plus the float32 rounding of
+# the weight it is added to (1e-6); a missing or doubled step of a real
+# gradient still fails param_atol
+ADAFACTOR_TP_TOL = dict(TRAIN_PARITY_TOL,
+                        noise_param_atol=2 * train_main.RUN_CFG["lr"] + 1e-6)
+
+
+def phase_tp_adafactor(card: str, par: dict) -> dict:
+    """``[tp_adafactor]``: the float32 group of ``[tp_train]``'s parity (2
+    layers at the full width d384, a depth cut; dropout 0; uneven pad) under
+    ``optimizer: adafactor`` at tensor parallel 2 with sequence parallelism,
+    on the two gloo ranks of ``phase_parallel_ranks``, against the one-rank
+    Adafactor group in the NCCL process: the loss, gradients and updated
+    weights within ``ADAFACTOR_TP_TOL`` (``TRAIN_PARITY_TOL`` with Adafactor's
+    noise rule: a rounding-noise gradient's first unfactored step is
+    lr * g / |g| of either sign), and every statistic, each rank's slices
+    merged into the JAX leaves, within ``ADAFACTOR_STAT_RTOL``. At d384 no
+    factored leaf falls under optax's 128 when split in two (a rank's
+    (L, 192, 384)), so the trap of reading the factoring from a rank's shape
+    shows only in the CPU test (``tests/test_torch_adafactor_tp.py``, d128)."""
+    ref, got = par["ada_ref"], par["tp_adafactor"][0]
+    parity = compare_group("tp_adafactor", "gloo_tp2_sp_f32_adafactor", par["f32_kw"], ref, got,
+                           ADAFACTOR_TP_TOL)
+    want, have = ref["optimizer"], got["optimizer"]
+    if want["format"] != have["format"] or want["count"] != have["count"] != 1:
+        raise AssertionError(f"Adafactor state: {have['format']} {have['count']}")
+    if set(want["state"]) != set(have["state"]):
+        raise AssertionError("the merged Adafactor state holds other leaves")
+    floor = TRAIN_PARITY_TOL["noise_grad_share"] ** 2 * max(
+        float(np.abs(v).max()) for st in want["state"].values() for v in st.values())
+    worst, factored = (0.0, ""), 0
+    for path, st in want["state"].items():
+        if set(st) != set(have["state"][path]):
+            raise AssertionError(f"{path}: statistics {set(have['state'][path])}, want {set(st)}")
+        factored += "v_row" in st
+        for key, w in st.items():
+            g, w = np.asarray(have["state"][path][key]), np.asarray(w)
+            if g.shape != w.shape:
+                raise AssertionError(f"{path}/{key}: shape {g.shape}, want {w.shape}")
+            err = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), floor)
+            worst = max(worst, (err, f"{path}/{key}"))
+    log("tp_adafactor", leaves=len(want["state"]), factored_leaves=factored,
+        stat_rel_err=worst[0], stat_worst_leaf=worst[1], tol=ADAFACTOR_STAT_RTOL,
+        seconds=got["seconds"], collectives=got["collectives"], card=card)
+    if worst[0] > ADAFACTOR_STAT_RTOL or factored == 0:
+        raise AssertionError(f"Adafactor statistics off by {worst}")
+    return {"parity": parity, "stat_rel_err": worst[0]}
+
+
+ENGINE_G, ENGINE_MICRO, ENGINE_EPOCHS = 4, 8, 2  # 2 groups an epoch
+ENGINE_VAL_MICRO = 2
+ENGINE_NAN = (1, 5)  # (epoch, microbatch) whose loss is made NaN: its group aborts
+
+
+class EngineLMTask:
+    """The training main path's model as a ``training/engine.py`` task:
+    synthetic windows (``profile_step.make_batch``: ``<SEP>`` every 97th),
+    the loss of ``forward`` (bf16 flash, dropout 0.1 on ``gen``), its
+    gradients from ``torch.autograd.grad``; AdamW applies what the strategy
+    hands back. Its state is the weights, AdamW's and the generator's."""
+
+    def __init__(self, model, cfg, opt, gen):
+        self.model, self.cfg, self.opt, self.gen = model, cfg, opt, gen
+        self.names = [n for n, _ in model.named_parameters()]
+        self.params = [p for _, p in model.named_parameters()]
+        self.microbatches = self.val_microbatches = 0
+
+    def train_batches(self, epoch):
+        batch = train_main.make_batch(100 + epoch, "cuda", groups=ENGINE_MICRO)
+        for i in range(ENGINE_MICRO):
+            yield epoch, i, batch["x"][i], batch["y"][i]
+
+    def training_step(self, batch):
+        epoch, i, x, y = batch
+        _, loss = model_forward(self.model, self.cfg, x, y, train=True, generator=self.gen)
+        if (epoch, i) == ENGINE_NAN:
+            loss = loss * float("nan")
+        grads = torch.autograd.grad(loss, self.params)
+        self.microbatches += 1
+        return engine_lib.StepOutput(loss=float(loss.detach()),
+                                     grads=dict(zip(self.names, grads)))
+
+    def apply_updates(self, grads):
+        for name, p in zip(self.names, self.params):
+            p.grad = grads[name]
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+
+    def val_batches(self):
+        batch = train_main.make_batch(7, "cuda", groups=ENGINE_VAL_MICRO)
+        for i in range(ENGINE_VAL_MICRO):
+            yield batch["x"][i], batch["y"][i]
+
+    @torch.no_grad()
+    def validation_step(self, batch):
+        x, y = batch
+        _, loss = model_forward(self.model, self.cfg, x, y)
+        self.val_microbatches += 1
+        return {"val_loss": engine_lib.MetricValue(float(loss), weight=float((y != 0).sum()))}
+
+    def state_dict(self):
+        return {"model": [p.detach().clone() for p in self.params],
+                "opt": copy.deepcopy(self.opt.state_dict()), "gen": self.gen.get_state()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        for p, saved in zip(self.params, state["model"]):
+            p.copy_(saved)
+        self.opt.load_state_dict(copy.deepcopy(state["opt"]))
+        self.gen.set_state(state["gen"])
+
+
+class GroupClock:
+    """An engine callback: each group's wall seconds, from the previous
+    group's end (or the validation's) to this one's commit or abort, the
+    queue drained by ``utils/sync.py::hard_sync`` at both ends; and every
+    event, for the streams to be compared."""
+
+    def __init__(self, model):
+        self.model, self.seconds, self.events = model, [], []
+        self.mark = self._now()
+
+    def _now(self) -> float:
+        hard_sync(self.model)
+        return time.perf_counter()
+
+    def on_event(self, name, payload):
+        self.events.append((name, payload))
+        if name in ("group_committed", "group_aborted"):
+            now = self._now()
+            self.seconds.append(now - self.mark)
+            self.mark = now
+        elif name == "validation_completed":
+            self.mark = self._now()
+
+
+def engine_run(state=None, wall_timer=None):
+    """A fresh main-path model, AdamW and generator (seeded), its task
+    through ``TrainingEngine`` (G ``ENGINE_G``, ``ENGINE_EPOCHS`` epochs),
+    restored from ``state`` (a saved payload) when given; returns the task,
+    the engine, the clock and the saved payloads."""
+    cfg = CodonGPTConfig(**train_main.MAIN_TRAIN)
+    torch.manual_seed(train_main.SEED)
+    model = CodonGPT(cfg).cuda().train()
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.05)
+    gen = torch.Generator(device="cuda").manual_seed(train_main.SEED)
+    task = EngineLMTask(model, cfg, opt, gen)
+    clock, saved = GroupClock(model), []
+    strategy = engine_lib.AccumulatedGradsStrategy(task.apply_updates, grad_clip=1.0)
+    eng = engine_lib.TrainingEngine(task, strategy, group_size=ENGINE_G,
+                                    max_epochs=ENGINE_EPOCHS, wall_timer=wall_timer,
+                                    save_fn=saved.append, callbacks=[clock])
+    if state is not None:
+        eng.restore(state)
+    eng.fit()
+    return task, eng, clock, saved
+
+
+class ExpireAt(WallTimer):
+    """A wall timer that expires at its ``checks``-th check (the engine
+    checks once a microbatch): here as the first group commits."""
+
+    def __init__(self, checks: int):
+        super().__init__(None)
+        self.calls, self.checks = 0, checks
+
+    def expired(self) -> bool:
+        self.calls += 1
+        return self.calls >= self.checks
+
+
+def phase_engine(card: str) -> dict:
+    """``[engine]``: ``training/engine.py`` at the main path's width (10L8H
+    d384, bf16 flash, dropout 0.1; B 8 x T 512 synthetic windows, ``<SEP>``
+    every 97th), G 4, 2 epochs of 8 microbatches, AdamW, ``grad_clip`` 1.0;
+    microbatch 6 of epoch 1 gives a NaN loss, so its group aborts and its
+    last microbatch is skipped. The run straight once; then again with a
+    wall-time stop as group 1 commits, a restore of the saved payload into a
+    fresh model, optimizer and generator, and a resume: the final weights
+    bit for bit the straight run's, and every group and validation event
+    equal (under torch's deterministic algorithms, for the embedding
+    gradient's sums). Groups timed with ``hard_sync``. The flash launches
+    (reset before the straight run, read after the resume) 10 per
+    microbatch run, the forward's also 10 per validation microbatch."""
+    for w in FLASH_WRAPPERS:
+        w.launches = 0
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        straight, eng, clock, _ = engine_run()
+        straight_s = time.perf_counter() - t0
+        stopped, _, clock1, saved = engine_run(wall_timer=ExpireAt(ENGINE_G))
+        t0 = time.perf_counter()
+        resumed, eng2, clock2, _ = engine_run(state=saved[-1])
+        resume_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    L = train_main.MAIN_TRAIN["n_layer"]
+    micro = straight.microbatches + stopped.microbatches + resumed.microbatches
+    val = straight.val_microbatches + stopped.val_microbatches + resumed.val_microbatches
+    want_bwd, want_fwd = L * micro, L * (micro + val)
+    same = all(torch.equal(a, b) for a, b in zip(straight.params, resumed.params))
+    keep = ("group_committed", "group_aborted", "validation_completed")
+    events = [e for e in clock.events if e[0] in keep]
+    stitched = [e for e in clock1.events + clock2.events if e[0] in keep]
+    aborted = [p for n, p in clock.events if n == "group_aborted"]
+    history = eng.history
+    tokens = int(ENGINE_MICRO * train_main.B * train_main.T)
+    m = train_main.MAIN_TRAIN
+    row = dict(config=f"{m['n_layer']}L{m['n_head']}H d{m['n_embd']} bf16 flash dropout "
+                      f"{m['dropout']}, B {train_main.B} x T {train_main.T}, G {ENGINE_G}, "
+                      f"{ENGINE_EPOCHS} epochs of {ENGINE_MICRO}",
+               history=history, aborted=aborted, optimizer_steps=eng.state.optimizer_step,
+               group_ms=[round(t * 1e3, 2) for t in clock.seconds],
+               straight_s=straight_s, resume_s=resume_s, saved=saved[-1]["metadata"],
+               saved_engine=saved[-1]["engine"], resumed_bit_equal=same,
+               events_equal=events == stitched, microbatches_run=micro,
+               val_microbatches=val, flash_launches=launches, want_fwd=want_fwd,
+               want_bwd=want_bwd, tokens_per_epoch=tokens, card=card)
+    log("engine", **row)
+    if len(history) != ENGINE_EPOCHS or not all(np.isfinite(
+            [h["train_loss"] for h in history] + [h["val_loss"] for h in history])):
+        raise AssertionError(f"engine history {history}")
+    if aborted != [{"epoch": 1, "microbatch": ENGINE_NAN[1] + 1, "discarded": 1}]:
+        raise AssertionError(f"engine aborts {aborted}")
+    if eng.state.optimizer_step != ENGINE_EPOCHS * ENGINE_MICRO // ENGINE_G - 1:
+        raise AssertionError(f"engine committed {eng.state.optimizer_step} groups")
+    if saved[-1]["metadata"]["reason"] != "wall_time" or saved[-1]["engine"]["microbatch"] != (
+            ENGINE_G):
+        raise AssertionError(f"the wall-time save: {saved[-1]['engine']}")
+    if not same or events != stitched or eng2.history[-1] != history[-1]:
+        raise AssertionError("the stopped and resumed engine run is not the straight run")
+    if (launches["flash_fwd"] != want_fwd or launches["flash_bwd_dq"] != want_bwd
+            or launches["flash_bwd_dkv"] != want_bwd):
+        raise AssertionError(f"engine flash launches {launches}: want fwd {want_fwd}, "
+                             f"dq/dkv {want_bwd}")
+    return {"launches": launches, "group_ms": row["group_ms"]}
+
+
+# train_encoder's defaults (the CLI's own are 5000 x 50 codons, 10 epochs)
+FUSION_ENCODER = ["--num_samples", "2000", "--seq_len_codons", "32", "--epochs", "5"]
+FUSION_GROUPS_PER_EPOCH, FUSION_G, FUSION_EPOCHS = 4, 2, 2
+FUSION_VAL_WINDOWS = SCORE_CPU_WINDOWS  # one validation microbatch; the CPU scores them too
+
+
+def phase_biophysics_fusion(workdir: Path, card: str) -> dict:
+    """``[biophysics_fusion]``: the fusion CLI (``training/train_biophysics_fusion.py``)
+    on the card: the shape encoder fit at ``train_encoder``'s defaults (2000
+    sequences of 32 codons, 5 epochs, batch 64; its loss must fall), saved,
+    then the chained shape-guided run of the train CLI's loop at the main
+    path's width (``run_yaml``: 10L8H d384, bf16 flash, dropout 0.1) on a
+    packed corpus (``FUSION_GROUPS_PER_EPOCH`` G 2 groups an epoch, 8
+    validation windows), 2 epochs with ``save_epochs``: its encoder frozen as
+    fitted, every loss finite, the epoch checkpoints written, and each flash
+    kernel's launches (reset just before, read just after) 10 per
+    microbatch, the forward's also 10 per validation microbatch."""
+    from genomics_lm_torch.training.train_biophysics_fusion import main as fusion_cli
+
+    B, L = train_main.B, train_main.MAIN_TRAIN["n_layer"]
+    packed_corpus(workdir, FUSION_GROUPS_PER_EPOCH * FUSION_G * B, FUSION_VAL_WINDOWS)
+    config = run_yaml(workdir / "fusion.yaml", workdir / "train.npz", workdir / "val.npz",
+                      G=FUSION_G, epochs=FUSION_EPOCHS, run_id="smoke-fusion")
+    config.write_text(config.read_text() + "save_epochs: true\n")
+    encoder = workdir / "shape_encoder.npz"
+    for w in FLASH_WRAPPERS:
+        w.launches = 0  # the fusion CLI's run only
+    cwd = Path.cwd()
+    t0 = time.perf_counter()
+    try:  # the chained trainer writes under runs/ of the working directory, as JAX's
+        os.chdir(workdir)
+        printed = _run_cli(fusion_cli, ["--out_checkpoint", str(encoder), *FUSION_ENCODER,
+                                        "--lm_config", str(config), "--device", "cuda:0"])
+    finally:
+        os.chdir(cwd)
+    cli_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    fitted = load_checkpoint(encoder)
+    run_dir = workdir / "runs" / "smoke-fusion"
+    with (run_dir / "scores" / "curves.csv").open() as f:
+        curves = list(csv.DictReader(f))
+    train_losses = [float(r["train_loss"]) for r in curves]
+    val_losses = [float(r["val_loss"]) for r in curves]
+    last = load_checkpoint(run_dir / "checkpoints" / "last.npz", keys=("cfg", "model"))
+    frozen = all(np.array_equal(np.asarray(last["model"]["shape_encoder"][c][k]),
+                                np.asarray(fitted["encoder"][c][k]))
+                 for c in ("conv1", "conv2") for k in ("w", "b"))
+    epochs = sorted(p.name for p in (run_dir / "checkpoints").glob("epoch_*.npz"))
+    train_mb = FUSION_GROUPS_PER_EPOCH * FUSION_G
+    want_bwd = L * train_mb * FUSION_EPOCHS
+    want_fwd = want_bwd + L * -(-FUSION_VAL_WINDOWS // B) * FUSION_EPOCHS
+    row = dict(encoder=dict(samples=2000, codons=32, epochs=5, losses=fitted["losses"]),
+               config=f"{L}L{train_main.MAIN_TRAIN['n_head']}H d{train_main.MAIN_TRAIN['n_embd']}"
+                      f" bf16 flash dropout 0.1, shape guidance, B {B} x G {FUSION_G}, "
+                      f"{FUSION_EPOCHS} epochs",
+               cli_s=cli_s, train_losses=train_losses, val_losses=val_losses,
+               use_shape_guidance=last["cfg"].get("use_shape_guidance"),
+               encoder_frozen=frozen, epoch_checkpoints=epochs, flash_launches=launches,
+               want_fwd=want_fwd, want_bwd=want_bwd,
+               printed=printed.strip().splitlines()[0], card=card)
+    log("biophysics_fusion", **row)
+    losses = fitted["losses"]
+    if len(losses) != 5 or not losses[-1] < losses[0]:
+        raise AssertionError(f"the encoder's loss did not fall: {losses}")
+    if not (last["cfg"].get("use_shape_guidance") and frozen) or len(epochs) != FUSION_EPOCHS:
+        raise AssertionError(f"the shape-guided run: {row}")
+    if len(curves) != FUSION_EPOCHS or not all(np.isfinite(train_losses + val_losses)):
+        raise AssertionError(f"the shape-guided losses: {train_losses}, {val_losses}")
+    if (launches["flash_fwd"] != want_fwd or launches["flash_bwd_dq"] != want_bwd
+            or launches["flash_bwd_dkv"] != want_bwd):
+        raise AssertionError(f"fusion flash launches {launches}: want fwd {want_fwd}, "
+                             f"dq/dkv {want_bwd}")
+    return {"launches": launches, "run_dir": run_dir, "val_npz": workdir / "val.npz",
+            "runs": workdir / "runs"}
+
+
+@contextlib.contextmanager
+def counted_decoder_steps():
+    """The cached decoder's ``decode_step`` calls while the block runs."""
+    step, calls = decode_mod.decode_step, [0]
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return step(*args, **kwargs)
+
+    decode_mod.decode_step = counting
+    try:
+        yield calls
+    finally:
+        decode_mod.decode_step = step
+
+
+def phase_run_tools(demo: dict, fusion: dict, prepared: dict, workdir: Path,
+                    card: str) -> dict:
+    """``[run_tools]``: ``training/training_preflight.py`` on the card;
+    ``evals/eval_epoch_sweep.py`` and ``evals/compare_checkpoints.py`` over
+    ``[biophysics_fusion]``'s two epoch checkpoints on its 8 validation
+    windows (the flash forward 10 a checkpoint), the same NLLs from both, and
+    the last epoch's NLL on the card against the CPU (both float32, TF32 off)
+    within ``SCORE_NLL_RTOL``; ``evals/sanity_kpis.py`` on ``[demo_run]``'s
+    run and the block-512 demo validation split (the flash forward 10 a
+    microbatch of 32 and 10 for the embedding; constrained generation from
+    ATG through the cached decoder at B 1: the decode kernel 10 a decode
+    step), every check passed. (Not on ``[trainer]``'s run: 12 steps on
+    uniform random codons leave its validation loss near 18.7, so its
+    perplexity does not beat the uniform one and the KPIs rightly fail.)
+    then host only: ``evals/compare_runs.py`` over the fusion run's root,
+    and ``data/freeze_corrected_datasets.py --read_only`` of ``[prepare]``'s
+    two datasets with ``data/verify_dataset_freeze.py`` on the release."""
+    import hashlib
+    import stat
+
+    from genomics_lm_torch.data.freeze_corrected_datasets import main as freeze_cli
+    from genomics_lm_torch.data.verify_dataset_freeze import main as verify_cli
+    from genomics_lm_torch.evals.compare_checkpoints import main as compare_cli
+    from genomics_lm_torch.evals.compare_runs import main as compare_runs_cli
+    from genomics_lm_torch.evals.eval_epoch_sweep import main as sweep_cli
+    from genomics_lm_torch.evals.eval_epoch_sweep import score_checkpoint
+    from genomics_lm_torch.evals.sanity_kpis import main as kpis_cli
+    from genomics_lm_torch.training.training_preflight import run_preflight
+
+    L = train_main.MAIN_TRAIN["n_layer"]
+    secs = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        preflight = run_preflight(workdir / "preflight", device="cuda:0")
+    secs["preflight"] = time.perf_counter() - t0
+
+    run_dir, val = fusion["run_dir"], fusion["val_npz"]
+    sweep_json = workdir / "epoch_sweep.json"
+    fa.flash_fwd.launches = 0  # the sweep's
+    t0 = time.perf_counter()
+    _run_cli(sweep_cli, [str(run_dir), "--npz", str(val), "--out", str(sweep_json),
+                         "--device", "cuda:0"])
+    secs["sweep"] = time.perf_counter() - t0
+    sweep_launches = fa.flash_fwd.launches
+    sweep = json.loads(sweep_json.read_text())
+    ckpts = [str(run_dir / "checkpoints" / r["checkpoint"]) for r in sweep]
+    fa.flash_fwd.launches = 0  # the comparison's
+    t0 = time.perf_counter()
+    printed = _run_cli(compare_cli, [*ckpts, "--npz", str(val), "--device", "cuda:0"])
+    secs["compare_checkpoints"] = time.perf_counter() - t0
+    compare_launches = fa.flash_fwd.launches
+    compared = json.loads(printed[: printed.index("[compare]")])
+    by_name = {Path(r["checkpoint"]).name: r for r in compared}
+    per_ckpt = L * -(-FUSION_VAL_WINDOWS // 32)
+    sweep_vs_compare = max(abs(by_name[r["checkpoint"]]["nll"] - r["nll"]) / abs(r["nll"])
+                           for r in sweep)
+
+    # the last epoch's NLL, float32 (TF32 off), on the card and on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = {}
+    t0 = time.perf_counter()
+    for device in ("cuda:0", "cpu"):
+        payload = load_checkpoint(ckpts[-1], keys=("cfg", "model"))
+        cfg = CodonGPTConfig.from_run_config(payload["cfg"]).replace(
+            compute_dtype="float32", dropout=0.0)
+        model = params_from_jax(payload["model"], cfg, device).eval()
+        f32[device] = ppl.evaluate_perplexity(model, cfg, val, batch_size=FUSION_VAL_WINDOWS)["nll"]
+        del model
+    secs["card_vs_cpu"] = time.perf_counter() - t0
+    card_cpu_err = abs(f32["cuda:0"] - f32["cpu"]) / abs(f32["cpu"])
+
+    kpis_json = workdir / "sanity_kpis.json"
+    fa.flash_fwd.launches = 0
+    da.decode_attention.launches = 0  # the KPIs' run only
+    t0 = time.perf_counter()
+    with counted_decoder_steps() as steps:
+        _run_cli(kpis_cli, [str(demo["run_dir"]), "--val_npz", str(demo["val_npz"]),
+                            "--out", str(kpis_json), "--device", "cuda:0"])
+    secs["sanity_kpis"] = time.perf_counter() - t0
+    kpis = json.loads(kpis_json.read_text())
+    kpi_launches = {"flash_fwd": fa.flash_fwd.launches,
+                    "decode_attention": da.decode_attention.launches, "decode_steps": steps[0]}
+    with np.load(demo["val_npz"]) as z:
+        kpi_val_mb = -(-int(z["X"].shape[0]) // 32)
+    want_kpi_fwd = L * (kpi_val_mb + 1)  # perplexity, then one embedding batch
+
+    t0 = time.perf_counter()
+    printed = _run_cli(compare_runs_cli, ["--root", str(fusion["runs"])]).splitlines()
+    # the rows' JSON, after the line that says the chart is not drawn without matplotlib
+    first = next(i for i, line in enumerate(printed) if line in ("[", "[]"))
+    last = next(i for i, line in enumerate(printed) if line.startswith("[compare]"))
+    summary_rows = json.loads("\n".join(printed[first:last]))
+    secs["compare_runs"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    release = workdir / "corrected" / "smoke-v1"
+    _run_cli(freeze_cli, ["--release", "smoke-v1", "--out_root", str(workdir / "corrected"),
+                          "--read_only", "--protocol", "p256", str(prepared[256]["dir"]),
+                          "--protocol", "p512", str(prepared[512]["dir"])])
+    verified = _run_cli(verify_cli, [str(release)]).strip()
+    secs["freeze_verify"] = time.perf_counter() - t0
+    freeze = json.loads((release / "freeze.json").read_text())
+    ids = {"p256": prepared[256]["ids"][0], "p512": prepared[512]["ids"][0]}
+    want_id = hashlib.sha256(json.dumps(ids, sort_keys=True).encode()).hexdigest()
+    modes = {stat.S_IMODE(p.stat().st_mode) for p in release.rglob("*")
+             if p.is_file() and p.name != "freeze.json"}
+
+    row = dict(preflight=preflight["checks"], preflight_passed=preflight["passed"],
+               sweep=sweep, sweep_vs_compare_rel=sweep_vs_compare,
+               card_vs_cpu_f32=dict(card=f32["cuda:0"], cpu=f32["cpu"], rel_err=card_cpu_err,
+                                    tol=SCORE_NLL_RTOL),
+               sweep_launches=sweep_launches, compare_launches=compare_launches,
+               want_per_checkpoint=per_ckpt, kpis=kpis, kpi_launches=kpi_launches,
+               want_kpi_fwd=want_kpi_fwd, summary_rows=summary_rows,
+               freeze_id=freeze["dataset_freeze_id"], freeze_id_expected=want_id,
+               release_modes=sorted(oct(m) for m in modes), verify=verified,
+               seconds=secs, card=card)
+    log("run_tools", **row)
+    if not preflight["passed"] or not kpis["passed"]:
+        raise AssertionError(f"preflight {preflight['checks']} or KPIs {kpis['checks']} failed")
+    if len(sweep) != FUSION_EPOCHS or sweep_vs_compare > 1e-6 or not all(
+            np.isfinite([r["nll"] for r in sweep])):
+        raise AssertionError(f"the sweep {sweep} and the comparison {compared} disagree")
+    if card_cpu_err > SCORE_NLL_RTOL:
+        raise AssertionError(f"the card's NLL differs from the CPU's: {f32}")
+    if sweep_launches != per_ckpt * len(sweep) or compare_launches != per_ckpt * len(sweep):
+        raise AssertionError(f"sweep/compare flash launches {sweep_launches}/{compare_launches},"
+                             f" want {per_ckpt * len(sweep)}")
+    if (kpi_launches["flash_fwd"] != want_kpi_fwd or kpi_launches["decode_steps"] == 0
+            or kpi_launches["decode_attention"] != L * kpi_launches["decode_steps"]):
+        raise AssertionError(f"KPI launches {kpi_launches}, want flash {want_kpi_fwd}")
+    if not any(r["run_id"] == "smoke-fusion" and r["complete"] for r in summary_rows):
+        raise AssertionError(f"compare_runs rows {summary_rows}")
+    if (freeze["dataset_freeze_id"] != want_id or modes != {0o444}
+            or not verified.startswith("[verify] OK")):
+        raise AssertionError(f"the freeze: {freeze}, modes {modes}, {verified}")
+    return {"flash": sweep_launches + compare_launches + kpi_launches["flash_fwd"],
+            "decode": kpi_launches["decode_attention"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5652,6 +6186,8 @@ def main() -> int:
     lap("dp_train")
     tp_trained = phase_tp_train(card_line, peak_bw, peak_ops, par)
     lap("tp_train")
+    phase_tp_adafactor(card_line, par)
+    lap("tp_adafactor")
     tp_served = phase_tp_serve(card_line, peak_bw, peak_ops, par)
     lap("tp_serve")
     ep_trained = phase_ep_train(card_line, peak_bw, peak_ops, par)
@@ -5664,6 +6200,16 @@ def main() -> int:
     pp_trained = phase_pp_train(card_line, peak_bw, peak_ops, pp)
     lap("pp_train")
     del pp
+    engined = phase_engine(card_line)
+    lap("engine")
+    tools_dir = tempfile.TemporaryDirectory(prefix="smoke_tools_")
+    (Path(tools_dir.name) / "fusion").mkdir()
+    fused = phase_biophysics_fusion(Path(tools_dir.name) / "fusion", card_line)
+    lap("biophysics_fusion")
+    tools = phase_run_tools({"run_dir": demo_run["run_dir"], "val_npz": data512 / "val_bs512.npz"},
+                            fused, prepared, Path(tools_dir.name), card_line)
+    lap("run_tools")
+    tools_dir.cleanup()
     pp_dir.cleanup()
     tp_dir.cleanup()
     protein_dir.cleanup()
@@ -5696,6 +6242,7 @@ def main() -> int:
         "launches_gen_prefix": prefixed["decode"],
         "launches_design": designed["decode"],
         "launches_critic_guided": guided["decode"],
+        "launches_sanity_kpis": tools["decode"],
         "launches_tp_serve": tp_served["runs"]["bf16"]["launches_per_rank"][0]["decode_attention"],
         "launches_tp_serve_int8": tp_served["runs"]["int8_cache"]["launches_per_rank"][0][
             "decode_attention"],
@@ -5731,6 +6278,9 @@ def main() -> int:
             "launches_ep_train": ep_trained["launches"][wrapper.__name__],
             "launches_pp_train": pp_trained["launches"][wrapper.__name__],
             "launches_hybrid_train": hybrid["launches"][wrapper.__name__],
+            "launches_engine": engined["launches"][wrapper.__name__],
+            "launches_biophysics_fusion": fused["launches"][wrapper.__name__],
+            "launches_run_tools": tools["flash"] if key == "fwd" else 0,
             "hybrid_b8_h8": hybrid["timed"][key],
             "dp_rank_b4_h8": dp_trained["timed"][key],
             "tp_rank_b8_h4": tp_trained["timed"][key],

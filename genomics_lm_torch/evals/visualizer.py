@@ -1,7 +1,8 @@
-"""Figures of the analysis reports (the two of
-``genomics_lm_tpu/evals/visualizer.py`` that ``evals/analysis.py`` draws):
-the PCA scatter of an embedding table and an attention heatmap, saved to
-disk headlessly.
+"""Figures of the analysis reports (the three of
+``genomics_lm_tpu/evals/visualizer.py`` that the port draws): the PCA
+scatter of an embedding table and an attention heatmap (``evals/analysis.py``)
+and the bar chart of one meta metric across runs (``evals/compare_runs.py``),
+saved to disk headlessly.
 
 The PCA is numpy's SVD of the centred matrix with sklearn's sign rule:
 the coordinates of sklearn's ``PCA(n_components=2)``, without sklearn. Figures
@@ -71,6 +72,30 @@ def plot_embedding_pca(
     return coords
 
 
+def plot_run_comparison(runs: list[dict], metric: str, out_path: str | Path) -> None:
+    """Bar chart of one meta metric across runs."""
+    names, values = [], []
+    for run in runs:
+        meta = run.get("meta") or {}
+        if meta.get(metric) is not None:
+            names.append(run["run_id"])
+            values.append(float(meta[metric]))
+    plt = _plt()
+    if plt is None:
+        _skipped(out_path)
+        return
+    fig, ax = plt.subplots(figsize=(max(4, len(names)), 4))
+    ax.bar(range(len(names)), values)
+    ax.set_xticks(range(len(names)))
+    ax.set_xticklabels(names, rotation=45, ha="right", fontsize=7)
+    ax.set_ylabel(metric)
+    ax.set_title(f"Run comparison: {metric}")
+    plt.tight_layout()
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    plt.savefig(out_path)
+    plt.close(fig)
+
+
 def plot_attention_heatmap(
     attn: np.ndarray, out_path: str | Path, tokens: list[str] | None = None,
     title: str = "Attention",
@@ -96,4 +121,4 @@ def plot_attention_heatmap(
     plt.close(fig)
 
 
-__all__ = ["pca_2d", "plot_attention_heatmap", "plot_embedding_pca"]
+__all__ = ["pca_2d", "plot_attention_heatmap", "plot_embedding_pca", "plot_run_comparison"]

@@ -8,8 +8,16 @@ codon-aligned shape features (MGW/Roll/EP), the input of the model's
 over an (out, in, k) kernel, which is what ``F.conv1d`` computes on the
 same tensor. ``shape_lookup_table`` turns token ids into the nucleotide
 one-hots from the port's own vocabulary copy. ``get_theoretical_shape``,
-``one_hot_dna`` and ``generate_shape_training_data`` are numpy copies;
-the encoder's own fitting (``train_encoder``) is not ported.
+``one_hot_dna`` and ``generate_shape_training_data`` are numpy copies.
+
+``train_encoder`` fits the encoder to the synthetic shape targets by MSE
+with AdamW, as JAX's does: the batch order from
+``np.random.default_rng(seed).permutation`` each epoch, and optax
+``adamw``'s defaults passed to ``torch.optim.AdamW`` explicitly (b1 0.9, b2
+0.999, eps 1e-8 and weight decay 1e-4, where torch's own default decay is
+1e-2). ``encoder_tree`` and ``encoder_from_tree`` move the weights to and
+from the JAX layout ``{"conv1": {"w", "b"}, "conv2": {"w", "b"}}``, which
+is the layout of the encoder checkpoint both trainers read.
 """
 
 from __future__ import annotations
@@ -109,6 +117,64 @@ def generate_shape_training_data(
     return np.stack(one_hots), np.stack(targets)
 
 
+def encoder_tree(encoder: ShapeEncoder) -> dict:
+    """The encoder's weights in the JAX layout, as float32 numpy arrays."""
+    return {conv: {"w": getattr(encoder, conv).weight.detach().cpu().numpy().copy(),
+                   "b": getattr(encoder, conv).bias.detach().cpu().numpy().copy()}
+            for conv in ("conv1", "conv2")}
+
+
+def encoder_from_tree(tree: dict, device: str | torch.device = "cpu") -> ShapeEncoder:
+    """A ``ShapeEncoder`` holding the JAX-layout weights ``tree``."""
+    encoder = ShapeEncoder(int(np.shape(tree["conv2"]["w"])[0])).to(device)
+    with torch.no_grad():
+        for conv in ("conv1", "conv2"):
+            for leaf, name in (("w", "weight"), ("b", "bias")):
+                getattr(getattr(encoder, conv), name).copy_(
+                    torch.from_numpy(np.array(tree[conv][leaf], np.float32)))
+    return encoder
+
+
+def train_encoder(
+    *, num_samples: int = 2000, seq_len_codons: int = 32, epochs: int = 5,
+    batch_size: int = 64, lr: float = 1e-3, seed: int = 0,
+    init: dict | None = None, device: str | torch.device | None = None,
+) -> tuple[ShapeEncoder, list[float]]:
+    """Fit the encoder to the synthetic shape targets (MSE, AdamW) on
+    ``device`` (default: the CUDA card). ``init`` is a JAX-layout tree to
+    start from (e.g. JAX's ``init_encoder``); without it the encoder starts
+    from ``ShapeEncoder``'s init on a generator seeded with ``seed``.
+    Returns the encoder and each epoch's mean batch loss."""
+    from genomics_lm_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    X, Y = generate_shape_training_data(num_samples, seq_len_codons, seed)
+    if init is not None:
+        encoder = encoder_from_tree(init, device)
+    else:
+        encoder = ShapeEncoder(generator=torch.Generator().manual_seed(seed)).to(device)
+    opt = torch.optim.AdamW(encoder.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    X = torch.from_numpy(X).to(device)
+    Y = torch.from_numpy(Y).to(device)
+    rng = np.random.default_rng(seed)
+    losses = []
+    for _ in range(epochs):
+        order = rng.permutation(len(X))
+        batch_losses = []
+        for start in range(0, len(order), batch_size):
+            rows = torch.from_numpy(order[start : start + batch_size]).to(device)
+            loss = (encode(encoder, X[rows]) - Y[rows]).pow(2).mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            batch_losses.append(loss.detach())
+        # one read of the epoch's losses, summed in order on the host as JAX's
+        losses.append(float(sum(float(v) for v in torch.stack(batch_losses).cpu()))
+                      / max(len(batch_losses), 1))
+    return encoder, losses
+
+
 def shape_lookup_table() -> np.ndarray:
     """(vocab, 3, 4) one-hot LUT: token id → its 3 nucleotide one-hots
     (special tokens: zeros)."""
@@ -124,8 +190,11 @@ def shape_lookup_table() -> np.ndarray:
 __all__ = [
     "ShapeEncoder",
     "encode",
+    "encoder_from_tree",
+    "encoder_tree",
     "generate_shape_training_data",
     "get_theoretical_shape",
     "one_hot_dna",
     "shape_lookup_table",
+    "train_encoder",
 ]

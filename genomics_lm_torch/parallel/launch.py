@@ -7,11 +7,13 @@ module and nothing of the caller's), each joined to the default process
 group through a ``file://`` store in a fresh temporary directory, so
 concurrent launches never share a port. Every rank runs on ``device``
 (several ranks sharing one card go over gloo; see
-``mesh.initialize_distributed``). The results come back in rank order. A
-rank that fails, or a launch that outlives ``deadline_s``, ends every rank
-and raises; a collective that waits longer than ``timeout_s`` fails its
-rank. The caller builds any kernels before it spawns, so that no two
-ranks compile into ``kernels/_build/`` at once.
+``mesh.initialize_distributed``): by default the current CUDA card, and
+without one ``spawn`` raises (``utils/device.py::resolve_device``); on the
+CPU only when the caller passes ``device="cpu"``. The results come back in
+rank order. A rank that fails, or a launch that outlives ``deadline_s``,
+ends every rank and raises; a collective that waits longer than
+``timeout_s`` fails its rank. The caller builds any kernels before it
+spawns, so that no two ranks compile into ``kernels/_build/`` at once.
 
 ``timed`` wraps every collective the parallel layer issues. It counts the
 calls and the bytes each one outputs on this rank, by operation (JAX's HLO
@@ -94,9 +96,12 @@ def _rank_main(call_dir: str, rank: int) -> None:
         dist.destroy_process_group()
 
 
-def spawn(fn, world: int, *args, device: str = "cpu", backend: str | None = None,
+def spawn(fn, world: int, *args, device: str | None = None, backend: str | None = None,
           timeout_s: float = 300.0, deadline_s: float = 1800.0) -> list:
     """``[fn(r, world, *args) for r in ranks]``, each in its own process."""
+    from genomics_lm_torch.utils.device import resolve_device
+
+    device = str(resolve_device(device))
     tmp = tempfile.mkdtemp(prefix="ranks-")
     procs = []
     try:

@@ -58,7 +58,9 @@ def group_steps(rank: int, world: int, spec: dict) -> dict:
     the timed groups, the optimizer's state bytes and the expert weights'
     bytes on this rank and, on rank 0, the updated weights (JAX layout; not
     with ``spec["return_tree"]`` False) and, with ``spec["return_grads"]``,
-    the group's gradient (port layout, every stage's). ``spec["eval"]``
+    the group's gradient (port layout, every stage's) and, with
+    ``spec["return_optimizer"]``, the optimizer state in the checkpoint's
+    one-process layout. ``spec["eval"]``
     ([(x, y)] global batches) runs the trainer's eval step on each after the
     groups, this rank's strided rows padded to equal shares, and returns
     its outputs. With ``spec["axes"]`` None the step runs with no mesh, as
@@ -152,7 +154,11 @@ def group_steps(rank: int, world: int, spec: dict) -> dict:
                                             EVAL_METRIC_KEYS))
     t0 = time.perf_counter()
     if spec.get("return_tree", True):
-        out["tree"], _ = gather_full_state(model, bundle, cfg, template, mesh)
+        out["tree"], opt = gather_full_state(model, bundle, cfg, template, mesh)
+        if spec.get("return_optimizer"):
+            from genomics_lm_torch.training.checkpoints import _host_tree
+
+            out["optimizer"] = _host_tree(opt)
     if spec.get("return_grads"):
         out["grads"] = _gather_grads(model, dp_rank)
     out["gather_seconds"] = time.perf_counter() - t0

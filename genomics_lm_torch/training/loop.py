@@ -315,14 +315,18 @@ def load_optimizer_state(bundle, model: torch.nn.Module, saved) -> None:
 def _local_optimizer_state(saved, bundle, model) -> dict:
     """A full (one-process layout) optimizer state cut to what this rank's
     optimizer holds: under ZeRO-1 its own parameters or leaves, under
-    tensor parallelism its slice of each split parameter's moments."""
+    tensor parallelism its slice of each split parameter's moments (of
+    each split JAX leaf's statistics, for Adafactor)."""
     tp = getattr(model, "tp", None)
     if (bundle.zero is None and tp is None) or not isinstance(saved, dict):
         return saved
     if saved.get("format") == ADAFACTOR_FORMAT:
-        mine = set(bundle.optimizer.state) if isinstance(
-            bundle.optimizer, optim_lib.Adafactor) else set()
-        return dict(saved, state={k: v for k, v in saved["state"].items() if k in mine})
+        if not isinstance(bundle.optimizer, optim_lib.Adafactor):
+            return dict(saved, state={})
+        mine = {k: v for k, v in saved["state"].items() if k in bundle.optimizer.state}
+        if tp is not None:
+            mine = bundle.optimizer.local_state(mine, tp.rank)
+        return dict(saved, state=mine)
     if saved.get("format") != OPTIMIZER_FORMAT:
         return saved
     shapes = {n: p.shape for n, p in model.named_parameters()}
@@ -348,10 +352,25 @@ def _assemble_optimizer_state(pieces: list[dict], layout: dict, tp_size: int) ->
     stages (AdamW's arrive under their full names)."""
     first = pieces[0]["optimizer"]
     if first["format"] == ADAFACTOR_FORMAT:
-        stages: dict[int, dict] = {}
+        # per stage, each leaf's statistics from every model-axis rank, the
+        # split ones joined on their split axis (``Adafactor.stat_axes``)
+        stages: dict[int, dict[str, dict[int, dict]]] = {}
+        axes: dict[str, dict] = {}
         for piece in pieces:
-            stages.setdefault(piece["stage"], {}).update(piece["optimizer"]["state"])
-        return dict(first, state=pp_lib.merge_stage_leaves([stages[s] for s in sorted(stages)]))
+            axes.update(piece.get("stat_axes") or {})
+            by_path = stages.setdefault(piece["stage"], {})
+            for path, st in piece["optimizer"]["state"].items():
+                by_path.setdefault(path, {})[piece["tp"]] = st
+
+        def join(path, by_tp):
+            return {k: (np.concatenate([np.asarray(by_tp[t][k]) for t in range(tp_size)],
+                                       axis=ax)
+                        if (ax := axes.get(path, {}).get(k)) is not None else v)
+                    for k, v in by_tp[0].items()}
+
+        merged = [{path: join(path, by_tp) for path, by_tp in stages[s].items()}
+                  for s in sorted(stages)]
+        return dict(first, state=pp_lib.merge_stage_leaves(merged))
     by_name: dict[str, dict[int, dict]] = {}
     for piece in pieces:
         for name, st in piece["optimizer"]["state"].items():
@@ -392,6 +411,9 @@ def gather_full_state(model, bundle, model_cfg: CodonGPTConfig, template, mesh):
         "model": ({n: p.detach().cpu().clone() for n, p in model.named_parameters()}
                   if (tp is not None or pp is not None) and dp_rank == 0 else None),
         "optimizer": opt,
+        "stat_axes": (bundle.optimizer.stat_axes
+                      if tp is not None and isinstance(bundle.optimizer, optim_lib.Adafactor)
+                      else None),
     }
     pieces = ckpt_lib.gather_to_writer(piece)
     if pieces is None:

@@ -178,6 +178,18 @@ def _factored_dims(shape: tuple[int, ...], min_dim_size_to_factor: int = 128):
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
+def leaf_tp_axis(leaf, layout: dict, names: dict) -> int | None:
+    """The axis of ``leaf`` (in the JAX layout) that the model axis splits,
+    or None: the ``Split`` of its parameter (``layout``, by ``names[id]``)
+    mapped through the leaf's transpose and layer stack."""
+    p, _, t = leaf.parts[0]
+    split = layout.get(names[id(p)])
+    if split is None:
+        return None
+    axis = p.dim() - 1 - split.dim if t else split.dim
+    return axis + (1 if leaf.stacked else 0)
+
+
 class Adafactor:
     """optax ``adafactor(learning_rate, multiply_by_parameter_scale=False)``
     over the JAX leaves of the parameters in ``param_groups``: per leaf,
@@ -189,62 +201,135 @@ class Adafactor:
     Under pipeline parallelism (``pp``) a stage holds its layers of each
     stacked leaf: their statistics are per layer, and the RMS of a stacked
     leaf's update is the whole leaf's, its sum of squares summed over the
-    stages (every stage holds as many layers)."""
+    stages (every stage holds as many layers).
 
-    def __init__(self, param_groups: list[dict], leaves, pp=None):
+    Under tensor parallelism (``tp``, with ``tp_axis[path]`` the JAX-layout
+    axis the model axis splits, or None) a rank holds its slice of each
+    split leaf and of its statistics, and the results are the whole leaf's:
+    which axes are factored is read from the global shape (a leaf factored
+    globally may be too small to factor on a rank); a row or column mean
+    over the split axis, and the row statistics' mean over it, are sums
+    over the model axis divided by the global size; the RMS clip sums the
+    update's squares over the model axis (and, under PP x TP, over the
+    stages too). The means of one step share one all-reduce, the squares
+    another. ``stat_axes[path]`` gives each statistic's split axis, by which
+    the checkpoint joins the ranks' slices at the JAX leaf's positions."""
+
+    def __init__(self, param_groups: list[dict], leaves, pp=None, tp=None,
+                 tp_axis: dict | None = None):
         self.param_groups = param_groups
         self.pp = pp
+        self.tp = tp if tp is not None and tp.size > 1 else None
         group_of = {id(p): g for g in param_groups for p in g["params"]}
         self.leaves = [(leaf, group_of[id(leaf.parts[0][0])]) for leaf in leaves
                        if id(leaf.parts[0][0]) in group_of]
         self.count = 0
         self.state: dict[str, dict[str, torch.Tensor]] = {}
+        self.axis: dict[str, int | None] = {}  # the leaf's split axis
+        self.dims: dict[str, tuple[int, int] | None] = {}  # factored, from the global shape
+        self.stat_axes: dict[str, dict[str, int | None]] = {}
         for leaf, _ in self.leaves:
             shape = tuple(leaf.gather().shape)
-            dims = _factored_dims(shape)
+            axis = (tp_axis or {}).get(leaf.path) if self.tp is not None else None
+            full = tuple(n * self.tp.size if d == axis else n for d, n in enumerate(shape))
+            dims = _factored_dims(full)
+            self.axis[leaf.path], self.dims[leaf.path] = axis, dims
             device = leaf.parts[0][0].device
             zeros = lambda s: torch.zeros(tuple(int(d) for d in s), device=device)  # noqa: E731
             if dims is None:
                 self.state[leaf.path] = {"v": zeros(shape)}
+                self.stat_axes[leaf.path] = {"v": axis}
             else:
                 d1, d0 = dims
                 self.state[leaf.path] = {"v_row": zeros(np.delete(shape, d0)),
                                          "v_col": zeros(np.delete(shape, d1))}
+                self.stat_axes[leaf.path] = {
+                    "v_row": _reduced_axis(axis, d0), "v_col": _reduced_axis(axis, d1)}
+
+    @staticmethod
+    def _all_reduce(parts: list[torch.Tensor], group) -> list[torch.Tensor]:
+        """Every tensor of ``parts`` summed over ``group``, in one collective."""
+        from genomics_lm_torch.parallel.launch import timed
+
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        with timed(flat.device, 4 * flat.numel()):
+            dist.all_reduce(flat, group=group)
+        out, off = [], 0
+        for t in parts:
+            out.append(flat[off: off + t.numel()].view_as(t))
+            off += t.numel()
+        return out
 
     @torch.no_grad()
     def step(self) -> None:
         t = torch.tensor(self.count + 1, dtype=torch.float32)
         decay = float(1.0 - t ** -0.8)
-        deferred = []  # under pp: stacked leaves, clipped once their RMS spans the stages
-        for leaf, group in self.leaves:
+        grads, sums = {}, []  # sums: (path, what, local partial sum) to reduce over tp
+        for leaf, _ in self.leaves:
             g = leaf.gather(lambda p: p.grad).float()
-            st = self.state[leaf.path]
+            grads[leaf.path] = g
+            st, axis, dims = self.state[leaf.path], self.axis[leaf.path], self.dims[leaf.path]
             grad_sqr = g * g + 1e-30
-            dims = _factored_dims(tuple(g.shape))
             if dims is None:
                 st["v"] = decay * st["v"] + (1.0 - decay) * grad_sqr
+                continue
+            d1, d0 = dims
+            if axis == d0:
+                sums.append((leaf.path, "row", grad_sqr.sum(dim=d0)))
+            else:
+                st["v_row"] = decay * st["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0)
+            if axis == d1:
+                sums.append((leaf.path, "col", grad_sqr.sum(dim=d1)))
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                sums.append((leaf.path, "row_col",
+                             st["v_row"].sum(dim=reduced_d1, keepdim=True)))
+            else:
+                st["v_col"] = decay * st["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1)
+        parts = self._all_reduce([v for _, _, v in sums], self.tp.group) if sums else []
+        reduced = {(path, what): v for (path, what, _), v in zip(sums, parts)}
+        updates = []
+        for leaf, group in self.leaves:
+            g, st = grads[leaf.path], self.state[leaf.path]
+            axis, dims = self.axis[leaf.path], self.dims[leaf.path]
+            if dims is None:
                 update = g * st["v"] ** -0.5
             else:
                 d1, d0 = dims
-                st["v_row"] = decay * st["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0)
-                st["v_col"] = decay * st["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1)
+                size = lambda d: g.shape[d] * (self.tp.size if d == axis else 1)  # noqa: E731
+                if (leaf.path, "row") in reduced:
+                    row = reduced[(leaf.path, "row")] / size(d0)
+                    st["v_row"] = decay * st["v_row"] + (1.0 - decay) * row
+                if (leaf.path, "col") in reduced:
+                    col = reduced[(leaf.path, "col")] / size(d1)
+                    st["v_col"] = decay * st["v_col"] + (1.0 - decay) * col
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
+                if (leaf.path, "row_col") in reduced:
+                    row_col_mean = reduced[(leaf.path, "row_col")] / size(d1)
+                else:
+                    row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
                 row_factor = (st["v_row"] / row_col_mean) ** -0.5
                 col_factor = st["v_col"] ** -0.5
                 update = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-            if self.pp is not None and leaf.stacked:
-                deferred.append((leaf, group, update))
-            else:
-                self._apply(leaf, group, update, update.pow(2).mean())
-        if deferred:
-            from genomics_lm_torch.parallel.launch import timed
-
-            sq = torch.stack([u.pow(2).sum() for _, _, u in deferred])
-            with timed(sq.device, 4 * sq.numel()):
-                dist.all_reduce(sq, group=self.pp.group)
-            for (leaf, group, update), q in zip(deferred, sq):
-                self._apply(leaf, group, update, q / (update.numel() * self.pp.size))
+            updates.append((leaf, group, update))
+        # clip_by_block_rms(1.0) on the whole leaf: a leaf that ranks hold
+        # parts of sums its squares over them
+        split = [self.axis[leaf.path] is not None for leaf, _, _ in updates]
+        stacked = [self.pp is not None and leaf.stacked for leaf, _, _ in updates]
+        shared = [i for i in range(len(updates)) if split[i] or stacked[i]]
+        mean_sq = [u.pow(2).mean() for _, _, u in updates]
+        if shared:
+            sq = torch.stack([updates[i][2].pow(2).sum() for i in shared])
+            for group, mask in ((self.tp, split), (self.pp, stacked)):
+                rows = [j for j, i in enumerate(shared) if mask[i]]
+                if group is not None and rows:
+                    idx = torch.tensor(rows, device=sq.device)
+                    sq[idx] = self._all_reduce([sq[idx]], group.group)[0]
+            for j, i in enumerate(shared):
+                numel = updates[i][2].numel() * (self.tp.size if split[i] else 1) * (
+                    self.pp.size if stacked[i] else 1)
+                mean_sq[i] = sq[j] / numel
+        for (leaf, group, update), q in zip(updates, mean_sq):
+            self._apply(leaf, group, update, q)
         self.count += 1
 
     @staticmethod
@@ -269,6 +354,27 @@ class Adafactor:
                 self.state[path][key] = torch.as_tensor(np.asarray(value)).to(
                     self.state[path][key].device)
         self.count = int(saved["count"])
+
+    def local_state(self, full: dict, tp_rank: int) -> dict:
+        """A checkpoint's whole-leaf statistics (``state`` keyed by path) cut
+        to this rank's slices: each split statistic's chunk ``tp_rank`` of its
+        split axis (a rank's part of a split leaf is one contiguous chunk of
+        each JAX leaf, the fused QKV's query, key and value too)."""
+        out = {}
+        for path, st in full.items():
+            axes = self.stat_axes.get(path, {})
+            out[path] = {k: (np.array_split(np.asarray(v), self.tp.size, axis=ax)[tp_rank]
+                             if self.tp is not None and (ax := axes.get(k)) is not None else v)
+                         for k, v in st.items()}
+        return out
+
+
+def _reduced_axis(axis: int | None, removed: int) -> int | None:
+    """Where the split ``axis`` lands in a statistic that averaged ``removed``
+    away (None: not split, or averaged away: the statistic is whole)."""
+    if axis is None or axis == removed:
+        return None
+    return axis - 1 if axis > removed else axis
 
 
 @torch.no_grad()
@@ -383,6 +489,17 @@ class OptimizerBundle:
                        if isinstance(t, torch.Tensor)))
 
 
+def model_leaves(model) -> list:
+    """The JAX leaves ``model`` holds (``utils/weights.py::jax_leaves``); a
+    tensor-parallel rank's, read through its heads' config, so that a fused
+    QKV's query, key and value rows are this rank's."""
+    from genomics_lm_torch.parallel.tensor_parallel import tp_local_config
+    from genomics_lm_torch.utils.weights import jax_leaves
+
+    tp = getattr(model, "tp", None)
+    return jax_leaves(model, model.cfg if tp is None else tp_local_config(model.cfg, tp.size))
+
+
 def _zero1_units(model, groups: list[dict], adafactor: bool):
     """ZeRO-1's units: (name, element count, its parameters). For AdamW a
     unit is one parameter; for Adafactor the JAX leaves that share
@@ -391,8 +508,6 @@ def _zero1_units(model, groups: list[dict], adafactor: bool):
     trainable = [p for g in groups for p in g["params"]]
     if not adafactor:
         return [(names[id(p)], p.numel(), [p]) for p in trainable]
-    from genomics_lm_torch.utils.weights import jax_leaves
-
     keep = {id(p) for p in trainable}
     parent: dict[int, int] = {}
 
@@ -401,7 +516,7 @@ def _zero1_units(model, groups: list[dict], adafactor: bool):
             i = parent[i]
         return i
 
-    leaves = [leaf for leaf in jax_leaves(model, model.cfg) if id(leaf.parts[0][0]) in keep]
+    leaves = [leaf for leaf in model_leaves(model) if id(leaf.parts[0][0]) in keep]
     for leaf in leaves:
         ids = [id(p) for p, _, _ in leaf.parts]
         for i in ids[1:]:
@@ -463,8 +578,6 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int, *,
                            "weight_decay": wd, "label": label})
     tp = getattr(model, "tp", None)
     pp = getattr(model, "pp", None)
-    if tp is not None and optimizer_name == "adafactor":
-        raise NotImplementedError("optimizer: adafactor under tensor_parallel is not ported")
     all_params = [p for g in groups for p in g["params"]]
     zero = None
     if dp is not None and bool(cfg.get("shard_optimizer_state", False)):
@@ -477,9 +590,11 @@ def build_optimizer(cfg: dict, model: torch.nn.Module, total_steps: int, *,
         groups = [dict(g, params=[p for p in g["params"] if owner_of[id(p)] == dp.rank])
                   for g in groups]
     if optimizer_name == "adafactor":
-        from genomics_lm_torch.utils.weights import jax_leaves
-
-        optimizer = Adafactor(groups, jax_leaves(model, model.cfg), pp=pp)
+        leaves = model_leaves(model)
+        names = {id(p): n for n, p in model.named_parameters()}
+        tp_axis = ({leaf.path: leaf_tp_axis(leaf, tp.layout, names) for leaf in leaves}
+                   if tp is not None else None)
+        optimizer = Adafactor(groups, leaves, pp=pp, tp=tp, tp_axis=tp_axis)
     else:
         optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
     grad_clip = cfg.get("grad_clip")
@@ -520,6 +635,8 @@ __all__ = [
     "PlateauScheduler",
     "build_optimizer",
     "clip_by_global_norm",
+    "leaf_tp_axis",
+    "model_leaves",
     "cosine_lr_lambda",
     "param_group_labels",
     "resolve_epochs",

@@ -200,8 +200,9 @@ def step_runs():
     spec = {"model": MODEL, "tree": tree, "groups": [(x, y)], "run_cfg": RUN,
             "total_steps": 10, "return_grads": True}
     two = launch.spawn(workers.group_steps, 2, [dict(spec, axes=STEP_CASES[c])
-                                                for c in ("ep2", "dp2_odd_b")])
-    four = launch.spawn(workers.group_steps, 4, dict(spec, axes=STEP_CASES["dp2_ep2"]))
+                                                for c in ("ep2", "dp2_odd_b")], device="cpu")
+    four = launch.spawn(workers.group_steps, 4, dict(spec, axes=STEP_CASES["dp2_ep2"]),
+                        device="cpu")
     tcfg = CodonGPTConfig(**MODEL)
     return {"jax_grads": state_dict_from_jax(jax.tree.map(np.asarray, jgrads), tcfg),
             "jax_metrics": {k: float(v) for k, v in jm.items()},

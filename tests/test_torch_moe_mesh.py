@@ -94,7 +94,7 @@ def test_cli_runs_the_ep_recipe_and_a_moe_data_mesh_then_resumes_at_world_one(tm
     e1 = {name: ep_recipe(tmp_path, name, 1) for name in ("ep", "dp")}
     out = launch.spawn(workers.each, 4, [
         ("train_cli", argv(e1["ep"], "ep", "--mesh_devices", "4", "--tensor_parallel", "2")),
-        ("train_cli", argv(e1["dp"], "dp", "--mesh_devices", "4"))])
+        ("train_cli", argv(e1["dp"], "dp", "--mesh_devices", "4"))], device="cpu")
     assert [[r[i]["rc"] for r in out] for i in (0, 1)] == [[0, 0, 0, 0], [0, 0, 0, 0]]
     want = run_losses(tmp_path / "single" / "single")
     for name in ("ep", "dp"):
@@ -128,7 +128,7 @@ def moe_drains():
     specs = [{"model": SERVE_MODEL, "tree": tree, "engine": SERVE_ENGINE, "requests": reqs},
              {"model": SERVE_MODEL, "tree": tree, "requests": reqs,
               "engine": dict(SERVE_ENGINE, speculative_k=2, draft_table=table)}]
-    ranks = launch.spawn(workers.serve, 2, specs)
+    ranks = launch.spawn(workers.serve, 2, specs, device="cpu")
     eng = jax_engine.ServingEngine(params, JaxConfig(**SERVE_MODEL), **SERVE_ENGINE)
     for prompt, n, _ in reqs:
         eng.submit(prompt, n)

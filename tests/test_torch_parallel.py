@@ -279,7 +279,7 @@ def step_runs():
         specs.append({"axes": axes, "model": model, "tree": tree, "groups": [(x, y)],
                       "run_cfg": RUN_CFG, "total_steps": 10, "loss": LOSS,
                       "return_grads": True, "seed": 5})
-    out = launch.spawn(workers.group_steps, 2, specs)
+    out = launch.spawn(workers.group_steps, 2, specs, device="cpu")
     tcfg = CodonGPTConfig(**STEP_MODEL)
     n = len(STEP_CASES)
     return {
@@ -368,7 +368,8 @@ def test_a_data_mesh_of_one_rank_runs_the_collectives_and_equals_no_mesh():
             "run_cfg": dict(RUN_CFG, shard_optimizer_state=True), "total_steps": 10,
             "loss": LOSS, "return_grads": True}
     ref, one = launch.spawn(workers.group_steps, 1,
-                            [spec, dict(spec, axes={"data": 1}, time_collectives=True)])[0]
+                            [spec, dict(spec, axes={"data": 1}, time_collectives=True)],
+                            device="cpu")[0]
     assert ref["collectives"] == 0 and one["collectives"] >= 4
     assert one["metrics"] == ref["metrics"]
     for name, g in ref["grads"].items():
@@ -496,7 +497,8 @@ def trainer_runs(tmp_path_factory):
     out = launch.spawn(workers.each, 2, [
         ("train_cli_sigterm", cli_argv(tmp, sig, "sig", None, *mesh)),
         ("train_cli", cli_argv(tmp, dp1, "dp", None, *mesh)),
-        ("train_cli", cli_argv(tmp, dp1, "tp", None, *mesh, "--tensor_parallel", "2"))])
+        ("train_cli", cli_argv(tmp, dp1, "tp", None, *mesh, "--tensor_parallel", "2"))],
+        device="cpu")
     sigterm = [r[0]["rc"] for r in out]
     assert [[r[i]["rc"] for r in out] for i in (1, 2)] == [[0, 0], [0, 0]]
     shutil.copytree(tmp / "dp", tmp / "dp_to_one")
@@ -506,7 +508,7 @@ def trainer_runs(tmp_path_factory):
     tp_payload = tckpt.load_checkpoint(tmp / "tp" / last)
     out = launch.spawn(workers.each, 2, [
         ("train_cli", cli_argv(tmp, sig, "sig", sig_last, *mesh)),
-        ("train_cli", cli_argv(tmp, one, "dp", tmp / "dp" / last, *mesh))])
+        ("train_cli", cli_argv(tmp, one, "dp", tmp / "dp" / last, *mesh))], device="cpu")
     assert [[r[i]["rc"] for r in out] for i in (0, 1)] == [[0, 0], [0, 0]]
     assert train_cli(cli_argv(tmp, one, "dp_to_one", tmp / "dp_to_one" / last)) == 0
     assert train_cli(cli_argv(tmp, one, "tp", tmp / "tp" / last)) == 0

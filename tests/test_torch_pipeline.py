@@ -142,7 +142,7 @@ def step_runs():
     for case, (world, axes) in STEP_CASES.items():
         evals = dict(spec, axes=axes, groups=[], eval=[(xe, ye)], return_grads=False,
                      return_tree=False)
-        out = launch.spawn(workers.group_steps, world, [dict(spec, axes=axes), evals])
+        out = launch.spawn(workers.group_steps, world, [dict(spec, axes=axes), evals], device="cpu")
         ranks[case] = [r[0] for r in out], [r[1]["eval"][0] for r in out]
     return {"loss": float(jloss),
             "grads": state_dict_from_jax(jax.tree.map(np.asarray, jgrads),

@@ -119,7 +119,7 @@ def trainer_runs(tmp_path_factory):
         ("train_cli", argv(tmp, one, "straight", *pp2)),
         ("train_cli", argv(tmp, e1, "same", *pp2)),
         ("train_cli", argv(tmp, g1[1], "g1", *pp2)),
-        ("train_cli", argv(tmp, ada[1], "ada", *pp2))])
+        ("train_cli", argv(tmp, ada[1], "ada", *pp2))], device="cpu")
     assert [[r[i]["rc"] for r in out] for i in range(4)] == [[0] * 4] * 4
     ada_first = tckpt.load_checkpoint(tmp / "ada" / "ada" / "checkpoints" / "last.npz")
     assert train_cli(argv(tmp, ada[2], "ada", "--resume",
@@ -130,7 +130,7 @@ def trainer_runs(tmp_path_factory):
     out = launch.spawn(workers.each, 4, [
         ("train_cli", argv(tmp, one, "same", *pp2, "--resume", str(tmp / "same" / last))),
         ("train_cli", argv(tmp, one, "other", "--mesh_devices", "4", "--pipeline_stages", "4",
-                           "--resume", str(tmp / "other" / last)))])
+                           "--resume", str(tmp / "other" / last)))], device="cpu")
     assert [[r[i]["rc"] for r in out] for i in range(2)] == [[0] * 4] * 2
     assert train_cli(argv(tmp, g1[2], "g1", "--resume",
                           str(tmp / "g1" / "g1" / "checkpoints" / "last.npz"))) == 0

@@ -59,7 +59,7 @@ def drains():
         reqs = requests(0.9 if name == "sampled" else 0.0)
         specs.append({"model": dict(MODEL, **model_over), "tree": tree, "engine": engine,
                       "requests": reqs})
-    ranks = launch.spawn(workers.serve, 2, specs)
+    ranks = launch.spawn(workers.serve, 2, specs, device="cpu")
     torch.set_num_threads(1)
     meshless = [workers.serve(0, 1, dict(s, mesh=False, device="cpu")) for s in specs]
     jax_tokens = {}
