@@ -472,6 +472,29 @@ exits non-zero:
    kernel at B 1 in its constrained generation, 10 a decode step); then host
    only: ``compare_runs``, and the freeze of phase 29's two datasets
    (read-only) with its verification.
+53. timing tools — ``training/profile_train.py`` at its defaults (10L8H
+   d384, B 32 x G 4 x T 512, bf16 flash) but 2 traced steps: flash launches
+   10 x 4 a step, the warm step included, a ``torch.profiler`` trace in its
+   directory (its kernel time against its span logged), tokens/s beside
+   phase 8's; ``serving/benchmark_decode.py`` at 32 tokens and one
+   measured round (scan, stepwise ``--donate_cache``, ``--speculative 4``):
+   decode launches 10 a cached step, chunk launches 10 a verify round, ms a
+   step beside phase 4's; ``make_run_id``; ``hardware_monitor --device``.
+54. diagnoses — on phase 33's demo run and the block-512 splits:
+   ``calibration_metrics`` and ``diagnose_context_learning`` (windows 1, 2,
+   4, 8, full; the flash forward 10 a microbatch of 32), the float32 NLL and
+   ECE of 8 windows on the card against the CPU within ``SCORE_NLL_RTOL``,
+   ``diagnose_termination_probabilities`` (32 steps) and
+   ``run_decoding_termination_ablation`` (biases 0 and 4, 2 samples; the
+   decode kernel at B 1, 10 a step), ``eval_ppl_baselines`` (host),
+   ``benchmark_zero_shot_mutations`` on a demo CDS and a seeded table, and
+   ``evaluate_termination_head`` on the demo run (the skip) and on a copy
+   of it with a seeded termination head (every labelled target counted).
+55. speed sweep — ``training/benchmark_training_speed.py --candidates 8x16
+   --measure_steps 2`` as a process of its own, started before phase 53 and
+   joined here (its probe's ~20 s to reach the card overlap phases 53-54):
+   the probe ``ok`` on the card with the card's peak memory, the flash
+   library loaded from the build cache, not rebuilt.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -534,6 +557,7 @@ from genomics_lm_torch.parallel import launch as par_launch
 from genomics_lm_torch.serving import benchmark_decode_kernel as bench_decode
 from genomics_lm_torch.serving import benchmark_serving as bench_serving
 from genomics_lm_torch.serving import benchmark_speculative as bench_spec
+from genomics_lm_torch.serving import speculative as spec_mod
 from genomics_lm_torch.serving.engine import ServingEngine
 from genomics_lm_torch.serving.profile_drain import (
     ENGINE,
@@ -941,7 +965,7 @@ def phase_serve(card: str) -> dict:
     rng = np.random.default_rng(0)
     drain(model, cfg, build_requests(rng, 8), kv_quant=False)  # warm-up: cuBLAS, allocator
     reqs = build_requests(rng, REQUESTS)
-    counts, tokens_per_s = {}, {}
+    counts, tokens_per_s, step_ms = {}, {}, {}
     for kv_quant in (False, True):
         torch.cuda.reset_peak_memory_stats()
         da.decode_attention.launches = 0  # the count of the main path's run only
@@ -954,6 +978,7 @@ def phase_serve(card: str) -> dict:
         delivered = sum(len(r.tokens) for r in results.values())
         counts[kv_quant] = launches
         tokens_per_s[kv_quant] = delivered / seconds
+        step_ms[kv_quant] = seconds * 1e3 / steps
         log("serve", model="10L8H d384 bf16 fused_qkv", kv_quant=kv_quant,
             requests=len(reqs), slots=ENGINE["slots"],
             steps_per_sync=ENGINE["steps_per_sync"],
@@ -963,7 +988,8 @@ def phase_serve(card: str) -> dict:
             ms_per_decode_step=seconds * 1e3 / steps,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
     return {"model": model, "cfg": cfg, "launches": counts[False],
-            "launches_int8": counts[True], "tokens_per_s": tokens_per_s}
+            "launches_int8": counts[True], "tokens_per_s": tokens_per_s,
+            "ms_per_decode_step": step_ms}
 
 
 # --- phase 5: the card against the CPU ------------------------------------------
@@ -1261,7 +1287,7 @@ def phase_train(card: str) -> dict:
         raise AssertionError(f"flash launches {launches} != G x n_layer x groups = {want}")
     if not all(applied) or not all(np.isfinite(losses)):
         raise AssertionError(f"a group failed: losses {losses}, applied {applied}")
-    return launches
+    return dict(launches, nonpad_tokens_per_s=nonpad * measured / seconds)
 
 
 # --- phase 9: one group step on the card against the CPU -------------------------
@@ -5878,19 +5904,21 @@ def phase_biophysics_fusion(workdir: Path, card: str) -> dict:
 
 
 @contextlib.contextmanager
-def counted_decoder_steps():
-    """The cached decoder's ``decode_step`` calls while the block runs."""
-    step, calls = decode_mod.decode_step, [0]
+def counted_calls(module, name: str):
+    """Calls of ``module.<name>`` while the block runs (callers that look the
+    name up in the module at call time: the cached decoder's
+    ``decode_step``, the speculative loop's ``_speculative_round``)."""
+    fn, calls = getattr(module, name), [0]
 
     def counting(*args, **kwargs):
         calls[0] += 1
-        return step(*args, **kwargs)
+        return fn(*args, **kwargs)
 
-    decode_mod.decode_step = counting
+    setattr(module, name, counting)
     try:
         yield calls
     finally:
-        decode_mod.decode_step = step
+        setattr(module, name, fn)
 
 
 def phase_run_tools(demo: dict, fusion: dict, prepared: dict, workdir: Path,
@@ -5969,7 +5997,7 @@ def phase_run_tools(demo: dict, fusion: dict, prepared: dict, workdir: Path,
     fa.flash_fwd.launches = 0
     da.decode_attention.launches = 0  # the KPIs' run only
     t0 = time.perf_counter()
-    with counted_decoder_steps() as steps:
+    with counted_calls(decode_mod, "decode_step") as steps:
         _run_cli(kpis_cli, [str(demo["run_dir"]), "--val_npz", str(demo["val_npz"]),
                             "--out", str(kpis_json), "--device", "cuda:0"])
     secs["sanity_kpis"] = time.perf_counter() - t0
@@ -6032,6 +6060,333 @@ def phase_run_tools(demo: dict, fusion: dict, prepared: dict, workdir: Path,
         raise AssertionError(f"the freeze: {freeze}, modes {modes}, {verified}")
     return {"flash": sweep_launches + compare_launches + kpi_launches["flash_fwd"],
             "decode": kpi_launches["decode_attention"]}
+
+
+# --- phases 53-55: the timing tools, the run diagnoses, the speed sweep ---------
+
+PROFILE_TRAIN_STEPS = 2  # of profile_train's 5, for the smoke's time
+DECODE_BENCH = ["--decode_tokens", "32", "--measure_rounds", "1"]  # of 128 tokens, 3 rounds
+DECODE_BENCH_MODES = {"scan": [], "stepwise": ["--mode", "stepwise", "--donate_cache"],
+                      "speculative": ["--speculative", "4"]}
+SPEED_CANDIDATE = "8x16"
+DMS_VARIANTS = 24
+
+
+def trace_device_share(trace_dir: Path) -> dict:
+    """Kernel time in a ``torch.profiler`` Chrome trace against the span of
+    its profiler steps: (device ms, wall ms, kernels)."""
+    path = max(trace_dir.glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    return {"trace": path.name, "trace_bytes": path.stat().st_size,
+            "device_ms": sum(e["dur"] for e in kernels) / 1e3, "span_ms": (end - start) / 1e3,
+            "kernels": len(kernels)}
+
+
+def start_speed_sweep(workdir: Path) -> dict:
+    """Start ``training/benchmark_training_speed.py --candidates 8x16
+    --measure_steps 2`` as a process of its own (the user's command line):
+    its probe takes ~20 s to reach the card and take its four groups, which
+    phases 53 and 54 overlap; ``phase_speed_sweep`` joins it."""
+    out = workdir / "training_speed.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "genomics_lm_torch.training.benchmark_training_speed",
+         "--candidates", SPEED_CANDIDATE, "--measure_steps", "2", "--out", str(out)],
+        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def stop_speed_sweep(sweep: dict) -> None:
+    if sweep["proc"].poll() is None:
+        sweep["proc"].kill()
+    sweep["proc"].communicate()
+
+
+def phase_speed_sweep(sweep: dict, card: str) -> dict:
+    """``[speed_sweep]``: the sweep started before phase 53, joined: its one
+    probe ran on the card (``ok``, the card's peak memory nonzero) and loaded
+    the flash library from the build cache (its ``[probe]`` line), without a
+    rebuild. Its tokens/s were taken while phases 53-54 ran on the same card:
+    a record of the run, not a clean figure."""
+    t0 = time.perf_counter()
+    log_text, _ = sweep["proc"].communicate(timeout=600)
+    waited = time.perf_counter() - t0
+    if sweep["proc"].returncode != 0:
+        raise AssertionError(f"the speed sweep exited {sweep['proc'].returncode}: "
+                             f"{log_text[-2000:]}")
+    speed = json.loads(sweep["out"].read_text())
+    probe_lines = [line for line in log_text.splitlines() if line.startswith("[probe]")]
+    log("speed_sweep", speed=speed, probe_log=probe_lines, waited_s=waited,
+        started_s_before=time.perf_counter() - sweep["t0"], card=card)
+    result = speed["results"][0] if speed["results"] else {}
+    if (not result.get("ok") or speed["selected_policy"]["name"] != f"b{SPEED_CANDIDATE}"
+            or not result["device_memory"].get("peak_bytes_in_use")):
+        raise AssertionError(f"the speed sweep: {speed}\n{log_text[-2000:]}")
+    if len(probe_lines) != 1 or "loaded from the build cache" not in probe_lines[0]:
+        raise AssertionError(f"the speed probe rebuilt or did not load the kernels: {log_text}")
+    return speed
+
+
+def phase_timing_tools(trained: dict, served: dict, workdir: Path, card: str) -> dict:
+    """``[timing_tools]``: ``training/profile_train.py`` at its defaults but
+    ``--steps 2`` (10L8H d384, B 32 x G 4 x T 512, bf16 flash on the card):
+    flash launches 10 x 4 a step for each kernel, the warm step included, a
+    trace in its directory, its tokens/s beside ``[train]``'s, and the
+    trace's kernel time against its span; ``serving/benchmark_decode.py`` at
+    its defaults but 32 tokens and one measured round in ``scan``,
+    ``stepwise --donate_cache`` and ``--speculative 4``: decode launches 10 a
+    cached step, chunk launches 10 a verify round, no flash launch (the
+    prompt's attention is the plain path, as in JAX's ``prefill``), ms a
+    step beside ``[serve]``'s; ``make_run_id`` and ``hardware_monitor
+    --device``. (The speed sweep's probe runs beside it: ``start_speed_sweep``.)"""
+    from genomics_lm_torch.serving.benchmark_decode import main as decode_bench_cli
+    from genomics_lm_torch.training.make_run_id import main as run_id_cli
+    from genomics_lm_torch.training.profile_train import main as profile_cli
+    from genomics_lm_torch.utils.hardware_monitor import main as monitor_cli
+
+    L = train_main.MAIN_TRAIN["n_layer"]
+    secs = {}
+    profile_dir = workdir / "profile"
+    for w in FLASH_WRAPPERS:
+        w.launches = 0  # profile_train's run only
+    t0 = time.perf_counter()
+    _run_cli(profile_cli, ["--out_dir", str(profile_dir), "--steps", str(PROFILE_TRAIN_STEPS)])
+    secs["profile_train"] = time.perf_counter() - t0
+    profile_launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    summary = (profile_dir / "summary.txt").read_text().splitlines()
+    tokens_per_s = float(next(line for line in summary
+                              if line.startswith("nonpad tokens/sec:")).split(":")[1])
+    t0 = time.perf_counter()
+    trace = trace_device_share(profile_dir)
+    secs["trace_read"] = time.perf_counter() - t0
+
+    decode = {}
+    for mode, flags in DECODE_BENCH_MODES.items():
+        da.decode_attention.launches = 0  # this run's only
+        da.decode_attention_chunk.launches = 0
+        fa.flash_fwd.launches = 0
+        t0 = time.perf_counter()
+        with (counted_calls(decode_mod, "decode_step") as steps,
+              counted_calls(spec_mod, "_speculative_round") as rounds):
+            out = _run_cli(decode_bench_cli, [*DECODE_BENCH, *flags])
+        report = json.loads(out.strip().splitlines()[-1])
+        decode[mode] = dict(report=report, seconds=time.perf_counter() - t0,
+                            decode_steps=steps[0], verify_rounds=rounds[0],
+                            decode_launches=da.decode_attention.launches,
+                            chunk_launches=da.decode_attention_chunk.launches,
+                            flash_launches=fa.flash_fwd.launches)
+    secs["benchmark_decode"] = sum(d["seconds"] for d in decode.values())
+
+    t0 = time.perf_counter()
+    config = workdir / "stage2_smoke.yaml"
+    config.write_text("n_layer: 10\nn_head: 8\nn_embd: 384\nepochs: 2\n")
+    run_id = _run_cli(run_id_cli, [str(config)]).strip()
+    monitor = _run_cli(monitor_cli, ["--device", "--iterations", "1", "--interval", "0"]).strip()
+    secs["run_tools"] = time.perf_counter() - t0
+
+    row = dict(profile_summary=summary, profile_launches=profile_launches,
+               profile_tokens_per_s=tokens_per_s,
+               train_tokens_per_s=trained["nonpad_tokens_per_s"], trace=trace,
+               trace_device_share=trace["device_ms"] / trace["span_ms"], decode=decode,
+               serve_ms_per_decode_step=served["ms_per_decode_step"][False], run_id=run_id,
+               monitor=monitor, seconds=secs, card=card)
+    log("timing_tools", **row)
+    want = L * 4 * (1 + PROFILE_TRAIN_STEPS)  # 10 layers x G 4, the warm step included
+    if any(n != want for n in profile_launches.values()):
+        raise AssertionError(f"profile_train flash launches {profile_launches}, want {want}")
+    if len(summary) != 7 or not trace["kernels"] or not np.isfinite(tokens_per_s):
+        raise AssertionError(f"profile_train: {summary}, trace {trace}")
+    for mode, d in decode.items():
+        if (d["decode_launches"] != L * d["decode_steps"] or d["decode_steps"] == 0
+                or d["chunk_launches"] != L * d["verify_rounds"] or d["flash_launches"]
+                or (mode == "speculative") != (d["verify_rounds"] > 0)
+                or not d["report"]["value"] > 0):
+            raise AssertionError(f"benchmark_decode {mode}: {d}")
+    if not run_id.endswith("_stage2_10L8H_d384_e2") or " hbm=" not in monitor:
+        raise AssertionError(f"make_run_id {run_id!r}, hardware_monitor {monitor!r}")
+    return {"profile": profile_launches,
+            "decode": sum(d["decode_launches"] for d in decode.values()),
+            "chunk": sum(d["chunk_launches"] for d in decode.values())}
+
+
+def head_run(demo_run: Path, workdir: Path) -> Path:
+    """A run directory holding the demo run's weights and a termination head
+    from the port's seeded init (the head's cfg on), written through
+    ``training/checkpoints.py``."""
+    from genomics_lm_torch.training.checkpoints import save_checkpoint
+
+    payload = load_checkpoint(resolve_checkpoint(demo_run), keys=("cfg", "model"))
+    cfg_map = dict(payload["cfg"], termination_aux=True)
+    cfg = CodonGPTConfig.from_run_config(dict(cfg_map, vocab_size=68))
+    torch.manual_seed(train_main.SEED)
+    head = params_to_jax(CodonGPT(cfg), cfg)["termination_head"]
+    run = workdir / "head_run"
+    (run / "checkpoints").mkdir(parents=True)
+    save_checkpoint({"model": dict(payload["model"], termination_head=head), "cfg": cfg_map},
+                    run / "checkpoints" / "best.npz")
+    (run / "itos.txt").write_bytes((demo_run / "itos.txt").read_bytes())
+    return run
+
+
+def plan_microbatches(npz: Path, batch_size: int, limit: int | None = None) -> int:
+    """Microbatches a packed split gives ``evaluate_perplexity`` (``limit``:
+    the scripts' first ``limit`` windows in order instead)."""
+    ds = PackedDataset(str(npz))
+    if limit is not None:
+        return -(-min(len(ds), limit) // batch_size)
+    plan = EpochPlan(ds, batch_size=batch_size, seed=0, epoch=0, shuffle=False)
+    return sum(1 for x, _ in plan.microbatches() if x.shape[0])
+
+
+def phase_diagnoses(demo: dict, data: Path, records: list[dict], workdir: Path,
+                    card: str) -> dict:
+    """``[diagnoses]`` on phase 33's demo run and the block-512 demo splits:
+    ``evals/calibration_metrics.py`` and ``evals/diagnose_context_learning.py``
+    at their defaults (the flash forward 10 a microbatch of 32: the
+    calibration's first 16, the position pass's first 8, the ablation's
+    whole split for each of windows 1, 2, 4, 8 and full); the float32 NLL and
+    ECE of the first ``SCORE_CPU_WINDOWS`` validation windows on the card
+    against the CPU (TF32 off) within ``SCORE_NLL_RTOL``;
+    ``diagnose_termination_probabilities`` (32 cached steps) and
+    ``run_decoding_termination_ablation --biases 0,4 --n_samples 2`` (the
+    decode kernel at B 1, 10 a step); ``eval_ppl_baselines`` on the train and
+    validation splits (host); ``benchmark_zero_shot_mutations`` on a demo
+    CDS with a seeded fitness table of ``DMS_VARIANTS`` variants (one
+    forward); ``evaluate_termination_head`` on the demo run (no head: the
+    skip) and on ``head_run``'s, its confusion matrix covering every
+    labelled target of its first 8 microbatches."""
+    from genomics_lm_torch.evals.benchmark_zero_shot_mutations import main as dms_cli
+    from genomics_lm_torch.evals.calibration_metrics import calibration_report
+    from genomics_lm_torch.evals.calibration_metrics import main as calibration_cli
+    from genomics_lm_torch.evals.diagnose_context_learning import main as context_cli
+    from genomics_lm_torch.evals.diagnose_termination_probabilities import main as probs_cli
+    from genomics_lm_torch.evals.eval_ppl_baselines import main as baselines_cli
+    from genomics_lm_torch.evals.evaluate_termination_head import main as head_cli
+    from genomics_lm_torch.evals.run_decoding_termination_ablation import main as ablation_cli
+    from genomics_lm_torch.ops.losses import termination_distance_bucket_labels
+
+    L = train_main.MAIN_TRAIN["n_layer"]
+    run, val, train = Path(demo["run_dir"]), data / "val_bs512.npz", data / "train_bs512.npz"
+    secs, launches, out = {}, {}, {}
+
+    def timed(name, cli, argv):
+        fa.flash_fwd.launches = 0  # this tool's run only
+        da.decode_attention.launches = 0
+        t0 = time.perf_counter()
+        with counted_calls(decode_mod, "decode_step") as steps:
+            printed = _run_cli(cli, argv)
+        secs[name] = time.perf_counter() - t0
+        launches[name] = {"flash_fwd": fa.flash_fwd.launches,
+                          "decode_attention": da.decode_attention.launches,
+                          "decode_steps": steps[0]}
+        return printed
+
+    for name, cli, argv in (("calibration", calibration_cli, ["--npz", str(val)]),
+                            ("context", context_cli, ["--npz", str(val)])):
+        timed(name, cli, [str(run), *argv, "--out", str(workdir / f"{name}.json")])
+        out[name] = json.loads((workdir / f"{name}.json").read_text())
+    want_fwd = {"calibration": L * plan_microbatches(val, 32, 16 * 32),
+                "context": L * (plan_microbatches(val, 32, 8 * 32)
+                                + 5 * plan_microbatches(val, 32))}
+
+    # float32 (TF32 off) on the card and on the CPU: the first windows' NLL and ECE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with np.load(val) as z:
+        subset = workdir / "val_head.npz"
+        np.savez(subset, X=z["X"][:SCORE_CPU_WINDOWS], Y=z["Y"][:SCORE_CPU_WINDOWS])
+    f32 = {}
+    t0 = time.perf_counter()
+    payload = load_checkpoint(resolve_checkpoint(run), keys=("cfg", "model"))
+    cfg = CodonGPTConfig.from_run_config(dict(payload["cfg"], vocab_size=68)).replace(
+        compute_dtype="float32", dropout=0.0)
+    for device in ("cuda:0", "cpu"):
+        model = params_from_jax(payload["model"], cfg, device).eval()
+        cal = calibration_report(model, cfg, subset, 10, 1, SCORE_CPU_WINDOWS)
+        f32[device] = {"nll": ppl.evaluate_perplexity(model, cfg, subset,
+                                                      batch_size=SCORE_CPU_WINDOWS)["nll"],
+                       "ece": cal["ece"], "brier_top1": cal["brier_top1"]}
+        del model
+    secs["card_vs_cpu"] = time.perf_counter() - t0
+    card_cpu = {k: abs(f32["cuda:0"][k] - f32["cpu"][k]) / abs(f32["cpu"][k])
+                for k in ("nll", "ece")}
+
+    printed = timed("termination_probabilities", probs_cli,
+                    [str(run), "--out", str(workdir / "term_probs.json")])
+    out["termination_probabilities"] = json.loads(printed)
+    rows = json.loads((workdir / "term_probs.json").read_text())
+    timed("termination_ablation", ablation_cli,
+          [str(run), "--biases", "0,4", "--n_samples", "2",
+           "--out", str(workdir / "term_ablation.json")])
+    out["termination_ablation"] = json.loads((workdir / "term_ablation.json").read_text())
+
+    t0 = time.perf_counter()
+    baselines = {}
+    for split, npz in (("train", train), ("val", val)):
+        dest = workdir / f"baselines_{split}.json"
+        _run_cli(baselines_cli, ["--train_npz", str(train), "--eval_npz", str(npz),
+                                 "--out", str(dest)])
+        baselines[split] = json.loads(dest.read_text())
+    secs["ppl_baselines"] = time.perf_counter() - t0
+
+    cds = next(r["sequence"] for r in records if 100 <= len(r["sequence"]) // 3 <= 400)
+    rng = np.random.default_rng(DMS_VARIANTS)
+    table = workdir / "dms.csv"
+    with table.open("w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["position", "mutant_codon", "fitness"])
+        for _ in range(DMS_VARIANTS):
+            writer.writerow([int(rng.integers(0, len(cds) // 3)),
+                             "".join(rng.choice(list("ACGT"), 3)), float(rng.normal())])
+    fasta = workdir / "wild_type.fasta"
+    fasta.write_text(f">wild_type\n{cds}\n")
+    timed("dms", dms_cli, [str(run), "--dna", str(fasta), "--dms_csv", str(table),
+                           "--out", str(workdir / "dms.json")])
+    out["dms"] = json.loads((workdir / "dms.json").read_text())
+    want_fwd["dms"] = L  # one window: the CDS and BOS fit in 512
+
+    skip = json.loads(timed("termination_head_skip", head_cli, [str(run), "--npz", str(val)]))
+    t0 = time.perf_counter()
+    headed = head_run(run, workdir)
+    secs["head_run_written"] = time.perf_counter() - t0
+    timed("termination_head", head_cli, [str(headed), "--npz", str(val),
+                                         "--out", str(workdir / "term_head.json")])
+    out["termination_head"] = json.loads((workdir / "term_head.json").read_text())
+    with np.load(val) as z:
+        y = torch.from_numpy(z["Y"][: 8 * 32].astype(np.int64))
+    labelled = int((termination_distance_bucket_labels(y, STOP_IDS) != -100).sum())
+    want_fwd["termination_head"] = L * plan_microbatches(val, 32, 8 * 32)
+
+    row = dict(reports=out, rows_termination_probabilities=len(rows), skip=skip,
+               baselines=baselines, card_vs_cpu_f32=dict(f32, rel_err=card_cpu,
+                                                         tol=SCORE_NLL_RTOL),
+               launches=launches, want_flash=want_fwd, labelled_targets=labelled,
+               seconds=secs, card=card)
+    log("diagnoses", **row)
+    for name, want in want_fwd.items():
+        if launches[name]["flash_fwd"] != want:
+            raise AssertionError(f"{name} flash launches {launches[name]}, want {want}")
+    for name in ("termination_probabilities", "termination_ablation"):
+        got = launches[name]
+        if got["decode_steps"] == 0 or got["decode_attention"] != L * got["decode_steps"]:
+            raise AssertionError(f"{name} decode launches {got}")
+    if max(card_cpu.values()) > SCORE_NLL_RTOL:
+        raise AssertionError(f"float32 card against CPU: {f32}")
+    if (len(rows) != 32 or "skipped" not in skip
+            or out["termination_head"]["tokens"] != labelled or not labelled
+            or out["dms"]["n_variants"] != DMS_VARIANTS or out["dms"]["skipped"]
+            or not np.isfinite(out["dms"]["spearman_rho"])
+            or out["calibration"]["tokens"] == 0 or not np.isfinite(out["calibration"]["ece"])
+            or set(out["context"]["window_ablation"]) != {"1", "2", "4", "8", "full"}
+            or [r["stop_bias"] for r in out["termination_ablation"]] != [0.0, 4.0]
+            or not all(b["eval_tokens"] > 0 for b in baselines.values())):
+        raise AssertionError(f"the diagnoses' reports: {row}")
+    return {"flash": sum(v["flash_fwd"] for v in launches.values()),
+            "decode": sum(v["decode_attention"] for v in launches.values())}
 
 
 def main() -> int:
@@ -6209,6 +6564,20 @@ def main() -> int:
     tools = phase_run_tools({"run_dir": demo_run["run_dir"], "val_npz": data512 / "val_bs512.npz"},
                             fused, prepared, Path(tools_dir.name), card_line)
     lap("run_tools")
+    # the probe's start (its import and CUDA context) takes host cores: started before
+    # [run_tools] it slowed phases 52-54 by more than the join it saved (one H100 machine)
+    sweep = start_speed_sweep(Path(tools_dir.name))
+    try:
+        timing = phase_timing_tools(trained, served, Path(tools_dir.name), card_line)
+        lap("timing_tools")
+        diag_dir = Path(tools_dir.name) / "diagnoses"
+        diag_dir.mkdir()
+        diagnosed = phase_diagnoses(demo_run, data512, demo_records, diag_dir, card_line)
+        lap("diagnoses")
+        phase_speed_sweep(sweep, card_line)
+        lap("speed_sweep")
+    finally:
+        stop_speed_sweep(sweep)
     tools_dir.cleanup()
     pp_dir.cleanup()
     tp_dir.cleanup()
@@ -6243,6 +6612,8 @@ def main() -> int:
         "launches_design": designed["decode"],
         "launches_critic_guided": guided["decode"],
         "launches_sanity_kpis": tools["decode"],
+        "launches_benchmark_decode": timing["decode"],
+        "launches_diagnoses": diagnosed["decode"],
         "launches_tp_serve": tp_served["runs"]["bf16"]["launches_per_rank"][0]["decode_attention"],
         "launches_tp_serve_int8": tp_served["runs"]["int8_cache"]["launches_per_rank"][0][
             "decode_attention"],
@@ -6281,6 +6652,8 @@ def main() -> int:
             "launches_engine": engined["launches"][wrapper.__name__],
             "launches_biophysics_fusion": fused["launches"][wrapper.__name__],
             "launches_run_tools": tools["flash"] if key == "fwd" else 0,
+            "launches_profile_train": timing["profile"][wrapper.__name__],
+            "launches_diagnoses": diagnosed["flash"] if key == "fwd" else 0,
             "hybrid_b8_h8": hybrid["timed"][key],
             "dp_rank_b4_h8": dp_trained["timed"][key],
             "tp_rank_b8_h4": tp_trained["timed"][key],
@@ -6317,6 +6690,7 @@ def main() -> int:
         "full": chunk_timed["full_bf16"],
         "full_int8": chunk_timed["full_int8"],
         "launches_moe_spec": moe_served["chunk"],
+        "launches_benchmark_decode": timing["chunk"],
         "launches_tp_spec": tp_served["runs"]["spec4"]["launches_per_rank"][0][
             "decode_attention_chunk"],
         "tp_rank_hkv4": tp_served["chunk_timed"],

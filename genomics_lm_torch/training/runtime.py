@@ -111,11 +111,15 @@ class GracefulPreemption:
 
 def device_memory_stats(device=None) -> dict[str, int]:
     """Peak and current allocated bytes of a CUDA device (PyTorch's caching
-    allocator); an empty dict on the CPU. ``peak_bytes_in_use`` is the key
-    the trainer reads, as it reads JAX's ``memory_stats()``."""
+    allocator); an empty dict on the CPU. With no device it reads the card,
+    as JAX's twin reads the default accelerator, and raises without one.
+    ``peak_bytes_in_use`` is the key the trainer reads, as it reads JAX's
+    ``memory_stats()``."""
     import torch
 
-    device = torch.device("cpu" if device is None else device)
+    from genomics_lm_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
     if device.type != "cuda":
         return {}
     return {

@@ -55,6 +55,19 @@ MODEL = dict(vocab_size=68, block_size=BLOCK, n_layer=2, n_head=2, n_embd=64, dr
              sep_id=3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jitted_jax_forward():
+    """JAX's ``codon_gpt.forward`` compiled whole for the module: the same
+    function, one compile per window length for every case instead of one
+    eager dispatch per primitive at every call (``token_nlls`` scores each
+    sample through it)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_gpt, "forward", jax.jit(
+            jax_gpt.forward, static_argnums=1,
+            static_argnames=("train", "return_aux", "attention_window")))
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
     before = torch.get_num_threads()
@@ -305,15 +318,18 @@ def critic_ckpts(tiny):
     return paths
 
 
-@pytest.fixture
-def jitted_jax_critic(monkeypatch):
+@pytest.fixture(scope="module")
+def jitted_jax_critic():
     """JAX's critic scoring with its forwards compiled whole: the same
     functions, one compile per shape instead of one per primitive (the
-    guided generators score a new length every step)."""
+    guided generators score a new length every step), kept for the module
+    so that each shape compiles once for every case."""
     from genomics_lm_tpu.protein import critic_scoring as jcs
 
-    for name in ("multitask_forward", "extract_latent"):
-        monkeypatch.setattr(jcs, name, jax.jit(getattr(jcs, name), static_argnums=1))
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("multitask_forward", "extract_latent"):
+            mp.setattr(jcs, name, jax.jit(getattr(jcs, name), static_argnums=1))
+        yield
 
 
 CRITIC_CASES = {
