@@ -99,7 +99,9 @@ exits non-zero:
    ``multi`` and ``binpack`` packing (chunking, packing, mmap sidecars,
    ``EpochPlan``, grouped microbatches, ``DevicePrefetcher`` from pinned
    memory), each 3 warm-up, 1 measured and 1 profiled group (the CLI
-   measures 20 and profiles 3; the measured groups cut for time); logs
+   measures 20 and profiles 3; the measured groups cut for time); the
+   profiled group records the card's activity only (kernels and copies,
+   all its numbers read); logs
    tokens/s, pad fraction, ms per group, busy share and the host→device
    copies in the trace, and ``bench.py``'s one line. Each group's non-pad
    tokens counted on the card by the step must equal the host's count, and
@@ -151,7 +153,8 @@ exits non-zero:
    flash, ``use_checkpoint``) on synthetic windows, one group with remat
    and one without from one generator seed: equal loss, gradients within
    ``REMAT_GRAD_RTOL``, peak memory of each, flash forward launches 2 x 10
-   x 32 against 10 x 32, ms per group over 3 more groups each.
+   x 32 against 10 x 32, ms per group over 1 more group each (cut from 3
+   for time).
 20. int8 serve — weight-only int8 serving: phase 4's model with its block
    linears quantized by ``quantize_params`` (their bytes, dense against
    int8, checked and logged) drains the first 72 of the 128 requests (a
@@ -159,7 +162,8 @@ exits non-zero:
    bf16 and an int8 cache, each beside the dense model's drain just before it;
    every budget in-vocabulary and the decode kernel launched n_layer times
    per step; one speculative drain (K 4) launches the chunk kernel n_layer
-   times per round; a 2-layer float32 int8 model gives the same greedy
+   times per round, its draft table fitted to 64 sampled tokens (cut from
+   256 for time); a 2-layer float32 int8 model gives the same greedy
    tokens on the card and on the CPU; ``benchmark_serving --int8_weights``
    prints its closed-loop report and an open-loop (``--arrival_rate``) one,
    each on 72 requests into its 64 slots (cut from the script's 256 and 128
@@ -206,7 +210,8 @@ exits non-zero:
 25. moe serve — phase 23's run through ``load_codon_model``:
    ``ServingEngine`` drains the first 72 of phase 4's 128 requests into 64
    slots (a cut for time that still refills slots; decode launches = 12 x steps) and once speculatively with K 4 (chunk launches = 12 x
-   rounds), then the bf16 chunk kernel at that drain's shapes (12 layers,
+   rounds; the draft table fitted to 64 sampled tokens, cut from 256 for
+   time), then the bf16 chunk kernel at that drain's shapes (12 layers,
    64 slots, its cache, 8 kv heads of 64, T 5; ragged and full) is held to
    phase 10's bound and timed; ``quantize_params`` quarters the attention bytes and leaves
    the experts' and router's, and its drain's tokens/s is logged beside
@@ -220,7 +225,9 @@ exits non-zero:
 26. moe throughput — ``training/benchmark_moe.py``'s throughput section
    with 1 measured group: dense and top-2 (top-1 cut for the smoke's time)
    tokens/s, ms per group, peak memory and ``rel_to_dense``, each in
-   a subprocess; then ``profile_step.py --moe``:
+   a subprocess, at 4 of the recipe's 12 layers and 4 of its 16
+   microbatches a group (depth cuts for time); then ``profile_step.py --moe
+   --n_layer 4`` (a depth cut of the profiled model):
    a MoE group's device time split into router, dispatch, expert products,
    combine, flash and the rest, launches and the busy share.
 27. embeddings — on phase 15's run and phase 23's: ``extract_embeddings``
@@ -283,8 +290,8 @@ exits non-zero:
    top-2 at the script's default widths (6L4H d256, block 256, B 16, lr
    1e-3) on the demo corpus, einsum attention; per variant val and test
    NLL, the delta to dense, whether it beats every Markov floor, parameters
-   and training seconds. Cut: 1 of the script's 12 epochs,
-   and the 30-epoch converged pass.
+   and training seconds. Cut: 1 of the script's 12 epochs, 3 of its 6
+   layers, 400 of its 800 genes, and the 30-epoch converged pass.
 32. analysis — on phase 15's and phase 23's runs: ``run_full_analysis``,
    every dashboard data function (saliency, attention, embeddings with PCA,
    next codon, generation, browser, details) and ``generate_summary`` over
@@ -324,7 +331,7 @@ exits non-zero:
    ``data/replay.py``; ``token_nlls`` float32 on the card against the CPU;
    the flash forward at its B 1 windows and the decode kernel at the
    generations' cache against their plain versions, timed.
-37. design — ``generative_design_loop`` at its defaults but 4 candidates
+37. design — ``generative_design_loop`` at its defaults but 2 candidates
    (cut from 8 for time) with ``--esm_fold_top 2 --fold_backend
    mock``: seconds, tokens spent, decode
    launches (n_layer a cached step), the termination rate; its candidates
@@ -359,9 +366,9 @@ exits non-zero:
    ``extract_protein_embeddings`` and ``protein_critic_bridge``.
 41. critic guided — on the demo run, ``eval_generation_prefix
    --critic_guidance --critic_stability`` and once ``--ebm_guidance``, each
-   cut to 1 gene, k 1 and 10, 1 sample (``CRITIC_GUIDED_CUT``); then
+   cut to 1 gene, k 10 (k 1 cut for time), 1 sample (``CRITIC_GUIDED_CUT``); then
    ``generative_design_loop --critic_ckpt --ebm_ckpt --fold_backend mock``
-   at its defaults but 4 candidates (cut from 8 for time): the
+   at its defaults but 2 candidates (cut from 8 for time): the
    critic columns present and finite, the decode
    kernel launched n_layer times a cached step and the flash forward
    n_layer times a scored window or uncached forward, critic forwards per
@@ -383,7 +390,8 @@ exits non-zero:
    ``bench.py``'s step config (10L8H d384, bf16 flash, G 16 x B 8 x T 512
    global) as two ranks of B 4 sharing the card over gloo with ZeRO-1
    (``parallel/workers.py::group_steps`` through ``parallel/launch.py``):
-   1 warm-up and 3 timed groups, each rank's flash launches G x n_layer a
+   1 warm-up and 1 timed group (cut from 3 for time), each rank's flash
+   launches G x n_layer a
    group, tokens/s, the share of wall time inside collectives and the
    moment bytes a rank (about half). A float32 group at 2 layers (a depth
    cut) and dropout 0 with uneven pad over the ranks against the one-rank card group within
@@ -394,7 +402,8 @@ exits non-zero:
    and NCCL.
 44. tp train — tensor parallelism with ``residual_sharding`` (sequence
    parallelism): the flash kernels at a rank's 4 heads (B 8) checked and
-   timed; the float32 parity and 1 timed group at ``tensor_parallel`` 2;
+   timed; the float32 parity and 1 timed group of 4 microbatches (cut from
+   16 for time) at ``tensor_parallel`` 2;
    then the train CLI through its launch path (``--mesh_devices 2
    --tensor_parallel 2``, two ranks on the card) at 2 layers (cut from 10)
    for 1 epoch, and a ``--resume`` at world size 1 to a second.
@@ -495,6 +504,27 @@ exits non-zero:
    joined here (its probe's ~20 s to reach the card overlap phases 53-54):
    the probe ``ok`` on the card with the card's peak memory, the flash
    library loaded from the build cache, not rebuilt.
+56. representation — the representation benchmarks on phase 33's demo run,
+   in a worker process of their own started before phase 38 and joined
+   here (``representation_worker``: they spend most of their time on the
+   host): a gene set at E. coli K-12's scale (4,300 demo-corpus genes of
+   seed 1337, the 7% with the highest GC3 essential: ~300, the Keio
+   collection's count), ``benchmark_gene_essentiality`` and
+   ``benchmark_essentiality_baselines`` with the run (the latter at 3 of its
+   5 folds, a cut for time: its booster's 5 folds took 22.7 s of host; the
+   flash forward 10 x ⌈4,300 / 64⌉ each; every F1 finite, ``codon_freq_logreg`` at or over
+   ``CODON_LOGREG_F1_FLOOR`` and both codon-frequency columns equal to
+   sklearn's reports on the same bytes), the run's embeddings in two
+   poolings through ``select_grouped_representation`` over a seeded
+   cluster column, 64 genes' float32 embeddings within ``EMBED_F32_ATOL``
+   of the CPU, the three structural probes at their defaults (batch 1: 10
+   x 48, 10 x 64, 10 x 64 flash launches; every R² and ρ finite),
+   ``probe_next_token --npz`` on the block-512 validation split (the decode
+   kernel 10 for its one cached step, the flash forward 10 a microbatch of
+   32), and the five label tools on the demo records (the motif audit over
+   a ``synthetic_hairpin`` consensus, which it must flag, and a poly-T
+   cluster). Then the flash forward against its plain version at the
+   probes' B 1 x T 25, 33 and 49 (heads of 48, bf16), timed.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -504,11 +534,13 @@ Without CUDA it prints no result and exits 1.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import copy
 import csv
 import dataclasses
+import hashlib
 import http.client
 import importlib.util
 import io
@@ -2217,7 +2249,7 @@ def phase_finetune(card: str) -> dict:
 
 # --- phase 19: the primary training contract's step, with and without remat ------
 
-REMAT_TIMED_GROUPS = 3
+REMAT_TIMED_GROUPS = 1  # timed groups each way, cut from 3 for time
 # the same kernels on the same inputs in the same order: the recomputed
 # block gives the stored activations' values, so loss and gradients agree up
 # to the order of the library's float32 sums; a recompute that drew other
@@ -2357,6 +2389,10 @@ INT8_DRAIN_ORDER = ("dense", "int8")  # one pair of dense, int8, int8, dense: a 
 # the int8 drains' requests: the first 72 of phase 4's 128, 8 more than the 64
 # slots, so slots refill (a cut for time)
 INT8_DRAIN_REQUESTS = 72
+# the draft tables of the int8-weight and MoE speculative drains: fitted to 64 sampled tokens
+# of benchmark_serving's 256 (a cut for time; [spec_serve] keeps 256): the MoE run's
+# 256 cached steps at 12 layers took 9.8 s of [moe_serve]
+DRAFT_TOKENS_CUT = 64
 INT8_BENCH_REQUESTS = 72  # benchmark_serving's requests (cut for time from 256 closed
 # loop and 128 open loop; more than its 64 slots, so slots are refilled)
 
@@ -2409,7 +2445,8 @@ def phase_int8_serve(served: dict, card: str) -> dict:
             ms_per_decode_step_int8=[t * 1e3 / steps for t, _ in runs["int8"]],
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, **bytes_row, card=card)
 
-    spec = dict(speculative_k=SPECULATIVE_K, draft_table=fit_draft_table(model, cfg))
+    spec = dict(speculative_k=SPECULATIVE_K,
+                draft_table=fit_draft_table(model, cfg, tokens=DRAFT_TOKENS_CUT))
     da.decode_attention_chunk.launches = 0
     da.decode_attention.launches = 0
     results, seconds, eng = drain(model, cfg, reqs, False, **spec)
@@ -2987,7 +3024,8 @@ def phase_moe_serve(moe_run: dict, card: str, peak_bw, peak_ops) -> dict:
     steps = eng.stats()["decode_steps"]
     delivered = sum(len(r.tokens) for r in results.values())
     dense_tps = delivered / seconds
-    spec = dict(speculative_k=SPECULATIVE_K, draft_table=fit_draft_table(model, cfg))
+    spec = dict(speculative_k=SPECULATIVE_K,
+                draft_table=fit_draft_table(model, cfg, tokens=DRAFT_TOKENS_CUT))
     da.decode_attention_chunk.launches = 0
     results, spec_s, spec_eng = drain(model, cfg, reqs, kv_quant=False, **spec)
     chunk_launches = da.decode_attention_chunk.launches
@@ -3077,6 +3115,12 @@ def phase_moe_serve(moe_run: dict, card: str, peak_bw, peak_ops) -> dict:
 
 
 MOE_THROUGHPUT_TOP_KS = (2,)  # of the CLI's top-1 and top-2: one subprocess fewer
+# depth cuts for the smoke's time: the candidates and the profiled MoE group at 4 of
+# the recipe's 12 layers, the candidates' groups of 4 microbatches (of 16); the profile's
+# trace holds a third of the events, and torch.profiler's key_averages() over them took
+# 28 s of the phase's 110 s at 12 layers
+MOE_THROUGHPUT_LAYERS = 4
+MOE_THROUGHPUT_G = 4
 
 
 def phase_moe_throughput(card: str) -> dict:
@@ -3089,7 +3133,9 @@ def phase_moe_throughput(card: str) -> dict:
                                     if a.dest != "help"})
     args.measure_steps = 1
     with contextlib.redirect_stdout(io.StringIO()):
-        report = bench_moe.run_throughput(args, top_ks=MOE_THROUGHPUT_TOP_KS)
+        report = bench_moe.run_throughput(
+            args, model=dict(bench_moe.D512_MODEL, n_layer=MOE_THROUGHPUT_LAYERS),
+            grad_accum=MOE_THROUGHPUT_G, top_ks=MOE_THROUGHPUT_TOP_KS)
     rc = 0
     rows = {r["name"]: r for r in report["candidates"]}
     log("moe_throughput", rc=rc, protocol=report["protocol"], candidates={
@@ -3101,7 +3147,8 @@ def phase_moe_throughput(card: str) -> dict:
         raise AssertionError("a benchmark_moe candidate failed")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        train_main.main(["--moe", "--groups", "1", "--top", "12"])
+        train_main.main(["--moe", "--groups", "1", "--top", "12",
+                         "--n_layer", str(MOE_THROUGHPUT_LAYERS)])
     lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
     head = lines[0]
     split = next(line["moe_device_split"] for line in lines if "moe_device_split" in line)
@@ -3377,19 +3424,22 @@ def phase_evaluate_test(runs: list[tuple[str, dict]], data: Path, card: str, pea
 
 
 MOE_QUALITY_EPOCHS = 1  # of the script's 12, for the smoke's time
+MOE_QUALITY_LAYERS = 3  # of the script's 6, for the smoke's time
+MOE_QUALITY_GENES = 400  # of the script's 800-gene corpus, for the smoke's time
 
 
 def phase_moe_quality(card: str) -> dict:
     """``python -m genomics_lm_torch.training.benchmark_moe --skip_throughput
-    --converged_epochs 0 --epochs 3``: the script's default widths and corpus
-    (6L4H d256, block 256, B 16, lr 1e-3, 800 demo genes) for 3 of its 12
-    epochs; the 30-epoch converged pass is cut."""
+    --converged_epochs 0``: the script's widths (4 heads, d256, block 256, B
+    16, lr 1e-3) for 1 of its 12 epochs at 3 of its 6 layers on 400 of its
+    800 demo genes; the 30-epoch converged pass is cut."""
     with tempfile.TemporaryDirectory(prefix="smoke_moe_quality_") as tmp:
         out = Path(tmp) / "moe_quality.json"
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "genomics_lm_torch.training.benchmark_moe",
              "--skip_throughput", "--converged_epochs", "0", "--epochs", str(MOE_QUALITY_EPOCHS),
+             "--n_layer", str(MOE_QUALITY_LAYERS), "--genes", str(MOE_QUALITY_GENES),
              "--workdir", str(Path(tmp) / "ws"),
              "--out", str(out)],
             cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900)
@@ -3404,7 +3454,8 @@ def phase_moe_quality(card: str) -> dict:
                 for v in quality["variants"]}
     log("moe_quality", protocol=quality["protocol"], markov_baselines=quality["markov_baselines"],
         variants=variants, seconds=seconds,
-        cut=f"{MOE_QUALITY_EPOCHS} of 12 epochs; the 30-epoch converged pass", card=card)
+        cut=f"{MOE_QUALITY_EPOCHS} of 12 epochs, {MOE_QUALITY_LAYERS} of 6 layers, "
+            f"{MOE_QUALITY_GENES} of 800 genes; the 30-epoch converged pass", card=card)
     if set(variants) != {"dense", "moe_4e_top1", "moe_4e_top2"} or not all(
             np.isfinite([v["val_nll"], v["test_nll"]]).all() for v in variants.values()):
         raise AssertionError(f"benchmark_moe quality variants {variants}")
@@ -3525,8 +3576,8 @@ PREFIX_K_LIST = "1,3,5,10"  # eval_generation_prefix's default
 PREFIX_SAMPLES = 1  # of the quick preset's 2 per (gene, k), for the smoke's time
 PREFIX_GENES = 1  # of the quick preset's 10, for the smoke's time
 DESIGN_CPU = ["--n_candidates", "1", "--budget", "600"]  # the CPU run's cut of the defaults
-# the card's design loops: 4 of the default 8 candidates (a cut for time)
-DESIGN_CUT = ["--n_candidates", "4"]
+# the card's design loops: 2 of the default 8 candidates (a cut for time; it was 4)
+DESIGN_CUT = ["--n_candidates", "2"]
 
 
 def card_vs_cpu_rel(card, cpu) -> float:
@@ -3962,7 +4013,7 @@ PROTEIN_PARITY_LAYERS = 2
 LANGEVIN_CPU_STEPS = 5
 # eval_generation_prefix under the critic: 1 gene (of the quick preset's 10),
 # k 1 and 10 (of 1, 3, 5, 10), 1 sample (of 2)
-CRITIC_GUIDED_CUT = ["--preset", "quick", "--max_genes", "1", "--k_list", "1,10",
+CRITIC_GUIDED_CUT = ["--preset", "quick", "--max_genes", "1", "--k_list", "10",
                      "--samples", "1"]
 
 
@@ -4524,6 +4575,10 @@ PARALLEL_TIMEOUT_S = 240  # a rank whose collective waits longer fails the run
 # every TP drain but the float32 greedy ones (of 128): the 66 of the smallest
 # budgets, 2 more than the 64 slots, so slots refill (a cut for time)
 TP_CUT_REQUESTS = 66
+# depth cuts for the smoke's time: 1 timed DP group of 3 (its warm-up kept), the
+# timed TP group at 4 of bench.py's 16 microbatches (it took 9.3 s at 16)
+DP_TIMED_GROUPS = 1
+TP_TIMED_G = 4
 TP_SERVE_LAYERS = 2  # every TP drain's depth (cut from 10 and 12 for time)
 TP_GREEDY_REQUESTS = 4  # the float32 greedy MoE drain's: its smallest budgets (a cut)
 
@@ -4597,11 +4652,10 @@ def compare_group(phase: str, name: str, cfg_kw: dict, ref: dict, got: dict, tol
 
 
 def log_timed_ranks(phase: str, name: str, ranks: list, nonpad_per_group: int,
-                    n_layer: int, groups: int, card: str) -> dict:
+                    n_layer: int, groups: int, card: str, G: int = train_main.G) -> dict:
     """Each rank's time, collective share, flash launches per group and
     moment bytes of a timed parallel run; the launches must be G x n_layer
     a group on every rank."""
-    G = train_main.G
     rows = []
     for r, res in enumerate(ranks):
         launches = {k: v / groups for k, v in res["launches"].items()}
@@ -4665,10 +4719,11 @@ def prepare_parallel_ranks(card: str, workdir: Path) -> dict:
     bf16_kw, bf16_tree = parallel_model()
     sp = {"residual_sharding": ("data", "model")}
     dp_groups = [tuple(train_main.make_batch(s, "cpu")[k].numpy() for k in ("x", "y"))
-                 for s in range(3)]
-    # TP: 1 timed group (3 under DP; the float32 group before it warms the
-    # ranks up), each taking seconds of gloo collectives
-    tp_groups = dp_groups[:1]
+                 for s in range(DP_TIMED_GROUPS)]
+    # TP: 1 timed group of TP_TIMED_G microbatches (the float32 group before it
+    # warms the ranks up), each microbatch taking ~0.6 s of gloo collectives
+    tp_groups = [tuple(train_main.make_batch(0, "cpu", groups=TP_TIMED_G)[k].numpy()
+                       for k in ("x", "y"))]
     tp_axes = {"data": 1, "model": 2}
     # [tp_adafactor]: the TP + SP float32 group under Adafactor, and its
     # one-rank reference in the NCCL process
@@ -4821,7 +4876,7 @@ def phase_tp_train(card: str, peak_bw, peak_ops, par: dict) -> dict:
     timed = par["tp_timed"]
     nonpad = int((torch.from_numpy(par["tp_groups"][0][1]) != 0).sum())
     row = log_timed_ranks("tp_train", "gloo_tp2_sp_bf16", timed, nonpad, par["n_layer"],
-                          len(par["tp_groups"]), card)
+                          len(par["tp_groups"]), card, G=TP_TIMED_G)
     if [r["rc"] for r in par["cli"]] != [0, 0]:
         raise AssertionError(f"the TP train CLI exited {par['cli']}")
     run_dir = par["workdir"] / "runs" / "tp-run"
@@ -4917,7 +4972,7 @@ def phase_tp_serve(card: str, peak_bw, peak_ops, par: dict) -> dict:
 # sharing the card over gloo. No scaling figure: the ranks share one card.
 
 PP_CONFIG = Path(__file__).resolve().parent / "configs" / "stage2.6_large_12L8H_d512_pp4.yaml"
-EP_TIMED_G = 4  # microbatches of the timed EP group: cut from the recipe's 16 for time
+EP_TIMED_G = 2  # microbatches of the timed EP group: cut from the recipe's 16 (and 4) for time
 MOE_DP_B = 7  # odd: one rank of the data mesh of 2 holds a padding row
 PP_STAGES = 4
 PP_CLI_LAYERS = 2  # the --pipeline_stages 2 CLI run's depth (cut from 12)
@@ -6389,6 +6444,332 @@ def phase_diagnoses(demo: dict, data: Path, records: list[dict], workdir: Path,
             "decode": sum(v["decode_attention"] for v in launches.values())}
 
 
+# --- phase 56: the representation benchmarks ---------------------------------------
+
+REPR_GENES = 4_300  # E. coli K-12 MG1655's CDS count (NCBI RefSeq NC_000913.3), as [genbank]
+# essential = the 7% of genes with the highest GC3: ~300, the Keio collection's count of
+# essential genes among E. coli's 4,300 (Baba et al. 2006); GC3 is linear in the codon
+# frequencies, so the frequency baselines can find it
+REPR_ESSENTIAL_SHARE = 0.07
+# benchmark_essentiality_baselines at 3 of its default 5 folds, a cut for time: its booster's
+# 5 folds of 3,440 genes took 22.7 s of the card machine's host (one H100 machine)
+REPR_BASELINE_FOLDS = 3
+REPR_CLUSTERS = 430  # the seeded cluster column of the grouped selection: ~10 genes a cluster
+REPR_POOLINGS = ("mean_nonpad", "eos")  # the grouped selection's two candidates
+REPR_CPU_GENES = 64  # genes whose float32 embeddings run on both devices
+REPR_B1_T = (25, 33, 49)  # the probes' batch-1 forwards: BOS + 24, 32 and 48 codons
+# benchmark_essentiality_baselines' codon_freq_logreg is LogisticRegression(max_iter=2000) at
+# C 1 on the raw frequencies: on this gene set sklearn 1.9.0 (the JAX script, on the CPU)
+# calls no gene essential in any of the 3 folds, mean F1 0.0 (accuracy 0.93, the negative
+# share), and the port's estimators give the same report bit for bit
+# (tests/test_torch_estimators.py); the floor is that F1
+CODON_LOGREG_F1_FLOOR = 0.0
+CODON_LOGREG_F1_FLOOR_REASON = (
+    "sklearn 1.9.0's mean F1 of the script's codon_freq_logreg on this gene set (the 4,300 "
+    "demo genes of seed 1337, the top 7% by GC3 essential, 3 folds of seed 0) is 0.0: at C 1 "
+    "the L2 penalty outweighs frequencies of order 1/61, and the unweighted fit calls every "
+    "gene non-essential; a lower F1 is impossible, so the check is that the F1 is finite and "
+    "the report is the one sklearn gives")
+# sklearn 1.9.0's reports of the two codon-frequency columns on that gene set (the JAX script
+# without a run, on the CPU; 3 folds), held to the port's when the gene set's bytes match
+CODON_FREQ_SKLEARN = {
+    "sha256": "517ce3ccc9ff2e59fe264d3d1fe532fbb87a75d14aa476a9bd44cecfd68bc522",
+    "codon_freq_logreg": {"mean_f1": 0.0, "std_f1": 0.0, "mean_accuracy": 0.9300001005715383},
+    "codon_freq_gbdt": {"mean_f1": 0.2905463951477016, "std_f1": 0.046644851538757866,
+                        "mean_accuracy": 0.9413946936509836},
+}
+
+
+def gc3(dna: str) -> float:
+    """The G/C share at the third position of the codons after ATG."""
+    thirds = dna[5::3]
+    return sum(c in "GC" for c in thirds) / max(len(thirds), 1)
+
+
+def representation_run(demo_run: Path, workdir: Path) -> Path:
+    """A run directory for the worker: the demo run's files linked, its own
+    ``scores`` and ``tables`` (the CLIs write there while later phases read
+    the demo run)."""
+    run = workdir / "run"
+    run.mkdir()
+    for entry in demo_run.iterdir():
+        if entry.name not in ("scores", "tables"):
+            (run / entry.name).symlink_to(entry.resolve())
+    return run
+
+
+def start_representation(demo: dict, data: Path, records_tsv: Path, workdir: Path) -> dict:
+    """Start phase 56's CLIs in a worker process of their own
+    (``representation_worker``, one host thread), beside phases 38-55: they
+    spend most of their time on the host (the folds' fits) and need the card
+    only for their forwards. ``phase_representation`` joins it."""
+    spec = {"run_dir": str(representation_run(Path(demo["run_dir"]), workdir)),
+            "val_npz": str(data / "val_bs512.npz"), "records_tsv": str(records_tsv),
+            "workdir": str(workdir)}
+    (workdir / "spec.json").write_text(json.dumps(spec))
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.representation_worker(sys.argv[1]))", str(workdir / "spec.json")],
+        cwd=str(Path(__file__).resolve().parent), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    worker = {"proc": proc, "workdir": workdir, "val_npz": spec["val_npz"],
+              "t0": time.perf_counter()}
+    atexit.register(stop_representation, worker)  # also when a later phase fails
+    return worker
+
+
+def stop_representation(worker: dict) -> None:
+    if worker["proc"].poll() is None:
+        worker["proc"].kill()
+    worker["proc"].communicate()
+
+
+def representation_worker(spec_path: str) -> int:
+    """Phase 56's CLIs on the card, each with the flash and decode kernels'
+    launches reset just before it and read just after: the 4,300-gene set
+    (``data/demo_corpus.py``, labelled by GC3), ``benchmark_gene_essentiality``
+    and ``benchmark_essentiality_baselines`` with the demo run, the run's
+    embeddings in two poolings for ``select_grouped_representation``, the three
+    structural probes, ``probe_next_token --npz``, the float32 embeddings of
+    64 genes on the card and the CPU, and the five host tools on the demo
+    records. Writes ``result.json`` beside the spec."""
+    from genomics_lm_torch.data.demo_corpus import main as demo_corpus
+    from genomics_lm_torch.data.leakage import translate_cds
+    from genomics_lm_torch.evals import hist_gbdt
+    from genomics_lm_torch.evals.audit_structural_motifs import main as audit_cli
+    from genomics_lm_torch.evals.benchmark_essentiality_baselines import main as baselines_cli
+    from genomics_lm_torch.evals.benchmark_gene_essentiality import main as essentiality_cli
+    from genomics_lm_torch.evals.disorder_heuristics import main as disorder_cli
+    from genomics_lm_torch.evals.eval_shape_baselines import main as shape_cli
+    from genomics_lm_torch.evals.filter_cds_by_pdb import main as pdb_cli
+    from genomics_lm_torch.evals.generate_probe_labels import main as labels_cli
+    from genomics_lm_torch.evals.probe_next_token import main as next_token_cli
+    from genomics_lm_torch.evals.probe_structural_awareness import main as awareness_cli
+    from genomics_lm_torch.evals.probe_structural_regression import main as regression_cli
+    from genomics_lm_torch.evals.select_grouped_representation import main as select_cli
+    from genomics_lm_torch.evals.ss_propensity import main as ss_cli
+    from genomics_lm_torch.evals.termination_motifs import synthetic_hairpin
+
+    torch.set_num_threads(1)
+    spec = json.loads(Path(spec_path).read_text())
+    work, run, val = Path(spec["workdir"]), spec["run_dir"], spec["val_npz"]
+    device = spec.get("device", "cuda")
+    secs, launches, reports = {}, {}, {}
+
+    def timed(name, cli, argv):
+        fa.flash_fwd.launches = 0  # this tool's run only
+        da.decode_attention.launches = 0
+        t0 = time.perf_counter()
+        with counted_calls(decode_mod, "decode_step") as steps:
+            printed = _run_cli(cli, argv)
+        secs[name] = time.perf_counter() - t0
+        launches[name] = {"flash_fwd": fa.flash_fwd.launches,
+                          "decode_attention": da.decode_attention.launches,
+                          "decode_steps": steps[0]}
+        return printed
+
+    t0 = time.perf_counter()
+    corpus = work / "genes.tsv"
+    with contextlib.redirect_stdout(io.StringIO()):
+        demo_corpus(["--out", str(corpus), "--genes", str(spec.get("genes", REPR_GENES)),
+                     "--seed", str(DEMO_SEED)])
+    with corpus.open() as f:
+        genes = list(csv.DictReader(f, delimiter="\t"))
+    score = np.asarray([gc3(g["sequence"]) for g in genes])
+    essential = np.zeros(len(genes), int)
+    essential[np.argsort(-score, kind="stable")[:round(REPR_ESSENTIAL_SHARE * len(genes))]] = 1
+    genes_csv = work / "genes.csv"
+    with genes_csv.open("w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["id", "sequence", "essential"])
+        writer.writerows([g["source_id"], g["sequence"], int(e)]
+                         for g, e in zip(genes, essential))
+    secs["gene_set"] = time.perf_counter() - t0
+    sha = hashlib.sha256(genes_csv.read_bytes()).hexdigest()
+
+    timed("essentiality", essentiality_cli, [run, "--genes_csv", str(genes_csv), "--out",
+                                             str(work / "essentiality.json"), "--device", device])
+    reports["essentiality"] = json.loads((work / "essentiality.json").read_text())
+    fit, gbdt = hist_gbdt.HistGradientBoostingClassifier.fit, []
+
+    def timed_fit(self, X, y):
+        t = time.perf_counter()
+        out = fit(self, X, y)
+        gbdt.append(time.perf_counter() - t)
+        return out
+
+    hist_gbdt.HistGradientBoostingClassifier.fit = timed_fit
+    try:
+        timed("baselines", baselines_cli, [run, "--genes_csv", str(genes_csv), "--folds",
+                                           str(REPR_BASELINE_FOLDS), "--out",
+                                           str(work / "baselines.json"), "--device", device])
+    finally:
+        hist_gbdt.HistGradientBoostingClassifier.fit = fit
+    reports["baselines"] = json.loads((work / "baselines.json").read_text())
+
+    # the run's embeddings in two poolings, and a seeded cluster column, for the selection
+    model, cfg, _, _ = load_codon_model(run, device=device)
+    cfg = cfg.replace(dropout=0.0)
+    rows = np.stack([emb_lib.ids_from_dna(g["sequence"], cfg.block_size) for g in genes])
+    ids = np.asarray([g["source_id"] for g in genes])
+    fa.flash_fwd.launches = 0
+    t0 = time.perf_counter()
+    packs = []
+    for mode in REPR_POOLINGS:
+        X = emb_lib.extract_embeddings(model, cfg, rows, mode=mode)
+        packs.append(work / f"emb_{mode}.npz")
+        np.savez(packs[-1], ids=ids, X=X, pooling=np.asarray(mode))
+    secs["pooled_embeddings"] = time.perf_counter() - t0
+    launches["pooled_embeddings"] = {"flash_fwd": fa.flash_fwd.launches}
+    rng = np.random.default_rng(DEMO_SEED)
+    with (work / "labels.csv").open("w") as f:
+        f.write("id,label\n" + "".join(f"{i},{e}\n" for i, e in zip(ids, essential)))
+    with (work / "groups.csv").open("w") as f:
+        f.write("id,protein_cluster\n" + "".join(
+            f"{i},c{int(c)}\n" for i, c in zip(ids, rng.integers(0, REPR_CLUSTERS, len(ids)))))
+    timed("select", select_cli, ["--embeddings", *map(str, packs), "--labels",
+                                 str(work / "labels.csv"), "--groups", str(work / "groups.csv"),
+                                 "--output", str(work / "selection.json")])
+    reports["select"] = json.loads((work / "selection.json").read_text())
+
+    # float32 (TF32 off) embeddings of the first genes on the card and the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = cfg.replace(compute_dtype="float32")
+    card_f32 = emb_lib.extract_embeddings(model, f32, rows[:REPR_CPU_GENES])
+    cpu_f32 = emb_lib.extract_embeddings(copy.deepcopy(model).cpu(), f32, rows[:REPR_CPU_GENES])
+    f32_err = float(np.abs(card_f32 - cpu_f32).max())
+    del model
+
+    for name, cli in (("awareness", awareness_cli), ("regression", regression_cli),
+                      ("shape_baselines", shape_cli)):
+        timed(name, cli, [run, "--out", str(work / f"{name}.json"), "--device", device])
+        reports[name] = json.loads((work / f"{name}.json").read_text())
+    reports["next_token"] = json.loads(timed("next_token", next_token_cli,
+                                             [run, "--npz", val, "--device", device]))
+
+    # the host tools on the demo records
+    with open(spec["records_tsv"]) as f:
+        cds = [r["sequence"] for r in csv.DictReader(f, delimiter="\t")]
+    (work / "cds.txt").write_text("\n".join(cds) + "\n")
+    with (work / "uniprot.tsv").open("w") as f:
+        f.write("Entry\tSequence\tKeywords\tCross-reference (PDB)\n")
+        for i, dna in enumerate(cds):
+            if i % 10 in (0, 3):  # every 10th with the keyword, every 10th + 3 with a PDB id
+                f.write(f"P{i}\t{translate_cds(dna)}\t{'3D-structure' if i % 10 == 0 else ''}"
+                        f"\t{'1ABC;' if i % 10 == 3 else ''}\n")
+    hairpin = synthetic_hairpin()
+    (work / "motifs.json").write_text(json.dumps({"clusters": {
+        "0": {"consensus": " ".join(hairpin[i:i + 3] for i in range(0, len(hairpin) - 2, 3)),
+              "size": 12},
+        "1": {"consensus": "ATG TTT TTT GCA", "size": 30},
+        "2": {"consensus": "GCA GAA AAC", "size": 40}}}))
+    timed("probe_labels", labels_cli, [run])
+    for name, cli, argv in (
+            ("ss_propensity", ss_cli, ["--dna", str(work / "cds.txt"), "--out",
+                                       str(work / "ss.json")]),
+            ("disorder", disorder_cli, ["--dna", str(work / "cds.txt"), "--out",
+                                        str(work / "disorder.json")]),
+            ("pdb_filter", pdb_cli, ["--cds", str(work / "cds.txt"), "--uniprot_tsv",
+                                     str(work / "uniprot.tsv"), "--out",
+                                     str(work / "structured.txt")]),
+            ("motif_audit", audit_cli, [run, "--motifs_json", str(work / "motifs.json")])):
+        reports[name] = json.loads(timed(name, cli, argv))
+    with (Path(run) / "probe_labels.csv").open() as f:
+        reports["probe_labels"] = {"rows": sum(1 for _ in csv.DictReader(f))}
+
+    (work / "result.json").write_text(json.dumps({
+        "reports": reports, "launches": launches, "seconds": secs, "gbdt_fit_seconds": gbdt,
+        "genes": len(genes), "essential": int(essential.sum()), "genes_sha256": sha,
+        "f32_card_vs_cpu_max_abs": f32_err, "cds": len(cds),
+        "structured_rows": sum(1 for i in range(len(cds)) if i % 10 in (0, 3)),
+        "block": cfg.block_size, "n_layer": cfg.n_layer}))
+    return 0
+
+
+def phase_representation(worker: dict, card: str, peak_bw, peak_ops) -> dict:
+    """``[representation]``: joins the worker started before phase 38 and holds
+    its reports and launches to the paths: the flash forward 10 x ⌈4,300 /
+    64⌉ for each essentiality CLI and for each pooling of the selection, 10 x
+    48, 10 x 64 and 10 x 64 for the three probes (batch 1), 10 a microbatch
+    of 32 over the first 256 validation windows for ``probe_next_token``, and
+    the decode kernel 10 a cached step (its four default prefixes take one:
+    ``ATG-AAA`` extends ``ATG``; the others are prefilled on the plain path);
+    every F1, R² and ρ finite; ``codon_freq_logreg`` at or over
+    ``CODON_LOGREG_F1_FLOOR``; the float32 embeddings within ``EMBED_F32_ATOL``
+    of the CPU; the hairpin consensus flagged. Then the flash forward at the
+    probes' batch-1 shapes against its plain version, timed."""
+    t0 = time.perf_counter()
+    log_text, _ = worker["proc"].communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    if worker["proc"].returncode != 0:
+        raise AssertionError(f"the representation worker exited {worker['proc'].returncode}: "
+                             f"{log_text[-3000:]}")
+    res = json.loads((worker["workdir"] / "result.json").read_text())
+    L, reports, launches = res["n_layer"], res["reports"], res["launches"]
+    batches = -(-res["genes"] // 64)
+    with np.load(worker["val_npz"]) as z:
+        val_windows = int(z["X"].shape[0])
+    want_flash = {"essentiality": L * batches, "baselines": L * batches,
+                  "pooled_embeddings": len(REPR_POOLINGS) * L * batches,
+                  "awareness": L * 48, "regression": L * 64, "shape_baselines": L * 64,
+                  "next_token": L * -(-min(val_windows, 8 * 32) // 32)}
+    gbdt_s = sum(res["gbdt_fit_seconds"])
+    base = reports["baselines"]
+    f1s = ([reports["essentiality"]["f1_mean"]] + [c["mean_f1"] for c in base.values()]
+           + [c[f"mean_{reports['select']['primary_metric']}"]
+              for c in reports["select"]["candidates"]])
+    r2s = ([v["r2"] for v in reports["awareness"]["params"].values() if v["r2"] is not None]
+           + [v[k] for v in reports["regression"].values() for k in ("r2", "spearman_rho")]
+           + [v[k] for v in reports["shape_baselines"].values()
+              for k in ("avg_r2", "avg_spearman")])
+    sklearn_match = None
+    if res["genes_sha256"] == CODON_FREQ_SKLEARN["sha256"]:
+        sklearn_match = all(abs(base[c][k] - CODON_FREQ_SKLEARN[c][k]) <= 1e-9
+                            for c in ("codon_freq_logreg", "codon_freq_gbdt")
+                            for k in ("mean_f1", "std_f1", "mean_accuracy"))
+    audit = reports["motif_audit"]
+    hairpin_flagged = any(r["cluster"] == "0" and r["hairpin_score"] >= audit["hairpin_threshold"]
+                          for r in audit["top_structural"])
+    gen = torch.Generator(device="cuda").manual_seed(56)
+    timed = {f"b1_t{T}": check_flash_forward(gen, "representation_kernel", f"b1_t{T}", 1, T,
+                                             None, peak_bw, peak_ops)
+             for T in REPR_B1_T}
+    row = dict(genes=res["genes"], essential=res["essential"], genes_sha256=res["genes_sha256"],
+               reports=reports, launches=launches, want_flash=want_flash,
+               seconds=res["seconds"], gbdt_fit_seconds=res["gbdt_fit_seconds"],
+               gbdt_folds_seconds=gbdt_s, baseline_folds=REPR_BASELINE_FOLDS,
+               codon_logreg_f1_floor=CODON_LOGREG_F1_FLOOR,
+               codon_logreg_f1_floor_reason=CODON_LOGREG_F1_FLOOR_REASON,
+               codon_freq_equals_sklearn=sklearn_match,
+               f32_card_vs_cpu_max_abs=res["f32_card_vs_cpu_max_abs"], f32_atol=EMBED_F32_ATOL,
+               hairpin_flagged=hairpin_flagged, worker_seconds=time.perf_counter() - worker["t0"],
+               waited_s=waited, flash_b1=timed, card=card)
+    log("representation", **row)
+    for name, want in want_flash.items():
+        if launches[name]["flash_fwd"] != want:
+            raise AssertionError(f"{name} flash launches {launches[name]}, want {want}")
+    nt = launches["next_token"]
+    if nt["decode_steps"] != 1 or nt["decode_attention"] != L * nt["decode_steps"]:
+        raise AssertionError(f"probe_next_token decode launches {nt}")
+    if (not all(np.isfinite(f1s)) or not all(np.isfinite(r2s))
+            or not base["codon_freq_logreg"]["mean_f1"] >= CODON_LOGREG_F1_FLOOR
+            or sklearn_match is False
+            or res["f32_card_vs_cpu_max_abs"] > EMBED_F32_ATOL or not hairpin_flagged
+            or reports["essentiality"]["folds"] != 5 or res["essential"] != 301
+            or len(reports["next_token"]["prefixes"]) != 20
+            or reports["next_token"]["accuracy"]["tokens"] == 0
+            or reports["select"]["n_ids"] != res["genes"]
+            or reports["pdb_filter"]["kept"] != res["structured_rows"]
+            or reports["probe_labels"]["rows"] != 68
+            or reports["ss_propensity"]["sequences"] != res["cds"]
+            or reports["disorder"]["sequences"] != res["cds"]):
+        raise AssertionError(f"the representation reports: {row}")
+    flash = sum(launches[k]["flash_fwd"] for k in want_flash)
+    return {"flash": flash, "decode": nt["decode_attention"], "flash_timed": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6507,6 +6888,11 @@ def main() -> int:
     lap("gen_prefix")
     designed = phase_design(demo_run, data512, card_line)
     lap("design")
+    # phase 56's worker runs beside the protein phases, which keep the card busy and
+    # leave host cores free
+    repr_dir = tempfile.TemporaryDirectory(prefix="smoke_repr_")
+    repr_worker = start_representation(demo_run, data512, Path(prepare_dir.name) / "records.tsv",
+                                       Path(repr_dir.name))
     protein_dir = tempfile.TemporaryDirectory(prefix="smoke_protein_")
     critic = phase_protein_critic(Path(protein_dir.name), card_line)
     lap("protein_critic")
@@ -6578,6 +6964,9 @@ def main() -> int:
         lap("speed_sweep")
     finally:
         stop_speed_sweep(sweep)
+    represented = phase_representation(repr_worker, card_line, peak_bw, peak_ops)
+    lap("representation")
+    repr_dir.cleanup()
     tools_dir.cleanup()
     pp_dir.cleanup()
     tp_dir.cleanup()
@@ -6614,6 +7003,7 @@ def main() -> int:
         "launches_sanity_kpis": tools["decode"],
         "launches_benchmark_decode": timing["decode"],
         "launches_diagnoses": diagnosed["decode"],
+        "launches_representation": represented["decode"],
         "launches_tp_serve": tp_served["runs"]["bf16"]["launches_per_rank"][0]["decode_attention"],
         "launches_tp_serve_int8": tp_served["runs"]["int8_cache"]["launches_per_rank"][0][
             "decode_attention"],
@@ -6670,6 +7060,8 @@ def main() -> int:
                 "launches_motifs": motifs["launches"],
                 "launches_gen_prefix": prefixed["flash"],
                 "launches_critic_guided": guided["flash"],
+                "launches_representation": represented["flash"],
+                "representation_b1": represented["flash_timed"],
                 "motifs": motifs["flash_timed"],
                 "gen_prefix_b1": prefixed["flash_timed"],
                 "inference": scored["inference"],

@@ -28,6 +28,14 @@ STOPS = ("TAA", "TAG", "TGA")
 STOP_WEIGHTS = (0.6, 0.2, 0.2)
 
 
+def _cdf(p: np.ndarray) -> np.ndarray:
+    """Each row's cumulative weights over its total, as ``Generator.choice``
+    forms them."""
+    cdf = np.cumsum(p, axis=-1)
+    cdf /= cdf[..., -1:]
+    return cdf
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="records.tsv")
@@ -61,18 +69,24 @@ def main(argv=None) -> int:
              + (1 - args.coupling) * dialects[genus][None, :])
         genus_trans.append(t / t.sum(axis=1, keepdims=True))
 
+    # ``rng.choice(V, p=row)`` draws one double u and returns the first index
+    # whose normalized cumulative weight exceeds u; the cumulative rows are
+    # built once here, so each draw below is that same u and searchsorted
+    dialect_cdf, trans_cdf = _cdf(dialects), [_cdf(t) for t in genus_trans]
+    stop_cdf = _cdf(np.asarray(STOP_WEIGHTS))
+
     rows = []
     for g in range(args.genes):
         genus = g % args.genera
         genome = (g // args.genera) % args.genomes_per_genus
-        trans = genus_trans[genus]
+        cdf = trans_cdf[genus]
         n = int(rng.integers(args.min_codons, args.max_codons + 1))
-        state = int(rng.choice(V, p=dialects[genus]))
+        state = int(dialect_cdf[genus].searchsorted(rng.random(), side="right"))
         body = []
         for _ in range(n):
             body.append(sense[state])
-            state = int(rng.choice(V, p=trans[state]))
-        stop = str(rng.choice(STOPS, p=STOP_WEIGHTS))
+            state = int(cdf[state].searchsorted(rng.random(), side="right"))
+        stop = STOPS[int(stop_cdf.searchsorted(rng.random(), side="right"))]
         seq = "ATG" + "".join(body) + stop
         rows.append((seq, f"gene{g:04d}",
                      f"genus{genus}_genome{genome}", f"genus{genus}"))

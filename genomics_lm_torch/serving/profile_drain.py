@@ -56,15 +56,17 @@ def build_requests(rng, n: int) -> list[tuple[list[int], int, float]]:
     return out
 
 
-def fit_draft_table(model, cfg, kv_quant: bool = False, seed: int = 42) -> np.ndarray:
+def fit_draft_table(model, cfg, kv_quant: bool = False, seed: int = 42,
+                    tokens: int = 256) -> np.ndarray:
     """The bigram draft table of ``scripts/benchmark_serving.py:91-105``:
-    fitted to 256 tokens (at most block_size - 16) that the model samples
-    at temperature 1.0 after each of 8 prompts of 16 random codon ids.
-    The prompts and draws come from ``seed``, apart from the requests."""
+    fitted to ``tokens`` tokens (256 there; at most block_size - 16) that the
+    model samples at temperature 1.0 after each of 8 prompts of 16 random
+    codon ids. The prompts and draws come from ``seed``, apart from the
+    requests."""
     device = next(model.parameters()).device
     prompts = np.random.default_rng(seed).integers(4, 68, (8, 16))
     gen = torch.Generator(device=device).manual_seed(seed)
-    stream = generate_tokens(model, cfg, prompts, min(256, cfg.block_size - 16), gen, 1.0,
+    stream = generate_tokens(model, cfg, prompts, min(tokens, cfg.block_size - 16), gen, 1.0,
                              kv_quant, device=device)
     return fit_bigram_table(list(stream.cpu().numpy()), cfg.vocab_size)
 

@@ -123,8 +123,9 @@ def _protocol(built, gen, next_group, measure: int = MEASURE_STEPS,
     warmup = WARMUP_STEPS
     _drive(built, gen, next_group, warmup)
     seconds, fetch_s, host, device = _drive(built, gen, next_group, measure)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    # the card's activity only: every number below reads kernels and copies,
+    # and the host ops' events took most of the trace's processing time
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         prof_s, _, p_host, p_device = _drive(built, gen, next_group, profile_groups)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA

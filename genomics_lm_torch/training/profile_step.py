@@ -15,7 +15,7 @@ lines: ms per group and non-pad tokens/s, the device time summed over
 every kernel, the device's busy share, kernel launches per group, and the
 kernels that take the most device time:
 
-    python -m genomics_lm_torch.training.profile_step [--groups 3] [--top 15] [--moe]
+    python -m genomics_lm_torch.training.profile_step [--groups 3] [--top 15] [--moe] [--n_layer N]
 
 ``--moe`` profiles the MoE configuration instead
 (``configs/stage2.6_moe_4e_top2_d512_ep2.yaml``'s model, ``MOE_TRAIN``:
@@ -138,11 +138,16 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--moe", action="store_true",
                     help="profile MOE_TRAIN (12L8H d512, 4 experts top-2) instead")
+    ap.add_argument("--n_layer", type=int, default=None,
+                    help="the profiled model's depth (default: its config's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
-    cfg, model, bundle, step = build_main("cuda", model=MOE_TRAIN if args.moe else MAIN_TRAIN)
+    model_cfg = MOE_TRAIN if args.moe else MAIN_TRAIN
+    if args.n_layer is not None:
+        model_cfg = dict(model_cfg, n_layer=args.n_layer)
+    cfg, model, bundle, step = build_main("cuda", model=model_cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batches = [make_batch(s, "cuda") for s in range(BATCHES)]
     nonpad = int((batches[0]["y"] != 0).sum())
@@ -165,7 +170,7 @@ def main(argv=None) -> int:
     n = args.groups
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "groups": n,
-        "model": "MOE_TRAIN" if args.moe else "MAIN_TRAIN",
+        "model": "MOE_TRAIN" if args.moe else "MAIN_TRAIN", "n_layer": cfg.n_layer,
         "group_shape": [G, B, T], "nonpad_tokens_per_group": nonpad,
         "ms_per_group": plain_s * 1e3 / n,
         "nonpad_tokens_per_s": nonpad * n / plain_s,
