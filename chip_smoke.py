@@ -308,16 +308,15 @@ exits non-zero:
    phase 15's run takes 8 steps on uniform random codons and still repeats
    its last codon, so it never stops; this run learns the corpus's codon
    usage, stops included, for phases 34-37; its validation loss must fall.
-34. motifs — ``mine_motifs`` at its defaults (window 9, stride 1,
-   ``--max_windows`` 256) on the demo run over the block-512 demo train
-   split: one ``hidden_states`` pass over its rows (the flash forward
-   launched n_layer times), the window embeddings pooled on the card, and
-   KMeans when sklearn imports on the machine (otherwise one line says the
-   clustering did not run, and the embedding checks still gate the exit
-   code); the float32 embeddings on the card within ``CARD_CPU_RTOL`` of the
-   CPU's; the flash forward at the pass's shape (every row at T 512, their
+34. motifs — the motif pass of ``mine_motifs`` (window 9, stride 1, the
+   first 256 rows) on the demo run over the block-512 demo train split, in
+   process: one ``hidden_states`` pass over its rows (the flash forward
+   launched n_layer times), the window embeddings pooled on the card, timed;
+   the float32 embeddings on the card within ``CARD_CPU_RTOL`` of the CPU's;
+   the flash forward at the pass's shape (every row at T 512, their
    segments, heads of 48), bf16 and float32, against its plain version,
-   timed.
+   timed. The CLI itself, with its KMeans (host seconds), runs in phase
+   57's worker.
 35. probes — ``fit_mlp`` on the card over those embeddings, labelled by each
    window's first amino acid, for ``PROBE_EPOCHS`` epochs: seconds per epoch
    and its metrics; float32 at dropout 0 from one init, card against CPU.
@@ -525,6 +524,30 @@ exits non-zero:
    a ``synthetic_hairpin`` consensus, which it must flag, and a poly-T
    cluster). Then the flash forward against its plain version at the
    probes' B 1 x T 25, 33 and 49 (heads of 48, bf16), timed.
+57. classifiers — a second worker process started beside phase 56's
+   (``classifiers_worker``, one host thread), joined here. ``mine_motifs``
+   at its defaults (``--n_clusters`` 100, 256 rows, ``--device cuda``) on
+   the demo run: the flash forward n_layer times, the port's KMeans
+   (``evals/clustering.py``) over the pass's ~85,000 windows; 100
+   non-empty clusters whose sizes sum to the windows, the fit's inertia at
+   most its k-means++ start's, every window's float64 relabelling against
+   the final centres equal to the fit's labels but for float32 ties
+   (counted, ``MOTIF_TIE_FACTOR``), its seconds and iterations logged
+   (``[motifs_clustering]``); ``MotifClusterer(method="hdbscan",
+   pca_components=16)`` on the first 2,000 windows: clusters of at least
+   ``min_cluster_size``, the PCA's components orthonormal within 1e-5.
+   Then on the first 720 demo records of phase 29, labelled in three GC3
+   tertiles: ``extract_embeddings`` train (480) and test (240) packs with
+   the dataset manifest (the flash forward 10 a batch of 64),
+   ``train_classifier`` with ``probe_logreg``, ``probe_svm`` (verified
+   provenance), ``kmer_logreg`` and ``kmer_svm`` (packs with sequences),
+   ``eval_classifier`` on each pickle (its report equal to the train CLI's
+   test report), ``probe_linear`` logreg and svm, ``benchmark_xgboost_dna``
+   on the same genes (the port's multiclass booster), and
+   ``probe_ss_linear`` on the final hidden states of 64 genes (one batch:
+   the flash forward 10 times) with ``ss_propensity``'s H/E/C of each
+   codon's residue; every report finite, the classes not predicted listed
+   (``[classifiers]``).
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -540,9 +563,9 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import functools
 import hashlib
 import http.client
-import importlib.util
 import io
 import json
 import math
@@ -561,6 +584,7 @@ from genomics_lm_torch.evals import embeddings as emb_lib
 from genomics_lm_torch.evals import mutations as mut
 from genomics_lm_torch.evals import perplexity as ppl
 from genomics_lm_torch.evals.analyze_attention import main as attention_cli
+from genomics_lm_torch.evals.benchmark_xgboost_dna import PORT_ENGINE as PORT_XGB_ENGINE
 from genomics_lm_torch.evals.extract_embeddings import main as extract_cli
 from genomics_lm_torch.evals.playground import load_codon_model, resolve_checkpoint
 from genomics_lm_torch.generation import constrained as gc
@@ -3616,12 +3640,12 @@ def phase_demo_run(data: Path, card: str) -> dict:
 
 
 def phase_motifs(trained: dict, data: Path, card: str, peak_bw, peak_ops) -> dict:
-    """``mine_motifs`` at its defaults on the demo run (``phase_demo_run``) over the block-512
-    demo train split: one ``hidden_states`` pass over its rows (the flash
-    forward n_layer times), the window embeddings pooled on the card, KMeans
-    (sklearn) when it imports here. Then the embeddings again, timed; float32
-    on the card against the CPU; the flash forward at the pass's shape."""
-    from genomics_lm_torch.evals.mine_motifs import main as mine_cli
+    """The motif pass of ``mine_motifs`` on the demo run (``phase_demo_run``) over
+    the block-512 demo train split's first 256 rows, in process: one
+    ``hidden_states`` pass (the flash forward n_layer times), the window
+    embeddings pooled on the card, timed; float32 on the card against the CPU;
+    the flash forward at the pass's shape. The CLI itself, with its clustering
+    (host seconds), runs in the classifiers worker (``classifiers_worker``)."""
     from genomics_lm_torch.evals.motifs import extract_window_embeddings
 
     run_dir, train_npz = trained["run_dir"], data / "train_bs512.npz"
@@ -3629,31 +3653,11 @@ def phase_motifs(trained: dict, data: Path, card: str, peak_bw, peak_ops) -> dic
     cfg = cfg.replace(dropout=0.0)
     ds = PackedDataset(str(train_npz))
     x, _ = ds.fetch_batch(list(range(min(len(ds), MOTIF_ROWS))))
-    have_sklearn = importlib.util.find_spec("sklearn") is not None
-    out_json = Path(run_dir) / "scores" / "motifs.json"
-    fa.flash_fwd.launches = 0  # the main path's run only
-    t0 = time.perf_counter()
-    if have_sklearn:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = mine_cli([str(run_dir), "--npz", str(train_npz), "--out", str(out_json),
-                           "--device", "cuda"])
-        if rc != 0:
-            raise AssertionError(f"mine_motifs exited {rc}")
-        report = json.loads(out_json.read_text())
-    else:
-        extract_window_embeddings(model, cfg, x, exclude_ids=[0])
-        torch.cuda.synchronize()
-        report = None
-        log("motifs", clustering="not run: sklearn does not import on this machine, and "
-            "genomics_lm_torch/evals/motifs.py::MotifClusterer clusters with sklearn's KMeans; "
-            "the embedding pass and its checks run", card=card)
-    cli_seconds = time.perf_counter() - t0
-    launches = fa.flash_fwd.launches
-
+    fa.flash_fwd.launches = 0  # the motif pass only
     t0 = time.perf_counter()
     emb, meta = extract_window_embeddings(model, cfg, x, exclude_ids=[0])
     extract_seconds = time.perf_counter() - t0
+    launches = fa.flash_fwd.launches
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     f32 = cfg.replace(compute_dtype="float32")
@@ -3665,13 +3669,7 @@ def phase_motifs(trained: dict, data: Path, card: str, peak_bw, peak_ops) -> dic
     order_ok = meta == sorted(meta) and all(e - s == 9 for _, s, e in meta)
     row = dict(run=str(Path(run_dir).name), rows=int(x.shape[0]), T=int(x.shape[1]),
                windows=len(meta), embedding_shape=list(emb.shape),
-               embedding_mb=emb.nbytes / 1e6, sklearn=have_sklearn,
-               clusters=report["n_clusters"] if report else None,
-               clusters_with_known_motif=(sum(bool(c["known_motifs"])
-                                              for c in report["clusters"].values())
-                                          if report else None),
-               cli_seconds=cli_seconds, extract_seconds=extract_seconds,
-               clustering_seconds=(cli_seconds - extract_seconds) if report else None,
+               embedding_mb=emb.nbytes / 1e6, extract_seconds=extract_seconds,
                flash_fwd_launches=launches, want_launches=cfg.n_layer,
                f32_card_vs_cpu_rel=rel, f32_rows=MOTIF_CPU_ROWS, tol=CARD_CPU_RTOL,
                tol_reason=CARD_CPU_RTOL_REASON, finite=bool(np.isfinite(emb).all()),
@@ -5976,6 +5974,28 @@ def counted_calls(module, name: str):
         setattr(module, name, fn)
 
 
+def run_timed(secs: dict, launches: dict, name: str, cli, argv, predictions=None) -> str:
+    """One CLI with the flash and decode kernels' launches set to 0 just before
+    it and read just after (this tool's run only): its seconds, launches and
+    cached decode steps go into ``secs`` and ``launches`` under ``name``, and,
+    when ``predictions`` is given, the classes of its last bootstrap report."""
+    fa.flash_fwd.launches = 0
+    da.decode_attention.launches = 0
+    calls = []
+    t0 = time.perf_counter()
+    with counted_calls(decode_mod, "decode_step") as steps, contextlib.ExitStack() as stack:
+        if predictions is not None:
+            stack.enter_context(recorded_predictions(calls))
+        printed = _run_cli(cli, argv)
+    secs[name] = time.perf_counter() - t0
+    launches[name] = {"flash_fwd": fa.flash_fwd.launches,
+                      "decode_attention": da.decode_attention.launches,
+                      "decode_steps": steps[0]}
+    if calls:
+        predictions[name] = calls[-1]
+    return printed
+
+
 def phase_run_tools(demo: dict, fusion: dict, prepared: dict, workdir: Path,
                     card: str) -> dict:
     """``[run_tools]``: ``training/training_preflight.py`` on the card;
@@ -6328,17 +6348,7 @@ def phase_diagnoses(demo: dict, data: Path, records: list[dict], workdir: Path,
     run, val, train = Path(demo["run_dir"]), data / "val_bs512.npz", data / "train_bs512.npz"
     secs, launches, out = {}, {}, {}
 
-    def timed(name, cli, argv):
-        fa.flash_fwd.launches = 0  # this tool's run only
-        da.decode_attention.launches = 0
-        t0 = time.perf_counter()
-        with counted_calls(decode_mod, "decode_step") as steps:
-            printed = _run_cli(cli, argv)
-        secs[name] = time.perf_counter() - t0
-        launches[name] = {"flash_fwd": fa.flash_fwd.launches,
-                          "decode_attention": da.decode_attention.launches,
-                          "decode_steps": steps[0]}
-        return printed
+    timed = functools.partial(run_timed, secs, launches)
 
     for name, cli, argv in (("calibration", calibration_cli, ["--npz", str(val)]),
                             ("context", context_cli, ["--npz", str(val)])):
@@ -6506,20 +6516,27 @@ def start_representation(demo: dict, data: Path, records_tsv: Path, workdir: Pat
     spec = {"run_dir": str(representation_run(Path(demo["run_dir"]), workdir)),
             "val_npz": str(data / "val_bs512.npz"), "records_tsv": str(records_tsv),
             "workdir": str(workdir)}
+    return dict(start_worker("representation_worker", spec, workdir),
+                val_npz=spec["val_npz"])
+
+
+def start_worker(fn_name: str, spec: dict, workdir: Path) -> dict:
+    """``chip_smoke.<fn_name>(spec.json)`` in a process of its own with one
+    host thread, its output piped; killed at exit if a later phase fails
+    before the worker is joined."""
     (workdir / "spec.json").write_text(json.dumps(spec))
     env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
     proc = subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "sys.exit(chip_smoke.representation_worker(sys.argv[1]))", str(workdir / "spec.json")],
+        [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.{fn_name}("
+         "sys.argv[1]))", str(workdir / "spec.json")],
         cwd=str(Path(__file__).resolve().parent), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-    worker = {"proc": proc, "workdir": workdir, "val_npz": spec["val_npz"],
-              "t0": time.perf_counter()}
-    atexit.register(stop_representation, worker)  # also when a later phase fails
+    worker = {"proc": proc, "workdir": workdir, "t0": time.perf_counter()}
+    atexit.register(stop_worker, worker)
     return worker
 
 
-def stop_representation(worker: dict) -> None:
+def stop_worker(worker: dict) -> None:
     if worker["proc"].poll() is None:
         worker["proc"].kill()
     worker["proc"].communicate()
@@ -6557,17 +6574,7 @@ def representation_worker(spec_path: str) -> int:
     device = spec.get("device", "cuda")
     secs, launches, reports = {}, {}, {}
 
-    def timed(name, cli, argv):
-        fa.flash_fwd.launches = 0  # this tool's run only
-        da.decode_attention.launches = 0
-        t0 = time.perf_counter()
-        with counted_calls(decode_mod, "decode_step") as steps:
-            printed = _run_cli(cli, argv)
-        secs[name] = time.perf_counter() - t0
-        launches[name] = {"flash_fwd": fa.flash_fwd.launches,
-                          "decode_attention": da.decode_attention.launches,
-                          "decode_steps": steps[0]}
-        return printed
+    timed = functools.partial(run_timed, secs, launches)
 
     t0 = time.perf_counter()
     corpus = work / "genes.tsv"
@@ -6770,6 +6777,310 @@ def phase_representation(worker: dict, card: str, peak_bw, peak_ops) -> dict:
     return {"flash": flash, "decode": nt["decode_attention"], "flash_timed": timed}
 
 
+CLS_TRAIN, CLS_TEST = 480, 240  # demo records in the classifiers' train and test packs
+CLS_KINDS = ("probe_logreg", "probe_svm", "kmer_logreg", "kmer_svm")
+CLS_SS_GENES = 64  # genes whose per-token hidden states feed probe_ss_linear
+CLS_BATCH = 64  # extract_embeddings' default batch
+MOTIF_HDBSCAN_ROWS, MOTIF_HDBSCAN_PCA = 2_000, 16
+# A window may take another centre when the float64 relabelling and the fit's
+# float32 E-step (sklearn's ||c||^2 - 2 x.c, one float32 GEMM over the features,
+# on the centred data) see two centres within float32 rounding of each other:
+# the GEMM's error is below n_features x 2^-24 x (|x|^2 + |c|^2) per distance,
+# and a gap under four times that counts as a tie; a window off by more fails.
+MOTIF_TIE_FACTOR = 4 * 2.0**-24
+
+
+def start_classifiers(demo: dict, data: Path, records_tsv: Path, workdir: Path) -> dict:
+    """Start the motif clustering and the classifier CLIs in a worker process
+    of their own (``classifiers_worker``, one host thread), beside phases
+    38-55: the clustering's seconds are host seconds. ``phase_classifiers``
+    joins it."""
+    spec = {"run_dir": str(demo["run_dir"]), "train_npz": str(data / "train_bs512.npz"),
+            "manifest": str(data / "manifest.json"), "records_tsv": str(records_tsv),
+            "workdir": str(workdir)}
+    return start_worker("classifiers_worker", spec, workdir)
+
+
+@contextlib.contextmanager
+def recorded_predictions(calls: list):
+    """Each bootstrap (test) report's true and predicted classes while the
+    block runs: the CLIs import ``compute_metrics`` from its module at call
+    time."""
+    from genomics_lm_torch.evals import metrics as metrics_mod
+
+    fn = metrics_mod.compute_metrics
+
+    def recording(y_true, y_pred, y_proba=None, bootstrap=False, **kw):
+        if bootstrap:
+            calls.append({"true": sorted(np.unique(y_true).tolist()),
+                          "predicted": sorted(np.unique(y_pred).tolist())})
+        return fn(y_true, y_pred, y_proba, bootstrap=bootstrap, **kw)
+
+    metrics_mod.compute_metrics = recording
+    try:
+        yield calls
+    finally:
+        metrics_mod.compute_metrics = fn
+
+
+def motif_relabel(emb: np.ndarray, km) -> dict:
+    """Every window relabelled against the fit's final centres in float64:
+    the windows whose label differs, and how many of them are float32 ties."""
+    centers = km.cluster_centers_.astype(np.float64)
+    c2 = (centers**2).sum(axis=1)
+    differ = ties = 0
+    for start in range(0, len(emb), 8192):
+        x = emb[start:start + 8192].astype(np.float64)
+        x2 = (x**2).sum(axis=1)
+        d = x2[:, None] - 2 * x @ centers.T + c2[None, :]
+        best, got = np.argmin(d, axis=1), km.labels_[start:start + 8192]
+        rows = np.flatnonzero(best != got)
+        gap = d[rows, got[rows]] - d[rows, best[rows]]
+        tol = MOTIF_TIE_FACTOR * emb.shape[1] * (x2[rows] + c2.max())
+        differ += len(rows)
+        ties += int(np.sum(gap <= tol))
+    return {"relabel_differ": differ, "relabel_ties": ties}
+
+
+def classifiers_worker(spec_path: str) -> int:
+    """``mine_motifs`` at its defaults on the demo run (its KMeans captured for
+    the checks), an HDBSCAN fit on a slice of its windows, then the classifier
+    CLIs on GC3-tertile labels of the demo records: ``extract_embeddings``
+    packs, ``train_classifier`` (four kinds), ``eval_classifier`` on their
+    pickles, ``probe_linear`` (logreg, svm), ``benchmark_xgboost_dna`` and
+    ``probe_ss_linear`` on per-token hidden states; each CLI with the flash and
+    decode kernels' launches reset just before it and read just after. Writes
+    ``result.json`` beside the spec."""
+    import pickle
+
+    from genomics_lm_torch.data.leakage import translate_cds
+    from genomics_lm_torch.evals import motifs as motifs_mod
+    from genomics_lm_torch.evals import probes
+    from genomics_lm_torch.evals.benchmark_xgboost_dna import main as xgb_cli
+    from genomics_lm_torch.evals.eval_classifier import main as eval_cli
+    from genomics_lm_torch.evals.mine_motifs import main as mine_cli
+    from genomics_lm_torch.evals.probe_linear import main as linear_cli
+    from genomics_lm_torch.evals.probe_ss_linear import LABELS as SS_LABELS
+    from genomics_lm_torch.evals.probe_ss_linear import main as ss_cli
+    from genomics_lm_torch.evals.ss_propensity import classify
+    from genomics_lm_torch.evals.train_classifier import main as train_cls_cli
+
+    torch.set_num_threads(1)
+    spec = json.loads(Path(spec_path).read_text())
+    work, run = Path(spec["workdir"]), spec["run_dir"]
+    device = spec.get("device", "cuda")
+    secs, launches, reports, predictions = {}, {}, {}, {}
+
+    timed = functools.partial(run_timed, secs, launches, predictions=predictions)
+
+    # mine_motifs at its defaults; its clusterer and embeddings kept for the checks
+    fits, fit_predict = [], motifs_mod.MotifClusterer.fit_predict
+
+    def recorded_fit(self, embeddings):
+        t = time.perf_counter()
+        labels = fit_predict(self, embeddings)
+        fits.append({"clusterer": self, "emb": embeddings, "seconds": time.perf_counter() - t})
+        return labels
+
+    motifs_mod.MotifClusterer.fit_predict = recorded_fit
+    try:
+        timed("mine_motifs", mine_cli, [run, "--npz", spec["train_npz"], "--out",
+                                        str(work / "motifs.json"), "--device", device])
+    finally:
+        motifs_mod.MotifClusterer.fit_predict = fit_predict
+    mined = json.loads((work / "motifs.json").read_text())
+    km, emb = fits[0]["clusterer"].model, fits[0]["emb"]
+    sizes = [c["size"] for c in mined["clusters"].values()]
+    motif = dict(n_windows=mined["n_windows"], n_clusters=mined["n_clusters"],
+                 clusters_reported=len(sizes), smallest=min(sizes), sizes_sum=sum(sizes),
+                 n_iter=km.n_iter_, inertia=km.inertia_, init_inertia=km.init_inertia_,
+                 fit_seconds=fits[0]["seconds"], embedding_shape=list(emb.shape),
+                 clusters_with_known_motif=sum(bool(c["known_motifs"])
+                                               for c in mined["clusters"].values()),
+                 **motif_relabel(emb, km))
+    t0 = time.perf_counter()
+    dense = motifs_mod.MotifClusterer(method="hdbscan", pca_components=MOTIF_HDBSCAN_PCA)
+    dense_labels = dense.fit_predict(emb[:MOTIF_HDBSCAN_ROWS])
+    counts = np.unique(dense_labels[dense_labels >= 0], return_counts=True)[1]
+    comps = dense.pca.components_.astype(np.float64)
+    hdbscan = dict(rows=MOTIF_HDBSCAN_ROWS, pca_components=MOTIF_HDBSCAN_PCA,
+                   pca_solver=dense.pca.svd_solver_, clusters=len(counts),
+                   noise=int(np.sum(dense_labels == -1)),
+                   min_cluster_size=dense.model.min_cluster_size,
+                   smallest=int(counts.min()) if len(counts) else None,
+                   orthonormal_err=float(np.abs(comps @ comps.T - np.eye(len(comps))).max()),
+                   seconds=time.perf_counter() - t0)
+    del fits, emb
+
+    # GC3-tertile labels of the demo records, the packs and the label files
+    with open(spec["records_tsv"]) as f:
+        genes = list(csv.DictReader(f, delimiter="\t"))[:CLS_TRAIN + CLS_TEST]
+    gc = np.asarray([gc3(g["sequence"]) for g in genes])
+    labels = np.searchsorted(np.quantile(gc, [1 / 3, 2 / 3]), gc, side="right")
+    split = {"train": slice(0, CLS_TRAIN), "test": slice(CLS_TRAIN, CLS_TRAIN + CLS_TEST)}
+    with (work / "labels.csv").open("w") as f:
+        f.write("id,label\n" + "".join(f"{g['source_id']},{y}\n" for g, y in zip(genes, labels)))
+    for name, rows in split.items():
+        part = list(zip(genes[rows], labels[rows]))
+        (work / f"{name}.fasta").write_text(
+            "".join(f">{g['source_id']}\n{g['sequence']}\n" for g, _ in part))
+        with (work / f"{name}.csv").open("w") as f:
+            f.write("id,sequence,label\n" + "".join(f"{g['source_id']},{g['sequence']},{y}\n"
+                                                    for g, y in part))
+        timed(f"extract_{name}", extract_cli,
+              [run, "--input", str(work / f"{name}.fasta"), "--out", str(work / f"{name}.npz"),
+               "--dataset_manifest", spec["manifest"], "--device", device])
+        with np.load(work / f"{name}.npz") as z:  # the kmer kinds read the sequences too
+            np.savez(work / f"{name}_seq.npz", X=z["X"], ids=z["ids"],
+                     sequences=np.asarray([g["sequence"] for g, _ in part]))
+    labels_csv = str(work / "labels.csv")
+
+    for kind in CLS_KINDS:
+        kmer = kind.startswith("kmer")
+        pack = "{}_seq.npz" if kmer else "{}.npz"
+        config = work / f"{kind}.yaml"
+        config.write_text(json.dumps(dict(
+            kind=kind, protocol="std", train_npz=str(work / pack.format("train")),
+            test_npz=str(work / pack.format("test")), train_labels=labels_csv,
+            test_labels=labels_csv, require_verified_provenance=not kmer, k=3)))
+        timed(f"train_{kind}", train_cls_cli, ["--config", str(config), "--out_dir",
+                                               str(work / kind), "--device", device])
+        reports[f"train_{kind}"] = json.loads((work / kind / "metrics.json").read_text())
+    vectorizer = work / "vectorizer.pkl"
+    with vectorizer.open("wb") as f:  # the kmer kinds' vectorizer, fitted on the train genes
+        pickle.dump(probes._tfidf(3, True).fit([g["sequence"] for g in genes[split["train"]]]),
+                    f)
+    for kind in CLS_KINDS:
+        features = (["--kind", "kmer", "--vectorizer", str(vectorizer), "--seqs",
+                     str(work / "test.csv")] if kind.startswith("kmer")
+                    else ["--kind", "probe", "--embeddings", str(work / "test.npz")])
+        timed(f"eval_{kind}", eval_cli, ["--model", str(work / kind / "model.pkl"),
+                                         "--labels", labels_csv, "--out",
+                                         str(work / f"eval_{kind}"), *features])
+        reports[f"eval_{kind}"] = json.loads((work / f"eval_{kind}" / "metrics.json").read_text())
+    for kind in ("logreg", "svm"):
+        timed(f"probe_linear_{kind}", linear_cli,
+              ["--train_npz", str(work / "train.npz"), "--test_npz", str(work / "test.npz"),
+               "--train_labels", labels_csv, "--test_labels", labels_csv, "--kind", kind,
+               "--out", str(work / f"linear_{kind}.json")])
+        reports[f"probe_linear_{kind}"] = json.loads((work / f"linear_{kind}.json").read_text())
+    timed("benchmark_xgboost_dna", xgb_cli, ["--train_csv", str(work / "train.csv"),
+                                             "--test_csv", str(work / "test.csv"),
+                                             "--out", str(work / "xgboost_dna.json")])
+    reports["benchmark_xgboost_dna"] = json.loads((work / "xgboost_dna.json").read_text())
+
+    # per-token hidden states of the first train genes, H/E/C from each codon's residue
+    model, cfg, _, _ = load_codon_model(run, device=device)
+    cfg = cfg.replace(dropout=0.0)
+    ss_genes = genes[:CLS_SS_GENES]
+    rows = np.stack([emb_lib.ids_from_dna(g["sequence"], cfg.block_size) for g in ss_genes])
+    fa.flash_fwd.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        states = codon_gpt_mod.hidden_states(model, cfg, torch.as_tensor(
+            rows, dtype=torch.long, device=device))
+        H = dict(states)["final"].float().cpu().numpy()
+    secs["ss_states"] = time.perf_counter() - t0
+    launches["ss_states"] = {"flash_fwd": fa.flash_fwd.launches, "decode_attention": 0}
+    del model, states
+    Y = np.zeros(rows.shape, np.int64)
+    M = np.zeros(rows.shape, np.int64)
+    for n, g in enumerate(ss_genes):
+        classes = classify(translate_cds(g["sequence"]))[:cfg.block_size - 1]
+        Y[n, 1:1 + len(classes)] = [SS_LABELS.index(c) for c in classes]
+        M[n, 1:1 + len(classes)] = 1
+    np.savez(work / "ss_tokens.npz", H=H, Y=Y, M=M)
+    timed("probe_ss_linear", ss_cli, ["--emb_npz", str(work / "ss_tokens.npz"), "--out_dir",
+                                      str(work / "ss_linear")])
+    reports["probe_ss_linear"] = json.loads((work / "ss_linear" / "metrics.json").read_text())
+    cm = np.asarray(reports["probe_ss_linear"]["confusion"])
+    predictions["probe_ss_linear"] = {
+        "true": [i for i in range(len(SS_LABELS)) if cm[i].sum()],
+        "predicted": [i for i in range(len(SS_LABELS)) if cm[:, i].sum()]}
+
+    (work / "result.json").write_text(json.dumps({
+        "motifs": motif, "hdbscan": hdbscan, "reports": reports, "launches": launches,
+        "seconds": secs, "predictions": predictions, "n_layer": cfg.n_layer,
+        "genes": {"train": CLS_TRAIN, "test": CLS_TEST, "ss": CLS_SS_GENES,
+                  "ss_tokens": int(M.sum()), "labels": np.bincount(labels).tolist()}}))
+    return 0
+
+
+def _finite_metrics(report: dict) -> bool:
+    return all(np.isfinite(v) for k, v in report.items()
+               if k.split("_ci_")[0] in ("accuracy", "balanced_accuracy", "macro_f1", "auroc",
+                                          "macro_auprc"))
+
+
+def phase_classifiers(worker: dict, card: str) -> dict:
+    """``[motifs_clustering]`` and ``[classifiers]``: joins the worker started
+    before phase 38. The motif CLI's 100 clusters all non-empty, their sizes
+    summing to its windows, the fit's inertia at most its k-means++ start's,
+    every window's float64 relabelling equal to the fit's labels but for
+    float32 ties (counted), the flash forward n_layer times; the HDBSCAN
+    slice's clusters each of at least ``min_cluster_size`` windows and the
+    PCA's components orthonormal within 1e-5. Each classifier CLI's flash
+    launches as its path implies (10 a batch of 64 genes for the packs, 10
+    for the per-token states' one batch, none for the host fits), every
+    report finite, each ``eval_classifier`` report equal to its
+    ``train_classifier`` test report on that report's keys, and each class
+    predicted or stated as not."""
+    t0 = time.perf_counter()
+    log_text, _ = worker["proc"].communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    if worker["proc"].returncode != 0:
+        raise AssertionError(f"the classifiers worker exited {worker['proc'].returncode}: "
+                             f"{log_text[-3000:]}")
+    res = json.loads((worker["workdir"] / "result.json").read_text())
+    L, launches, reports = res["n_layer"], res["launches"], res["reports"]
+    motif, dense = res["motifs"], res["hdbscan"]
+    log("motifs_clustering", **motif, hdbscan=dense, cli_seconds=res["seconds"]["mine_motifs"],
+        flash_fwd_launches=launches["mine_motifs"]["flash_fwd"], want_launches=L,
+        tie_factor=MOTIF_TIE_FACTOR, card=card)
+    if (motif["n_clusters"] != 100 or motif["clusters_reported"] != 100
+            or motif["smallest"] < 1 or motif["sizes_sum"] != motif["n_windows"]
+            or not motif["inertia"] <= motif["init_inertia"]
+            or motif["relabel_differ"] != motif["relabel_ties"]
+            or launches["mine_motifs"]["flash_fwd"] != L
+            or dense["smallest"] is None or dense["smallest"] < dense["min_cluster_size"]
+            or dense["orthonormal_err"] > 1e-5):
+        raise AssertionError(f"motif clustering: {motif} {dense}")
+    want_flash = {name: 0 for name in launches}
+    want_flash.update(mine_motifs=L, ss_states=L,
+                      extract_train=L * -(-res["genes"]["train"] // CLS_BATCH),
+                      extract_test=L * -(-res["genes"]["test"] // CLS_BATCH))
+    classes = list(range(len(res["genes"]["labels"])))
+    not_predicted = {name: sorted(set(classes if name != "probe_ss_linear" else p["true"])
+                                  - set(p["predicted"]))
+                     for name, p in res["predictions"].items()}
+    test_reports = {name: r.get("test_metrics", r) for name, r in reports.items()
+                    if name != "probe_ss_linear"}
+    # train_classifier scores a probe SVM without its decision values (the JAX
+    # CLI's try), so that report lacks the ranking pair eval_classifier adds
+    same_eval = {kind: {k: reports[f"eval_{kind}"].get(k) for k in want} == want
+                 for kind in CLS_KINDS
+                 for want in [reports[f"train_{kind}"]["test_metrics"]]}
+    ss = reports["probe_ss_linear"]
+    row = dict(genes=res["genes"], launches=launches, want_flash=want_flash,
+               seconds=res["seconds"], eval_reproduces_train=same_eval,
+               not_predicted=not_predicted,
+               accuracy={name: r["accuracy"] for name, r in test_reports.items()},
+               engine=reports["benchmark_xgboost_dna"]["engine"],
+               ss_token_accuracy=ss["token_accuracy"], ss_majority=ss["majority_baseline"],
+               ss_tokens=(ss["train_tokens"], ss["test_tokens"]),
+               worker_seconds=time.perf_counter() - worker["t0"], waited_s=waited, card=card)
+    log("classifiers", **row)
+    for name, want in want_flash.items():
+        if launches[name]["flash_fwd"] != want or launches[name]["decode_attention"] != 0:
+            raise AssertionError(f"{name} launches {launches[name]}, want flash {want}")
+    if (not all(same_eval.values()) or not all(map(_finite_metrics, test_reports.values()))
+            or not np.isfinite(ss["token_accuracy"])
+            or ss["train_tokens"] + ss["test_tokens"] != res["genes"]["ss_tokens"]
+            or reports["benchmark_xgboost_dna"]["engine"] != PORT_XGB_ENGINE):
+        raise AssertionError(f"the classifier reports: {row}")
+    return {"flash": sum(v["flash_fwd"] for v in launches.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6893,6 +7204,9 @@ def main() -> int:
     repr_dir = tempfile.TemporaryDirectory(prefix="smoke_repr_")
     repr_worker = start_representation(demo_run, data512, Path(prepare_dir.name) / "records.tsv",
                                        Path(repr_dir.name))
+    cls_dir = tempfile.TemporaryDirectory(prefix="smoke_classifiers_")
+    cls_worker = start_classifiers(demo_run, data512, Path(prepare_dir.name) / "records.tsv",
+                                   Path(cls_dir.name))
     protein_dir = tempfile.TemporaryDirectory(prefix="smoke_protein_")
     critic = phase_protein_critic(Path(protein_dir.name), card_line)
     lap("protein_critic")
@@ -6966,7 +7280,10 @@ def main() -> int:
         stop_speed_sweep(sweep)
     represented = phase_representation(repr_worker, card_line, peak_bw, peak_ops)
     lap("representation")
+    classified = phase_classifiers(cls_worker, card_line)
+    lap("classifiers")
     repr_dir.cleanup()
+    cls_dir.cleanup()
     tools_dir.cleanup()
     pp_dir.cleanup()
     tp_dir.cleanup()
@@ -7061,6 +7378,7 @@ def main() -> int:
                 "launches_gen_prefix": prefixed["flash"],
                 "launches_critic_guided": guided["flash"],
                 "launches_representation": represented["flash"],
+                "launches_classifiers": classified["flash"],
                 "representation_b1": represented["flash_timed"],
                 "motifs": motifs["flash_timed"],
                 "gen_prefix_b1": prefixed["flash_timed"],

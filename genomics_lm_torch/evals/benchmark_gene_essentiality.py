@@ -38,16 +38,17 @@ def lm_embeddings(run_dir, seqs: list[str], pooling: str, device=None) -> np.nda
 def essentiality_report(X: np.ndarray, y: np.ndarray, folds: int, seed: int) -> dict:
     """Cross-validated F1 of the balanced logistic probe on ``X``."""
     from genomics_lm_torch.evals.estimators import (
-        StandardizedLogisticRegression,
+        LogisticRegression,
         StratifiedKFold,
         f1_score,
+        standardized,
     )
 
     skf = StratifiedKFold(n_splits=min(folds, int(np.bincount(y).min())), shuffle=True,
                           random_state=seed)
     f1s = []
     for train_idx, test_idx in skf.split(X, y):
-        clf = StandardizedLogisticRegression(max_iter=2000, class_weight="balanced")
+        clf = standardized(LogisticRegression(max_iter=2000, class_weight="balanced"))
         clf.fit(X[train_idx], y[train_idx])
         f1s.append(f1_score(y[test_idx], clf.predict(X[test_idx])))
     return {"n_genes": len(y), "positive_fraction": float(y.mean()), "folds": len(f1s),

@@ -18,16 +18,36 @@ Each reproduces sklearn 1.9.0's arithmetic, dtype by dtype:
   log-loss plus ``||w||² / (2 C Σ sample weights)``, the intercept
   unpenalized; ``class_weight="balanced"`` as ``n / (k · bincount)``; the
   symmetric multinomial above two classes) minimized by scipy's L-BFGS-B
-  under sklearn's options, the loss computed in the input's float dtype;
+  under sklearn's options, the loss computed in the input's float dtype.
+  A ``scipy.sparse`` input stays sparse: its products are scipy's CSR
+  products, the ones sklearn's loss takes on the same matrix, so the sums
+  run in sklearn's order;
 - ``Ridge``: the centred closed form on sklearn's ``cholesky`` route, the
   primal system when ``n_features <= n_samples`` and the kernel system
   otherwise;
+- ``LinearSVC``: liblinear's squared hinge with an L2 penalty, the bias a
+  penalized feature of value 1 (``intercept_scaling`` 1), more than two
+  classes one-vs-rest, the rows grouped by class as liblinear groups them;
+  ``dual="auto"`` as sklearn's ``_validate_dual_parameter``: with at least
+  as many rows as features, liblinear's deterministic primal trust-region
+  Newton method (``tron.cpp``: conjugate gradients in the trust region, its
+  stop at ``tol · max(min(pos, neg), 1) / n`` of the first gradient norm),
+  else its dual coordinate descent with shrinking, each sweep's order drawn
+  from the Mersenne Twister that sklearn seeds with
+  ``random_state.randint(2**31 - 1)`` through liblinear's bounded draw;
+- ``Pipeline``: named steps, each transformer fitted in turn and the last
+  step's ``predict``, ``predict_proba`` and ``decision_function`` where it
+  has them;
+- ``TfidfVectorizer`` with a callable analyzer: counts in the order terms
+  first appear, the vocabulary sorted by term, ``smooth_idf``
+  ``log((1 + n) / (1 + df)) + 1``, each row divided by its L2 norm, summed
+  in the order of the row's stored entries; float64 ``scipy.sparse`` CSR;
 - ``f1_score`` for binary labels, 0.0 where nothing is predicted or true
-  positive (sklearn's ``zero_division`` default).
+  positive (sklearn's ``zero_division`` default); ``confusion_matrix``.
 
-The L-BFGS-B iterates depend on every float operation, so a fit may stop
-an iterate away from sklearn's: the tests hold probabilities to a stated
-tolerance and predictions equal.
+The L-BFGS-B and liblinear iterates depend on every float operation, so a
+fit may stop an iterate away from sklearn's: the tests hold probabilities
+and decisions to stated tolerances and predictions equal.
 """
 
 from __future__ import annotations
@@ -37,13 +57,18 @@ import warnings
 from collections import defaultdict
 
 import numpy as np
-from scipy import linalg, optimize
+from scipy import linalg, optimize, sparse
+from scipy.linalg import blas
 from scipy.special import expit
 
 
-def _float_array(X) -> np.ndarray:
+def _float_array(X):
     """``X`` as a C-contiguous float32 or float64 array (other dtypes become
-    float64), as sklearn's ``check_array(dtype=[float64, float32])``."""
+    float64), as sklearn's ``check_array(dtype=[float64, float32])``; a
+    sparse matrix as CSR of such a dtype."""
+    if sparse.issparse(X):
+        X = sparse.csr_matrix(X)
+        return X if X.dtype in (np.float32, np.float64) else X.astype(np.float64)
     X = np.asarray(X)
     if X.dtype not in (np.float32, np.float64):
         X = X.astype(np.float64)
@@ -360,23 +385,381 @@ class LogisticRegression:
         return scores / scores.sum(axis=1, keepdims=True)
 
 
-class StandardizedLogisticRegression:
-    """``StandardScaler`` then ``LogisticRegression``: what the JAX package's
-    ``fit_logreg`` fits as a sklearn ``Pipeline``."""
+# --- linear SVM (liblinear) ------------------------------------------------------------
 
-    def __init__(self, C: float = 1.0, max_iter: int = 2000, class_weight=None):
-        self.scaler = StandardScaler()
-        self.model = LogisticRegression(C=C, max_iter=max_iter, class_weight=class_weight)
+SVC_TOL = 1e-4  # LinearSVC's default tol: liblinear's eps
+SVC_MAX_ITER = 1000
+INT_MAX = 2**31 - 1  # np.iinfo("i").max, the bound of the seed sklearn draws
+
+
+class _MersenneTwister:
+    """The 32-bit draws of ``std::mt19937(seed)`` (numpy's legacy seeding runs
+    the same ``init_genrand``), read through liblinear's ``bounded_rand_int``."""
+
+    def __init__(self, seed: int):
+        self._rs = np.random.RandomState(seed)
+        self._buf, self._pos = np.empty(0, np.uint32), 0
+
+    def _next(self) -> int:
+        if self._pos == len(self._buf):
+            self._buf, self._pos = self._rs.randint(0, 2**32, 4096, dtype=np.uint32), 0
+        self._pos += 1
+        return int(self._buf[self._pos - 1])
+
+    def bounded(self, bound: int) -> int:
+        """Lemire's draw in ``[0, bound)``, sklearn's ``newrand.h``."""
+        m = self._next() * bound
+        low = m & 0xFFFFFFFF
+        if low < bound:
+            t = (-bound) & 0xFFFFFFFF
+            if t >= bound:
+                t -= bound
+                if t >= bound:
+                    t %= bound
+            while low < t:
+                m = self._next() * bound
+                low = m & 0xFFFFFFFF
+        return m >> 32
+
+
+def _running_sum(start: float, terms: np.ndarray) -> float:
+    """``start + terms[0] + terms[1] + ...`` one term at a time, as a C loop adds."""
+    return float(np.cumsum(np.concatenate(([start], terms)))[-1])
+
+
+def _tron(X, y, C, eps, max_iter):
+    """liblinear's ``TRON::tron`` on ``l2r_l2_svc_fun``: minimizes
+    ``w·w / 2 + C Σ max(0, 1 - y x·w)²`` over the CSR rows ``X``; returns
+    ``w`` and the iterations. The vector steps are scipy's BLAS calls, the
+    library sklearn's liblinear calls, and the products scipy's CSR loops,
+    which add a row's terms in liblinear's order."""
+    n = X.shape[1]
+    state = {}
+
+    def fun(w):
+        z = y * (X @ w)
+        state["z"] = z
+        d = 1 - z
+        return _running_sum(_running_sum(0.0, w * w) / 2.0, (C * d * d)[d > 0])
+
+    def grad(w):
+        z = state["z"]
+        active = np.flatnonzero(z < 1)
+        state["C"], state["Xa"] = C[active], X[active]
+        return w + 2 * (state["Xa"].T @ (state["C"] * y[active] * (z[active] - 1)))
+
+    def hv(s):
+        return s + 2 * (state["Xa"].T @ (state["C"] * (state["Xa"] @ s)))
+
+    def trcg(delta, g):
+        s, r = np.zeros(n), -g
+        d = r.copy()
+        cgtol = 0.1 * blas.dnrm2(g)
+        rTr = blas.ddot(r, r)
+        while blas.dnrm2(r) > cgtol:
+            Hd = hv(d)
+            alpha = rTr / blas.ddot(d, Hd)
+            s = blas.daxpy(d, s, a=alpha)
+            if blas.dnrm2(s) > delta:  # back to the trust region's boundary
+                s = blas.daxpy(d, s, a=-alpha)
+                std, sts, dtd = blas.ddot(s, d), blas.ddot(s, s), blas.ddot(d, d)
+                dsq = delta * delta
+                rad = math.sqrt(std * std + dtd * (dsq - sts))
+                alpha = (dsq - sts) / (std + rad) if std >= 0 else (rad - std) / dtd
+                s = blas.daxpy(d, s, a=alpha)
+                r = blas.daxpy(Hd, r, a=-alpha)
+                break
+            r = blas.daxpy(Hd, r, a=-alpha)
+            rnewTrnew = blas.ddot(r, r)
+            d = blas.daxpy(r, blas.dscal(rnewTrnew / rTr, d))
+            rTr = rnewTrnew
+        return s, r
+
+    eta0, eta1, eta2 = 1e-4, 0.25, 0.75
+    sigma1, sigma2, sigma3 = 0.25, 0.5, 4.0
+    w = np.zeros(n)
+    f = fun(w)
+    g = grad(w)
+    delta = gnorm1 = blas.dnrm2(g)
+    search = gnorm1 > eps * gnorm1
+    it = 1
+    while it <= max_iter and search:
+        s, r = trcg(delta, g)
+        w_new = blas.daxpy(s, w.copy())
+        gs = blas.ddot(g, s)
+        prered = -0.5 * (gs - blas.ddot(s, r))
+        fnew = fun(w_new)
+        actred = f - fnew
+        snorm = blas.dnrm2(s)
+        if it == 1:
+            delta = min(delta, snorm)
+        alpha = sigma3 if fnew - f - gs <= 0 else max(sigma1, -0.5 * (gs / (fnew - f - gs)))
+        if actred < eta0 * prered:
+            delta = min(max(alpha, sigma1) * snorm, sigma2 * delta)
+        elif actred < eta1 * prered:
+            delta = max(sigma1 * delta, min(alpha * snorm, sigma2 * delta))
+        elif actred < eta2 * prered:
+            delta = max(sigma1 * delta, min(alpha * snorm, sigma3 * delta))
+        else:
+            delta = max(delta, min(alpha * snorm, sigma3 * delta))
+        if actred > eta0 * prered:
+            it += 1
+            w, f = w_new, fnew
+            g = grad(w)
+            if blas.dnrm2(g) <= eps * gnorm1:
+                break
+        if f < -1.0e32 or (abs(actred) <= 0 and prered <= 0):
+            break
+        if abs(actred) <= 1.0e-12 * abs(f) and abs(prered) <= 1.0e-12 * abs(f):
+            break
+    return w, it - 1
+
+
+def _dual_cd(X, y, C, eps, max_iter, mt):
+    """liblinear's ``solve_l2r_l1l2_svc`` for the squared hinge: coordinate
+    descent on the dual over the CSR rows ``X``, with shrinking. Returns
+    ``w`` and the sweeps."""
+    l = X.shape[0]
+    rows = [(X.indices[a:b], X.data[a:b]) for a, b in zip(X.indptr[:-1], X.indptr[1:])]
+    diag = 0.5 / C
+    QD = np.asarray([_running_sum(diag[i], v * v) for i, (_, v) in enumerate(rows)])
+    alpha, w = np.zeros(l), np.zeros(X.shape[1])
+    index = list(range(l))
+    active_size = l
+    pg_max_old, pg_min_old = math.inf, -math.inf
+    it = 0
+    while it < max_iter:
+        pg_max_new, pg_min_new = -math.inf, math.inf
+        for i in range(active_size):
+            j = i + mt.bounded(active_size - i)
+            index[i], index[j] = index[j], index[i]
+        s = 0
+        while s < active_size:
+            i = index[s]
+            idx, val = rows[i]
+            G = _running_sum(0.0, w[idx] * val) * y[i] - 1 + alpha[i] * diag[i]
+            PG = 0.0
+            if alpha[i] == 0:
+                if G > pg_max_old:
+                    active_size -= 1
+                    index[s], index[active_size] = index[active_size], index[s]
+                    continue
+                if G < 0:
+                    PG = G
+            else:
+                PG = G
+            pg_max_new, pg_min_new = max(pg_max_new, PG), min(pg_min_new, PG)
+            if abs(PG) > 1.0e-12:
+                old = alpha[i]
+                alpha[i] = max(alpha[i] - G / QD[i], 0.0)
+                w[idx] += ((alpha[i] - old) * y[i]) * val
+            s += 1
+        it += 1
+        if pg_max_new - pg_min_new <= eps:
+            if active_size == l:
+                break
+            active_size = l
+            pg_max_old, pg_min_old = math.inf, -math.inf
+            continue
+        pg_max_old = math.inf if pg_max_new <= 0 else pg_max_new
+        pg_min_old = -math.inf if pg_min_new >= 0 else pg_min_new
+    return w, it
+
+
+def _liblinear_rows(X, perm) -> sparse.csr_matrix:
+    """The rows liblinear reads, in the order ``perm``: a sparse row's stored
+    entries in their stored order (an unsorted TF-IDF row stays unsorted), a
+    dense row's non-zeros by column, each row then the bias feature of value 1."""
+    X = sparse.csr_matrix(X)
+    rows = [(X.indices[a:b], X.data[a:b]) for a, b in zip(X.indptr[perm], X.indptr[perm + 1])]
+    bias_index, one = np.asarray([X.shape[1]], X.indices.dtype), np.ones(1)
+    indptr = np.concatenate(([0], np.cumsum([len(i) + 1 for i, _ in rows])))
+    indices = np.concatenate([part for i, _ in rows for part in (i, bias_index)])
+    data = np.concatenate([part for _, v in rows for part in (v, one)])
+    return sparse.csr_matrix((data, indices, indptr), shape=(X.shape[0], X.shape[1] + 1))
+
+
+class LinearSVC:
+    """Squared-hinge linear SVM with an L2 penalty and a penalized bias
+    (sklearn's ``LinearSVC`` defaults), one-vs-rest above two classes."""
+
+    def __init__(self, C: float = 1.0, random_state=None):
+        self.C, self.random_state = C, random_state
 
     def fit(self, X, y):
-        self.model.fit(self.scaler.fit_transform(X), y)
+        X = _float_array(X)
+        X = X.astype(np.float64) if sparse.issparse(X) else X.astype(np.float64, copy=False)
+        y = np.asarray(y)
+        self.classes_ = np.unique(y)
+        if len(self.classes_) < 2:
+            raise ValueError("This solver needs samples of at least 2 classes in the data, "
+                             f"but the data contains only one class: {self.classes_[0]!r}")
+        seed = _random_state(self.random_state).randint(INT_MAX)
+        self.dual_ = X.shape[0] < X.shape[1]  # dual="auto"
+        y_ind = np.searchsorted(self.classes_, y)
+        perm = np.argsort(y_ind, kind="stable")  # liblinear groups the rows by class
+        y_ind = y_ind[perm]
+        Xb = _liblinear_rows(X, perm)
+        C = np.full(len(y_ind), float(self.C))
+        k = len(self.classes_)
+        mt = _MersenneTwister(seed)
+        coefs, n_iter = [], []
+        for cls in [1] if k == 2 else range(k):
+            target = np.where(y_ind == cls, 1.0, -1.0)
+            if self.dual_:
+                w, it = _dual_cd(Xb, target, C, SVC_TOL, SVC_MAX_ITER, mt)
+            else:
+                pos = int(np.sum(target > 0))
+                eps = SVC_TOL * max(min(pos, len(target) - pos), 1) / len(target)
+                w, it = _tron(Xb, target, C, eps, SVC_MAX_ITER)
+            coefs.append(w)
+            n_iter.append(it)
+        raw = np.asarray(coefs)
+        self.coef_, self.intercept_ = raw[:, :-1], raw[:, -1].copy()
+        self.n_iter_ = max(n_iter)
+        if self.n_iter_ >= SVC_MAX_ITER:
+            warnings.warn("Liblinear failed to converge, increase the number of iterations.",
+                          UserWarning)
         return self
 
+    def decision_function(self, X):
+        scores = _float_array(X) @ self.coef_.T + self.intercept_
+        return scores.reshape(-1) if scores.shape[1] == 1 else scores
+
     def predict(self, X):
-        return self.model.predict(self.scaler.transform(X))
+        scores = self.decision_function(X)
+        index = (scores > 0).astype(np.intp) if scores.ndim == 1 else np.argmax(scores, axis=1)
+        return self.classes_[index]
+
+
+# --- pipeline ---------------------------------------------------------------------------
+
+
+class Pipeline:
+    """Transformers then one estimator, fitted in turn (``steps`` as sklearn's)."""
+
+    def __init__(self, steps):
+        self.steps = list(steps)
+
+    @property
+    def named_steps(self) -> dict:
+        return dict(self.steps)
+
+    def _transform(self, X):
+        for _, step in self.steps[:-1]:
+            X = step.transform(X)
+        return X
+
+    def fit(self, X, y):
+        for _, step in self.steps[:-1]:
+            X = step.fit_transform(X)
+        self.steps[-1][1].fit(X, y)
+        return self
+
+    def _last(self, name: str):
+        method = getattr(self.steps[-1][1], name, None)
+        if method is None:
+            raise AttributeError(f"'{type(self.steps[-1][1]).__name__}' has no attribute "
+                                 f"'{name}'")
+        return method
+
+    def predict(self, X):
+        return self._last("predict")(self._transform(X))
 
     def predict_proba(self, X):
-        return self.model.predict_proba(self.scaler.transform(X))
+        return self._last("predict_proba")(self._transform(X))
+
+    def decision_function(self, X):
+        return self._last("decision_function")(self._transform(X))
+
+
+def standardized(model) -> Pipeline:
+    """``StandardScaler`` then ``model``: the JAX package's probe pipelines."""
+    return Pipeline([("scaler", StandardScaler()), ("clf", model)])
+
+
+# --- TF-IDF ------------------------------------------------------------------------------
+
+
+class TfidfVectorizer:
+    """Term counts from a callable analyzer, weighted by smoothed IDF and
+    L2-normalized per row (sklearn's defaults otherwise)."""
+
+    def __init__(self, analyzer, use_idf: bool = True):
+        if not callable(analyzer):
+            raise ValueError("only a callable analyzer is supported")
+        self.analyzer, self.use_idf = analyzer, use_idf
+
+    def _counts(self, docs, vocabulary):
+        """CSR counts: each row's terms in the order of their column index."""
+        fixed = vocabulary is not None
+        vocab = vocabulary if fixed else {}
+        indices, values, indptr = [], [], [0]
+        for doc in docs:
+            if isinstance(doc, bytes):
+                doc = doc.decode("utf-8")
+            counter: dict = {}
+            for term in self.analyzer(doc):
+                j = vocab.get(term) if fixed else vocab.setdefault(term, len(vocab))
+                if j is not None:
+                    counter[j] = counter.get(j, 0) + 1
+            indices.extend(counter)
+            values.extend(counter.values())
+            indptr.append(len(indices))
+        if not vocab:
+            raise ValueError("empty vocabulary; perhaps the documents only contain stop words")
+        X = sparse.csr_matrix((np.asarray(values, np.float64), np.asarray(indices, np.int32),
+                               np.asarray(indptr, np.int32)),
+                              shape=(len(indptr) - 1, len(vocab)))
+        X.sort_indices()
+        return X, vocab
+
+    def _weigh(self, X):
+        if self.use_idf:
+            X.data *= self.idf_[X.indices]
+        # each row's sum of squares in the order of its stored entries (a sum
+        # over axis 0 runs row by row): sklearn's running float64 sum
+        lengths = np.diff(X.indptr)
+        squares = np.zeros((max(int(lengths.max(initial=0)), 1), X.shape[0]))
+        row = np.repeat(np.arange(X.shape[0]), lengths)
+        squares[np.arange(len(row)) - X.indptr[row], row] = X.data * X.data
+        norms = np.sqrt(squares.sum(axis=0))
+        norms[norms == 0.0] = 1.0  # an empty row stays as it is
+        X.data /= np.repeat(norms, lengths)
+        return X
+
+    def fit_transform(self, raw_documents, y=None):
+        if isinstance(raw_documents, str):
+            raise ValueError("Iterable over raw text documents expected, string object "
+                             "received.")
+        X, vocab = self._counts(raw_documents, None)
+        # the vocabulary sorted by term; the rows keep their first-seen order
+        order = sorted(vocab.items())
+        remap = np.empty(len(order), dtype=X.indices.dtype)
+        for new, (term, old) in enumerate(order):
+            vocab[term] = new
+            remap[old] = new
+        X.indices = remap.take(X.indices)
+        X.has_sorted_indices = False
+        self.vocabulary_ = vocab
+        if self.use_idf:
+            n = X.shape[0] + 1
+            df = np.bincount(X.indices, minlength=X.shape[1]).astype(np.float64) + 1.0
+            self.idf_ = np.full_like(df, fill_value=n)
+            self.idf_ /= df
+            np.log(self.idf_, out=self.idf_)
+            self.idf_ += 1.0
+        return self._weigh(X)
+
+    def fit(self, raw_documents, y=None):
+        self.fit_transform(raw_documents)
+        return self
+
+    def transform(self, raw_documents):
+        if isinstance(raw_documents, str):
+            raise ValueError("Iterable over raw text documents expected, string object "
+                             "received.")
+        return self._weigh(self._counts(raw_documents, self.vocabulary_)[0])
 
 
 # --- ridge ------------------------------------------------------------------------------
@@ -433,5 +816,20 @@ def f1_score(y_true, y_pred) -> float:
     return float(2 * tp / denom) if denom else 0.0
 
 
-__all__ = ["LogisticRegression", "Ridge", "StandardScaler", "StandardizedLogisticRegression",
-           "StratifiedGroupKFold", "StratifiedKFold", "f1_score", "train_test_split"]
+def confusion_matrix(y_true, y_pred, labels=None) -> np.ndarray:
+    """Counts of (true, predicted) pairs, rows the true labels in ``labels``
+    order (the sorted union of both when ``labels`` is None); pairs with a
+    label outside ``labels`` are left out."""
+    y_true, y_pred = np.asarray(y_true), np.asarray(y_pred)
+    labels = np.union1d(y_true, y_pred) if labels is None else np.asarray(labels)
+    index = {label: i for i, label in enumerate(labels.tolist())}
+    matrix = np.zeros((len(labels), len(labels)), dtype=np.int64)
+    for t, p in zip(y_true.tolist(), y_pred.tolist()):
+        if t in index and p in index:
+            matrix[index[t], index[p]] += 1
+    return matrix
+
+
+__all__ = ["LinearSVC", "LogisticRegression", "Pipeline", "Ridge", "StandardScaler",
+           "StratifiedGroupKFold", "StratifiedKFold", "TfidfVectorizer", "confusion_matrix",
+           "f1_score", "standardized", "train_test_split"]

@@ -6,8 +6,11 @@
         --labels labels.csv [--out dir]
 
 Metrics with bootstrap CIs from ``evals/metrics.py`` into
-``<out>/metrics.json``. Host-only: the model is a pickled sklearn object
-that this program or ``train_classifier`` wrote.
+``<out>/metrics.json``. Host-only: the model and the vectorizer are pickles
+of the port's estimators (``evals/estimators.py``: ``Pipeline``,
+``LogisticRegression``, ``LinearSVC``, ``TfidfVectorizer``), as
+``train_classifier`` writes them; a sklearn pickle written by the JAX
+package needs sklearn to load and is not a contract of the port.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from pathlib import Path
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kind", choices=["probe", "kmer"], required=True)
-    ap.add_argument("--model", required=True, help="pickled sklearn model")
+    ap.add_argument("--model", required=True, help="pickled classifier")
     ap.add_argument("--embeddings", default=None, help="NPZ {X, ids} (probe kind)")
     ap.add_argument("--vectorizer", default=None, help="pickled vectorizer (kmer)")
     ap.add_argument("--seqs", default=None, help="CSV id,sequence (kmer kind)")

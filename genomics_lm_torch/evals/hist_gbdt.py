@@ -1,6 +1,8 @@
-"""Histogram gradient boosting for binary labels, in numpy: the port's
-stand-in for sklearn's ``HistGradientBoostingClassifier`` at its defaults
-(what ``benchmark_essentiality_baselines`` fits with ``max_iter=150``).
+"""Histogram gradient boosting, in numpy: the port's stand-in for sklearn's
+``HistGradientBoostingClassifier`` at its defaults (what
+``benchmark_essentiality_baselines`` fits with ``max_iter=150`` on binary
+labels, and ``benchmark_xgboost_dna`` with ``max_iter=200`` on any number of
+classes).
 
 It follows sklearn 1.9.0 step by step, so that on the same rows its trees,
 and so its predictions, come out as sklearn's:
@@ -9,9 +11,15 @@ and so its predictions, come out as sklearn's:
   at most ``MAX_BINS`` of them, otherwise the ``averaged_inverted_cdf``
   percentiles (on a 200,000-row subsample above that many rows); a value
   goes to the number of thresholds below it;
-- the baseline is the log-odds of the mean label, then each round fits a
-  tree to the half-binomial gradients and hessians (float32, as sklearn
-  keeps them) of the raw scores;
+- two classes: the baseline is the log-odds of the mean label, then each
+  round fits a tree to the half-binomial gradients and hessians (float32, as
+  sklearn keeps them) of the raw scores;
+- K > 2 classes (sklearn's multinomial case): the baseline is the symmetric
+  multinomial logit of the class priors (each clipped to [eps, 1 - eps],
+  their logs less the logs' mean), and each round fits K trees, tree k to
+  column k of the softmax gradients ``p - onehot`` and hessians
+  ``p (1 - p)``, computed once a round in float64 (the exponentials summed
+  class by class) and stored as float32;
 - a tree grows best-first by the gain ``G v - G_L v_L - G_R v_R`` with
   ``v = -G / (H + l2 + 1e-15)``, up to ``MAX_LEAF_NODES`` leaves, every
   leaf at least ``MIN_SAMPLES_LEAF`` rows and ``MIN_HESSIAN_TO_SPLIT`` of
@@ -20,18 +28,20 @@ and so its predictions, come out as sklearn's:
 - histograms are float64 sums in row order, one ``np.bincount`` a node over
   all features (key bin x features + feature); the smaller child is counted and
   the larger one is its parent minus it, as sklearn's grower does;
-- a leaf adds ``value x LEARNING_RATE`` to its rows' raw scores; the class
-  is ``raw > 0``, the probability ``expit(raw)``.
+- a leaf adds ``value x LEARNING_RATE`` to its rows' raw scores (column k
+  for class k's tree); two classes: the class is ``raw > 0``, the
+  probability ``expit(raw)``; K classes: the probabilities are the softmax
+  of the raw scores and the class is their argmax over ``classes_``.
 
 Early stopping is sklearn's ``"auto"``: on above 10,000 rows. sklearn then
 draws its validation rows from an unseeded generator, so no run can equal it
 there; this one applies the same rule (a tenth of the rows held out by
-class, the loss as the score, a stop when none of the last
+class, the mean loss as the score, a stop when none of the last
 ``N_ITER_NO_CHANGE`` rounds beats the round before them by ``TOL``) on rows
 drawn from ``random_state``.
 
-Missing values, categorical features and more than two classes are not
-supported: the essentiality labels are 0/1 by construction.
+Missing values and categorical features are not supported: the callers'
+features are finite numbers (codon frequencies, TF-IDF weights).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import heapq
 
 import numpy as np
 from scipy.special import expit, logit
+from scipy.stats import gmean
 
 N_BINS = 256  # the histogram width: MAX_BINS non-missing bins and the missing one
 SUBSAMPLE = 200_000
@@ -91,7 +102,8 @@ def _node_value(g, h, l2):
 
 
 class HistGradientBoostingClassifier:
-    """Binary gradient-boosted trees on binned features."""
+    """Gradient-boosted trees on binned features: one tree a round for two
+    classes, one a class for more."""
 
     def __init__(self, max_iter: int = 100, random_state=None):
         self.max_iter, self.random_state = max_iter, random_state
@@ -104,10 +116,9 @@ class HistGradientBoostingClassifier:
         if np.isnan(X).any():
             raise ValueError("missing values are not supported")
         self.classes_ = np.unique(y)
-        if len(self.classes_) != 2:
-            raise ValueError(
-                f"{len(self.classes_)} classes: this booster takes binary labels only; the "
-                "multiclass booster comes with benchmark_xgboost_dna's later slice")
+        if len(self.classes_) < 2:
+            raise ValueError(f"{len(self.classes_)} class: at least two are needed")
+        self.n_trees_per_iteration_ = 1 if len(self.classes_) == 2 else len(self.classes_)
         y = np.searchsorted(self.classes_, y).astype(np.float64)
         rng = np.random.RandomState(self.random_state)
         self.do_early_stopping_ = X.shape[0] > EARLY_STOPPING_ROWS
@@ -129,34 +140,60 @@ class HistGradientBoostingClassifier:
         self._keys = binned.astype(np.int64) * n_features + np.arange(n_features)
         self._width = max(len(t) for t in self.bin_thresholds_)  # bins a split may follow
 
-        mean = np.average(y)
-        eps = 10 * np.finfo(np.float64).eps
-        self.baseline_ = float(logit(np.clip(mean, eps, 1 - eps)))
-        raw = np.full(n, self.baseline_)
+        self.baseline_ = self._baseline(y)
+        raw = self._start(n)
         self.trees_ = []
         self.train_score_, self.validation_score_ = [], []
         if self.do_early_stopping_:
             binned_val = self._bin(X_val)
-            raw_val = np.full(len(y_val), self.baseline_)
+            raw_val = self._start(len(y_val))
             self._score(raw, y, raw_val, y_val)
         for _ in range(self.max_iter):
-            grad, hess = self._gradients(y, raw)
-            tree, leaves = self._grow(grad, hess)
-            self.trees_.append(tree)
-            for idx, value in leaves:
-                raw[idx] += value
+            if self.n_trees_per_iteration_ == 1:
+                grad, hess = self._gradients(y, raw)
+                tree, leaves = self._grow(grad, hess)
+                self.trees_.append(tree)
+                for idx, value in leaves:
+                    raw[idx] += value
+            else:
+                grad, hess = self._softmax_gradients(y, raw)
+                self.trees_.append([])
+                for k in range(self.n_trees_per_iteration_):
+                    tree, leaves = self._grow(grad[:, k], hess[:, k])
+                    self.trees_[-1].append(tree)
+                    for idx, value in leaves:
+                        raw[idx, k] += value
             if self.do_early_stopping_:
-                raw_val += self._tree_values(tree, binned_val)
+                raw_val += self._round_values(self.trees_[-1], binned_val)
                 if self._score(raw, y, raw_val, y_val):
                     break
         del self._keys, self._binned
         self.n_iter_ = len(self.trees_)
         return self
 
+    def _baseline(self, y):
+        """The intercept-only raw score: the log-odds of the mean label, or the
+        symmetric multinomial logit of the class priors (sklearn's
+        ``fit_intercept_only``)."""
+        if self.n_trees_per_iteration_ == 1:
+            eps = 10 * np.finfo(np.float64).eps
+            return float(logit(np.clip(np.average(y), eps, 1 - eps)))
+        prior = np.zeros(self.n_trees_per_iteration_)
+        eps = np.finfo(np.float64).eps
+        for k in range(len(prior)):
+            prior[k] = np.clip(np.average(y == k), eps, 1 - eps)
+        prior = prior[None, :]
+        return np.log(prior / gmean(prior, axis=1)[:, None]).reshape(-1)
+
+    def _start(self, n: int) -> np.ndarray:
+        if self.n_trees_per_iteration_ == 1:
+            return np.full(n, self.baseline_)
+        return np.zeros((n, self.n_trees_per_iteration_)) + self.baseline_[None, :]
+
     def _holdout(self, y, rng) -> np.ndarray:
         """A tenth of each class's rows, drawn from ``rng``."""
         val = []
-        for c in (0.0, 1.0):
+        for c in range(len(self.classes_)):
             rows = np.flatnonzero(y == c)
             val.append(rng.permutation(rows)[: int(np.ceil(VALIDATION_FRACTION * len(rows)))])
         return np.sort(np.concatenate(val))
@@ -166,7 +203,13 @@ class HistGradientBoostingClassifier:
         ``n_iter_no_change`` rounds beat none of the one before them."""
         for scores, r, t in ((self.train_score_, raw, y),
                              (self.validation_score_, raw_val, y_val)):
-            scores.append(-float(np.mean(np.logaddexp(0.0, r) - t * r)))
+            if r.ndim == 1:
+                scores.append(-float(np.mean(np.logaddexp(0.0, r) - t * r)))
+            else:
+                top = r.max(axis=1)
+                total = self._class_sum(np.exp(r - top[:, None]))
+                loss = np.log(total) + top - r[np.arange(len(t)), t.astype(np.intp)]
+                scores.append(-float(np.mean(loss)))
         scores = self.validation_score_
         ref = N_ITER_NO_CHANGE + 1
         if len(scores) < ref:
@@ -181,6 +224,24 @@ class HistGradientBoostingClassifier:
         grad = np.where(neg, e - y, ((1 - y) - y * e) / (1 + e))
         hess = np.where(neg, e, e / (1 + e) ** 2)
         return grad.astype(np.float32), hess.astype(np.float32)
+
+    @staticmethod
+    def _class_sum(p: np.ndarray) -> np.ndarray:
+        """Each row's sum over the classes, class by class (sklearn's loop)."""
+        total = p[:, 0].copy()
+        for k in range(1, p.shape[1]):
+            total += p[:, k]
+        return total
+
+    @classmethod
+    def _softmax_gradients(cls, y, raw):
+        """Half-multinomial gradients ``p - onehot`` and hessians ``p (1 - p)``
+        of each class, float64 math stored as float32 (n, K)."""
+        p = np.exp(raw - raw.max(axis=1)[:, None])
+        p /= cls._class_sum(p)[:, None]
+        onehot = np.zeros_like(p)
+        onehot[np.arange(len(y)), y.astype(np.intp)] = 1.0
+        return (p - onehot).astype(np.float32), (p * (1.0 - p)).astype(np.float32)
 
     def _bin(self, X) -> np.ndarray:
         return np.stack([np.searchsorted(t, X[:, f], side="left")
@@ -303,22 +364,37 @@ class HistGradientBoostingClassifier:
             stack += [(node["left"], rows[left]), (node["right"], rows[~left])]
         return out
 
+    def _round_values(self, trees, binned: np.ndarray) -> np.ndarray:
+        """One round's leaf values: (n,) for one tree, (n, K) for K."""
+        if self.n_trees_per_iteration_ == 1:
+            return self._tree_values(trees, binned)
+        return np.stack([self._tree_values(t, binned) for t in trees], axis=1)
+
     # --- prediction ----------------------------------------------------------------
 
     def decision_function(self, X) -> np.ndarray:
-        """The raw score: the baseline plus each tree's leaf value, in order."""
+        """The raw score: the baseline plus each round's leaf values, in order;
+        (n,) for two classes, (n, K) for K."""
         binned = self._bin(np.asarray(X, dtype=np.float64))
-        raw = np.full(binned.shape[0], self.baseline_)
-        for tree in self.trees_:
-            raw += self._tree_values(tree, binned)
+        raw = self._start(binned.shape[0])
+        for trees in self.trees_:
+            raw += self._round_values(trees, binned)
         return raw
 
     def predict(self, X) -> np.ndarray:
-        return self.classes_[(self.decision_function(X) > 0).astype(np.intp)]
+        raw = self.decision_function(X)
+        index = (raw > 0).astype(np.intp) if raw.ndim == 1 else np.argmax(raw, axis=1)
+        return self.classes_[index]
 
     def predict_proba(self, X) -> np.ndarray:
-        p = expit(self.decision_function(X))
-        return np.stack([1 - p, p], axis=1)
+        raw = self.decision_function(X)
+        if raw.ndim == 1:
+            p = expit(raw)
+            return np.stack([1 - p, p], axis=1)
+        raw -= raw.max(axis=1).reshape(-1, 1)  # sklearn's softmax
+        np.exp(raw, out=raw)
+        raw /= raw.sum(axis=1).reshape(-1, 1)
+        return raw
 
 
 __all__ = ["HistGradientBoostingClassifier", "bin_thresholds"]

@@ -7,8 +7,9 @@ the same flags plus ``--device``).
 
 The first ``--max_windows`` rows of the split go through one
 ``hidden_states`` pass (``evals/motifs.py::extract_window_embeddings``,
-windows holding a PAD skipped); the window embeddings are clustered with
-KMeans (sklearn), and each cluster reports its consensus, size, known-motif
+windows holding a PAD skipped); the window embeddings are clustered on the
+host with the port's KMeans (``evals/clustering.py``, sklearn's arithmetic
+without sklearn), and each cluster reports its consensus, size, known-motif
 matches and PWM entropy summary in ``<run>/scores/motifs.json``.
 """
 

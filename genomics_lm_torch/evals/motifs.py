@@ -6,8 +6,9 @@ hidden states, clustering, consensus, PWMs and the known-motif library.
 all rows and pools on the model's device: each window's mean over its
 block states, with the windows holding an excluded id dropped by a
 windowed count, so only the kept embeddings cross to the host, once. The
-clustering (sklearn KMeans, PCA and HDBSCAN, imported where they are
-used), the consensus, the PWM functions and the library are numpy copies.
+clustering runs on the host with the port's PCA, KMeans and HDBSCAN
+(``evals/clustering.py``, sklearn 1.9.0's arithmetic without sklearn); the
+consensus, the PWM functions and the library are numpy copies.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from genomics_lm_torch.evals.clustering import HDBSCAN, PCA, KMeans
 from genomics_lm_torch.models import codon_gpt
 from genomics_lm_torch.models.config import CodonGPTConfig
 from genomics_lm_torch.utils.device import module_device
@@ -119,20 +121,12 @@ class MotifClusterer:
     def fit_predict(self, embeddings: np.ndarray) -> np.ndarray:
         X = embeddings
         if self.pca_components:
-            from sklearn.decomposition import PCA
-
             n_comp = min(self.pca_components, X.shape[1], X.shape[0])
             self.pca = PCA(n_components=n_comp, random_state=self.random_state)
             X = self.pca.fit_transform(X)
         if self.method == "kmeans":
-            from sklearn.cluster import KMeans
-
-            self.model = KMeans(
-                n_clusters=self.n_clusters, n_init="auto", random_state=self.random_state
-            )
+            self.model = KMeans(n_clusters=self.n_clusters, random_state=self.random_state)
         elif self.method == "hdbscan":
-            from sklearn.cluster import HDBSCAN
-
             self.model = HDBSCAN(min_cluster_size=max(2, self.n_clusters))
         else:
             raise ValueError(f"Unknown clustering method: {self.method}")

@@ -5,8 +5,8 @@ the same flags).
         --test_npz test.npz [--train_labels ids.csv --test_labels ids.csv] \
         [--kind logreg|svm] [--C 1.0] [--out linear_probe.json]
 
-StandardScaler + LogisticRegression or LinearSVC (sklearn, on the host),
-test metrics with bootstrap CIs from ``evals/metrics.py``.
+StandardScaler + LogisticRegression or LinearSVC (the port's estimators,
+``evals/estimators.py``, on the host), test metrics with bootstrap CIs from ``evals/metrics.py``.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
 """Downstream probes (twin of ``genomics_lm_tpu/evals/probes.py``): linear,
 k-mer TF-IDF baselines, and an MLP head trained in torch.
 
-The linear and k-mer probes are host-only sklearn / xgboost code, copied
-with their lazy imports. ``fit_mlp`` trains a small ReLU MLP on the entry
+The linear and k-mer probes fit on the host with the port's own estimators
+(``evals/estimators.py``: ``StandardScaler``, ``LogisticRegression``,
+``LinearSVC``, ``TfidfVectorizer`` and ``Pipeline``, sklearn 1.9.0's
+arithmetic without sklearn); ``fit_kmer_xgb`` keeps the JAX package's
+contract, xgboost or its ``RuntimeError``. ``fit_mlp`` trains a small ReLU MLP on the entry
 point's device (the CUDA card unless the caller names another) with
 ``torch.optim.AdamW`` at optax's ``adamw`` defaults (weight decay 1e-4,
 eps 1e-8, every leaf decayed), the batch order from numpy
@@ -19,6 +22,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from genomics_lm_torch.evals.estimators import (
+    LinearSVC,
+    LogisticRegression,
+    TfidfVectorizer,
+    standardized,
+)
 from genomics_lm_torch.evals.metrics import compute_metrics
 from genomics_lm_torch.utils.device import resolve_device
 
@@ -34,14 +43,7 @@ class ProbeResult:
 
 
 def fit_logreg(X, y, C: float = 1.0, max_iter: int = 2000) -> ProbeResult:
-    from sklearn.linear_model import LogisticRegression
-    from sklearn.pipeline import Pipeline
-    from sklearn.preprocessing import StandardScaler
-
-    clf = Pipeline([
-        ("scaler", StandardScaler(with_mean=True)),
-        ("clf", LogisticRegression(C=C, max_iter=max_iter)),
-    ])
+    clf = standardized(LogisticRegression(C=C, max_iter=max_iter))
     clf.fit(X, y)
     y_pred = clf.predict(X)
     try:
@@ -52,14 +54,7 @@ def fit_logreg(X, y, C: float = 1.0, max_iter: int = 2000) -> ProbeResult:
 
 
 def fit_linear_svm(X, y, C: float = 1.0) -> ProbeResult:
-    from sklearn.pipeline import Pipeline
-    from sklearn.preprocessing import StandardScaler
-    from sklearn.svm import LinearSVC
-
-    clf = Pipeline([
-        ("scaler", StandardScaler(with_mean=True)),
-        ("clf", LinearSVC(C=C)),
-    ])
+    clf = standardized(LinearSVC(C=C))
     clf.fit(X, y)
     y_pred = clf.predict(X)
     try:
@@ -93,17 +88,11 @@ class KmerResult:
 
 
 def _tfidf(k: int, tfidf: bool):
-    from sklearn.feature_extraction.text import TfidfVectorizer
-
-    return TfidfVectorizer(
-        analyzer=_KmerAnalyzer(k), lowercase=False, use_idf=tfidf, norm="l2"
-    )
+    return TfidfVectorizer(analyzer=_KmerAnalyzer(k), use_idf=tfidf)
 
 
 def fit_kmer_logreg(seqs, y, k: int = 3, tfidf: bool = True, C: float = 1.0,
                     max_iter: int = 2000) -> KmerResult:
-    from sklearn.linear_model import LogisticRegression
-
     vec = _tfidf(k, tfidf)
     X = vec.fit_transform(seqs)
     clf = LogisticRegression(C=C, max_iter=max_iter)
@@ -117,8 +106,6 @@ def fit_kmer_logreg(seqs, y, k: int = 3, tfidf: bool = True, C: float = 1.0,
 
 
 def fit_kmer_svm(seqs, y, k: int = 3, tfidf: bool = True, C: float = 1.0) -> KmerResult:
-    from sklearn.svm import LinearSVC
-
     vec = _tfidf(k, tfidf)
     X = vec.fit_transform(seqs)
     clf = LinearSVC(C=C)

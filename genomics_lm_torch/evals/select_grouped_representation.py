@@ -61,8 +61,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from genomics_lm_torch.evals.estimators import (
-        StandardizedLogisticRegression,
+        LogisticRegression,
         StratifiedGroupKFold,
+        standardized,
     )
     from genomics_lm_torch.evals.metrics import compute_metrics
 
@@ -94,7 +95,7 @@ def main(argv=None) -> int:
         for X_full in candidates[name]:
             X = X_full[keep]
             for train_index, val_index in splits:
-                model = StandardizedLogisticRegression(C=args.C, max_iter=2000)
+                model = standardized(LogisticRegression(C=args.C, max_iter=2000))
                 model.fit(X[train_index], y[train_index])
                 fold_scores.append(compute_metrics(y[val_index], model.predict(X[val_index]),
                                                    model.predict_proba(X[val_index])))

@@ -6,12 +6,15 @@
 
 Kinds ``probe_logreg | probe_svm | mlp | kmer_logreg | kmer_svm | kmer_xgb``
 (the ``mlp`` kind trains ``evals/probes.py::fit_mlp`` on ``--device``, the
-others are sklearn / xgboost on the host), protocols ``std``, ``TSTR``
+others fit on the host with the port's estimators, ``evals/estimators.py``;
+``kmer_xgb`` needs xgboost, as in the JAX package), protocols ``std``, ``TSTR``
 (train-synthetic, test-real) and ``TRTS`` (train-real, test-synthetic).
 The two packs are bound first (``evals/provenance.py::bind_embedding_pair``;
 ``require_verified_provenance: true`` fails closed on a pack without a
 verified sidecar or on a dataset, weights or vocabulary mismatch). Writes
-``metrics.json`` (bootstrap CIs), the pickled model and a confusion plot.
+``metrics.json`` (bootstrap CIs), the pickled model (the port's
+``Pipeline``, ``LogisticRegression`` or ``LinearSVC``) and a confusion plot
+where matplotlib imports.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ against sklearn, the release the JAX package's scripts run against.
 - the gradient-boosted trees on two seeded binary sets of 1,000 x 64 (60
   rounds, and the baselines' 150): predictions equal
   and probabilities within ``PROBA_ATOL``; the early
-  stopping rule above 10,000 rows; multiclass labels refused;
+  stopping rule above 10,000 rows; three classes fit, one class and missing
+  values refused;
 - every module of the slice imports and runs with sklearn, xgboost, umap
   and matplotlib blocked, in a fresh interpreter.
 """
@@ -202,7 +203,7 @@ def test_standardized_logistic_regression_is_fit_logreg_s_pipeline():
     X, y = _classes(rng, 300, 24, 3)
     X = (X * 20 + 3).astype(np.float32)
     want = fit_logreg(X, y, C=0.5).model
-    got = est.StandardizedLogisticRegression(C=0.5).fit(X, y)
+    got = est.standardized(est.LogisticRegression(C=0.5, max_iter=2000)).fit(X, y)
     np.testing.assert_array_equal(got.predict(X), want.predict(X))
     np.testing.assert_allclose(got.predict_proba(X), want.predict_proba(X), rtol=0,
                                atol=PROBA_ATOL)
@@ -265,9 +266,17 @@ def test_gbdt_early_stopping_rule_above_10000_rows():
 
 
 def test_gbdt_refuses_multiclass():
+    """Three classes now fit, one tree a class a round (held to sklearn in
+    ``test_torch_classifiers.py``); one class and missing values are refused."""
     X = np.random.default_rng(0).normal(size=(60, 2))
-    with pytest.raises(ValueError, match="benchmark_xgboost_dna"):
-        HistGradientBoostingClassifier().fit(X, np.arange(60) % 3)
+    model = HistGradientBoostingClassifier(max_iter=3).fit(X, np.arange(60) % 3)
+    assert model.n_trees_per_iteration_ == 3 and len(model.trees_[0]) == 3
+    assert model.predict_proba(X).shape == (60, 3)
+    with pytest.raises(ValueError, match="at least two"):
+        HistGradientBoostingClassifier().fit(X, np.zeros(60))
+    X[0, 0] = np.nan
+    with pytest.raises(ValueError, match="missing values"):
+        HistGradientBoostingClassifier().fit(X, np.arange(60) % 2)
 
 
 NO_SKLEARN = r"""
@@ -287,7 +296,8 @@ X = rng.normal(size=(120, 6)).astype(np.float32)
 y = (X[:, 0] + rng.normal(size=120) > 0.5).astype(int)
 g = rng.integers(0, 12, 120)
 for tr, te in est.StratifiedGroupKFold(3, shuffle=True, random_state=1).split(X, y, g):
-    m = est.StandardizedLogisticRegression(class_weight="balanced").fit(X[tr], y[tr])
+    m = est.standardized(est.LogisticRegression(max_iter=2000, class_weight="balanced"))
+    m.fit(X[tr], y[tr])
     est.f1_score(y[te], m.predict(X[te]))
 for tr, te in est.StratifiedKFold(3, shuffle=True, random_state=1).split(X, y):
     HistGradientBoostingClassifier(max_iter=5).fit(X[tr], y[tr]).predict_proba(X[te])
