@@ -548,6 +548,34 @@ exits non-zero:
    the flash forward 10 times) with ``ss_propensity``'s H/E/C of each
    codon's residue; every report finite, the classes not predicted listed
    (``[classifiers]``).
+58. flagship quality — ``evals/benchmark_flagship_quality.py`` at full width
+   (12L8H d512, block 512, bf16 flash, fused QKV, dropout 0.1, B 8, the
+   script's schedule) cut to ``FLAGSHIP_CUT`` (2,000 of its 20,000 genes and
+   1 of its 20 epochs, for the smoke's time): the dataset id, training
+   seconds and non-pad tokens/s, the best validation loss, each split's
+   hardest baseline with its margin and paired-bootstrap interval, the
+   context ablation; the exit code by the script's rule; each flash kernel's
+   launches (reset just before, read just after) n_layer a training
+   microbatch, the forward's also n_layer a validation microbatch and an
+   evaluation batch (``flagship_predicted_launches``). Then the three flash
+   kernels on the first real microbatch of its train split, its own
+   segments, heads of 64, against their plain versions, timed.
+59. gen experiments — a third worker process (``gen_experiments_worker``,
+   started after phase 58, beside phases 41-57, joined here) runs this
+   slice's generation CLIs on phase 58's run at their defaults but two
+   cuts for time: ``run_guidance_ablation`` (4 of 12 samples a variant) and
+   ``run_ablation_sweep`` with phase 38's critic,
+   ``structured_prefix_experiment`` (2 of 4 a prefix; critic-scored),
+   ``benchmark_hybrid_critic`` with the critic and phase 40's EBM,
+   ``perturbation_motifs`` on its validation split and ``utr_generation``,
+   each with the decode and flash launches reset just before it and read
+   just after (n_layer a cached step, n_layer an uncached forward);
+   ``compare_generators`` against phase 33's demo run at ``COMPARE_CUT`` (2
+   of 8 candidates, as phase 37's cut), its two design loops processes of
+   their own, each counted by ``LAUNCH_PROBE`` (n_layer a cached step of
+   its run). Every report whole and finite. Then the decode kernel against
+   its plain version at these CLIs' shape (B 1 over the 512-position cache,
+   the median live positions of their cached steps), timed.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's measured numbers; the last line is
@@ -7081,6 +7109,306 @@ def phase_classifiers(worker: dict, card: str) -> dict:
     return {"flash": sum(v["flash_fwd"] for v in launches.values())}
 
 
+# --- phases 58-59: the flagship quality benchmark and the generation experiments ---
+
+# The flagship benchmark at full width (12L8H d512, block 512, bf16 flash, fused
+# QKV) cut to a tenth of its corpus and one of its 20 epochs for the smoke's time;
+# the full run is a call of its own (PERF.md).
+FLAGSHIP_CUT = ["--genes", "2000", "--epochs", "1"]
+# compare_generators' design loops at 2 of 8 candidates, as [design]'s cut: each
+# loop is a process of its own that loads two models and the critic. The cut run
+# never emits a stop codon, so every generation runs to its cap; the guidance
+# ablation at 4 of 12 samples a variant and the structured prefixes at 2 of 4 a
+# prefix keep the worker inside phases 41-57 (at its defaults it ran 212.6 s beside
+# them on one H100 80GB HBM3 at 700 W, and the join waited 71.8 s)
+COMPARE_CUT = ["--n_sequences", "2"]
+GUIDANCE_CUT = ["--n_samples", "4"]
+STRUCTURED_CUT = ["--n_per_prefix", "2"]
+# On the design loops' path (their own processes, the port put on it by
+# compare_generators): counts each process's kernel launches and cached decode
+# steps and writes them at exit, as run_timed counts them in this one.
+LAUNCH_PROBE = '''
+import atexit, json, os, sys
+from genomics_lm_torch.generation import decode as _decode
+from genomics_lm_torch.ops import decode_attention as _da, flash_attention as _fa
+_step, _forward, _counts = _decode.decode_step, _decode.forward, {"decode_steps": 0,
+                                                                 "uncached_forwards": 0}
+def _counting(fn, key):
+    def counted(*a, **k):
+        _counts[key] += 1
+        return fn(*a, **k)
+    return counted
+_decode.decode_step = _counting(_step, "decode_steps")
+_decode.forward = _counting(_forward, "uncached_forwards")
+def _dump():
+    out = dict(_counts, run=sys.argv[1] if len(sys.argv) > 1 else None,
+               decode_attention=_da.decode_attention.launches,
+               flash_fwd=_fa.flash_fwd.launches)
+    with open(os.path.join(os.environ["SMOKE_LAUNCH_DIR"], f"{os.getpid()}.json"), "w") as f:
+        json.dump(out, f)
+atexit.register(_dump)
+'''
+
+
+def flagship_predicted_launches(dataset: Path, args) -> dict:
+    """Each flash kernel's launches the flagship CLI's path implies: n_layer a
+    training microbatch (forward, dQ, dK/dV), and the forward also n_layer a
+    validation microbatch of the trainer (each epoch) and a batch of each
+    evaluation pass (the model NLL and the per-row NLL on val and test, the
+    test's four ablation windows)."""
+    L, B, E = args.n_layer, args.batch_size, args.epochs
+    train = PackedDataset(str(dataset / f"train_bs{args.block_size}.npz"))
+    val, test = (dataset / f"{s}_bs{args.block_size}.npz" for s in ("val", "test"))
+    train_mb = sum(len(EpochPlan(train, batch_size=B, seed=args.seed, epoch=e))
+                   for e in range(1, E + 1))
+    val_mb = len(EpochPlan(PackedDataset(str(val)), batch_size=B, seed=args.seed, epoch=0,
+                           shuffle=False))
+    rows = {split: len(PackedDataset(str(split))) for split in (val, test)}
+    # the model NLL and the per-row NLL on each split, the test's 4 windows
+    evals = (plan_microbatches(val, 64) + plan_microbatches(val, 64, rows[val])
+             + 5 * plan_microbatches(test, 64) + plan_microbatches(test, 64, rows[test]))
+    bwd = L * train_mb
+    return {"train_microbatches": train_mb, "val_microbatches": val_mb, "eval_batches": evals,
+            "flash_fwd": bwd + L * (E * val_mb + evals), "flash_bwd_dq": bwd,
+            "flash_bwd_dkv": bwd}
+
+
+def phase_flagship_quality(workdir: Path, card: str, peak_bw, peak_ops) -> dict:
+    """``[flagship_quality]``: ``evals/benchmark_flagship_quality.py`` at full
+    width (12L8H d512, block 512, bf16 flash, fused QKV), cut to
+    ``FLAGSHIP_CUT``: the dataset id, training seconds and non-pad tokens/s,
+    the best validation loss, each split's hardest baseline with its margin and
+    interval, the context ablation; the exit code as the script's rule (0 if and
+    only if the test margin over the hardest baseline excludes zero above it);
+    each flash kernel's launches (reset just before, read just after) as the
+    path implies. Then the three flash kernels on the first real microbatch of
+    its train split, its own segments, heads of 64, against their plain
+    versions, timed."""
+    from genomics_lm_torch.evals import benchmark_flagship_quality as fq
+
+    argv = [*FLAGSHIP_CUT, "--workdir", str(workdir), "--out", str(workdir / "report.json")]
+    args = fq.parser().parse_args(argv)
+    for w in FLASH_WRAPPERS:
+        w.launches = 0  # the benchmark's launches only
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fq.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in FLASH_WRAPPERS}
+    report = json.loads((workdir / "report.json").read_text())
+    dataset = workdir / "dataset"
+    run_dir = workdir / "runs" / "flagship-d512"
+    meta = json.loads((run_dir / "checkpoints" / "meta.json").read_text())
+    want = flagship_predicted_launches(dataset, args)
+    verdict = {split: {"model_nll": report[split]["model"]["nll"],
+                       "hardest": report[split]["hardest_baseline"],
+                       "best_simple_model": report[split]["best_simple_model"],
+                       **report[split]["margins"][report[split]["hardest_baseline"]],
+                       "beats_hardest_with_ci": report[split]["beats_hardest_with_ci"]}
+               for split in ("val", "test")}
+    row = dict(cut=FLAGSHIP_CUT, rc=rc, wall_s=wall,
+               dataset_id=json.loads((dataset / "manifest.json").read_text())["dataset"]["id"],
+               model=report["protocol"]["model"], n_params=report["train"]["n_params"],
+               train_s=meta["train_wall_sec"], nonpad_tokens=meta["consumed_train_tokens"],
+               nonpad_tokens_per_s=meta["consumed_train_tokens"] / meta["train_wall_sec"],
+               best_val_loss=report["train"]["best_val_loss"], verdict=verdict,
+               test_tokens=report["test"]["tokens"],
+               context_ablation={w: r["nll"] for w, r in report["context_ablation"].items()},
+               flash_launches=launches, want=want, card=card)
+    log("flagship_quality", **row)
+    numbers = [row["best_val_loss"], *row["context_ablation"].values(),
+               *(v[k] for v in verdict.values() for k in ("model_nll", "margin_nats",
+                                                           "ci_low", "ci_high"))]
+    if rc != (0 if verdict["test"]["beats_hardest_with_ci"] else 1) or not all(
+            np.isfinite(numbers)):
+        raise AssertionError(f"flagship quality: {row}")
+    if any(launches[k] != want[k] for k in launches):
+        raise AssertionError(f"flagship flash launches {launches}, want {want}")
+
+    # the flash kernels on the first microbatch of the train split, its own segments
+    with np.load(dataset / f"train_bs{args.block_size}.npz") as z:
+        xb = torch.from_numpy(z["X"][:args.batch_size]).cuda().long()
+    seg = segment_ids(xb, train_main.MAIN_TRAIN["sep_id"])
+    H, D = args.n_head, args.n_embd // args.n_head
+    gen = torch.Generator(device="cuda").manual_seed(58)
+    timed = check_flash_case(gen, "flagship_flash", "flagship_b8_h8_d64_bf16_dropout",
+                             args.batch_size, H, H, args.block_size, args.block_size, D,
+                             torch.bfloat16, None, args.dropout, seg, True, peak_bw, peak_ops)
+    log("flagship_flash", microbatch_segments=int((seg[:, -1] - seg[:, 0] + 1).sum()),
+        card=card)
+    return {"launches": launches, "timed": timed, "run_dir": str(run_dir),
+            "val_npz": str(dataset / f"val_bs{args.block_size}.npz"), "n_layer": args.n_layer,
+            "n_head": H, "head_dim": D}
+
+
+def start_gen_experiments(flagship: dict, demo: dict, critic: dict, ebm: dict,
+                          workdir: Path) -> dict:
+    """Start the generation experiments (CLIs 2-8 of this slice) in a worker
+    process of their own (``gen_experiments_worker``, one host thread), beside
+    phases 41-57: each is host-paced cached decoding at B 1.
+    ``phase_gen_experiments`` joins it."""
+    spec = {"run_dir": flagship["run_dir"], "val_npz": flagship["val_npz"],
+            "demo_run": str(demo["run_dir"]), "critic": str(critic["best"]),
+            "ebm": str(ebm["ebm"]), "workdir": str(workdir)}
+    return start_worker("gen_experiments_worker", spec, workdir)
+
+
+def gen_experiments_worker(spec_path: str) -> int:
+    """The generation experiments on the flagship cut's run, each at its
+    defaults but ``GUIDANCE_CUT`` and ``STRUCTURED_CUT``, the decode and
+    flash launches reset just before each and read just after
+    (``run_timed``), every cached step's cache size and live positions
+    recorded; ``compare_generators`` (``COMPARE_CUT``) against the demo run,
+    its two design loops in processes of their own counted by
+    ``LAUNCH_PROBE``. Writes ``result.json`` beside the spec."""
+    from genomics_lm_torch.evals.perturbation_motifs import main as perturbation_cli
+    from genomics_lm_torch.evals.utr_generation import main as utr_cli
+    from genomics_lm_torch.generation.benchmark_hybrid_critic import main as hybrid_cli
+    from genomics_lm_torch.generation.compare_generators import main as compare_cli
+    from genomics_lm_torch.generation.run_ablation_sweep import main as sweep_cli
+    from genomics_lm_torch.generation.run_guidance_ablation import main as guidance_cli
+    from genomics_lm_torch.generation.structured_prefix_experiment import main as prefix_cli
+
+    spec = json.loads(Path(spec_path).read_text())
+    work, run, critic = Path(spec["workdir"]), spec["run_dir"], spec["critic"]
+    out = {name: work / f"{name}.json" for name in ("guidance", "sweep", "hybrid",
+                                                     "perturbation", "utr")}
+    clis = [
+        ("run_guidance_ablation", guidance_cli,
+         [run, "--critic_ckpt", critic, *GUIDANCE_CUT, "--out", str(out["guidance"])]),
+        ("run_ablation_sweep", sweep_cli,
+         [run, "--critic_ckpt", critic, "--out", str(out["sweep"])]),
+        ("structured_prefix_experiment", prefix_cli,
+         [run, "--critic_ckpt", critic, *STRUCTURED_CUT, "--out_dir",
+          str(work / "structured")]),
+        ("benchmark_hybrid_critic", hybrid_cli,
+         [run, "--critic_ckpt", critic, "--ebm_ckpt", spec["ebm"], "--out",
+          str(out["hybrid"])]),
+        ("perturbation_motifs", perturbation_cli,
+         [run, "--npz", spec["val_npz"], "--out", str(out["perturbation"])]),
+        ("utr_generation", utr_cli, [run, "--out", str(out["utr"])]),
+    ]
+    secs, launches, shapes = {}, {}, {}
+    for name, cli, argv in clis:
+        with _Timed(decode_mod, "decode_step", record=_cache_shape) as steps, \
+                _Timed(decode_mod, "forward") as uncached:
+            run_timed(secs, launches, name, cli, argv)
+        launches[name]["uncached_forwards"] = uncached.calls
+        shapes[name] = steps.records
+    # compare_generators puts this checkout first on its loops' path: the probe
+    # directory after it lends them the probe as their sitecustomize
+    probe, counts = work / "probe", work / "launches"
+    probe.mkdir()
+    counts.mkdir()
+    (probe / "sitecustomize.py").write_text(LAUNCH_PROBE)
+    os.environ["PYTHONPATH"] = str(probe)
+    os.environ["SMOKE_LAUNCH_DIR"] = str(counts)
+    t0 = time.perf_counter()
+    _run_cli(compare_cli, ["--baseline_dir", run, "--finetuned_dir", spec["demo_run"],
+                           "--critic_ckpt", critic, *COMPARE_CUT, "--out_dir",
+                           str(work / "compare")])
+    secs["compare_generators"] = time.perf_counter() - t0
+    with (work / "structured" / "structured_prefix_candidates.csv").open() as f:
+        structured = list(csv.DictReader(f))
+    result = {
+        "seconds": secs, "launches": launches, "compared": [run, spec["demo_run"]],
+        "children": [json.loads(p.read_text()) for p in sorted(counts.glob("*.json"))],
+        "cache": {name: {"S": sorted({s for s, _ in rec}),
+                         "live_median": sorted(n for _, n in rec)[len(rec) // 2] if rec else 0}
+                  for name, rec in shapes.items()},
+        "reports": {name: json.loads(path.read_text()) for name, path in out.items()},
+        "structured": {"rows": len(structured),
+                       "scored": sum(1 for r in structured if r.get("critic_score")),
+                       "report": (work / "structured" / "structured_prefix_report.md")
+                       .read_text()},
+        "comparison": json.loads((work / "compare" / "comparison.json").read_text()),
+    }
+    (work / "result.json").write_text(json.dumps(result))
+    return 0
+
+
+def phase_gen_experiments(worker: dict, flagship: dict, card: str, peak_bw,
+                          peak_ops) -> dict:
+    """``[gen_experiments]``: joins the worker started after phase 58. Each
+    CLI's decode launches n_layer a cached step and flash launches n_layer an
+    uncached forward, the generators' cached steps more than none, and their
+    reports whole and finite: the guidance variants, the sweep's four cells,
+    the structured candidates (3 prefixes x ``STRUCTURED_CUT``) scored, the
+    hybrid sweep's three alphas with their energies, the stop masses, the UTR
+    scores; ``compare_generators``' two loops, each in its own process,
+    launching the decode kernel n_layer (12 on the flagship run, 10 on the
+    demo run) a cached step. Then the decode kernel against its plain version
+    at these CLIs' shape: B 1 over a 512-position cache, the median live
+    positions of the generations' cached steps, timed."""
+    t0 = time.perf_counter()
+    log_text, _ = worker["proc"].communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    if worker["proc"].returncode != 0:
+        raise AssertionError(f"the generation experiments worker exited "
+                             f"{worker['proc'].returncode}: {log_text[-3000:]}")
+    res = json.loads((worker["workdir"] / "result.json").read_text())
+    L, launches, reports = flagship["n_layer"], res["launches"], res["reports"]
+    children = {Path(c["run"]).name: c for c in res["children"]}
+    row = dict(seconds=res["seconds"], launches=launches, compare_processes=children,
+               cache=res["cache"], worker_seconds=time.perf_counter() - worker["t0"],
+               waited_s=waited, card=card)
+    log("gen_experiments", **row)
+    log("gen_experiments_reports", guidance=reports["guidance"], sweep=reports["sweep"],
+        hybrid=reports["hybrid"], perturbation=reports["perturbation"], utr=reports["utr"],
+        structured=res["structured"]["report"].splitlines()[2:6],
+        compare_deltas=res["comparison"]["deltas"], card=card)
+    for name, n in launches.items():
+        cached = name not in ("perturbation_motifs",)  # its prefixes are all prefills
+        if (n["decode_attention"] != L * n["decode_steps"]
+                or n["flash_fwd"] != L * n["uncached_forwards"]
+                or (cached and n["decode_steps"] == 0)):
+            raise AssertionError(f"{name} launches {n}: want decode {L} a cached step, "
+                                 f"flash {L} an uncached forward")
+    layers = {c["run"]: int(load_checkpoint_meta(resolve_checkpoint(c["run"]))["cfg"][
+        "n_layer"]) for c in res["children"]}
+    if sorted(layers) != sorted(res["compared"]) or any(
+            c["decode_steps"] == 0
+            or c["decode_attention"] != layers[c["run"]] * c["decode_steps"]
+            or c["flash_fwd"] != layers[c["run"]] * c["uncached_forwards"]
+            for c in res["children"]):
+        raise AssertionError(f"compare_generators' loops: {children}, layers {layers}")
+    guidance, sweep, hybrid = reports["guidance"], reports["sweep"], reports["hybrid"]
+    rates = [v["terminal_stop_rate"] for v in guidance.values()] + [
+        r["terminal_stop_rate"] for r in sweep] + [r["orf_valid_rate"] for r in hybrid]
+    perturbation, utr = reports["perturbation"], reports["utr"]
+    comparison = res["comparison"]
+    if (set(guidance) != {"unguided", "termination_bias", "critic_guided"} or len(sweep) != 4
+            or [r["alpha"] for r in hybrid] != [0.0, 0.5, 1.0]
+            or not all(0.0 <= r <= 1.0 for r in rates)
+            or any(r["mean_ebm_energy"] is None or not np.isfinite(r["mean_ebm_energy"])
+                   for r in hybrid)
+            or res["structured"]["rows"] != 3 * int(STRUCTURED_CUT[1])
+            or res["structured"]["scored"] == 0
+            or perturbation["n_prefixes"] == 0
+            or not all(np.isfinite(v) for v in perturbation["mean_stop_mass"].values())
+            or not all(v is not None and np.isfinite(v)
+                       for v in utr["post_stop_continuation"].values())
+            or comparison["baseline"]["requested"] != 2
+            or "tokens_spent" not in comparison["deltas"]):
+        raise AssertionError(f"generation experiment reports: {reports}, {res['structured']}, "
+                             f"{comparison}")
+    S = max(s for c in res["cache"].values() for s in c["S"])
+    lives = sorted(c["live_median"] for c in res["cache"].values() if c["S"])
+    live = lives[len(lives) // 2]  # the median CLI's median cached step
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    H, D = flagship["n_head"], flagship["head_dim"]
+    case = f"b1_s{S}_live{live}"
+    q, k, v, mask, ks, vs, err, nan_err = check_decode_case(
+        gen, "gen_experiments_decode", case, L, 1, S, H, 1, D, torch.bfloat16,
+        torch.bfloat16, live)
+    decode_timed = time_decode_case(case, q, k, v, mask, ks, vs, H, 1, da.decode_attention,
+                                    peak_bw, peak_ops, err, nan_err,
+                                    "gen_experiments_decode_time")
+    return {"decode": sum(n["decode_attention"] for n in launches.values()),
+            "decode_timed": {case: decode_timed}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7215,6 +7543,12 @@ def main() -> int:
     ebm = phase_protein_ebm(critic, Path(demo_run["run_dir"]) / "scores" / "design_cuda",
                             card_line)
     lap("protein_ebm")
+    flagship_dir = tempfile.TemporaryDirectory(prefix="smoke_flagship_")  # read by 59
+    flagship = phase_flagship_quality(Path(flagship_dir.name), card_line, peak_bw, peak_ops)
+    lap("flagship_quality")
+    # phase 59's CLIs, host-paced decoding at B 1, run beside phases 41-57
+    gen_dir = tempfile.TemporaryDirectory(prefix="smoke_gen_")
+    gen_worker = start_gen_experiments(flagship, demo_run, critic, ebm, Path(gen_dir.name))
     # the parallel phases' ranks start now and reach the card during phase 41;
     # their work waits for phase 42 and 49's release
     tp_dir = tempfile.TemporaryDirectory(prefix="smoke_tp_")
@@ -7282,6 +7616,10 @@ def main() -> int:
     lap("representation")
     classified = phase_classifiers(cls_worker, card_line)
     lap("classifiers")
+    gen_experiments = phase_gen_experiments(gen_worker, flagship, card_line, peak_bw, peak_ops)
+    lap("gen_experiments")
+    gen_dir.cleanup()
+    flagship_dir.cleanup()
     repr_dir.cleanup()
     cls_dir.cleanup()
     tools_dir.cleanup()
@@ -7321,6 +7659,8 @@ def main() -> int:
         "launches_benchmark_decode": timing["decode"],
         "launches_diagnoses": diagnosed["decode"],
         "launches_representation": represented["decode"],
+        "launches_gen_experiments": gen_experiments["decode"],
+        "gen_experiments_b1": gen_experiments["decode_timed"],
         "launches_tp_serve": tp_served["runs"]["bf16"]["launches_per_rank"][0]["decode_attention"],
         "launches_tp_serve_int8": tp_served["runs"]["int8_cache"]["launches_per_rank"][0][
             "decode_attention"],
@@ -7356,6 +7696,8 @@ def main() -> int:
             "launches_ep_train": ep_trained["launches"][wrapper.__name__],
             "launches_pp_train": pp_trained["launches"][wrapper.__name__],
             "launches_hybrid_train": hybrid["launches"][wrapper.__name__],
+            "launches_flagship_quality": flagship["launches"][wrapper.__name__],
+            "flagship_b8_h8_d64": flagship["timed"][key],
             "launches_engine": engined["launches"][wrapper.__name__],
             "launches_biophysics_fusion": fused["launches"][wrapper.__name__],
             "launches_run_tools": tools["flash"] if key == "fwd" else 0,

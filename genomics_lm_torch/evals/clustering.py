@@ -37,9 +37,12 @@ Each follows sklearn 1.9.0's source step by step, dtype by dtype:
   (``mst_from_data_matrix``, ties to the lowest row), its edges ordered by
   sklearn's own ``np.argsort`` call; the single-linkage tree, the condensed
   tree, the stabilities and ``"eom"`` selection without a single cluster;
-  label -1 for noise. Where sklearn builds a KD-tree for the neighbours this
-  computes all pairwise distances: O(n²) time and memory, for the few
-  thousand rows a motif slice holds (``mine_motifs`` itself fits KMeans).
+  label -1 for noise. Where sklearn finds the core distances with a KD-tree
+  this computes them a block of rows at a time (``CORE_CHUNK_ELEMENTS``
+  distances a block, each row's ``min_samples``-th nearest kept), and
+  Prim's algorithm computes each row of distances from X when it adds that
+  row, as ``mst_from_data_matrix`` does: O(n² d) time, as sklearn's MST,
+  and O(n · chunk + n · d) memory, never an n x n matrix.
 """
 
 from __future__ import annotations
@@ -49,10 +52,12 @@ import math
 import numpy as np
 from scipy import linalg
 from scipy.linalg import blas
+from scipy.spatial.distance import cdist
 
 from genomics_lm_torch.evals.estimators import _float_array, _random_state
 
 CHUNK_SIZE = 256  # sklearn's rows a Lloyd chunk
+CORE_CHUNK_ELEMENTS = 1 << 19  # distances a block of HDBSCAN's core-distance pass
 
 
 def row_norms(X) -> np.ndarray:
@@ -345,19 +350,32 @@ class KMeans:
 # --- HDBSCAN ----------------------------------------------------------------------------
 
 
-def _pairwise_distances(X: np.ndarray) -> np.ndarray:
-    """float64 Euclidean distances, each summed feature by feature."""
-    acc = np.zeros((X.shape[0], X.shape[0]))
-    for f in range(X.shape[1]):
-        diff = X[:, None, f] - X[None, :, f]
-        acc += diff * diff
-    return np.sqrt(acc)
+def _distance_rows(X: np.ndarray, rows: slice) -> np.ndarray:
+    """float64 Euclidean distances of ``X[rows]`` to every row. scipy's
+    ``cdist`` adds the squared differences feature by feature, in order, as
+    sklearn's ``DistanceMetric`` does."""
+    sq = cdist(X[rows], X, "sqeuclidean")
+    return np.sqrt(sq, out=sq)
 
 
-def _prim_mst(D: np.ndarray, core: np.ndarray) -> np.ndarray:
+def _core_distances(X: np.ndarray, min_samples: int) -> np.ndarray:
+    """Each row's ``min_samples``-th nearest distance (itself included), from
+    blocks of at most ``CORE_CHUNK_ELEMENTS`` distances."""
+    n = X.shape[0]
+    step = max(1, CORE_CHUNK_ELEMENTS // n)
+    core = np.empty(n)
+    for lo in range(0, n, step):
+        block = _distance_rows(X, slice(lo, min(lo + step, n)))
+        block.partition(min_samples - 1, axis=1)
+        core[lo:lo + len(block)] = block[:, min_samples - 1]
+    return core
+
+
+def _prim_mst(X: np.ndarray, core: np.ndarray) -> np.ndarray:
     """sklearn's ``mst_from_data_matrix``: (source, target, distance) rows in
-    the order Prim's algorithm adds them, from row 0."""
-    n = D.shape[0]
+    the order Prim's algorithm adds them, from row 0; the row of distances
+    from each added point is computed from X as it is added."""
+    n = X.shape[0]
     in_tree = np.zeros(n, dtype=bool)
     min_reach = np.full(n, np.inf)
     sources = np.ones(n, dtype=np.int64)
@@ -365,7 +383,8 @@ def _prim_mst(D: np.ndarray, core: np.ndarray) -> np.ndarray:
     current = 0
     for i in range(n - 1):
         in_tree[current] = True
-        mrd = np.maximum(np.maximum(core[current], core), D[current])
+        row = _distance_rows(X, slice(current, current + 1))[0]
+        mrd = np.maximum(np.maximum(core[current], core), row)
         closer = (mrd < min_reach) & ~in_tree
         min_reach[closer] = mrd[closer]
         sources[closer] = current
@@ -531,9 +550,8 @@ class HDBSCAN:
         if min_samples > X.shape[0]:
             raise ValueError(f"min_samples ({min_samples}) must be at most the number of "
                              f"samples in X ({X.shape[0]})")
-        D = _pairwise_distances(X)
-        core = np.partition(D, min_samples - 1, axis=1)[:, min_samples - 1]
-        edges = _prim_mst(D, core)
+        core = _core_distances(X, min_samples)
+        edges = _prim_mst(X, core)
         edges = edges[np.argsort(edges[:, 2])]
         hierarchy = _single_linkage(edges)
         self.labels_ = _eom_labels(_condense_tree(hierarchy, self.min_cluster_size))

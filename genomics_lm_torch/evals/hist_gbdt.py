@@ -7,10 +7,11 @@ classes).
 It follows sklearn 1.9.0 step by step, so that on the same rows its trees,
 and so its predictions, come out as sklearn's:
 
-- bins: per feature, the midpoints of the distinct values where there are
-  at most ``MAX_BINS`` of them, otherwise the ``averaged_inverted_cdf``
-  percentiles (on a 200,000-row subsample above that many rows); a value
-  goes to the number of thresholds below it;
+- bins: per feature, the midpoints of the distinct non-missing values where
+  there are at most ``MAX_BINS`` of them, otherwise the
+  ``averaged_inverted_cdf`` percentiles (on a 200,000-row subsample above
+  that many rows); a value goes to the number of thresholds below it, and a
+  missing value (NaN) to its own last bin, ``MISSING_BIN``;
 - two classes: the baseline is the log-odds of the mean label, then each
   round fits a tree to the half-binomial gradients and hessians (float32, as
   sklearn keeps them) of the raw scores;
@@ -25,6 +26,14 @@ and so its predictions, come out as sklearn's:
   leaf at least ``MIN_SAMPLES_LEAF`` rows and ``MIN_HESSIAN_TO_SPLIT`` of
   hessian; ties go to the lowest bin, then the lowest feature, and the heap
   of open nodes orders them as sklearn's does;
+- missing values: a feature that had NaN in the training rows is scanned
+  twice, first from the left with the missing rows going right (up to the
+  split of every non-missing row from the missing ones), then from the
+  right with them going left, the right-hand sums accumulated from the top
+  bin down; the second scan's best (the highest bin of its highest gain)
+  wins only when its gain is strictly higher. A split on a feature with no
+  NaN in training sends NaN, at prediction, to the child with more training
+  rows (the right one on a tie);
 - histograms are float64 sums in row order, one ``np.bincount`` a node over
   all features (key bin x features + feature); the smaller child is counted and
   the larger one is its parent minus it, as sklearn's grower does;
@@ -40,8 +49,7 @@ class, the mean loss as the score, a stop when none of the last
 ``N_ITER_NO_CHANGE`` rounds beats the round before them by ``TOL``) on rows
 drawn from ``random_state``.
 
-Missing values and categorical features are not supported: the callers'
-features are finite numbers (codon frequencies, TF-IDF weights).
+Categorical features are not supported: the callers' features are numbers.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from scipy.special import expit, logit
 from scipy.stats import gmean
 
 N_BINS = 256  # the histogram width: MAX_BINS non-missing bins and the missing one
+MISSING_BIN = N_BINS - 1
 SUBSAMPLE = 200_000
 # sklearn 1.9.0's defaults, the only values the benchmarks use
 LEARNING_RATE = 0.1
@@ -68,9 +77,9 @@ TOL = 1e-7
 
 
 def bin_thresholds(col: np.ndarray, max_bins: int) -> np.ndarray:
-    """The binning thresholds of one float64 column (sklearn's
-    ``_find_binning_thresholds``)."""
-    col = np.sort(col)
+    """The binning thresholds of one float64 column, its missing values left
+    out (sklearn's ``_find_binning_thresholds``)."""
+    col = np.sort(col[~np.isnan(col)])
     distinct = np.unique(col)
     if len(distinct) == 1:
         return np.asarray([])
@@ -101,6 +110,15 @@ def _node_value(g, h, l2):
     return -g / (h + l2 + 1e-15)
 
 
+def _goes_left(bins: np.ndarray, split_bin: int, missing_left: bool) -> np.ndarray:
+    """sklearn's ``sample_goes_left``: the bins up to the split's, and the
+    missing bin where the split sends it left."""
+    left = bins <= split_bin
+    if missing_left:
+        left |= bins == MISSING_BIN
+    return left
+
+
 class HistGradientBoostingClassifier:
     """Gradient-boosted trees on binned features: one tree a round for two
     classes, one a class for more."""
@@ -113,8 +131,6 @@ class HistGradientBoostingClassifier:
     def fit(self, X, y):
         X = np.asarray(X, dtype=np.float64)
         y = np.asarray(y)
-        if np.isnan(X).any():
-            raise ValueError("missing values are not supported")
         self.classes_ = np.unique(y)
         if len(self.classes_) < 2:
             raise ValueError(f"{len(self.classes_)} class: at least two are needed")
@@ -138,7 +154,13 @@ class HistGradientBoostingClassifier:
         n, n_features = binned.shape
         self._binned = binned
         self._keys = binned.astype(np.int64) * n_features + np.arange(n_features)
-        self._width = max(len(t) for t in self.bin_thresholds_)  # bins a split may follow
+        self.has_missing_values_ = (binned == MISSING_BIN).any(axis=0)
+        # the left-to-right scan's bins: each feature's non-missing bins but
+        # the last, which a feature with missing values may split after too
+        self._ends = np.asarray([len(t) for t in self.bin_thresholds_]) + self.has_missing_values_
+        self._width = int(self._ends.max())  # bins a split may follow
+        self._missing_features = np.flatnonzero(self.has_missing_values_)
+        self._top = max((len(self.bin_thresholds_[f]) for f in self._missing_features), default=0)
 
         self.baseline_ = self._baseline(y)
         raw = self._start(n)
@@ -167,7 +189,7 @@ class HistGradientBoostingClassifier:
                 raw_val += self._round_values(self.trees_[-1], binned_val)
                 if self._score(raw, y, raw_val, y_val):
                     break
-        del self._keys, self._binned
+        del self._keys, self._binned, self._missing_features, self._top
         self.n_iter_ = len(self.trees_)
         return self
 
@@ -244,7 +266,8 @@ class HistGradientBoostingClassifier:
         return (p - onehot).astype(np.float32), (p * (1.0 - p)).astype(np.float32)
 
     def _bin(self, X) -> np.ndarray:
-        return np.stack([np.searchsorted(t, X[:, f], side="left")
+        return np.stack([np.where(np.isnan(X[:, f]), MISSING_BIN,
+                                  np.searchsorted(t, X[:, f], side="left"))
                          for f, t in enumerate(self.bin_thresholds_)], axis=1).astype(np.uint8)
 
     def _histograms(self, idx, grad, hess):
@@ -258,35 +281,73 @@ class HistGradientBoostingClassifier:
 
     def _find_split(self, node):
         """The best split of ``node`` as sklearn's splitter scans it: for each
-        feature the lowest bin of highest gain, then the lowest feature of
-        highest gain; ``gain`` -1 when no split is allowed."""
+        feature the lowest bin of highest gain from the left (the missing rows
+        going right), then, where the feature had missing values, a higher
+        gain from the right (the highest such bin, the missing rows going
+        left); then the lowest feature of highest gain. ``gain`` -1 when no
+        split is allowed."""
         count, hg, hh = node.hist
         n, msl = len(node.idx), MIN_SAMPLES_LEAF
-        cn = np.cumsum(count[:self._width], axis=0)
-        # msl <= left count <= n - msl, as one unsigned comparison; a feature's
-        # last bin holds every row left of it, so it never passes
-        flat = np.flatnonzero((cn - msl).view(np.uint64) <= n - 2 * msl)
-        if not len(flat):
-            return {"gain": -1.0}
-        rows = flat[-1] // cn.shape[1] + 1  # the running sums up to the last candidate bin
-        gl = np.cumsum(hg[:rows], axis=0).ravel()[flat]
-        hl = np.cumsum(hh[:rows], axis=0).ravel()[flat]
-        gr, hr = node.sum_g - gl, node.sum_h - hl
         l2, mh = L2_REGULARIZATION, MIN_HESSIAN_TO_SPLIT
-        gain = (node.sum_g * node.value - gl * _node_value(gl, hl, l2)) \
-            - gr * _node_value(gr, hr, l2)
-        gain[(hl < mh) | (hr < mh)] = -np.inf
-        i = int(np.argmax(gain))
-        if not gain[i] > 0:
+        F = count.shape[1]
+        cn = np.cumsum(count[:self._width], axis=0)
+        # msl <= left count <= n - msl, as one unsigned comparison, on each
+        # feature's bins of the left-to-right scan
+        allowed = ((cn - msl).view(np.uint64) <= n - 2 * msl) \
+            & (np.arange(self._width)[:, None] < self._ends)
+        flat = np.flatnonzero(allowed)
+        best_gain = np.full(F, -1.0)  # sklearn's start: no split
+        best_bin = np.zeros(F, np.int64)
+        if len(flat):
+            rows = flat[-1] // F + 1  # the running sums up to the last candidate bin
+            lr_gl = np.cumsum(hg[:rows], axis=0).ravel()[flat]
+            lr_hl = np.cumsum(hh[:rows], axis=0).ravel()[flat]
+            gr, hr = node.sum_g - lr_gl, node.sum_h - lr_hl
+            gain = (node.sum_g * node.value - lr_gl * _node_value(lr_gl, lr_hl, l2)) \
+                - gr * _node_value(gr, hr, l2)
+            gain[(lr_hl < mh) | (hr < mh) | ~(gain > 0)] = -1.0
+            table = np.full(rows * F, -1.0)
+            table[flat] = gain
+            table = table.reshape(rows, F)
+            best_bin = np.argmax(table, axis=0)  # the lowest bin of each feature's best
+            best_gain = table[best_bin, np.arange(F)]
+        left_sums = {}  # a feature's best from the right: (gradient, hessian) of its left
+        missing = self._missing_features
+        if self._top >= 1:  # a feature with missing values and two non-missing bins
+            # the right-hand sums from the top bin down, for every such feature
+            # at once: above a feature's own last bin the bins are empty, so
+            # its sums start at exactly 0.0 and come out as its own scan's;
+            # row j sends bins b + 1 .. top right, b = top - 1 - j
+            top = self._top
+            nr = np.cumsum(count[top:0:-1, missing], axis=0)
+            gr = np.cumsum(hg[top:0:-1, missing], axis=0)
+            hr = np.cumsum(hh[top:0:-1, missing], axis=0)
+            gl, hl = node.sum_g - gr, node.sum_h - hr
+            gain = (node.sum_g * node.value - gl * _node_value(gl, hl, l2)) \
+                - gr * _node_value(gr, hr, l2)
+            # a bin at or above a feature's last sends no row right: nr 0 < msl
+            ok = (nr >= msl) & (n - nr >= msl) & (hr >= mh) & (hl >= mh)
+            gain[~ok] = -np.inf
+            first = np.argmax(gain, axis=0)  # the first in scan order: the highest bin
+            for col, f in enumerate(missing):
+                j = first[col]
+                if gain[j, col] > best_gain[f] and gain[j, col] > 0:
+                    best_gain[f], best_bin[f] = gain[j, col], top - 1 - j
+                    left_sums[f] = (gl[j, col], hl[j, col])
+        f = int(np.argmax(best_gain))
+        if not best_gain[f] > 0:
             return {"gain": -1.0}
-        hit = flat[gain == gain[i]]
-        b, f = np.divmod(hit, cn.shape[1])
-        j = hit[np.lexsort((b, f))[0]]
-        i = int(np.searchsorted(flat, j))
-        b, f = divmod(int(j), cn.shape[1])
-        return {"gain": float(gain[i]), "feature": f, "bin": b,
-                "sum_g": (gl[i], gr[i]), "sum_h": (hl[i], hr[i]),
-                "value": (_node_value(gl[i], hl[i], l2), _node_value(gr[i], hr[i], l2))}
+        b = int(best_bin[f])
+        if f in left_sums:
+            gl, hl = left_sums[f]
+        else:
+            i = int(np.searchsorted(flat, b * F + f))
+            gl, hl = lr_gl[i], lr_hl[i]
+        gr, hr = node.sum_g - gl, node.sum_h - hl
+        return {"gain": float(best_gain[f]), "feature": f, "bin": b,
+                "missing_left": f in left_sums,
+                "sum_g": (gl, gr), "sum_h": (hl, hr),
+                "value": (_node_value(gl, hl, l2), _node_value(gr, hr, l2))}
 
     def _grow(self, grad, hess):
         """One tree: best-first splits as sklearn's ``TreeGrower``. Returns the
@@ -312,10 +373,14 @@ class HistGradientBoostingClassifier:
         while open_nodes:
             node = heapq.heappop(open_nodes)
             s = node.split
-            goes_left = self._binned[node.idx, s["feature"]] <= s["bin"]
+            goes_left = _goes_left(self._binned[node.idx, s["feature"]], s["bin"],
+                                   s["missing_left"])
             children = [_Node(node.idx[side], s["sum_g"][i], s["sum_h"][i], s["value"][i])
                         for i, side in enumerate((goes_left, ~goes_left))]
             node.left, node.right = children
+            if not self.has_missing_values_[s["feature"]]:
+                # NaN unseen in training goes, at prediction, to the larger child
+                s["missing_left"] = len(children[0].idx) > len(children[1].idx)
             if len(leaves) + len(open_nodes) + 2 == MAX_LEAF_NODES:
                 leaves.extend(children)
                 leaves.extend(open_nodes)
@@ -348,6 +413,7 @@ class HistGradientBoostingClassifier:
         if node.left is None:
             return {"value": node.value}
         return {"feature": node.split["feature"], "bin": node.split["bin"],
+                "missing_left": node.split["missing_left"],
                 "left": HistGradientBoostingClassifier._freeze(node.left),
                 "right": HistGradientBoostingClassifier._freeze(node.right)}
 
@@ -360,7 +426,7 @@ class HistGradientBoostingClassifier:
             if "value" in node:
                 out[rows] = node["value"]
                 continue
-            left = binned[rows, node["feature"]] <= node["bin"]
+            left = _goes_left(binned[rows, node["feature"]], node["bin"], node["missing_left"])
             stack += [(node["left"], rows[left]), (node["right"], rows[~left])]
         return out
 

@@ -9,7 +9,8 @@ numpy ``score_fn(aa_seqs)`` that ``generation/constrained.py``'s guided
 generators call; ``load_score_fn`` builds it from checkpoint paths (either
 package's), ``score_candidate_tasks`` reads every task for one candidate.
 
-``load_score_fn`` builds the critic's config from the checkpoint's
+``load_critic`` (which ``load_score_fn`` and the generation experiments
+call) builds the critic's config from the checkpoint's
 ``n_layer``/``n_head``/``n_embd``/``block_size``/``pooling`` and JAX's
 defaults for the rest: it reads no ``bidirectional``, so a critic trained
 causal is scored bidirectionally, as in JAX (``ROADMAP.md`` §3).
@@ -96,6 +97,42 @@ def make_score_fn(
     return score_fn
 
 
+def load_critic(critic_ckpt, *, default_pooling: str = "mean",
+                device: str | torch.device | None = None):
+    """``(critic, cfg, tokenizer, payload)`` from a multi-task critic
+    checkpoint (either package's), frozen on ``device`` (the card unless the
+    caller names another). The config takes the checkpoint's
+    ``n_layer``/``n_head``/``n_embd``/``block_size``/``pooling`` and JAX's
+    defaults for the rest; ``default_pooling`` is the pooling of a
+    checkpoint that names none (each JAX script picks its own)."""
+    from genomics_lm_torch.protein.common import load_frozen, resolve_device
+    from genomics_lm_torch.tokenizers.protein import ProteinTokenizer
+    from genomics_lm_torch.training.checkpoints import load_checkpoint
+
+    device = resolve_device(device)
+    payload = load_checkpoint(critic_ckpt)
+    cfg_map = payload.get("cfg", {})
+    tokenizer = ProteinTokenizer()
+    cfg = ProteinClassifierConfig(
+        vocab_size=len(tokenizer),
+        n_layer=int(cfg_map.get("n_layer", 4)),
+        n_head=int(cfg_map.get("n_head", 4)),
+        n_embd=int(cfg_map.get("n_embd", 256)),
+        block_size=int(cfg_map.get("block_size", 512)),
+        dropout=0.0,
+        pooling=str(cfg_map.get("pooling", default_pooling)),
+    )
+    return load_frozen(payload, "multitask", cfg, device), cfg, tokenizer, payload
+
+
+def load_ebm(ebm_ckpt, device: torch.device):
+    """An EBM checkpoint's model, frozen on ``device``."""
+    from genomics_lm_torch.protein.common import load_frozen
+    from genomics_lm_torch.training.checkpoints import load_checkpoint
+
+    return load_frozen(load_checkpoint(ebm_ckpt), "ebm", None, device)
+
+
 def load_score_fn(
     critic_ckpt,
     *,
@@ -110,25 +147,8 @@ def load_score_fn(
     Returns ``(score_fn, critic_bundle)``; the bundle carries the critic
     (``model``), its config and tokenizer, the task widths and the EBM.
     """
-    from genomics_lm_torch.protein.common import load_frozen, resolve_device
-    from genomics_lm_torch.tokenizers.protein import ProteinTokenizer
-    from genomics_lm_torch.training.checkpoints import load_checkpoint
-
-    device = resolve_device(device)
-    payload = load_checkpoint(critic_ckpt)
-    cfg_map = payload.get("cfg", {})
-    cfg = ProteinClassifierConfig(
-        vocab_size=28,
-        n_layer=int(cfg_map.get("n_layer", 4)),
-        n_head=int(cfg_map.get("n_head", 4)),
-        n_embd=int(cfg_map.get("n_embd", 256)),
-        block_size=int(cfg_map.get("block_size", 512)),
-        dropout=0.0,
-        pooling=str(cfg_map.get("pooling", "mean")),
-    )
-    critic = load_frozen(payload, "multitask", cfg, device)
-    ebm = load_frozen(load_checkpoint(ebm_ckpt), "ebm", None, device) if ebm_ckpt else None
-    tokenizer = ProteinTokenizer()
+    critic, cfg, tokenizer, payload = load_critic(critic_ckpt, device=device)
+    ebm = load_ebm(ebm_ckpt, _device(critic)) if ebm_ckpt else None
     score_fn = make_score_fn(
         critic, cfg, tokenizer,
         target_task="ebm" if ebm is not None else target_task,
@@ -181,4 +201,5 @@ def score_candidate_tasks(bundle: dict, aa_seq: str) -> dict:
     return scores
 
 
-__all__ = ["batch_score_critic", "load_score_fn", "make_score_fn", "score_candidate_tasks"]
+__all__ = ["batch_score_critic", "load_critic", "load_ebm", "load_score_fn", "make_score_fn",
+           "score_candidate_tasks"]

@@ -20,7 +20,8 @@ package's functions and scripts, on the same numpy inputs drawn from seeds.
   three solver branches (components and transforms within ``PCA_ATOL``,
   the same signs), KMeans (labels and ``n_iter_`` equal, inertia within
   ``INERTIA_RTOL``; an empty cluster's relocation equal to sklearn's Lloyd
-  step), HDBSCAN on blobs with noise (labels equal, noise included).
+  step), HDBSCAN on blobs with noise (labels equal, noise included), and
+  at 4,000 x 50 with a traced peak under a quarter of one n x n matrix.
 - ``benchmark_xgboost_dna`` and ``probe_ss_linear`` against
   ``scripts/benchmark_xgboost_dna.py`` and ``scripts/probe_ss_linear.py``:
   reports equal, but for the booster's ``engine`` name.
@@ -36,6 +37,7 @@ import functools
 import hashlib
 import json
 import pickle
+import tracemalloc
 import warnings
 
 import numpy as np
@@ -307,6 +309,33 @@ def test_hdbscan_is_sklearn_s(min_cluster_size):
         warnings.simplefilter("ignore", FutureWarning)  # sklearn's `copy` default
         want = SkHDBSCAN(min_cluster_size=min_cluster_size).fit_predict(X)
     got = clustering.HDBSCAN(min_cluster_size=min_cluster_size).fit_predict(X)
+    np.testing.assert_array_equal(got, want)
+    assert -1 in got and len(set(got)) > 2
+
+
+def test_hdbscan_runs_in_o_n_memory_as_sklearn():
+    """About 4,000 rows of 50 features: the labels equal sklearn's, and the
+    traced peak stays under a quarter of one n x n float64 matrix (the
+    distances are computed a block of rows at a time, and each MST row from X
+    when Prim's algorithm adds it). The distance rows are the sums of the
+    squared differences feature by feature, in order, bit for bit."""
+    X = blobs(21, 3800, 50, 8, noise=200)
+    n = X.shape[0]
+    acc = np.zeros((7, n))
+    for f in range(X.shape[1]):
+        diff = X[:7, None, f] - X[None, :, f]
+        acc += diff * diff
+    np.testing.assert_array_equal(clustering._distance_rows(X, slice(0, 7)), np.sqrt(acc))
+    tracemalloc.start()
+    try:
+        got = clustering.HDBSCAN(min_cluster_size=15).fit_predict(X)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < n * n * 8 / 4, peak
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)  # sklearn's `copy` default
+        want = SkHDBSCAN(min_cluster_size=15).fit_predict(X)
     np.testing.assert_array_equal(got, want)
     assert -1 in got and len(set(got)) > 2
 

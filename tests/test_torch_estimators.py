@@ -11,8 +11,9 @@ against sklearn, the release the JAX package's scripts run against.
 - the gradient-boosted trees on two seeded binary sets of 1,000 x 64 (60
   rounds, and the baselines' 150): predictions equal
   and probabilities within ``PROBA_ATOL``; the early
-  stopping rule above 10,000 rows; three classes fit, one class and missing
-  values refused;
+  stopping rule above 10,000 rows; three classes fit, one class refused;
+  missing values (NaN in training, NaN only at prediction, NaN under three
+  classes) held to sklearn as the rows above;
 - every module of the slice imports and runs with sklearn, xgboost, umap
   and matplotlib blocked, in a fresh interpreter.
 """
@@ -265,9 +266,17 @@ def test_gbdt_early_stopping_rule_above_10000_rows():
     assert HistGradientBoostingClassifier(max_iter=5).fit(X[:10_000], y[:10_000]).n_iter_ == 5
 
 
-def test_gbdt_refuses_multiclass():
-    """Three classes now fit, one tree a class a round (held to sklearn in
-    ``test_torch_classifiers.py``); one class and missing values are refused."""
+def assert_gbdt_is_sklearn_s(got, want, *row_sets):
+    for rows in row_sets:
+        np.testing.assert_array_equal(got.predict(rows), want.predict(rows))
+        np.testing.assert_allclose(got.predict_proba(rows), want.predict_proba(rows), rtol=0,
+                                   atol=PROBA_ATOL)
+
+
+def test_gbdt_fits_three_classes_and_refuses_one():
+    """Three classes fit, one tree a class a round (held to sklearn in
+    ``test_torch_classifiers.py``); one class is refused; a missing value
+    fits as sklearn's does."""
     X = np.random.default_rng(0).normal(size=(60, 2))
     model = HistGradientBoostingClassifier(max_iter=3).fit(X, np.arange(60) % 3)
     assert model.n_trees_per_iteration_ == 3 and len(model.trees_[0]) == 3
@@ -275,8 +284,43 @@ def test_gbdt_refuses_multiclass():
     with pytest.raises(ValueError, match="at least two"):
         HistGradientBoostingClassifier().fit(X, np.zeros(60))
     X[0, 0] = np.nan
-    with pytest.raises(ValueError, match="missing values"):
-        HistGradientBoostingClassifier().fit(X, np.arange(60) % 2)
+    y = np.arange(60) % 2
+    got = HistGradientBoostingClassifier().fit(X, y)
+    assert got.has_missing_values_.tolist() == [True, False]
+    assert_gbdt_is_sklearn_s(got, SkGBDT().fit(X, y), X)
+
+
+def nan_case(case):
+    """800 fitting and 200 new rows of 16 features; about 15% of the values
+    of the first 8 missing where the case has NaN, and in the training case
+    feature 0 missing more often in class 1 (its NaN side carries signal)."""
+    rng = np.random.default_rng({"in_training": 3, "at_prediction": 4, "three_classes": 5}[case])
+    n, d = 1000, 16
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    score = X @ rng.normal(size=(d, 3))
+    if case == "three_classes":
+        y = np.argmax(score + rng.normal(size=score.shape), axis=1)
+    else:
+        y = (score[:, 0] + 0.5 * rng.normal(size=n) > np.quantile(score[:, 0], 0.7)).astype(int)
+    missing = X.copy()
+    missing[:, :8][rng.random((n, 8)) < 0.15] = np.nan
+    if case == "in_training":
+        missing[(y == 1) & (rng.random(n) < 0.5), 0] = np.nan
+    fit = X[:800] if case == "at_prediction" else missing[:800]
+    return fit, y[:800], missing[800:]
+
+
+@pytest.mark.parametrize("case", ["in_training", "at_prediction", "three_classes"])
+def test_gbdt_missing_values_are_sklearn_s(case):
+    """NaN in the training rows (both scan directions, the learned side), NaN
+    only at prediction (each split's larger child) and NaN under three
+    classes: calls equal, probabilities within ``PROBA_ATOL``."""
+    fit, y, new = nan_case(case)
+    want = SkGBDT(max_iter=40).fit(fit, y)
+    got = HistGradientBoostingClassifier(max_iter=40).fit(fit, y)
+    assert got.has_missing_values_.any() == (case != "at_prediction")
+    assert np.isnan(new).any()
+    assert_gbdt_is_sklearn_s(got, want, fit, new)
 
 
 NO_SKLEARN = r"""

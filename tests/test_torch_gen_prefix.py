@@ -308,9 +308,10 @@ def critic_ckpts(tiny):
 
     dims = {"family": 3, "function": 2, "stability": 2}
     cfg = dict(n_layer=1, n_head=2, n_embd=16, block_size=128, pooling="attention")
-    critic = jpm.init_multitask(jax.random.PRNGKey(7), jpm.ProteinClassifierConfig(
-        vocab_size=28, dropout=0.0, **cfg), dims)
-    ebm = jpm.init_ebm(jax.random.PRNGKey(8), n_embd=16, hidden_dim=8)
+    # each init compiled whole: one compile instead of one per random draw
+    critic = jax.jit(lambda key: jpm.init_multitask(key, jpm.ProteinClassifierConfig(
+        vocab_size=28, dropout=0.0, **cfg), dims))(jax.random.PRNGKey(7))
+    ebm = jax.jit(lambda key: jpm.init_ebm(key, n_embd=16, hidden_dim=8))(jax.random.PRNGKey(8))
     paths = {"critic": tiny["root"] / "critic.npz", "ebm": tiny["root"] / "ebm.npz"}
     save_checkpoint({"model": jax.tree.map(np.asarray, critic), "cfg": cfg, "task_dims": dims},
                     paths["critic"])

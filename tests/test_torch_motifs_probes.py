@@ -26,6 +26,7 @@ package.
 from __future__ import annotations
 
 import csv
+import functools
 import json
 import pickle
 
@@ -436,13 +437,21 @@ def test_embedding_bindings_accept_the_ports_packs_and_refuse_as_jax(packs, tmp_
 
 
 @pytest.mark.filterwarnings("ignore")
-def test_probe_and_classifier_clis_match_jax(packs, tmp_path, capsys):
+def test_probe_and_classifier_clis_match_jax(packs, tmp_path, capsys, monkeypatch):
     from genomics_lm_torch.evals.eval_classifier import main as port_eval
     from genomics_lm_torch.evals.probe_linear import main as port_probe
     from genomics_lm_torch.evals.train_classifier import main as port_train
     from scripts.eval_classifier import main as jax_eval
     from scripts.probe_linear import main as jax_probe
     from scripts.train_classifier import main as jax_train
+
+    # the CLIs' bootstrap at 200 resamples on both sides instead of 1,000: the
+    # JAX side scores each resample through sklearn's metrics, which took most
+    # of this test's time; the bootstrap itself is held to JAX's at 200
+    # resamples in test_compute_metrics_matches_jax
+    for module in (jax_metrics, metrics):
+        monkeypatch.setattr(module, "compute_metrics",
+                            functools.partial(module.compute_metrics, n_resamples=200))
 
     labels = str(packs["labels"])
     probe = {}
